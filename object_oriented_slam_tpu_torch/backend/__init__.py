@@ -1,0 +1,3 @@
+from .lm import LMConfig, ObjectObservations, observations_from_numpy  # noqa: F401
+from .lm_soa import optimize_objects_soa  # noqa: F401
+from . import ba_kernels  # noqa: F401

@@ -1,0 +1,122 @@
+"""Ellipsoid (dual quadric) operations as PyTorch functions.
+
+Port of ``object_oriented_slam_tpu/core/ellipsoid.py`` (the reference's
+``g2o::ellipsoid``, ``src/core/Ellipsoid.cpp``).  An ellipsoid is a
+``[..., 10]`` float32 tensor ``[tx, ty, tz, qx, qy, qz, qw, sa, sb, sc]``
+("vec10"); a minimal 9-vector is ``[x, y, z, roll, pitch, yaw, sa, sb, sc]``.
+Every function broadcasts over leading batch dimensions.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import se3
+from ..ops.linalg import inv3
+
+
+# ---------------------------------------------------------------------------
+# Parameterisation conversions
+# ---------------------------------------------------------------------------
+
+def from_minimal(v9: torch.Tensor) -> torch.Tensor:
+    """minimal vec9 (xyz-rpy-abc) -> vec10 (Ellipsoid.cpp:16-22)."""
+    q = se3.zyx_euler_to_quat(v9[..., 3], v9[..., 4], v9[..., 5])
+    return torch.cat([v9[..., :3], q, v9[..., 6:9]], dim=-1)
+
+
+def to_minimal(e: torch.Tensor) -> torch.Tensor:
+    """vec10 -> minimal vec9 (Ellipsoid.cpp:144-149)."""
+    rpy = se3.quat_to_euler_zyx(e[..., 3:7])
+    return torch.cat([e[..., :3], rpy, e[..., 7:10]], dim=-1)
+
+
+def make(pose7: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    lead = torch.broadcast_shapes(pose7.shape[:-1], scale.shape[:-1])
+    return torch.cat([pose7.expand(lead + (7,)), scale.expand(lead + (3,))],
+                     dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Updates and frame transforms
+# ---------------------------------------------------------------------------
+
+def exp_update(e: torch.Tensor, u9: torch.Tensor) -> torch.Tensor:
+    """SE3 right-multiplicative update + additive scale (Ellipsoid.cpp:38-47).
+
+    ``u9 = [omega(3), upsilon(3), dscale(3)]`` -- rotation first.
+    """
+    new_pose = se3.se3_mul(e[..., :7], se3.se3_exp(u9[..., :6]))
+    return make(new_pose, e[..., 7:10] + u9[..., 6:9])
+
+
+def transform_from(e: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Local -> global given T (e.g. Twc) (Ellipsoid.cpp:120-129)."""
+    return make(se3.se3_mul(T, e[..., :7]), e[..., 7:10])
+
+
+def transform_to(e: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Global -> local given T=Twc (Ellipsoid.cpp:132-141)."""
+    return make(se3.se3_mul(se3.se3_inv(T), e[..., :7]), e[..., 7:10])
+
+
+# ---------------------------------------------------------------------------
+# Quadric / projection
+# ---------------------------------------------------------------------------
+
+def _conic_cstar(e: torch.Tensor, pose_cw: torch.Tensor,
+                 K: torch.Tensor) -> torch.Tensor:
+    """Dual conic C* = P Q* P^T in closed form: (W S)(W S)^T - v v^T with
+    W = K R_cw R and v = K (R_cw t + t_cw)."""
+    R = se3.quat_to_mat(e[..., 3:7])
+    R_cw = se3.quat_to_mat(pose_cw[..., 3:])
+    A = K @ R_cw
+    WS = (A @ R) * e[..., None, 7:10]
+    v = se3._mv(A, e[..., :3]) + se3._mv(K, pose_cw[..., :3])
+    return WS @ WS.transpose(-1, -2) - v[..., :, None] * v[..., None, :]
+
+
+def project_ellipse(e: torch.Tensor, pose_cw: torch.Tensor,
+                    K: torch.Tensor) -> torch.Tensor:
+    """Project to an image ellipse [..., 5] = [x_c, y_c, theta, axis1, axis2].
+
+    Conic C = (P Q* P^T)^-1 normalized by C(2,2), then the closed-form
+    conic -> ellipse parameter extraction of Ellipsoid.cpp:209-249.
+    """
+    C = inv3(_conic_cstar(e, pose_cw, K))
+    C = C / C[..., 2:3, 2:3]
+
+    a = C[..., 0, 0]
+    b = C[..., 0, 1] * 2.0
+    c = C[..., 1, 1]
+    d = C[..., 0, 2] * 2.0
+    ecoef = C[..., 2, 1] * 2.0
+
+    theta = 0.5 * torch.atan2(b, a - c)
+    den = 4.0 * a * c - b * b
+    x_c = (b * ecoef - 2.0 * c * d) / den
+    y_c = (b * d - 2.0 * a * ecoef) / den
+
+    quad = a * x_c * x_c + c * y_c * y_c + b * x_c * y_c - 1.0
+    root = torch.sqrt((a - c) * (a - c) + b * b)
+    a2 = 2.0 * quad / (a + c + root)
+    b2 = 2.0 * quad / (a + c - root)
+    axis1 = torch.sqrt(torch.clamp_min(a2, 0.0))
+    axis2 = torch.sqrt(torch.clamp_min(b2, 0.0))
+    return torch.stack([x_c, y_c, theta, axis1, axis2], dim=-1)
+
+
+def ellipse_to_bbox(ellipse: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned bbox [x1,y1,x2,y2] of an ellipse (Ellipsoid.cpp:252-273)."""
+    x, y, theta, a, b = ellipse.unbind(-1)
+    c2 = torch.cos(theta) ** 2
+    s2 = 1.0 - c2
+    x_limit = torch.sqrt(a * a * c2 + b * b * s2)
+    y_limit = torch.sqrt(a * a * s2 + b * b * c2)
+    return torch.stack([x - x_limit, y - y_limit, x + x_limit, y + y_limit],
+                       dim=-1)
+
+
+def project_bbox(e: torch.Tensor, pose_cw: torch.Tensor,
+                 K: torch.Tensor) -> torch.Tensor:
+    """Projected bounding box via the conic (Ellipsoid.cpp:303-307)."""
+    return ellipse_to_bbox(project_ellipse(e, pose_cw, K))

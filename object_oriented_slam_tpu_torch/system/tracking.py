@@ -1,0 +1,594 @@
+"""Per-frame pipeline orchestrator, 2D-only eager slice.
+
+Port of ``object_oriented_slam_tpu/system/tracking.py`` (the reference's
+``src/core/Tracking.cpp``) for the loop without an extractor: the host
+drives the frame loop and appends observations into fixed-capacity numpy
+buffers; the global object-graph LM runs on ``device`` over the whole
+batch every frame (``backend/lm_soa.py``; its edge work is the CUDA
+kernels on a CUDA device).
+
+Per-frame flow (GrabPoseAndObjects, Tracking.cpp:170-204):
+  1. record frame
+  2. UpdateObjectObservation (:493-564) without depth: data association
+     (manual column 7; automatic association has no 3D estimate to
+     match without an extractor), key-observation gating, store the 2D
+     observations
+  3. JudgeInitialization (:566-638): incremental SVD init on the host
+  4. ProcessCurrentFrame (:219-257): the LM over all observations, warm
+     started from the previous call's estimate kept on the device; its
+     host copy is drained one call later (``pipeline_depth`` = 1)
+
+What this slice does not port raises ``NotImplementedError``: an
+extractor, a plane estimator or a precomputed extraction result, LM
+fusion, the distributed backend, the dense builder, the batch SVD
+initializer, the array-of-structs backend, a deferred pipeline
+(``pipeline_depth`` > 1) and the adaptive depth.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..assoc import (InstanceCounter, associate_observations,
+                     associate_observations_optimal)
+from ..backend import LMConfig, ObjectObservations, optimize_objects_soa
+from ..core import camera as cam_mod
+from ..init.svd_incremental import IncrementalQuadricInit
+from ..io.config import Config
+from ..utils import calibrate_measurement_np
+from .state import SlamState
+
+_log = logging.getLogger("object_oriented_slam_tpu_torch")
+
+
+def _np_se3_inv(p):
+    q = p[3:] * np.array([-1.0, -1, -1, 1])
+    w = q[3]
+    t = p[:3]
+    qv = q[:3]
+    tt = 2.0 * np.cross(qv, -t)
+    rt = -t + w * tt + np.cross(qv, tt)
+    return np.concatenate([rt, q])
+
+
+def _np_se3_mul(a, b):
+    qa, qb = a[3:], b[3:]
+    x1, y1, z1, w1 = qa
+    x2, y2, z2, w2 = qb
+    q = np.array([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ])
+    qv, w = qa[:3], qa[3]
+    t2 = 2.0 * np.cross(qv, b[:3])
+    tb = b[:3] + w * t2 + np.cross(qv, t2)
+    return np.concatenate([a[:3] + tb, q / np.linalg.norm(q)])
+
+
+def _pinned(name: str, value, what: str):
+    """A setting this slice supports at one value only: reading gives the
+    value, setting any other value raises."""
+    def get(self):
+        return value
+
+    def set_(self, v):
+        if v != value:
+            raise NotImplementedError(
+                f"{name}={v!r}: {what} is not ported to the torch package")
+    return property(get, set_)
+
+
+class Tracking:
+    """Host orchestrator of the 2D-only mapping loop on ``device``."""
+
+    # capacities of the batched backend call: MAX_OBJECTS is the initial
+    # object tier (grows 24 -> 48 -> ... on demand, like the reference's
+    # unbounded instance count); the observation axes are ring windows
+    MAX_OBJECTS = 24
+    MAX_OBS2D = 512
+    MAX_OBS3D = 256
+
+    fuse_lm = _pinned("fuse_lm", False, "LM fusion into extraction")
+    pipeline_depth = _pinned("pipeline_depth", 1,
+                             "the deferred extraction pipeline")
+    adaptive_depth = _pinned("adaptive_depth", False,
+                             "the adaptive pipeline depth")
+    use_incremental_init = _pinned("use_incremental_init", True,
+                                   "the batch SVD initializer")
+    use_soa_backend = _pinned("use_soa_backend", True,
+                              "the array-of-structs LM backend")
+
+    def __init__(self, config: Config, extractor=None, plane_estimator=None,
+                 device="cpu"):
+        if extractor is not None or plane_estimator is not None:
+            raise NotImplementedError(
+                "depth extraction and ground-plane estimation are not "
+                "ported to the torch package: pass extractor=None and "
+                "plane_estimator=None (the 2D-only loop)")
+        if config.get_int("Visualization.Builder.Open") == 1:
+            raise NotImplementedError(
+                "Visualization.Builder.Open: the dense builder is not "
+                "ported to the torch package")
+        self.cfg = config
+        self.device = torch.device(device)
+        self.camera = cam_mod.Camera(
+            fx=config.get_float("Camera.fx"),
+            fy=config.get_float("Camera.fy"),
+            cx=config.get_float("Camera.cx"),
+            cy=config.get_float("Camera.cy"),
+            scale=config.get_float("Camera.scale"),
+            width=config.get_int("Camera.width", 640),
+            height=config.get_int("Camera.height", 480),
+        )
+        self.K = self.camera.K
+        self._K_dev = torch.as_tensor(self.K, device=self.device)
+        self.rows = self.camera.height
+        self.cols = self.camera.width
+        self.state = SlamState()
+        self.da_counter = InstanceCounter()
+        self.open_optimization = True
+
+        self.lm_cfg = LMConfig(
+            scale_3d=config.get_float("Optimizer.Edges.3DEllipsoid.Scale", 1.0),
+            gravity_scale=config.get_float("Optimizer.Edges.GravityPrior.Scale", 1.0),
+            gravity_on=config.get_int("Optimizer.Edges.GravityPrior.Open") == 1,
+            check_visibility=config.get_int(
+                "Optimizer.Edges.2DProjection.CheckVisibility") == 1,
+            vis_rows=self.rows, vis_cols=self.cols,
+        )
+        self.border_px = config.get_int("Measurement.Border.Pixels")
+        self.length_limit_px = config.get_int("Measurement.LengthLimit.Pixels")
+        self.min_init_frames = int(config.read_value(
+            "Tracking_MINIMUM_INITIALIZATION_FRAME"))
+        self.keyframe_check_close = config.get_int(
+            "Tracking.KeyFrameCheck.Close") == 1
+        self.use_optimal_assoc = config.get_int(
+            "Tracking.DataAssociation.Optimal") == 1
+        # per-optimizer-run object_list.txt dump (Optimizer.cpp:308-316)
+        self.write_object_list = config.get_int(
+            "Optimizer.WriteObjectList.Open") == 1
+        self.object_list_path = "./object_list.txt"
+
+        self._inc_init = IncrementalQuadricInit(self.K, self.rows, self.cols)
+        self._pending_backends = deque()   # (call_no, est, slots, nobs)
+        self._backend_calls = 0
+        self.max_objects = self.MAX_OBJECTS  # current object-axis tier
+        self._init_np_buffers()
+        # per-frame instrumentation (host seconds)
+        self.metrics: Dict[str, List[float]] = {"backend": [], "frontend": [],
+                                                "total": []}
+
+    # ------------------------------------------------------------------
+    def open_ground_plane_estimation(self):
+        raise NotImplementedError(
+            "ground-plane estimation needs the depth frontend, which is not "
+            "ported to the torch package")
+
+    def enable_distributed(self, mesh=None):
+        raise NotImplementedError(
+            "the distributed backend is not ported to the torch package")
+
+    # ------------------------------------------------------------------
+    def grab_pose_and_objects(self, timestamp: float, pose_wc: np.ndarray,
+                              det_mat: np.ndarray, depth: Optional[np.ndarray],
+                              rgb: Optional[np.ndarray] = None,
+                              with_association: bool = True,
+                              ext_result=None) -> bool:
+        """One frame of the pipeline (System::TrackWithObjects entry).
+
+        ``depth`` and ``rgb`` are accepted and unused: without an
+        extractor the loop runs on the detections alone.
+        """
+        if ext_result is not None:
+            raise NotImplementedError(
+                "ext_result: precomputed extraction (the offline batch "
+                "mapper) is not ported to the torch package")
+        t0 = time.perf_counter()
+        pose_wc = np.asarray(pose_wc, np.float64)
+        frame_id = len(self.state.frames_pose_wc)
+        self.state.frames_pose_wc.append(pose_wc)
+        self.state.frames_ts.append(timestamp)
+        det_mat = np.asarray(det_mat, np.float64).reshape(-1, 8) \
+            if det_mat is not None and det_mat.size else np.zeros((0, 8))
+        return self._frame_body(frame_id, pose_wc, det_mat,
+                                with_association, t0)
+
+    # ------------------------------------------------------------------
+    def _frame_body(self, frame_id, pose_wc, det_mat, with_association, t0):
+        """Everything after ground-plane handling for one frame."""
+        self._process_frame_obs(frame_id, pose_wc, det_mat, with_association)
+        self.metrics["backend"].append(self._t3 - self._t2)
+        self.metrics["frontend"].append(self._t1 - t0)
+        self.metrics["total"].append(self._t3 - t0)
+        return True
+
+    # ------------------------------------------------------------------
+    def _process_frame_obs(self, frame_id, pose_wc, det_mat,
+                           with_association):
+        """Host-side half of a frame: associate, store observations,
+        initialize, dispatch the backend."""
+        n_det = det_mat.shape[0]
+
+        # drain the previous backend result (its estimate stays on the
+        # device for the warm start; the host copy feeds history/outputs)
+        self._drain_ready_backends()
+
+        # ---- [1.3] data association ----------------------------------
+        if with_association:
+            associations = [int(round(det_mat[i, 7])) for i in range(n_det)]
+        else:
+            # automatic: by world-center distance of each detection's 3D
+            # estimate; without an extractor no detection has one
+            inst_ids = self.state.initialized_instances()
+            map_centers = np.array([self.state.objects[i].vec10[:3]
+                                    for i in inst_ids]).reshape(-1, 3)
+            assoc_fn = (associate_observations_optimal
+                        if self.use_optimal_assoc else associate_observations)
+            associations = assoc_fn(
+                np.zeros((n_det, 3)), np.zeros(n_det, bool), inst_ids,
+                map_centers, self.da_counter)
+
+        # ---- [1.4] key-observation gating (Tracking.cpp:421-475) ------
+        kf_checks = self._check_keyframes(associations, pose_wc)
+
+        # ---- [1.5] store observations --------------------------------
+        pose_cw = _np_se3_inv(pose_wc)
+        for i in range(n_det):
+            inst = associations[i]
+            if inst < 0 or not kf_checks[i]:
+                continue
+            meas = det_mat[i, 1:5].copy()
+            meas_cal, is_border = calibrate_measurement_np(
+                meas, self.rows, self.cols, self.border_px,
+                self.length_limit_px)
+            if is_border:
+                continue
+            rec = self.state.record(inst)
+            rec.obs2d_pose_cw.append(pose_cw)
+            rec.obs2d_pose_wc.append(pose_wc)
+            rec.obs2d_bbox.append(meas_cal)
+            rec.obs2d_prob.append(float(det_mat[i, 6]))
+            rec.obs2d_frame.append(frame_id)
+            if rec.label < 0:
+                rec.label = int(det_mat[i, 5])
+            self._append_obs2d(inst, pose_cw, meas_cal, float(det_mat[i, 6]))
+            if not rec.initialized:
+                self._inc_init.add_observation(inst, pose_wc, meas_cal)
+
+        self._t1 = time.perf_counter()
+
+        # ---- [2] initialization (Tracking.cpp:566-638) ----------------
+        self._judge_initialization()
+
+        # ---- [3] global optimization ----------------------------------
+        self._t2 = time.perf_counter()
+        if self.open_optimization and self.state.initialized_instances():
+            self._run_backend()
+        self._t3 = time.perf_counter()
+
+    # ------------------------------------------------------------------
+    def _check_keyframes(self, associations, pose_wc) -> List[bool]:
+        if self.keyframe_check_close:
+            dis_th, ang_th = 0.0, 0.0
+        else:
+            dis_th, ang_th = 0.4, math.pi / 180.0 * 15  # Tracking.cpp:433-434
+        checks = []
+        for inst in associations:
+            if inst < 0:
+                checks.append(False)
+                continue
+            rec = self.state.objects.get(inst)
+            if rec is None or not rec.obs2d_pose_wc:
+                checks.append(True)
+                continue
+            last = rec.obs2d_pose_wc[-1]
+            diff = _np_se3_mul(_np_se3_inv(pose_wc), last)
+            dis = float(np.linalg.norm(diff[:3]))
+            w = np.clip(abs(diff[6]), -1, 1)
+            angle = 2.0 * math.acos(min(1.0, w))
+            checks.append(dis > dis_th or angle > ang_th)
+        return checks
+
+    # ------------------------------------------------------------------
+    def _judge_initialization(self):
+        """2D SVD path with the host-side incremental initializer."""
+        for inst, rec in self.state.objects.items():
+            if rec.initialized or len(rec.obs2d_bbox) < self.min_init_frames:
+                continue
+            vec10 = self._inc_init.try_init(inst)
+            if vec10 is not None:
+                rec.vec10 = vec10
+                rec.initialized = True
+                self._inc_init.drop(inst)
+
+    # ------------------------------------------------------------------
+    # Incremental backend buffers: observations are written in place into
+    # preallocated [O, M, ...] arrays (ring window once a slot's capacity
+    # is exceeded -- edge order is irrelevant to the LM).
+    def _init_np_buffers(self):
+        O, M2, M3 = self.max_objects, self.MAX_OBS2D, self.MAX_OBS3D
+        self._slot_of: Dict[int, int] = {}
+        self._slot_to_instance = []
+        # one contiguous float32 block; the named buffers are views into
+        # it, so a batch ships to the device as one transfer
+        shapes = {
+            "est0": (O, 10), "objmask": (O,), "useprev": (O,),
+            "p2": (O, M2, 7), "b2": (O, M2, 4), "pr2": (O, M2),
+            "m2": (O, M2),
+            "p3": (O, M3, 7), "me3": (O, M3, 10), "pr3": (O, M3),
+            "m3": (O, M3),
+        }
+        total = sum(int(np.prod(v)) for v in shapes.values())
+        self._b_flat = np.zeros(total, np.float32)
+        self._b_views = {}
+        off = 0
+        for name, shp in shapes.items():
+            n = int(np.prod(shp))
+            self._b_views[name] = self._b_flat[off:off + n].reshape(shp)
+            off += n
+        v = self._b_views
+        v["est0"][:] = np.array([0, 0, 0, 0, 0, 0, 1, 1, 1, 1], np.float32)
+        v["p2"][:] = np.array([0, 0, 0, 0, 0, 0, 1], np.float32)
+        v["b2"][:] = -1.0
+        v["p3"][:] = np.array([0, 0, 0, 0, 0, 0, 1], np.float32)
+        v["me3"][:] = np.array([0, 0, 0, 0, 0, 0, 1, 1, 1, 1], np.float32)
+        self._b_n2 = np.zeros(O, np.int64)
+        self._b_n3 = np.zeros(O, np.int64)
+        # device-side warm start: est0 of call k is the device output of
+        # call k-1 for slots already in the previous batch
+        self._est_prev_dev: Optional[torch.Tensor] = None
+        self._prev_batch_slots: set = set()
+
+    def _slot_for(self, inst: int):
+        slot = self._slot_of.get(inst)
+        if slot is None:
+            if len(self._slot_of) >= self.max_objects:
+                self._grow_object_tier()
+            slot = len(self._slot_of)
+            self._slot_of[inst] = slot
+        return slot
+
+    def _grow_object_tier(self):
+        """Double the object-axis capacity (24 -> 48 -> 96 -> ...): contents
+        copied over, the device warm-start estimate zero-padded (new slots
+        have useprev=0 so the pad is never read)."""
+        old_views = {k: v.copy() for k, v in self._b_views.items()}
+        old_n2, old_n3 = self._b_n2, self._b_n3
+        old_state = (dict(self._slot_of), list(self._slot_to_instance),
+                     set(self._prev_batch_slots), self._est_prev_dev)
+        O_old = self.max_objects
+        self.max_objects = O_old * 2
+        _log.info("growing backend object tier %d -> %d", O_old,
+                  self.max_objects)
+        self._init_np_buffers()
+        for name, v in self._b_views.items():
+            v[:O_old] = old_views[name]
+        self._b_n2[:O_old] = old_n2
+        self._b_n3[:O_old] = old_n3
+        (self._slot_of, self._slot_to_instance,
+         self._prev_batch_slots, est_prev) = old_state
+        if est_prev is not None:
+            self._est_prev_dev = torch.cat(
+                [est_prev, est_prev.new_zeros(self.max_objects - O_old, 10)])
+
+    def _append_obs2d(self, inst, pose_cw, bbox, prob):
+        slot = self._slot_for(inst)
+        v = self._b_views
+        i = int(self._b_n2[slot] % self.MAX_OBS2D)
+        v["p2"][slot, i] = pose_cw
+        v["b2"][slot, i] = bbox
+        v["pr2"][slot, i] = prob
+        v["m2"][slot, i] = 1.0
+        self._b_n2[slot] += 1
+
+    def _append_obs3d(self, inst, pose_wc, meas_vec10, prob):
+        slot = self._slot_for(inst)
+        v = self._b_views
+        i = int(self._b_n3[slot] % self.MAX_OBS3D)
+        v["p3"][slot, i] = pose_wc
+        v["me3"][slot, i] = meas_vec10
+        v["pr3"][slot, i] = prob
+        v["m3"][slot, i] = 1.0
+        self._b_n3[slot] += 1
+
+    @staticmethod
+    def _next_pow2(n, lo, hi):
+        cap = lo
+        while cap < min(n, hi):
+            cap *= 2
+        return cap
+
+    @staticmethod
+    def _lm_layout(O: int, M2t: int, M3t: int):
+        """Packed-batch layout: ((name, offset, shape), ...)."""
+        shapes = [("est0", (O, 10)), ("objmask", (O,)), ("useprev", (O,)),
+                  ("p2", (O, M2t, 7)), ("b2", (O, M2t, 4)),
+                  ("pr2", (O, M2t)), ("m2", (O, M2t)),
+                  ("p3", (O, M3t, 7)), ("me3", (O, M3t, 10)),
+                  ("pr3", (O, M3t)), ("m3", (O, M3t))]
+        layout = []
+        off = 0
+        for name, shp in shapes:
+            layout.append((name, off, shp))
+            off += int(np.prod(shp))
+        return tuple(layout)
+
+    def _pack_backend_batch(self):
+        """Pack the current observation state into the flat f32 batch at
+        the smallest power-of-two observation tier that holds it.
+
+        Returns (flat np, est_prev device, O, M2t, M3t); also refreshes
+        ``_slot_to_instance`` / ``_prev_batch_slots``.
+        """
+        v = self._b_views
+        self._slot_to_instance = []
+        v["objmask"][:] = 0.0
+        v["useprev"][:] = 0.0
+        cur_slots = set()
+        for inst in sorted(self.state.initialized_instances()):
+            slot = self._slot_of.get(inst)
+            if slot is None:
+                continue
+            cur_slots.add(slot)
+            if slot in self._prev_batch_slots \
+                    and self._est_prev_dev is not None:
+                v["useprev"][slot] = 1.0
+            else:
+                v["est0"][slot] = self.state.objects[inst].vec10.astype(
+                    np.float32)
+            v["objmask"][slot] = 1.0
+            self._slot_to_instance.append((slot, inst))
+        self._prev_batch_slots = cur_slots
+        est_prev = self._est_prev_dev
+        if est_prev is None:
+            est_prev = torch.zeros((self.max_objects, 10), dtype=torch.float32,
+                                   device=self.device)
+
+        # ring buffers fill their prefix until they wrap, so slicing
+        # [:, :Mt] covers every stored entry
+        f2 = int(min(self._b_n2.max(initial=0), self.MAX_OBS2D))
+        f3 = int(min(self._b_n3.max(initial=0), self.MAX_OBS3D))
+        M2t = self._next_pow2(f2, 64, self.MAX_OBS2D)
+        M3t = self._next_pow2(f3, 32, self.MAX_OBS3D)
+        flat_t = np.concatenate([
+            v["est0"].ravel(), v["objmask"].ravel(), v["useprev"].ravel(),
+            v["p2"][:, :M2t].ravel(), v["b2"][:, :M2t].ravel(),
+            v["pr2"][:, :M2t].ravel(), v["m2"][:, :M2t].ravel(),
+            v["p3"][:, :M3t].ravel(), v["me3"][:, :M3t].ravel(),
+            v["pr3"][:, :M3t].ravel(), v["m3"][:, :M3t].ravel()])
+        return flat_t, est_prev, self.max_objects, M2t, M3t
+
+    def _unpack(self, prep) -> ObjectObservations:
+        """One host->device copy of the packed batch, then views into it."""
+        flat = torch.from_numpy(prep["flat"]).to(self.device)
+        out = {}
+        for name, off, shp in self._lm_layout(prep["O"], prep["M2t"],
+                                              prep["M3t"]):
+            out[name] = flat[off:off + int(np.prod(shp))].reshape(shp)
+        est0 = torch.where(out["useprev"][:, None] > 0.5, prep["est_prev"],
+                           out["est0"])
+        return ObjectObservations(
+            est0=est0, obj_mask=out["objmask"] > 0.5,
+            pose2d_cw=out["p2"], bbox2d=out["b2"], prob2d=out["pr2"],
+            mask2d=out["m2"] > 0.5,
+            pose3d_wc=out["p3"], meas3d=out["me3"], prob3d=out["pr3"],
+            mask3d=out["m3"] > 0.5)
+
+    def restore_state(self, state: SlamState):
+        """Resume from a checkpointed SlamState (system/checkpoint.py).
+
+        Rebuilds what the checkpoint does not carry: the backend
+        observation buffers (replayed in first-observation order, so slot
+        assignment matches the original run), the incremental-init Gram
+        matrices of uninitialized instances, and the association counter.
+        Call on a freshly constructed Tracking.
+        """
+        self.state = state
+        self._init_np_buffers()
+
+        def first_frame(rec):
+            f2 = rec.obs2d_frame[0] if rec.obs2d_frame else 1 << 60
+            f3 = rec.obs3d_frame[0] if rec.obs3d_frame else 1 << 60
+            return min(f2, f3)
+
+        for inst in sorted(state.objects,
+                           key=lambda i: (first_frame(state.objects[i]), i)):
+            rec = state.objects[inst]
+            for pose_cw, pose_wc, bbox, prob in zip(
+                    rec.obs2d_pose_cw, rec.obs2d_pose_wc, rec.obs2d_bbox,
+                    rec.obs2d_prob):
+                self._append_obs2d(inst, pose_cw, bbox, prob)
+                if not rec.initialized:
+                    self._inc_init.add_observation(inst, pose_wc, bbox)
+            for pose_wc, meas, prob in zip(rec.obs3d_pose_wc, rec.obs3d_meas,
+                                           rec.obs3d_prob):
+                self._append_obs3d(inst, pose_wc, meas, prob)
+        if state.objects:
+            self.da_counter.seed(max(state.objects) + 1)
+
+    def _prepare_backend(self):
+        """Pack the LM batch; returns the dict _dispatch_prepared takes."""
+        flat_t, est_prev, O, M2t, M3t = self._pack_backend_batch()
+        gset = self.state.ground_plane is not None
+        normal = (self.state.ground_plane[:3].astype(np.float32)
+                  if gset else np.zeros(3, np.float32))
+        # the per-instance observation counts NOW: the history row written
+        # at drain time pairs frame-t estimates with frame-t counts
+        # (RefreshObjectHistory semantics, Tracking.cpp:810-852)
+        nobs = {inst: len(self.state.objects[inst].obs2d_bbox)
+                for _, inst in self._slot_to_instance}
+        return {"flat": flat_t, "est_prev": est_prev, "O": O, "M2t": M2t,
+                "M3t": M3t, "gset": gset, "normal": normal, "nobs": nobs,
+                "slots": list(self._slot_to_instance)}
+
+    def _dispatch_prepared(self, prep):
+        obs = self._unpack(prep)
+        est, _chi2 = optimize_objects_soa(
+            obs, self._K_dev, torch.as_tensor(prep["normal"],
+                                              device=self.device),
+            prep["gset"], self.lm_cfg)
+        # the next LM call chains from this device tensor; the host copy
+        # (history/outputs) is drained one call later
+        self._est_prev_dev = est
+        self._backend_calls += 1
+        self._pending_backends.append(
+            (self._backend_calls, est, prep["slots"], prep["nobs"]))
+
+    def _run_backend(self):
+        self._dispatch_prepared(self._prepare_backend())
+
+    def _drain_ready_backends(self, all_pending: bool = False):
+        """Apply pending backend results in dispatch order: those at least
+        ``pipeline_depth`` calls old, or all of them at sync points."""
+        while self._pending_backends:
+            age = self._backend_calls - self._pending_backends[0][0]
+            if not all_pending and age < self.pipeline_depth:
+                break
+            _, est, slot_to_instance, nobs = self._pending_backends.popleft()
+            est = est.cpu().numpy().astype(np.float64)
+            for slot, inst in slot_to_instance:
+                self.state.objects[inst].vec10 = est[slot]
+            self._refresh_history(nobs)
+            if self.write_object_list:
+                # per-optimizer-run dump (Optimizer.cpp:308-316)
+                from ..io.writers import save_object_list
+                insts = sorted(inst for _, inst in slot_to_instance)
+                save_object_list(
+                    self.object_list_path, insts,
+                    np.stack([self._np_to_minimal(
+                        self.state.objects[i].vec10) for i in insts]),
+                    [self.state.objects[i].label for i in insts])
+
+    def sync(self):
+        """Drain every pending backend result."""
+        self._drain_ready_backends(all_pending=True)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _np_to_minimal(vec10):
+        """Host-side vec10 -> vec9 (xyz, roll-pitch-yaw, scales)."""
+        qx, qy, qz, qw = vec10[3:7]
+        roll = np.arctan2(2 * (qw * qx + qy * qz), 1 - 2 * (qx * qx + qy * qy))
+        pitch = np.arcsin(np.clip(2 * (qw * qy - qz * qx), -1.0, 1.0))
+        yaw = np.arctan2(2 * (qw * qz + qx * qy), 1 - 2 * (qy * qy + qz * qz))
+        return np.concatenate([vec10[:3], [roll, pitch, yaw], vec10[7:]])
+
+    def _refresh_history(self, nobs: Dict[int, int]):
+        """Tracking.cpp:810-852 (nobs = obs counts at optimization time)."""
+        for inst in sorted(nobs):
+            rec = self.state.objects[inst]
+            vec9 = self._np_to_minimal(rec.vec10)
+            n_obs = nobs[inst]
+            row = np.concatenate([[n_obs, 1], vec9])
+            if rec.history and int(rec.history[-1][0]) == n_obs:
+                rec.history[-1] = row
+            else:
+                rec.history.append(row)
