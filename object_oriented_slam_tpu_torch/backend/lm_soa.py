@@ -20,6 +20,13 @@ implementations with one contract:
 ``soa_normal_eq`` / ``soa_chi2`` dispatch on the tensors' device: CUDA
 tensors go to the kernels (which raise if they cannot run), CPU tensors
 to the plain versions, any other device raises.
+
+One LM iteration is two steps with the same two implementations:
+``lm_solve_step`` (normal equations, damped Cholesky solve, trial
+estimate) and ``lm_accept_step`` (chi2 at the trial estimate, gain ratio,
+accept test, lambda schedule).  On CUDA tensors each is one launch of a
+BA kernel with an LM epilogue, so ``optimize_objects_soa`` runs an
+iteration in two launches.
 """
 from __future__ import annotations
 
@@ -588,6 +595,89 @@ def soa_exp_update_flat(est, du):
 
 
 # ---------------------------------------------------------------------------
+# One LM iteration in two steps: plain versions and the device dispatch
+# ---------------------------------------------------------------------------
+
+def lm_solve_step_plain(est, lam, prep, w2d, w3d, wg, ground_normal, K,
+                        huber_delta=0.0, want_H=False):
+    """First half of an LM iteration in plain PyTorch on any device.
+
+    The normal equations at ``est``, the damping (``lam`` < 0 asks for the
+    initial tau * max diag H), the unrolled Cholesky solve of
+    (H + lam0 I) x = g, du = -x behind the all-finite gate and the trial
+    estimate.  Returns (est_new [O,10], du [O,9], g [O,9], lam0 [O], H);
+    H [O,9,9] only if ``want_H``, else None.
+    """
+    H, g, _ = soa_normal_eq_plain(est, prep, w2d, w3d, wg, ground_normal, K,
+                                  huber_delta)
+    est_new, du, lam0 = solve_from_normal_eq(est, lam, H, g)
+    return est_new, du, g, lam0, (H if want_H else None)
+
+
+def solve_from_normal_eq(est, lam, H, g):
+    """The per-object part of the solve step: (est_new, du, lam0) from the
+    reduced H [O,9,9] and g [O,9]."""
+    lam0 = torch.where(lam < 0, _TAU * torch.amax(
+        torch.diagonal(H, dim1=1, dim2=2), dim=1), lam)
+    lam0 = torch.clamp_min(lam0, 1e-12)
+    eye9 = torch.eye(9, dtype=H.dtype, device=H.device)
+    A = H + lam0[:, None, None] * eye9
+    du = -chol_solve_small(A, g)              # [O, 9]
+    du_ok = torch.all(torch.isfinite(du), dim=1, keepdim=True)
+    du = torch.where(du_ok, du, 0.0)
+    return soa_exp_update_flat(est, du), du, lam0
+
+
+def lm_accept_step_plain(est, chi2, lam, nu, est_new, du, g, lam0, prep, w2d,
+                         w3d, wg, ground_normal, K, huber_delta=0.0):
+    """Second half of an LM iteration in plain PyTorch on any device.
+
+    chi2 at the trial estimate, the gain ratio, the accept test and the
+    g2o lambda / nu schedule.  Returns new tensors (est, chi2, lam, nu,
+    accept [O] bool); nothing is updated in place.
+    """
+    chi2_new = soa_chi2_plain(est_new, prep, w2d, w3d, wg, ground_normal, K,
+                              huber_delta)
+    return accept_from_chi2(est, chi2, nu, est_new, chi2_new, du, g, lam0)
+
+
+def accept_from_chi2(est, chi2, nu, est_new, chi2_new, du, g, lam0):
+    """The per-object part of the accept step, from chi2 at est_new."""
+    denom = torch.sum(du * (lam0[:, None] * du - g), dim=1)
+    rho = (chi2 - chi2_new) / torch.where(torch.abs(denom) > 1e-20,
+                                          denom, 1e-20)
+    accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
+    factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0,
+                         2.0 / 3.0)
+    lam = torch.where(accept, lam0 * factor, lam0 * nu)
+    nu = torch.where(accept, 2.0, nu * 2.0)
+    est = torch.where(accept[:, None], est_new, est)
+    chi2 = torch.where(accept, chi2_new, chi2)
+    return est, chi2, lam, nu, accept
+
+
+def lm_solve_step(est, lam, prep, w2d, w3d, wg, ground_normal, K,
+                  huber_delta=0.0, want_H=False):
+    """(est_new, du, g, lam0, H or None); one kernel launch on cuda
+    tensors."""
+    step = ba_kernels.lm_solve_step if _on_cuda(est) else lm_solve_step_plain
+    return step(est, lam, prep, w2d, w3d, wg, ground_normal, K, huber_delta,
+                want_H)
+
+
+def lm_accept_step(est, chi2, lam, nu, est_new, du, g, lam0, prep, w2d, w3d,
+                   wg, ground_normal, K, huber_delta=0.0):
+    """(est, chi2, lam, nu, accept) after the accept test.  On cuda tensors
+    this is one kernel launch that updates ``est``, ``chi2``, ``lam`` and
+    ``nu`` in place and returns them; on cpu tensors new tensors are
+    returned.  Callers use the returned ones."""
+    step = (ba_kernels.lm_accept_step if _on_cuda(est)
+            else lm_accept_step_plain)
+    return step(est, chi2, lam, nu, est_new, du, g, lam0, prep, w2d, w3d, wg,
+                ground_normal, K, huber_delta)
+
+
+# ---------------------------------------------------------------------------
 # The solver
 # ---------------------------------------------------------------------------
 
@@ -633,35 +723,17 @@ def optimize_objects_soa(obs: ObjectObservations, K: torch.Tensor,
     prep = soa_prepare(obs.pose2d_cw, obs.bbox2d, obs.pose3d_wc, obs.meas3d)
     w2d, w3d, wg = soa_edge_weights(obs, prep, K, ground_set, cfg)
 
-    hd = cfg.huber_delta
-    eye9 = torch.eye(9, dtype=f32, device=dev)
+    problem = (prep, w2d, w3d, wg, ground_normal, K, cfg.huber_delta)
 
-    est = obs.est0
+    # a copy: on cuda tensors the accept step updates est in place
+    est = obs.est0.clone(memory_format=torch.contiguous_format)
     lam = torch.full((O,), -1.0, dtype=f32, device=dev)
     nu = torch.full((O,), 2.0, dtype=f32, device=dev)
-    chi2 = soa_chi2(est, prep, w2d, w3d, wg, ground_normal, K, hd)
+    chi2 = soa_chi2(est, *problem)
     for _ in range(cfg.iters):
-        H, g, _ = soa_normal_eq(est, prep, w2d, w3d, wg, ground_normal, K, hd)
-        lam0 = torch.where(lam < 0, _TAU * torch.amax(
-            torch.diagonal(H, dim1=1, dim2=2), dim=1), lam)
-        lam0 = torch.clamp_min(lam0, 1e-12)
-        A = H + lam0[:, None, None] * eye9
-        du = -chol_solve_small(A, g)              # [O, 9]
-        du_ok = torch.all(torch.isfinite(du), dim=1, keepdim=True)
-        du = torch.where(du_ok, du, 0.0)
-
-        est_new = soa_exp_update_flat(est, du)
-        chi2_new = soa_chi2(est_new, prep, w2d, w3d, wg, ground_normal, K, hd)
-        denom = torch.sum(du * (lam0[:, None] * du - g), dim=1)
-        rho = (chi2 - chi2_new) / torch.where(torch.abs(denom) > 1e-20,
-                                              denom, 1e-20)
-        accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0,
-                             2.0 / 3.0)
-        lam = torch.where(accept, lam0 * factor, lam0 * nu)
-        nu = torch.where(accept, 2.0, nu * 2.0)
-        est = torch.where(accept[:, None], est_new, est)
-        chi2 = torch.where(accept, chi2_new, chi2)
+        est_new, du, g, lam0, _ = lm_solve_step(est, lam, *problem)
+        est, chi2, lam, nu, _ = lm_accept_step(est, chi2, lam, nu, est_new,
+                                               du, g, lam0, *problem)
 
     has_edges = (torch.sum(w2d, dim=1) + torch.sum(w3d, dim=1)) > 0
     keep = (obs.obj_mask & has_edges)[:, None]

@@ -10,221 +10,311 @@
 // exp_update(est, u) with u = 0, and from them
 //   ba_normal_eq: H = sum J^T J [O,9,9], g = sum J^T r [O,9], sum r^2 [O]
 //   ba_chi2:      sum r^2 [O]
-// The weights arrive with every gate folded in (zero = inactive edge).
+// The weights arrive with every gate folded in (zero = inactive edge; such
+// an edge contributes exact zeros and its chain is skipped).
 //
-// Design.  The residual chain is written once, templated on the scalar
-// type S.  ba_chi2 instantiates it with float; ba_normal_eq with Dual<9>,
-// a forward-mode dual number carrying the value and its derivative along
-// the 9 tangent directions, seeded at u = 0 -- what jax.linearize does in
-// the JAX package.  Every branch (small-angle Taylor forms, the argmin
-// over the 4 rotations, the NaN/inf gate, the Huber weight) selects on
-// the primal value, as jnp.where does, and only the selected branch is
-// evaluated; each derivative rule copies the JAX rule it replaces,
-// including the JAX tie rule of max/min, so NaN/inf tangents appear where
-// they appear in the JAX package (the LM's du_ok gate depends on them).
+// Each kernel has a second entry point that goes on, in the block that
+// holds an object's reduced sums, with the per-object part of one LM
+// iteration, in lm_soa's order of operations:
+//   ba_normal_eq + solve:  lam0, A = H + lam0 I, the unrolled 9x9 Cholesky
+//     solve of ops/linalg.chol_solve_small, du = -x behind the all-finite
+//     gate, est_new = exp_update(est, du)      (lm_soa.lm_solve_step_plain)
+//   ba_chi2 + accept:  chi2 at est_new, rho, the accept test and the
+//     lambda / nu schedule, with est, chi2, lam and nu updated in place
+//                                             (lm_soa.lm_accept_step_plain)
+// so one LM iteration is two launches with nothing in between.
 //
-// One thread block per object.  Block-wide quantities that depend only on
-// the estimate (the updated pose and scales and its rotation matrix) are
-// computed once by thread 0 into shared memory.  Threads stride over the
-// M2 2D edges and the M3 3D edges, keeping the 45 + 9 + 1 partial sums in
-// registers; a fixed-order tree reduction in shared memory follows, so the
-// result is deterministic (no atomics).  The 3D-measurement precompute
-// (invp3, sc3) is estimate-independent and done once per LM call by the
-// caller.
+// The residual chain is written once, templated on the scalar type S.
+// ba_chi2 instantiates it with float; ba_normal_eq with Dual<9>, a
+// forward-mode dual number carrying the value and its derivative along the
+// 9 tangent directions, seeded at u = 0 -- what jax.linearize does in the
+// JAX package.  Every branch (small-angle Taylor forms, the argmin over the
+// 4 rotations, the NaN/inf gate, the Huber weight) selects on the primal
+// value, as jnp.where does, and only the selected branch is evaluated; each
+// derivative rule copies the JAX rule it replaces, including the JAX tie
+// rule of max/min, so NaN/inf tangents appear where they appear in the JAX
+// package (the LM's du_ok gate depends on them).
 //
-// What bounds it: arithmetic and registers, not memory.  An edge reads
-// 48 bytes (2D) or 124 bytes (3D) and costs a few hundred dual operations
-// (10 flops each); a Dual<9> chain keeps far more live values than the
-// 255-register limit, so the compiler spills to local memory (L1).  At the
-// main path's O = 24 objects only 24 of the 132 SMs get a block; splitting
-// the edge axis over several blocks per object is the first thing to do
-// for speed.  Built without --use_fast_math and with -fmad=false: the
-// constants, the IEEE sqrt/div/sin/cos/atan2/acos and the per-operation
-// rounding of the JAX package and of the plain PyTorch version are kept.
+// What bounds the kernels, and what the design does about it.  Neither
+// memory nor arithmetic throughput: an edge reads 48 bytes (2D) or 172
+// bytes (3D) and costs a few thousand f32 operations in Dual<9>, so a whole
+// call is under two microseconds of the card's peak either way.  What
+// costs is latency: one long dependent chain of IEEE div / sqrt / atan2 per
+// edge, run once by a warp that has its scheduler to itself, then the
+// reduction, then the serial per-object epilogue.  (On an H100 at the main
+// tier, 24 objects x 544 edge slots, a launch of ba_normal_eq with its
+// solve epilogue spends most of its time in three serial stretches: the
+// per-object part, one edge chain, the solve epilogue;
+// examples/torch_ba_launch_sweep.py prints the phases' clocks.)
+//  - Filling the card: one thread block cluster per object (grid S x O,
+//    cluster dimension S <= 8).  The edges of both kinds are one list dealt
+//    over the S x T threads, so that at the main shapes a thread runs one
+//    chain and O x S blocks are in flight.  The host picks S and T from
+//    M2 + M3 (backend/ba_kernels.launch_shape).
+//  - Registers: a thread keeps no accumulators over its chain.  When the
+//    chain is done its rows (r, dr/du_0..8), 4 for a 2D edge and 9 for a 3D
+//    edge, are all it holds (the 3D chain writes its best candidate
+//    straight into shared memory, so no second set of nine duals stays
+//    live), and the warp takes its J^T J there and then: each of the
+//    45 + 9 + 1 products is summed over the lane's rows, reduced over the
+//    lanes with a fixed xor-shuffle pattern and kept by one lane -- in f32
+//    on the CUDA cores (TF32 would not hold H to 1e-4), with no barrier
+//    between the chains and the sums.  One shared-memory step adds the
+//    warps.  The part of the chain that depends on the estimate alone (exp
+//    update, rotation matrix, gravity residual) is computed once per block
+//    into shared memory by nine lanes, one tangent direction each
+//    (Dual<1>): the tangent components of a dual operation do not mix, so
+//    the nine lanes give the bits of one Dual<9>.  ptxas: 255 registers,
+//    no spills.
+//  - Divisions: the nine tangent quotients of a dual division share one
+//    IEEE reciprocal instead of nine IEEE divisions.
+//  - The reduction is deterministic, with no floating-point atomics: fixed
+//    row and lane order inside a warp, warps added in order, and cluster
+//    rank 0 adds the S blocks' partial sums in rank order out of their
+//    shared memory (distributed shared memory).  ba_chi2 keeps one float
+//    per thread and reduces with the same shuffle pattern, one shared step
+//    across the warps, then the same walk over the ranks.  chi2 decides
+//    the LM's accept test, so equal inputs give equal bits.
+//  - The solve epilogue runs the Cholesky factorisation with one lane per
+//    matrix row (the operands travel by warp shuffle), each entry with the
+//    plain version's own sequence of operations; its inputs (est, lam) are
+//    fetched at the start of the kernel.
+// The 3D-measurement precompute (invp3, sc3) is estimate-independent and
+// done once per LM call by the caller.  Built without --use_fast_math and
+// with -fmad=false: the constants, the IEEE sqrt/div/sin/cos/atan2/acos and
+// the per-operation rounding of the JAX package and of the plain PyTorch
+// version are kept.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;          // threads of a block, at most
 constexpr int kN = 9;                     // tangent directions
 constexpr int kNH = kN * (kN + 1) / 2;    // unique entries of H
-constexpr int kNAcc = kNH + kN + 1;       // H, g, chi2
+constexpr int kNAcc = kNH + kN + 1;       // chi2, g, H
+constexpr int kRow = kN + 1;              // floats of a staged row: r, dr/du
+constexpr int kSlot3 = 9 * kRow + 1;      // a 3D edge's 9 staged rows; the
+                                          //   odd stride keeps banks apart
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kEps = 1e-8f;             // lm_soa._EPS
 constexpr float kEps2 = 1e-16f;           // _EPS * _EPS
+constexpr float kTau = 1e-5f;             // lm_soa._TAU
 
-struct D9 {
+template <int N>
+struct Dual {
   float v;
-  float d[kN];
+  float d[N];
 };
+using D9 = Dual<kN>;   // all 9 directions: the per-edge chain
+using D1 = Dual<1>;    // one direction: a lane of the per-object part
 
 // ---------------------------------------------------------------------------
-// Scalar interface shared by float and D9
+// Scalar interface shared by float and Dual<N>
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(const D9& x) { return x.v; }
+template <int N>
+__device__ __forceinline__ float val(const Dual<N>& x) { return x.v; }
 
-template <class S> __device__ __forceinline__ S zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ D9 zero<D9>() {
-  D9 r;
-  r.v = 0.f;
+// zero(), and u_i at u = 0: value 0, unit derivative along direction i
+// (a Dual<N> carries the directions dir0 .. dir0 + N - 1)
+template <class S> struct Scalar;
+template <> struct Scalar<float> {
+  static __device__ __forceinline__ float zero() { return 0.f; }
+  static __device__ __forceinline__ float seed(int, int) { return 0.f; }
+};
+template <int N> struct Scalar<Dual<N>> {
+  static __device__ __forceinline__ Dual<N> zero() {
+    Dual<N> r;
+    r.v = 0.f;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = 0.f;
-  return r;
-}
+    for (int i = 0; i < N; ++i) r.d[i] = 0.f;
+    return r;
+  }
+  static __device__ __forceinline__ Dual<N> seed(int i, int dir0) {
+    Dual<N> r;
+    r.v = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) r.d[j] = (i == dir0 + j) ? 1.f : 0.f;
+    return r;
+  }
+};
 
-// u_i at u = 0: value 0, unit derivative along direction i
-template <class S> __device__ __forceinline__ S seed(int i);
-template <> __device__ __forceinline__ float seed<float>(int) { return 0.f; }
-template <> __device__ __forceinline__ D9 seed<D9>(int i) {
-  D9 r = zero<D9>();
-  r.d[i] = 1.f;
-  return r;
-}
-
-__device__ __forceinline__ D9 operator+(const D9& a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a,
+                                             const Dual<N>& b) {
+  Dual<N> r;
   r.v = a.v + b.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] + b.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] + b.d[i];
   return r;
 }
-__device__ __forceinline__ D9 operator+(const D9& a, float b) {
-  D9 r = a;
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a, float b) {
+  Dual<N> r = a;
   r.v = a.v + b;
   return r;
 }
-__device__ __forceinline__ D9 operator+(float a, const D9& b) {
-  D9 r = b;
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(float a, const Dual<N>& b) {
+  Dual<N> r = b;
   r.v = a + b.v;
   return r;
 }
-__device__ __forceinline__ D9 operator-(const D9& a) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a) {
+  Dual<N> r;
   r.v = -a.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = -a.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = -a.d[i];
   return r;
 }
-__device__ __forceinline__ D9 operator-(const D9& a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a,
+                                             const Dual<N>& b) {
+  Dual<N> r;
   r.v = a.v - b.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] - b.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] - b.d[i];
   return r;
 }
-__device__ __forceinline__ D9 operator-(const D9& a, float b) {
-  D9 r = a;
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a, float b) {
+  Dual<N> r = a;
   r.v = a.v - b;
   return r;
 }
-__device__ __forceinline__ D9 operator-(float a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(float a, const Dual<N>& b) {
+  Dual<N> r;
   r.v = a - b.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = -b.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = -b.d[i];
   return r;
 }
 // mul: g_x * y + x * g_y
-__device__ __forceinline__ D9 operator*(const D9& a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a,
+                                             const Dual<N>& b) {
+  Dual<N> r;
   r.v = a.v * b.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
   return r;
 }
-__device__ __forceinline__ D9 operator*(const D9& a, float b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a, float b) {
+  Dual<N> r;
   r.v = a.v * b;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] * b;
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b;
   return r;
 }
-__device__ __forceinline__ D9 operator*(float a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(float a, const Dual<N>& b) {
+  Dual<N> r;
   r.v = a * b.v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a * b.d[i];
+  for (int i = 0; i < N; ++i) r.d[i] = a * b.d[i];
   return r;
 }
-// div: g_x / y + (-g_y * x) * y^-2
-__device__ __forceinline__ D9 operator/(const D9& a, const D9& b) {
-  D9 r;
+// div: g_x / y + (-g_y * x) * y^-2.  The N quotients g_x / y share one
+// IEEE reciprocal (g_x * (1 / y): one rounding more, the same inf / NaN
+// pattern for any normal y); the value is a true division.
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a,
+                                             const Dual<N>& b) {
+  Dual<N> r;
   r.v = a.v / b.v;
+  const float ib = 1.f / b.v;
   const float ib2 = 1.f / (b.v * b.v);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] / b.v + (-b.d[i] * a.v) * ib2;
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * ib + (-b.d[i] * a.v) * ib2;
   return r;
 }
-__device__ __forceinline__ D9 operator/(const D9& a, float b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a, float b) {
+  Dual<N> r;
   r.v = a.v / b;
+  const float ib = 1.f / b;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] / b;
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * ib;
   return r;
 }
-__device__ __forceinline__ D9 operator/(float a, const D9& b) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(float a, const Dual<N>& b) {
+  Dual<N> r;
   r.v = a / b.v;
   const float ib2 = 1.f / (b.v * b.v);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = (-b.d[i] * a) * ib2;
+  for (int i = 0; i < N; ++i) r.d[i] = (-b.d[i] * a) * ib2;
   return r;
 }
 
-__device__ __forceinline__ D9 scaled(const D9& a, float v, float k) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> scaled(const Dual<N>& a, float v,
+                                          float k) {
+  Dual<N> r;
   r.v = v;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = a.d[i] * k;
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * k;
   return r;
 }
 
 // sqrt: g * (0.5 / ans)
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
-__device__ __forceinline__ D9 sqrt_(const D9& a) {
+template <int N>
+__device__ __forceinline__ Dual<N> sqrt_(const Dual<N>& a) {
   const float s = sqrtf(a.v);
   return scaled(a, s, 0.5f / s);
 }
 // sin: g * cos(x);  cos: -(g * sin(x))
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
-__device__ __forceinline__ D9 sin_(const D9& a) {
+template <int N>
+__device__ __forceinline__ Dual<N> sin_(const Dual<N>& a) {
   return scaled(a, sinf(a.v), cosf(a.v));
 }
 __device__ __forceinline__ float cos_(float x) { return cosf(x); }
-__device__ __forceinline__ D9 cos_(const D9& a) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> cos_(const Dual<N>& a) {
+  Dual<N> r;
   r.v = cosf(a.v);
   const float s = sinf(a.v);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = -(a.d[i] * s);
+  for (int i = 0; i < N; ++i) r.d[i] = -(a.d[i] * s);
   return r;
 }
 // acos: g * -rsqrt(1 - x^2)
 __device__ __forceinline__ float acos_(float x) { return acosf(x); }
-__device__ __forceinline__ D9 acos_(const D9& a) {
+template <int N>
+__device__ __forceinline__ Dual<N> acos_(const Dual<N>& a) {
   return scaled(a, acosf(a.v), -(1.f / sqrtf(1.f - a.v * a.v)));
 }
 // atan2(y, x): g_y * (x / (y^2 + x^2)) + g_x * (-y / (y^2 + x^2))
 __device__ __forceinline__ float atan2_(float y, float x) {
   return atan2f(y, x);
 }
-__device__ __forceinline__ D9 atan2_(const D9& y, const D9& x) {
-  D9 r;
+template <int N>
+__device__ __forceinline__ Dual<N> atan2_(const Dual<N>& y,
+                                          const Dual<N>& x) {
+  Dual<N> r;
   r.v = atan2f(y.v, x.v);
   const float den = y.v * y.v + x.v * x.v;
   const float ky = x.v / den;
   const float kx = -y.v / den;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) r.d[i] = y.d[i] * ky + x.d[i] * kx;
+  for (int i = 0; i < N; ++i) r.d[i] = y.d[i] * ky + x.d[i] * kx;
   return r;
 }
 // x^2 (integer_pow): g * (2 x)
 __device__ __forceinline__ float square_(float x) { return x * x; }
-__device__ __forceinline__ D9 square_(const D9& a) {
+template <int N>
+__device__ __forceinline__ Dual<N> square_(const Dual<N>& a) {
   return scaled(a, a.v * a.v, 2.f * a.v);
 }
 // max/min against a constant, NaN-propagating like XLA; the tangent
@@ -238,11 +328,13 @@ __device__ __forceinline__ float minc(float x, float c) {
 __device__ __forceinline__ float balanced(float x, float ans, float c) {
   return (x == ans ? 1.f : 0.f) / (c == ans ? 2.f : 1.f);
 }
-__device__ __forceinline__ D9 maxc(const D9& a, float c) {
+template <int N>
+__device__ __forceinline__ Dual<N> maxc(const Dual<N>& a, float c) {
   const float ans = maxc(a.v, c);
   return scaled(a, ans, balanced(a.v, ans, c));
 }
-__device__ __forceinline__ D9 minc(const D9& a, float c) {
+template <int N>
+__device__ __forceinline__ Dual<N> minc(const Dual<N>& a, float c) {
   const float ans = minc(a.v, c);
   return scaled(a, ans, balanced(a.v, ans, c));
 }
@@ -310,12 +402,9 @@ struct Est {
   S s[3];
 };
 
-// lm_soa._exp_update(est, u) at u = 0, with u seeded for the Jacobian
+// lm_soa._exp_update(est, u): pose * se3_exp(u[:6]), scales + u[6:]
 template <class S>
-__device__ void exp_update(const float* est, Est<S>& out) {
-  S u[kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) u[i] = seed<S>(i);
+__device__ void exp_update(const float* est, const S* u, Est<S>& out) {
   const S &ox = u[0], &oy = u[1], &oz = u[2];
   // se3_exp: quaternion of omega (lm_soa._so3_exp_quat)
   S theta2 = ox * ox + oy * oy + oz * oz;
@@ -436,7 +525,7 @@ __device__ void residual_2d(const Est<S>& e, const S (&Ro)[3][3],
   const S proj[4] = {x_c - x_lim, y_c - y_lim, x_c + x_lim, y_c + y_lim};
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    r[k] = bb[k] >= 5.f ? proj[k] - bb[k] : zero<S>();
+    r[k] = bb[k] >= 5.f ? proj[k] - bb[k] : Scalar<S>::zero();
 }
 
 // lm_soa._so3_log
@@ -482,10 +571,12 @@ __device__ __forceinline__ void vinv_apply(const S* om, const S* t, S* o) {
 
 // lm_soa._res3d_soa for one edge: log error to the measured ellipsoid,
 // least over the 4 yaw candidates (argmin on values; first NaN, else first
-// minimum, like jnp.argmin)
+// minimum, like jnp.argmin).  The chosen candidate is written to out as it
+// is found: for Dual<9> out is the edge's rows in shared memory, so no
+// second set of nine duals stays live in registers.
 template <class S>
 __device__ void residual_3d(const Est<S>& e, const float* invp,
-                            const float* sc, S out[9]) {
+                            const float* sc, S* out) {
   float best = 0.f;
 #pragma unroll 1
   for (int k = 0; k < 4; ++k) {
@@ -530,142 +621,553 @@ __device__ S residual_gravity(const S (&R)[3][3], const float* normal) {
 }
 
 // ---------------------------------------------------------------------------
-// Weighting and accumulation
+// Weighting
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ D9 scale_by(const D9& a, float w) { return a * w; }
-__device__ __forceinline__ float scale_by(float a, float w) { return a * w; }
-
-// lm_soa._huber_w on values (the weight carries no tangent)
-template <class S, int N>
-__device__ __forceinline__ void huber(S (&r)[N], float delta, float delta2) {
-  float s = val(r[0]) * val(r[0]);
-#pragma unroll
-  for (int c = 1; c < N; ++c) s = s + val(r[c]) * val(r[c]);
-  const float h = s > delta2 ? sqrtf(delta / maxc(sqrtf(s), 1e-12f)) : 1.f;
-#pragma unroll
-  for (int c = 0; c < N; ++c) r[c] = scale_by(r[c], h);
-}
 
 // lm_soa._finite0: a non-finite value drops value and tangent
 template <class S>
 __device__ __forceinline__ S finite0(const S& x) {
-  return isfinite(val(x)) ? x : zero<S>();
+  return isfinite(val(x)) ? x : Scalar<S>::zero();
 }
 
-__device__ __forceinline__ void accumulate(float* acc, float r) {
-  acc[0] += r * r;
-}
-__device__ __forceinline__ void accumulate(float* acc, const D9& r) {
-  acc[0] += r.v * r.v;
+// an edge's N residual components, in place: the sqrt-info weight, the
+// Huber weight (lm_soa._huber_w, taken on values: no tangent), _finite0
+template <int N, class S>
+__device__ __forceinline__ void weigh(S* r, float w, float delta,
+                                      float delta2) {
 #pragma unroll
-  for (int k = 0; k < kN; ++k) acc[1 + k] += r.d[k] * r.v;
-  int idx = 1 + kN;
+  for (int c = 0; c < N; ++c) r[c] = r[c] * w;
+  if (delta > 0.f) {
+    float s = val(r[0]) * val(r[0]);
+#pragma unroll
+    for (int c = 1; c < N; ++c) s = s + val(r[c]) * val(r[c]);
+    const float h = s > delta2 ? sqrtf(delta / maxc(sqrtf(s), 1e-12f)) : 1.f;
+#pragma unroll
+    for (int c = 0; c < N; ++c) r[c] = r[c] * h;
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) r[c] = finite0(r[c]);
+}
+
+// ---------------------------------------------------------------------------
+// The part that depends on the estimate alone, once per block
+// ---------------------------------------------------------------------------
+
+// the scalar a lane of the per-object part computes with, and how many
+// lanes share the work: one float lane, or nine Dual<1> lanes whose
+// directions make up the Dual<9>
+template <class S> struct Lane;
+template <> struct Lane<float> {
+  using type = float;
+  static constexpr int n = 1;
+};
+template <> struct Lane<D9> {
+  using type = D1;
+  static constexpr int n = kN;
+};
+
+__device__ __forceinline__ void put(float& dst, float src, int) { dst = src; }
+__device__ __forceinline__ void put(D9& dst, const D1& src, int lane) {
+  if (lane == 0) dst.v = src.v;
+  dst.d[lane] = src.d[0];
+}
+
+// the updated estimate at u = 0, its rotation matrix and (where asked) the
+// weighted gravity residual, into shared memory; run by lanes < Lane<S>::n
+template <class S>
+__device__ void per_object(const float* est, const float* normal, float wg,
+                           bool with_gravity, int lane, Est<S>& sh_e,
+                           S (&sh_R)[3][3], S& sh_grav) {
+  using P = typename Lane<S>::type;
+  P u[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) u[i] = Scalar<P>::seed(i, lane);
+  Est<P> e;
+  exp_update(est, u, e);
+  P R[3][3];
+  qtomat(e.q, R);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) put(sh_e.t[i], e.t[i], lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) put(sh_e.q[i], e.q[i], lane);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) put(sh_e.s[i], e.s[i], lane);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) put(sh_R[i][j], R[i][j], lane);
+  if (with_gravity)
+    put(sh_grav, finite0(residual_gravity(R, normal) * wg), lane);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+struct Params {
+  // the problem (lm_soa.soa_normal_eq's arguments)
+  const float* est;       // [O,10] where the edges are evaluated
+  const float* pose2d;    // [O,M2,7]
+  const float* bbox2d;    // [O,M2,4]
+  const float* w2d;       // [O,M2]
+  const float* invp3;     // [O,M3,4,7]
+  const float* sc3;       // [O,M3,4,3]
+  const float* w3d;       // [O,M3]
+  const float* wg;        // [O]
+  const float* normal;    // [3]
+  const float* K;         // [3,3]
+  float huber_delta, huber_delta2;
+  int M2, M3;
+  // sums out (each may be null)
+  float* H;               // [O,9,9]
+  float* g;               // [O,9]
+  float* chi2;            // [O]
+  // solve step: lam in; est_new, du, lam0 out (g above)
+  const float* lam;       // [O]
+  float* est_new;         // [O,10]
+  float* du;              // [O,9]
+  float* lam0;            // [O]
+  // accept step: du, g, lam0 in; est, chi2, lam, nu updated in place
+  const float* du_in;
+  const float* g_in;
+  const float* lam0_in;
+  float* est_io;          // [O,10]
+  float* chi2_io;         // [O]
+  float* lam_io;          // [O]
+  float* nu_io;           // [O]
+  unsigned char* accept;  // [O]
+  long long* clocks;      // [8] phase clocks of ba_normal_eq, or null
+};
+
+// Where a launch's time goes, without a kernel profiler: built with
+// -DOSLAM_PHASE_CLOCKS, thread 0 of block (0, 0) of ba_normal_eq writes
+// clock64() at its phase boundaries into the buffer handed to
+// oslam_set_phase_clocks (examples/torch_ba_launch_sweep.py prints them).
+#ifdef OSLAM_PHASE_CLOCKS
+#define PHASE_CLOCK(i)                                                  \
+  if (p.clocks && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)      \
+    p.clocks[i] = clock64();
+long long* g_phase_clocks = nullptr;
+#else
+#define PHASE_CLOCK(i)
+#endif
+
+// index of H[k][l], k >= l, among the kNAcc sums: chi2, g[0..8], then H's
+// lower triangle row by row
+__device__ __forceinline__ int h_index(int k, int l) {
+  return 1 + kN + k * (k + 1) / 2 + l;
+}
+
+// the two columns of a row (r, dr/du_0..8) whose product sum p is
+__device__ __forceinline__ void columns_of(int p, int& a, int& b) {
+  if (p == 0) {
+    a = b = 0;
+  } else if (p <= kN) {
+    a = p;
+    b = 0;
+  } else {
+    int idx = p - 1 - kN;
+    int k = 0;
+    while (idx > k) {
+      idx -= k + 1;
+      ++k;
+    }
+    a = 1 + k;
+    b = 1 + idx;
+  }
+}
+
+// column a of a row (r, dr/du_0..8)
+__device__ __forceinline__ float column(const D9& x, int a) {
+  return a == 0 ? x.v : x.d[a - 1];
+}
+
+// J^T J of a warp's rows.  Every lane holds the NR rows of its edge (zeros
+// for no edge).  Sum p of the kNAcc, columns a and b, is taken over the
+// lane's rows in order, then over the lanes by a fixed xor-shuffle
+// pattern; lane p mod 32 adds the warp's total to its acc0 (p < 32) or
+// acc1.  All indices are constants once the loops are unrolled.
+template <int NR>
+__device__ __forceinline__ void warp_jtj(const D9 (&r)[NR], int lane,
+                                         float& acc0, float& acc1) {
+  auto sum = [&](int p, int a, int b) {
+    float s = column(r[0], a) * column(r[0], b);
+#pragma unroll
+    for (int c = 1; c < NR; ++c) s += column(r[c], a) * column(r[c], b);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(kFullWarp, s, off);
+    if (lane == (p & 31)) {
+      if (p < 32)
+        acc0 += s;
+      else
+        acc1 += s;
+    }
+  };
+  sum(0, 0, 0);
+#pragma unroll
+  for (int k = 0; k < kN; ++k) sum(1 + k, 1 + k, 0);
 #pragma unroll
   for (int k = 0; k < kN; ++k)
 #pragma unroll
-    for (int l = 0; l <= k; ++l) acc[idx++] += r.d[k] * r.d[l];
+    for (int l = 0; l <= k; ++l) sum(h_index(k, l), 1 + k, 1 + l);
 }
 
-template <class S> struct NAcc;
-template <> struct NAcc<float> { static constexpr int n = 1; };
-template <> struct NAcc<D9> { static constexpr int n = kNAcc; };
+// lm_soa.lm_solve_step_plain after the sums, by the lanes of one warp:
+// lane i < 9 holds row i of A = H + lam0 I (the other lanes repeat row 8);
+// est_lam holds the estimate's 10 floats and lam
+__device__ void solve_epilogue(const float* tot, const float* est_lam,
+                               const Params& p, int o, int lane) {
+  // lam0 = max(where(lam < 0, tau * max diag H, lam), 1e-12)
+  float m = tot[h_index(0, 0)];
+#pragma unroll
+  for (int k = 1; k < kN; ++k) m = maxc(tot[h_index(k, k)], m);
+  const float lam = est_lam[10];
+  const float lam0 = maxc(lam < 0.f ? kTau * m : lam, 1e-12f);
 
-template <class S>
-__global__ void __launch_bounds__(kThreads) ba_edges_kernel(
-    const float* __restrict__ est, const float* __restrict__ pose2d,
-    const float* __restrict__ bbox2d, const float* __restrict__ w2d,
-    const float* __restrict__ invp3, const float* __restrict__ sc3,
-    const float* __restrict__ w3d, const float* __restrict__ wg,
-    const float* __restrict__ normal, const float* __restrict__ K,
-    float huber_delta, float huber_delta2, int M2, int M3,
-    float* __restrict__ H, float* __restrict__ g, float* __restrict__ chi2) {
-  constexpr int NA = NAcc<S>::n;
-  __shared__ Est<S> sh_e;
-  __shared__ S sh_R[3][3];
-  __shared__ float sh_red[NA][kThreads];
+  const int i = lane < kN ? lane : kN - 1;
+  float a[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    a[j] = tot[h_index(i > j ? i : j, i > j ? j : i)] +
+           lam0 * (i == j ? 1.f : 0.f);
+  const float b = tot[1 + i];
 
-  const int o = blockIdx.x;
+  // ops/linalg.chol_solve_small: L[j] is L[i][j] of this lane's row
+  float L[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    float s = a[j];
+#pragma unroll
+    for (int k = 0; k < j; ++k)
+      s = s - L[k] * __shfl_sync(kFullWarp, L[k], j);
+    const float d = sqrtf(maxc(s, 1e-20f));
+    const float djj = __shfl_sync(kFullWarp, d, j);
+    L[j] = i == j ? d : s / djj;
+  }
+  float y[kN];
+#pragma unroll
+  for (int r = 0; r < kN; ++r) {
+    float s = b;
+#pragma unroll
+    for (int k = 0; k < r; ++k) s = s - L[k] * y[k];
+    y[r] = __shfl_sync(kFullWarp, s / L[r], r);
+  }
+  float x[kN];
+#pragma unroll
+  for (int r = kN - 1; r >= 0; --r) {
+    float s = y[r];
+#pragma unroll
+    for (int k = r + 1; k < kN; ++k)
+      s = s - __shfl_sync(kFullWarp, L[r], k) * x[k];
+    x[r] = s / __shfl_sync(kFullWarp, L[r], r);
+  }
+
+  // du = -x behind the all-finite gate, then the vertex update
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) ok = ok && isfinite(x[k]);
+  float du[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) du[k] = ok ? -x[k] : 0.f;
+  Est<float> e;
+  exp_update(est_lam, du, e);
+  if (lane == 0) {
+    float* out = p.est_new + 10 * o;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[k] = e.t[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[3 + k] = e.q[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[7 + k] = e.s[k];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      p.du[kN * o + k] = du[k];
+      p.g[kN * o + k] = tot[1 + k];
+    }
+    p.lam0[o] = lam0;
+  }
+}
+
+// lm_soa.lm_accept_step_plain after chi2 at the trial estimate, one thread
+__device__ void accept_epilogue(float chi2_new, const Params& p, int o) {
+  const float chi2 = p.chi2_io[o];
+  const float lam0 = p.lam0_in[o];
+  const float nu = p.nu_io[o];
+  const float* du = p.du_in + kN * o;
+  const float* g = p.g_in + kN * o;
+  float denom = du[0] * (lam0 * du[0] - g[0]);
+#pragma unroll
+  for (int k = 1; k < kN; ++k) denom = denom + du[k] * (lam0 * du[k] - g[k]);
+  const float rho =
+      (chi2 - chi2_new) / (fabsf(denom) > 1e-20f ? denom : 1e-20f);
+  const bool accept = chi2_new < chi2 && isfinite(chi2_new);
+  const float t = 2.f * rho - 1.f;
+  const float factor =
+      minc(maxc(1.f - t * t * t, (float)(1.0 / 3.0)), (float)(2.0 / 3.0));
+  p.lam_io[o] = accept ? lam0 * factor : lam0 * nu;
+  p.nu_io[o] = accept ? 2.f : nu * 2.f;
+  p.accept[o] = accept ? 1 : 0;
+  if (accept) {
+    p.chi2_io[o] = chi2_new;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) p.est_io[10 * o + k] = p.est[10 * o + k];
+  }
+}
+
+// grid (S, O), cluster (S, 1, 1): the S blocks of a cluster share object
+// blockIdx.y; edge j of the object's M2 + M3 goes to thread j mod (S * T)
+template <bool kStep>
+__global__ void __launch_bounds__(kMaxThreads) ba_normal_eq_kernel(
+    const Params p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nranks = (int)cluster.num_blocks();
+  const int o = blockIdx.y;
   const int tid = threadIdx.x;
-  const float fx = K[0], fy = K[4], cx = K[2], cy = K[5];
+  const int T = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  PHASE_CLOCK(0)
 
-  if (tid == 0) {
-    Est<S> e;
-    exp_update(est + 10 * o, e);
-    S R[3][3];
-    qtomat(e.q, R);
-    sh_e = e;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) sh_R[i][j] = R[i][j];
-  }
+  extern __shared__ float stage[];      // a 3D edge's rows, kSlot3 a thread
+  __shared__ Est<D9> sh_e;
+  __shared__ D9 sh_R[3][3];
+  __shared__ D9 sh_grav;
+  __shared__ float sh_part[kMaxThreads / 32][kNAcc];
+  __shared__ float sh_sum[kNAcc];       // this block's sums (read by rank 0)
+  __shared__ float sh_tot[kNAcc];       // the object's sums (rank 0)
+  __shared__ float sh_est_lam[11];      // est and lam for the epilogue
+
+  const float fx = p.K[0], fy = p.K[4], cx = p.K[2], cy = p.K[5];
+  if (tid < Lane<D9>::n)
+    per_object<D9>(p.est + 10 * o, p.normal, p.wg[o], rank == 0, tid, sh_e,
+                   sh_R, sh_grav);
+  if (kStep && rank == 0 && warp == 1 && lane < 11)
+    sh_est_lam[lane] = lane < 10 ? p.est[10 * o + lane] : p.lam[o];
+
+  // lane l of each warp keeps the warp's sums l (acc0) and l + 32 (acc1)
+  float acc0 = 0.f, acc1 = 0.f;
   __syncthreads();
+  PHASE_CLOCK(1)                        // the per-object part is done
 
-  float acc[NA];
+  const int M2 = p.M2, M3 = p.M3;
+  const int E = M2 + M3;
+  D9* rows3 = reinterpret_cast<D9*>(stage + tid * kSlot3);
+  for (int j0 = rank * T; j0 < E; j0 += nranks * T) {
+    // this round's edges j0 .. j0 + nslots - 1: first n2 2D, then 3D
+    const int nslots = E - j0 < T ? E - j0 : T;
+    const int left2 = M2 - j0;
+    const int n2 = left2 < 0 ? 0 : (left2 < nslots ? left2 : nslots);
+    D9 r[4];
 #pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
-
-  for (int m = tid; m < M2; m += kThreads) {
-    const size_t i = (size_t)o * M2 + m;
-    S r[4];
-    residual_2d(sh_e, sh_R, pose2d + 7 * i, bbox2d + 4 * i, fx, fy, cx, cy,
-                r);
-    const float w = w2d[i];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) r[c] = scale_by(r[c], w);
-    if (huber_delta > 0.f) huber(r, huber_delta, huber_delta2);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) accumulate(acc, finite0(r[c]));
-  }
-
-  for (int m = tid; m < M3; m += kThreads) {
-    const size_t i = (size_t)o * M3 + m;
-    S r[9];
-    residual_3d(sh_e, invp3 + 28 * i, sc3 + 12 * i, r);
-    const float w = w3d[i];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) r[c] = scale_by(r[c], w);
-    if (huber_delta > 0.f) huber(r, huber_delta, huber_delta2);
-#pragma unroll
-    for (int c = 0; c < 9; ++c) accumulate(acc, finite0(r[c]));
-  }
-
-  if (tid == 0)
-    accumulate(acc, finite0(scale_by(residual_gravity(sh_R, normal), wg[o])));
-
-  // fixed-order tree reduction over the block
-#pragma unroll
-  for (int i = 0; i < NA; ++i) sh_red[i][tid] = acc[i];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      for (int i = 0; i < NA; ++i) sh_red[i][tid] += sh_red[i][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid < NA) {
-    const float s = sh_red[tid][0];
-    if (tid == 0) {
-      chi2[o] = s;
-    } else if (tid <= kN) {
-      g[kN * o + tid - 1] = s;
-    } else {
-      // acc index 1 + kN + k(k+1)/2 + l  ->  H[k][l] and H[l][k]
-      int idx = tid - 1 - kN;
-      int k = 0;
-      while (idx > k) {
-        idx -= k + 1;
-        ++k;
+    for (int c = 0; c < 4; ++c) r[c] = Scalar<D9>::zero();
+    bool staged3 = false;
+    if (tid < n2) {
+      const size_t i = (size_t)o * M2 + j0 + tid;
+      const float w = p.w2d[i];
+      if (w != 0.f) {
+        residual_2d(sh_e, sh_R, p.pose2d + 7 * i, p.bbox2d + 4 * i, fx, fy,
+                    cx, cy, r);
+        weigh<4>(r, w, p.huber_delta, p.huber_delta2);
       }
-      H[kN * kN * o + kN * k + idx] = s;
-      H[kN * kN * o + kN * idx + k] = s;
+    } else if (tid < nslots) {
+      const size_t i = (size_t)o * M3 + (j0 + tid - M2);
+      const float w = p.w3d[i];
+      if (w != 0.f) {
+        residual_3d(sh_e, p.invp3 + 28 * i, p.sc3 + 12 * i, rows3);
+        weigh<9>(rows3, w, p.huber_delta, p.huber_delta2);
+        staged3 = true;
+      }
     }
+    PHASE_CLOCK(2)                      // this thread's edge chain is done
+
+    // the warp's J^T J: 4 rows a lane where no lane has a 3D edge, else 9
+    // (a 2D edge's 4 rows and 5 of zeros)
+    if (!__any_sync(kFullWarp, staged3)) {
+      if (__any_sync(kFullWarp, tid < n2)) warp_jtj(r, lane, acc0, acc1);
+    } else {
+      D9 r9[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c)
+        r9[c] = staged3 ? rows3[c] : (c < 4 ? r[c] : Scalar<D9>::zero());
+      warp_jtj(r9, lane, acc0, acc1);
+    }
+  }
+
+  PHASE_CLOCK(3)                        // the warp's J^T J is done
+  // warps in order, then the cluster's blocks in rank order
+  sh_part[warp][lane] = acc0;
+  if (lane + 32 < kNAcc) sh_part[warp][lane + 32] = acc1;
+  __syncthreads();
+  if (tid < kNAcc) {
+    float s = sh_part[0][tid];
+    for (int k = 1; k < T / 32; ++k) s += sh_part[k][tid];
+    sh_sum[tid] = s;
+  }
+  cluster.sync();
+  PHASE_CLOCK(4)                        // every block's sums are there
+  if (rank == 0 && tid < kNAcc) {
+    float s = sh_sum[tid];
+    for (int r = 1; r < nranks; ++r)
+      s += cluster.map_shared_rank(sh_sum, r)[tid];
+    int ca, cb;
+    columns_of(tid, ca, cb);
+    const float* grav = reinterpret_cast<const float*>(&sh_grav);
+    s += grav[ca] * grav[cb];
+    sh_tot[tid] = s;
+    if (tid == 0) {
+      if (p.chi2) p.chi2[o] = s;
+    } else if (tid <= kN) {
+      if (!kStep && p.g) p.g[kN * o + tid - 1] = s;
+    } else if (p.H) {
+      // columns 1 + k, 1 + l  ->  H[k][l] and H[l][k]
+      p.H[kN * kN * o + kN * (ca - 1) + (cb - 1)] = s;
+      p.H[kN * kN * o + kN * (cb - 1) + (ca - 1)] = s;
+    }
+  }
+  // no block leaves while rank 0 reads its shared memory
+  cluster.sync();
+  PHASE_CLOCK(5)                        // the object's sums are written
+  if (kStep && rank == 0 && warp == 0)
+    solve_epilogue(sh_tot, sh_est_lam, p, o, lane);
+  PHASE_CLOCK(6)                        // the solve epilogue is done
+}
+
+template <bool kStep>
+__global__ void __launch_bounds__(kMaxThreads) ba_chi2_kernel(
+    const Params p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nranks = (int)cluster.num_blocks();
+  const int o = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+
+  __shared__ Est<float> sh_e;
+  __shared__ float sh_R[3][3];
+  __shared__ float sh_grav;
+  __shared__ float sh_warp[kMaxThreads / 32];
+  __shared__ float sh_sum;              // this block's sum (read by rank 0)
+
+  const float fx = p.K[0], fy = p.K[4], cx = p.K[2], cy = p.K[5];
+  if (tid < Lane<float>::n)
+    per_object<float>(p.est + 10 * o, p.normal, p.wg[o], rank == 0, tid,
+                      sh_e, sh_R, sh_grav);
+  __syncthreads();
+
+  const int M2 = p.M2, M3 = p.M3;
+  const int E = M2 + M3;
+  float acc = 0.f;
+  for (int j = rank * T + tid; j < E; j += nranks * T) {
+    if (j < M2) {
+      const size_t i = (size_t)o * M2 + j;
+      const float w = p.w2d[i];
+      if (w != 0.f) {
+        float r[4];
+        residual_2d(sh_e, sh_R, p.pose2d + 7 * i, p.bbox2d + 4 * i, fx, fy,
+                    cx, cy, r);
+        weigh<4>(r, w, p.huber_delta, p.huber_delta2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc += r[c] * r[c];
+      }
+    } else {
+      const size_t i = (size_t)o * M3 + (j - M2);
+      const float w = p.w3d[i];
+      if (w != 0.f) {
+        float r[9];
+        residual_3d(sh_e, p.invp3 + 28 * i, p.sc3 + 12 * i, r);
+        weigh<9>(r, w, p.huber_delta, p.huber_delta2);
+#pragma unroll
+        for (int c = 0; c < 9; ++c) acc += r[c] * r[c];
+      }
+    }
+  }
+
+  // lanes by a fixed xor pattern, warps in order, blocks in rank order
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFullWarp, acc, off);
+  if ((tid & 31) == 0) sh_warp[tid >> 5] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    float s = sh_warp[0];
+    for (int k = 1; k < T / 32; ++k) s += sh_warp[k];
+    sh_sum = s;
+  }
+  cluster.sync();
+  float total = 0.f;
+  if (rank == 0 && tid == 0) {
+    total = sh_sum;
+    for (int r = 1; r < nranks; ++r)
+      total += *cluster.map_shared_rank(&sh_sum, r);
+    total += sh_grav * sh_grav;
+  }
+  // no block leaves while rank 0 reads its shared memory
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    if (kStep)
+      accept_epilogue(total, p, o);
+    else
+      p.chi2[o] = total;
   }
 }
+
+template <class Kernel>
+int launch(Kernel kernel, const Params& p, int O, int S, int T,
+           size_t shared_bytes, void* stream) {
+  if (O < 1 || O > 65535 || S < 1 || S > 8 || T < 32 || T > kMaxThreads ||
+      T % 32 != 0)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, O, 1);
+  cfg.blockDim = dim3(T, 1, 1);
+  cfg.dynamicSmemBytes = shared_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (rc == cudaSuccess) rc = cudaGetLastError();
+  return (int)rc;
+}
+
+Params problem(const float* est, const float* pose2d, const float* bbox2d,
+               const float* w2d, const float* invp3, const float* sc3,
+               const float* w3d, const float* wg, const float* normal,
+               const float* K, float huber_delta, float huber_delta2, int M2,
+               int M3) {
+  Params p = {};
+  p.est = est;
+  p.pose2d = pose2d;
+  p.bbox2d = bbox2d;
+  p.w2d = w2d;
+  p.invp3 = invp3;
+  p.sc3 = sc3;
+  p.w3d = w3d;
+  p.wg = wg;
+  p.normal = normal;
+  p.K = K;
+  p.huber_delta = huber_delta;
+  p.huber_delta2 = huber_delta2;
+  p.M2 = M2;
+  p.M3 = M3;
+#ifdef OSLAM_PHASE_CLOCKS
+  p.clocks = g_phase_clocks;
+#endif
+  return p;
+}
+
+size_t stage_bytes(int T) { return (size_t)T * kSlot3 * sizeof(float); }
 
 }  // namespace
 
+// S blocks of T threads per object (backend/ba_kernels.launch_shape); every
+// function returns the CUDA error code of its launch (0 = launched).
 extern "C" {
 
 int oslam_ba_normal_eq(const float* est, const float* pose2d,
@@ -673,24 +1175,78 @@ int oslam_ba_normal_eq(const float* est, const float* pose2d,
                        const float* invp3, const float* sc3, const float* w3d,
                        const float* wg, const float* normal, const float* K,
                        float huber_delta, float huber_delta2, int O, int M2,
-                       int M3, float* H, float* g, float* chi2,
+                       int M3, int S, int T, float* H, float* g, float* chi2,
                        void* stream) {
-  ba_edges_kernel<D9><<<O, kThreads, 0, (cudaStream_t)stream>>>(
-      est, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg, normal, K, huber_delta,
-      huber_delta2, M2, M3, H, g, chi2);
-  return (int)cudaGetLastError();
+  Params p = problem(est, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg, normal, K,
+                     huber_delta, huber_delta2, M2, M3);
+  p.H = H;
+  p.g = g;
+  p.chi2 = chi2;
+  return launch(ba_normal_eq_kernel<false>, p, O, S, T, stage_bytes(T),
+                stream);
 }
 
 int oslam_ba_chi2(const float* est, const float* pose2d, const float* bbox2d,
                   const float* w2d, const float* invp3, const float* sc3,
                   const float* w3d, const float* wg, const float* normal,
                   const float* K, float huber_delta, float huber_delta2, int O,
-                  int M2, int M3, float* chi2, void* stream) {
-  ba_edges_kernel<float><<<O, kThreads, 0, (cudaStream_t)stream>>>(
-      est, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg, normal, K, huber_delta,
-      huber_delta2, M2, M3, nullptr, nullptr, chi2);
-  return (int)cudaGetLastError();
+                  int M2, int M3, int S, int T, float* chi2, void* stream) {
+  Params p = problem(est, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg, normal, K,
+                     huber_delta, huber_delta2, M2, M3);
+  p.chi2 = chi2;
+  return launch(ba_chi2_kernel<false>, p, O, S, T, 0, stream);
 }
+
+// ba_normal_eq at est, then the solve epilogue; H may be null
+int oslam_lm_solve_step(const float* est, const float* pose2d,
+                        const float* bbox2d, const float* w2d,
+                        const float* invp3, const float* sc3,
+                        const float* w3d, const float* wg,
+                        const float* normal, const float* K,
+                        float huber_delta, float huber_delta2, int O, int M2,
+                        int M3, int S, int T, const float* lam,
+                        float* est_new, float* du, float* g, float* lam0,
+                        float* H, void* stream) {
+  Params p = problem(est, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg, normal, K,
+                     huber_delta, huber_delta2, M2, M3);
+  p.lam = lam;
+  p.est_new = est_new;
+  p.du = du;
+  p.g = g;
+  p.lam0 = lam0;
+  p.H = H;
+  return launch(ba_normal_eq_kernel<true>, p, O, S, T, stage_bytes(T),
+                stream);
+}
+
+// ba_chi2 at est_new, then the accept epilogue: est, chi2, lam and nu are
+// updated in place
+int oslam_lm_accept_step(const float* est_new, const float* pose2d,
+                         const float* bbox2d, const float* w2d,
+                         const float* invp3, const float* sc3,
+                         const float* w3d, const float* wg,
+                         const float* normal, const float* K,
+                         float huber_delta, float huber_delta2, int O, int M2,
+                         int M3, int S, int T, const float* du,
+                         const float* g, const float* lam0, float* est,
+                         float* chi2, float* lam, float* nu,
+                         unsigned char* accept, void* stream) {
+  Params p = problem(est_new, pose2d, bbox2d, w2d, invp3, sc3, w3d, wg,
+                     normal, K, huber_delta, huber_delta2, M2, M3);
+  p.du_in = du;
+  p.g_in = g;
+  p.lam0_in = lam0;
+  p.est_io = est;
+  p.chi2_io = chi2;
+  p.lam_io = lam;
+  p.nu_io = nu;
+  p.accept = accept;
+  return launch(ba_chi2_kernel<true>, p, O, S, T, 0, stream);
+}
+
+#ifdef OSLAM_PHASE_CLOCKS
+void oslam_set_phase_clocks(long long* clocks) { g_phase_clocks = clocks; }
+#endif
 
 const char* oslam_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

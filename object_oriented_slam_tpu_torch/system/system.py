@@ -2,7 +2,9 @@
 
 Mirrors the reference API surface (``include/core/System.h:27-52``):
 construction from a settings yaml, ``track_with_objects`` per frame and the
-output save helpers, for the 2D-only loop on ``device``.
+output save helpers, for the 2D-only loop on ``device``: the CUDA device
+by default (a ``RuntimeError`` names it when there is none), the CPU when
+the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from .tracking import Tracking
 
 class System:
     def __init__(self, settings_file: str, use_viewer: bool = False,
-                 extractor=None, plane_estimator=None, device="cpu"):
+                 extractor=None, plane_estimator=None, device=None):
         self.config = Config(settings_file)
         self.tracker = Tracking(self.config, extractor=extractor,
                                 plane_estimator=plane_estimator,

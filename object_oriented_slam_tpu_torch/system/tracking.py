@@ -86,8 +86,23 @@ def _pinned(name: str, value, what: str):
     return property(get, set_)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device the loop runs on: ``cuda`` unless the caller names one.
+    There is no fall-back: without a usable CUDA device the default (or a
+    named cuda device) raises; ``device="cpu"`` asks for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} is not available: the mapping loop runs "
+            "its LM on an NVIDIA GPU by default (torch.cuda.is_available() "
+            "is False here); pass device=\"cpu\" to run the plain PyTorch "
+            "versions on the CPU")
+    return dev
+
+
 class Tracking:
-    """Host orchestrator of the 2D-only mapping loop on ``device``."""
+    """Host orchestrator of the 2D-only mapping loop on ``device`` (the
+    CUDA device unless the caller passes one, e.g. ``device="cpu"``)."""
 
     # capacities of the batched backend call: MAX_OBJECTS is the initial
     # object tier (grows 24 -> 48 -> ... on demand, like the reference's
@@ -107,7 +122,7 @@ class Tracking:
                               "the array-of-structs LM backend")
 
     def __init__(self, config: Config, extractor=None, plane_estimator=None,
-                 device="cpu"):
+                 device=None):
         if extractor is not None or plane_estimator is not None:
             raise NotImplementedError(
                 "depth extraction and ground-plane estimation are not "
@@ -118,7 +133,7 @@ class Tracking:
                 "Visualization.Builder.Open: the dense builder is not "
                 "ported to the torch package")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.camera = cam_mod.Camera(
             fx=config.get_float("Camera.fx"),
             fy=config.get_float("Camera.fy"),

@@ -9,7 +9,9 @@ Tolerances: H and g within 1e-4 of max|H| per object and chi2 within
 rtol 1e-5 -- f32 round-off with other summation orders (a per-thread then
 tree reduction against einsum) and FMA contraction in the kernel; the
 whole 10-iteration LM within 2e-3, the JAX package's SoA-vs-AoS tolerance
-(tests/test_lm_soa.py).
+(tests/test_lm_soa.py).  The two LM step entry points: du, est_new and lam0
+within 1e-4 of max|.| per object (the 9x9 solve amplifies H's round-off),
+accept flags equal, lam / nu / chi2 within 1e-5, repeats bit-equal.
 """
 import numpy as np
 import pytest
@@ -98,6 +100,66 @@ def test_lm_on_cuda_matches_cpu(device):
     np.testing.assert_allclose(est_d.cpu().numpy(), est_c.numpy(), atol=2e-3)
     np.testing.assert_allclose(chi_d.cpu().numpy(), chi_c.numpy(),
                                rtol=1e-2, atol=1e-3)
+
+
+def _rel_close(got, want, tol):
+    """Within tol of max|want| per object (row)."""
+    O = want.shape[0]
+    a = got.double().cpu().numpy().reshape(O, -1)
+    b = want.double().cpu().numpy().reshape(O, -1)
+    assert a.shape == b.shape
+    assert (np.abs(a - b).max(1) <= tol * np.abs(b).max(1) + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 64, 32), (24, 512, 32),
+                                   (24, 512, 256)])
+def test_step_kernels_match_plain(device, shape):
+    """One LM iteration as two launches: du, est_new, lam0 within 1e-4 of
+    max|.| per object, g within 1e-4 of max|H|, equal accept flags, lam /
+    nu / chi2 within 1e-5, the state updated in place, equal bits on a
+    second launch."""
+    obs, prep, w2, w3, wg, n, K = _problem(device, *shape, seed=8)
+    problem = (prep, w2, w3, wg, n, K, 0.0)
+    O = shape[0]
+    lam = torch.full((O,), -1.0, device=device)
+    nu = torch.full((O,), 2.0, device=device)
+    before = (ba_kernels.NORMAL_EQ.launches, ba_kernels.CHI2.launches)
+    got = ba_kernels.lm_solve_step(obs.est0, lam, *problem, want_H=True)
+    again = ba_kernels.lm_solve_step(obs.est0, lam, *problem)
+    torch.cuda.synchronize()
+    assert again[4] is None
+    want = lm_soa.lm_solve_step_plain(obs.est0, lam, *problem, want_H=True)
+    est_new, du, g, lam0, H = want
+    for a, b in zip(got[:4], again[:4]):
+        assert torch.equal(a, b)
+    _rel_close(got[0], est_new, 1e-4)
+    _rel_close(got[1], du, 1e-4)
+    _rel_close(got[3][:, None], lam0[:, None], 1e-4)
+    scale = H.abs().flatten(1).amax(1, keepdim=True)
+    assert bool(((got[2] - g).abs() <= 1e-4 * scale + 1e-30).all())
+    assert bool(((got[4] - H).abs().flatten(1) <= 1e-4 * scale + 1e-30).all())
+
+    chi2 = lm_soa.soa_chi2_plain(obs.est0, *problem)
+    want = lm_soa.lm_accept_step_plain(obs.est0, chi2, lam, nu, est_new, du,
+                                       g, lam0, *problem)
+    runs = []
+    for _ in range(2):
+        state = [t.clone() for t in (obs.est0, chi2, lam, nu)]
+        out = ba_kernels.lm_accept_step(*state, est_new, du, g, lam0,
+                                        *problem)
+        assert all(a is b for a, b in zip(out[:4], state))
+        runs.append(out)
+    torch.cuda.synchronize()
+    assert (ba_kernels.NORMAL_EQ.launches, ba_kernels.CHI2.launches) \
+        == (before[0] + 2, before[1] + 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][4], want[4])
+    assert bool(want[4].any())
+    for a, b in zip(runs[0][:4], want[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5)
 
 
 def test_wrapper_checks_inputs(device):

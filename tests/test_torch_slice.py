@@ -4,7 +4,8 @@ JAX run to the port.
 
 One 8-object, 30-frame synthetic sequence (io/synthetic.py) with the
 in-repo settings file goes through both Systems with the same detections.
-Tolerance: the same initialized instances, centres and sorted scales
+The CPU tests ask for the CPU (``device="cpu"``): the port's entry points
+default to the CUDA device.  Tolerance: the same initialized instances, centres and sorted scales
 within 2e-3 (f32 LM round-off accumulated over the run, the class of
 tests/test_lm_soa.py); quaternions are not compared, since a near
 z-symmetric object may flip its yaw along a flat direction of the cost.
@@ -76,7 +77,7 @@ def _assert_maps_close(got, want):
 
 def test_slice_matches_jax(jax_run, tmp_path):
     scene, frames, want, _, jhist = jax_run
-    slam = System(YAML)
+    slam = System(YAML, device="cpu")
     for i, ts, pose, depth, rgb, det in frames:
         slam.track_with_objects(ts, pose, det, depth=depth)
     got = slam.map_objects
@@ -106,7 +107,7 @@ def test_checkpoint_handover_from_jax(jax_run, tmp_path):
     """A JAX run's checkpoint resumes in the port and ends where the JAX
     run ends."""
     _, frames, want, ckpt, _ = jax_run
-    slam = System(YAML)
+    slam = System(YAML, device="cpu")
     slam.tracker.restore_state(tckpt.load_state(ckpt))
     # the per-LM-call object_list.txt dump (Optimizer.WriteObjectList.Open)
     slam.tracker.write_object_list = True
@@ -163,7 +164,7 @@ def test_synthetic_frames_match_jax():
 def test_object_tier_grows():
     """More instances than MAX_OBJECTS double the object axis with the
     buffers (and the device warm start) carried over."""
-    tr = Tracking(Config(YAML))
+    tr = Tracking(Config(YAML), device="cpu")
     tr._est_prev_dev = torch.ones((tr.MAX_OBJECTS, 10))
     pose = np.array([0, 0, 0, 0, 0, 0, 1.0])
     for inst in range(tr.MAX_OBJECTS + 1):
@@ -173,6 +174,27 @@ def test_object_tier_grows():
     assert tr._b_views["m2"][:, 0].sum() == tr.MAX_OBJECTS + 1
     assert tuple(tr._est_prev_dev.shape) == (2 * tr.MAX_OBJECTS, 10)
     assert float(tr._est_prev_dev[tr.MAX_OBJECTS:].abs().sum()) == 0.0
+
+
+def test_default_device_is_cuda_with_no_fallback():
+    """Without a device argument the entry points run on the card; on a
+    host without CUDA they raise an error that names the device instead of
+    falling back, and ``device="cpu"`` runs the plain versions."""
+    if torch.cuda.is_available():
+        assert System(YAML).tracker.device.type == "cuda"
+        assert Tracking(Config(YAML)).device.type == "cuda"
+    else:
+        for make in (lambda: System(YAML), lambda: Tracking(Config(YAML)),
+                     lambda: System(YAML, device="cuda:0")):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+    slam = System(YAML, device="cpu")
+    assert slam.tracker.device == torch.device("cpu")
+    assert Tracking(Config(YAML), device="cpu").device.type == "cpu"
+    scene, frames = _frames()
+    for i, ts, pose, depth, rgb, det in frames[:3]:
+        assert slam.track_with_objects(ts, pose, det)
+    assert slam.tracker._K_dev.device.type == "cpu"
 
 
 def test_observation_tiers_are_powers_of_two():
@@ -195,9 +217,9 @@ def test_unported_options_raise(what):
     if what == "dense_builder":
         cfg._file["Visualization.Builder.Open"] = 1.0
         with pytest.raises(NotImplementedError):
-            Tracking(cfg)
+            Tracking(cfg, device="cpu")
         return
-    tr = Tracking(cfg)
+    tr = Tracking(cfg, device="cpu")
     pose = np.array([0, 0, 0, 0, 0, 0, 1.0])
     act = {
         "ext_result": lambda: tr.grab_pose_and_objects(
