@@ -5,7 +5,8 @@
 Phases (each raises on failure; the script exits non-zero if any fails):
   1. the card's name and power limit; TF32 off for the plain versions'
      matmuls;
-  2. build the BA edge kernels from csrc/ba_edges.cu (nvcc, sm_90a);
+  2. build the BA edge kernels from csrc/ba_edges.cu and the depth-frontend
+     kernels from csrc/frontend.cu (nvcc, sm_90a, both at once);
   3. each kernel against its plain PyTorch version on the same card
      tensors, at full capacity (24 objects, 512 2D and 256 3D edges each,
      gravity on) and at the main path's tier (24, 512, 32), with its time
@@ -21,8 +22,24 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      truth; objects.txt is written to a temporary directory; the
      profiler's launch count of one LM call and of one LM iteration (which
      must be exactly two kernel launches);
-  5. one JSON line per kernel, the card line, and the result line
-     {"ok": true, "device": {...}} last.
+  5. the depth main path: System with the extractor and the plane
+     estimator over a 160-frame orbit of the same 24-object scene with
+     rendered depth (ground plane, monolithic extraction, 3D observations
+     and initialisation, the LM with live 3D edges), with the launch counts
+     of every kernel, e2e / extraction / backend ms per frame, the cloud
+     tiers and the clustering rounds;
+  6. the depth-frontend kernels (bbox_cloud, both voxel_segment_mean
+     launches, min_label_pass, pointer_jumps) against their plain versions
+     at the shapes the depth main path gave them on its mid-orbit frame
+     (that frame through the extractor's own packing: 32 detection lanes,
+     its cloud tier, the lanes its survivors compact to; the script raises
+     if the path ran that frame at other shapes), and at the full tier (8
+     detections, cloud capacity 16384): masks, cells and labels equal,
+     floats bit for bit against the plain version on the CPU and within
+     1e-6 against it on the card, repeats bit-equal, device time beside the
+     bound;
+  7. one JSON line with a record per kernel, the card line, and the result
+     line {"ok": true, "device": {...}} last.
 """
 import json
 import os
@@ -57,6 +74,23 @@ OPS = {
 }
 OPS_SOLVE = 675     # lam0, 9x9 Cholesky solve, gate, exp update (float)
 OPS_ACCEPT = 50     # denom, rho, accept, schedule
+FE_SOURCE = "object_oriented_slam_tpu_torch/csrc/frontend.cu"
+FE_TIER = 16384             # the extractor's default cloud capacity
+FE_DETECTIONS = 8
+N_DEPTH_FRAMES = 160
+# f32 / integer operations of one pair test of min_label_pass, counted from
+# csrc/frontend.cu: 3 multiplies and 2 adds (the dot product), the sum of
+# the norms, the doubling, the difference, 2 compares and a select.  The
+# bound charges them for the pairs the function needs: unmasked points of
+# one detection against each other
+PAIR_OPS = 11
+# the functions of the JAX package (left to XLA there) that the frontend
+# kernels replace
+FE_REPLACES = {
+    "bbox_cloud": "object_oriented_slam_tpu/ops/backproject.py:28",
+    "voxel_segment_mean": "object_oriented_slam_tpu/ops/voxel.py:58",
+    "min_label_pass": "object_oriented_slam_tpu/ops/cluster.py:78",
+    "pointer_jumps": "object_oriented_slam_tpu/ops/cluster.py:214"}
 REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
@@ -116,14 +150,18 @@ def profiled(fn, reps=1, expect=None):
     return events
 
 
-def device_ms(fn, reps, warmup=2):
+def device_ms(fn, reps, warmup=2, name=None):
     """Mean time the card spends on one fn() call that launches one kernel,
     from the profiler's kernel events over reps calls.  A BA kernel runs
     for less than the host takes to enqueue its launch, so CUDA events
-    around back-to-back launches would time the host."""
+    around back-to-back launches would time the host.  With ``name`` only
+    the events of the kernel of that name count (the wrapper around it may
+    copy a few scalars to the card)."""
     for _ in range(warmup):
         fn()
     events = profiled(fn, reps, expect=reps)
+    if name is not None:
+        events = [e for e in events if name in e.key]
     if sum(e.count for e in events) != reps:
         raise RuntimeError(
             f"the profiler shows {sum(e.count for e in events)} device "
@@ -440,13 +478,13 @@ def phase_whole_lm(dev):
         raise RuntimeError(f"whole LM disagrees: {err:.3g}")
 
 
-def write_settings(tmp):
-    """The in-repo 2D settings plus Tracking.KeyFrameCheck.Close: 1 (every
-    observation is stored, so the 2D rings fill to 512)."""
+def write_settings(tmp, name="synthetic_2d.yaml"):
+    """The in-repo settings file ``name`` plus Tracking.KeyFrameCheck.Close:
+    1 (every observation is stored, so the 2D rings fill to 512 and the 3D
+    rings past their 32-slot minimum tier)."""
     import object_oriented_slam_tpu_torch as pkg
-    src = os.path.join(os.path.dirname(pkg.__file__), "configs",
-                       "synthetic_2d.yaml")
-    path = os.path.join(tmp, "settings.yaml")
+    src = os.path.join(os.path.dirname(pkg.__file__), "configs", name)
+    path = os.path.join(tmp, "settings_" + name)
     with open(src) as f, open(path, "w") as g:
         g.write(f.read() + "\nTracking.KeyFrameCheck.Close: 1\n")
     return path
@@ -549,7 +587,8 @@ def phase_main_path(dev, tmp):
 
     scene = make_scene(n_objects=24, seed=SEED, radius_range=(1.3, 2.2),
                        scale_range=(0.2, 0.4))
-    ds = SyntheticDataset(scene, n_frames=600, orbit_radius=3.6, height=1.7)
+    ds = SyntheticDataset(scene, n_frames=600, orbit_radius=3.6, height=1.7,
+                          with_depth=False)
     frames = list(ds.frames())           # set-up: detections made up front
     slam = System(write_settings(tmp), device=dev)
 
@@ -602,11 +641,444 @@ def phase_main_path(dev, tmp):
     return launches
 
 
+def scene24():
+    from object_oriented_slam_tpu_torch.io.synthetic import make_scene
+    return make_scene(n_objects=24, seed=SEED, radius_range=(1.3, 2.2),
+                      scale_range=(0.2, 0.4))
+
+
+def bytes_bound(tensors):
+    """(bound_ms, "bytes"): every tensor moved once at the card's peak."""
+    n = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    return n / PEAK_BYTES * 1e3, "bytes"
+
+
+def all_bits(a, b):
+    return all((x is None and y is None) or same_bits(x.cpu(), y.cpu())
+               for x, y in zip(a, b))
+
+
+def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
+                    uncompacted=False):
+    """The depth-frontend kernels against their plain versions on the
+    tensors ``extract_local_ellipsoids`` hands them for one frame: depth
+    [H, W] int32, bboxes [D, 4] (padded lanes zero), pose_wc [7], plane [4],
+    all on the card; ``cfg.cloud_capacity`` is the frame's cloud tier.  The
+    stages follow frontend/extractor.py: bbox_cloud at (D, grid), the first
+    voxel_segment_mean (grid -> tier, with the world epilogue), the
+    clustering round at the lanes the survivors compact to (and, with
+    ``uncompacted``, at all tier lanes), the second voxel_segment_mean (tier
+    -> sym_capacity, no epilogue) on the selected clusters.  Returns the
+    records and (tier, lanes)."""
+    from object_oriented_slam_tpu_torch.core import se3
+    from object_oriented_slam_tpu_torch.ops import backproject as bp
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    recs = {}
+    D, G = bboxes.shape[0], bp.BBOX_GRID_H * bp.BBOX_GRID_W
+    tier = cfg.cloud_capacity
+
+    def rec(name, kernel, **kw):
+        recs[f"{name} ({tag})"] = dict(kernel=kernel, **kw)
+
+    # --- K7 bbox_cloud
+    args = (depth, bboxes, cam, cfg.depth_range)
+    pts, mask = bp.bbox_point_cloud(*args)
+    again = bp.bbox_point_cloud(*args)
+    want = bp.bbox_point_cloud_plain(*args)
+    want_cpu = bp.bbox_point_cloud_plain(depth.cpu(), bboxes.cpu(), cam,
+                                         cfg.depth_range)
+    torch.cuda.synchronize()
+    if tuple(pts.shape) != (D, G, 3) or not all_bits((pts, mask), again):
+        raise RuntimeError(f"bbox_cloud ({tag}): wrong shape or repeats "
+                           "differ")
+    if not (torch.equal(mask, want[1]) and torch.equal(mask.cpu(),
+                                                       want_cpu[1])):
+        raise RuntimeError(f"bbox_cloud ({tag}): mask differs from the "
+                           "plain version")
+    err = max(float((pts - want[0]).abs().max()),
+              float((pts.cpu() - want_cpu[0]).abs().max()))
+    if err > 1e-6:
+        raise RuntimeError(f"bbox_cloud ({tag}) disagrees: {err:.3g}")
+    rec("bbox_cloud (K7)", "bbox_cloud", shape=(D, G), max_abs_err=err,
+        bound=bytes_bound([depth, bboxes, pts, mask]),
+        ms=device_ms(lambda: bp.bbox_point_cloud(*args), 20),
+        plain_ms=cuda_ms(lambda: bp.bbox_point_cloud_plain(*args), 10))
+    print(f"[frontend] {tag}: bbox_cloud at D={D}, grid {G}: "
+          f"{int(mask.sum())} valid points, mask equal, bits equal to the "
+          f"plain version on the card: {same_bits(pts, want[0])}, on the "
+          f"CPU: {same_bits(pts.cpu(), want_cpu[0])}, max_abs_err {err:.3g}")
+
+    def segment_mean(name, pts_in, mask_in, leaf, capacity, world, limit):
+        """One voxel_segment_mean launch against its plain version: bit for
+        bit against it on the CPU (index_add_ adds in sorted order there),
+        within ``limit`` against it on the card (atomic adds, in an order
+        that changes from run to run); returns the kernel's outputs."""
+        key, cmin = vx.voxel_keys(pts_in, mask_in, leaf)
+        key_s, order = torch.sort(key, dim=1, stable=True)
+        pts_in = pts_in.contiguous()
+        vargs = (key_s, order, pts_in, cmin, capacity, world)
+        got = vx.voxel_segment_mean(*vargs)
+        again = vx.voxel_segment_mean(*vargs)
+        card = vx.voxel_segment_mean_plain(*vargs)
+        world_cpu = None if world is None else vx.World(
+            world.R.cpu(), world.t.cpu(), world.plane.cpu(), world.den.cpu(),
+            world.clearance)
+        cpu = vx.voxel_segment_mean_plain(key_s.cpu(), order.cpu(),
+                                          pts_in.cpu(), cmin.cpu(), capacity,
+                                          world_cpu)
+        torch.cuda.synchronize()
+        if (got[3] is None) != (world is None) or not all_bits(got, again):
+            raise RuntimeError(f"{name} ({tag}): two launches differ in bits")
+        if not all_bits(got, cpu):
+            raise RuntimeError(f"{name} ({tag}) differs from the plain "
+                               "version on the CPU (sorted-order sums)")
+        if not (torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])):
+            raise RuntimeError(f"{name} ({tag}): cells or mask differ")
+        err = float((got[0] - card[0]).abs().max())
+        differ = 0
+        if world is not None:
+            err = max(err, float((got[3] - card[3]).abs().max()))
+            differ = int((got[4] != card[4]).sum())
+        if err > limit:
+            raise RuntimeError(f"{name} ({tag}) disagrees: {err:.3g}")
+        rec(name, "voxel_segment_mean",
+            shape=(D, pts_in.shape[1], capacity), max_abs_err=err,
+            bound=bytes_bound([key_s, order, pts_in, cmin, *got]),
+            ms=device_ms(lambda: vx.voxel_segment_mean(*vargs), 20,
+                         name="voxel_segment_mean"),
+            plain_ms=cuda_ms(lambda: vx.voxel_segment_mean_plain(*vargs), 5))
+        print(f"[frontend] {tag}: {name} at D={D}, {pts_in.shape[1]} sorted "
+              f"keys, capacity {capacity}, world epilogue "
+              f"{world is not None}: {int(got[2].sum())} voxels (most in a "
+              f"detection {int(got[2].sum(1).max())}); cells and masks equal, "
+              f"bits equal to the plain version on the CPU, max_abs_err vs "
+              f"the card's (atomic sums) {err:.3g} (limit {limit:g}), "
+              f"{differ} plane-mask "
+              f"lanes differ there; repeat bit-equal")
+        return got
+
+    # --- K6, first launch: 1 cm voxels of the bbox cloud, with the world
+    # transform and the supporting-plane mask in the epilogue
+    n = plane[:3]
+    world = vx.World(se3.quat_to_mat(pose_wc[3:]), pose_wc[:3], plane,
+                     torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]
+                                ).clamp_min(1e-8), cfg.plane_clearance)
+    got = segment_mean("voxel_segment_mean (K6, cloud)", pts, mask,
+                       cfg.voxel_leaf, tier, world, 1e-6)
+    pts_w, m2 = got[3], got[4]
+
+    # --- K5 min_label_pass + pointer_jumps at the lanes the extractor
+    # compacts this frame's survivors to
+    tol = cfg.cluster_tolerance
+    survivors = int(m2.sum(1).max())
+    cap = min(tier, max(256, -(-survivors // 256) * 256))
+    order_c = torch.sort((~m2).to(torch.int32), dim=1, stable=True).indices
+    sub = order_c[:, :cap]
+    shapes = {"compacted": (torch.gather(pts_w, 1,
+                                         sub[..., None].expand(-1, -1, 3)),
+                            torch.gather(m2, 1, sub))}
+    if uncompacted:
+        shapes["all lanes"] = (pts_w, m2)
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    for lanes, (p, m) in shapes.items():
+        N = m.shape[1]
+        w = m[..., None]
+        c = torch.where(w, p, 0.0).sum(1) / m.sum(1).clamp_min(1).to(
+            p.dtype)[:, None]
+        pc = torch.where(w, p - c[:, None, :], 0.0).contiguous()
+        nrm = (pc * pc).sum(-1)
+        m = m.contiguous()
+        labels = torch.where(m, torch.arange(N, dtype=torch.int32,
+                                             device=dev), N)
+        out = cl.min_label_pass(pc, nrm, m, labels, tol2)
+        out2 = cl.min_label_pass(pc, nrm, m, labels, tol2)
+        ref = cl.min_label_pass_plain(pc, nrm, m, labels, tol2)
+        jumped, changed = cl.pointer_jumps(out.clone(), labels, 12)
+        jref, cref = cl.pointer_jumps_plain(ref, labels, 12)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(out, out2)):
+            raise RuntimeError(f"min_label_pass ({tag}, {lanes}): labels "
+                               "differ from the plain version or between "
+                               "launches")
+        if not (torch.equal(jumped, jref) and torch.equal(changed, cref)):
+            raise RuntimeError(f"pointer_jumps ({tag}, {lanes}) differs from "
+                               "its plain version")
+        # the pair tests the function needs on this data: every unmasked
+        # point of a detection against every unmasked point of it
+        n_d = m.sum(1).double()
+        pairs = float((n_d * n_d).sum())
+        scratch = out.clone()
+        rec(f"min_label_pass (K5, {lanes})", "min_label_pass", shape=(D, N),
+            max_abs_err=0.0,
+            bound=max((pairs * PAIR_OPS / PEAK_F32 * 1e3, "operations"),
+                      bytes_bound([pc, nrm, m, labels, out])),
+            ms=device_ms(lambda: cl.min_label_pass(pc, nrm, m, labels, tol2),
+                         10),
+            plain_ms=cuda_ms(lambda: cl.min_label_pass_plain(
+                pc, nrm, m, labels, tol2), 2, 1))
+        rec(f"pointer_jumps (K5, {lanes})", "pointer_jumps", shape=(D, N),
+            max_abs_err=0.0,
+            bound=bytes_bound([scratch, scratch, labels, changed]),
+            ms=device_ms(lambda: cl.pointer_jumps(scratch, labels, 12), 10),
+            plain_ms=cuda_ms(lambda: cl.pointer_jumps_plain(out, labels, 12),
+                             5))
+        print(f"[frontend] {tag}: min_label_pass + pointer_jumps ({lanes}) "
+              f"at D={D}, N={N} lanes ({survivors} survivors at most, "
+              f"{pairs:.4g} pair tests needed of {D * N * N:.4g} lane pairs): "
+              f"labels and changed flags equal to the plain versions, repeat "
+              f"equal")
+
+    # --- converged components: kernels vs the plain versions on the card
+    kernels = (cl.min_label_pass, cl.pointer_jumps)
+    runs = [cl.components_compacted(pts_w, m2, tol, cfg.cluster_iters, 12,
+                                    cap, with_converged=True,
+                                    with_rounds=True)
+            for _ in range(2)]
+    try:
+        cl.min_label_pass, cl.pointer_jumps = (cl.min_label_pass_plain,
+                                               cl.pointer_jumps_plain)
+        want = cl.components_compacted(pts_w, m2, tol, cfg.cluster_iters, 12,
+                                       cap, with_converged=True,
+                                       with_rounds=True)
+    finally:
+        cl.min_label_pass, cl.pointer_jumps = kernels
+    for lab, conv, rounds in runs:
+        if not (torch.equal(lab, want[0]) and torch.equal(conv, want[1])
+                and rounds == want[2] and bool(conv.all())):
+            raise RuntimeError(f"converged components ({tag}) differ from "
+                               "the plain versions'")
+    labels = runs[0][0]
+    n_comp = [int((labels[d][m2[d]]).unique().numel()) for d in range(D)]
+    print(f"[frontend] {tag}: components_compacted at {cap} lanes: "
+          f"{runs[0][2]} rounds, converged, labels equal to the plain "
+          f"versions' on the card, repeat equal; components per detection "
+          f"{n_comp}")
+
+    # --- K6, second launch: the 0.1 m downsample of the selected clusters
+    # (no epilogue: the world pointers are null).  A 0.1 m cell holds up to
+    # hundreds of points at |coordinate| up to ~4 m, so the card's atomic
+    # sums move a centroid by a few ulp of 4 (4.8e-7 each): limit 5e-6
+    centre, _ = bp.center_estimate(depth, bboxes, cam, cfg.depth_range)
+    centre_w = centre @ world.R.T + world.t
+    sel, ok = cl.select_cluster(pts_w, m2, labels, centre_w,
+                                cfg.cluster_min_size, cfg.cluster_center_dis)
+    got = segment_mean("voxel_segment_mean (K6, object)", pts_w, sel,
+                       cfg.sym_grid, cfg.sym_capacity, None, 5e-6)
+    if not (int(ok.sum()) >= 1 and int(got[2].sum()) >= int(ok.sum())):
+        raise RuntimeError(f"the object downsample ({tag}) is empty: "
+                           f"{int(ok.sum())} clusters selected")
+
+    for k, r in recs.items():
+        r["max_rel_err"] = r["max_abs_err"]
+        print(f"[frontend] {k} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, "
+              f"{bound_text(r['ms'], r['bound'])}")
+    return recs, (tier, cap)
+
+
+def phase_frontend_kernels(dev, path):
+    """The depth-frontend kernels vs their plain versions: at the shapes the
+    depth main path gave them on its mid-orbit frame (``path``: that frame,
+    the latched plane and the extractor's stats of it), and at the full
+    tier (8 large detections, capacity 16384), which this scene's frames
+    never reach.  Returns (path records, full-tier records)."""
+    from object_oriented_slam_tpu_torch.frontend import ExtractorConfig
+    from object_oriented_slam_tpu_torch.frontend.extractor import _pack_frame
+    from object_oriented_slam_tpu_torch.io import synthetic as syn
+    scene = scene24()
+    cam = scene.camera
+    cfg = ExtractorConfig()
+
+    # the main path's shapes: the frame goes through the extractor's own
+    # packing (detection lanes padded to a power of two, cloud tier)
+    (_, _, pose, depth, _, det), plane, stats = path
+    flat, pad, _, cfg_t = _pack_frame(cam, cfg, det[:, 1:5].copy(), pose,
+                                      plane)
+    flat_d = torch.from_numpy(flat).to(dev)
+    depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)).to(dev)
+    recs, (tier, lanes) = frontend_checks(
+        dev, "path", depth_d, flat_d[:pad * 4].reshape(pad, 4),
+        flat_d[pad * 6:pad * 6 + 7], flat_d[pad * 6 + 7:pad * 6 + 11], cam,
+        cfg_t)
+    if (tier, lanes) != (stats["cloud_tier"], stats["cluster_lanes"]):
+        raise RuntimeError(
+            f"the kernels were compared at tier {tier} and {lanes} lanes; "
+            f"the main path ran this frame at {stats}")
+    print(f"[frontend] path: compared at the shapes the main path launched "
+          f"on this frame: {pad} detection lanes, cloud tier {tier}, "
+          f"{lanes} clustering lanes")
+
+    # the full tier
+    pose = syn.orbit_trajectory(N_DEPTH_FRAMES, 3.6, 1.7)[11]
+    depth_d = syn.render_depth(scene.ellipsoids, pose, cam, device=dev)
+    bbs, vis = syn.project_bboxes(scene.ellipsoids.astype(np.float32),
+                                  pose.astype(np.float32), cam)
+    area = torch.where(vis, (bbs[:, 2] - bbs[:, 0]) * (bbs[:, 3] - bbs[:, 1]),
+                       -1.0)
+    bboxes = bbs[torch.argsort(area, descending=True)[:FE_DETECTIONS]].to(dev)
+    full, _ = frontend_checks(
+        dev, "full tier", depth_d, bboxes,
+        torch.as_tensor(pose, dtype=torch.float32, device=dev),
+        torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev), cam,
+        ExtractorConfig(cloud_capacity=FE_TIER), uncompacted=True)
+    return recs, full
+
+
+def phase_depth_path(dev, tmp):
+    """The depth main path on the card; returns every kernel's launches and
+    (the mid-orbit frame, the latched plane, the extractor's stats of that
+    frame) for the kernel phase."""
+    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.frontend import (
+        ExtractorConfig, make_extractor, make_plane_estimator)
+    from object_oriented_slam_tpu_torch.io.synthetic import SyntheticDataset
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    from object_oriented_slam_tpu_torch.system import System
+
+    scene = scene24()
+    cam = scene.camera
+    ds = SyntheticDataset(scene, n_frames=N_DEPTH_FRAMES, orbit_radius=3.6,
+                          height=1.7, depth_device=dev)
+    frames = list(ds.frames())       # set-up: depth rendered up front
+    extractor = make_extractor(cam, ExtractorConfig())
+    slam = System(write_settings(tmp, "synthetic_depth.yaml"),
+                  extractor=extractor,
+                  plane_estimator=make_plane_estimator(cam))
+    if slam.tracker.device.type != "cuda" or extractor.device.type != "cuda":
+        raise RuntimeError("the depth path does not default to the card")
+    slam.open_ground_plane_estimation()
+    tr = slam.tracker
+
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    for k in all_kernels:
+        k.launches = 0
+    e2e, stats, latched_at = [], [], None
+    for i, ts, pose, depth, rgb, det in frames:
+        extractor.stats = {}
+        t0 = time.perf_counter()
+        slam.track_with_objects(ts, pose, det, depth=depth)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+        stats.append(dict(extractor.stats))
+        if latched_at is None and tr.state.ground_state == 2:
+            latched_at = i
+    tr.sync()
+    launches = {k.name: k.launches for k in all_kernels}
+
+    objs = slam.map_objects
+    st = tr.state
+    errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                     for i, v in objs.items()])
+    by_3d = sum(st.objects[i].init_by_3d for i in objs)
+    n3 = int(min(tr._b_n3.max(), tr.MAX_OBS3D))
+    m3_tier = tr._next_pow2(n3, 32, tr.MAX_OBS3D)
+    ran = [s for s in stats if s]
+    tiers = sorted({s["cloud_tier"] for s in ran})
+    rounds = np.array([s["cluster_rounds"] for s in ran])
+    lanes = np.array([s["cluster_lanes"] for s in ran])
+    unconverged = [i for i, s in enumerate(stats)
+                   if s and not s["cluster_converged"]]
+    e2e_ms = np.array(e2e) * 1e3
+    ext_ms = (np.array(tr.metrics["dispatch"])
+              + np.array(tr.metrics["fetch"])) * 1e3
+    backend_ms = np.array(tr.metrics["backend"]) * 1e3
+    plane = st.ground_plane
+    if plane is None:
+        raise RuntimeError("the ground plane never latched")
+    tilt = float(np.degrees(np.arccos(min(1.0, abs(plane[2])
+                                          / np.linalg.norm(plane[:3])))))
+    print(f"[depth] {len(frames)} frames, ground plane latched at frame "
+          f"{latched_at}: {np.round(plane, 5).tolist()} ({tilt:.3f} deg, "
+          f"{abs(plane[3]) * 100:.3f} cm from z = 0)")
+    print(f"[depth] {len(objs)}/24 objects initialized, {by_3d} of them from "
+          f"a 3D estimate; 3D ring fill {n3}/{tr.MAX_OBS3D} (LM tier M3 = "
+          f"{m3_tier}), 2D ring fill "
+          f"{int(min(tr._b_n2.max(), tr.MAX_OBS2D))}/{tr.MAX_OBS2D}")
+    print(f"[depth] e2e ms/frame p50 {np.median(e2e_ms):.3f} mean "
+          f"{e2e_ms.mean():.3f} p99 {np.percentile(e2e_ms, 99):.3f}; "
+          f"extraction (dispatch + wait + copy) p50 {np.median(ext_ms):.3f} "
+          f"mean {ext_ms.mean():.3f} p99 {np.percentile(ext_ms, 99):.3f}; "
+          f"backend mean {backend_ms.mean():.3f} over all frames, "
+          f"{backend_ms.sum() / max(tr._backend_calls, 1):.3f} over the "
+          f"{tr._backend_calls} with an LM call (host clock, synchronized "
+          f"per frame); first frame (kernel load, plane) {e2e_ms[0]:.1f} ms")
+    print(f"[depth] extraction ran on {len(ran)} frames; cloud tiers hit "
+          f"{tiers}; clustering lanes min {lanes.min()} median "
+          f"{int(np.median(lanes))} max {lanes.max()}; clustering rounds per "
+          f"frame min {rounds.min()} median {int(np.median(rounds))} max "
+          f"{rounds.max()}; frames whose clustering did not converge: "
+          f"{unconverged}")
+    print(f"[depth] kernel launches in the depth path: {launches}")
+    print(f"[depth] centre error vs ground truth: median "
+          f"{np.median(errs):.3g} m, max {errs.max():.3g} m")
+    out = os.path.join(tmp, "objects_depth.txt")
+    slam.save_objects_to_file(out)
+    rows = np.loadtxt(out, ndmin=2)
+    print(f"[depth] wrote {out}: {rows.shape[0]} rows")
+
+    if latched_at is None or latched_at > 2:
+        raise RuntimeError(f"ground plane latched at frame {latched_at}")
+    if not (tilt < 2.0 and abs(plane[3]) < 0.02):
+        raise RuntimeError(f"ground plane off z = 0: {plane}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    if len(objs) < 16 or by_3d < 1:
+        raise RuntimeError(f"{len(objs)} of 24 objects initialized, {by_3d} "
+                           "from a 3D estimate")
+    if not m3_tier > 32:
+        raise RuntimeError(f"the LM stayed at the minimum 3D tier: {n3} 3D "
+                           "observations at most")
+    if not np.median(errs) < 0.05:
+        raise RuntimeError(f"median centre error {np.median(errs):.3g} m")
+    if rows.shape != (len(objs), 11) or not np.isfinite(rows).all():
+        raise RuntimeError("objects.txt is malformed")
+    mid = len(frames) // 2
+    extraction_overhead(extractor, frames[mid], st.ground_plane)
+    return launches, (frames[mid], st.ground_plane, stats[mid])
+
+
+def extraction_overhead(extractor, frame, ground_plane):
+    """One extraction call (a mid-orbit frame) under the profiler: wall
+    time, device busy time, device operations and how many of them are the
+    frontend kernels' launches."""
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    _, _, pose, depth, _, det = frame
+
+    def call():
+        return extractor(depth, det[:, 1:5].copy(), det[:, 5].astype(int),
+                         pose, ground_plane)
+
+    wall = wall_ms(call, 5)
+    before = sum(k.launches for k in fk.KERNELS)
+    prof = device_busy(call)
+    if prof is None:
+        raise RuntimeError("the profiler shows no device time for an "
+                           "extraction call")
+    busy, ops, top = prof
+    # device_busy may take its trace up to three times
+    per_call = {k.name: k.launches for k in fk.KERNELS}
+    call()
+    per_call = {k.name: k.launches - per_call[k.name] for k in fk.KERNELS}
+    if sum(k.launches for k in fk.KERNELS) == before:
+        raise RuntimeError("the extraction call launched no kernel")
+    print(f"[depth] one extraction call ({len(det)} detections, "
+          f"{extractor.stats}): {wall:.3f} ms wall (host clock, mean of 5, "
+          f"copies of the depth image and the arguments included); device "
+          f"busy {busy:.3f} ms over {ops} device operations, "
+          f"{sum(per_call.values())} of them frontend kernel launches "
+          f"{per_call}; device idle share {1 - busy / wall:.3f}; top kernels "
+          f"(name, launches, ms) {top}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
     from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}")
@@ -614,9 +1086,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    ba_kernels.build()
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        for job in [pool.submit(ba_kernels.build), pool.submit(fk.build)]:
+            job.result()
     print(f"[build] {time.perf_counter() - t0:.1f} s")
-    for line in ba_kernels.build_log.splitlines():
+    for line in (ba_kernels.build_log + fk.build_log).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
@@ -624,23 +1098,39 @@ def main():
     recs.update(phase_steps(dev))
     phase_whole_lm(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(dev, tmp)
+        launches_2d = phase_main_path(dev, tmp)
+        launches, path = phase_depth_path(dev, tmp)
+    fe_recs, fe_full = phase_frontend_kernels(dev, path)
 
-    kernels = [{"name": f"{r['kernel']} ({k})", "route": "cuda",
-                "source": SOURCE,
-                "replaces": REPLACES.get(k, REPLACES[
-                    "K1" if r["kernel"] == "ba_normal_eq" else "K3"]),
-                "launches": launches[r["kernel"]],
+    def record(name, r, source, replaces, on_path=True, **more):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": launches[r["kernel"]] if on_path else 0,
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r["max_rel_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "share_of_bound": r["bound"][0] / r["ms"],
-                # no PyTorch call computes these residual chains with their
-                # Jacobians and reductions
-                "library_ms": None,
-                "shape": list(r["shape"])} for k, r in recs.items()]
-    print(json.dumps({"kernels": kernels}))
+                "library_ms": None, "shape": list(r["shape"]), **more}
+
+    # launches: the depth main path's counts; the BA kernels also carry the
+    # 2D-only path's.  The frontend records under "kernels" are taken at the
+    # shapes that path launched; those at the full tier, which it never
+    # reached (launches 0), stand apart.  library_ms is null throughout: no PyTorch call
+    # computes the BA residual chains with their Jacobians and reductions,
+    # a strided window back-projection with its gates, a segment mean of
+    # stably sorted runs in sorted order (index_add_ adds in any order and
+    # needs the ranks first), or a radius-graph min-label pass.
+    kernels = [record(f"{r['kernel']} ({k})", r, SOURCE, REPLACES.get(
+        k, REPLACES["K1" if r["kernel"] == "ba_normal_eq" else "K3"]),
+        launches_2d_path=launches_2d[r["kernel"]]) for k, r in recs.items()]
+    kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
+                for k, r in fe_recs.items()]
+    at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
+                           on_path=False) for k, r in fe_full.items()]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels,
+                      "kernels_at_full_tier": at_full_tier}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

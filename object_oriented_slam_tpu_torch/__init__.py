@@ -4,10 +4,11 @@
 Same subpackages, module names, public functions and argument layouts as
 the JAX package, which stays the reference the port is tested against.
 Plain tensor code is PyTorch on whatever device its tensors live on; the
-bundle-adjustment edge work runs in hand-written CUDA kernels
-(``csrc/ba_edges.cu``) when the tensors are on a CUDA device.  This slice
-covers the 2D-only online mapping loop (``system.System`` without an
-extractor).
+bundle-adjustment edge work (``csrc/ba_edges.cu``) and the extraction's
+back-projection, voxel means and clustering rounds (``csrc/frontend.cu``)
+run in hand-written CUDA kernels when the tensors are on a CUDA device.
+Ported so far: the eager online mapping loop (``system.System``), 2D-only
+or with depth (ground plane, monolithic extraction, 3D observations).
 """
 
 __version__ = "0.1.0"

@@ -8,38 +8,24 @@ the same two kernels with their LM epilogues (plain versions
 ``lm_soa.lm_solve_step_plain`` / ``lm_accept_step_plain``), so that one LM
 iteration is two launches.  The shared library is compiled with ``nvcc``
 for ``sm_90a`` at first use into ``object_oriented_slam_tpu_torch/build/``
-(named by the source's hash, so an edited source rebuilds) and bound with
-ctypes.  Each launch runs on PyTorch's current stream and does not
-synchronise; outputs are allocated here with ``torch.empty``.
+(``ops/_cuda_build.py``: named by the source's hash, so an edited source
+rebuilds) and bound with ctypes.  Each launch runs on PyTorch's current
+stream and does not synchronise; outputs are allocated here with
+``torch.empty``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "ba_edges.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-# -fmad=false: every multiply and add rounds on its own, as in the plain
-# version's elementwise kernels, so both compute the same residuals
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ..ops import _cuda_build
+from ..ops._cuda_build import Kernel  # noqa: F401  (the counters' type)
 
-
-class Kernel:
-    """A launch counter: ``launches`` grows by one per kernel launch."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
+SOURCE = os.path.join(_cuda_build.CSRC_DIR, "ba_edges.cu")
+NVCC_FLAGS = list(_cuda_build.NVCC_FLAGS)   # a caller may add a -D flag
 
 NORMAL_EQ = Kernel("ba_normal_eq")
 CHI2 = Kernel("ba_chi2")
@@ -49,39 +35,12 @@ _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the BA kernels are built from "
-                           "csrc/ba_edges.cu with the CUDA toolkit")
-    return path
-
-
 def build() -> str:
     """Compile the kernels (if this source is not built yet); returns the
     path of the shared library."""
     global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR, f"libba_edges_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    lib_path, log = _cuda_build.build(SOURCE, tuple(NVCC_FLAGS))
+    build_log = log or build_log
     return lib_path
 
 

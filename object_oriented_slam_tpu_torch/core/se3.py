@@ -78,6 +78,33 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation matrix -> unit quaternion [x,y,z,w] (branchless
+    Shepperd): all four branch candidates are computed and the one with the
+    largest pivot is selected."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], -1)
+    q1 = torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20,
+                      m21 - m12], -1)
+    q2 = torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21,
+                      m02 - m20], -1)
+    q3 = torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22,
+                      m10 - m01], -1)
+    cands = torch.stack([q0, q1, q2, q3], -2)            # [..., 4, 4]
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    idx = torch.argmax(pivots, dim=-1)
+    q = torch.gather(cands, -2,
+                     idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = quat_normalize(q)
+    # canonical sign: w >= 0
+    return torch.where(q[..., 3:] < 0, -q, q)
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     x, y, z = v.unbind(-1)
     o = torch.zeros_like(x)

@@ -1,0 +1,355 @@
+"""Single-frame ellipsoid extraction (the dense per-frame hot loop).
+
+Port of the monolithic extractor of
+``object_oriented_slam_tpu/frontend/extractor.py``, the re-design of
+``EllipsoidExtractor::EstimateLocalEllipsoid``
+(``src/pca/EllipsoidExtractor.cpp:292-493``), processing ALL detections of
+a frame as one batch on the device (a leading axis D where the JAX package
+``vmap``s; the reference loops detections on the CPU with PCL):
+
+  (a) strided bbox depth back-projection, 1 cm voxel downsample, transform
+      to world (ExtractPointCloud, :86-168)
+  (b) supporting-plane filter keeps points > 5 cm above ground (:562-578)
+  (c) 10x10-sample object-center estimate (GetCenter, :583-643)
+  (d) Euclidean clustering, select cluster near the center estimate
+      (ApplyEuclideanFilter, :646-737): min-label propagation replaces the
+      PCL KdTree
+  (e) PCA + chirality fix + z-to-gravity alignment + exact normal
+      calibration (:170-196, 207-267, 760-788)
+  (f) normalized object frame (x from PCA, z from ground normal), 0.1 m
+      downsample of the object cloud (:321-347)
+  (h) scale from max |coord| per axis in the normalized frame
+      (ProcessPCANormalized, :495-531); result returned camera-local
+      (:459-492)
+
+Failure gates (miSystemState analogues) are carried as a validity mask.
+On a CUDA device stages (a), (b), (d) and the downsample of (f) run in the
+hand-written kernels of ``csrc/frontend.cu`` (through ``ops/backproject``,
+``ops/voxel``, ``ops/cluster``); the rest is plain PyTorch.
+
+Not ported (each raises ``NotImplementedError`` naming the option):
+symmetry completion (stage (g), ``open_symmetry`` / ``sparse_symmetry``),
+grid-hash clustering (``grid_cluster``), interleaved chain passes
+(``cluster_chains > 0``), the split and fused extractors and LM fusion
+(``dispatch_with_lm``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..core.camera import Camera
+from ..ops import backproject as bp
+from ..ops import cluster as cl
+from ..ops import pca as pca_mod
+from ..ops import voxel as vx
+
+_log = logging.getLogger("object_oriented_slam_tpu_torch")
+
+_CLUSTER_TILE = 256     # the min_label_pass kernel's block: compaction caps
+#                         are rounded up to it
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractorConfig:
+    depth_range: float = 6.0                # EllipsoidExtractor_DEPTH_RANGE
+    voxel_leaf: float = 0.01                # ExtractPointCloud downsample
+    plane_clearance: float = 0.05           # supporting-plane filter
+    cluster_tolerance: float = 0.02         # EllipsoidExtraction.Euclidean.*
+    cluster_min_size: int = 100
+    cluster_center_dis: float = 0.5
+    sym_grid: float = 0.1                   # EllipsoidExtraction.Symmetry.GridSize
+    cloud_capacity: int = 16384  # post-voxel budget; the per-frame pow2
+    #                              tiering keeps small frames on small clouds
+    sym_capacity: int = 512                 # post-0.1-downsample budget
+    cluster_iters: int = 96   # convergence bound only: rounds stop early
+    #                           once labels settle (ops/cluster.py).  A
+    #                           truncated run FAILS the validity gate
+    #                           (_cluster_select_batch)
+    cluster_chains: int = -1  # -1 = one chain-seed order, 0 = none; K > 0
+    #                           (interleaved chain passes) is not ported
+    # the ladder of compiled compaction capacities is not ported: the port
+    # runs eagerly and compacts to each frame's own survivor count (rounded
+    # up to the kernel's tile); labels are the same at every capacity.  The
+    # two fields keep the JAX package's signature; any other value raises
+    compact_tiers: bool = True
+    compact_rungs: tuple = (4, 5, 6, 7, 8, 12)
+    grid_cluster: bool = False  # grid-hash clustering: not ported
+    open_symmetry: bool = False             # not ported
+    sparse_symmetry: bool = False           # not ported
+    sym_analytic_grad: bool = True          # symmetry only: not ported
+
+
+def _check_ported(cfg: ExtractorConfig):
+    for name, why in (("open_symmetry", "symmetry completion"),
+                      ("sparse_symmetry", "sparse symmetry"),
+                      ("grid_cluster", "grid-hash clustering")):
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"ExtractorConfig.{name}=True: {why} is not ported to the "
+                "torch package")
+    if cfg.cluster_chains > 0:
+        raise NotImplementedError(
+            f"ExtractorConfig.cluster_chains={cfg.cluster_chains}: "
+            "interleaved chain passes are not ported to the torch package")
+    # options that nothing in the port reads: a value other than the
+    # default would be silently ignored, so it raises
+    for f in dataclasses.fields(cfg):
+        if f.name in ("compact_tiers", "compact_rungs", "sym_analytic_grad") \
+                and getattr(cfg, f.name) != f.default:
+            raise NotImplementedError(
+                f"ExtractorConfig.{f.name}={getattr(cfg, f.name)!r}: the "
+                "compaction ladder and the symmetry gradient switch are not "
+                "ported to the torch package (only the default is accepted)")
+
+
+def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
+             cfg: ExtractorConfig):
+    """Stages (a)-(c) of all detections: bbox cloud -> voxel -> world,
+    supporting-plane filter, center estimate.
+
+    Returns (pts_v [D, cap, 3] camera-frame voxel cloud, pts_w world cloud,
+    cells_v, m2 filtered mask, center_w [D, 3], ok_points [D],
+    ok_center [D]).
+    """
+    # (a) bbox cloud -> voxel -> world, (b) supporting-plane filter
+    # (EllipsoidExtractor.cpp:562-578): the world transform and the plane
+    # test ride the voxel kernel's epilogue
+    pts_cam, m0 = bp.bbox_point_cloud(depth, bboxes, cam, cfg.depth_range)
+    R_wc = se3.quat_to_mat(pose_wc[3:])
+    n = ground_plane[:3]
+    den = torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]).clamp_min(1e-8)
+    world = vx.World(R_wc, pose_wc[:3], ground_plane, den,
+                     cfg.plane_clearance)
+    pts_v, cells_v, _, pts_w, m2 = vx._voxel_core(
+        pts_cam, m0, cfg.voxel_leaf, cfg.cloud_capacity, world)
+    ok_points = m2.sum(1) >= 1
+
+    # (c) center estimate (world)
+    center_cam, ok_center = bp.center_estimate(depth, bboxes, cam,
+                                               cfg.depth_range)
+    center_w = center_cam @ R_wc.T + pose_wc[:3]
+    return pts_v, pts_w, cells_v, m2, center_w, ok_points, ok_center
+
+
+def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):
+    """Stages (e)-(f) after cluster selection: PCA, rotation
+    post-processing, normalized object frame, 0.1 m object-cloud
+    downsample.  Returns (Two [D, 7], pts_n [D, S, 3], obj_m [D, S])."""
+    # (e) PCA + rotation post-processing
+    res = pca_mod.masked_pca(pts_w, sel)
+    rot = pca_mod.adjust_chirality(res.rot)
+    n = ground_plane[:3]
+    normal = n / torch.sqrt((n * n).sum()).clamp_min(1e-9)
+    rot, _ = pca_mod.align_z_to_gravity(rot, res.eigvals, normal)
+    rot = pca_mod.calibrate_to_normal(rot, normal)
+
+    # (f) normalized object frame: x from PCA, z from ground normal
+    rz = normal.expand(rot.shape[0], 3)
+    rx = rot[..., 0] / torch.sqrt((rot[..., 0] ** 2).sum(-1, keepdim=True)
+                                  ).clamp_min(1e-9)
+    ry = torch.stack([rz[:, 1] * rx[:, 2] - rz[:, 2] * rx[:, 1],
+                      rz[:, 2] * rx[:, 0] - rz[:, 0] * rx[:, 2],
+                      rz[:, 0] * rx[:, 1] - rz[:, 1] * rx[:, 0]], dim=-1)
+    R_wo = torch.stack([rx, ry, rz], dim=-1)
+    Two = torch.cat([res.center, se3.mat_to_quat(R_wo)], dim=-1)
+
+    # 0.1 m downsample of the object cloud for the scale stats
+    # (EllipsoidExtractor.cpp:321-324: downsample happens in world frame,
+    # then the cloud is moved to the normalized frame)
+    obj_pts, obj_m = vx.voxel_downsample(pts_w, sel, cfg.sym_grid,
+                                         cfg.sym_capacity)
+    Tow = se3.se3_inv(Two)
+    R_ow = se3.quat_to_mat(Tow[:, 3:])
+    pts_n = obj_pts @ R_ow.transpose(-1, -2) + Tow[:, None, :3]
+    pts_n = torch.where(obj_m[..., None], pts_n, 0.0)
+    return Two, pts_n, obj_m
+
+
+def _cluster_select_batch(pts_w, m2, center_w, cfg: ExtractorConfig,
+                          stats=None):
+    """Stage (d) for the whole detection batch.
+
+    The survivors of the supporting-plane filter are compacted to the front
+    of the frame's largest survivor count, rounded up to the kernel's tile
+    (one host read per frame): the pass cost is quadratic in the lanes, and
+    labels are identical at every capacity
+    (ops/cluster.components_compacted's stable index mapping).  Reference
+    hot loop: EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
+    """
+    tol, it = cfg.cluster_tolerance, cfg.cluster_iters
+    N = pts_w.shape[1]
+    survivors = int(m2.sum(1).max()) if m2.shape[0] else 0
+    cap = min(N, max(_CLUSTER_TILE, -(-survivors // _CLUSTER_TILE)
+                     * _CLUSTER_TILE))
+    labels, conv, rounds = cl.components_compacted(
+        pts_w, m2, tol, it, 12, cap, with_converged=True,
+        chains=cfg.cluster_chains, with_rounds=True)
+    if stats is not None:
+        stats.update(cluster_rounds=rounds, cluster_lanes=cap,
+                     cluster_survivors=survivors,
+                     cluster_converged=bool(conv.all()))
+    sel, ok = cl.select_cluster(pts_w, m2, labels, center_w,
+                                cfg.cluster_min_size, cfg.cluster_center_dis)
+    # an iteration-bound-truncated propagation yields FRAGMENT components
+    # that can pass every downstream gate with a biased center/scale:
+    # surface it as extraction failure instead
+    return sel, ok & conv
+
+
+def _finish(Two, pts_n, obj_m, pose_wc):
+    """(h) scale from normalized stats; assemble camera-local ellipsoid."""
+    _, mx = pca_mod.normalized_frame_stats(pts_n, obj_m)
+    # world -> camera-local (transform_from with inverse pose,
+    # EllipsoidExtractor.cpp:465-469)
+    Tcw = se3.se3_inv(pose_wc)
+    pose_local = se3.se3_mul(Tcw.expand(Two.shape[0], 7), Two)
+    return torch.cat([pose_local, mx], dim=-1)
+
+
+def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
+                             cam: Camera, cfg: ExtractorConfig, stats=None):
+    """Batched single-frame estimation over all detections.
+
+    depth: [H, W] int32; bboxes: [D, 4]; run_mask: [D] bool; pose_wc: [7];
+    ground_plane: [4] world frame; all on one device.  ``stats``: an
+    optional dict that receives the clustering stage's round count, lane
+    count, survivor count and convergence.
+    Returns (local vec10 [D, 10], prob [D], valid [D], debug tuple
+    (pts_n, obj_m, Two)).
+    """
+    _check_ported(cfg)
+    depth = depth.to(torch.int32)
+    bboxes = bboxes.to(torch.float32)
+    pose_wc = pose_wc.to(torch.float32)
+    ground_plane = ground_plane.to(torch.float32)
+
+    (_, pts_w, _, m2, center_w, ok_p, ok_c) = _stage_a(
+        depth, bboxes, pose_wc, ground_plane, cam, cfg)
+    sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, cfg, stats)
+    Two, pts_n, obj_m = _stage_post(pts_w, sel, ground_plane, cfg)
+    e_local = _finish(Two, pts_n, obj_m, pose_wc)
+    prob = torch.ones(bboxes.shape[0], dtype=torch.float32,
+                      device=bboxes.device)
+    ok = (ok_p & ok_c & ok_cl & run_mask
+          & torch.isfinite(e_local).all(dim=1) & (prob > 1e-8))
+    return e_local, prob, ok, (pts_n, obj_m, Two)
+
+
+def _cloud_tier(bboxes, run, rows, cols, cap_max):
+    """Power-of-two cloud capacity covering the frame's largest bbox.
+
+    The post-voxel cloud of a detection can never exceed its strided
+    pixel count, so a capacity >= that bound yields BIT-IDENTICAL
+    results to the full capacity (padding only) while the sort and the
+    clustering pass shrink for small objects.
+    """
+    n_max = 1
+    for i in range(len(bboxes)):
+        if not run[i]:
+            continue
+        x1 = max(0.0, min(float(bboxes[i][0]), cols - 1))
+        y1 = max(0.0, min(float(bboxes[i][1]), rows - 1))
+        x2 = max(0.0, min(float(bboxes[i][2]), cols))
+        y2 = max(0.0, min(float(bboxes[i][3]), rows))
+        npix = (int(max(0.0, x2 - x1)) // bp.STRIDE + 1) * \
+               (int(max(0.0, y2 - y1)) // bp.STRIDE + 1)
+        n_max = max(n_max, npix)
+    cap = 1024
+    while cap < min(n_max, cap_max):
+        cap *= 2
+    return min(cap, cap_max)
+
+
+def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, pose_wc,
+                ground_plane):
+    """Host packing of a frame: detection padding to a power of two, the
+    single flat f32 argument vector [bboxes(pad,4) | run(pad) |
+    sym_type(pad, zeros: symmetry is not ported) | pose_wc(7) |
+    ground_plane(4)] and the cloud-capacity tier.
+    Returns (flat, pad, n, cfg at the tier)."""
+    D = len(bboxes)
+    n = min(D, 32)
+    if D > 32:
+        _log.warning("frame has %d detections; only the first 32 get 3D "
+                     "extraction (the rest fall back to 2D-only)", D)
+    pad = 1
+    while pad < n:
+        pad *= 2
+    flat = np.zeros(pad * 6 + 11, np.float32)
+    if n:
+        flat[:n * 4] = np.asarray(bboxes[:n], np.float32).ravel()
+    flat[pad * 4:pad * 4 + n] = 1.0
+    flat[pad * 6:pad * 6 + 7] = pose_wc
+    flat[pad * 6 + 7:] = ground_plane
+    tier = _cloud_tier(bboxes[:n], flat[pad * 4:pad * 4 + n] > 0,
+                       cam.height, cam.width, cfg.cloud_capacity)
+    cfg_t = (cfg if tier == cfg.cloud_capacity
+             else dataclasses.replace(cfg, cloud_capacity=tier))
+    return flat, pad, n, cfg_t
+
+
+class MonolithicExtractor:
+    """Whole-frame extraction on ``device`` (the production default).
+
+    Returns a DEVICE tensor packed [pad, 12] (vec10, prob, valid) so the
+    caller folds it into one device-to-host copy per frame.  The detection
+    axis is padded to the next power of two (extraction work is linear in
+    the padded count).  Detections beyond the 32-slot safety cap fall back
+    to 2D-only observations (tracking masks them invalid).
+
+    ``stats`` holds the last frame's cloud tier, clustering rounds, lanes,
+    survivors and convergence (host values the call reads anyway).
+    """
+    def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
+        from ..system.tracking import resolve_device
+        _check_ported(cfg)
+        self.cam = cam
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.stats = {}
+
+    def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
+        if ground_plane is None:
+            return None
+        flat, pad, _, cfg_t = _pack_frame(self.cam, self.cfg, bboxes,
+                                          pose_wc, ground_plane)
+        # two host-to-device copies per frame: the depth image and the
+        # packed arguments
+        depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)
+                                   ).to(self.device)
+        flat_d = torch.from_numpy(flat).to(self.device)
+        bb = flat_d[:pad * 4].reshape(pad, 4)
+        run = flat_d[pad * 4:pad * 5] > 0.5
+        self.stats = {"cloud_tier": cfg_t.cloud_capacity}
+        e, p, v, _ = extract_local_ellipsoids(
+            depth_d, bb, run, flat_d[pad * 6:pad * 6 + 7],
+            flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, self.stats)
+        return torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
+
+    def dispatch_with_lm(self, *args, **kwargs):
+        raise NotImplementedError(
+            "dispatch_with_lm: LM fusion into the extraction (fuse_lm) is "
+            "not ported to the torch package")
+
+
+def make_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
+    """Adapter for system.Tracking's extractor hook (monolithic), on
+    ``device`` (the CUDA device unless the caller names one)."""
+    return MonolithicExtractor(cam, cfg, device)
+
+
+def make_split_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
+    raise NotImplementedError(
+        "make_split_extractor: the split (host-clustered) extractor is not "
+        "ported to the torch package; use make_extractor")
+
+
+def make_fused_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
+    raise NotImplementedError(
+        "make_fused_extractor: the fused split extractor is not ported to "
+        "the torch package; use make_extractor")

@@ -1,9 +1,8 @@
 """Synthetic multi-object sequences with a known ground truth.
 
-Port of ``object_oriented_slam_tpu/io/synthetic.py`` for the 2D-only
-slice: K ellipsoids standing on the plane z = 0, an orbiting camera and
-projected bounding-box detections.  Frames carry ``depth=None``; the
-analytic depth renderer belongs to the depth slice and is not ported yet.
+Port of ``object_oriented_slam_tpu/io/synthetic.py``: K ellipsoids
+standing on the plane z = 0, an orbiting camera, projected bounding-box
+detections and an analytic (ray-traced) depth image per frame.
 Everything random is drawn with numpy from a seed.
 
 ``make_lm_batch`` builds one seeded mapping-mode LM batch (2D, 3D and
@@ -113,6 +112,62 @@ def _mat_to_quat_np(m):
     return q / np.linalg.norm(q)
 
 
+# ---------------------------------------------------------------------------
+# analytic depth rendering
+# ---------------------------------------------------------------------------
+
+def render_depth(ellipsoids, pose_wc, cam: Camera, plane_z: float = 0.0,
+                 device=None) -> torch.Tensor:
+    """Ray-traced uint16-style depth [H, W] int32 (TUM scale) of the scene,
+    computed on ``device`` (default: where ``ellipsoids`` lives, the CPU for
+    numpy input).
+
+    ellipsoids: [K, 10] world vec10; pose_wc: [7] camera pose in world.
+    Each pixel ray o + t d (camera origin o, direction d in world) is
+    intersected with every dual quadric in its own frame: with
+    p = R_o^T (x - t_o) / s the surface is |p| = 1, a quadratic in t.
+    ``t * scale`` is truncated to an integer, so another rounding order
+    moves some pixels by one count and silhouette pixels between a hit and
+    a miss.
+    """
+    e = torch.as_tensor(ellipsoids, dtype=torch.float32, device=device)
+    pose = torch.as_tensor(pose_wc, dtype=torch.float32, device=e.device)
+    H, W = cam.height, cam.width
+    u = torch.arange(W, dtype=torch.float32, device=e.device)
+    v = torch.arange(H, dtype=torch.float32, device=e.device)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")            # [H, W]
+    d_cam = torch.stack([(uu - cam.cx) / cam.fx, (vv - cam.cy) / cam.fy,
+                         torch.ones_like(uu)], dim=-1)       # [H, W, 3]
+    R_wc = se3.quat_to_mat(pose[3:])
+    o = pose[:3]
+    d_w = d_cam @ R_wc.T                                     # [H, W, 3]
+
+    # into the (unit-sphere) object frames
+    R_o = se3.quat_to_mat(e[:, 3:7])                         # [K, 3, 3]
+    s = e[:, 7:]
+    om = torch.einsum("kj,kji->ki", o - e[:, :3], R_o) / s   # [K, 3]
+    dm = torch.einsum("hwj,kji->khwi", d_w, R_o) / s[:, None, None, :]
+    A = (dm * dm).sum(-1)
+    B = 2.0 * (dm * om[:, None, None, :]).sum(-1)
+    C = ((om * om).sum(-1) - 1.0)[:, None, None]
+    disc = B * B - 4 * A * C
+    t = (-B - torch.sqrt(disc.clamp_min(0.0))) / (2 * A)
+    t_obj = torch.where((disc > 0) & (t > 0.05), t, torch.inf)   # [K, H, W]
+    t_min = t_obj.amin(dim=0) if len(e) else torch.full_like(uu, torch.inf)
+
+    # ground plane z = plane_z
+    dz = d_w[..., 2]
+    t_pl = (plane_z - o[2]) / torch.where(dz.abs() < 1e-9, 1e-9, dz)
+    t_pl = torch.where(t_pl > 0.05, t_pl, torch.inf)
+    t_all = torch.minimum(t_min, t_pl)
+
+    # t is the distance along d_w whose camera-z component is |d_cam| z=1
+    # => camera depth = t (d_cam has unit z), TUM 16-bit scale
+    depth = torch.where(torch.isfinite(t_all), t_all * cam.scale, 0.0)
+    depth = torch.where(depth < 65535.0, depth, 0.0)
+    return depth.to(torch.int32)
+
+
 def project_bboxes(ellipsoids, pose_wc, cam: Camera):
     """Projected bbox [K, 4] + visibility mask [K] (center in front, in
     image), float32 like the JAX package's version."""
@@ -134,14 +189,20 @@ def project_bboxes(ellipsoids, pose_wc, cam: Camera):
 class SyntheticDataset:
     """Drop-in analogue of the TUM dataset reader for generated scenes.
 
-    frames() yields (i, ts, pose_wc7, depth=None, rgb=None, det_mat[N,8])
+    frames() yields (i, ts, pose_wc7, depth_i32, rgb=None, det_mat[N,8])
     with detection rows ``id x1 y1 x2 y2 label rate instance`` (the
     reference's bbox format) with manual instance = object index.
+    ``depth_i32`` is an int32 numpy array [H, W] rendered on
+    ``depth_device`` (default CPU), or None with ``with_depth=False`` (the
+    2D-only loop never reads it).
     """
 
     def __init__(self, scene: SyntheticScene, n_frames: int = 60,
                  orbit_radius: float = 3.2, height: float = 1.4,
-                 min_bbox_px: float = 12.0, seed: int = 1):
+                 min_bbox_px: float = 12.0, seed: int = 1,
+                 with_depth: bool = True, depth_device=None):
+        self.with_depth = with_depth
+        self.depth_device = depth_device
         self.scene = scene
         self.poses = orbit_trajectory(n_frames, orbit_radius, height,
                                       seed=seed)
@@ -149,8 +210,14 @@ class SyntheticDataset:
         self.n_frames = n_frames
 
     def frames(self):
+        ell_d = torch.as_tensor(self.scene.ellipsoids, dtype=torch.float32,
+                                device=self.depth_device)
         for f in range(self.n_frames):
             pose = self.poses[f]
+            depth = None
+            if self.with_depth:
+                depth = render_depth(ell_d, pose, self.scene.camera
+                                     ).cpu().numpy()
             bbs, vis = project_bboxes(self.scene.ellipsoids.astype(np.float32),
                                       pose.astype(np.float32),
                                       self.scene.camera)
@@ -164,7 +231,7 @@ class SyntheticDataset:
                 rows.append([len(rows), *bbs[k], self.scene.labels[k],
                              1.0, k])
             det = np.asarray(rows, np.float64).reshape(-1, 8)
-            yield f, float(f) / 30.0, pose, None, None, det
+            yield f, float(f) / 30.0, pose, depth, None, det
 
 
 def make_lm_batch(n_objects: int, m2: int, m3: int, seed: int = 0,

@@ -1,0 +1,69 @@
+"""Build-by-hash of a CUDA source into a shared library, and launch counters.
+
+Shared by the kernel modules (``backend/ba_kernels.py``,
+``ops/frontend_kernels.py``): a source under ``csrc/`` is compiled with
+``nvcc`` for ``sm_90a`` at first use into
+``object_oriented_slam_tpu_torch/build/`` (the library is named by the hash
+of source and flags, so an edited source rebuilds) and bound with ctypes by
+the caller.  Nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+# -fmad=false: every multiply and add rounds on its own, as in the plain
+# versions' elementwise kernels, so both compute the same bits
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class Kernel:
+    """A launch counter: ``launches`` grows by one per kernel launch."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "csrc/*.cu with the CUDA toolkit")
+    return path
+
+
+def build(source: str, flags=NVCC_FLAGS):
+    """Compile ``source`` (if this source is not built yet).  Returns
+    (path of the shared library, nvcc's output or "" when nothing ran)."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib_path = os.path.join(BUILD_DIR,
+                            f"lib{stem}_{digest.hexdigest()[:12]}.so")
+    if os.path.exists(lib_path):
+        return lib_path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc(), *flags, "-o", tmp, source],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib_path, log

@@ -1,0 +1,147 @@
+"""Depth -> point cloud (fixed-shape, masked), batched over detections.
+
+Port of ``object_oriented_slam_tpu/ops/backproject.py``, the replacement
+for the reference's pixel loops:
+  * ``getPointCloudInRect`` (src/symmetry/PointCloudFilter.cpp:21-61):
+    bbox region scanned with stride 3, depth gated to (0.1, range].
+  * full-image back-projection (src/core/Geometry.cpp:8-41,
+    src/plane/PlaneExtractor.cpp:31-49).
+  * center sampling ``GetCenter`` (src/pca/EllipsoidExtractor.cpp:583-643):
+    10x10 samples around the bbox center.
+
+The JAX functions take one detection and are ``vmap``-ed; here the
+detections are a leading axis D.  All outputs are fixed-capacity tensors +
+validity masks.
+
+``bbox_point_cloud`` is the ``bbox_cloud`` CUDA kernel (csrc/frontend.cu)
+for tensors on a CUDA device and ``bbox_point_cloud_plain`` for tensors on
+the CPU.  Divisions are by 0-dim tensors on the tensor's device: dividing a
+CUDA tensor by a Python number (or by a CPU scalar tensor) multiplies by the
+reciprocal instead, which lands in another last bit than the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.camera import Camera
+from . import frontend_kernels as fk
+
+# stride-3 scan of a full 640x480 image fits in a (160, 214) grid
+BBOX_GRID_H = 160
+BBOX_GRID_W = 214
+STRIDE = 3  # PointCloudFilter.cpp:31-32
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """0-dim float32 tensor on ``like``'s device (a true divisor)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _bbox_corners(bboxes, H, W):
+    b = bboxes.to(torch.int32)          # truncates like the reference's casts
+    return (b[:, 0].clamp(0, W - 1), b[:, 1].clamp(0, H - 1),
+            b[:, 2].clamp(0, W), b[:, 3].clamp(0, H))
+
+
+def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
+                           cam: Camera, depth_range: float):
+    """Plain PyTorch version of ``bbox_point_cloud`` (any device)."""
+    H, W = depth.shape
+    x1, y1, x2, y2 = _bbox_corners(bboxes, H, W)
+    gh = (H + STRIDE - 1) // STRIDE
+    gw = (W + STRIDE - 1) // STRIDE
+    dev = depth.device
+    jj = torch.arange(gw, dtype=torch.int32, device=dev)[None, None, :]
+    ii = torch.arange(gh, dtype=torch.int32, device=dev)[None, :, None]
+    px = x1[:, None, None] + STRIDE * jj                  # [D, 1, gw]
+    py = y1[:, None, None] + STRIDE * ii                  # [D, gh, 1]
+    in_box = (px < x2[:, None, None]) & (py < y2[:, None, None])
+    # the [H, W] window at (y1, x1) runs past the image: those positions
+    # read 0 -> z = 0 -> invalid (in_box excludes them anyway)
+    inside = (px < W) & (py < H)
+    pxc = px.clamp(max=W - 1).long()
+    pyc = py.clamp(max=H - 1).long()
+    d = torch.where(inside, depth[pyc, pxc], 0).to(torch.float32)
+    z = d / scalar(cam.scale, d)
+    valid = in_box & (z > 0.1) & (z <= depth_range)
+    x = (pxc.to(torch.float32) - cam.cx) * z / scalar(cam.fx, d)
+    y = (pyc.to(torch.float32) - cam.cy) * z / scalar(cam.fy, d)
+    pts = torch.stack([x.expand_as(z), y.expand_as(z), z], dim=-1)
+    return pts.reshape(len(bboxes), -1, 3), valid.reshape(len(bboxes), -1)
+
+
+def bbox_point_cloud(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
+                     depth_range: float):
+    """Strided back-projection of every detection's bbox region.
+
+    depth: [H, W] int32; bboxes: [D, 4] x1 y1 x2 y2 (float32, may be
+    fractional; truncated like the reference's int casts).
+    Returns (points [D, gh*gw, 3] camera-frame, mask [D, gh*gw]) with
+    gh, gw = ceil(H/3), ceil(W/3).
+
+    On a CUDA device this is one launch of the ``bbox_cloud`` kernel; on the
+    CPU the plain version.
+    """
+    if depth.device.type != "cuda":
+        return bbox_point_cloud_plain(depth, bboxes, cam, depth_range)
+    H, W = depth.shape
+    D = bboxes.shape[0]
+    dev = depth.device
+    fk.check("depth", depth, torch.int32, (H, W), dev)
+    fk.check("bboxes", bboxes, torch.float32, (D, 4), dev)
+    G = ((H + STRIDE - 1) // STRIDE) * ((W + STRIDE - 1) // STRIDE)
+    pts = torch.empty((D, G, 3), dtype=torch.float32, device=dev)
+    mask = torch.empty((D, G), dtype=torch.bool, device=dev)
+    if D:
+        fk.launch(fk.BBOX_CLOUD, "oslam_bbox_cloud", dev,
+                  [depth.data_ptr(), bboxes.data_ptr(), D, H, W, cam.scale,
+                   cam.fx, cam.fy, cam.cx, cam.cy, depth_range,
+                   pts.data_ptr(), mask.data_ptr()])
+    return pts, mask
+
+
+def full_point_cloud(depth: torch.Tensor, cam: Camera, stride: int = 1,
+                     depth_range: float = float("inf")):
+    """Full-image back-projection (organized), [H//s, W//s, 3] + mask."""
+    d = depth[::stride, ::stride].to(torch.float32)
+    H, W = d.shape
+    z = d / scalar(cam.scale, d)
+    jj = torch.arange(W, dtype=torch.float32, device=d.device)[None, :] * stride
+    ii = torch.arange(H, dtype=torch.float32, device=d.device)[:, None] * stride
+    x = (jj - cam.cx) * z / scalar(cam.fx, d)
+    y = (ii - cam.cy) * z / scalar(cam.fy, d)
+    mask = (z > 1e-6) & (z <= depth_range)
+    return torch.stack([x, y, z], dim=-1), mask
+
+
+def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
+                    depth_range: float):
+    """10x10-sample 3D center estimate in camera frame per detection
+    (EllipsoidExtractor.cpp:583-643).
+
+    Returns (center [D, 3], ok [D] bool); ok requires >= 2 valid samples.
+    """
+    H, W = depth.shape
+    n = 10
+    two, four, ten = (scalar(v, bboxes) for v in (2.0, 4.0, float(n)))
+    xc = ((bboxes[:, 0] + bboxes[:, 2]) / two).to(torch.int32)
+    yc = ((bboxes[:, 1] + bboxes[:, 3]) / two).to(torch.int32)
+    x_delta = ((bboxes[:, 0] - bboxes[:, 2]).abs() / four / ten).to(torch.int32)
+    y_delta = ((bboxes[:, 1] - bboxes[:, 3]).abs() / four / ten).to(torch.int32)
+
+    k = torch.arange(n, dtype=torch.int32, device=depth.device) - n // 2
+    px = (xc[:, None, None] + k[None, None, :] * x_delta[:, None, None]
+          ).clamp(0, W - 1).expand(-1, n, n)
+    py = (yc[:, None, None] + k[None, :, None] * y_delta[:, None, None]
+          ).clamp(0, H - 1).expand(-1, n, n)
+    z = depth[py.long(), px.long()].to(torch.float32) / scalar(cam.scale,
+                                                               bboxes)
+    valid = (z > 0.1) & (z <= depth_range)
+
+    x = (px.to(torch.float32) - cam.cx) * z / scalar(cam.fx, bboxes)
+    y = (py.to(torch.float32) - cam.cy) * z / scalar(cam.fy, bboxes)
+    pts = torch.stack([x, y, z], dim=-1).reshape(-1, n * n, 3)
+    w = valid.reshape(-1, n * n).to(torch.float32)
+    count = w.sum(1)
+    center = (pts * w[..., None]).sum(1) / count.clamp_min(1.0)[:, None]
+    return center, count >= 2

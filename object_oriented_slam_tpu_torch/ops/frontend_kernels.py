@@ -1,0 +1,88 @@
+"""Host side of the depth-frontend kernels (``csrc/frontend.cu``).
+
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_cuda_build.py``) and bound with ctypes.  The wrappers that call
+``launch`` live beside their plain PyTorch versions: ``backproject.
+bbox_point_cloud`` (bbox_cloud), ``voxel.voxel_segment_mean``,
+``cluster.min_label_pass`` and ``cluster.pointer_jumps``.  Each launch runs
+on PyTorch's current stream and does not synchronise; the wrappers allocate
+the outputs with ``torch.empty``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import torch
+
+from . import _cuda_build
+from ._cuda_build import Kernel
+
+SOURCE = os.path.join(_cuda_build.CSRC_DIR, "frontend.cu")
+
+BBOX_CLOUD = Kernel("bbox_cloud")
+VOXEL_SEGMENT_MEAN = Kernel("voxel_segment_mean")
+MIN_LABEL_PASS = Kernel("min_label_pass")
+POINTER_JUMPS = Kernel("pointer_jumps")
+KERNELS = (BBOX_CLOUD, VOXEL_SEGMENT_MEAN, MIN_LABEL_PASS, POINTER_JUMPS)
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""   # nvcc's output (ptxas register / spill report) of the build
+
+
+def build() -> str:
+    """Compile the kernels (if this source is not built yet); returns the
+    path of the shared library."""
+    global build_log
+    lib_path, log = _cuda_build.build(SOURCE)
+    build_log = log or build_log
+    return lib_path
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name, argtypes in (
+                ("oslam_bbox_cloud", [p, p, i, i, i, f, f, f, f, f, f, p, p]),
+                ("oslam_voxel_segment_mean", [p] * 4 + [i] * 3 + [p] * 6),
+                ("oslam_min_label_pass", [p] * 4 + [i, i, f, p]),
+                ("oslam_pointer_jumps", [p] * 3 + [i] * 3 + [p])):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes + [p]      # ..., then the stream
+            fn.restype = i
+        lib.oslam_fe_error_string.argtypes = [i]
+        lib.oslam_fe_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(name: str, t: torch.Tensor, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the CUDA device ``device``."""
+    if t.device != device or device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}; the frontend kernels take "
+                         f"tensors on one CUDA device ({device})")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def launch(kernel: Kernel, fn_name: str, device, args):
+    """One launch on the current stream of ``device``; raises if the library
+    does not build or the launch is refused."""
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        msg = lib.oslam_fe_error_string(rc).decode()
+        raise RuntimeError(f"{kernel.name} ({fn_name}) launch failed: CUDA "
+                           f"error {rc} ({msg})")
+    kernel.launches += 1

@@ -1,0 +1,184 @@
+"""Voxel-grid downsampling (fixed-capacity, masked), batched over detections.
+
+Port of ``object_oriented_slam_tpu/ops/voxel.py``, which replaces PCL
+``VoxelGrid`` / ``DownSamplePointCloudOnly``
+(src/symmetry/PointCloudFilter.cpp:249-261): points are bucketed into
+``leaf``-sized cells and each occupied cell emits the centroid of its
+points.  Each point's cell is packed into one integer key, the keys are
+sorted STABLY (``torch.sort(stable=True)``: equal keys keep pixel order, so
+the centroid sums have one order), and the sorted runs are averaged into a
+fixed-capacity prefix.
+
+The segment part is the ``voxel_segment_mean`` CUDA kernel
+(csrc/frontend.cu) for tensors on a CUDA device, and
+``voxel_segment_mean_plain`` for tensors on the CPU.  The attribute
+variants of the JAX module belong to sparse symmetry and are not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import frontend_kernels as fk
+from .backproject import scalar
+
+_INVALID = 2 ** 30
+
+
+class World(NamedTuple):
+    """The extractor's epilogue of the first downsample: world points
+    ``p R^T + t`` and the supporting-plane mask
+    ``(n . p_w + d) / den > clearance`` (frontend/extractor.py)."""
+    R: torch.Tensor            # [3, 3] camera -> world rotation
+    t: torch.Tensor            # [3]
+    plane: torch.Tensor        # [4] world ground plane
+    den: torch.Tensor          # 0-dim, max(|n|, eps)
+    clearance: float
+
+
+def voxel_cells(pts: torch.Tensor, leaf: float):
+    """Integer cell coordinates per point (absolute, unshifted)."""
+    return torch.floor(pts / scalar(leaf, pts)).to(torch.int32)
+
+
+def voxel_keys(pts: torch.Tensor, mask: torch.Tensor, leaf: float):
+    """Integer cell key per point [D, G]; invalid points get a sentinel key.
+
+    Cells are shifted by the masked minimum [D, 3] so the 10-bit-per-axis
+    packing is collision-free for clouds spanning up to 1024 leafs per axis.
+    """
+    cell = voxel_cells(pts, leaf)
+    cmin = torch.where(mask[..., None], cell, _INVALID).amin(dim=1)
+    c = (cell - cmin[:, None, :]).clamp(0, 1023)
+    key = (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
+    return torch.where(mask, key, _INVALID), cmin
+
+
+def world_points_plain(pts: torch.Tensor, world: World):
+    """(p R^T + t, signed plane distance), sums written out left to right
+    as the kernel's epilogue has them."""
+    x, y, z = pts.unbind(-1)
+    R, t, pi = world.R, world.t, world.plane
+    w = [x * R[i, 0] + y * R[i, 1] + z * R[i, 2] + t[i] for i in range(3)]
+    dist = (w[0] * pi[0] + w[1] * pi[1] + w[2] * pi[2] + pi[3]) / world.den
+    return torch.stack(w, dim=-1), dist
+
+
+def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
+                             world: Optional[World] = None):
+    """Plain PyTorch version of ``voxel_segment_mean`` (any device; on the
+    CPU ``index_add_`` adds in index order, i.e. in sorted order)."""
+    D, G = key_s.shape
+    dev = key_s.device
+    pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    valid_s = key_s != _INVALID
+    is_new = torch.cat([torch.ones((D, 1), dtype=torch.bool, device=dev),
+                        key_s[:, 1:] != key_s[:, :-1]], dim=1) & valid_s
+    seg = torch.cumsum(is_new, dim=1) - 1
+    # invalid points and segments past the capacity go to a dump slot
+    seg = torch.where(valid_s & (seg < capacity), seg, capacity)
+    flat = (seg + torch.arange(D, device=dev)[:, None] * (capacity + 1)
+            ).reshape(-1)
+    sums = torch.zeros((D * (capacity + 1), 3), dtype=pts.dtype, device=dev)
+    sums.index_add_(0, flat, pts_s.reshape(-1, 3))
+    cnts = torch.zeros(D * (capacity + 1), dtype=pts.dtype, device=dev)
+    cnts.index_add_(0, flat, torch.ones_like(flat, dtype=pts.dtype))
+    # all keys of a segment are equal: its first element carries the key
+    keys_out = torch.zeros(D * (capacity + 1), dtype=torch.int64, device=dev)
+    keys_out.index_add_(0, flat, torch.where(is_new, key_s, 0).reshape(-1)
+                        .to(torch.int64))
+    sums = sums.reshape(D, capacity + 1, 3)[:, :capacity]
+    cnts = cnts.reshape(D, capacity + 1)[:, :capacity]
+    k = keys_out.reshape(D, capacity + 1)[:, :capacity].to(torch.int32)
+    out_mask = cnts > 0
+    out = torch.where(out_mask[..., None],
+                      sums / cnts.clamp_min(1.0)[..., None], 0.0)
+    k = torch.where(out_mask, k, 0)
+    cells = torch.stack([(k >> 20) & 1023, (k >> 10) & 1023, k & 1023],
+                        dim=-1) + cmin[:, None, :]
+    cells = torch.where(out_mask[..., None], cells, 0)
+    if world is None:
+        return out, cells, out_mask, None, None
+    pts_w, dist = world_points_plain(out, world)
+    return out, cells, out_mask, pts_w, out_mask & (dist > world.clearance)
+
+
+def voxel_segment_mean(key_s, order, pts, cmin, capacity: int,
+                       world: Optional[World] = None):
+    """Segment means of the stably sorted keys.
+
+    key_s [D, G] int32 sorted keys, order [D, G] int64 the sort's indices,
+    pts [D, G, 3] the points in their ORIGINAL order, cmin [D, 3] int32.
+    Returns (centroids [D, capacity, 3], cells [D, capacity, 3] int32,
+    mask [D, capacity], world points | None, supporting-plane mask | None).
+    Segments past ``capacity`` are dropped.
+
+    On a CUDA device this is one launch of the ``voxel_segment_mean``
+    kernel; on the CPU the plain version.
+    """
+    if key_s.device.type != "cuda":
+        return voxel_segment_mean_plain(key_s, order, pts, cmin, capacity,
+                                        world)
+    D, G = key_s.shape
+    dev = key_s.device
+    fk.check("key_s", key_s, torch.int32, (D, G), dev)
+    fk.check("order", order, torch.int64, (D, G), dev)
+    fk.check("pts", pts, torch.float32, (D, G, 3), dev)
+    fk.check("cmin", cmin, torch.int32, (D, 3), dev)
+    out = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
+    cells = torch.empty((D, capacity, 3), dtype=torch.int32, device=dev)
+    out_mask = torch.empty((D, capacity), dtype=torch.bool, device=dev)
+    pts_w = m2 = wbuf = None
+    if world is not None:
+        wbuf = torch.cat([world.R.reshape(9), world.t, world.plane,
+                          world.den.reshape(1),
+                          scalar(world.clearance, pts).reshape(1)])
+        fk.check("world", wbuf, torch.float32, (18,), dev)
+        pts_w = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
+        m2 = torch.empty((D, capacity), dtype=torch.bool, device=dev)
+    if D:
+        fk.launch(fk.VOXEL_SEGMENT_MEAN, "oslam_voxel_segment_mean", dev,
+                  [key_s.data_ptr(), order.data_ptr(), pts.data_ptr(),
+                   cmin.data_ptr(), D, G, capacity, out.data_ptr(),
+                   cells.data_ptr(), out_mask.data_ptr(),
+                   wbuf.data_ptr() if world is not None else None,
+                   pts_w.data_ptr() if world is not None else None,
+                   m2.data_ptr() if world is not None else None])
+    return out, cells, out_mask, pts_w, m2
+
+
+def _voxel_core(pts, mask, leaf: float, capacity: int,
+                world: Optional[World] = None):
+    """Shared downsample body: key, stable sort, segment means.
+
+    Cells come from the downsample's own keys (decoding the segment key
+    rather than re-flooring the centroid, which can land in the next cell
+    under f32 rounding), so each unmasked output point has a unique cell.
+    """
+    key, cmin = voxel_keys(pts, mask, leaf)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    return voxel_segment_mean(key_s, order, pts.contiguous(), cmin, capacity,
+                              world)
+
+
+def voxel_downsample_cells(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
+                           capacity: int):
+    """Downsample to at most ``capacity`` cell centroids per detection.
+
+    pts [D, G, 3], mask [D, G].  Returns (out_pts [D, capacity, 3],
+    out_cells [D, capacity, 3] int32 absolute cell coordinates,
+    out_mask [D, capacity]).
+    """
+    out, cells, out_mask, _, _ = _voxel_core(pts, mask, leaf, capacity)
+    return out, cells, out_mask
+
+
+def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
+                     capacity: int):
+    """Downsample to at most ``capacity`` cell centroids per detection.
+
+    Returns (out_pts [D, capacity, 3], out_mask [D, capacity]).
+    """
+    out, _, out_mask, _, _ = _voxel_core(pts, mask, leaf, capacity)
+    return out, out_mask

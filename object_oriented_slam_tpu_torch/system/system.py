@@ -2,9 +2,11 @@
 
 Mirrors the reference API surface (``include/core/System.h:27-52``):
 construction from a settings yaml, ``track_with_objects`` per frame and the
-output save helpers, for the 2D-only loop on ``device``: the CUDA device
-by default (a ``RuntimeError`` names it when there is none), the CPU when
-the caller passes ``device="cpu"``.
+output save helpers, on ``device``: the CUDA device by default (a
+``RuntimeError`` names it when there is none), the CPU when the caller
+passes ``device="cpu"``.  ``extractor`` / ``plane_estimator``
+(``frontend.make_extractor`` / ``make_plane_estimator``) turn on the depth
+path; they carry their own device and are made for the same one.
 """
 from __future__ import annotations
 

@@ -1,28 +1,31 @@
-"""Per-frame pipeline orchestrator, 2D-only eager slice.
+"""Per-frame pipeline orchestrator, eager (``pipeline_depth`` = 1).
 
 Port of ``object_oriented_slam_tpu/system/tracking.py`` (the reference's
-``src/core/Tracking.cpp``) for the loop without an extractor: the host
-drives the frame loop and appends observations into fixed-capacity numpy
-buffers; the global object-graph LM runs on ``device`` over the whole
-batch every frame (``backend/lm_soa.py``; its edge work is the CUDA
+``src/core/Tracking.cpp``): the host drives the frame loop and appends
+observations into fixed-capacity numpy buffers; the per-frame ellipsoid
+extraction (``frontend/extractor.py``) and the global object-graph LM
+(``backend/lm_soa.py``) run on ``device`` (their hot stages are the CUDA
 kernels on a CUDA device).
 
 Per-frame flow (GrabPoseAndObjects, Tracking.cpp:170-204):
-  1. record frame
-  2. UpdateObjectObservation (:493-564) without depth: data association
-     (manual column 7; automatic association has no 3D estimate to
-     match without an extractor), key-observation gating, store the 2D
-     observations
-  3. JudgeInitialization (:566-638): incremental SVD init on the host
+  1. record frame; once, estimate and latch the ground plane
+     (Tracking.cpp:716-799)
+  2. UpdateObjectObservation (:493-564): single-frame ellipsoid
+     extraction of every gated detection (with an extractor and a depth
+     image), data association (manual column 7, or automatic by the 3D
+     estimates' world centres), key-observation gating, store the 3D and
+     2D observations
+  3. JudgeInitialization (:566-638): incremental SVD init on the host,
+     or directly from the latest 3D estimate
   4. ProcessCurrentFrame (:219-257): the LM over all observations, warm
      started from the previous call's estimate kept on the device; its
      host copy is drained one call later (``pipeline_depth`` = 1)
 
-What this slice does not port raises ``NotImplementedError``: an
-extractor, a plane estimator or a precomputed extraction result, LM
-fusion, the distributed backend, the dense builder, the batch SVD
-initializer, the array-of-structs backend, a deferred pipeline
-(``pipeline_depth`` > 1) and the adaptive depth.
+What is not ported raises ``NotImplementedError``: a two-phase or fused
+extractor, a precomputed extraction result, LM fusion, the asynchronous
+plane, the interactive plane check, the distributed backend, the dense
+builder, the batch SVD initializer, the array-of-structs backend, a
+deferred pipeline (``pipeline_depth`` > 1) and the adaptive depth.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..assoc import (InstanceCounter, associate_observations,
                      associate_observations_optimal)
 from ..backend import LMConfig, ObjectObservations, optimize_objects_soa
 from ..core import camera as cam_mod
+from ..core import plane as plane_mod
 from ..init.svd_incremental import IncrementalQuadricInit
 from ..io.config import Config
 from ..utils import calibrate_measurement_np
@@ -101,8 +105,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Tracking:
-    """Host orchestrator of the 2D-only mapping loop on ``device`` (the
-    CUDA device unless the caller passes one, e.g. ``device="cpu"``)."""
+    """Host orchestrator of the mapping loop on ``device`` (the CUDA device
+    unless the caller passes one, e.g. ``device="cpu"``).
+
+    ``extractor``: optional callable implementing single-frame ellipsoid
+    estimation (``frontend.make_extractor``).  Signature:
+    ``extractor(depth, bboxes[N,4], labels[N], pose_wc7,
+    ground_plane_vec4) -> [pad, 12] device tensor (vec10, prob, valid)``
+    or a tuple of three host arrays.  ``plane_estimator``: optional
+    callable ``depth -> plane vec4 (camera frame) | None``
+    (``frontend.make_plane_estimator``).
+    """
 
     # capacities of the batched backend call: MAX_OBJECTS is the initial
     # object tier (grows 24 -> 48 -> ... on demand, like the reference's
@@ -116,6 +129,8 @@ class Tracking:
                              "the deferred extraction pipeline")
     adaptive_depth = _pinned("adaptive_depth", False,
                              "the adaptive pipeline depth")
+    async_plane = _pinned("async_plane", False,
+                          "the asynchronous ground-plane estimate")
     use_incremental_init = _pinned("use_incremental_init", True,
                                    "the batch SVD initializer")
     use_soa_backend = _pinned("use_soa_backend", True,
@@ -123,11 +138,16 @@ class Tracking:
 
     def __init__(self, config: Config, extractor=None, plane_estimator=None,
                  device=None):
-        if extractor is not None or plane_estimator is not None:
+        for attr in ("two_phase", "fused"):
+            if getattr(extractor, attr, False):
+                raise NotImplementedError(
+                    f"extractor.{attr}: the split and fused (host-clustered) "
+                    "extractors are not ported to the torch package; use "
+                    "frontend.make_extractor")
+        if config.get_int("Plane.MannualCheck.Open") == 1:
             raise NotImplementedError(
-                "depth extraction and ground-plane estimation are not "
-                "ported to the torch package: pass extractor=None and "
-                "plane_estimator=None (the 2D-only loop)")
+                "Plane.MannualCheck.Open: the interactive ground-plane "
+                "confirmation is not ported to the torch package")
         if config.get_int("Visualization.Builder.Open") == 1:
             raise NotImplementedError(
                 "Visualization.Builder.Open: the dense builder is not "
@@ -148,8 +168,11 @@ class Tracking:
         self.rows = self.camera.height
         self.cols = self.camera.width
         self.state = SlamState()
+        self.extractor = extractor
+        self.plane_estimator = plane_estimator
         self.da_counter = InstanceCounter()
         self.open_optimization = True
+        self.depth_ellipsoid_opened = extractor is not None
 
         self.lm_cfg = LMConfig(
             scale_3d=config.get_float("Optimizer.Edges.3DEllipsoid.Scale", 1.0),
@@ -177,15 +200,18 @@ class Tracking:
         self._backend_calls = 0
         self.max_objects = self.MAX_OBJECTS  # current object-axis tier
         self._init_np_buffers()
-        # per-frame instrumentation (host seconds)
+        # per-frame instrumentation (host seconds): "dispatch" is the
+        # extraction call (it waits on the device for the survivor count
+        # and the clustering rounds' flags), "fetch" the wait for its last
+        # launches and the result's copy to the host
         self.metrics: Dict[str, List[float]] = {"backend": [], "frontend": [],
-                                                "total": []}
+                                                "total": [], "dispatch": [],
+                                                "fetch": []}
 
     # ------------------------------------------------------------------
     def open_ground_plane_estimation(self):
-        raise NotImplementedError(
-            "ground-plane estimation needs the depth frontend, which is not "
-            "ported to the torch package")
+        """Tracking.cpp:690-703."""
+        self.state.ground_state = 1
 
     def enable_distributed(self, mesh=None):
         raise NotImplementedError(
@@ -199,8 +225,8 @@ class Tracking:
                               ext_result=None) -> bool:
         """One frame of the pipeline (System::TrackWithObjects entry).
 
-        ``depth`` and ``rgb`` are accepted and unused: without an
-        extractor the loop runs on the detections alone.
+        ``depth``: [H, W] integer depth image (TUM scale) or None; ``rgb``
+        is accepted and unused (the dense builder is not ported).
         """
         if ext_result is not None:
             raise NotImplementedError(
@@ -213,24 +239,98 @@ class Tracking:
         self.state.frames_ts.append(timestamp)
         det_mat = np.asarray(det_mat, np.float64).reshape(-1, 8) \
             if det_mat is not None and det_mat.size else np.zeros((0, 8))
-        return self._frame_body(frame_id, pose_wc, det_mat,
+        # ---- [1.1] ground plane estimation (once), synchronous ---------
+        if self.state.ground_state == 1 and self.plane_estimator is not None \
+                and depth is not None:
+            plane_cam = self.plane_estimator(depth)
+            if plane_cam is not None:
+                self._latch_plane(plane_cam, pose_wc)
+            # else: state stays 1, retry next frame (Tracking.cpp:766-771)
+        return self._frame_body(frame_id, pose_wc, det_mat, depth,
                                 with_association, t0)
 
     # ------------------------------------------------------------------
-    def _frame_body(self, frame_id, pose_wc, det_mat, with_association, t0):
-        """Everything after ground-plane handling for one frame."""
-        self._process_frame_obs(frame_id, pose_wc, det_mat, with_association)
+    def _latch_plane(self, plane_cam, pose_wc):
+        """World-transform + latch (Tracking.cpp:723-771), in float32 on
+        the host like the JAX package."""
+        pw = plane_mod.transform(
+            torch.as_tensor(np.asarray(plane_cam, np.float32)),
+            torch.as_tensor(pose_wc.astype(np.float32)))
+        self.state.ground_plane = pw.numpy().astype(np.float64)
+        self.state.ground_state = 2
+
+    # ------------------------------------------------------------------
+    def _frame_body(self, frame_id, pose_wc, det_mat, depth,
+                    with_association, t0):
+        """Everything after ground-plane handling for one frame: the eager
+        extraction dispatch, then the host-side processing."""
+        # ---- [1.2] single-frame ellipsoid estimation (dispatch) --------
+        n_det = det_mat.shape[0]
+        ext_out = None
+        run = np.zeros(n_det, bool)
+        if self.depth_ellipsoid_opened and depth is not None and n_det > 0 \
+                and self.state.ground_state == 2:
+            run[:] = self.run_gates(det_mat, with_association)
+            if np.any(run):
+                ext_out = self.extractor(depth, det_mat[:, 1:5].copy(),
+                                         det_mat[:, 5].astype(int), pose_wc,
+                                         self.state.ground_plane)
+        self.metrics["dispatch"].append(time.perf_counter() - t0)
+        self._process_frame_obs(frame_id, pose_wc, det_mat, ext_out, run,
+                                with_association)
         self.metrics["backend"].append(self._t3 - self._t2)
         self.metrics["frontend"].append(self._t1 - t0)
         self.metrics["total"].append(self._t3 - t0)
         return True
 
     # ------------------------------------------------------------------
-    def _process_frame_obs(self, frame_id, pose_wc, det_mat,
-                           with_association):
-        """Host-side half of a frame: associate, store observations,
-        initialize, dispatch the backend."""
+    def run_gates(self, det_mat, with_association: bool) -> np.ndarray:
+        """Extraction gates c1 (bbox on border) and c3 (invalid manual
+        association), Tracking.cpp:313-327."""
         n_det = det_mat.shape[0]
+        run = np.ones(n_det, bool)
+        for i in range(n_det):
+            _, is_border = calibrate_measurement_np(
+                det_mat[i, 1:5].copy(), self.rows, self.cols,
+                self.border_px, self.length_limit_px)
+            if is_border:
+                run[i] = False
+            if with_association and det_mat[i, 7] < 0:
+                run[i] = False
+        return run
+
+    # ------------------------------------------------------------------
+    def _process_frame_obs(self, frame_id, pose_wc, det_mat, ext_out, run,
+                           with_association):
+        """Host-side half of a frame: fetch the extraction result,
+        associate, store observations, initialize, dispatch the backend."""
+        tp0 = time.perf_counter()
+        n_det = det_mat.shape[0]
+        local_vec10 = np.zeros((n_det, 10))
+        local_prob = np.zeros(n_det)
+        local_valid = np.zeros(n_det, bool)
+
+        # ---- fetch the extraction result -----------------------------
+        # the extractor returns None or the device tensor [pad, 12] (vec10,
+        # prob, valid).  This is the frame's ONE device-to-host copy for the
+        # extraction (the host waits here for its kernels to finish)
+        ext_np = None
+        if ext_out is not None:
+            ext_np = ext_out.cpu().numpy().astype(np.float64)
+        self.metrics["fetch"].append(time.perf_counter() - tp0)
+        if ext_np is not None:
+            # the extractor may return fewer rows than detections (its
+            # detection-axis capacity); the overflow keeps 2D-only obs
+            n_rows = min(n_det, ext_np.shape[0])
+            if n_rows < n_det and np.any(run[n_rows:]):
+                _log.warning(
+                    "extractor returned %d rows for %d detections; "
+                    "detections beyond the capacity keep 2D-only "
+                    "observations", n_rows, n_det)
+            r = run[:n_rows]
+            local_vec10[:n_rows][r] = ext_np[:n_rows][r, :10]
+            local_prob[:n_rows][r] = ext_np[:n_rows][r, 10]
+            local_valid[:n_rows][r] = ext_np[:n_rows][r, 11] > 0.5
 
         # drain the previous backend result (its estimate stays on the
         # device for the warm start; the host copy feeds history/outputs)
@@ -240,16 +340,19 @@ class Tracking:
         if with_association:
             associations = [int(round(det_mat[i, 7])) for i in range(n_det)]
         else:
-            # automatic: by world-center distance of each detection's 3D
-            # estimate; without an extractor no detection has one
+            # automatic: by world-center distance to map objects
+            centers = np.zeros((n_det, 3))
+            for i in range(n_det):
+                if local_valid[i]:
+                    world = _np_se3_mul(pose_wc, local_vec10[i, :7])
+                    centers[i] = world[:3]
             inst_ids = self.state.initialized_instances()
             map_centers = np.array([self.state.objects[i].vec10[:3]
                                     for i in inst_ids]).reshape(-1, 3)
             assoc_fn = (associate_observations_optimal
                         if self.use_optimal_assoc else associate_observations)
             associations = assoc_fn(
-                np.zeros((n_det, 3)), np.zeros(n_det, bool), inst_ids,
-                map_centers, self.da_counter)
+                centers, local_valid, inst_ids, map_centers, self.da_counter)
 
         # ---- [1.4] key-observation gating (Tracking.cpp:421-475) ------
         kf_checks = self._check_keyframes(associations, pose_wc)
@@ -260,6 +363,18 @@ class Tracking:
             inst = associations[i]
             if inst < 0 or not kf_checks[i]:
                 continue
+            # 3D observation
+            if local_valid[i]:
+                rec = self.state.record(inst)
+                rec.obs3d_pose_wc.append(pose_wc)
+                rec.obs3d_meas.append(local_vec10[i])
+                rec.obs3d_prob.append(float(local_prob[i]))
+                rec.obs3d_frame.append(frame_id)
+                if rec.label < 0:
+                    rec.label = int(det_mat[i, 5])
+                self._append_obs3d(inst, pose_wc, local_vec10[i],
+                                   float(local_prob[i]))
+            # 2D observation
             meas = det_mat[i, 1:5].copy()
             meas_cal, is_border = calibrate_measurement_np(
                 meas, self.rows, self.cols, self.border_px,
@@ -314,7 +429,7 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _judge_initialization(self):
-        """2D SVD path with the host-side incremental initializer."""
+        # 2D SVD path with the host-side incremental initializer
         for inst, rec in self.state.objects.items():
             if rec.initialized or len(rec.obs2d_bbox) < self.min_init_frames:
                 continue
@@ -322,6 +437,19 @@ class Tracking:
             if vec10 is not None:
                 rec.vec10 = vec10
                 rec.initialized = True
+                self._inc_init.drop(inst)
+
+        # 3D path: seed directly from the latest local estimate
+        if self.depth_ellipsoid_opened:
+            for inst, rec in self.state.objects.items():
+                if rec.initialized or not rec.obs3d_meas:
+                    continue
+                pose_wc = rec.obs3d_pose_wc[-1]
+                local = rec.obs3d_meas[-1]
+                world_pose = _np_se3_mul(pose_wc, local[:7])
+                rec.vec10 = np.concatenate([world_pose, local[7:]])
+                rec.initialized = True
+                rec.init_by_3d = True
                 self._inc_init.drop(inst)
 
     # ------------------------------------------------------------------

@@ -1,0 +1,206 @@
+"""The CUDA depth-frontend kernels against their plain PyTorch versions.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc; skipped elsewhere.  The machine
+with the card has no JAX, so run this file without the JAX test setup:
+
+    python -m pytest tests/test_torch_frontend_kernels.py --noconftest -q
+
+Inputs: frames of a seeded synthetic scene rendered by the port
+(io/synthetic.py), 640x480.  The kernels are built with IEEE division and
+without fused multiply-add, in the plain versions' order of operations, so
+masks, cells and labels must be EQUAL.  Floats are held bit for bit against
+the plain version evaluated on the CPU (whose ``index_add_`` adds in sorted
+order, like the kernel), and within 1e-6 against the plain version on the
+card (whose ``index_add_`` adds with atomics in any order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from object_oriented_slam_tpu_torch.core import se3
+from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
+                                                     extract_local_ellipsoids)
+from object_oriented_slam_tpu_torch.io import synthetic as syn
+from object_oriented_slam_tpu_torch.ops import backproject as bp
+from object_oriented_slam_tpu_torch.ops import cluster as cl
+from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+from object_oriented_slam_tpu_torch.ops import voxel as vx
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _frame(n_objects=8, frame=5, seed=7):
+    """(depth int32 [480, 640], bboxes [D, 4] float32, pose [7], camera)."""
+    scene = syn.make_scene(n_objects=n_objects, seed=seed,
+                           radius_range=(1.3, 2.2), scale_range=(0.2, 0.4))
+    pose = syn.orbit_trajectory(40, 3.6, 1.7)[frame]
+    depth = syn.render_depth(scene.ellipsoids, pose, scene.camera)
+    bbs, vis = syn.project_bboxes(scene.ellipsoids.astype(np.float32),
+                                  pose.astype(np.float32), scene.camera)
+    # a fractional box, a box running off the image and an empty one ride
+    # along with the visible detections
+    extra = torch.tensor([[100.7, 50.2, 300.9, 400.5],
+                          [500.0, 300.0, 900.0, 700.0],
+                          [0.0, 0.0, 0.0, 0.0]])
+    return depth, torch.cat([bbs[vis], extra]), pose, scene.camera
+
+
+def _world(pose, dev):
+    pose_t = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    plane = torch.tensor([0.001, -0.002, 1.0, -0.0005], device=dev)
+    den = torch.sqrt((plane[:3] ** 2).sum()).clamp_min(1e-8)
+    return vx.World(se3.quat_to_mat(pose_t[3:]), pose_t[:3], plane, den, 0.05)
+
+
+def _world_cpu(w):
+    return vx.World(w.R.cpu(), w.t.cpu(), w.plane.cpu(), w.den.cpu(),
+                    w.clearance)
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.cpu().contiguous().view(torch.uint8),
+                       b.cpu().contiguous().view(torch.uint8))
+
+
+def test_bbox_cloud_equals_plain(device):
+    depth, bboxes, _, cam = _frame()
+    n0 = fk.BBOX_CLOUD.launches
+    pts, mask = bp.bbox_point_cloud(depth.to(device), bboxes.to(device), cam,
+                                    6.0)
+    torch.cuda.synchronize()
+    assert fk.BBOX_CLOUD.launches == n0 + 1
+    assert pts.shape == (len(bboxes), bp.BBOX_GRID_H * bp.BBOX_GRID_W, 3)
+    for want in (bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0),
+                 bp.bbox_point_cloud_plain(depth.to(device),
+                                           bboxes.to(device), cam, 6.0)):
+        assert torch.equal(mask.cpu(), want[1].cpu())
+        assert _bits_equal(pts, want[0])
+    assert int(mask.sum()) > 10000 and not bool(mask[-1].any())
+
+
+@pytest.mark.parametrize("capacity", [16384, 2048])
+def test_voxel_segment_mean_equals_plain(device, capacity):
+    depth, bboxes, pose, cam = _frame()
+    pts, mask = bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0)
+    key, cmin = vx.voxel_keys(pts, mask, 0.01)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    world = _world(pose, device)
+    n0 = fk.VOXEL_SEGMENT_MEAN.launches
+    got = vx.voxel_segment_mean(key_s.to(device), order.to(device),
+                                pts.to(device), cmin.to(device), capacity,
+                                world)
+    torch.cuda.synchronize()
+    assert fk.VOXEL_SEGMENT_MEAN.launches == n0 + 1
+    # bit for bit against the CPU (sequential sums in sorted order)
+    want = vx.voxel_segment_mean_plain(key_s, order, pts, cmin, capacity,
+                                       _world_cpu(world))
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    # against the card's plain version: atomics add in any order
+    card = vx.voxel_segment_mean_plain(key_s.to(device), order.to(device),
+                                       pts.to(device), cmin.to(device),
+                                       capacity, world)
+    assert torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])
+    assert float((got[0] - card[0]).abs().max()) <= 1e-6
+    assert float((got[3] - card[3]).abs().max()) <= 1e-6
+    # without the world epilogue
+    bare = vx.voxel_segment_mean(key_s.to(device), order.to(device),
+                                 pts.to(device), cmin.to(device), capacity)
+    assert bare[3] is None and bare[4] is None
+    assert _bits_equal(bare[0], got[0]) and torch.equal(bare[2], got[2])
+    if capacity == 2048:      # the big boxes overflow: segments are dropped
+        assert bool(got[2][:, -1].any())
+
+
+def _cluster_inputs(n_lanes=4096):
+    depth, bboxes, pose, cam = _frame()
+    pts, mask = bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0)
+    world = _world_cpu(_world(pose, torch.device("cpu")))
+    _, _, _, pts_w, m2 = vx._voxel_core(pts, mask, 0.01, n_lanes, world)
+    return pts_w, m2
+
+
+def test_min_label_pass_and_jumps_equal_plain(device):
+    pts_w, m2 = _cluster_inputs()
+    D, N = m2.shape
+    w = m2[..., None]
+    c = torch.where(w, pts_w, 0.0).sum(1) / m2.sum(1).clamp_min(1)[:, None]
+    pts_c = torch.where(w, pts_w - c[:, None, :], 0.0).contiguous()
+    nrm = (pts_c * pts_c).sum(-1)
+    labels = torch.where(m2, torch.arange(N, dtype=torch.int32), N)
+    tol2 = float(torch.tensor(0.02 * 0.02, dtype=torch.float32))
+    args_d = [t.to(device) for t in (pts_c, nrm, m2, labels)]
+    for _ in range(3):       # three rounds, each held against the plain one
+        n0 = (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches)
+        got = cl.min_label_pass(*args_d, tol2)
+        want = cl.min_label_pass_plain(pts_c, nrm, m2, labels, tol2)
+        assert torch.equal(got.cpu(), want)
+        got_j, got_ch = cl.pointer_jumps(got, args_d[3], 12)
+        want_j, want_ch = cl.pointer_jumps_plain(want, labels, 12)
+        torch.cuda.synchronize()
+        assert (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches) \
+            == (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(got_j.cpu(), want_j)
+        assert torch.equal(got_ch.cpu(), want_ch) and bool(want_ch.any())
+        labels, args_d[3] = want_j, got_j
+    # an odd number of jumps ends in the scratch buffer and is copied back
+    odd, _ = cl.pointer_jumps(args_d[3].clone(), args_d[3], 3)
+    assert torch.equal(odd.cpu(), cl.pointer_jumps_plain(labels, labels, 3)[0])
+
+
+def test_components_equal_plain_and_repeat(device):
+    pts_w, m2 = _cluster_inputs()
+    want, conv_w, rounds_w = cl.components_compacted(
+        pts_w, m2, 0.02, 96, 12, 2048, with_converged=True, with_rounds=True)
+    runs = [cl.components_compacted(pts_w.to(device), m2.to(device), 0.02, 96,
+                                    12, 2048, with_converged=True,
+                                    with_rounds=True) for _ in range(2)]
+    for got, conv, rounds in runs:
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(conv.cpu(), conv_w) and bool(conv_w.all())
+        assert rounds == rounds_w
+    # full width, no compaction: the same labels
+    full = cl.connected_components(pts_w.to(device), m2.to(device), 0.02, 96)
+    assert torch.equal(full.cpu(), want)
+
+
+def test_extraction_on_card_matches_cpu(device):
+    depth, bboxes, pose, cam = _frame()
+    cfg = ExtractorConfig()
+    run = torch.ones(len(bboxes), dtype=torch.bool)
+    plane = torch.tensor([0.0, 0.0, 1.0, 0.0])
+    pose_t = torch.as_tensor(pose, dtype=torch.float32)
+    before = {k.name: k.launches for k in fk.KERNELS}
+    got = extract_local_ellipsoids(depth.to(device), bboxes.to(device),
+                                   run.to(device), pose_t.to(device),
+                                   plane.to(device), cam, cfg)
+    torch.cuda.synchronize()
+    assert all(k.launches > before[k.name] for k in fk.KERNELS)
+    want = extract_local_ellipsoids(depth, bboxes, run, pose_t, plane, cam,
+                                    cfg)
+    assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
+    v = want[2]
+    # PCA sums run in another order on the card: centre 1e-4, scale 1e-3
+    assert float((got[0].cpu()[v, :3] - want[0][v, :3]).abs().max()) < 1e-4
+    assert float((got[0].cpu()[v, 7:].sort(1).values
+                  - want[0][v, 7:].sort(1).values).abs().max()) < 1e-3
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(device):
+    depth, bboxes, _, cam = _frame()
+    with pytest.raises(TypeError):
+        bp.bbox_point_cloud(depth.to(device).float(), bboxes.to(device), cam,
+                            6.0)
+    with pytest.raises(ValueError):
+        bp.bbox_point_cloud(depth.to(device), bboxes, cam, 6.0)
+    with pytest.raises(ValueError):
+        bp.bbox_point_cloud(depth.to(device).T, bboxes.to(device), cam, 6.0)

@@ -1,5 +1,5 @@
-"""Port parity of the whole 2D-only mapping loop (System without an
-extractor) against the JAX package, and the checkpoint hand-over from a
+"""Port parity of the 2D-only mapping loop (System without an extractor;
+the depth path is tests/test_torch_depth_slice.py) against the JAX package, and the checkpoint hand-over from a
 JAX run to the port.
 
 One 8-object, 30-frame synthetic sequence (io/synthetic.py) with the
@@ -209,14 +209,22 @@ def test_observation_tiers_are_powers_of_two():
     "pipeline_depth", "adaptive_depth", "batch_svd_init", "aos_backend",
     "distributed", "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
+    """What is not ported raises: "extractor" is a split or fused
+    extractor, "plane_estimator" the asynchronous plane estimate and
+    "ground_plane" its interactive confirmation (the monolithic extractor,
+    the synchronous estimate and the plane latch are ported)."""
     cfg = Config(YAML)
-    if what in ("extractor", "plane_estimator"):
-        with pytest.raises(NotImplementedError):
-            Tracking(cfg, **{what: object()})
+    if what == "extractor":
+        for attr in ("two_phase", "fused"):
+            split = type("SplitExtractor", (), {attr: True})()
+            with pytest.raises(NotImplementedError, match=attr):
+                Tracking(cfg, extractor=split, device="cpu")
         return
-    if what == "dense_builder":
-        cfg._file["Visualization.Builder.Open"] = 1.0
-        with pytest.raises(NotImplementedError):
+    if what in ("dense_builder", "ground_plane"):
+        key = {"dense_builder": "Visualization.Builder.Open",
+               "ground_plane": "Plane.MannualCheck.Open"}[what]
+        cfg._file[key] = 1.0
+        with pytest.raises(NotImplementedError, match=key):
             Tracking(cfg, device="cpu")
         return
     tr = Tracking(cfg, device="cpu")
@@ -230,10 +238,13 @@ def test_unported_options_raise(what):
         "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
         "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
         "distributed": tr.enable_distributed,
-        "ground_plane": tr.open_ground_plane_estimation,
+        "plane_estimator": lambda: setattr(tr, "async_plane", True),
     }[what]
     with pytest.raises(NotImplementedError):
         act()
     # the supported values stay settable
     tr.pipeline_depth = 1
     tr.fuse_lm = False
+    tr.async_plane = False
+    tr.open_ground_plane_estimation()
+    assert tr.state.ground_state == 1
