@@ -27,17 +27,23 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      rendered depth (ground plane, monolithic extraction, 3D observations
      and initialisation, the LM with live 3D edges), with the launch counts
      of every kernel, e2e / extraction / backend ms per frame, the cloud
-     tiers and the clustering rounds;
+     tiers and the clustering rounds; one extraction call under the
+     profiler, which must be four frontend launches (bbox_cloud, two
+     voxel_segment_mean, cluster_components) and must not make the host wait
+     for the device between its argument copies and its result copy;
   6. the depth-frontend kernels (bbox_cloud, both voxel_segment_mean
-     launches, min_label_pass, pointer_jumps) against their plain versions
-     at the shapes the depth main path gave them on its mid-orbit frame
-     (that frame through the extractor's own packing: 32 detection lanes,
-     its cloud tier, the lanes its survivors compact to; the script raises
-     if the path ran that frame at other shapes), and at the full tier (8
-     detections, cloud capacity 16384): masks, cells and labels equal,
-     floats bit for bit against the plain version on the CPU and within
-     1e-6 against it on the card, repeats bit-equal, device time beside the
-     bound;
+     launches, cluster_components, and the single-step min_label_pass and
+     pointer_jumps) against their plain versions at the shapes the depth
+     main path gave them on its mid-orbit frame (that frame through the
+     extractor's own packing: 32 detection lanes, its cloud tier, its
+     survivors; the script raises if the path ran that frame at other
+     shapes), at the full tier (8 detections, cloud capacity 16384) and, for
+     cluster_components, on dense clouds that fill all 16384 lanes (its
+     streamed branch) and under a bound of 2 rounds (truncation): masks,
+     cells and labels equal, converged flags and round counts equal, floats
+     bit for bit against the plain version on the CPU and within 1e-6
+     against it on the card, repeats bit-equal, device time beside the bound
+     and beside the loop of the two single-step kernels;
   7. one JSON line with a record per kernel, the card line, and the result
      line {"ok": true, "device": {...}} last.
 """
@@ -81,16 +87,27 @@ N_DEPTH_FRAMES = 160
 # f32 / integer operations of one pair test of min_label_pass, counted from
 # csrc/frontend.cu: 3 multiplies and 2 adds (the dot product), the sum of
 # the norms, the doubling, the difference, 2 compares and a select.  The
-# bound charges them for the pairs the function needs: unmasked points of
-# one detection against each other
+# bound charges them for the pairs the function needs: for one single-step
+# pass the unmasked points of a detection against each other, for
+# cluster_components the pairs its skip of far groups leaves (tested_pairs)
 PAIR_OPS = 11
+# clustering rounds per frame on the depth path (min, median, max)
+PATH_ROUNDS = (16, 24, 44)
 # the functions of the JAX package (left to XLA there) that the frontend
 # kernels replace
+# the single-step entry points of the clustering: held against their plain
+# versions, launched by nothing on the main path
+SINGLE_STEP = ("min_label_pass", "pointer_jumps")
+# the frontend launches of one extraction call
+CALL_LAUNCHES = {"bbox_cloud": 1, "voxel_segment_mean": 2,
+                 "cluster_components": 1, "min_label_pass": 0,
+                 "pointer_jumps": 0}
 FE_REPLACES = {
     "bbox_cloud": "object_oriented_slam_tpu/ops/backproject.py:28",
     "voxel_segment_mean": "object_oriented_slam_tpu/ops/voxel.py:58",
     "min_label_pass": "object_oriented_slam_tpu/ops/cluster.py:78",
-    "pointer_jumps": "object_oriented_slam_tpu/ops/cluster.py:214"}
+    "pointer_jumps": "object_oriented_slam_tpu/ops/cluster.py:214",
+    "cluster_components": "object_oriented_slam_tpu/ops/cluster.py:379"}
 REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
@@ -159,14 +176,33 @@ def device_ms(fn, reps, warmup=2, name=None):
     copy a few scalars to the card)."""
     for _ in range(warmup):
         fn()
-    events = profiled(fn, reps, expect=reps)
-    if name is not None:
-        events = [e for e in events if name in e.key]
-    if sum(e.count for e in events) != reps:
+    for _ in range(3):      # a trace may lack the named kernel's events
+        events = profiled(fn, reps, expect=reps)
+        if name is not None:
+            events = [e for e in events if name in e.key]
+        if sum(e.count for e in events) == reps:
+            break
+    else:
         raise RuntimeError(
             f"the profiler shows {sum(e.count for e in events)} device "
             f"operations for {reps} launches")
     return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def checked_device_ms(fn, reps, name):
+    """``device_ms`` of a kernel that runs for longer than the host takes to
+    enqueue it, held against CUDA events around the same back-to-back
+    launches (which then time the card too, gaps included): a trace may
+    carry the right count of events and a wrong time.  The profiler's time
+    must lie within 0.75 to 1.05 of the events'; else both are taken again,
+    up to three times.  Returns (profiler ms, events ms)."""
+    for _ in range(3):
+        ms = device_ms(fn, reps, name=name)
+        ev = cuda_ms(fn, reps)
+        if 0.75 * ev <= ms <= 1.05 * ev:
+            return ms, ev
+    raise RuntimeError(f"{name}: the profiler reads {ms:.4f} ms a launch, "
+                       f"CUDA events around the same launches {ev:.4f} ms")
 
 
 def lm_inputs(shape, dev, seed=SEED, edit=None):
@@ -325,28 +361,38 @@ def same_bits(a, b):
 
 def same_or_both_nan(got, want, tol, scale=None):
     """Largest |got - want| over max|want| per object (or over ``scale``
-    [O]); a NaN must be matched by a NaN.  Raises on a mismatch of NaNs."""
+    [O]); a NaN must be matched by a NaN and an infinity by the same
+    infinity.  Raises on a mismatch of either."""
     O = want.shape[0]
     a, b = got.double().reshape(O, -1), want.double().reshape(O, -1)
     if not torch.equal(torch.isnan(a), torch.isnan(b)):
         raise RuntimeError("NaNs in different places")
-    a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+    inf = torch.isinf(a) | torch.isinf(b)
+    if not torch.equal(a[inf], b[inf]):
+        raise RuntimeError("infinities in different places")
+    a = torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
+    b = torch.nan_to_num(b, nan=0.0, posinf=0.0, neginf=0.0)
     if scale is None:
         scale = b.abs().amax(1)
-    err = float(((a - b).abs().amax(1) / scale.double().clamp_min(1e-30)).max())
+    scale = torch.nan_to_num(scale.double(), posinf=1.0)
+    err = float(((a - b).abs().amax(1) / scale.clamp_min(1e-30)).max())
     if not err <= tol:
         raise RuntimeError(f"relative error {err:.3g} over the limit {tol:g}")
     return err
 
 
-def degenerate_object_3(arrays):
-    """Gives the LM batch an object whose du is non-finite: object 3's
-    estimate becomes a 30 m sphere around its cameras, so its projected
-    conics have no real axes: the bbox half-widths are sqrt(max(negative,
-    0)) = 0 with a NaN tangent, while every residual value stays finite
-    (the edges pass the NaN gate).  Its rotation is the identity, so the
-    gated zero step returns the estimate bit for bit."""
+def degenerate_objects(arrays):
+    """Gives the LM batch its two degenerate objects.  Object 3's estimate
+    becomes a 30 m sphere around its cameras, so its projected conics have
+    no real axes: the bbox half-widths are sqrt(max(negative, 0)) = 0 with a
+    NaN tangent, while every residual value stays finite (the edges pass the
+    NaN gate); such edges are left out of the normal equations, by the
+    kernel and by the plain version alike, so its H stays finite.  Object
+    4 gets the identity rotation: phase_steps hands it a NaN damping, so
+    its du is non-finite, the du_ok gate zeroes the step, and the zero step
+    returns the estimate bit for bit."""
     arrays["est0"][3, 3:] = (0, 0, 0, 1, 30, 30, 30)
+    arrays["est0"][4, 3:7] = (0, 0, 0, 1)
 
 
 def phase_steps(dev):
@@ -355,13 +401,14 @@ def phase_steps(dev):
     from object_oriented_slam_tpu_torch.backend import ba_kernels, lm_soa
     recs = {}
     for shape in (FULL, TIER):
-        # object 3 is degenerate, the last object has no edges
+        # objects 3 and 4 are degenerate, the last object has no edges
         est, *problem = lm_inputs(shape, dev, SEED + 1,
-                                  degenerate_object_3)[2]
+                                  degenerate_objects)[2]
         problem = (*problem, 0.0)
         O = shape[0]
         lam = torch.full((O,), -1.0, device=dev)
         lam[1::2] = 0.25            # given dampings beside first iterations
+        lam[4] = float("nan")       # a non-finite du for the du_ok gate
         nu = torch.full((O,), 2.0, device=dev)
 
         # --- solve step
@@ -373,10 +420,17 @@ def phase_steps(dev):
         if again[4] is not None or not all(
                 same_bits(a, b) for a, b in zip(got[:4], again[:4])):
             raise RuntimeError("lm_solve_step: two launches differ in bits")
-        gated = ~torch.isfinite(H).flatten(1).all(1)
-        if not (bool(gated[3]) and float(du[3].abs().max()) == 0.0
-                and float(got[1][3].abs().max()) == 0.0):
+        gated = ~torch.isfinite(lam0)
+        if not (bool(gated[4]) and float(du[4].abs().max()) == 0.0
+                and float(got[1][4].abs().max()) == 0.0):
             raise RuntimeError("no object with a non-finite, gated du")
+        # object 3: every 2D edge has a NaN tangent and is left out, so H is
+        # finite (its 3D edges and gravity) and the object moves
+        if not (bool(torch.isfinite(H[3]).all())
+                and bool(torch.isfinite(got[4][3]).all())
+                and float(du[3].abs().max()) > 0.0
+                and float(got[1][3].abs().max()) > 0.0):
+            raise RuntimeError("the object with NaN-tangent edges is frozen")
         if float(problem[1][-1].abs().sum() + problem[2][-1].abs().sum()):
             raise RuntimeError("the last object has edges")
         hscale = torch.nan_to_num(H).abs().flatten(1).amax(1)
@@ -424,7 +478,7 @@ def phase_steps(dev):
             raise RuntimeError(
                 f"accept flags differ: kernel {runs[0][4].tolist()}, plain "
                 f"{acc.tolist()}")
-        if not (bool(acc.any()) and not bool(acc[5]) and not bool(acc[3])):
+        if not (bool(acc.any()) and not bool(acc[5]) and not bool(acc[4])):
             raise RuntimeError(f"accept flags lack a case: {acc.tolist()}")
         if not torch.equal(runs[0][0][acc], est_new[acc]) or not torch.equal(
                 runs[0][0][~acc], est[~acc]):
@@ -666,10 +720,12 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
     all on the card; ``cfg.cloud_capacity`` is the frame's cloud tier.  The
     stages follow frontend/extractor.py: bbox_cloud at (D, grid), the first
     voxel_segment_mean (grid -> tier, with the world epilogue), the
-    clustering round at the lanes the survivors compact to (and, with
-    ``uncompacted``, at all tier lanes), the second voxel_segment_mean (tier
-    -> sym_capacity, no epilogue) on the selected clusters.  Returns the
-    records and (tier, lanes)."""
+    clustering (``cluster_checks``: the whole propagation in one launch,
+    and one round by the single-step kernels at the lanes the survivors
+    compact to and, with ``uncompacted``, at all tier lanes), the second
+    voxel_segment_mean (tier -> sym_capacity, no epilogue) on the selected
+    clusters.  Returns the records and (tier, the largest survivor
+    count)."""
     from object_oriented_slam_tpu_torch.core import se3
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     from object_oriented_slam_tpu_torch.ops import cluster as cl
@@ -768,101 +824,23 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
                        cfg.voxel_leaf, tier, world, 1e-6)
     pts_w, m2 = got[3], got[4]
 
-    # --- K5 min_label_pass + pointer_jumps at the lanes the extractor
-    # compacts this frame's survivors to
+    # --- K5: the whole propagation in one launch (cluster_components, the
+    # main path's), and one pass / 12 jumps by the single-step entry points
+    # at the lanes the survivors compact to
     tol = cfg.cluster_tolerance
+    centre, _ = bp.center_estimate(depth, bboxes, cam, cfg.depth_range)
+    centre_w = (centre @ world.R.T + world.t).contiguous()
+    k5, sel, ok = cluster_checks(
+        dev, tag, pts_w, m2, tol, cfg.cluster_iters, cfg.cluster_chains,
+        (centre_w, cfg.cluster_min_size, cfg.cluster_center_dis),
+        uncompacted, frame=world.R.T.contiguous())
+    recs.update({f"{k} ({tag})": r for k, r in k5.items()})
     survivors = int(m2.sum(1).max())
-    cap = min(tier, max(256, -(-survivors // 256) * 256))
-    order_c = torch.sort((~m2).to(torch.int32), dim=1, stable=True).indices
-    sub = order_c[:, :cap]
-    shapes = {"compacted": (torch.gather(pts_w, 1,
-                                         sub[..., None].expand(-1, -1, 3)),
-                            torch.gather(m2, 1, sub))}
-    if uncompacted:
-        shapes["all lanes"] = (pts_w, m2)
-    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
-    for lanes, (p, m) in shapes.items():
-        N = m.shape[1]
-        w = m[..., None]
-        c = torch.where(w, p, 0.0).sum(1) / m.sum(1).clamp_min(1).to(
-            p.dtype)[:, None]
-        pc = torch.where(w, p - c[:, None, :], 0.0).contiguous()
-        nrm = (pc * pc).sum(-1)
-        m = m.contiguous()
-        labels = torch.where(m, torch.arange(N, dtype=torch.int32,
-                                             device=dev), N)
-        out = cl.min_label_pass(pc, nrm, m, labels, tol2)
-        out2 = cl.min_label_pass(pc, nrm, m, labels, tol2)
-        ref = cl.min_label_pass_plain(pc, nrm, m, labels, tol2)
-        jumped, changed = cl.pointer_jumps(out.clone(), labels, 12)
-        jref, cref = cl.pointer_jumps_plain(ref, labels, 12)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, ref) and torch.equal(out, out2)):
-            raise RuntimeError(f"min_label_pass ({tag}, {lanes}): labels "
-                               "differ from the plain version or between "
-                               "launches")
-        if not (torch.equal(jumped, jref) and torch.equal(changed, cref)):
-            raise RuntimeError(f"pointer_jumps ({tag}, {lanes}) differs from "
-                               "its plain version")
-        # the pair tests the function needs on this data: every unmasked
-        # point of a detection against every unmasked point of it
-        n_d = m.sum(1).double()
-        pairs = float((n_d * n_d).sum())
-        scratch = out.clone()
-        rec(f"min_label_pass (K5, {lanes})", "min_label_pass", shape=(D, N),
-            max_abs_err=0.0,
-            bound=max((pairs * PAIR_OPS / PEAK_F32 * 1e3, "operations"),
-                      bytes_bound([pc, nrm, m, labels, out])),
-            ms=device_ms(lambda: cl.min_label_pass(pc, nrm, m, labels, tol2),
-                         10),
-            plain_ms=cuda_ms(lambda: cl.min_label_pass_plain(
-                pc, nrm, m, labels, tol2), 2, 1))
-        rec(f"pointer_jumps (K5, {lanes})", "pointer_jumps", shape=(D, N),
-            max_abs_err=0.0,
-            bound=bytes_bound([scratch, scratch, labels, changed]),
-            ms=device_ms(lambda: cl.pointer_jumps(scratch, labels, 12), 10),
-            plain_ms=cuda_ms(lambda: cl.pointer_jumps_plain(out, labels, 12),
-                             5))
-        print(f"[frontend] {tag}: min_label_pass + pointer_jumps ({lanes}) "
-              f"at D={D}, N={N} lanes ({survivors} survivors at most, "
-              f"{pairs:.4g} pair tests needed of {D * N * N:.4g} lane pairs): "
-              f"labels and changed flags equal to the plain versions, repeat "
-              f"equal")
-
-    # --- converged components: kernels vs the plain versions on the card
-    kernels = (cl.min_label_pass, cl.pointer_jumps)
-    runs = [cl.components_compacted(pts_w, m2, tol, cfg.cluster_iters, 12,
-                                    cap, with_converged=True,
-                                    with_rounds=True)
-            for _ in range(2)]
-    try:
-        cl.min_label_pass, cl.pointer_jumps = (cl.min_label_pass_plain,
-                                               cl.pointer_jumps_plain)
-        want = cl.components_compacted(pts_w, m2, tol, cfg.cluster_iters, 12,
-                                       cap, with_converged=True,
-                                       with_rounds=True)
-    finally:
-        cl.min_label_pass, cl.pointer_jumps = kernels
-    for lab, conv, rounds in runs:
-        if not (torch.equal(lab, want[0]) and torch.equal(conv, want[1])
-                and rounds == want[2] and bool(conv.all())):
-            raise RuntimeError(f"converged components ({tag}) differ from "
-                               "the plain versions'")
-    labels = runs[0][0]
-    n_comp = [int((labels[d][m2[d]]).unique().numel()) for d in range(D)]
-    print(f"[frontend] {tag}: components_compacted at {cap} lanes: "
-          f"{runs[0][2]} rounds, converged, labels equal to the plain "
-          f"versions' on the card, repeat equal; components per detection "
-          f"{n_comp}")
 
     # --- K6, second launch: the 0.1 m downsample of the selected clusters
     # (no epilogue: the world pointers are null).  A 0.1 m cell holds up to
     # hundreds of points at |coordinate| up to ~4 m, so the card's atomic
     # sums move a centroid by a few ulp of 4 (4.8e-7 each): limit 5e-6
-    centre, _ = bp.center_estimate(depth, bboxes, cam, cfg.depth_range)
-    centre_w = centre @ world.R.T + world.t
-    sel, ok = cl.select_cluster(pts_w, m2, labels, centre_w,
-                                cfg.cluster_min_size, cfg.cluster_center_dis)
     got = segment_mean("voxel_segment_mean (K6, object)", pts_w, sel,
                        cfg.sym_grid, cfg.sym_capacity, None, 5e-6)
     if not (int(ok.sum()) >= 1 and int(got[2].sum()) >= int(ok.sum())):
@@ -874,7 +852,292 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
         print(f"[frontend] {k} at {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, "
               f"{bound_text(r['ms'], r['bound'])}")
-    return recs, (tier, cap)
+    return recs, (tier, survivors)
+
+
+def tested_pairs(pts_c, nrm, m, frame, tol2, P):
+    """Per detection [D], the pair tests one pass of ``cluster_components``
+    needs on these inputs once the groups beyond the radius are skipped, in
+    plain torch on the kernel's own boxes: the unmasked points in their
+    order, a box per 32 of them in ``frame`` (rows u, v, w), a granule of
+    32 * P points i against a group of 32 points j unless their boxes lie
+    farther apart than the radius plus the kernel's slack (``far_apart`` in
+    csrc/frontend.cu); points of a group that is not skipped all count."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    _, m_k, (p_k, n_k) = cl._compact(m, pts_c, nrm)
+    D, cap = m_k.shape
+    pad = -cap % (32 * P)
+    m_k = torch.nn.functional.pad(m_k, (0, pad))
+    p_k = torch.nn.functional.pad(p_k, (0, 0, 0, pad))
+    n_k = torch.nn.functional.pad(n_k, (0, pad))
+    x, y, z = p_k.unbind(-1)
+    q = torch.stack([x * f[0] + y * f[1] + z * f[2] for f in frame], -1)
+    live = m_k[..., None]
+    inf = torch.inf
+
+    def boxes(k):
+        """(lo, hi, largest squared norm, points) per k consecutive."""
+        return (torch.where(live, q, inf).view(D, -1, k, 3).amin(2),
+                torch.where(live, q, -inf).view(D, -1, k, 3).amax(2),
+                torch.where(m_k, n_k, 0.0).view(D, -1, k).amax(2),
+                m_k.view(D, -1, k).sum(2).double())
+
+    ilo, ihi, iw, ni = boxes(32 * P)
+    jlo, jhi, jw, nj = boxes(32)
+    gap = torch.maximum(jlo[:, None] - ihi[:, :, None],
+                        ilo[:, :, None] - jhi[:, None]).clamp_min(0.0)
+    gx, gy, gz = gap.unbind(-1)
+    far = (gx * gx + gy * gy + gz * gz
+           > 1.01 * tol2 + 2e-6 * (iw[:, :, None] + jw[:, None]))
+    return torch.where(far, 0.0, ni[:, :, None] * nj[:, None]).sum((1, 2))
+
+
+def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
+                   uncompacted=False, must_converge=True, frame=None):
+    """K5 on one frame's world clouds pts_w [D, N, 3] and survivor masks m2
+    [D, N]: ``cluster_components`` against ``cluster_components_plain`` on
+    the card (labels, converged and rounds equal; two launches equal; the
+    streamed branch, forced by the least shared memory, equal too), its
+    device time beside its bound and beside the loop of the two single-step
+    kernels on the same input; ``cluster_select`` (the same launch with the
+    selection epilogue; ``select`` = (centre estimates [D, 3], min_size,
+    center_dis)) against ``cluster_select_plain``; then one
+    ``min_label_pass`` and 12 ``pointer_jumps`` against their plain
+    versions.  ``frame``: the rotation the cloud is sorted in, as the
+    extractor passes it (None: the axes of the points' coordinates).
+    Returns (records by name, the chosen clusters' masks, their ok
+    flags)."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    recs = {}
+    D, N = m2.shape
+    args = cl.centre_and_seed(pts_w, m2, tol, chains)
+    pts_c, nrm, m, labels0, tol2 = args
+    runs = [cl.cluster_components(*args, outer_iters, 12, frame=frame)
+            for _ in range(2)]
+
+    def tuned(**kw):    # the launch with the sweep's overrides
+        return cl._launch(*args, outer_iters, 12, frame, **kw)[:3]
+
+    streamed = tuned(smem=13 * (-(-N // 32) * 32) + 16 * 256)
+    every_pair = tuned(prune=False)
+    unhinted = cl.cluster_components(*args, outer_iters, 12)
+    want = cl.cluster_components_plain(*args, outer_iters, 12)
+    torch.cuda.synchronize()
+    for name, got in (("", runs[0]), (" (second launch)", runs[1]),
+                      (" (streamed)", streamed),
+                      (" (every pair tested)", every_pair),
+                      (" (no sort frame given)", unhinted)):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(
+                f"cluster_components{name} ({tag}) differs from its plain "
+                f"version: labels {int((got[0] != want[0]).sum())} lanes, "
+                f"converged {got[1].tolist()} vs {want[1].tolist()}, rounds "
+                f"{got[2].tolist()} vs {want[2].tolist()}")
+    labels, conv, rounds = runs[0]
+    if must_converge and not bool(conv.all()):
+        raise RuntimeError(f"cluster_components ({tag}): not converged")
+    # the work these inputs need: the pair tests that the skip of far
+    # groups leaves (``tested_pairs``, in the frame the launch was given),
+    # once per round the detection ran; the jumps read and write a label
+    # per point; inputs and outputs once.  Beside it, as all_pairs_bound_ms,
+    # the figure with every unmasked point of a detection against every
+    # other (what a pass without the skip needs)
+    n_d = m.sum(1).double()
+    r_d = rounds.double()
+    eye = torch.eye(3, device=dev)
+    pairs = float((tested_pairs(pts_c, nrm, m, eye if frame is None
+                                else frame, tol2, cl.LAUNCH_SHAPE[2])
+                   * r_d).sum())
+    all_pairs = float((n_d * n_d * r_d).sum())
+    jump_bytes = float((n_d * r_d).sum()) * 12 * 8
+    io = bytes_bound([pts_c, nrm, m, labels0, labels, conv, rounds])[0]
+    ops_ms = pairs * PAIR_OPS / PEAK_F32 * 1e3
+    bytes_ms = io + jump_bytes / PEAK_BYTES * 1e3
+    b_cc = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    all_pairs_ms = max(all_pairs * PAIR_OPS / PEAK_F32 * 1e3, bytes_ms)
+
+    def two_kernel_loop():
+        return cl._rounds_loop(cl.min_label_pass, cl.pointer_jumps, *args,
+                               outer_iters, 12)
+
+    if not all(torch.equal(g, w) for g, w in zip(two_kernel_loop(), want)):
+        raise RuntimeError(f"the two-kernel loop ({tag}) differs from the "
+                           "plain version")
+    r_max = int(rounds.max())
+    cc_ms, cc_events = checked_device_ms(lambda: cl.cluster_components(
+        *args, outer_iters, 12, frame=frame), 10, "cluster_components")
+    recs["cluster_components (K5)"] = dict(
+        kernel="cluster_components", shape=(D, N), max_abs_err=0.0,
+        bound=b_cc, ms=cc_ms, events_ms=cc_events,
+        all_pairs_bound_ms=all_pairs_ms, tested_pairs=pairs,
+        all_pairs=all_pairs,
+        plain_ms=cuda_ms(lambda: cl.cluster_components_plain(
+            *args, outer_iters, 12), 1, 0),
+        every_pair_ms=device_ms(lambda: tuned(prune=False), 5,
+                                name="cluster_components"),
+        world_axes_ms=device_ms(lambda: cl.cluster_components(
+            *args, outer_iters, 12), 5, name="cluster_components"),
+        loop_ms=cuda_ms(two_kernel_loop, 3, 1))
+    n_comp = [int((labels[d][m[d]]).unique().numel()) for d in range(D)]
+    print(f"[frontend] {tag}: cluster_components at D={D}, N={N} lanes "
+          f"({int(n_d.max())} survivors at most, {int((n_d > 0).sum())} live "
+          f"detections): labels, converged and rounds equal to the plain "
+          f"version's on the card, also streamed through the least shared "
+          f"memory and with every pair tested; second launch bit-equal; "
+          f"rounds per detection {rounds.tolist()}; components per detection "
+          f"{n_comp}")
+
+    # --- the same launch with the selection epilogue (the main path's)
+    centre_w, min_size, center_dis = select
+    s_args = (pts_w.contiguous(), *args[:4], centre_w, tol2, outer_iters, 12,
+              min_size, center_dis)
+    s_runs = [cl.cluster_select(*s_args, frame=frame) for _ in range(2)]
+    s_want = cl.cluster_select_plain(*s_args)
+    torch.cuda.synchronize()
+    for got in s_runs:
+        if not all(torch.equal(g, w) for g, w in zip(got, s_want)):
+            raise RuntimeError(
+                f"cluster_select ({tag}) differs from its plain version: "
+                f"{int((got[0] != s_want[0]).sum())} mask lanes, ok "
+                f"{got[1].tolist()} vs {s_want[1].tolist()}")
+    sel, ok = s_runs[0][:2]
+    s_bytes = bytes_ms + bytes_bound([pts_w, centre_w, sel, ok])[0]
+    s_ms, s_events = checked_device_ms(lambda: cl.cluster_select(
+        *s_args, frame=frame), 10, "cluster_components")
+    # the epilogue is n atomics and three block reductions by one block: the
+    # two readings of one kernel must lie within a tenth of each other
+    if abs(s_ms - cc_ms) > 0.1 * s_ms:
+        raise RuntimeError(
+            f"cluster_components ({tag}) reads {cc_ms:.4f} ms without and "
+            f"{s_ms:.4f} ms with the selection epilogue")
+    recs["cluster_select (K5)"] = dict(
+        kernel="cluster_components", shape=(D, N), max_abs_err=0.0,
+        bound=max((ops_ms, "operations"), (s_bytes, "bytes")),
+        ms=s_ms, events_ms=s_events,
+        all_pairs_bound_ms=max(all_pairs * PAIR_OPS / PEAK_F32 * 1e3,
+                               s_bytes),
+        tested_pairs=pairs, all_pairs=all_pairs,
+        plain_ms=cuda_ms(lambda: cl.cluster_select_plain(*s_args), 1, 0))
+    print(f"[frontend] {tag}: cluster_select: the chosen clusters' masks and "
+          f"the ok flags ({int(ok.sum())} of {D} ok, {int(sel.sum())} points "
+          f"chosen) equal select_cluster's on the plain labels; second "
+          f"launch bit-equal; {recs['cluster_select (K5)']['ms']:.4f} ms "
+          f"against {cc_ms:.4f} ms without the epilogue")
+
+    # --- one pass and 12 jumps by the single-step entry points
+    sub, m_k, (pts_k, nrm_k) = cl._compact(m, pts_c, nrm)
+    shapes = {"compacted": (pts_k, nrm_k, m_k)}
+    if uncompacted:
+        shapes["all lanes"] = (pts_c, nrm, m)
+    for lanes, (pc, nr, mk) in shapes.items():
+        L = mk.shape[1]
+        lab0 = torch.where(mk, torch.arange(L, dtype=torch.int32,
+                                            device=dev), L)
+        out = cl.min_label_pass(pc, nr, mk, lab0, tol2)
+        out2 = cl.min_label_pass(pc, nr, mk, lab0, tol2)
+        ref = cl.min_label_pass_plain(pc, nr, mk, lab0, tol2)
+        jumped, changed = cl.pointer_jumps(out.clone(), lab0, 12)
+        jref, cref = cl.pointer_jumps_plain(ref, lab0, 12)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(out, out2)):
+            raise RuntimeError(f"min_label_pass ({tag}, {lanes}): labels "
+                               "differ from the plain version or between "
+                               "launches")
+        if not (torch.equal(jumped, jref) and torch.equal(changed, cref)):
+            raise RuntimeError(f"pointer_jumps ({tag}, {lanes}) differs from "
+                               "its plain version")
+        scratch = out.clone()
+        recs[f"min_label_pass (K5, {lanes})"] = dict(
+            kernel="min_label_pass", shape=(D, L), max_abs_err=0.0,
+            bound=max((float((n_d * n_d).sum()) * PAIR_OPS / PEAK_F32 * 1e3,
+                       "operations"),
+                      bytes_bound([pc, nr, mk, lab0, out])),
+            ms=device_ms(lambda: cl.min_label_pass(pc, nr, mk, lab0, tol2),
+                         10),
+            plain_ms=cuda_ms(lambda: cl.min_label_pass_plain(
+                pc, nr, mk, lab0, tol2), 2, 1))
+        recs[f"pointer_jumps (K5, {lanes})"] = dict(
+            kernel="pointer_jumps", shape=(D, L), max_abs_err=0.0,
+            bound=bytes_bound([scratch, scratch, lab0, changed]),
+            ms=device_ms(lambda: cl.pointer_jumps(scratch, lab0, 12), 10),
+            plain_ms=cuda_ms(lambda: cl.pointer_jumps_plain(out, lab0, 12),
+                             5))
+        print(f"[frontend] {tag}: min_label_pass + pointer_jumps ({lanes}) "
+              f"at D={D}, {L} lanes: labels and changed flags equal to the "
+              f"plain versions, repeat equal")
+    step = (recs["min_label_pass (K5, compacted)"]["ms"]
+            + recs["pointer_jumps (K5, compacted)"]["ms"])
+    r = recs["cluster_components (K5)"]
+    print(f"[frontend] {tag}: cluster_components {cc_ms:.4f} ms by the "
+          f"profiler, {cc_events:.4f} ms by CUDA events around the same "
+          f"launches; {pairs:.4g} pair tests after the skip of far groups "
+          f"of {all_pairs:.4g} in all (bound with every pair "
+          f"{all_pairs_ms * 1e3:.2f} us, share {all_pairs_ms / cc_ms:.4f}) "
+          f"({r['every_pair_ms']:.4f} ms with every pair tested, "
+          f"{r['world_axes_ms']:.4f} ms with the boxes along the world's "
+          f"axes: no sort frame given) for "
+          f"{r_max} rounds at most, {bound_text(cc_ms, b_cc)}; the two "
+          f"single-step kernels on the same input: {r_max} x {step:.4f} = "
+          f"{r_max * step:.4f} ms of device time, {r['loop_ms']:.3f} ms as a "
+          f"loop with its compaction and its host read per round (CUDA "
+          f"events); plain version {r['plain_ms']:.3f} ms")
+    return recs, sel, ok
+
+
+def dense_cloud(D, N, seed, dev, shuffled=(3,)):
+    """Seeded clouds that fill the lanes, for the kernel's streamed branch:
+    detection d holds N points (d = 0, 1), 3N/4, 5N/8, ... uniformly in a slab
+    (1 x 1 x 0.25 m at N = 16384), about two neighbours a point within 2 cm
+    where every lane is live: many components, some long and winding.  The
+    detections are sorted along a slanted direction (like a voxel cloud, by
+    the cells of a camera frame turned against the world's), those in
+    ``shuffled`` are left in random order (no group of 32 is far from any
+    other: every pair is tested); detection D - 1 is empty and D - 2 is one
+    tight blob.  Returns (points, masks, the sort frame [3, 3])."""
+    rng = np.random.default_rng(seed)
+    side = (N / 16384.0) ** (1.0 / 3.0)     # the same density at any N
+    pts = rng.uniform(0.0, side, (D, N, 3)).astype(np.float32)
+    pts[..., 2] *= 0.25
+    mask = np.zeros((D, N), bool)
+    for d in range(D):
+        n_d = N if d < 2 else max(N * (D - d) // D, 64)
+        mask[d, rng.permutation(N)[:n_d]] = True
+        if d not in shuffled:
+            along = pts[d] @ np.array([0.6, 0.8, 0.0], np.float32)
+            pts[d] = pts[d][np.argsort(along, kind="stable")]
+    mask[D - 1] = False
+    pts[D - 2] = 0.5 + 0.005 * pts[D - 2]
+    frame = torch.tensor([[0.6, 0.8, 0.0], [-0.8, 0.6, 0.0], [0.0, 0.0, 1.0]])
+    return (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev),
+            frame.to(dev))
+
+
+def cluster_extremes(dev):
+    """cluster_components where the depth scene does not take it: clouds
+    that fill all 16384 lanes (the points no longer fit in shared memory
+    and are streamed), and a bound of 2 rounds on them, which truncates the
+    winding detections and only those."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    pts, mask, frame = dense_cloud(FE_DETECTIONS, FE_TIER, SEED, dev)
+    centre = pts[:, :1].mean(1).contiguous()    # a point of each cloud
+    recs, _, _ = cluster_checks(dev, "dense", pts, mask, 0.02, 96, 0,
+                                (centre, 100, 0.5), must_converge=False,
+                                frame=frame)
+    args = cl.centre_and_seed(pts, mask, 0.02, 0)
+    got = cl.cluster_components(*args, 2, 12, frame=frame)
+    want = cl.cluster_components_plain(*args, 2, 12)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("cluster_components truncated at 2 rounds differs "
+                           "from its plain version")
+    conv = got[1].tolist()
+    if conv[0] or not conv[-1] or not conv[-2]:
+        raise RuntimeError(f"truncation flags {conv}: the full detection "
+                           "should be cut short, the blob and the empty one "
+                           "not")
+    print(f"[frontend] dense: bound of 2 rounds: converged {conv}, rounds "
+          f"{got[2].tolist()}, equal to the plain version's")
+    return recs
 
 
 def phase_frontend_kernels(dev, path):
@@ -922,6 +1185,7 @@ def phase_frontend_kernels(dev, path):
         torch.as_tensor(pose, dtype=torch.float32, device=dev),
         torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev), cam,
         ExtractorConfig(cloud_capacity=FE_TIER), uncompacted=True)
+    full.update({f"{k} (dense)": r for k, r in cluster_extremes(dev).items()})
     return recs, full
 
 
@@ -1021,8 +1285,11 @@ def phase_depth_path(dev, tmp):
         raise RuntimeError(f"ground plane latched at frame {latched_at}")
     if not (tilt < 2.0 and abs(plane[3]) < 0.02):
         raise RuntimeError(f"ground plane off z = 0: {plane}")
-    if min(launches.values()) <= 0:
+    if min(n for k, n in launches.items() if k not in SINGLE_STEP) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in SINGLE_STEP):
+        raise RuntimeError(f"the path launched a single-step clustering "
+                           f"kernel: {launches}")
     if len(objs) < 16 or by_3d < 1:
         raise RuntimeError(f"{len(objs)} of 24 objects initialized, {by_3d} "
                            "from a 3D estimate")
@@ -1033,6 +1300,16 @@ def phase_depth_path(dev, tmp):
         raise RuntimeError(f"median centre error {np.median(errs):.3g} m")
     if rows.shape != (len(objs), 11) or not np.isfinite(rows).all():
         raise RuntimeError("objects.txt is malformed")
+    if unconverged:
+        raise RuntimeError(f"the clustering did not converge on frames "
+                           f"{unconverged}")
+    # the rounds are the plain version's: 16 / 24 / 44 on this scene; two
+    # rounds of margin for a depth image rendered with another rounding
+    got_rounds = (int(rounds.min()), int(np.median(rounds)),
+                  int(rounds.max()))
+    if any(abs(g - w) > 2 for g, w in zip(got_rounds, PATH_ROUNDS)):
+        raise RuntimeError(f"clustering rounds per frame (min, median, max) "
+                           f"{got_rounds}, expected {PATH_ROUNDS} +- 2")
     mid = len(frames) // 2
     extraction_overhead(extractor, frames[mid], st.ground_plane)
     return launches, (frames[mid], st.ground_plane, stats[mid])
@@ -1041,7 +1318,9 @@ def phase_depth_path(dev, tmp):
 def extraction_overhead(extractor, frame, ground_plane):
     """One extraction call (a mid-orbit frame) under the profiler: wall
     time, device busy time, device operations and how many of them are the
-    frontend kernels' launches."""
+    frontend kernels' launches.  Raises unless the call is four frontend
+    launches (CALL_LAUNCHES) and nothing between its argument copies and
+    its result copy makes the host wait for the device."""
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     _, _, pose, depth, _, det = frame
 
@@ -1056,19 +1335,34 @@ def extraction_overhead(extractor, frame, ground_plane):
         raise RuntimeError("the profiler shows no device time for an "
                            "extraction call")
     busy, ops, top = prof
-    # device_busy may take its trace up to three times
+    # device_busy may take its trace up to three times.  This call runs
+    # with PyTorch's synchronisation check set to raise: an .item(), a
+    # .cpu(), a copy from pageable host memory or a stream synchronisation
+    # between upload and fetch is an error
     per_call = {k.name: k.launches for k in fk.KERNELS}
-    call()
+    up = extractor.upload(depth, det[:, 1:5].copy(), pose, ground_plane)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = extractor.run(*up)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = extractor.fetch(out)
     per_call = {k.name: k.launches - per_call[k.name] for k in fk.KERNELS}
     if sum(k.launches for k in fk.KERNELS) == before:
         raise RuntimeError("the extraction call launched no kernel")
+    if per_call != CALL_LAUNCHES:
+        raise RuntimeError(f"an extraction call launched {per_call}, not "
+                           f"{CALL_LAUNCHES}")
+    if host.shape != (out.shape[0], 12) or not np.isfinite(host).all():
+        raise RuntimeError("the fetched extraction result is malformed")
     print(f"[depth] one extraction call ({len(det)} detections, "
           f"{extractor.stats}): {wall:.3f} ms wall (host clock, mean of 5, "
           f"copies of the depth image and the arguments included); device "
           f"busy {busy:.3f} ms over {ops} device operations, "
           f"{sum(per_call.values())} of them frontend kernel launches "
-          f"{per_call}; device idle share {1 - busy / wall:.3f}; top kernels "
-          f"(name, launches, ms) {top}")
+          f"{per_call}; no host synchronisation between the argument copies "
+          f"and the result copy; device idle share {1 - busy / wall:.3f}; "
+          f"top kernels (name, launches, ms) {top}")
 
 
 def main():
@@ -1107,29 +1401,43 @@ def main():
                 "replaces": replaces,
                 "launches": launches[r["kernel"]] if on_path else 0,
                 "max_abs_err": r["max_abs_err"],
-                "max_rel_err": r["max_rel_err"],
+                "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "share_of_bound": r["bound"][0] / r["ms"],
-                "library_ms": None, "shape": list(r["shape"]), **more}
+                "library_ms": None, "shape": list(r["shape"]),
+                **{k: r[k] for k in (
+                    "events_ms", "all_pairs_bound_ms", "tested_pairs",
+                    "all_pairs", "every_pair_ms", "world_axes_ms", "loop_ms")
+                   if k in r},
+                **more}
 
     # launches: the depth main path's counts; the BA kernels also carry the
     # 2D-only path's.  The frontend records under "kernels" are taken at the
-    # shapes that path launched; those at the full tier, which it never
-    # reached (launches 0), stand apart.  library_ms is null throughout: no PyTorch call
+    # shapes that path launched; the clustering's single-step entry points
+    # (one pass, 12 jumps), which the path no longer launches, and the
+    # shapes it never reached (the full tier, the dense clouds; launches 0)
+    # stand apart.  library_ms is null throughout: no PyTorch call
     # computes the BA residual chains with their Jacobians and reductions,
     # a strided window back-projection with its gates, a segment mean of
     # stably sorted runs in sorted order (index_add_ adds in any order and
     # needs the ranks first), or a radius-graph min-label pass.
+    # cluster_components and cluster_select are one kernel without and with
+    # its selection epilogue and share a launch counter, as ba_normal_eq
+    # and lm_solve_step do.
     kernels = [record(f"{r['kernel']} ({k})", r, SOURCE, REPLACES.get(
         k, REPLACES["K1" if r["kernel"] == "ba_normal_eq" else "K3"]),
         launches_2d_path=launches_2d[r["kernel"]]) for k, r in recs.items()]
     kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
-                for k, r in fe_recs.items()]
+                for k, r in fe_recs.items() if r["kernel"] not in SINGLE_STEP]
+    single_step = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
+                          on_path=False)
+                   for k, r in fe_recs.items() if r["kernel"] in SINGLE_STEP]
     at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
                            on_path=False) for k, r in fe_full.items()]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
+                      "single_step_kernels": single_step,
                       "kernels_at_full_tier": at_full_tier}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,15 +8,19 @@ tests/test_torch_depth_slice.py at ``cluster_min_size=30`` and
 gate and seeds object 3 with scales of about (0.104, 0.018, 0.029).  At that
 estimate one projected conic's minor semi-axis^2 rounds below zero in the
 port's normal equations: its bbox half-width is sqrt(max(., 0)) = 0 with a
-NaN tangent, H is non-finite and the ``du_ok`` gate zeroes the step, in
-every LM call, so the object stays where it was seeded.  The JAX package
-moves it on (ROADMAP.md, queue 3).
+NaN tangent.  Such an edge is left out of H and g for the iteration
+(backend/lm_soa.soa_normal_eq_plain, and the ``ba_normal_eq`` kernel on a
+CUDA device), so H stays finite and the object moves on, as it does in the
+JAX package; before that repair H was non-finite and the ``du_ok`` gate
+zeroed every step of the object (ROADMAP.md, queue 3).
 
 Prints, per object: whether it was seeded from a 3D estimate, the distinct
 estimates in its history, its first and last scales, its centre error; and
 for the batch after the last frame whether each object's H is finite (on a
 CUDA device that is the ``ba_normal_eq`` kernel's H, on the CPU the plain
-version's).  The last line says whether object 3 froze.
+version's; on a CUDA device the two are also compared).  The last line
+says whether object 3 froze; the script exits non-zero if it did, if an H
+is not finite or if kernel and plain version disagree.
 """
 import argparse
 import os
@@ -68,6 +72,17 @@ def main():
     H, _, _ = lm_soa.soa_normal_eq(obs.est0, sp, w2, w3, wg, n, K,
                                    tr.lm_cfg.huber_delta)
     finite = torch.isfinite(H).flatten(1).all(1).cpu().numpy()
+    agree = True
+    if dev.type == "cuda":
+        # the kernel's H against the plain version's on the same tensors
+        Hp, _, _ = lm_soa.soa_normal_eq_plain(obs.est0, sp, w2, w3, wg, n, K,
+                                              tr.lm_cfg.huber_delta)
+        scale = Hp.abs().flatten(1).amax(1).clamp_min(1e-30)
+        rel = float(((H - Hp).abs().flatten(1).amax(1) / scale).max())
+        agree = bool(torch.isfinite(Hp).all()) and rel <= 1e-4
+        print(f"ba_normal_eq kernel against the plain version on the card: "
+              f"max |dH| / max|H| per object {rel:.3g} (limit 1e-4), plain H "
+              f"finite {bool(torch.isfinite(Hp).all())}")
     slot_of = {inst: slot for slot, inst in prep["slots"]}
 
     np.set_printoptions(precision=4, suppress=True)
@@ -83,10 +98,11 @@ def main():
               f"results, {distinct} distinct; scales first {hist[0][6:]} "
               f"last {hist[-1][6:]}; centre error {err:.4f} m; H finite "
               f"{bool(finite[slot_of[inst]])}")
+    bad = [i for i, s in slot_of.items() if not finite[s]]
     print(f"device {dev}: object 3 frozen at its fragment seed: "
-          f"{frozen.get(3)}; objects with a non-finite H: "
-          f"{[i for i, s in slot_of.items() if not finite[s]]}")
+          f"{frozen.get(3)}; objects with a non-finite H: {bad}")
+    return 1 if frozen.get(3, True) or bad or not agree else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -524,12 +524,36 @@ def soa_flat_r(comps, O):
 # Normal equations and chi2: plain versions and the device dispatch
 # ---------------------------------------------------------------------------
 
+def _drop_nonfinite_edges(r_comps, t_comps):
+    """Zero the residual and tangent rows of every edge that has a
+    non-finite tangent component.  r_comps: 14 residual components (4 of
+    the 2D edges [O,M2], 9 of the 3D edges [O,M3], gravity [O]); t_comps:
+    their tangents with a leading axis of 9 directions."""
+    r_out, t_out = [], []
+    for lo, hi in ((0, 4), (4, 13), (13, 14)):
+        fin = torch.isfinite(t_comps[lo])
+        for t in t_comps[lo + 1:hi]:
+            fin = fin & torch.isfinite(t)
+        fin = fin.all(dim=0)                       # per edge, all directions
+        r_out += [torch.where(fin, r, 0.0) for r in r_comps[lo:hi]]
+        t_out += [torch.where(fin, t, 0.0) for t in t_comps[lo:hi]]
+    return tuple(r_out), tuple(t_out)
+
+
 def soa_normal_eq_plain(est, prep, w2d, w3d, wg, ground_normal, K,
                         huber_delta=0.0):
     """(H [O,9,9], g [O,9], r2sum [O]) in plain PyTorch on any device.
 
     One jvp per tangent basis direction at u = 0 (vmapped), then the
     J^T J / J^T r contractions over the flat residual axis.
+
+    An edge any of whose tangent components is non-finite (the sqrt of a
+    projected conic's semi-axis^2 that rounded to zero or below) is left
+    out of this iteration's sums: its rows of J and r count as 0, so one
+    degenerate view no longer makes H non-finite and the ``du_ok`` gate no
+    longer freezes the object.  Where every tangent is finite nothing is
+    replaced and the sums are what they were.  (The JAX package gates the
+    whole object in that case: a deliberate difference.)
     """
     O = est.shape[0]
     u0 = torch.zeros((O, 9), dtype=est.dtype, device=est.device)
@@ -542,8 +566,10 @@ def soa_normal_eq_plain(est, prep, w2d, w3d, wg, ground_normal, K,
     basis = basis.expand(9, O, 9)
     r_comps, t_comps = torch.func.vmap(
         lambda t: torch.func.jvp(f, (u0,), (t,)))(basis)
+    r_comps = tuple(c[0] for c in r_comps)
+    r_comps, t_comps = _drop_nonfinite_edges(r_comps, t_comps)
     J = soa_flat_r(t_comps, O)                     # [9, O, R]
-    r = soa_flat_r(tuple(c[0] for c in r_comps), O)  # [O, R]
+    r = soa_flat_r(r_comps, O)                     # [O, R]
     H = torch.einsum("kor,lor->okl", J, J)
     g = torch.einsum("kor,or->ok", J, r)
     return H, g, torch.sum(r * r, dim=-1)

@@ -9,6 +9,7 @@
 // yaw-symmetric rotations) and its gravity prior, at the estimate
 // exp_update(est, u) with u = 0, and from them
 //   ba_normal_eq: H = sum J^T J [O,9,9], g = sum J^T r [O,9], sum r^2 [O]
+//                 (an edge with a non-finite tangent is left out of all three)
 //   ba_chi2:      sum r^2 [O]
 // The weights arrive with every gate folded in (zero = inactive edge; such
 // an edge contributes exact zeros and its chain is skipped).
@@ -649,6 +650,21 @@ __device__ __forceinline__ void weigh(S* r, float w, float delta,
   for (int c = 0; c < N; ++c) r[c] = finite0(r[c]);
 }
 
+// lm_soa._drop_nonfinite_edges: whether every tangent component of an
+// edge's N weighted rows is finite.  An edge that fails (the sqrt of a
+// projected conic's semi-axis^2 that rounded to zero or below) is left out
+// of the launch's sums, rows and residual alike, so one degenerate view does
+// not make the object's H non-finite.
+template <int N>
+__device__ __forceinline__ bool tangents_finite(const D9* r) {
+  bool ok = true;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int k = 0; k < kN; ++k) ok = ok && isfinite(r[c].d[k]);
+  return ok;
+}
+
 // ---------------------------------------------------------------------------
 // The part that depends on the estimate alone, once per block
 // ---------------------------------------------------------------------------
@@ -970,6 +986,10 @@ __global__ void __launch_bounds__(kMaxThreads) ba_normal_eq_kernel(
         residual_2d(sh_e, sh_R, p.pose2d + 7 * i, p.bbox2d + 4 * i, fx, fy,
                     cx, cy, r);
         weigh<4>(r, w, p.huber_delta, p.huber_delta2);
+        if (!tangents_finite<4>(r)) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) r[c] = Scalar<D9>::zero();
+        }
       }
     } else if (tid < nslots) {
       const size_t i = (size_t)o * M3 + (j0 + tid - M2);
@@ -977,7 +997,7 @@ __global__ void __launch_bounds__(kMaxThreads) ba_normal_eq_kernel(
       if (w != 0.f) {
         residual_3d(sh_e, p.invp3 + 28 * i, p.sc3 + 12 * i, rows3);
         weigh<9>(rows3, w, p.huber_delta, p.huber_delta2);
-        staged3 = true;
+        staged3 = tangents_finite<9>(rows3);
       }
     }
     PHASE_CLOCK(2)                      // this thread's edge chain is done
@@ -1014,7 +1034,7 @@ __global__ void __launch_bounds__(kMaxThreads) ba_normal_eq_kernel(
     int ca, cb;
     columns_of(tid, ca, cb);
     const float* grav = reinterpret_cast<const float*>(&sh_grav);
-    s += grav[ca] * grav[cb];
+    if (tangents_finite<1>(&sh_grav)) s += grav[ca] * grav[cb];
     sh_tot[tid] = s;
     if (tid == 0) {
       if (p.chi2) p.chi2[o] = s;

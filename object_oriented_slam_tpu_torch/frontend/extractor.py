@@ -50,9 +50,6 @@ from ..ops import voxel as vx
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
 
-_CLUSTER_TILE = 256     # the min_label_pass kernel's block: compaction caps
-#                         are rounded up to it
-
 
 @dataclasses.dataclass(frozen=True)
 class ExtractorConfig:
@@ -72,10 +69,10 @@ class ExtractorConfig:
     #                           (_cluster_select_batch)
     cluster_chains: int = -1  # -1 = one chain-seed order, 0 = none; K > 0
     #                           (interleaved chain passes) is not ported
-    # the ladder of compiled compaction capacities is not ported: the port
-    # runs eagerly and compacts to each frame's own survivor count (rounded
-    # up to the kernel's tile); labels are the same at every capacity.  The
-    # two fields keep the JAX package's signature; any other value raises
+    # the ladder of compiled compaction capacities is not ported: the
+    # clustering kernel compacts each detection to its own survivors;
+    # labels are the same at every capacity.  The two fields keep the JAX
+    # package's signature; any other value raises
     compact_tiers: bool = True
     compact_rungs: tuple = (4, 5, 6, 7, 8, 12)
     grid_cluster: bool = False  # grid-hash clustering: not ported
@@ -114,7 +111,7 @@ def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
 
     Returns (pts_v [D, cap, 3] camera-frame voxel cloud, pts_w world cloud,
     cells_v, m2 filtered mask, center_w [D, 3], ok_points [D],
-    ok_center [D]).
+    ok_center [D], R_wc [3, 3]).
     """
     # (a) bbox cloud -> voxel -> world, (b) supporting-plane filter
     # (EllipsoidExtractor.cpp:562-578): the world transform and the plane
@@ -133,7 +130,7 @@ def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
     center_cam, ok_center = bp.center_estimate(depth, bboxes, cam,
                                                cfg.depth_range)
     center_w = center_cam @ R_wc.T + pose_wc[:3]
-    return pts_v, pts_w, cells_v, m2, center_w, ok_points, ok_center
+    return pts_v, pts_w, cells_v, m2, center_w, ok_points, ok_center, R_wc
 
 
 def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):
@@ -170,35 +167,37 @@ def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):
     return Two, pts_n, obj_m
 
 
-def _cluster_select_batch(pts_w, m2, center_w, cfg: ExtractorConfig,
+def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
                           stats=None):
     """Stage (d) for the whole detection batch.
 
-    The survivors of the supporting-plane filter are compacted to the front
-    of the frame's largest survivor count, rounded up to the kernel's tile
-    (one host read per frame): the pass cost is quadratic in the lanes, and
-    labels are identical at every capacity
-    (ops/cluster.components_compacted's stable index mapping).  Reference
-    hot loop: EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
+    The survivors of the supporting-plane filter are compacted per
+    detection, propagated to their fixed point and the cluster near the
+    centre estimate selected, all inside one launch
+    (ops/cluster.cluster_select); nothing is read back, so ``stats``
+    receives 0-dim DEVICE tensors: the most rounds a detection ran, the
+    largest survivor count (``cluster_lanes`` and ``cluster_survivors``: the
+    lanes the pass works on are the survivors) and whether every detection
+    converged.  ``R_wc`` [3, 3] (camera to world) tells the kernel the frame
+    the voxel cloud is sorted in; it changes no result.  Reference hot
+    loop: EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
     """
-    tol, it = cfg.cluster_tolerance, cfg.cluster_iters
-    N = pts_w.shape[1]
-    survivors = int(m2.sum(1).max()) if m2.shape[0] else 0
-    cap = min(N, max(_CLUSTER_TILE, -(-survivors // _CLUSTER_TILE)
-                     * _CLUSTER_TILE))
-    labels, conv, rounds = cl.components_compacted(
-        pts_w, m2, tol, it, 12, cap, with_converged=True,
-        chains=cfg.cluster_chains, with_rounds=True)
-    if stats is not None:
-        stats.update(cluster_rounds=rounds, cluster_lanes=cap,
-                     cluster_survivors=survivors,
-                     cluster_converged=bool(conv.all()))
-    sel, ok = cl.select_cluster(pts_w, m2, labels, center_w,
-                                cfg.cluster_min_size, cfg.cluster_center_dis)
+    args = cl.centre_and_seed(pts_w, m2, cfg.cluster_tolerance,
+                              cfg.cluster_chains)
     # an iteration-bound-truncated propagation yields FRAGMENT components
     # that can pass every downstream gate with a biased center/scale:
-    # surface it as extraction failure instead
-    return sel, ok & conv
+    # cluster_select surfaces it as extraction failure (ok is ANDed with
+    # the convergence flag)
+    sel, ok, _, conv, rounds = cl.cluster_select(
+        pts_w.contiguous(), *args[:4], center_w.contiguous(), args[4],
+        cfg.cluster_iters, 12, cfg.cluster_min_size, cfg.cluster_center_dis,
+        frame=R_wc.T.contiguous())
+    if stats is not None and m2.shape[0]:
+        survivors = m2.sum(1).max()
+        stats.update(cluster_rounds=rounds.max(), cluster_lanes=survivors,
+                     cluster_survivors=survivors,
+                     cluster_converged=conv.all())
+    return sel, ok
 
 
 def _finish(Two, pts_n, obj_m, pose_wc):
@@ -218,7 +217,8 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     depth: [H, W] int32; bboxes: [D, 4]; run_mask: [D] bool; pose_wc: [7];
     ground_plane: [4] world frame; all on one device.  ``stats``: an
     optional dict that receives the clustering stage's round count, lane
-    count, survivor count and convergence.
+    count, survivor count and convergence as 0-dim tensors on that device
+    (the call reads nothing back).
     Returns (local vec10 [D, 10], prob [D], valid [D], debug tuple
     (pts_n, obj_m, Two)).
     """
@@ -228,9 +228,9 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     pose_wc = pose_wc.to(torch.float32)
     ground_plane = ground_plane.to(torch.float32)
 
-    (_, pts_w, _, m2, center_w, ok_p, ok_c) = _stage_a(
+    (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc) = _stage_a(
         depth, bboxes, pose_wc, ground_plane, cam, cfg)
-    sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, cfg, stats)
+    sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
     Two, pts_n, obj_m = _stage_post(pts_w, sel, ground_plane, cfg)
     e_local = _finish(Two, pts_n, obj_m, pose_wc)
     prob = torch.ones(bboxes.shape[0], dtype=torch.float32,
@@ -293,6 +293,10 @@ def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, pose_wc,
     return flat, pad, n, cfg_t
 
 
+_STAT_KEYS = ("cluster_rounds", "cluster_lanes", "cluster_survivors",
+              "cluster_converged")
+
+
 class MonolithicExtractor:
     """Whole-frame extraction on ``device`` (the production default).
 
@@ -302,8 +306,12 @@ class MonolithicExtractor:
     the padded count).  Detections beyond the 32-slot safety cap fall back
     to 2D-only observations (tracking masks them invalid).
 
-    ``stats`` holds the last frame's cloud tier, clustering rounds, lanes,
-    survivors and convergence (host values the call reads anyway).
+    A call is two host-to-device copies (``upload``) and launches
+    (``run``); nothing in it waits for the device.  The clustering stage's
+    counts stay on the device and ride the result's copy as one more row:
+    ``fetch`` makes that one device-to-host copy and then fills ``stats``
+    (the last frame's clustering rounds, lanes, survivors and convergence;
+    the cloud tier is known at the call).
     """
     def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
         from ..system.tracking import resolve_device
@@ -312,24 +320,53 @@ class MonolithicExtractor:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.stats = {}
+        self._packed = None      # [pad + 1, 12]: the result and the stats row
+
+    def upload(self, depth, bboxes, pose_wc, ground_plane):
+        """The frame's two host-to-device copies: the depth image and the
+        packed arguments.  Returns what ``run`` takes."""
+        flat, pad, _, cfg_t = _pack_frame(self.cam, self.cfg, bboxes,
+                                          pose_wc, ground_plane)
+        depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)
+                                   ).to(self.device)
+        return depth_d, torch.from_numpy(flat).to(self.device), pad, cfg_t
+
+    def run(self, depth_d, flat_d, pad, cfg_t):
+        """The extraction on the device: launches only, no copy and no
+        wait.  Returns the [pad, 12] result (a view of the packed buffer
+        whose last row carries the clustering counts)."""
+        bb = flat_d[:pad * 4].reshape(pad, 4)
+        run = flat_d[pad * 4:pad * 5] > 0.5
+        self.stats = {"cloud_tier": cfg_t.cloud_capacity}
+        dev_stats = {}
+        e, p, v, _ = extract_local_ellipsoids(
+            depth_d, bb, run, flat_d[pad * 6:pad * 6 + 7],
+            flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, dev_stats)
+        res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
+        row = torch.nn.functional.pad(
+            torch.stack([dev_stats[k].to(e.dtype) for k in _STAT_KEYS]),
+            (0, 12 - len(_STAT_KEYS)))
+        self._packed = torch.cat([res, row[None]], dim=0)
+        return self._packed[:pad]
 
     def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
         if ground_plane is None:
             return None
-        flat, pad, _, cfg_t = _pack_frame(self.cam, self.cfg, bboxes,
-                                          pose_wc, ground_plane)
-        # two host-to-device copies per frame: the depth image and the
-        # packed arguments
-        depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)
-                                   ).to(self.device)
-        flat_d = torch.from_numpy(flat).to(self.device)
-        bb = flat_d[:pad * 4].reshape(pad, 4)
-        run = flat_d[pad * 4:pad * 5] > 0.5
-        self.stats = {"cloud_tier": cfg_t.cloud_capacity}
-        e, p, v, _ = extract_local_ellipsoids(
-            depth_d, bb, run, flat_d[pad * 6:pad * 6 + 7],
-            flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, self.stats)
-        return torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
+        return self.run(*self.upload(depth, bboxes, pose_wc, ground_plane))
+
+    def fetch(self, out):
+        """The frame's one device-to-host copy: the result of the last call
+        (``out``) as a float64 array [pad, 12]; fills ``stats``."""
+        if self._packed is None or out.data_ptr() != self._packed.data_ptr():
+            raise ValueError("fetch takes the result of this extractor's "
+                             "last call: the clustering counts of any other "
+                             "are gone")
+        host = self._packed.cpu().numpy().astype(np.float64)
+        rounds, lanes, survivors, conv = host[-1, :len(_STAT_KEYS)]
+        self.stats.update(cluster_rounds=int(rounds), cluster_lanes=int(lanes),
+                          cluster_survivors=int(survivors),
+                          cluster_converged=bool(conv))
+        return host[:-1]
 
     def dispatch_with_lm(self, *args, **kwargs):
         raise NotImplementedError(

@@ -33,8 +33,10 @@ STRIDE = 3  # PointCloudFilter.cpp:31-32
 
 
 def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    """0-dim float32 tensor on ``like``'s device (a true divisor)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """0-dim float32 tensor on ``like``'s device (a true divisor), made by
+    a fill on the device: no host-to-device copy, which would make the host
+    wait for the stream."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def _bbox_corners(bboxes, H, W):

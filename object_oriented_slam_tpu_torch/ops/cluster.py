@@ -19,11 +19,16 @@ as ``x0*y0 + x1*y1 + x2*y2``.  A pair within that band of the radius may
 fall differently under another rounding; it changes labels only when it is
 the sole bridge between two components.
 
-A round is two CUDA kernels (csrc/frontend.cu) for tensors on a CUDA
-device: ``min_label_pass`` and ``pointer_jumps``; on the CPU their plain
-versions ``min_label_pass_plain`` and ``pointer_jumps_plain``.  The JAX
-module's grid-hash path, its exact broadcast pass and its interleaved
-chain passes (``chains > 0``) are not ported and raise.
+For tensors on a CUDA device the compaction and all rounds of a frame are
+one launch of the ``cluster_components`` kernel (csrc/frontend.cu, a thread
+block cluster per detection, nothing read back between rounds), with the
+cluster selection as its epilogue when ``cluster_select`` asks for it; on
+the CPU ``cluster_components_plain``, a loop over the plain versions of one
+pass and of the jumps, and ``select_cluster``.  ``min_label_pass`` and
+``pointer_jumps`` stay as entry points for one step each (their kernels
+share the device functions of the whole-frame kernel).  The JAX module's
+grid-hash path, its exact broadcast pass and its interleaved chain passes
+(``chains > 0``) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -33,7 +38,6 @@ from . import frontend_kernels as fk
 
 _BIG = 2 ** 30
 _PLAIN_ELEMS = 1 << 24   # most [rows, N] elements a plain pass holds at once
-CHECK_EVERY = 4          # rounds enqueued between two reads of `changed`
 
 
 def min_label_pass_plain(pts_c, nrm, mask, labels, tol2: float):
@@ -128,8 +132,8 @@ def _chain_seed(pts, mask, labels0, tol2: float):
     components; it only shortens the propagation.
     """
     D, N = mask.shape
-    tol = torch.sqrt(torch.tensor(tol2, dtype=torch.float32,
-                                  device=pts.device))
+    tol = torch.sqrt(torch.full((), tol2, dtype=torch.float32,
+                                device=pts.device))
     c = (torch.floor(pts / tol).to(torch.int32) + 512).clamp(0, 1023)
     key = (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
     key = torch.where(mask, key, _BIG)
@@ -149,60 +153,256 @@ def _chain_seed(pts, mask, labels0, tol2: float):
     return torch.where(mask, seeded, N)
 
 
-def _propagate(pass_fn, labels0, outer_iters: int, jump_iters: int):
-    """Min-label rounds (pass, then ``jump_iters`` pointer jumps) until no
-    label changed or ``outer_iters`` rounds ran.
+def _compact(mask, *lanes):
+    """The unmasked lanes moved to the front, in their original order, of
+    the largest survivor count (one host read).  Returns (sub [D, cap] the
+    lanes taken, the gathered mask, the gathered ``lanes`` tensors)."""
+    cap = max(int(mask.sum(1).max()), 1) if mask.shape[0] else 1
+    # stable: unmasked points keep their original relative order, so the
+    # min compacted index maps to the min original index per component
+    sub = torch.sort((~mask).to(torch.int32), dim=1, stable=True
+                     ).indices[:, :cap]
+    out = []
+    for t in lanes:
+        i = sub if t.dim() == 2 else sub[..., None].expand(-1, -1, t.shape[2])
+        out.append(torch.gather(t, 1, i).contiguous())
+    return sub, torch.gather(mask, 1, sub).contiguous(), out
 
-    Returns (labels, converged [D] bool, rounds): converged is False for a
-    detection whose propagation the bound truncated while labels were still
-    changing; callers MUST surface that (a truncated run silently yields
-    fragment components).  ``rounds`` is the number of rounds up to and
-    including the first one that changed no label (or ``outer_iters``).
 
-    The ``changed`` flag of a round stays on the device; the host reads the
-    flags of ``CHECK_EVERY`` rounds at a time.  Labels are a fixed point
-    once a round changes nothing, so the rounds enqueued past that one
-    leave them as they are: labels and flag at exit are those of a loop
-    that checks every round.
+def _rounds_loop(pass_fn, jumps_fn, pts_c, nrm, mask, labels0, tol2: float,
+                 outer_iters: int, jump_iters: int):
+    """The propagation as a loop of single steps: the unmasked points are
+    compacted to the front with a stable sort, rounds of (``pass_fn``,
+    ``jump_iters`` jumps by ``jumps_fn``) run until no detection changes a
+    label or ``outer_iters`` rounds ran (one host read a round), and the
+    labels are mapped back to the original lanes.
+
+    Labels are a fixed point once a round changes nothing, so a detection
+    that went quiet keeps its labels while the others go on: labels,
+    ``converged`` and ``rounds`` are those of a loop per detection.
     """
-    D = labels0.shape[0]
-    dev = labels0.device
-
-    def round_fn(labels):
-        new, changed = pointer_jumps(pass_fn(labels), labels, jump_iters)
-        return new, changed
-
-    labels, _ = round_fn(labels0)
-    rounds = 1
+    D, N = mask.shape
+    dev = mask.device
+    sub, m_c, (pts_k, nrm_k, l0) = _compact(mask, pts_c, nrm, labels0)
+    cap = sub.shape[1]
+    # a seeded label names an original lane: its compacted index is the
+    # count of unmasked lanes before it
+    rank = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).to(torch.int32)
+    lab = torch.where(m_c, torch.gather(rank, 1, l0.clamp(0, N - 1).long()),
+                      cap).to(torch.int32).contiguous()
+    rounds = torch.zeros(D, dtype=torch.int32, device=dev)
     still = torch.ones(D, dtype=torch.bool, device=dev)
-    while rounds < outer_iters:
-        flags = []
-        for _ in range(min(CHECK_EVERY, outer_iters - rounds)):
-            labels, changed = round_fn(labels)
-            flags.append(changed)
-        flags = torch.stack(flags).cpu().numpy() != 0      # [k, D]
-        quiet = ~flags.any(axis=1)
-        if quiet.any():
-            return (labels, torch.ones(D, dtype=torch.bool, device=dev),
-                    rounds + int(quiet.argmax()) + 1)
-        rounds += len(flags)
-        still = torch.as_tensor(flags[-1], device=dev)
+    for r in range(1, outer_iters + 1):
+        lab, changed = jumps_fn(pass_fn(pts_k, nrm_k, m_c, lab, tol2), lab,
+                                jump_iters)
+        rounds = torch.where(still, r, rounds).to(torch.int32)
+        still = still & (changed != 0)
+        if not bool(still.any()):
+            break
+    sub32 = sub.to(torch.int32)
+    orig = torch.where(lab < cap,
+                       torch.gather(sub32, 1, lab.clamp(0, cap - 1).long()),
+                       N)
+    labels = torch.full((D, N), N, dtype=torch.int32, device=dev)
+    labels.scatter_(1, sub, orig)
     return labels, ~still, rounds
+
+
+def cluster_components_plain(pts_c, nrm, mask, labels0, tol2: float,
+                             outer_iters: int, jump_iters: int = 12):
+    """Plain PyTorch version of ``cluster_components`` (any device):
+    ``_rounds_loop`` over ``min_label_pass_plain`` and
+    ``pointer_jumps_plain``."""
+    return _rounds_loop(min_label_pass_plain, pointer_jumps_plain, pts_c, nrm,
+                        mask, labels0, tol2, outer_iters, jump_iters)
+
+
+# the clustering kernel's launch: blocks per detection (the cluster size),
+# threads per block, and the points a lane keeps in registers, which is a
+# constant of the build (OSLAM_CC_P in csrc/frontend.cu; the launch is
+# refused if the two differ).  examples/torch_cluster_sweep.py times the
+# choices
+LAUNCH_SHAPE = (8, 512, 2)
+_SMEM_MAX = 227 * 1024 - 1024  # dynamic shared memory a block may ask for,
+#                                less the kernel's static part
+_SMEM_FIXED, _SMEM_RESIDENT = 13, 29    # bytes a lane: lane list, two label
+#                                buffers, boxes; and with the float4 point
+
+
+def launch_smem(N: int) -> int:
+    """Dynamic shared memory for ``N`` lanes: everything resident where it
+    fits, else the fixed part and what is left as the streaming tile."""
+    n_pad = -(-N // 32) * 32
+    need = _SMEM_FIXED * n_pad + 16 * 256
+    if need > _SMEM_MAX:
+        raise ValueError(
+            f"cluster_components takes at most "
+            f"{(_SMEM_MAX - 16 * 256) // _SMEM_FIXED // 32 * 32} lanes a "
+            f"detection (got {N}): the labels of a detection stay in one "
+            "block's shared memory")
+    return min(_SMEM_MAX, max(need, _SMEM_RESIDENT * n_pad))
+
+
+def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
+            select=None, shape=None, smem=None, prune=True):
+    """One launch of the clustering kernel on CUDA tensors, checked.
+    ``select`` = (pts, center, min_size, center_dis) asks for the selection
+    epilogue.  For the sweep and the kernel's tests only: ``shape`` = (blocks
+    per detection, threads, points a lane) and ``smem`` override the launch,
+    ``prune=False`` tests every pair.  Returns (labels, converged, rounds,
+    sel | None, ok | None)."""
+    D, N = mask.shape
+    dev = pts_c.device
+    if frame is None:
+        frame = torch.eye(3, dtype=torch.float32, device=dev)
+    fk.check("pts_c", pts_c, torch.float32, (D, N, 3), dev)
+    fk.check("nrm", nrm, torch.float32, (D, N), dev)
+    fk.check("mask", mask, torch.bool, (D, N), dev)
+    fk.check("labels0", labels0, torch.int32, (D, N), dev)
+    fk.check("frame", frame, torch.float32, (3, 3), dev)
+    if outer_iters < 1 or jump_iters < 0:
+        raise ValueError(f"outer_iters={outer_iters}, jump_iters={jump_iters}")
+    labels = torch.empty_like(labels0)
+    conv = torch.empty((D,), dtype=torch.bool, device=dev)
+    rounds = torch.empty((D,), dtype=torch.int32, device=dev)
+    S, T, P = shape or LAUNCH_SHAPE
+    args = [pts_c.data_ptr(), nrm.data_ptr(), mask.data_ptr(),
+            labels0.data_ptr(), D, N, tol2, outer_iters, jump_iters, S, T, P,
+            smem or launch_smem(N), int(prune), frame.data_ptr(),
+            labels.data_ptr(),
+            conv.data_ptr(), rounds.data_ptr()]
+    sel = ok = None
+    fn = "oslam_cluster_components"
+    if select is not None:
+        pts, center, min_size, center_dis = select
+        fk.check("pts", pts, torch.float32, (D, N, 3), dev)
+        fk.check("center", center, torch.float32, (D, 3), dev)
+        if min_size < 1:
+            raise ValueError(f"min_size={min_size}: a cluster has a point")
+        sel = torch.empty((D, N), dtype=torch.bool, device=dev)
+        ok = torch.empty((D,), dtype=torch.bool, device=dev)
+        least_d = torch.empty((D, N), dtype=torch.int32, device=dev)
+        args += [pts.data_ptr(), center.data_ptr(), min_size, center_dis,
+                 least_d.data_ptr(), sel.data_ptr(), ok.data_ptr()]
+        fn = "oslam_cluster_select"
+    if D and N:
+        fk.launch(fk.CLUSTER_COMPONENTS, fn, dev, args)
+    else:
+        conv.fill_(True)
+        rounds.fill_(1)
+        if ok is not None:
+            ok.fill_(False)
+    return labels, conv, rounds, sel, ok
+
+
+def cluster_components(pts_c, nrm, mask, labels0, tol2: float,
+                       outer_iters: int, jump_iters: int = 12, frame=None):
+    """The whole propagation of a frame: for each detection, rounds of one
+    min-label pass over the radius graph and ``jump_iters`` synchronous
+    pointer jumps, until a round changes no label or ``outer_iters`` ran.
+
+    pts_c [D, N, 3] float32 centred points, nrm [D, N] their squared norms,
+    mask [D, N] bool, labels0 [D, N] int32 the starting labels in lane
+    numbering (an unmasked lane carries an unmasked lane <= itself: its own
+    index or ``_chain_seed``'s; masked lanes N).  Returns (labels [D, N]
+    int32: the least lane of each point's component, N on masked lanes;
+    converged [D] bool: a round that changed nothing came within the bound;
+    rounds [D] int32: rounds run, the quiet one included), all on the
+    device: nothing is read back.
+
+    On a CUDA device one launch of the ``cluster_components`` kernel; on
+    the CPU ``cluster_components_plain``.  ``frame`` [3, 3] float32 is a
+    hint for the kernel's skip of far groups and changes no result: the
+    rotation (rows u, v, w, in the coordinates of ``pts_c``) of the frame
+    whose cells the cloud is sorted by, for a voxel cloud the camera's
+    axes; left out, the identity (the kernel also takes the identity for a
+    matrix that is no rotation).
+    """
+    if pts_c.device.type != "cuda":
+        return cluster_components_plain(pts_c, nrm, mask, labels0, tol2,
+                                        outer_iters, jump_iters)
+    return _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters,
+                   frame)[:3]
+
+
+def cluster_select_plain(pts, pts_c, nrm, mask, labels0, center, tol2: float,
+                         outer_iters: int, jump_iters: int, min_size: int,
+                         center_dis: float):
+    """Plain PyTorch version of ``cluster_select`` (any device):
+    ``cluster_components_plain``, then ``select_cluster`` on its labels."""
+    labels, conv, rounds = cluster_components_plain(
+        pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters)
+    sel, ok = select_cluster(pts, mask, labels, center, min_size, center_dis)
+    return sel, ok & conv, labels, conv, rounds
+
+
+def cluster_select(pts, pts_c, nrm, mask, labels0, center, tol2: float,
+                   outer_iters: int, jump_iters: int, min_size: int,
+                   center_dis: float, frame=None):
+    """``cluster_components`` followed by ``select_cluster`` on its labels.
+
+    pts [D, N, 3] the points the centre distances are taken on (the
+    uncentred ones), center [D, 3]; the rest as ``cluster_components``.
+    Returns (sel [D, N] bool: the points of the chosen cluster; ok [D] bool:
+    a cluster was chosen AND the detection's propagation converged (a
+    truncated run yields fragment components: it must fail the gate);
+    labels, converged, rounds).
+
+    On a CUDA device the selection is the epilogue of the same one launch
+    (the labels are still in shared memory); on the CPU
+    ``cluster_select_plain``.
+    """
+    if pts_c.device.type != "cuda":
+        return cluster_select_plain(pts, pts_c, nrm, mask, labels0, center,
+                                    tol2, outer_iters, jump_iters, min_size,
+                                    center_dis)
+    labels, conv, rounds, sel, ok = _launch(
+        pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
+        (pts, center, min_size, center_dis))
+    return sel, ok, labels, conv, rounds
+
+
+def centre_and_seed(pts, mask, tol: float, chains: int = -1):
+    """What ``cluster_components`` takes, from a frame's points: (pts_c,
+    nrm, mask, labels0, tol2).  The points are centred on the masked mean
+    once (labels are translation-invariant); ``chains`` = -1 seeds the
+    labels along one spatial sort order, 0 leaves each point its own."""
+    D, N = mask.shape
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    idx = torch.arange(N, dtype=torch.int32, device=pts.device)
+    labels0 = torch.where(mask, idx, N)
+    if chains:
+        labels0 = _chain_seed(pts, mask, labels0, tol2)
+    w = mask[..., None]
+    c = torch.where(w, pts, 0.0).sum(1) / mask.sum(1).clamp_min(1).to(
+        pts.dtype)[:, None]
+    pts_c = torch.where(w, pts - c[:, None, :], 0.0).contiguous()
+    nrm = (pts_c * pts_c).sum(-1)
+    return pts_c, nrm, mask.contiguous(), labels0.contiguous(), tol2
 
 
 def connected_components(pts: torch.Tensor, mask: torch.Tensor, tol: float,
                          outer_iters: int = 8, jump_iters: int = 12,
                          exact: bool = False, with_converged: bool = False,
-                         chains: int = -1, with_rounds: bool = False):
+                         chains: int = -1, with_rounds: bool = False,
+                         frame=None):
     """Labels [D, N] int32: each point's component id = min point index in
-    its component.  pts [D, N, 3], mask [D, N].
+    its component.  pts [D, N, 3], mask [D, N]; ``frame``: see
+    ``cluster_components``.
 
-    Masked-out points get label N (out of range).  With
-    ``with_converged=True`` additionally returns the convergence flags [D]
-    (see _propagate), with ``with_rounds=True`` the number of rounds.
-    ``chains``: -1 seeds the labels along one spatial sort order, 0 does
-    not; interleaved chain passes (``chains > 0``) and the exact broadcast
-    pass are not ported.
+    Masked-out points get label N (out of range).  Both the kernel and the
+    plain loop compact the unmasked points first (stable order, so the
+    min-index labels map back exactly) to the survivors there are, so this
+    is also the JAX package's ``components_compacted``, whose static lane
+    count has no counterpart here.  With
+    ``with_converged=True`` additionally returns the convergence flags [D]:
+    False for a detection whose propagation the bound truncated while
+    labels were still changing; callers MUST surface that (a truncated run
+    silently yields fragment components).  With ``with_rounds=True`` also
+    the rounds [D] each detection ran, up to and including the first one
+    that changed no label.  ``chains``: -1 seeds the labels along one
+    spatial sort order, 0 does not; interleaved chain passes
+    (``chains > 0``) and the exact broadcast pass are not ported.
     """
     if exact:
         raise NotImplementedError(
@@ -212,60 +412,9 @@ def connected_components(pts: torch.Tensor, mask: torch.Tensor, tol: float,
         raise NotImplementedError(
             f"chains={chains}: interleaved chain passes (cluster_chains > 0) "
             "are not ported to the torch package")
-    D, N = mask.shape
-    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
-    idx = torch.arange(N, dtype=torch.int32, device=pts.device)
-    labels0 = torch.where(mask, idx, N)
-    if chains:
-        labels0 = _chain_seed(pts, mask, labels0, tol2)
-
-    # center once (labels are translation-invariant)
-    w = mask[..., None]
-    c = torch.where(w, pts, 0.0).sum(1) / mask.sum(1).clamp_min(1).to(
-        pts.dtype)[:, None]
-    pts_c = torch.where(w, pts - c[:, None, :], 0.0).contiguous()
-    nrm = (pts_c * pts_c).sum(-1)
-    mask = mask.contiguous()
-
-    labels, conv, rounds = _propagate(
-        lambda lab: min_label_pass(pts_c, nrm, mask, lab, tol2),
-        labels0.contiguous(), outer_iters, jump_iters)
-    out = (labels,)
-    if with_converged:
-        out += (conv,)
-    if with_rounds:
-        out += (rounds,)
-    return out if len(out) > 1 else labels
-
-
-def components_compacted(pts: torch.Tensor, mask: torch.Tensor, tol: float,
-                         outer_iters: int, jump_iters: int,
-                         compact_cap: int, with_converged: bool = False,
-                         chains: int = -1, with_rounds: bool = False):
-    """Components with the unmasked points compacted into the front
-    ``compact_cap`` lanes.  PRECONDITION: mask.sum(1) <= compact_cap for
-    every detection (overflowed points would silently be dropped).
-
-    The supporting-plane filter discards a large part of the voxel cloud
-    before clustering, but masked lanes still pay full price in every
-    distance pass; compacting (stable order, so min-index labels map back
-    exactly) cuts the quadratic pass cost.
-    """
-    D, N = mask.shape
-    # stable: unmasked points keep their original relative order, so the
-    # min compacted index maps to the min original index per component
-    order = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
-    sub = order[:, :compact_cap]
-    lab_c, conv, rounds = connected_components(
-        torch.gather(pts, 1, sub[..., None].expand(-1, -1, 3)),
-        torch.gather(mask, 1, sub), tol, outer_iters, jump_iters,
-        with_converged=True, chains=chains, with_rounds=True)
-    sub32 = sub.to(torch.int32)
-    orig = torch.where(
-        lab_c < compact_cap,
-        torch.gather(sub32, 1, lab_c.clamp(0, compact_cap - 1).long()), N)
-    labels = torch.full((D, N), N, dtype=torch.int32, device=pts.device)
-    labels.scatter_(1, sub, orig)
+    labels, conv, rounds = cluster_components(
+        *centre_and_seed(pts, mask, tol, chains), outer_iters, jump_iters,
+        frame=frame)
     out = (labels,)
     if with_converged:
         out += (conv,)

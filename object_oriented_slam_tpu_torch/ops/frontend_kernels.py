@@ -4,7 +4,11 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and bound with ctypes.  The wrappers that call
 ``launch`` live beside their plain PyTorch versions: ``backproject.
 bbox_point_cloud`` (bbox_cloud), ``voxel.voxel_segment_mean``,
-``cluster.min_label_pass`` and ``cluster.pointer_jumps``.  Each launch runs
+``cluster.cluster_components`` and ``cluster.cluster_select`` (the main
+path's clustering: one kernel, without and with the selection epilogue,
+one launch counter),
+``cluster.min_label_pass`` and ``cluster.pointer_jumps`` (one step of it
+each, kept as entry points).  Each launch runs
 on PyTorch's current stream and does not synchronise; the wrappers allocate
 the outputs with ``torch.empty``.
 """
@@ -25,38 +29,59 @@ BBOX_CLOUD = Kernel("bbox_cloud")
 VOXEL_SEGMENT_MEAN = Kernel("voxel_segment_mean")
 MIN_LABEL_PASS = Kernel("min_label_pass")
 POINTER_JUMPS = Kernel("pointer_jumps")
-KERNELS = (BBOX_CLOUD, VOXEL_SEGMENT_MEAN, MIN_LABEL_PASS, POINTER_JUMPS)
+CLUSTER_COMPONENTS = Kernel("cluster_components")
+KERNELS = (BBOX_CLOUD, VOXEL_SEGMENT_MEAN, MIN_LABEL_PASS, POINTER_JUMPS,
+           CLUSTER_COMPONENTS)
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
 
 
-def build() -> str:
+def build(defines=()) -> str:
     """Compile the kernels (if this source is not built yet); returns the
-    path of the shared library."""
+    path of the shared library.  ``defines``: extra ``-D`` flags, a build of
+    its own (``rebuild``)."""
     global build_log
-    lib_path, log = _cuda_build.build(SOURCE)
+    lib_path, log = _cuda_build.build(
+        SOURCE, _cuda_build.NVCC_FLAGS + tuple(defines))
     build_log = log or build_log
     return lib_path
+
+
+def rebuild(*defines: str):
+    """Bind the library built with extra ``-D`` flags from here on (none:
+    the default build).  For examples/torch_cluster_sweep.py, which times
+    the clustering kernel at other points a lane (``-DOSLAM_CC_P=4``)."""
+    global _lib
+    _lib = _bind(build(defines))
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name, argtypes in (
-                ("oslam_bbox_cloud", [p, p, i, i, i, f, f, f, f, f, f, p, p]),
-                ("oslam_voxel_segment_mean", [p] * 4 + [i] * 3 + [p] * 6),
-                ("oslam_min_label_pass", [p] * 4 + [i, i, f, p]),
-                ("oslam_pointer_jumps", [p] * 3 + [i] * 3 + [p])):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes + [p]      # ..., then the stream
-            fn.restype = i
-        lib.oslam_fe_error_string.argtypes = [i]
-        lib.oslam_fe_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(build())
     return _lib
+
+
+def _bind(lib_path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(lib_path)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, argtypes in (
+            ("oslam_bbox_cloud", [p, p, i, i, i, f, f, f, f, f, f, p, p]),
+            ("oslam_voxel_segment_mean", [p] * 4 + [i] * 3 + [p] * 6),
+            ("oslam_min_label_pass", [p] * 4 + [i, i, f, p]),
+            ("oslam_pointer_jumps", [p] * 3 + [i] * 3 + [p]),
+            ("oslam_cluster_components",
+             [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4),
+            ("oslam_cluster_select",
+             [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4
+             + [p, p, i, f, p, p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes + [p]      # ..., then the stream
+        fn.restype = i
+    lib.oslam_fe_error_string.argtypes = [i]
+    lib.oslam_fe_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device):

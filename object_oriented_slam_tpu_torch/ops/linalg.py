@@ -211,9 +211,11 @@ def eigh3(A: torch.Tensor):
     other = torch.where(hi_primary, vlo, vhi)
     other = other - (other * base).sum(-1, keepdim=True) * base
     on2 = (other * other).sum(-1)
-    ax = torch.where(base[..., 0:1].abs() < 0.9,
-                     torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=A.device),
-                     torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=A.device))
+    # e_x where base is not along x, else e_y (built on the device: a
+    # constant copied from the host would make the host wait for the stream)
+    off_x = base[..., 0:1].abs() < 0.9
+    ax = torch.cat([off_x.to(dt), (~off_x).to(dt),
+                    torch.zeros_like(off_x, dtype=dt)], dim=-1)
     alt = cross(base, ax)
     alt = alt / torch.sqrt(torch.clamp_min((alt * alt).sum(-1),
                                            tiny))[..., None]

@@ -316,7 +316,9 @@ class Tracking:
         # extraction (the host waits here for its kernels to finish)
         ext_np = None
         if ext_out is not None:
-            ext_np = ext_out.cpu().numpy().astype(np.float64)
+            # ``fetch`` brings the extractor's counts of the frame
+            # (clustering rounds, lanes) home in the same copy
+            ext_np = self.extractor.fetch(ext_out)
         self.metrics["fetch"].append(time.perf_counter() - tp0)
         if ext_np is not None:
             # the extractor may return fewer rows than detections (its

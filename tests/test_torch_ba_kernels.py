@@ -162,6 +162,37 @@ def test_step_kernels_match_plain(device, shape):
                                    rtol=1e-5)
 
 
+def test_nan_tangent_edges_are_left_out_alike(device):
+    """An object whose projected conics have no real axes (a 30 m sphere
+    around its cameras): every 2D edge has a finite residual and a NaN
+    tangent.  The kernel and the plain version leave the same edges out, so
+    H stays finite on both sides and agrees; the other objects are
+    untouched."""
+    arrays = make_lm_batch(6, 64, 32, seed=9)
+    arrays["est0"][3, 3:] = (0, 0, 0, 1, 30, 30, 30)
+    obs = observations_from_numpy(arrays, device)
+    K = torch.tensor([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1]],
+                     device=device)
+    n = torch.as_tensor(NORMAL, device=device)
+    prep = lm_soa.soa_prepare(obs.pose2d_cw, obs.bbox2d, obs.pose3d_wc,
+                              obs.meas3d)
+    w2, w3, wg = lm_soa.soa_edge_weights(obs, prep, K, True, LMConfig())
+    assert float(w2[3].sum()) > 0           # the edges pass the NaN gate
+    got = ba_kernels.normal_eq(obs.est0, prep, w2, w3, wg, n, K)
+    want = lm_soa.soa_normal_eq_plain(obs.est0, prep, w2, w3, wg, n, K)
+    _assert_neq_close(got, want)
+    # the same sums with those edges masked out by hand
+    w2_masked = w2.clone()
+    w2_masked[3] = 0.0
+    masked = ba_kernels.normal_eq(obs.est0, prep, w2_masked, w3, wg, n, K)
+    for a, b in zip(got, masked):
+        assert torch.equal(a, b)
+    lam = torch.full((6,), -1.0, device=device)
+    step = ba_kernels.lm_solve_step(obs.est0, lam, prep, w2, w3, wg, n, K,
+                                    0.0)
+    assert float(step[1][3].abs().max()) > 0    # the object moves
+
+
 def test_wrapper_checks_inputs(device):
     obs, prep, w2, w3, wg, n, K = _problem(device, 4, 64, 32, seed=6)
     with pytest.raises(TypeError):

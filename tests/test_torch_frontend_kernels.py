@@ -157,20 +157,184 @@ def test_min_label_pass_and_jumps_equal_plain(device):
     assert torch.equal(odd.cpu(), cl.pointer_jumps_plain(labels, labels, 3)[0])
 
 
-def test_components_equal_plain_and_repeat(device):
+def _on(device, args):
+    """centre_and_seed's tuple with its tensors moved to ``device``."""
+    return tuple(t.to(device) if isinstance(t, torch.Tensor) else t
+                 for t in args)
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("chains", [-1, 0])
+def test_cluster_components_equals_plain_and_repeat(device, chains):
+    """One launch for all rounds: labels, converged and rounds equal the
+    plain version's (same centred points, so no rounding band), a second
+    launch gives the same bits, and so does every launch shape."""
     pts_w, m2 = _cluster_inputs()
-    want, conv_w, rounds_w = cl.components_compacted(
-        pts_w, m2, 0.02, 96, 12, 2048, with_converged=True, with_rounds=True)
-    runs = [cl.components_compacted(pts_w.to(device), m2.to(device), 0.02, 96,
-                                    12, 2048, with_converged=True,
-                                    with_rounds=True) for _ in range(2)]
-    for got, conv, rounds in runs:
-        assert torch.equal(got.cpu(), want)
-        assert torch.equal(conv.cpu(), conv_w) and bool(conv_w.all())
-        assert rounds == rounds_w
-    # full width, no compaction: the same labels
-    full = cl.connected_components(pts_w.to(device), m2.to(device), 0.02, 96)
-    assert torch.equal(full.cpu(), want)
+    args = cl.centre_and_seed(pts_w, m2, 0.02, chains)
+    want = cl.cluster_components_plain(*args, 96, 12)
+    assert bool(want[1].all()) and int(want[2].max()) > 3
+    n0 = fk.CLUSTER_COMPONENTS.launches
+    step0 = (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches)
+    args_d = _on(device, args)
+    for _ in range(2):
+        _assert_same(cl.cluster_components(*args_d, 96, 12), want)
+    torch.cuda.synchronize()
+    assert fk.CLUSTER_COMPONENTS.launches == n0 + 2
+    assert (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches) == step0
+    P = cl.LAUNCH_SHAPE[2]
+
+    def launch(frame=None, **kw):
+        return cl._launch(*args_d, 96, 12, frame, **kw)[:3]
+
+    for shape in ((1, 256, P), (2, 512, P), (4, 128, P), (8, 64, P)):
+        _assert_same(launch(shape=shape), want)
+    # every pair tested (no far group skipped), and the points streamed
+    # through the least shared memory instead of resident
+    _assert_same(launch(prune=False), want)
+    least = 13 * m2.shape[1] + 16 * 256
+    for shape in ((8, 512, P), (3, 256, P)):
+        _assert_same(launch(shape=shape, smem=least), want)
+    # the sort frame is a hint for the skip and changes nothing: the
+    # identity, a slanted rotation, the camera's axes of this frame, and two
+    # matrices that are no rotation (ignored: boxes along the world's axes)
+    c, sn = float(np.cos(0.7)), float(np.sin(0.7))
+    _, _, pose, _ = _frame()
+    for frame in (torch.eye(3), torch.tensor([[c, sn, 0.0], [-sn, c, 0.0],
+                                              [0.0, 0.0, 1.0]]),
+                  _world(pose, device).R.T.contiguous().cpu(),
+                  5.0 * torch.eye(3), torch.full((3, 3), float("nan"))):
+        for shape in ((8, 512, P), (2, 256, P)):
+            _assert_same(launch(frame.to(device), shape=shape), want)
+        _assert_same(cl.cluster_components(*args_d, 96, 12,
+                                           frame=frame.to(device)), want)
+    # an odd number of jumps, and none
+    for jumps in (3, 0):
+        _assert_same(cl.cluster_components(*args_d, 96, jumps),
+                     cl.cluster_components_plain(*args, 96, jumps))
+    # the public wrapper launches it too, at any lane count
+    lab, conv, rounds = cl.connected_components(
+        pts_w.to(device), m2.to(device), 0.02, 96, 12,
+        with_converged=True, with_rounds=True, chains=chains)
+    torch.cuda.synchronize()
+    assert bool(conv.all()) and lab.shape == m2.shape
+    assert (lab[~m2.to(device)] == m2.shape[1]).all()
+
+
+def test_cluster_components_full_lanes_and_truncation(device):
+    """Clouds that fill 16384 lanes (streamed: the points do not fit in
+    shared memory), an empty detection, one tight blob, odd lane counts;
+    and a bound of 2 rounds, which only the detections still changing
+    report."""
+    rng = np.random.default_rng(3)
+    D, N = 4, 16384
+    pts = rng.uniform(0.0, 1.0, (D, N, 3)).astype(np.float32)
+    pts[..., 2] *= 0.25
+    pts[0] = pts[0][np.argsort(pts[0, :, 0], kind="stable")]
+    pts[2] = 0.5 + 0.005 * pts[2]
+    mask = np.ones((D, N), bool)
+    mask[1, rng.permutation(N)[:5000]] = False
+    mask[2, 700:] = False
+    mask[3] = False
+    pts_t, mask_t = torch.from_numpy(pts), torch.from_numpy(mask)
+    for n_lanes in (N, 5000 + 13):
+        args = cl.centre_and_seed(pts_t[:, :n_lanes].contiguous(),
+                                  mask_t[:, :n_lanes].contiguous(), 0.02, 0)
+        args_d = _on(device, args)
+        for outer in (96, 2):
+            # the plain version on the card (72 ms a pass at 16384 lanes)
+            want = cl.cluster_components_plain(*args_d, outer, 12)
+            got = cl.cluster_components(*args_d, outer, 12)
+            _assert_same(got, want)
+            _assert_same(cl.cluster_components(*args_d, outer, 12), got)
+            conv = got[1].tolist()
+            assert conv[2] and conv[3] and int(got[2][3]) == 1
+            assert conv[0] == (outer == 96) and int(got[2][2]) == 2
+        assert int(got[2][0]) == 2
+
+
+@pytest.mark.parametrize("min_size,center_dis", [(100, 0.5), (30, 0.05),
+                                                 (400, 5.0), (5, 0.5)])
+def test_cluster_select_equals_plain(device, min_size, center_dis):
+    """The selection epilogue: the chosen cluster's mask and the ok flags
+    equal ``select_cluster`` on the plain labels, for the default gates, a
+    tight radius, a size only a few clusters reach, and a size almost every
+    fragment reaches; labels, converged and rounds as without it."""
+    depth, bboxes, pose, cam = _frame()
+    pts_w, m2 = _cluster_inputs()
+    world = _world_cpu(_world(pose, torch.device("cpu")))
+    centre, _ = bp.center_estimate(depth, bboxes, cam, 6.0)
+    centre_w = (centre @ world.R.T + world.t).contiguous()
+    args = cl.centre_and_seed(pts_w, m2, 0.02, -1)
+    want = cl.cluster_select_plain(pts_w, *args[:4], centre_w, args[4], 96,
+                                   12, min_size, center_dis)
+    n0 = fk.CLUSTER_COMPONENTS.launches
+    got = cl.cluster_select(pts_w.to(device), *_on(device, args[:4]),
+                            centre_w.to(device), args[4], 96, 12, min_size,
+                            center_dis)
+    _assert_same(got, want)
+    P = cl.LAUNCH_SHAPE[2]
+    for shape in ((1, 128, P), (4, 512, P)):
+        lab, conv, rounds, sel, ok = cl._launch(
+            *_on(device, args[:4]), args[4], 96, 12, None,
+            (pts_w.to(device), centre_w.to(device), min_size, center_dis),
+            shape=shape)
+        _assert_same((sel, ok, lab, conv, rounds), want)
+    torch.cuda.synchronize()
+    assert fk.CLUSTER_COMPONENTS.launches == n0 + 3
+    if (min_size, center_dis) == (100, 0.5):
+        assert int(want[1].sum()) >= 3 and not bool(want[1][-1])
+    # a truncated run fails the gate for the detections still changing
+    cut = cl.cluster_select(pts_w.to(device), *_on(device, args[:4]),
+                            centre_w.to(device), args[4], 2, 12, min_size,
+                            center_dis)
+    _assert_same(cut, cl.cluster_select_plain(
+        pts_w, *args[:4], centre_w, args[4], 2, 12, min_size, center_dis))
+    assert not bool((cut[1] & ~cut[3]).any())
+
+
+def test_cluster_components_refuses_what_it_does_not_take(device):
+    pts_w, m2 = _cluster_inputs(1024)
+    args = _on(device, cl.centre_and_seed(pts_w, m2, 0.02, -1))
+    pts_c, nrm, m, labels0, tol2 = args
+    with pytest.raises(TypeError):
+        cl.cluster_components(pts_c, nrm, m, labels0.long(), tol2, 96, 12)
+    with pytest.raises(ValueError):
+        cl.cluster_components(pts_c, nrm.cpu(), m, labels0, tol2, 96, 12)
+    with pytest.raises(ValueError):
+        cl.cluster_components(pts_c[:, :512], nrm, m, labels0, tol2, 96, 12)
+    with pytest.raises(ValueError):
+        cl.cluster_components(pts_c, nrm, m, labels0, tol2, 0, 12)
+    with pytest.raises(ValueError):
+        cl.cluster_components(pts_c, nrm, m, labels0, tol2, 96, 12,
+                              frame=torch.eye(4, device=device))
+    with pytest.raises(ValueError):
+        cl.cluster_components(pts_c, nrm, m, labels0, tol2, 96, 12,
+                              frame=torch.eye(3))
+    # a launch the card refuses raises; nothing falls back: a cluster of
+    # 16 blocks, and points a lane other than the build's
+    P = cl.LAUNCH_SHAPE[2]
+    with pytest.raises(RuntimeError, match="cluster_components"):
+        cl._launch(pts_c, nrm, m, labels0, tol2, 96, 12, None,
+                   shape=(16, 512, P))
+    with pytest.raises(RuntimeError, match="cluster_components"):
+        cl._launch(pts_c, nrm, m, labels0, tol2, 96, 12, None,
+                   shape=(8, 512, 2 * P))
+    with pytest.raises(ValueError, match="lanes"):
+        cl.launch_smem(32768)
+    centre = torch.zeros((m.shape[0], 3), device=device)
+    with pytest.raises(ValueError, match="min_size"):
+        cl.cluster_select(pts_c, pts_c, nrm, m, labels0, centre, tol2, 96, 12,
+                          0, 0.5)
+    with pytest.raises(ValueError):
+        cl.cluster_select(pts_c, pts_c, nrm, m, labels0, centre[:, :2], tol2,
+                          96, 12, 100, 0.5)
+    with pytest.raises(TypeError):
+        cl.cluster_select(pts_c.double(), pts_c, nrm, m, labels0, centre,
+                          tol2, 96, 12, 100, 0.5)
 
 
 def test_extraction_on_card_matches_cpu(device):
@@ -184,7 +348,11 @@ def test_extraction_on_card_matches_cpu(device):
                                    run.to(device), pose_t.to(device),
                                    plane.to(device), cam, cfg)
     torch.cuda.synchronize()
-    assert all(k.launches > before[k.name] for k in fk.KERNELS)
+    # one launch each, two of voxel_segment_mean; the single-step clustering
+    # kernels are not on this path
+    assert {k.name: k.launches - before[k.name] for k in fk.KERNELS} == {
+        "bbox_cloud": 1, "voxel_segment_mean": 2, "cluster_components": 1,
+        "min_label_pass": 0, "pointer_jumps": 0}
     want = extract_local_ellipsoids(depth, bboxes, run, pose_t, plane, cam,
                                     cfg)
     assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
