@@ -28,22 +28,27 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      and initialisation, the LM with live 3D edges), with the launch counts
      of every kernel, e2e / extraction / backend ms per frame, the cloud
      tiers and the clustering rounds; one extraction call under the
-     profiler, which must be four frontend launches (bbox_cloud, two
-     voxel_segment_mean, cluster_components) and must not make the host wait
-     for the device between its argument copies and its result copy;
-  6. the depth-frontend kernels (bbox_cloud, both voxel_segment_mean
-     launches, cluster_components, and the single-step min_label_pass and
-     pointer_jumps) against their plain versions at the shapes the depth
-     main path gave them on its mid-orbit frame (that frame through the
-     extractor's own packing: 32 detection lanes, its cloud tier, its
-     survivors; the script raises if the path ran that frame at other
-     shapes), at the full tier (8 detections, cloud capacity 16384) and, for
-     cluster_components, on dense clouds that fill all 16384 lanes (its
-     streamed branch) and under a bound of 2 rounds (truncation): masks,
-     cells and labels equal, converged flags and round counts equal, floats
-     bit for bit against the plain version on the CPU and within 1e-6
-     against it on the card, repeats bit-equal, device time beside the bound
-     and beside the loop of the two single-step kernels;
+     profiler, which must be three frontend launches (depth_cloud,
+     cluster_components, voxel_downsample), fewer device operations than
+     the four-launch call's 830, and must not make the host wait for the
+     device between its argument copies and its result copy;
+  6. the depth-frontend kernels (depth_cloud, cluster_components,
+     voxel_downsample, and the single steps off the main path: bbox_cloud,
+     both voxel_segment_mean launches, min_label_pass and pointer_jumps)
+     against their plain versions at the shapes the depth main path gave
+     them on its mid-orbit frame (that frame through the extractor's own
+     packing: 32 detection lanes, its cloud tier, its survivors; the script
+     raises if the path ran that frame at other shapes), at the full tier (8
+     detections, cloud capacity 16384; depth_cloud with a whole-image box
+     among them) and, for cluster_components, on dense clouds that fill all
+     16384 lanes (its streamed branch) and under a bound of 2 rounds
+     (truncation): masks, cells and labels equal, converged flags and round
+     counts equal, floats bit for bit against the plain version on the CPU
+     and within 1e-6 (5e-6 for the object downsample) against it on the
+     card, repeats bit-equal, device time beside the bound, beside the
+     single steps it replaced and beside a PyTorch yardstick (a stable
+     torch.sort, a gather and torch.segment_reduce), and the sort's own
+     time;
   7. one JSON line with a record per kernel, the card line, and the result
      line {"ok": true, "device": {...}} last.
 """
@@ -95,14 +100,29 @@ PAIR_OPS = 11
 PATH_ROUNDS = (16, 24, 44)
 # the functions of the JAX package (left to XLA there) that the frontend
 # kernels replace
-# the single-step entry points of the clustering: held against their plain
-# versions, launched by nothing on the main path
-SINGLE_STEP = ("min_label_pass", "pointer_jumps")
-# the frontend launches of one extraction call
-CALL_LAUNCHES = {"bbox_cloud": 1, "voxel_segment_mean": 2,
-                 "cluster_components": 1, "min_label_pass": 0,
+# the single-step entry points (the back-projection and segment means that
+# depth_cloud and voxel_downsample took over, one step of the clustering):
+# held against their plain versions, launched by nothing on the main path
+SINGLE_STEP = ("bbox_cloud", "voxel_segment_mean", "min_label_pass",
+               "pointer_jumps")
+# the frontend launches of one extraction call, and the device operations
+# of the four-launch call before depth_cloud and voxel_downsample
+CALL_LAUNCHES = {"depth_cloud": 1, "cluster_components": 1,
+                 "voxel_downsample": 1, "bbox_cloud": 0,
+                 "voxel_segment_mean": 0, "min_label_pass": 0,
                  "pointer_jumps": 0}
+CALL_OPS_BEFORE = 830
+# integer / f32 operations the fused downsamples need, counted from
+# csrc/frontend.cu: per live point its cell (3 divisions, 3 floors), the
+# least cell, its key (3 subtractions, 3 clamps, shifts and ors), three
+# radix passes (digit, match, count, offset, scatter: ~10 each), the
+# segment test and its share of the mean (3 adds); per output slot the
+# mean's 3 divisions and cell decode (9), for depth_cloud the world point
+# and plane distance (22)
+DS_OPS_POINT, DS_OPS_SLOT, DS_OPS_WORLD = 60, 12, 22
 FE_REPLACES = {
+    "depth_cloud": "object_oriented_slam_tpu/frontend/extractor.py:132",
+    "voxel_downsample": "object_oriented_slam_tpu/ops/voxel.py:101",
     "bbox_cloud": "object_oriented_slam_tpu/ops/backproject.py:28",
     "voxel_segment_mean": "object_oriented_slam_tpu/ops/voxel.py:58",
     "min_label_pass": "object_oriented_slam_tpu/ops/cluster.py:78",
@@ -712,8 +732,204 @@ def all_bits(a, b):
                for x, y in zip(a, b))
 
 
+def busy_ms(fn, reps=5):
+    """Device time of one fn() call that may launch several kernels (and
+    copies or memsets): the profiler's CUDA events over reps calls."""
+    fn()
+    events = profiled(fn, reps)
+    if not events:
+        raise RuntimeError("the profiler shows no device time")
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def box_pixels(bboxes, H, W):
+    """[D] the strided pixels under each box, clipped as bbox_cloud and
+    depth_cloud clip them."""
+    from object_oriented_slam_tpu_torch.ops import backproject as bp
+    b = bboxes.to(torch.int32)
+    x1, y1 = b[:, 0].clamp(0, W - 1), b[:, 1].clamp(0, H - 1)
+    x2, y2 = b[:, 2].clamp(0, W), b[:, 3].clamp(0, H)
+    S = bp.STRIDE
+    bw = torch.where(x2 > x1, (x2 - x1 + S - 1) // S, 0)
+    bh = torch.where(y2 > y1, (y2 - y1 + S - 1) // S, 0)
+    return (bw * bh).long()
+
+
+def library_yardstick(key, pts, capacity):
+    """The PyTorch yardstick of a downsample: a stable torch.sort of the
+    keys [D, G], a gather of the points [D, G, 3] into that order and
+    torch.segment_reduce's mean over the runs (the first ``capacity``, then
+    one for everything else; the run lengths are taken beforehand).
+    Returns (device ms of sort + gather + segment_reduce, device ms of the
+    sort alone, max |mean - the plain version's| over the live slots, or
+    None where segment_reduce refuses, with the reason)."""
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    D, G = key.shape
+    dev = key.device
+    ks, order = torch.sort(key, dim=1, stable=True)
+    valid = ks != vx._INVALID
+    new = torch.cat([torch.ones((D, 1), dtype=torch.bool, device=dev),
+                     ks[:, 1:] != ks[:, :-1]], dim=1) & valid
+    seg = torch.cumsum(new, dim=1) - 1
+    seg = torch.where(valid & (seg < capacity), seg, capacity)
+    lengths = torch.zeros((D, capacity + 1), dtype=torch.int64,
+                          device=dev).scatter_add_(1, seg,
+                                                   torch.ones_like(seg))
+
+    def call():
+        _, o = torch.sort(key, dim=1, stable=True)
+        p = torch.gather(pts, 1, o[..., None].expand(-1, -1, 3))
+        return torch.segment_reduce(p, "mean", lengths=lengths, axis=1)
+
+    sort_ms = busy_ms(lambda: torch.sort(key, dim=1, stable=True))
+    try:
+        means = call()
+    except RuntimeError as e:
+        return None, sort_ms, f"segment_reduce refused: {e}"
+    cmin = torch.zeros((D, 3), dtype=torch.int32, device=dev)
+    want = vx.voxel_segment_mean_plain(ks, order, pts, cmin, capacity)
+    live = want[2]
+    err = float((means[:, :capacity][live] - want[0][live]).abs().max()) \
+        if bool(live.any()) else 0.0
+    return busy_ms(call), sort_ms, err
+
+
+def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
+    """depth_cloud (stages (a)-(c), one launch) against depth_cloud_plain:
+    bit for bit against it on the CPU, masks, cells and flags equal to it
+    on the card and floats within 1e-6 (its index_add_ adds with atomics);
+    a second launch bit-equal.  Returns its record."""
+    from object_oriented_slam_tpu_torch.ops import backproject as bp
+    from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    rest = (cfg.voxel_leaf, cfg.depth_range, cfg.plane_clearance,
+            cfg.cloud_capacity)
+    args = (depth, bboxes, pose_wc, plane, cam)
+    got = dc.depth_cloud(*args, *rest)
+    again = dc.depth_cloud(*args, *rest)
+    card = dc.depth_cloud_plain(*args, *rest)
+    cpu = dc.depth_cloud_plain(depth.cpu(), bboxes.cpu(), pose_wc.cpu(),
+                               plane.cpu(), cam, *rest)
+    torch.cuda.synchronize()
+    if not all_bits(got, again):
+        raise RuntimeError(f"depth_cloud ({tag}): two launches differ")
+    differ = [f for f, g, w in zip(dc.DepthCloud._fields, got, cpu)
+              if not same_bits(g.cpu(), w)]
+    if differ:
+        raise RuntimeError(f"depth_cloud ({tag}) differs from the plain "
+                           f"version on the CPU in {differ}")
+    err = 0.0
+    for f, g, w in zip(dc.DepthCloud._fields, got, card):
+        if g.dtype in (torch.bool, torch.int32):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"depth_cloud ({tag}): {f} differs from "
+                                   "the plain version on the card")
+        else:
+            err = max(err, float((g - w).abs().max()))
+    if err > 1e-6:
+        raise RuntimeError(f"depth_cloud ({tag}) disagrees: {err:.3g}")
+    # the work: the depth pixels under the boxes, 100 centre samples a box,
+    # the boxes, pose and plane read once, the outputs written once; the
+    # operations of the live points and the output slots
+    H, W = depth.shape
+    D, cap = got.m2.shape
+    n_pix = box_pixels(bboxes, H, W)
+    pts_cam, m0 = bp.bbox_point_cloud_plain(depth, bboxes, cam,
+                                            cfg.depth_range)
+    live = int(m0.sum())
+    n_bytes = (int(n_pix.sum()) + 100 * D) * 4 + sum(
+        t.numel() * t.element_size()
+        for t in (bboxes, pose_wc, plane, *got))
+    n_ops = live * DS_OPS_POINT + D * cap * (DS_OPS_SLOT + DS_OPS_WORLD)
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    key, _ = vx.voxel_keys(pts_cam, m0, cfg.voxel_leaf)
+    lib_ms, sort_ms, lib_err = library_yardstick(key, pts_cam.contiguous(),
+                                                 cap)
+    world = dc.plane_world(pose_wc, plane, cfg.plane_clearance)
+
+    def single_steps():         # the main path's stage (a) before the fusion
+        p, m = bp.bbox_point_cloud(depth, bboxes, cam, cfg.depth_range)
+        return vx._voxel_core(p, m, cfg.voxel_leaf, cap, world)
+
+    r = dict(kernel="depth_cloud", shape=(D, m0.shape[1], cap),
+             max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
+             ms=device_ms(lambda: dc.depth_cloud(*args, *rest), 20,
+                          name="depth_cloud"),
+             plain_ms=cuda_ms(lambda: dc.depth_cloud_plain(*args, *rest), 5),
+             library_ms=lib_ms, sort_ms=sort_ms,
+             single_steps_ms=busy_ms(single_steps),
+             live_points=live, box_pixels=int(n_pix.sum()))
+    print(f"[frontend] {tag}: depth_cloud at D={D}, {int(n_pix.sum())} box "
+          f"pixels ({int(n_pix.max())} in the largest box), {live} live "
+          f"points, capacity {cap}: {int(got.m2.sum())} voxels above the "
+          f"plane, ok_points {int(got.ok_points.sum())}, ok_center "
+          f"{int(got.ok_center.sum())}; every output bit-equal to the plain "
+          f"version on the CPU, masks, cells and flags equal to it on the "
+          f"card, max_abs_err there {err:.3g} (limit 1e-6); repeat "
+          f"bit-equal; yardstick (sort + gather + segment_reduce) "
+          f"{lib_ms} ms, max |mean - plain| {lib_err}; the stable sort "
+          f"alone {sort_ms:.4f} ms; bbox_cloud + keys + sort + "
+          f"voxel_segment_mean on the card {r['single_steps_ms']:.4f} ms")
+    return r
+
+
+def voxel_downsample_checks(tag, pts, sel, leaf, capacity):
+    """voxel_downsample (keys, sort and means in one launch) against
+    voxel_downsample_plain: bit for bit against it on the CPU, masks and
+    cells equal to it on the card and floats within 5e-6 (a 0.1 m cell
+    holds up to hundreds of points at |coordinate| up to ~4 m: the card's
+    atomic sums move a centroid by a few ulp of 4); a second launch
+    bit-equal.  Returns (its record, its outputs)."""
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    pts = pts.contiguous()
+    got = vx.voxel_downsample_cells(pts, sel, leaf, capacity)
+    again = vx.voxel_downsample_cells(pts, sel, leaf, capacity)
+    bare = vx.voxel_downsample(pts, sel, leaf, capacity)
+    card = vx.voxel_downsample_plain(pts, sel, leaf, capacity)
+    cpu = vx.voxel_downsample_plain(pts.cpu(), sel.cpu(), leaf, capacity)
+    torch.cuda.synchronize()
+    if not (all_bits(got, again) and all_bits(got, cpu)):
+        raise RuntimeError(f"voxel_downsample ({tag}): repeats differ or it "
+                           "differs from the plain version on the CPU")
+    if not (same_bits(bare[0], got[0]) and torch.equal(bare[1], got[2])):
+        raise RuntimeError(f"voxel_downsample ({tag}) without cells differs")
+    if not (torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])):
+        raise RuntimeError(f"voxel_downsample ({tag}): cells or mask differ")
+    err = float((got[0] - card[0]).abs().max())
+    if err > 5e-6:
+        raise RuntimeError(f"voxel_downsample ({tag}) disagrees: {err:.3g}")
+    D, N = sel.shape
+    live = int(sel.sum())
+    n_bytes = sel.numel() + live * 12 + sum(
+        t.numel() * t.element_size() for t in bare)
+    n_ops = live * DS_OPS_POINT + D * capacity * DS_OPS_SLOT
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    key, _ = vx.voxel_keys(pts, sel, leaf)
+    lib_ms, sort_ms, lib_err = library_yardstick(key, pts, capacity)
+    r = dict(kernel="voxel_downsample", shape=(D, N, capacity),
+             max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
+             ms=device_ms(lambda: vx.voxel_downsample(pts, sel, leaf,
+                                                      capacity), 20,
+                          name="voxel_downsample"),
+             plain_ms=cuda_ms(lambda: vx.voxel_downsample_plain(
+                 pts, sel, leaf, capacity), 5),
+             library_ms=lib_ms, sort_ms=sort_ms,
+             single_steps_ms=busy_ms(lambda: vx._voxel_core(
+                 pts, sel, leaf, capacity)),
+             live_points=live)
+    print(f"[frontend] {tag}: voxel_downsample at D={D}, {N} lanes, {live} "
+          f"live points, capacity {capacity}: {int(got[2].sum())} voxels "
+          f"(most in a detection {int(got[2].sum(1).max())}); bit-equal to "
+          f"the plain version on the CPU, cells and masks equal to it on the "
+          f"card, max_abs_err there {err:.3g} (limit 5e-6); repeat bit-equal; "
+          f"yardstick {lib_ms} ms, max |mean - plain| {lib_err}; the stable "
+          f"sort alone {sort_ms:.4f} ms; keys + sort + voxel_segment_mean on "
+          f"the card {r['single_steps_ms']:.4f} ms")
+    return r, got
+
+
 def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
-                    uncompacted=False):
+                    uncompacted=False, whole_image=False):
     """The depth-frontend kernels against their plain versions on the
     tensors ``extract_local_ellipsoids`` hands them for one frame: depth
     [H, W] int32, bboxes [D, 4] (padded lanes zero), pose_wc [7], plane [4],
@@ -724,11 +940,13 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
     and one round by the single-step kernels at the lanes the survivors
     compact to and, with ``uncompacted``, at all tier lanes), the second
     voxel_segment_mean (tier -> sym_capacity, no epilogue) on the selected
-    clusters.  Returns the records and (tier, the largest survivor
-    count)."""
-    from object_oriented_slam_tpu_torch.core import se3
+    clusters; and the main path's two fused kernels: depth_cloud on the
+    frame's boxes (with ``whole_image``, the last box replaced by the whole
+    image) and voxel_downsample on the selected clusters.  Returns the
+    records and (tier, the largest survivor count)."""
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     from object_oriented_slam_tpu_torch.ops import cluster as cl
+    from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
     from object_oriented_slam_tpu_torch.ops import voxel as vx
     recs = {}
     D, G = bboxes.shape[0], bp.BBOX_GRID_H * bp.BBOX_GRID_W
@@ -798,12 +1016,17 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
             differ = int((got[4] != card[4]).sum())
         if err > limit:
             raise RuntimeError(f"{name} ({tag}) disagrees: {err:.3g}")
+        # the yardstick of the segment part alone: a gather into the sorted
+        # order and torch.segment_reduce's mean (the sort stays out)
+        lib_ms, _, lib_err = library_yardstick(key_s, torch.gather(
+            pts_in, 1, order[..., None].expand(-1, -1, 3)), capacity)
         rec(name, "voxel_segment_mean",
             shape=(D, pts_in.shape[1], capacity), max_abs_err=err,
             bound=bytes_bound([key_s, order, pts_in, cmin, *got]),
             ms=device_ms(lambda: vx.voxel_segment_mean(*vargs), 20,
                          name="voxel_segment_mean"),
-            plain_ms=cuda_ms(lambda: vx.voxel_segment_mean_plain(*vargs), 5))
+            plain_ms=cuda_ms(lambda: vx.voxel_segment_mean_plain(*vargs), 5),
+            library_ms=lib_ms)
         print(f"[frontend] {tag}: {name} at D={D}, {pts_in.shape[1]} sorted "
               f"keys, capacity {capacity}, world epilogue "
               f"{world is not None}: {int(got[2].sum())} voxels (most in a "
@@ -816,13 +1039,20 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
 
     # --- K6, first launch: 1 cm voxels of the bbox cloud, with the world
     # transform and the supporting-plane mask in the epilogue
-    n = plane[:3]
-    world = vx.World(se3.quat_to_mat(pose_wc[3:]), pose_wc[:3], plane,
-                     torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]
-                                ).clamp_min(1e-8), cfg.plane_clearance)
+    world = dc.plane_world(pose_wc, plane, cfg.plane_clearance)
     got = segment_mean("voxel_segment_mean (K6, cloud)", pts, mask,
                        cfg.voxel_leaf, tier, world, 1e-6)
     pts_w, m2 = got[3], got[4]
+
+    # --- depth_cloud: K7, the first downsample with its keys and sort, and
+    # the centre estimate in one launch (the main path's)
+    dc_boxes = bboxes
+    if whole_image:
+        H, W = depth.shape
+        dc_boxes = torch.cat([bboxes[:-1], torch.tensor(
+            [[0.0, 0.0, float(W), float(H)]], device=dev)])
+    recs[f"depth_cloud ({tag})"] = depth_cloud_checks(
+        tag, depth, dc_boxes, pose_wc, plane, cam, cfg)
 
     # --- K5: the whole propagation in one launch (cluster_components, the
     # main path's), and one pass / 12 jumps by the single-step entry points
@@ -846,6 +1076,21 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
     if not (int(ok.sum()) >= 1 and int(got[2].sum()) >= int(ok.sum())):
         raise RuntimeError(f"the object downsample ({tag}) is empty: "
                            f"{int(ok.sum())} clusters selected")
+    # --- voxel_downsample: the same downsample with its keys and sort in one
+    # launch (the main path's)
+    r, fused = voxel_downsample_checks(tag, pts_w, sel, cfg.sym_grid,
+                                       cfg.sym_capacity)
+    if not (torch.equal(fused[2], got[2]) and same_bits(fused[0], got[0])):
+        raise RuntimeError(f"voxel_downsample ({tag}) and the single steps "
+                           "differ")
+    recs[f"voxel_downsample ({tag})"] = r
+    # beside each, the bounds of the single-step launches it replaced
+    b = {k: recs[f"{k} ({tag})"]["bound"][0] for k in (
+        "bbox_cloud (K7)", "voxel_segment_mean (K6, cloud)",
+        "voxel_segment_mean (K6, object)")}
+    recs[f"depth_cloud ({tag})"]["single_steps_bound_ms"] = (
+        b["bbox_cloud (K7)"] + b["voxel_segment_mean (K6, cloud)"])
+    r["single_steps_bound_ms"] = b["voxel_segment_mean (K6, object)"]
 
     for k, r in recs.items():
         r["max_rel_err"] = r["max_abs_err"]
@@ -1184,7 +1429,8 @@ def phase_frontend_kernels(dev, path):
         dev, "full tier", depth_d, bboxes,
         torch.as_tensor(pose, dtype=torch.float32, device=dev),
         torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev), cam,
-        ExtractorConfig(cloud_capacity=FE_TIER), uncompacted=True)
+        ExtractorConfig(cloud_capacity=FE_TIER), uncompacted=True,
+        whole_image=True)
     full.update({f"{k} (dense)": r for k, r in cluster_extremes(dev).items()})
     return recs, full
 
@@ -1288,8 +1534,8 @@ def phase_depth_path(dev, tmp):
     if min(n for k, n in launches.items() if k not in SINGLE_STEP) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     if any(launches[k] for k in SINGLE_STEP):
-        raise RuntimeError(f"the path launched a single-step clustering "
-                           f"kernel: {launches}")
+        raise RuntimeError(f"the path launched a single-step kernel: "
+                           f"{launches}")
     if len(objs) < 16 or by_3d < 1:
         raise RuntimeError(f"{len(objs)} of 24 objects initialized, {by_3d} "
                            "from a 3D estimate")
@@ -1318,8 +1564,9 @@ def phase_depth_path(dev, tmp):
 def extraction_overhead(extractor, frame, ground_plane):
     """One extraction call (a mid-orbit frame) under the profiler: wall
     time, device busy time, device operations and how many of them are the
-    frontend kernels' launches.  Raises unless the call is four frontend
-    launches (CALL_LAUNCHES) and nothing between its argument copies and
+    frontend kernels' launches.  Raises unless the call is three frontend
+    launches (CALL_LAUNCHES) of fewer device operations than the four-launch
+    call's (CALL_OPS_BEFORE) and nothing between its argument copies and
     its result copy makes the host wait for the device."""
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     _, _, pose, depth, _, det = frame
@@ -1363,6 +1610,9 @@ def extraction_overhead(extractor, frame, ground_plane):
           f"{per_call}; no host synchronisation between the argument copies "
           f"and the result copy; device idle share {1 - busy / wall:.3f}; "
           f"top kernels (name, launches, ms) {top}")
+    if not ops < CALL_OPS_BEFORE:
+        raise RuntimeError(f"an extraction call is {ops} device operations, "
+                           f"not fewer than {CALL_OPS_BEFORE}")
 
 
 def main():
@@ -1405,23 +1655,28 @@ def main():
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "share_of_bound": r["bound"][0] / r["ms"],
-                "library_ms": None, "shape": list(r["shape"]),
+                "library_ms": r.get("library_ms"), "shape": list(r["shape"]),
                 **{k: r[k] for k in (
                     "events_ms", "all_pairs_bound_ms", "tested_pairs",
-                    "all_pairs", "every_pair_ms", "world_axes_ms", "loop_ms")
+                    "all_pairs", "every_pair_ms", "world_axes_ms", "loop_ms",
+                    "sort_ms", "single_steps_ms", "single_steps_bound_ms",
+                    "live_points", "box_pixels")
                    if k in r},
                 **more}
 
     # launches: the depth main path's counts; the BA kernels also carry the
     # 2D-only path's.  The frontend records under "kernels" are taken at the
-    # shapes that path launched; the clustering's single-step entry points
-    # (one pass, 12 jumps), which the path no longer launches, and the
-    # shapes it never reached (the full tier, the dense clouds; launches 0)
-    # stand apart.  library_ms is null throughout: no PyTorch call
+    # shapes that path launched; the single-step entry points (bbox_cloud,
+    # voxel_segment_mean, one clustering pass, 12 jumps), which the path no
+    # longer launches, and the shapes it never reached (the full tier, the
+    # dense clouds; launches 0) stand apart.  library_ms: for the
+    # downsamples (depth_cloud, voxel_downsample, voxel_segment_mean) a
+    # stable torch.sort (not for voxel_segment_mean, which takes sorted
+    # keys), a gather and torch.segment_reduce's mean, the nearest PyTorch
+    # has to them (library_yardstick); null elsewhere: no PyTorch call
     # computes the BA residual chains with their Jacobians and reductions,
-    # a strided window back-projection with its gates, a segment mean of
-    # stably sorted runs in sorted order (index_add_ adds in any order and
-    # needs the ranks first), or a radius-graph min-label pass.
+    # a strided window back-projection with its gates, or a radius-graph
+    # min-label pass.
     # cluster_components and cluster_select are one kernel without and with
     # its selection epilogue and share a launch counter, as ba_normal_eq
     # and lm_solve_step do.

@@ -1,11 +1,19 @@
 // Depth-frontend kernels for sm_90a: the per-frame extraction stages that
 // the JAX package (object_oriented_slam_tpu/) left to XLA, written by hand.
 //
+//   depth_cloud          ops/depth_cloud.depth_cloud: stages (a)-(c) of an
+//                        extraction call (back-projection, voxel keys, the
+//                        stable key sort, voxel means, world transform,
+//                        plane mask, centre estimate), all D detections of a
+//                        frame in one launch
+//   voxel_downsample     ops/voxel.voxel_downsample: keys, sort and means of
+//                        the object downsample in one launch
 //   bbox_cloud           ops/backproject.bbox_point_cloud, all D detections
-//                        of a frame in one launch
+//                        of a frame in one launch (off the main path)
 //   voxel_segment_mean   the segment part of ops/voxel._voxel_core (after
 //                        the key sort), optionally with the extractor's
-//                        world transform and supporting-plane mask
+//                        world transform and supporting-plane mask (off the
+//                        main path)
 //   min_label_pass       ops/cluster._min_label_pass_mm, one neighbour
 //                        min-label pass of the radius graph
 //   pointer_jumps        ops/cluster._propagate's `jumps`, plus the
@@ -211,6 +219,964 @@ extern "C" int oslam_voxel_segment_mean(
         (const int*)cmin, G, capacity, (float*)out_pts, (int*)out_cells,
         (uint8_t*)out_mask, (const float*)world, (float*)pts_w, (uint8_t*)m2);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// depth_cloud and voxel_downsample: a whole voxel downsample of a detection
+// in one thread block cluster, from its points to its cell means.
+// depth_cloud replaces bbox_cloud, the key and sort operations around
+// voxel_segment_mean, that kernel with its world epilogue, center_estimate
+// and the world transform of the centre (JAX: ops/backproject.py:28
+// bbox_point_cloud, ops/voxel.py voxel_keys and _voxel_core,
+// frontend/extractor.py:155-167); voxel_downsample replaces the same
+// operations of the 0.1 m object downsample (JAX: frontend/extractor.py:204,
+// ops/voxel.py voxel_downsample).
+//
+// Bound by bytes: the depth pixels under the boxes (or the input points),
+// the centre samples and the outputs, each moved once, against a sort of a
+// few thousand keys a detection.  What held the single-step kernels back
+// was what lay between them: every detection's whole (160 x 214) grid of
+// points and masks written to device memory and read back by the keys, the
+// sort and the means, the sort itself (a finished segmented sort over every
+// lane, padding included), ~130 small eager operations, and in
+// voxel_segment_mean one thread walking a whole run of gathered points.
+// Here a cluster of S blocks of OSLAM_DS_T threads takes one detection
+// (grid S x D; S from the largest input the launch can hold, see ds_shape:
+// 3 for a 640 x 480 image, 1 for an object cloud of 4,096 lanes).  The
+// detection's points are spread over the S blocks in contiguous chunks and
+// its working arrays live in their shared memory; the blocks meet through
+// distributed shared memory at a cluster barrier between the steps:
+//  (1) the live points in the plain version's order (for a box its strided
+//      pixels row by row, g = i * gw + j restricted to the box: the stable
+//      sort's tie order), compacted with one block scan a block (a thread
+//      takes a contiguous run of at most 128 candidates and keeps their
+//      flags in registers) and the blocks' counts in rank order, and the
+//      least and greatest cell of each axis (floor(p / leaf), as
+//      ops/voxel.voxel_cells);
+//  (2) each live point's id written to its place in the compacted list
+//      (position p lives in block p / pc, pc = ceil(live / S)), then beside
+//      it, a point a thread, its 30-bit key: cell - least cell clamped to
+//      [0, 1023] per axis as ops/voxel.voxel_keys packs them (clamp
+//      collisions included);
+//  (3) a stable LSD radix sort of (key, id) over the cells the cloud spans:
+//      z, y and x in mixed radix, as many neighbouring axes a pass as fit
+//      1024 digits (one pass for an object at 0.1 m, three at 1 cm; a pass
+//      of one digit is skipped).  A pass gives each warp a contiguous run of
+//      its block's chunk, counts digits per warp (the lanes of a digit found
+//      by one ballot per digit bit; one shared-memory add per distinct digit
+//      of 32 points; four groups of 32 loaded before they are counted),
+//      turns the counts into offsets (column prefix over the warps, the
+//      blocks before this one in rank order, then a block scan over the
+//      digits' totals) and scatters to the owner of each new position, so
+//      that equal digits keep their order;
+//  (4) the points' data in sorted order (a box pixel's raw depth, an input
+//      point's coordinates) beside the final list, and the segment starts,
+//      by one block scan of "key differs from the one before" (the one
+//      before a chunk's first is the previous block's last);
+//  (5) the means, a segment a thread, dealt round-robin in rank order (every
+//      lane of a warp has a run of its own, of a length known before the
+//      walk), summed in sorted order from 0 (a run that crosses into the
+//      next block's chunk reads on there): the plain version's index_add_
+//      on the CPU, bit for bit.  The first `capacity` segments of the
+//      detection are written, by rank.
+// The chunks and the arithmetic do not depend on S, so neither do cells
+// and sums.
+// ---------------------------------------------------------------------------
+#define OSLAM_DS_T 512              // threads of a downsample block
+#define OSLAM_DS_W (OSLAM_DS_T / 32)
+#define OSLAM_RADIX 1024            // values of one digit (an axis of a key)
+#define OSLAM_DS_MAX_IDS 65535      // point ids are 16-bit
+#define OSLAM_DS_RUN 128            // candidates a thread compacts, at most
+#define OSLAM_DS_U 4                // groups of 32 a warp loads at once
+#define OSLAM_DS_MAX_S 8            // blocks of a detection's cluster
+
+static_assert(2 * OSLAM_DS_T == OSLAM_RADIX, "a thread scans two digits");
+static_assert(OSLAM_DS_T * OSLAM_DS_RUN > OSLAM_DS_MAX_IDS,
+              "a thread's run of candidates fits its flag words");
+
+// A block's bookkeeping; the fields marked "read across" are read by the
+// other blocks of the cluster through distributed shared memory.
+struct DsShared {
+    uint16_t cnt[OSLAM_DS_W * OSLAM_RADIX];  // per warp and digit
+    int base[OSLAM_RADIX];      // per digit: its first position
+    int btot[OSLAM_RADIX];      // per digit: its count here (read across)
+    int warp_tmp[32];
+    int total;
+    int cmin[3], cmax[3];       // this block's cell range (read across)
+    int live;                   // this block's live points (read across)
+    int segs, first;            // its segment starts and the first of them
+                                // (read across)
+    int gmin[3], gmax[3];       // the detection's cell range
+    int n, off;                 // the detection's live points; this block's first
+    int n_seg, seg_off, end;    // the detection's segments; this block's
+                                // first rank; where its last segment ends
+    int any;                    // rank 0: a voxel survives the plane test
+};
+
+// The block's rank in its detection's cluster, the way to the other
+// blocks' shared memory (the block's own through the local window) and the
+// barrier between the steps: the cluster's, or the block's where the
+// cluster is one block (a cluster barrier costs more).
+struct Cl {
+    cg::cluster_group g;
+    int rank, S;
+    template <class T>
+    __device__ __forceinline__ T* at(T* p, int r) const
+    {
+        return r == rank ? p : (T*)g.map_shared_rank((void*)p, r);
+    }
+    __device__ __forceinline__ void sync() const
+    {
+        if (S == 1)
+            __syncthreads();
+        else
+            g.sync();
+    }
+};
+
+// Exclusive prefix of v over the block's threads in thread order; the sum
+// lands in ws.total (valid until the next call's first barrier).
+__device__ int block_scan(int v, DsShared& ws)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+    }
+    if (lane == 31) ws.warp_tmp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const int mine = lane < OSLAM_DS_W ? ws.warp_tmp[lane] : 0;
+        int w_incl = mine;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int up = __shfl_up_sync(0xffffffffu, w_incl, o);
+            if (lane >= o) w_incl += up;
+        }
+        ws.warp_tmp[lane] = w_incl - mine;
+        if (lane == 31) ws.total = w_incl;
+    }
+    __syncthreads();
+    const int r = ws.warp_tmp[warp] + incl - v;
+    __syncthreads();            // warp_tmp is rewritten by the next call
+    return r;
+}
+
+__device__ __forceinline__ int warp_sum(int v)
+{
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+__device__ __forceinline__ int warp_min(int v)
+{
+    for (int o = 16; o > 0; o >>= 1)
+        v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+__device__ __forceinline__ int warp_max(int v)
+{
+    for (int o = 16; o > 0; o >>= 1)
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// The lanes of the warp whose digit equals this lane's, among the lanes
+// with `real` set: one ballot per bit of the digits below nb (nbits of
+// them), as a warp-level multisplit ranks keys.  (The first design used
+// match_any; its radix passes took 60 % of a block's cycles.)
+__device__ __forceinline__ unsigned digit_peers(int dig, bool real, int nbits)
+{
+    unsigned peers = __ballot_sync(0xffffffffu, real);
+    for (int b = 0; b < nbits; ++b) {
+        const bool bit = (dig >> b) & 1;
+        const unsigned on = __ballot_sync(0xffffffffu, bit);
+        peers &= bit ? on : ~on;
+    }
+    return peers;
+}
+
+// The digit of a key for a group of neighbouring axes in mixed radix: the
+// axes' 10-bit fields (x, y, z) weighted by m = (m0, m1, m2), 0 for an axis
+// outside the group; lexicographic in the group's fields.
+__device__ __forceinline__ int mixed_digit(int key, int3 m)
+{
+    return ((key >> 20) & 1023) * m.x + ((key >> 10) & 1023) * m.y
+           + (key & 1023) * m.z;
+}
+
+// A detection's working arrays in a block's dynamic shared memory, C
+// elements each: the (key, id) list and its double buffer, and the sorted
+// points' data (Src::Staged).
+template <class Staged>
+struct DsMem {
+    int* key[2];
+    uint16_t* id[2];
+    Staged* stage;
+};
+
+template <class Staged>
+__device__ __forceinline__ DsMem<Staged> ds_mem(char* smem, int C)
+{
+    DsMem<Staged> m;
+    m.key[0] = reinterpret_cast<int*>(smem);
+    m.key[1] = m.key[0] + C;
+    m.stage = reinterpret_cast<Staged*>(m.key[1] + C);
+    m.id[0] = reinterpret_cast<uint16_t*>(m.stage + C);
+    m.id[1] = m.id[0] + C;
+    return m;
+}
+
+// One stable counting pass of the list `in` (the len entries of this
+// block's chunk, pc a block) into the other list by mixed_digit(., m);
+// every digit is below nb <= 1024.  Two cluster barriers: after the digit
+// counts are published, and after the scatter.
+template <class Staged>
+__device__ void radix_pass(const DsMem<Staged>& mem, int in, int len, int pc,
+                           int3 m, int nb, DsShared& ws, const Cl& cl)
+{
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned below = (1u << lane) - 1u;
+    const int nbits = 32 - __clz(nb - 1);
+    const int* kin = mem.key[in];
+    const uint16_t* iin = mem.id[in];
+    int* kout = mem.key[in ^ 1];
+    uint16_t* iout = mem.id[in ^ 1];
+    for (int k = tid; k < OSLAM_DS_W * OSLAM_RADIX; k += OSLAM_DS_T)
+        if ((k & (OSLAM_RADIX - 1)) < nb) ws.cnt[k] = 0;
+    __syncthreads();
+    const int per = (len + OSLAM_DS_W - 1) / OSLAM_DS_W;
+    const int lo = min(len, warp * per), hi = min(len, lo + per);
+    uint16_t* mine = ws.cnt + warp * OSLAM_RADIX;
+    for (int c0 = lo; c0 < hi; c0 += 32 * OSLAM_DS_U) {
+        int dig[OSLAM_DS_U];
+#pragma unroll
+        for (int u = 0; u < OSLAM_DS_U; ++u) {
+            const int c = c0 + 32 * u + lane;
+            dig[u] = c < hi ? mixed_digit(kin[c], m) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < OSLAM_DS_U; ++u) {
+            const bool real = c0 + 32 * u + lane < hi;
+            const unsigned peers = digit_peers(dig[u], real, nbits);
+            if (real && (peers & below) == 0)
+                mine[dig[u]] = (uint16_t)(mine[dig[u]] + __popc(peers));
+            __syncwarp();
+        }
+    }
+    __syncthreads();
+    // per digit: the warps' offsets inside the block's share of the digit,
+    // and that share
+    for (int b = tid; b < OSLAM_RADIX; b += OSLAM_DS_T) {
+        int run = 0;
+        if (b < nb)
+            for (int w = 0; w < OSLAM_DS_W; ++w) {
+                const int v = ws.cnt[w * OSLAM_RADIX + b];
+                ws.cnt[w * OSLAM_RADIX + b] = (uint16_t)run;
+                run += v;
+            }
+        ws.btot[b] = run;
+    }
+    cl.sync();
+    // digit b starts where the digits below it end, after the share of the
+    // blocks before this one
+    const int b0 = 2 * tid, b1 = 2 * tid + 1;
+    int tot0 = 0, tot1 = 0, pre0 = 0, pre1 = 0;
+    for (int r = 0; r < cl.S; ++r) {
+        const int* bt = cl.at(ws.btot, r);
+        const int v0 = bt[b0], v1 = bt[b1];
+        tot0 += v0;
+        tot1 += v1;
+        if (r < cl.rank) {
+            pre0 += v0;
+            pre1 += v1;
+        }
+    }
+    const int pre = block_scan(tot0 + tot1, ws);
+    ws.base[b0] = pre + pre0;
+    ws.base[b1] = pre + tot0 + pre1;
+    __syncthreads();
+    for (int c0 = lo; c0 < hi; c0 += 32 * OSLAM_DS_U) {
+        int id[OSLAM_DS_U], key[OSLAM_DS_U], dig[OSLAM_DS_U];
+#pragma unroll
+        for (int u = 0; u < OSLAM_DS_U; ++u) {
+            const int c = c0 + 32 * u + lane;
+            id[u] = c < hi ? iin[c] : 0;
+            key[u] = c < hi ? kin[c] : 0;
+            dig[u] = mixed_digit(key[u], m);
+        }
+#pragma unroll
+        for (int u = 0; u < OSLAM_DS_U; ++u) {
+            const bool real = c0 + 32 * u + lane < hi;
+            const unsigned peers = digit_peers(dig[u], real, nbits);
+            if (real) {
+                const int p = ws.base[dig[u]] + mine[dig[u]]
+                              + __popc(peers & below);
+                const int r = p / pc, k = p - r * pc;
+                cl.at(kout, r)[k] = key[u];
+                cl.at(iout, r)[k] = (uint16_t)id[u];
+            }
+            __syncwarp();
+            if (real && (peers & below) == 0)
+                mine[dig[u]] = (uint16_t)(mine[dig[u]] + __popc(peers));
+            __syncwarp();
+        }
+    }
+    cl.sync();
+}
+
+__device__ __forceinline__ int cell_of(float v, float leaf)
+{
+    return (int)floorf(v / leaf);
+}
+
+__device__ __forceinline__ int key_axis(int cell, int least)
+{
+    return min(max(cell - least, 0), 1023);
+}
+
+// The strided pixels of one detection's box as points: id p is the pixel
+// (y1 + 3 (p / bw), x1 + 3 (p % bw)), row by row; bbox_cloud's arithmetic.
+// A sorted point keeps its raw depth.
+struct BoxPixels {
+    typedef int Staged;
+    const int* depth;
+    int W, x1, y1, bw;
+    float scale, fx, fy, cx, cy, depth_range;
+    __device__ __forceinline__ int pixel(int p) const
+    {
+        const int i = p / bw, j = p - i * bw;
+        return (y1 + OSLAM_STRIDE * i) * W + x1 + OSLAM_STRIDE * j;
+    }
+    __device__ __forceinline__ Staged stage(int p) const
+    {
+        return depth[pixel(p)];
+    }
+    __device__ __forceinline__ void from_stage(int p, Staged raw, float& x,
+                                               float& y, float& z) const
+    {
+        const int i = p / bw, j = p - i * bw;
+        const int px = x1 + OSLAM_STRIDE * j, py = y1 + OSLAM_STRIDE * i;
+        z = (float)raw / scale;
+        x = ((float)px - cx) * z / fx;
+        y = ((float)py - cy) * z / fy;
+    }
+    __device__ __forceinline__ bool point(int p, float& x, float& y,
+                                          float& z) const
+    {
+        from_stage(p, stage(p), x, y, z);
+        return (z > 0.1f) && (z <= depth_range);
+    }
+};
+
+// A detection's points [N, 3] and their mask [N]; a sorted point keeps its
+// coordinates.
+struct MaskedPoints {
+    typedef float3 Staged;
+    const float* pts;
+    const uint8_t* mask;
+    __device__ __forceinline__ Staged stage(int i) const
+    {
+        return make_float3(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]);
+    }
+    __device__ __forceinline__ void from_stage(int, Staged s, float& x,
+                                               float& y, float& z) const
+    {
+        x = s.x;
+        y = s.y;
+        z = s.z;
+    }
+    __device__ __forceinline__ bool point(int i, float& x, float& y,
+                                          float& z) const
+    {
+        from_stage(i, stage(i), x, y, z);
+        return mask[i] != 0;
+    }
+};
+
+// Phase clocks of a downsample block (a build with -DOSLAM_DS_CLOCKS, for
+// examples/torch_depth_cloud_phases.py): thread 0 of each block of the
+// first 64 detections records clock64() at the phase boundaries.
+#ifdef OSLAM_DS_CLOCKS
+__device__ long long oslam_ds_clock[64][OSLAM_DS_MAX_S][8];
+#define DS_CLOCK(i) \
+    if (threadIdx.x == 0 && blockIdx.y < 64) \
+        oslam_ds_clock[blockIdx.y][blockIdx.x][i] = clock64()
+extern "C" int oslam_ds_clocks(void* host)
+{
+    return (int)cudaMemcpyFromSymbol(host, oslam_ds_clock,
+                                     sizeof(oslam_ds_clock));
+}
+extern "C" int oslam_ds_clocks_clear()
+{
+    void* at = nullptr;
+    cudaError_t rc = cudaGetSymbolAddress(&at, oslam_ds_clock);
+    if (rc == cudaSuccess) rc = cudaMemset(at, 0, sizeof(oslam_ds_clock));
+    return (int)rc;
+}
+#else
+#define DS_CLOCK(i)
+#endif
+
+// The downsample of one detection's n_src candidate points, steps (1)-(5)
+// above, by the cluster's blocks; sink(slot, mean x, y, z, cell x, y, z,
+// live) writes each of the `capacity` output slots (slots past the
+// segments with zeros and live = false).  Phase clocks 2-6.
+template <class Src, class Sink>
+__device__ void downsample_cluster(const Src& src, int n_src, float leaf,
+                                   int capacity,
+                                   const DsMem<typename Src::Staged>& mem,
+                                   DsShared& ws, const Cl& cl, Sink& sink)
+{
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int S = cl.S, rank = cl.rank;
+    if (tid < 3) {
+        ws.cmin[tid] = OSLAM_BIG;
+        ws.cmax[tid] = -OSLAM_BIG;
+    }
+    // (1) this block's chunk of the candidates, a contiguous run a thread,
+    // their flags in registers, one block scan
+    const int cc = (n_src + S - 1) / S;
+    const int c_lo = min(n_src, rank * cc), c_hi = min(n_src, c_lo + cc);
+    const int per = (c_hi - c_lo + OSLAM_DS_T - 1) / OSLAM_DS_T;
+    const int lo = min(c_hi, c_lo + tid * per), hi = min(c_hi, lo + per);
+    unsigned flags[OSLAM_DS_RUN / 32];
+    int mine = 0;
+    int l0 = OSLAM_BIG, l1 = OSLAM_BIG, l2 = OSLAM_BIG;
+    int g0 = -OSLAM_BIG, g1 = -OSLAM_BIG, g2 = -OSLAM_BIG;
+#pragma unroll
+    for (int w = 0; w < OSLAM_DS_RUN / 32; ++w) {
+        flags[w] = 0u;
+        for (int j = 0; j < 32; ++j) {
+            const int id = lo + 32 * w + j;
+            if (id >= hi) break;
+            float x, y, z;
+            if (src.point(id, x, y, z)) {
+                flags[w] |= 1u << j;
+                ++mine;
+                const int c0 = cell_of(x, leaf), c1 = cell_of(y, leaf),
+                          c2 = cell_of(z, leaf);
+                l0 = min(l0, c0);
+                l1 = min(l1, c1);
+                l2 = min(l2, c2);
+                g0 = max(g0, c0);
+                g1 = max(g1, c1);
+                g2 = max(g2, c2);
+            }
+        }
+    }
+    int pos = block_scan(mine, ws);     // its barriers order the init above
+    if (tid == 0) ws.live = ws.total;
+    l0 = warp_min(l0);
+    l1 = warp_min(l1);
+    l2 = warp_min(l2);
+    g0 = warp_max(g0);
+    g1 = warp_max(g1);
+    g2 = warp_max(g2);
+    if (lane == 0 && l0 != OSLAM_BIG) {
+        atomicMin(&ws.cmin[0], l0);
+        atomicMin(&ws.cmin[1], l1);
+        atomicMin(&ws.cmin[2], l2);
+        atomicMax(&ws.cmax[0], g0);
+        atomicMax(&ws.cmax[1], g1);
+        atomicMax(&ws.cmax[2], g2);
+    }
+    cl.sync();
+    // the detection's count and cell range, this block's first position
+    if (tid < 32) {
+        int live = 0;
+        int a0 = OSLAM_BIG, a1 = OSLAM_BIG, a2 = OSLAM_BIG;
+        int b0 = -OSLAM_BIG, b1 = -OSLAM_BIG, b2 = -OSLAM_BIG;
+        if (lane < S) {
+            const DsShared* o = cl.at(&ws, lane);
+            live = o->live;
+            a0 = o->cmin[0];
+            a1 = o->cmin[1];
+            a2 = o->cmin[2];
+            b0 = o->cmax[0];
+            b1 = o->cmax[1];
+            b2 = o->cmax[2];
+        }
+        const int n = warp_sum(live);
+        const int off = warp_sum(lane < rank ? live : 0);
+        a0 = warp_min(a0);
+        a1 = warp_min(a1);
+        a2 = warp_min(a2);
+        b0 = warp_max(b0);
+        b1 = warp_max(b1);
+        b2 = warp_max(b2);
+        if (lane == 0) {
+            ws.n = n;
+            ws.off = off;
+            ws.gmin[0] = a0;
+            ws.gmin[1] = a1;
+            ws.gmin[2] = a2;
+            ws.gmax[0] = b0;
+            ws.gmax[1] = b1;
+            ws.gmax[2] = b2;
+        }
+    }
+    __syncthreads();
+    DS_CLOCK(2);
+
+    const int n = ws.n;
+    const int pc = (n + S - 1) / S;     // list positions a block holds
+    const int len = min(pc, max(0, n - rank * pc));
+    int n_out = 0;
+    int fin = 0;                        // the list that ends sorted
+    if (n > 0) {
+        // (2) the ids to their place in the list, then the keys of this
+        // block's chunk, a point a thread
+        pos += ws.off;
+#pragma unroll
+        for (int w = 0; w < OSLAM_DS_RUN / 32; ++w)
+            for (unsigned f = flags[w]; f != 0u; f &= f - 1u) {
+                const int r = pos / pc, k = pos - r * pc;
+                cl.at(mem.id[0], r)[k] = (uint16_t)(lo + 32 * w + __ffs(f) - 1);
+                ++pos;
+            }
+        cl.sync();
+        const int m0 = ws.gmin[0], m1 = ws.gmin[1], m2 = ws.gmin[2];
+        for (int k = tid; k < len; k += OSLAM_DS_T) {
+            float x, y, z;
+            src.point(mem.id[0][k], x, y, z);
+            mem.key[0][k] = (key_axis(cell_of(x, leaf), m0) << 20)
+                            | (key_axis(cell_of(y, leaf), m1) << 10)
+                            | key_axis(cell_of(z, leaf), m2);
+        }
+        cl.sync();
+        DS_CLOCK(3);
+        // (3) stable by key, between the two lists: a pass per group of
+        // neighbouring axes whose digits together take at most 1024 values
+        // (an object at 0.1 m: one pass), from z up
+        int nbs[3];
+        for (int axis = 0; axis < 3; ++axis) {
+            const long long span = (long long)ws.gmax[axis] - ws.gmin[axis];
+            nbs[axis] = span > 1023 ? 1024 : (int)span + 1;
+        }
+        int mult[3] = {0, 0, 0}, nb = 1;
+        for (int axis = 2; axis >= 0; --axis) {
+            mult[axis] = nb;            // below it, the group's axes
+            nb *= nbs[axis];
+            if (axis > 0 && nb * nbs[axis - 1] <= OSLAM_RADIX) continue;
+            if (nb > 1) {               // one digit: the order stays
+                radix_pass(mem, fin, len, pc,
+                           make_int3(mult[0], mult[1], mult[2]), nb, ws, cl);
+                fin ^= 1;
+            }
+            mult[0] = mult[1] = mult[2] = 0;
+            nb = 1;
+        }
+        DS_CLOCK(4);
+        const int* key = mem.key[fin];
+        const uint16_t* ids = mem.id[fin];
+        uint16_t* starts = mem.id[fin ^ 1];     // free after the sort
+        // the sorted points' data, every thread loading at once (the walk
+        // below then reads a run of consecutive entries)
+        for (int k = tid; k < len; k += OSLAM_DS_T)
+            mem.stage[k] = src.stage(ids[k]);
+        // (4) the segment starts of this chunk: starts[j] = where its j-th
+        // begins, ws.first the first of them (list position)
+        if (tid == 0) ws.first = 0x7fffffff;
+        const int prev = (rank > 0 && len > 0)
+                         ? cl.at(mem.key[fin], rank - 1)[pc - 1] : 0;
+        const int per2 = (len + OSLAM_DS_T - 1) / OSLAM_DS_T;
+        const int lo2 = min(len, tid * per2), hi2 = min(len, lo2 + per2);
+        unsigned news[OSLAM_DS_RUN / 32];
+        int mine2 = 0;
+#pragma unroll
+        for (int w = 0; w < OSLAM_DS_RUN / 32; ++w) {
+            news[w] = 0u;
+            for (int j = 0; j < 32; ++j) {
+                const int k = lo2 + 32 * w + j;
+                if (k >= hi2) break;
+                const bool first = k == 0 ? (rank == 0 || key[0] != prev)
+                                          : key[k] != key[k - 1];
+                if (first) {
+                    news[w] |= 1u << j;
+                    ++mine2;
+                }
+            }
+        }
+        int r = block_scan(mine2, ws);      // orders ws.first's init
+        if (tid == 0) ws.segs = ws.total;
+#pragma unroll
+        for (int w = 0; w < OSLAM_DS_RUN / 32; ++w)
+            for (unsigned f = news[w]; f != 0u; f &= f - 1u) {
+                const int k = lo2 + 32 * w + __ffs(f) - 1;
+                if (r == 0) ws.first = rank * pc + k;
+                starts[r++] = (uint16_t)k;
+            }
+        cl.sync();
+        // the detection's segments, this block's first rank, and where its
+        // last segment ends: at the next block's first start, or at n
+        if (tid < 32) {
+            int segs = 0, first = 0x7fffffff;
+            if (lane < S) {
+                const DsShared* o = cl.at(&ws, lane);
+                segs = o->segs;
+                if (lane > rank) first = o->first;
+            }
+            const int n_seg = warp_sum(segs);
+            const int seg_off = warp_sum(lane < rank ? segs : 0);
+            first = warp_min(first);
+            if (lane == 0) {
+                ws.n_seg = n_seg;
+                ws.seg_off = seg_off;
+                ws.end = first == 0x7fffffff ? n : first;
+            }
+        }
+        __syncthreads();
+        DS_CLOCK(5);
+
+        // (5) the means in sorted order
+        const int n_loc = ws.segs, seg_off = ws.seg_off, c0 = rank * pc;
+        n_out = min(ws.n_seg, capacity);
+        for (int j = tid; j < n_loc && seg_off + j < capacity;
+             j += OSLAM_DS_T) {
+            const int k0 = c0 + starts[j];
+            const int k1 = j + 1 < n_loc ? c0 + starts[j + 1] : ws.end;
+            float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+            for (int k = k0; k < k1;) {         // a chunk at a time
+                const int b = k / pc, kb = b * pc, stop = min(k1, kb + pc);
+                const uint16_t* bid = cl.at(ids, b);
+                const typename Src::Staged* bst = cl.at(
+                    (const typename Src::Staged*)mem.stage, b);
+#pragma unroll 4
+                for (; k < stop; ++k) {
+                    float x, y, z;
+                    src.from_stage(bid[k - kb], bst[k - kb], x, y, z);
+                    sx += x;
+                    sy += y;
+                    sz += z;
+                }
+            }
+            const float c = (float)(k1 - k0);
+            const int kk = key[starts[j]];
+            sink(seg_off + j, sx / c, sy / c, sz / c,
+                 ((kk >> 20) & 1023) + ws.gmin[0],
+                 ((kk >> 10) & 1023) + ws.gmin[1], (kk & 1023) + ws.gmin[2],
+                 true);
+        }
+    } else {
+        DS_CLOCK(3);
+        DS_CLOCK(4);
+        DS_CLOCK(5);
+    }
+    // the empty slots, spread over the cluster
+    for (int s = n_out + rank * OSLAM_DS_T + tid; s < capacity;
+         s += S * OSLAM_DS_T)
+        sink(s, 0.0f, 0.0f, 0.0f, 0, 0, 0, false);
+    DS_CLOCK(6);
+}
+
+// The world epilogue of depth_cloud: the voxel means and cells in the
+// camera frame, the world point p R^T + t and the supporting-plane mask
+// (n . p_w + d) / den > clearance (ops/voxel.world_points_plain's order).
+// w: R row-major [9], t [3], plane [4], den, clearance.
+struct CloudSink {
+    const float* w;
+    float* pts_w;
+    uint8_t* m2;
+    float* pts_v;
+    int* cells_v;
+    bool any;
+    __device__ void operator()(int r, float mx, float my, float mz, int c0,
+                               int c1, int c2, bool live)
+    {
+        pts_v[3 * r] = mx;
+        pts_v[3 * r + 1] = my;
+        pts_v[3 * r + 2] = mz;
+        cells_v[3 * r] = c0;
+        cells_v[3 * r + 1] = c1;
+        cells_v[3 * r + 2] = c2;
+        const float wx = mx * w[0] + my * w[1] + mz * w[2] + w[9];
+        const float wy = mx * w[3] + my * w[4] + mz * w[5] + w[10];
+        const float wz = mx * w[6] + my * w[7] + mz * w[8] + w[11];
+        pts_w[3 * r] = wx;
+        pts_w[3 * r + 1] = wy;
+        pts_w[3 * r + 2] = wz;
+        const float dist = (wx * w[12] + wy * w[13] + wz * w[14] + w[15])
+                           / w[16];
+        const bool keep = live && dist > w[17];
+        m2[r] = keep ? 1 : 0;
+        any = any || keep;
+    }
+};
+
+struct PointsSink {
+    float* out;
+    uint8_t* out_mask;
+    int* cells;                 // may be null
+    __device__ void operator()(int r, float mx, float my, float mz, int c0,
+                               int c1, int c2, bool live)
+    {
+        out[3 * r] = mx;
+        out[3 * r + 1] = my;
+        out[3 * r + 2] = mz;
+        out_mask[r] = live ? 1 : 0;
+        if (cells != nullptr) {
+            cells[3 * r] = c0;
+            cells[3 * r + 1] = c1;
+            cells[3 * r + 2] = c2;
+        }
+    }
+};
+
+struct CameraArgs {
+    float scale, fx, fy, cx, cy, depth_range;
+};
+
+// Grid (S, max(D, 1)), clusters of S; C list entries a block.
+__global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
+    const int* __restrict__ depth, int H, int W, int D,
+    const float* __restrict__ bboxes, const float* __restrict__ pose,
+    const float* __restrict__ plane, const CameraArgs cam, float leaf,
+    float clearance, int capacity, int C, float* __restrict__ pts_w,
+    uint8_t* __restrict__ m2, float* __restrict__ center_w,
+    uint8_t* __restrict__ ok_points, uint8_t* __restrict__ ok_center,
+    float* __restrict__ R_out, float* __restrict__ pts_v,
+    int* __restrict__ cells_v)
+{
+    __shared__ DsShared ws;
+    __shared__ float w[18];
+    __shared__ float4 samples[100];
+    __shared__ float centre[4];
+    extern __shared__ __align__(16) char ds_smem[];
+    const Cl cl = {cg::this_cluster(), (int)cg::this_cluster().block_rank(),
+                   (int)gridDim.x};
+    const int d = blockIdx.y, tid = threadIdx.x;
+    DS_CLOCK(0);
+
+    // R from the quaternion in se3.quat_to_mat's order; t; the plane and its
+    // den = max(|n|, 1e-8) as the extractor takes them
+    if (tid == 0) {
+        const float qx = pose[3], qy = pose[4], qz = pose[5], qw = pose[6];
+        const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+        const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+        const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+        w[0] = 1.0f - 2.0f * (yy + zz);
+        w[1] = 2.0f * (xy - wz);
+        w[2] = 2.0f * (xz + wy);
+        w[3] = 2.0f * (xy + wz);
+        w[4] = 1.0f - 2.0f * (xx + zz);
+        w[5] = 2.0f * (yz - wx);
+        w[6] = 2.0f * (xz - wy);
+        w[7] = 2.0f * (yz + wx);
+        w[8] = 1.0f - 2.0f * (xx + yy);
+        for (int k = 0; k < 3; ++k) w[9 + k] = pose[k];
+        for (int k = 0; k < 4; ++k) w[12 + k] = plane[k];
+        const float nn = sqrtf(plane[0] * plane[0] + plane[1] * plane[1]
+                               + plane[2] * plane[2]);
+        w[16] = nn < 1e-8f ? 1e-8f : nn;    // a NaN stays NaN, as clamp_min
+        w[17] = clearance;
+        ws.any = 0;
+        if (d == 0 && cl.rank == 0)
+            for (int k = 0; k < 9; ++k) R_out[k] = w[k];
+    }
+    if (d >= D) return;         // the launch for no detection writes R only
+    const float* bb = bboxes + 4 * d;
+
+    // (c) the centre estimate, by the cluster's first block: 10 x 10
+    // samples around the box centre, center_estimate's truncating casts and
+    // ordered divisions, summed in sample order from 0 by four threads, one
+    // an axis and one the count
+    if (cl.rank == 0) {
+        if (tid < 100) {
+            const int xc = (int)((bb[0] + bb[2]) / 2.0f);
+            const int yc = (int)((bb[1] + bb[3]) / 2.0f);
+            const int x_delta = (int)(fabsf(bb[0] - bb[2]) / 4.0f / 10.0f);
+            const int y_delta = (int)(fabsf(bb[1] - bb[3]) / 4.0f / 10.0f);
+            const int px = min(max(xc + (tid % 10 - 5) * x_delta, 0), W - 1);
+            const int py = min(max(yc + (tid / 10 - 5) * y_delta, 0), H - 1);
+            const float z = (float)depth[py * W + px] / cam.scale;
+            const float v = (z > 0.1f && z <= cam.depth_range) ? 1.0f : 0.0f;
+            const float x = ((float)px - cam.cx) * z / cam.fx;
+            const float y = ((float)py - cam.cy) * z / cam.fy;
+            samples[tid] = make_float4(x * v, y * v, z * v, v);
+        }
+        __syncthreads();
+        if (tid < 4) {
+            float acc = 0.0f;
+            for (int s = 0; s < 100; ++s) {
+                const float4 q = samples[s];
+                acc = acc + (tid == 0 ? q.x : tid == 1 ? q.y
+                             : tid == 2 ? q.z : q.w);
+            }
+            centre[tid] = acc;  // the count is exact in any order
+        }
+        __syncthreads();
+        if (tid == 0) {
+            const float count = centre[3];
+            const float c = fmaxf(count, 1.0f);
+            const float cx = centre[0] / c, cy = centre[1] / c,
+                        cz = centre[2] / c;
+            for (int i = 0; i < 3; ++i)
+                center_w[3 * d + i] = cx * w[3 * i] + cy * w[3 * i + 1]
+                                      + cz * w[3 * i + 2] + w[9 + i];
+            ok_center[d] = count >= 2.0f ? 1 : 0;
+        }
+    }
+    DS_CLOCK(1);
+
+    // (a) the box's strided pixels, as bbox_cloud clips them
+    const int x1 = min(max((int)bb[0], 0), W - 1);
+    const int y1 = min(max((int)bb[1], 0), H - 1);
+    const int x2 = min(max((int)bb[2], 0), W);
+    const int y2 = min(max((int)bb[3], 0), H);
+    const int bw = x2 > x1 ? (x2 - x1 + OSLAM_STRIDE - 1) / OSLAM_STRIDE : 0;
+    const int bh = y2 > y1 ? (y2 - y1 + OSLAM_STRIDE - 1) / OSLAM_STRIDE : 0;
+    const BoxPixels src = {depth, W, x1, y1, bw, cam.scale, cam.fx, cam.fy,
+                           cam.cx, cam.cy, cam.depth_range};
+    const size_t o = (size_t)d * capacity;
+    CloudSink sink = {w, pts_w + 3 * o, m2 + o, pts_v + 3 * o,
+                      cells_v + 3 * o, false};
+    // (a, b) downsample, world transform, plane mask; ok_points is the OR
+    // of the blocks' planes tests, gathered in the first block
+    downsample_cluster(src, bw * bh, leaf, capacity,
+                       ds_mem<BoxPixels::Staged>(ds_smem, C), ws, cl, sink);
+    if (__syncthreads_or(sink.any ? 1 : 0) && tid == 0)
+        atomicOr(cl.at(&ws.any, 0), 1);
+    cl.sync();                // nothing reads a block's memory after this
+    if (cl.rank == 0 && tid == 0) ok_points[d] = ws.any ? 1 : 0;
+    DS_CLOCK(7);
+}
+
+// Grid (S, D), clusters of S; C list entries a block.
+__global__ void __launch_bounds__(OSLAM_DS_T, 1) voxel_downsample_kernel(
+    const float* __restrict__ pts, const uint8_t* __restrict__ mask, int N,
+    float leaf, int capacity, int C, float* __restrict__ out,
+    uint8_t* __restrict__ out_mask, int* __restrict__ cells)
+{
+    __shared__ DsShared ws;
+    extern __shared__ __align__(16) char ds_smem[];
+    const Cl cl = {cg::this_cluster(), (int)cg::this_cluster().block_rank(),
+                   (int)gridDim.x};
+    const int d = blockIdx.y;
+    const size_t o = (size_t)d * capacity;
+    const MaskedPoints src = {pts + (size_t)d * N * 3, mask + (size_t)d * N};
+    PointsSink sink = {out + 3 * o, out_mask + o,
+                       cells != nullptr ? cells + 3 * o : nullptr};
+    DS_CLOCK(0);
+    DS_CLOCK(1);
+    downsample_cluster(src, N, leaf, capacity,
+                       ds_mem<MaskedPoints::Staged>(ds_smem, C), ws, cl,
+                       sink);
+    cl.sync();                // nothing reads a block's memory after this
+    DS_CLOCK(7);
+}
+
+// The launch shape of a downsample kernel for detections of up to n
+// candidate points at `per` bytes of working arrays each: the fewest blocks
+// S (at most OSLAM_DS_MAX_S) whose shared memory holds C = ceil(n / S)
+// entries a block beside the kernel's static part.  The room a block has
+// is read, and the kernel's limit raised to it, at the first launch on a
+// device.
+struct DsKernel {
+    const void* fn;
+    int dev;                    // the device `room` was read on, or -1
+    int room;                   // dynamic shared memory a block can have
+};
+
+static int ds_shape(DsKernel& k, long long n, int per, int* S, int* C)
+{
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (k.dev != dev) {
+        cudaFuncAttributes attr = {};
+        int optin = 0;
+        rc = cudaFuncGetAttributes(&attr, k.fn);
+        if (rc == cudaSuccess)
+            rc = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (rc == cudaSuccess)
+            rc = cudaFuncSetAttribute(
+                k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                optin - (int)attr.sharedSizeBytes);
+        if (rc != cudaSuccess) return (int)rc;
+        k.dev = dev;
+        k.room = optin - (int)attr.sharedSizeBytes;
+    }
+    const long long most = k.room / per;        // entries a block holds
+    const long long s = n < 1 ? 1 : (n + most - 1) / most;
+    if (most < 1 || s > OSLAM_DS_MAX_S) return (int)cudaErrorInvalidValue;
+    *S = (int)s;
+    *C = (int)(n < 1 ? 1 : (n + s - 1) / s);
+    return 0;
+}
+
+template <class... Params, class... Args>
+static int ds_launch(void (*kernel)(Params...), int S, int blocks, int smem,
+                     void* stream, Args... args)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S, blocks, 1);
+    cfg.blockDim = dim3(OSLAM_DS_T, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (rc == cudaSuccess) rc = cudaGetLastError();
+    return (int)rc;
+}
+
+static DsKernel ds_cloud = {(const void*)depth_cloud_kernel, -1, 0};
+static DsKernel ds_object = {(const void*)voxel_downsample_kernel, -1, 0};
+
+// A cluster of S blocks per detection (and one cluster for D = 0, which
+// writes R only), S from the whole image's G = ceil(H / 3) * ceil(W / 3)
+// <= 65535 strided pixels (16-bit point ids): every box fits.
+extern "C" int oslam_depth_cloud(
+    const void* depth, int H, int W, const void* bboxes, int D,
+    const void* pose, const void* plane, float scale, float fx, float fy,
+    float cx, float cy, float depth_range, float leaf, float clearance,
+    int capacity, void* pts_w, void* m2, void* center_w, void* ok_points,
+    void* ok_center, void* R_out, void* pts_v, void* cells_v, void* stream)
+{
+    const long long G = (long long)((H + OSLAM_STRIDE - 1) / OSLAM_STRIDE)
+                        * ((W + OSLAM_STRIDE - 1) / OSLAM_STRIDE);
+    if (H < 1 || W < 1 || D < 0 || D > 65535 || capacity < 1 ||
+        G > OSLAM_DS_MAX_IDS || (D > 0 && (pts_v == nullptr ||
+                                           cells_v == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const int per = 12 + (int)sizeof(BoxPixels::Staged);
+    int S = 0, C = 0;
+    const int rc = ds_shape(ds_cloud, G, per, &S, &C);
+    if (rc != 0) return rc;
+    const CameraArgs cam = {scale, fx, fy, cx, cy, depth_range};
+    return ds_launch(depth_cloud_kernel, S, D > 0 ? D : 1, C * per, stream,
+                     (const int*)depth, H, W, D, (const float*)bboxes,
+                     (const float*)pose, (const float*)plane, cam, leaf,
+                     clearance, capacity, C, (float*)pts_w, (uint8_t*)m2,
+                     (float*)center_w, (uint8_t*)ok_points,
+                     (uint8_t*)ok_center, (float*)R_out, (float*)pts_v,
+                     (int*)cells_v);
+}
+
+// A cluster of S blocks per detection, S from N <= 65535 (16-bit point
+// ids; more than ~63,000 do not fit 8 blocks); cells may be null.
+extern "C" int oslam_voxel_downsample(
+    const void* pts, const void* mask, int D, int N, float leaf, int capacity,
+    void* out, void* out_mask, void* cells, void* stream)
+{
+    if (D < 1 || D > 65535 || N < 0 || N > OSLAM_DS_MAX_IDS || capacity < 1)
+        return (int)cudaErrorInvalidValue;
+    const int per = 12 + (int)sizeof(MaskedPoints::Staged);
+    int S = 0, C = 0;
+    const int rc = ds_shape(ds_object, N, per, &S, &C);
+    if (rc != 0) return rc;
+    return ds_launch(voxel_downsample_kernel, S, D, C * per, stream,
+                     (const float*)pts, (const uint8_t*)mask, N, leaf,
+                     capacity, C, (float*)out, (uint8_t*)out_mask,
+                     (int*)cells);
 }
 
 // ---------------------------------------------------------------------------

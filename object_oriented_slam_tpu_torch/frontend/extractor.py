@@ -23,9 +23,10 @@ a frame as one batch on the device (a leading axis D where the JAX package
       (:459-492)
 
 Failure gates (miSystemState analogues) are carried as a validity mask.
-On a CUDA device stages (a), (b), (d) and the downsample of (f) run in the
-hand-written kernels of ``csrc/frontend.cu`` (through ``ops/backproject``,
-``ops/voxel``, ``ops/cluster``); the rest is plain PyTorch.
+On a CUDA device stages (a)-(c), (d) and the downsample of (f) are three
+launches of the hand-written kernels of ``csrc/frontend.cu``: depth_cloud
+(``ops/depth_cloud``), cluster_select (``ops/cluster``) and
+voxel_downsample (``ops/voxel``); the rest is plain PyTorch.
 
 Not ported (each raises ``NotImplementedError`` naming the option):
 symmetry completion (stage (g), ``open_symmetry`` / ``sparse_symmetry``),
@@ -47,6 +48,7 @@ from ..ops import backproject as bp
 from ..ops import cluster as cl
 from ..ops import pca as pca_mod
 from ..ops import voxel as vx
+from ..ops.depth_cloud import depth_cloud
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
 
@@ -107,30 +109,18 @@ def _check_ported(cfg: ExtractorConfig):
 def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
              cfg: ExtractorConfig):
     """Stages (a)-(c) of all detections: bbox cloud -> voxel -> world,
-    supporting-plane filter, center estimate.
+    supporting-plane filter (EllipsoidExtractor.cpp:562-578), center
+    estimate; on a CUDA device one launch (ops/depth_cloud).
 
     Returns (pts_v [D, cap, 3] camera-frame voxel cloud, pts_w world cloud,
     cells_v, m2 filtered mask, center_w [D, 3], ok_points [D],
     ok_center [D], R_wc [3, 3]).
     """
-    # (a) bbox cloud -> voxel -> world, (b) supporting-plane filter
-    # (EllipsoidExtractor.cpp:562-578): the world transform and the plane
-    # test ride the voxel kernel's epilogue
-    pts_cam, m0 = bp.bbox_point_cloud(depth, bboxes, cam, cfg.depth_range)
-    R_wc = se3.quat_to_mat(pose_wc[3:])
-    n = ground_plane[:3]
-    den = torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]).clamp_min(1e-8)
-    world = vx.World(R_wc, pose_wc[:3], ground_plane, den,
-                     cfg.plane_clearance)
-    pts_v, cells_v, _, pts_w, m2 = vx._voxel_core(
-        pts_cam, m0, cfg.voxel_leaf, cfg.cloud_capacity, world)
-    ok_points = m2.sum(1) >= 1
-
-    # (c) center estimate (world)
-    center_cam, ok_center = bp.center_estimate(depth, bboxes, cam,
-                                               cfg.depth_range)
-    center_w = center_cam @ R_wc.T + pose_wc[:3]
-    return pts_v, pts_w, cells_v, m2, center_w, ok_points, ok_center, R_wc
+    dc = depth_cloud(depth, bboxes, pose_wc, ground_plane, cam,
+                     cfg.voxel_leaf, cfg.depth_range, cfg.plane_clearance,
+                     cfg.cloud_capacity)
+    return (dc.pts_v, dc.pts_w, dc.cells_v, dc.m2, dc.center_w, dc.ok_points,
+            dc.ok_center, dc.R_wc)
 
 
 def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):

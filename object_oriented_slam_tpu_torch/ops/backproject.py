@@ -15,9 +15,11 @@ validity masks.
 
 ``bbox_point_cloud`` is the ``bbox_cloud`` CUDA kernel (csrc/frontend.cu)
 for tensors on a CUDA device and ``bbox_point_cloud_plain`` for tensors on
-the CPU.  Divisions are by 0-dim tensors on the tensor's device: dividing a
-CUDA tensor by a Python number (or by a CPU scalar tensor) multiplies by the
-reciprocal instead, which lands in another last bit than the CPU.
+the CPU; it is an entry point off the main path, whose back-projection and
+centre estimate are part of ``ops/depth_cloud``.  Divisions are by 0-dim
+tensors on the tensor's device: dividing a CUDA tensor by a Python number
+(or by a CPU scalar tensor) multiplies by the reciprocal instead, which
+lands in another last bit than the CPU.
 """
 from __future__ import annotations
 
@@ -145,5 +147,11 @@ def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
     pts = torch.stack([x, y, z], dim=-1).reshape(-1, n * n, 3)
     w = valid.reshape(-1, n * n).to(torch.float32)
     count = w.sum(1)
-    center = (pts * w[..., None]).sum(1) / count.clamp_min(1.0)[:, None]
+    # summed in sample order from 0, the depth_cloud kernel's order (a
+    # reduction's order is the library's own)
+    pw = pts * w[..., None]
+    acc = torch.zeros_like(pw[:, 0])
+    for k in range(n * n):
+        acc = acc + pw[:, k]
+    center = acc / count.clamp_min(1.0)[:, None]
     return center, count >= 2

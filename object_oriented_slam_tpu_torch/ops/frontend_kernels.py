@@ -2,13 +2,15 @@
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and bound with ctypes.  The wrappers that call
-``launch`` live beside their plain PyTorch versions: ``backproject.
-bbox_point_cloud`` (bbox_cloud), ``voxel.voxel_segment_mean``,
-``cluster.cluster_components`` and ``cluster.cluster_select`` (the main
-path's clustering: one kernel, without and with the selection epilogue,
-one launch counter),
-``cluster.min_label_pass`` and ``cluster.pointer_jumps`` (one step of it
-each, kept as entry points).  Each launch runs
+``launch`` live beside their plain PyTorch versions.  The main path's:
+``depth_cloud.depth_cloud`` (depth_cloud: stages (a)-(c) of an extraction
+call), ``cluster.cluster_components`` and ``cluster.cluster_select`` (the
+clustering: one kernel, without and with the selection epilogue, one launch
+counter) and ``voxel.voxel_downsample`` (voxel_downsample: the object
+downsample).  Kept as entry points off that path: ``backproject.
+bbox_point_cloud`` (bbox_cloud) and ``voxel.voxel_segment_mean``, the
+single steps that depth_cloud took over, and ``cluster.min_label_pass`` and
+``cluster.pointer_jumps`` (one step of the clustering each).  Each launch runs
 on PyTorch's current stream and does not synchronise; the wrappers allocate
 the outputs with ``torch.empty``.
 """
@@ -25,13 +27,15 @@ from ._cuda_build import Kernel
 
 SOURCE = os.path.join(_cuda_build.CSRC_DIR, "frontend.cu")
 
+DEPTH_CLOUD = Kernel("depth_cloud")
+VOXEL_DOWNSAMPLE = Kernel("voxel_downsample")
 BBOX_CLOUD = Kernel("bbox_cloud")
 VOXEL_SEGMENT_MEAN = Kernel("voxel_segment_mean")
 MIN_LABEL_PASS = Kernel("min_label_pass")
 POINTER_JUMPS = Kernel("pointer_jumps")
 CLUSTER_COMPONENTS = Kernel("cluster_components")
-KERNELS = (BBOX_CLOUD, VOXEL_SEGMENT_MEAN, MIN_LABEL_PASS, POINTER_JUMPS,
-           CLUSTER_COMPONENTS)
+KERNELS = (DEPTH_CLOUD, VOXEL_DOWNSAMPLE, BBOX_CLOUD, VOXEL_SEGMENT_MEAN,
+           MIN_LABEL_PASS, POINTER_JUMPS, CLUSTER_COMPONENTS)
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
@@ -67,6 +71,9 @@ def _bind(lib_path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, argtypes in (
+            ("oslam_depth_cloud",
+             [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 8),
+            ("oslam_voxel_downsample", [p, p, i, i, f, i, p, p, p]),
             ("oslam_bbox_cloud", [p, p, i, i, i, f, f, f, f, f, f, p, p]),
             ("oslam_voxel_segment_mean", [p] * 4 + [i] * 3 + [p] * 6),
             ("oslam_min_label_pass", [p] * 4 + [i, i, f, p]),

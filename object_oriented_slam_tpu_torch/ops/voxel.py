@@ -9,10 +9,14 @@ sorted STABLY (``torch.sort(stable=True)``: equal keys keep pixel order, so
 the centroid sums have one order), and the sorted runs are averaged into a
 fixed-capacity prefix.
 
-The segment part is the ``voxel_segment_mean`` CUDA kernel
-(csrc/frontend.cu) for tensors on a CUDA device, and
-``voxel_segment_mean_plain`` for tensors on the CPU.  The attribute
-variants of the JAX module belong to sparse symmetry and are not ported.
+``voxel_downsample`` / ``voxel_downsample_cells`` are one launch of the
+``voxel_downsample`` CUDA kernel (csrc/frontend.cu: keys, sort and means)
+for tensors on a CUDA device, and ``voxel_downsample_plain`` for tensors
+on the CPU.  The segment part alone is the ``voxel_segment_mean`` kernel /
+``voxel_segment_mean_plain`` (an entry point off the main path: the
+extractor's first downsample is part of ``ops/depth_cloud``).  The
+attribute variants of the JAX module belong to sparse symmetry and are not
+ported.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from . import frontend_kernels as fk
 from .backproject import scalar
 
 _INVALID = 2 ** 30
+MAX_IDS = 65535     # candidate points a detection (the kernels' 16-bit ids)
 
 
 class World(NamedTuple):
@@ -150,7 +155,8 @@ def voxel_segment_mean(key_s, order, pts, cmin, capacity: int,
 
 def _voxel_core(pts, mask, leaf: float, capacity: int,
                 world: Optional[World] = None):
-    """Shared downsample body: key, stable sort, segment means.
+    """Shared downsample body of the single steps: key, stable sort, segment
+    means (``voxel_segment_mean``).
 
     Cells come from the downsample's own keys (decoding the segment key
     rather than re-flooring the centroid, which can land in the next cell
@@ -162,23 +168,62 @@ def _voxel_core(pts, mask, leaf: float, capacity: int,
                               world)
 
 
+def voxel_downsample_plain(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
+                           capacity: int):
+    """Plain PyTorch version of ``voxel_downsample_cells`` (any device):
+    keys, stable sort and ``voxel_segment_mean_plain``."""
+    key, cmin = voxel_keys(pts, mask, leaf)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    out, cells, out_mask, _, _ = voxel_segment_mean_plain(
+        key_s, order, pts, cmin, capacity)
+    return out, cells, out_mask
+
+
+def _downsample(pts, mask, leaf: float, capacity: int, with_cells: bool):
+    """One launch of the ``voxel_downsample`` kernel on CUDA tensors (cells
+    are written only when asked for); the plain version on the CPU."""
+    if pts.device.type != "cuda":
+        return voxel_downsample_plain(pts, mask, leaf, capacity)
+    D, N = mask.shape
+    dev = pts.device
+    fk.check("pts", pts, torch.float32, (D, N, 3), dev)
+    fk.check("mask", mask, torch.bool, (D, N), dev)
+    if N > MAX_IDS:
+        raise ValueError(f"voxel_downsample takes at most {MAX_IDS} points a "
+                         f"detection (got {N}): point ids are 16-bit")
+    if capacity < 1:
+        raise ValueError(f"capacity={capacity}")
+    out = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((D, capacity), dtype=torch.bool, device=dev)
+    cells = (torch.empty((D, capacity, 3), dtype=torch.int32, device=dev)
+             if with_cells else None)
+    if D:
+        fk.launch(fk.VOXEL_DOWNSAMPLE, "oslam_voxel_downsample", dev,
+                  [pts.data_ptr(), mask.data_ptr(), D, N, leaf, capacity,
+                   out.data_ptr(), out_mask.data_ptr(),
+                   cells.data_ptr() if with_cells else None])
+    return out, cells, out_mask
+
+
 def voxel_downsample_cells(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
                            capacity: int):
     """Downsample to at most ``capacity`` cell centroids per detection.
 
     pts [D, G, 3], mask [D, G].  Returns (out_pts [D, capacity, 3],
     out_cells [D, capacity, 3] int32 absolute cell coordinates,
-    out_mask [D, capacity]).
+    out_mask [D, capacity]).  On a CUDA device one launch of the
+    ``voxel_downsample`` kernel; on the CPU the plain version.
     """
-    out, cells, out_mask, _, _ = _voxel_core(pts, mask, leaf, capacity)
-    return out, cells, out_mask
+    return _downsample(pts, mask, leaf, capacity, True)
 
 
 def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
                      capacity: int):
     """Downsample to at most ``capacity`` cell centroids per detection.
 
-    Returns (out_pts [D, capacity, 3], out_mask [D, capacity]).
+    Returns (out_pts [D, capacity, 3], out_mask [D, capacity]).  On a CUDA
+    device one launch of the ``voxel_downsample`` kernel; on the CPU the
+    plain version.
     """
-    out, _, out_mask, _, _ = _voxel_core(pts, mask, leaf, capacity)
+    out, _, out_mask = _downsample(pts, mask, leaf, capacity, False)
     return out, out_mask

@@ -6,12 +6,14 @@ with the card has no JAX, so run this file without the JAX test setup:
     python -m pytest tests/test_torch_frontend_kernels.py --noconftest -q
 
 Inputs: frames of a seeded synthetic scene rendered by the port
-(io/synthetic.py), 640x480.  The kernels are built with IEEE division and
-without fused multiply-add, in the plain versions' order of operations, so
-masks, cells and labels must be EQUAL.  Floats are held bit for bit against
-the plain version evaluated on the CPU (whose ``index_add_`` adds in sorted
-order, like the kernel), and within 1e-6 against the plain version on the
-card (whose ``index_add_`` adds with atomics in any order).
+(io/synthetic.py), 640x480, and a seeded depth image valid at every pixel
+(a whole-image box of 34,240 live points).  The kernels are built with IEEE
+division and without fused multiply-add, in the plain versions' order of
+operations, so masks, cells and labels must be EQUAL.  Floats are held bit
+for bit against the plain version evaluated on the CPU (whose
+``index_add_`` adds in sorted order, like the kernel), and within 1e-6
+against the plain version on the card (whose ``index_add_`` adds with
+atomics in any order; 5e-6 for the 0.1 m object downsample).
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
 from object_oriented_slam_tpu_torch.io import synthetic as syn
 from object_oriented_slam_tpu_torch.ops import backproject as bp
 from object_oriented_slam_tpu_torch.ops import cluster as cl
+from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
 from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
 from object_oriented_slam_tpu_torch.ops import voxel as vx
 
@@ -348,11 +351,11 @@ def test_extraction_on_card_matches_cpu(device):
                                    run.to(device), pose_t.to(device),
                                    plane.to(device), cam, cfg)
     torch.cuda.synchronize()
-    # one launch each, two of voxel_segment_mean; the single-step clustering
-    # kernels are not on this path
+    # three launches; the single-step kernels are not on this path
     assert {k.name: k.launches - before[k.name] for k in fk.KERNELS} == {
-        "bbox_cloud": 1, "voxel_segment_mean": 2, "cluster_components": 1,
-        "min_label_pass": 0, "pointer_jumps": 0}
+        "depth_cloud": 1, "cluster_components": 1, "voxel_downsample": 1,
+        "bbox_cloud": 0, "voxel_segment_mean": 0, "min_label_pass": 0,
+        "pointer_jumps": 0}
     want = extract_local_ellipsoids(depth, bboxes, run, pose_t, plane, cam,
                                     cfg)
     assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
@@ -372,3 +375,139 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         bp.bbox_point_cloud(depth.to(device), bboxes, cam, 6.0)
     with pytest.raises(ValueError):
         bp.bbox_point_cloud(depth.to(device).T, bboxes.to(device), cam, 6.0)
+
+
+def _full_depth(seed=11):
+    """A 640x480 depth image valid at every pixel: a slanted surface 1-5 m
+    away with seeded noise, so a whole-image box has 34,240 live points."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:480, 0:640]
+    d = 5000 + 20 * u + 15 * v + rng.integers(0, 200, (480, 640))
+    return torch.from_numpy(d.astype(np.int32))
+
+
+def _depth_cloud_inputs(whole_image=False):
+    depth, bboxes, pose, cam = _frame()
+    if whole_image:
+        depth = _full_depth()
+        bboxes = torch.cat([bboxes[:2], torch.tensor([[0.0, 0.0, 640.0,
+                                                       480.0]])])
+    return (depth, bboxes, torch.as_tensor(pose, dtype=torch.float32),
+            torch.tensor([0.001, -0.002, 1.0, -0.0005]), cam)
+
+
+def _on_card(args, device):
+    return [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.mark.parametrize("capacity,whole_image",
+                         [(4096, False), (16384, False), (1024, False),
+                          (16384, True)])
+def test_depth_cloud_equals_plain(device, capacity, whole_image):
+    """Stages (a)-(c) in one launch: masks, cells and flags equal to the
+    plain version; floats bit-equal to it on the CPU and within 1e-6 of it
+    on the card (its index_add_ adds with atomics); a second launch
+    bit-equal.  The frame's boxes include a fractional one, one running off
+    the image and a zero one; capacity 1024 drops segments; the whole-image
+    box of 34,240 live points is spread over the blocks of its cluster."""
+    args = _depth_cloud_inputs(whole_image)
+    rest = (0.01, 6.0, 0.05, capacity)
+    args_d = _on_card(args, device)
+    n0 = {k.name: k.launches for k in fk.KERNELS}
+    got = dc.depth_cloud(*args_d, *rest)
+    again = dc.depth_cloud(*args_d, *rest)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches - n0[k.name] for k in fk.KERNELS} == {
+        "depth_cloud": 2, "voxel_downsample": 0, "bbox_cloud": 0,
+        "voxel_segment_mean": 0, "cluster_components": 0,
+        "min_label_pass": 0, "pointer_jumps": 0}
+    want = dc.depth_cloud_plain(*args, *rest)
+    card = dc.depth_cloud_plain(*args_d, *rest)
+    for name, g, a, w, c in zip(dc.DepthCloud._fields, got, again, want,
+                                card):
+        assert _bits_equal(g, a), name
+        assert _bits_equal(g, w), name
+        if g.dtype in (torch.bool, torch.int32):
+            assert torch.equal(g, c), name
+        else:
+            assert float((g - c).abs().max()) <= 1e-6, name
+    n_live = int((want.pts_v[..., 2] > 0).sum())
+    assert n_live > 1000 and int(want.m2.sum()) > 500
+    if whole_image:
+        pts, m0 = bp.bbox_point_cloud_plain(*args[:2], args[4], 6.0)
+        assert int(m0[-1].sum()) == bp.BBOX_GRID_H * bp.BBOX_GRID_W
+        assert bool(got.pts_v[-1, -1, 2] > 0)   # more cells than capacity
+    if capacity == 1024:        # the large boxes overflow
+        assert bool((got.pts_v[:, -1, 2] > 0).any())
+
+
+@pytest.mark.parametrize("leaf,capacity,dense", [(0.1, 512, 0),
+                                                 (0.05, 64, 0),
+                                                 (0.01, 8192, 16384),
+                                                 (0.01, 4096, 30000),
+                                                 (0.01, 4096, 60000)])
+def test_voxel_downsample_equals_plain(device, leaf, capacity, dense):
+    """The object downsample in one launch: masks and cells equal, floats
+    bit-equal to the plain version on the CPU and within 5e-6 of it on the
+    card (a 0.1 m cell holds hundreds of points: the card's atomic sums
+    move a centroid by a few ulp of 4 m); a second launch bit-equal; a
+    capacity that drops segments; every one of ``dense`` lanes live (16384,
+    30000, 60000: a cluster of 3, 4 and 8 blocks a detection)."""
+    if dense:
+        rng = np.random.default_rng(5)
+        pts = torch.from_numpy(rng.uniform(-2.0, 2.0, (4, dense, 3))
+                               .astype(np.float32))
+        mask = torch.ones((4, dense), dtype=torch.bool)
+        mask[3] = False
+    else:
+        pts, mask = _cluster_inputs()
+    n0 = fk.VOXEL_DOWNSAMPLE.launches
+    pts_d, mask_d = pts.to(device), mask.to(device)
+    got = vx.voxel_downsample_cells(pts_d, mask_d, leaf, capacity)
+    again = vx.voxel_downsample_cells(pts_d, mask_d, leaf, capacity)
+    out, m = vx.voxel_downsample(pts_d, mask_d, leaf, capacity)
+    torch.cuda.synchronize()
+    assert fk.VOXEL_DOWNSAMPLE.launches == n0 + 3
+    want = vx.voxel_downsample_plain(pts, mask, leaf, capacity)
+    card = vx.voxel_downsample_plain(pts_d, mask_d, leaf, capacity)
+    for g, a, w in zip(got, again, want):
+        assert _bits_equal(g, a) and _bits_equal(g, w)
+    assert torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])
+    assert float((got[0] - card[0]).abs().max()) <= 5e-6
+    assert _bits_equal(out, got[0]) and torch.equal(m, got[2])
+    assert int(want[2].sum()) > 50
+    if capacity == 64 or dense:
+        assert bool(want[2][:, -1].any())
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
+    depth, bboxes, pose, plane, cam = _on_card(_depth_cloud_inputs(), device)
+    rest = (0.01, 6.0, 0.05, 4096)
+    with pytest.raises(TypeError):
+        dc.depth_cloud(depth.float(), bboxes, pose, plane, cam, *rest)
+    with pytest.raises(TypeError):
+        dc.depth_cloud(depth, bboxes.double(), pose, plane, cam, *rest)
+    with pytest.raises(ValueError):
+        dc.depth_cloud(depth, bboxes.cpu(), pose, plane, cam, *rest)
+    with pytest.raises(ValueError):
+        dc.depth_cloud(depth, bboxes[:, :3], pose, plane, cam, *rest)
+    with pytest.raises(ValueError):
+        dc.depth_cloud(depth, bboxes, pose[:4], plane, cam, *rest)
+    with pytest.raises(ValueError):
+        dc.depth_cloud(depth.T, bboxes, pose, plane, cam, *rest)
+    with pytest.raises(ValueError):
+        dc.depth_cloud(depth, bboxes, pose, plane, cam, 0.01, 6.0, 0.05, 0)
+    big = torch.zeros((1200, 1600), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="16-bit"):
+        dc.depth_cloud(big, bboxes, pose, plane, cam, *rest)
+    pts, mask = _on_card(_cluster_inputs(1024), device)
+    with pytest.raises(TypeError):
+        vx.voxel_downsample(pts.double(), mask, 0.1, 512)
+    with pytest.raises(TypeError):
+        vx.voxel_downsample(pts, mask.to(torch.uint8), 0.1, 512)
+    with pytest.raises(ValueError):
+        vx.voxel_downsample(pts, mask.cpu(), 0.1, 512)
+    with pytest.raises(ValueError):
+        vx.voxel_downsample(pts[:, :512], mask, 0.1, 512)
+    with pytest.raises(ValueError):
+        vx.voxel_downsample(pts, mask, 0.1, 0)
