@@ -32,24 +32,34 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      cluster_components, voxel_downsample), fewer device operations than
      the four-launch call's 830, and must not make the host wait for the
      device between its argument copies and its result copy;
-  6. the depth-frontend kernels (depth_cloud, cluster_components,
-     voxel_downsample, and the single steps off the main path: bbox_cloud,
-     both voxel_segment_mean launches, min_label_pass and pointer_jumps)
-     against their plain versions at the shapes the depth main path gave
-     them on its mid-orbit frame (that frame through the extractor's own
-     packing: 32 detection lanes, its cloud tier, its survivors; the script
-     raises if the path ran that frame at other shapes), at the full tier (8
-     detections, cloud capacity 16384; depth_cloud with a whole-image box
-     among them) and, for cluster_components, on dense clouds that fill all
-     16384 lanes (its streamed branch) and under a bound of 2 rounds
-     (truncation): masks, cells and labels equal, converged flags and round
-     counts equal, floats bit for bit against the plain version on the CPU
-     and within 1e-6 (5e-6 for the object downsample) against it on the
-     card, repeats bit-equal, device time beside the bound, beside the
-     single steps it replaced and beside a PyTorch yardstick (a stable
-     torch.sort, a gather and torch.segment_reduce), and the sort's own
-     time;
-  7. one JSON line with a record per kernel, the card line, and the result
+  6. the symmetry path: the same orbit with synthetic_depth_sym.yaml
+     (symmetry completion on) over the scene with four objects labelled 28
+     (dual reflection) and the seed's reflections: the plane on frame 0,
+     24/24 objects within a median centre error of 0.05 m, symmetry_search
+     launched once per frame with a detection of type 1 or 2, e2e /
+     extraction / backend ms; one extraction call under the profiler and
+     the synchronisation check, which must be four frontend launches;
+  7. the depth-frontend kernels (depth_cloud, cluster_components,
+     voxel_downsample) against their plain versions at the shapes the depth
+     main path gave them on its mid-orbit frame (that frame through the
+     extractor's own packing: 32 detection lanes, its cloud tier, its
+     survivors; the script raises if the path ran that frame at other
+     shapes), at the full tier (8 detections, cloud capacity 16384;
+     depth_cloud with a whole-image box among them) and, for
+     cluster_components, on dense clouds that fill all 16384 lanes (its
+     streamed branch) and under a bound of 2 rounds (truncation): masks,
+     cells and labels equal, converged flags and round counts equal, floats
+     bit for bit against the plain version on the CPU and within 1e-6
+     (5e-6 for the object downsample) against it on the card, repeats
+     bit-equal, device time beside the bound and beside a PyTorch yardstick
+     (a stable torch.sort, a gather and torch.segment_reduce), and the
+     sort's own time; symmetry_search against its plain version at the
+     symmetry path's mid-orbit frame (single and dual detections in one
+     launch, exact gradient and central differences) and at sym_capacity
+     filled (8 dual detections x 512 points): all 9 initial planes within
+     1e-4 (params) / 1e-5 (costs), the same winners, repeats bit-equal,
+     time beside the bound and the torch.cdist + torch.amin yardstick;
+  8. one JSON line with a record per kernel, the card line, and the result
      line {"ok": true, "device": {...}} last.
 """
 import json
@@ -89,29 +99,27 @@ FE_SOURCE = "object_oriented_slam_tpu_torch/csrc/frontend.cu"
 FE_TIER = 16384             # the extractor's default cloud capacity
 FE_DETECTIONS = 8
 N_DEPTH_FRAMES = 160
-# f32 / integer operations of one pair test of min_label_pass, counted from
-# csrc/frontend.cu: 3 multiplies and 2 adds (the dot product), the sum of
-# the norms, the doubling, the difference, 2 compares and a select.  The
-# bound charges them for the pairs the function needs: for one single-step
-# pass the unmasked points of a detection against each other, for
-# cluster_components the pairs its skip of far groups leaves (tested_pairs)
+# f32 / integer operations of one pair test of cluster_components, counted
+# from csrc/frontend.cu: 3 multiplies and 2 adds (the dot product), the sum
+# of the norms, the doubling, the difference, 2 compares and a select.  The
+# bound charges them for the pairs its skip of far groups leaves
+# (tested_pairs)
 PAIR_OPS = 11
 # clustering rounds per frame on the depth path (min, median, max)
 PATH_ROUNDS = (16, 24, 44)
-# the functions of the JAX package (left to XLA there) that the frontend
-# kernels replace
-# the single-step entry points (the back-projection and segment means that
-# depth_cloud and voxel_downsample took over, one step of the clustering):
-# held against their plain versions, launched by nothing on the main path
-SINGLE_STEP = ("bbox_cloud", "voxel_segment_mean", "min_label_pass",
-               "pointer_jumps")
-# the frontend launches of one extraction call, and the device operations
-# of the four-launch call before depth_cloud and voxel_downsample
+# the frontend launches of one extraction call without and with symmetry,
+# and the device operations of the four-launch call before depth_cloud and
+# voxel_downsample
 CALL_LAUNCHES = {"depth_cloud": 1, "cluster_components": 1,
-                 "voxel_downsample": 1, "bbox_cloud": 0,
-                 "voxel_segment_mean": 0, "min_label_pass": 0,
-                 "pointer_jumps": 0}
+                 "voxel_downsample": 1, "symmetry_search": 0}
+SYM_CALL_LAUNCHES = dict(CALL_LAUNCHES, symmetry_search=1)
 CALL_OPS_BEFORE = 830
+# f32 operations of one pair test of symmetry_search, counted from
+# csrc/frontend.cu: the dot product (3 multiplies, 2 adds), the norm sum,
+# the doubling, the difference, the compare and the select of the minimum
+SYM_PAIR_OPS = 10
+# the objects of the symmetry path's scene labelled 28 (dual reflection)
+SYM_DUAL_OBJECTS = (0, 6, 12, 18)
 # integer / f32 operations the fused downsamples need, counted from
 # csrc/frontend.cu: per live point its cell (3 divisions, 3 floors), the
 # least cell, its key (3 subtractions, 3 clamps, shifts and ors), three
@@ -120,14 +128,13 @@ CALL_OPS_BEFORE = 830
 # mean's 3 divisions and cell decode (9), for depth_cloud the world point
 # and plane distance (22)
 DS_OPS_POINT, DS_OPS_SLOT, DS_OPS_WORLD = 60, 12, 22
+# the functions of the JAX package (left to XLA there) that the frontend
+# kernels replace
 FE_REPLACES = {
     "depth_cloud": "object_oriented_slam_tpu/frontend/extractor.py:132",
     "voxel_downsample": "object_oriented_slam_tpu/ops/voxel.py:101",
-    "bbox_cloud": "object_oriented_slam_tpu/ops/backproject.py:28",
-    "voxel_segment_mean": "object_oriented_slam_tpu/ops/voxel.py:58",
-    "min_label_pass": "object_oriented_slam_tpu/ops/cluster.py:78",
-    "pointer_jumps": "object_oriented_slam_tpu/ops/cluster.py:214",
-    "cluster_components": "object_oriented_slam_tpu/ops/cluster.py:379"}
+    "cluster_components": "object_oriented_slam_tpu/ops/cluster.py:379",
+    "symmetry_search": "object_oriented_slam_tpu/frontend/symmetry.py:72"}
 REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
@@ -743,8 +750,8 @@ def busy_ms(fn, reps=5):
 
 
 def box_pixels(bboxes, H, W):
-    """[D] the strided pixels under each box, clipped as bbox_cloud and
-    depth_cloud clip them."""
+    """[D] the strided pixels under each box, clipped as depth_cloud (and
+    bbox_point_cloud_plain) clip them."""
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     b = bboxes.to(torch.int32)
     x1, y1 = b[:, 0].clamp(0, W - 1), b[:, 1].clamp(0, H - 1)
@@ -845,19 +852,12 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
     key, _ = vx.voxel_keys(pts_cam, m0, cfg.voxel_leaf)
     lib_ms, sort_ms, lib_err = library_yardstick(key, pts_cam.contiguous(),
                                                  cap)
-    world = dc.plane_world(pose_wc, plane, cfg.plane_clearance)
-
-    def single_steps():         # the main path's stage (a) before the fusion
-        p, m = bp.bbox_point_cloud(depth, bboxes, cam, cfg.depth_range)
-        return vx._voxel_core(p, m, cfg.voxel_leaf, cap, world)
-
     r = dict(kernel="depth_cloud", shape=(D, m0.shape[1], cap),
              max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
              ms=device_ms(lambda: dc.depth_cloud(*args, *rest), 20,
                           name="depth_cloud"),
              plain_ms=cuda_ms(lambda: dc.depth_cloud_plain(*args, *rest), 5),
              library_ms=lib_ms, sort_ms=sort_ms,
-             single_steps_ms=busy_ms(single_steps),
              live_points=live, box_pixels=int(n_pix.sum()))
     print(f"[frontend] {tag}: depth_cloud at D={D}, {int(n_pix.sum())} box "
           f"pixels ({int(n_pix.max())} in the largest box), {live} live "
@@ -868,8 +868,7 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
           f"card, max_abs_err there {err:.3g} (limit 1e-6); repeat "
           f"bit-equal; yardstick (sort + gather + segment_reduce) "
           f"{lib_ms} ms, max |mean - plain| {lib_err}; the stable sort "
-          f"alone {sort_ms:.4f} ms; bbox_cloud + keys + sort + "
-          f"voxel_segment_mean on the card {r['single_steps_ms']:.4f} ms")
+          f"alone {sort_ms:.4f} ms")
     return r
 
 
@@ -913,139 +912,36 @@ def voxel_downsample_checks(tag, pts, sel, leaf, capacity):
                           name="voxel_downsample"),
              plain_ms=cuda_ms(lambda: vx.voxel_downsample_plain(
                  pts, sel, leaf, capacity), 5),
-             library_ms=lib_ms, sort_ms=sort_ms,
-             single_steps_ms=busy_ms(lambda: vx._voxel_core(
-                 pts, sel, leaf, capacity)),
-             live_points=live)
+             library_ms=lib_ms, sort_ms=sort_ms, live_points=live)
     print(f"[frontend] {tag}: voxel_downsample at D={D}, {N} lanes, {live} "
           f"live points, capacity {capacity}: {int(got[2].sum())} voxels "
           f"(most in a detection {int(got[2].sum(1).max())}); bit-equal to "
           f"the plain version on the CPU, cells and masks equal to it on the "
           f"card, max_abs_err there {err:.3g} (limit 5e-6); repeat bit-equal; "
           f"yardstick {lib_ms} ms, max |mean - plain| {lib_err}; the stable "
-          f"sort alone {sort_ms:.4f} ms; keys + sort + voxel_segment_mean on "
-          f"the card {r['single_steps_ms']:.4f} ms")
+          f"sort alone {sort_ms:.4f} ms")
     return r, got
 
 
 def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
-                    uncompacted=False, whole_image=False):
+                    whole_image=False):
     """The depth-frontend kernels against their plain versions on the
     tensors ``extract_local_ellipsoids`` hands them for one frame: depth
     [H, W] int32, bboxes [D, 4] (padded lanes zero), pose_wc [7], plane [4],
     all on the card; ``cfg.cloud_capacity`` is the frame's cloud tier.  The
-    stages follow frontend/extractor.py: bbox_cloud at (D, grid), the first
-    voxel_segment_mean (grid -> tier, with the world epilogue), the
-    clustering (``cluster_checks``: the whole propagation in one launch,
-    and one round by the single-step kernels at the lanes the survivors
-    compact to and, with ``uncompacted``, at all tier lanes), the second
-    voxel_segment_mean (tier -> sym_capacity, no epilogue) on the selected
-    clusters; and the main path's two fused kernels: depth_cloud on the
-    frame's boxes (with ``whole_image``, the last box replaced by the whole
-    image) and voxel_downsample on the selected clusters.  Returns the
-    records and (tier, the largest survivor count)."""
-    from object_oriented_slam_tpu_torch.ops import backproject as bp
-    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    stages follow frontend/extractor.py: depth_cloud on the frame's boxes
+    (with ``whole_image``, the last box replaced by the whole image), the
+    clustering (``cluster_checks``: the whole propagation in one launch) on
+    depth_cloud's world clouds of the frame's boxes, and voxel_downsample on
+    the selected clusters.  Returns the records and (tier, the largest
+    survivor count)."""
     from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
-    from object_oriented_slam_tpu_torch.ops import voxel as vx
     recs = {}
-    D, G = bboxes.shape[0], bp.BBOX_GRID_H * bp.BBOX_GRID_W
     tier = cfg.cloud_capacity
 
-    def rec(name, kernel, **kw):
-        recs[f"{name} ({tag})"] = dict(kernel=kernel, **kw)
-
-    # --- K7 bbox_cloud
-    args = (depth, bboxes, cam, cfg.depth_range)
-    pts, mask = bp.bbox_point_cloud(*args)
-    again = bp.bbox_point_cloud(*args)
-    want = bp.bbox_point_cloud_plain(*args)
-    want_cpu = bp.bbox_point_cloud_plain(depth.cpu(), bboxes.cpu(), cam,
-                                         cfg.depth_range)
-    torch.cuda.synchronize()
-    if tuple(pts.shape) != (D, G, 3) or not all_bits((pts, mask), again):
-        raise RuntimeError(f"bbox_cloud ({tag}): wrong shape or repeats "
-                           "differ")
-    if not (torch.equal(mask, want[1]) and torch.equal(mask.cpu(),
-                                                       want_cpu[1])):
-        raise RuntimeError(f"bbox_cloud ({tag}): mask differs from the "
-                           "plain version")
-    err = max(float((pts - want[0]).abs().max()),
-              float((pts.cpu() - want_cpu[0]).abs().max()))
-    if err > 1e-6:
-        raise RuntimeError(f"bbox_cloud ({tag}) disagrees: {err:.3g}")
-    rec("bbox_cloud (K7)", "bbox_cloud", shape=(D, G), max_abs_err=err,
-        bound=bytes_bound([depth, bboxes, pts, mask]),
-        ms=device_ms(lambda: bp.bbox_point_cloud(*args), 20),
-        plain_ms=cuda_ms(lambda: bp.bbox_point_cloud_plain(*args), 10))
-    print(f"[frontend] {tag}: bbox_cloud at D={D}, grid {G}: "
-          f"{int(mask.sum())} valid points, mask equal, bits equal to the "
-          f"plain version on the card: {same_bits(pts, want[0])}, on the "
-          f"CPU: {same_bits(pts.cpu(), want_cpu[0])}, max_abs_err {err:.3g}")
-
-    def segment_mean(name, pts_in, mask_in, leaf, capacity, world, limit):
-        """One voxel_segment_mean launch against its plain version: bit for
-        bit against it on the CPU (index_add_ adds in sorted order there),
-        within ``limit`` against it on the card (atomic adds, in an order
-        that changes from run to run); returns the kernel's outputs."""
-        key, cmin = vx.voxel_keys(pts_in, mask_in, leaf)
-        key_s, order = torch.sort(key, dim=1, stable=True)
-        pts_in = pts_in.contiguous()
-        vargs = (key_s, order, pts_in, cmin, capacity, world)
-        got = vx.voxel_segment_mean(*vargs)
-        again = vx.voxel_segment_mean(*vargs)
-        card = vx.voxel_segment_mean_plain(*vargs)
-        world_cpu = None if world is None else vx.World(
-            world.R.cpu(), world.t.cpu(), world.plane.cpu(), world.den.cpu(),
-            world.clearance)
-        cpu = vx.voxel_segment_mean_plain(key_s.cpu(), order.cpu(),
-                                          pts_in.cpu(), cmin.cpu(), capacity,
-                                          world_cpu)
-        torch.cuda.synchronize()
-        if (got[3] is None) != (world is None) or not all_bits(got, again):
-            raise RuntimeError(f"{name} ({tag}): two launches differ in bits")
-        if not all_bits(got, cpu):
-            raise RuntimeError(f"{name} ({tag}) differs from the plain "
-                               "version on the CPU (sorted-order sums)")
-        if not (torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])):
-            raise RuntimeError(f"{name} ({tag}): cells or mask differ")
-        err = float((got[0] - card[0]).abs().max())
-        differ = 0
-        if world is not None:
-            err = max(err, float((got[3] - card[3]).abs().max()))
-            differ = int((got[4] != card[4]).sum())
-        if err > limit:
-            raise RuntimeError(f"{name} ({tag}) disagrees: {err:.3g}")
-        # the yardstick of the segment part alone: a gather into the sorted
-        # order and torch.segment_reduce's mean (the sort stays out)
-        lib_ms, _, lib_err = library_yardstick(key_s, torch.gather(
-            pts_in, 1, order[..., None].expand(-1, -1, 3)), capacity)
-        rec(name, "voxel_segment_mean",
-            shape=(D, pts_in.shape[1], capacity), max_abs_err=err,
-            bound=bytes_bound([key_s, order, pts_in, cmin, *got]),
-            ms=device_ms(lambda: vx.voxel_segment_mean(*vargs), 20,
-                         name="voxel_segment_mean"),
-            plain_ms=cuda_ms(lambda: vx.voxel_segment_mean_plain(*vargs), 5),
-            library_ms=lib_ms)
-        print(f"[frontend] {tag}: {name} at D={D}, {pts_in.shape[1]} sorted "
-              f"keys, capacity {capacity}, world epilogue "
-              f"{world is not None}: {int(got[2].sum())} voxels (most in a "
-              f"detection {int(got[2].sum(1).max())}); cells and masks equal, "
-              f"bits equal to the plain version on the CPU, max_abs_err vs "
-              f"the card's (atomic sums) {err:.3g} (limit {limit:g}), "
-              f"{differ} plane-mask "
-              f"lanes differ there; repeat bit-equal")
-        return got
-
-    # --- K6, first launch: 1 cm voxels of the bbox cloud, with the world
-    # transform and the supporting-plane mask in the epilogue
-    world = dc.plane_world(pose_wc, plane, cfg.plane_clearance)
-    got = segment_mean("voxel_segment_mean (K6, cloud)", pts, mask,
-                       cfg.voxel_leaf, tier, world, 1e-6)
-    pts_w, m2 = got[3], got[4]
-
-    # --- depth_cloud: K7, the first downsample with its keys and sort, and
-    # the centre estimate in one launch (the main path's)
+    # --- depth_cloud: back-projection, the first downsample with its keys
+    # and sort, the world transform, the plane mask and the centre estimate
+    # in one launch (the main path's)
     dc_boxes = bboxes
     if whole_image:
         H, W = depth.shape
@@ -1055,42 +951,26 @@ def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
         tag, depth, dc_boxes, pose_wc, plane, cam, cfg)
 
     # --- K5: the whole propagation in one launch (cluster_components, the
-    # main path's), and one pass / 12 jumps by the single-step entry points
-    # at the lanes the survivors compact to
-    tol = cfg.cluster_tolerance
-    centre, _ = bp.center_estimate(depth, bboxes, cam, cfg.depth_range)
-    centre_w = (centre @ world.R.T + world.t).contiguous()
+    # main path's), on the world clouds of the frame's own boxes
+    got = dc.depth_cloud(depth, bboxes, pose_wc, plane, cam, cfg.voxel_leaf,
+                         cfg.depth_range, cfg.plane_clearance, tier)
+    pts_w, m2 = got.pts_w, got.m2
     k5, sel, ok = cluster_checks(
-        dev, tag, pts_w, m2, tol, cfg.cluster_iters, cfg.cluster_chains,
-        (centre_w, cfg.cluster_min_size, cfg.cluster_center_dis),
-        uncompacted, frame=world.R.T.contiguous())
+        dev, tag, pts_w, m2, cfg.cluster_tolerance, cfg.cluster_iters,
+        cfg.cluster_chains,
+        (got.center_w, cfg.cluster_min_size, cfg.cluster_center_dis),
+        frame=got.R_wc.T.contiguous())
     recs.update({f"{k} ({tag})": r for k, r in k5.items()})
     survivors = int(m2.sum(1).max())
 
-    # --- K6, second launch: the 0.1 m downsample of the selected clusters
-    # (no epilogue: the world pointers are null).  A 0.1 m cell holds up to
-    # hundreds of points at |coordinate| up to ~4 m, so the card's atomic
-    # sums move a centroid by a few ulp of 4 (4.8e-7 each): limit 5e-6
-    got = segment_mean("voxel_segment_mean (K6, object)", pts_w, sel,
-                       cfg.sym_grid, cfg.sym_capacity, None, 5e-6)
-    if not (int(ok.sum()) >= 1 and int(got[2].sum()) >= int(ok.sum())):
-        raise RuntimeError(f"the object downsample ({tag}) is empty: "
-                           f"{int(ok.sum())} clusters selected")
-    # --- voxel_downsample: the same downsample with its keys and sort in one
-    # launch (the main path's)
+    # --- voxel_downsample: the 0.1 m object downsample with its keys and
+    # sort in one launch (the main path's)
     r, fused = voxel_downsample_checks(tag, pts_w, sel, cfg.sym_grid,
                                        cfg.sym_capacity)
-    if not (torch.equal(fused[2], got[2]) and same_bits(fused[0], got[0])):
-        raise RuntimeError(f"voxel_downsample ({tag}) and the single steps "
-                           "differ")
+    if not (int(ok.sum()) >= 1 and int(fused[2].sum()) >= int(ok.sum())):
+        raise RuntimeError(f"the object downsample ({tag}) is empty: "
+                           f"{int(ok.sum())} clusters selected")
     recs[f"voxel_downsample ({tag})"] = r
-    # beside each, the bounds of the single-step launches it replaced
-    b = {k: recs[f"{k} ({tag})"]["bound"][0] for k in (
-        "bbox_cloud (K7)", "voxel_segment_mean (K6, cloud)",
-        "voxel_segment_mean (K6, object)")}
-    recs[f"depth_cloud ({tag})"]["single_steps_bound_ms"] = (
-        b["bbox_cloud (K7)"] + b["voxel_segment_mean (K6, cloud)"])
-    r["single_steps_bound_ms"] = b["voxel_segment_mean (K6, object)"]
 
     for k, r in recs.items():
         r["max_rel_err"] = r["max_abs_err"]
@@ -1138,20 +1018,17 @@ def tested_pairs(pts_c, nrm, m, frame, tol2, P):
 
 
 def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
-                   uncompacted=False, must_converge=True, frame=None):
+                   must_converge=True, frame=None):
     """K5 on one frame's world clouds pts_w [D, N, 3] and survivor masks m2
     [D, N]: ``cluster_components`` against ``cluster_components_plain`` on
     the card (labels, converged and rounds equal; two launches equal; the
     streamed branch, forced by the least shared memory, equal too), its
-    device time beside its bound and beside the loop of the two single-step
-    kernels on the same input; ``cluster_select`` (the same launch with the
-    selection epilogue; ``select`` = (centre estimates [D, 3], min_size,
-    center_dis)) against ``cluster_select_plain``; then one
-    ``min_label_pass`` and 12 ``pointer_jumps`` against their plain
-    versions.  ``frame``: the rotation the cloud is sorted in, as the
-    extractor passes it (None: the axes of the points' coordinates).
-    Returns (records by name, the chosen clusters' masks, their ok
-    flags)."""
+    device time beside its bound; ``cluster_select`` (the same launch with
+    the selection epilogue; ``select`` = (centre estimates [D, 3], min_size,
+    center_dis)) against ``cluster_select_plain``.  ``frame``: the rotation
+    the cloud is sorted in, as the extractor passes it (None: the axes of
+    the points' coordinates).  Returns (records by name, the chosen
+    clusters' masks, their ok flags)."""
     from object_oriented_slam_tpu_torch.ops import cluster as cl
     recs = {}
     D, N = m2.shape
@@ -1200,14 +1077,6 @@ def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
     bytes_ms = io + jump_bytes / PEAK_BYTES * 1e3
     b_cc = max((ops_ms, "operations"), (bytes_ms, "bytes"))
     all_pairs_ms = max(all_pairs * PAIR_OPS / PEAK_F32 * 1e3, bytes_ms)
-
-    def two_kernel_loop():
-        return cl._rounds_loop(cl.min_label_pass, cl.pointer_jumps, *args,
-                               outer_iters, 12)
-
-    if not all(torch.equal(g, w) for g, w in zip(two_kernel_loop(), want)):
-        raise RuntimeError(f"the two-kernel loop ({tag}) differs from the "
-                           "plain version")
     r_max = int(rounds.max())
     cc_ms, cc_events = checked_device_ms(lambda: cl.cluster_components(
         *args, outer_iters, 12, frame=frame), 10, "cluster_components")
@@ -1221,8 +1090,7 @@ def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
         every_pair_ms=device_ms(lambda: tuned(prune=False), 5,
                                 name="cluster_components"),
         world_axes_ms=device_ms(lambda: cl.cluster_components(
-            *args, outer_iters, 12), 5, name="cluster_components"),
-        loop_ms=cuda_ms(two_kernel_loop, 3, 1))
+            *args, outer_iters, 12), 5, name="cluster_components"))
     n_comp = [int((labels[d][m[d]]).unique().numel()) for d in range(D)]
     print(f"[frontend] {tag}: cluster_components at D={D}, N={N} lanes "
           f"({int(n_d.max())} survivors at most, {int((n_d > 0).sum())} live "
@@ -1269,49 +1137,6 @@ def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
           f"launch bit-equal; {recs['cluster_select (K5)']['ms']:.4f} ms "
           f"against {cc_ms:.4f} ms without the epilogue")
 
-    # --- one pass and 12 jumps by the single-step entry points
-    sub, m_k, (pts_k, nrm_k) = cl._compact(m, pts_c, nrm)
-    shapes = {"compacted": (pts_k, nrm_k, m_k)}
-    if uncompacted:
-        shapes["all lanes"] = (pts_c, nrm, m)
-    for lanes, (pc, nr, mk) in shapes.items():
-        L = mk.shape[1]
-        lab0 = torch.where(mk, torch.arange(L, dtype=torch.int32,
-                                            device=dev), L)
-        out = cl.min_label_pass(pc, nr, mk, lab0, tol2)
-        out2 = cl.min_label_pass(pc, nr, mk, lab0, tol2)
-        ref = cl.min_label_pass_plain(pc, nr, mk, lab0, tol2)
-        jumped, changed = cl.pointer_jumps(out.clone(), lab0, 12)
-        jref, cref = cl.pointer_jumps_plain(ref, lab0, 12)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, ref) and torch.equal(out, out2)):
-            raise RuntimeError(f"min_label_pass ({tag}, {lanes}): labels "
-                               "differ from the plain version or between "
-                               "launches")
-        if not (torch.equal(jumped, jref) and torch.equal(changed, cref)):
-            raise RuntimeError(f"pointer_jumps ({tag}, {lanes}) differs from "
-                               "its plain version")
-        scratch = out.clone()
-        recs[f"min_label_pass (K5, {lanes})"] = dict(
-            kernel="min_label_pass", shape=(D, L), max_abs_err=0.0,
-            bound=max((float((n_d * n_d).sum()) * PAIR_OPS / PEAK_F32 * 1e3,
-                       "operations"),
-                      bytes_bound([pc, nr, mk, lab0, out])),
-            ms=device_ms(lambda: cl.min_label_pass(pc, nr, mk, lab0, tol2),
-                         10),
-            plain_ms=cuda_ms(lambda: cl.min_label_pass_plain(
-                pc, nr, mk, lab0, tol2), 2, 1))
-        recs[f"pointer_jumps (K5, {lanes})"] = dict(
-            kernel="pointer_jumps", shape=(D, L), max_abs_err=0.0,
-            bound=bytes_bound([scratch, scratch, lab0, changed]),
-            ms=device_ms(lambda: cl.pointer_jumps(scratch, lab0, 12), 10),
-            plain_ms=cuda_ms(lambda: cl.pointer_jumps_plain(out, lab0, 12),
-                             5))
-        print(f"[frontend] {tag}: min_label_pass + pointer_jumps ({lanes}) "
-              f"at D={D}, {L} lanes: labels and changed flags equal to the "
-              f"plain versions, repeat equal")
-    step = (recs["min_label_pass (K5, compacted)"]["ms"]
-            + recs["pointer_jumps (K5, compacted)"]["ms"])
     r = recs["cluster_components (K5)"]
     print(f"[frontend] {tag}: cluster_components {cc_ms:.4f} ms by the "
           f"profiler, {cc_events:.4f} ms by CUDA events around the same "
@@ -1321,11 +1146,8 @@ def cluster_checks(dev, tag, pts_w, m2, tol, outer_iters, chains, select,
           f"({r['every_pair_ms']:.4f} ms with every pair tested, "
           f"{r['world_axes_ms']:.4f} ms with the boxes along the world's "
           f"axes: no sort frame given) for "
-          f"{r_max} rounds at most, {bound_text(cc_ms, b_cc)}; the two "
-          f"single-step kernels on the same input: {r_max} x {step:.4f} = "
-          f"{r_max * step:.4f} ms of device time, {r['loop_ms']:.3f} ms as a "
-          f"loop with its compaction and its host read per round (CUDA "
-          f"events); plain version {r['plain_ms']:.3f} ms")
+          f"{r_max} rounds at most, {bound_text(cc_ms, b_cc)}; plain "
+          f"version {r['plain_ms']:.3f} ms")
     return recs, sel, ok
 
 
@@ -1401,8 +1223,8 @@ def phase_frontend_kernels(dev, path):
     # the main path's shapes: the frame goes through the extractor's own
     # packing (detection lanes padded to a power of two, cloud tier)
     (_, _, pose, depth, _, det), plane, stats = path
-    flat, pad, _, cfg_t = _pack_frame(cam, cfg, det[:, 1:5].copy(), pose,
-                                      plane)
+    flat, pad, _, cfg_t, _ = _pack_frame(cam, cfg, det[:, 1:5].copy(),
+                                         det[:, 5].astype(int), pose, plane)
     flat_d = torch.from_numpy(flat).to(dev)
     depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)).to(dev)
     recs, (tier, lanes) = frontend_checks(
@@ -1429,31 +1251,41 @@ def phase_frontend_kernels(dev, path):
         dev, "full tier", depth_d, bboxes,
         torch.as_tensor(pose, dtype=torch.float32, device=dev),
         torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev), cam,
-        ExtractorConfig(cloud_capacity=FE_TIER), uncompacted=True,
-        whole_image=True)
+        ExtractorConfig(cloud_capacity=FE_TIER), whole_image=True)
     full.update({f"{k} (dense)": r for k, r in cluster_extremes(dev).items()})
     return recs, full
 
 
-def phase_depth_path(dev, tmp):
-    """The depth main path on the card; returns every kernel's launches and
-    (the mid-orbit frame, the latched plane, the extractor's stats of that
-    frame) for the kernel phase."""
+def extractor_config(settings):
+    """ExtractorConfig of a settings file: symmetry completion as its
+    EllipsoidExtraction.Symmetry.Open says (examples/run_tum.py reads it so);
+    the other keys of the in-repo files are the defaults."""
+    from object_oriented_slam_tpu_torch.frontend import ExtractorConfig
+    from object_oriented_slam_tpu_torch.io.config import Config
+    return ExtractorConfig(open_symmetry=Config(settings).get_int(
+        "EllipsoidExtraction.Symmetry.Open") == 1)
+
+
+def drive_depth_path(dev, tmp, settings_name, scene):
+    """System with the extractor and the plane estimator (both on the card
+    by default) over the N_DEPTH_FRAMES orbit of ``scene`` with rendered
+    depth, every launch counter set to 0 just before and read just after.
+    Returns (System, frames, e2e seconds per frame, the extractor's stats
+    per frame, the frame the plane latched on, launches)."""
     from object_oriented_slam_tpu_torch.backend import ba_kernels
     from object_oriented_slam_tpu_torch.frontend import (
-        ExtractorConfig, make_extractor, make_plane_estimator)
+        make_extractor, make_plane_estimator)
     from object_oriented_slam_tpu_torch.io.synthetic import SyntheticDataset
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     from object_oriented_slam_tpu_torch.system import System
 
-    scene = scene24()
     cam = scene.camera
     ds = SyntheticDataset(scene, n_frames=N_DEPTH_FRAMES, orbit_radius=3.6,
                           height=1.7, depth_device=dev)
     frames = list(ds.frames())       # set-up: depth rendered up front
-    extractor = make_extractor(cam, ExtractorConfig())
-    slam = System(write_settings(tmp, "synthetic_depth.yaml"),
-                  extractor=extractor,
+    settings = write_settings(tmp, settings_name)
+    extractor = make_extractor(cam, extractor_config(settings))
+    slam = System(settings, extractor=extractor,
                   plane_estimator=make_plane_estimator(cam))
     if slam.tracker.device.type != "cuda" or extractor.device.type != "cuda":
         raise RuntimeError("the depth path does not default to the card")
@@ -1475,7 +1307,28 @@ def phase_depth_path(dev, tmp):
             latched_at = i
     tr.sync()
     launches = {k.name: k.launches for k in all_kernels}
+    return slam, frames, e2e, stats, latched_at, launches
 
+
+def path_times(tr, e2e):
+    """e2e, extraction (dispatch + wait + copy) and backend ms per frame."""
+    e2e_ms = np.array(e2e) * 1e3
+    ext_ms = (np.array(tr.metrics["dispatch"])
+              + np.array(tr.metrics["fetch"])) * 1e3
+    backend_ms = np.array(tr.metrics["backend"]) * 1e3
+    return e2e_ms, ext_ms, backend_ms
+
+
+def phase_depth_path(dev, tmp):
+    """The depth main path on the card; returns every kernel's launches and
+    (the mid-orbit frame, the latched plane, the extractor's stats of that
+    frame) for the kernel phase, and the busy ms and device operations of
+    one extraction call."""
+    scene = scene24()
+    slam, frames, e2e, stats, latched_at, launches = drive_depth_path(
+        dev, tmp, "synthetic_depth.yaml", scene)
+    tr = slam.tracker
+    extractor = tr.extractor
     objs = slam.map_objects
     st = tr.state
     errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
@@ -1489,10 +1342,7 @@ def phase_depth_path(dev, tmp):
     lanes = np.array([s["cluster_lanes"] for s in ran])
     unconverged = [i for i, s in enumerate(stats)
                    if s and not s["cluster_converged"]]
-    e2e_ms = np.array(e2e) * 1e3
-    ext_ms = (np.array(tr.metrics["dispatch"])
-              + np.array(tr.metrics["fetch"])) * 1e3
-    backend_ms = np.array(tr.metrics["backend"]) * 1e3
+    e2e_ms, ext_ms, backend_ms = path_times(tr, e2e)
     plane = st.ground_plane
     if plane is None:
         raise RuntimeError("the ground plane never latched")
@@ -1531,11 +1381,11 @@ def phase_depth_path(dev, tmp):
         raise RuntimeError(f"ground plane latched at frame {latched_at}")
     if not (tilt < 2.0 and abs(plane[3]) < 0.02):
         raise RuntimeError(f"ground plane off z = 0: {plane}")
-    if min(n for k, n in launches.items() if k not in SINGLE_STEP) <= 0:
+    if min(n for k, n in launches.items() if k != "symmetry_search") <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
-    if any(launches[k] for k in SINGLE_STEP):
-        raise RuntimeError(f"the path launched a single-step kernel: "
-                           f"{launches}")
+    if launches["symmetry_search"]:
+        raise RuntimeError(f"the path without symmetry launched "
+                           f"symmetry_search: {launches}")
     if len(objs) < 16 or by_3d < 1:
         raise RuntimeError(f"{len(objs)} of 24 objects initialized, {by_3d} "
                            "from a 3D estimate")
@@ -1557,17 +1407,21 @@ def phase_depth_path(dev, tmp):
         raise RuntimeError(f"clustering rounds per frame (min, median, max) "
                            f"{got_rounds}, expected {PATH_ROUNDS} +- 2")
     mid = len(frames) // 2
-    extraction_overhead(extractor, frames[mid], st.ground_plane)
-    return launches, (frames[mid], st.ground_plane, stats[mid])
+    call = extraction_overhead("depth", extractor, frames[mid],
+                               st.ground_plane, CALL_LAUNCHES)
+    if not call[1] < CALL_OPS_BEFORE:
+        raise RuntimeError(f"an extraction call is {call[1]} device "
+                           f"operations, not fewer than {CALL_OPS_BEFORE}")
+    return launches, (frames[mid], st.ground_plane, stats[mid]), call
 
 
-def extraction_overhead(extractor, frame, ground_plane):
+def extraction_overhead(tag, extractor, frame, ground_plane, expect):
     """One extraction call (a mid-orbit frame) under the profiler: wall
     time, device busy time, device operations and how many of them are the
-    frontend kernels' launches.  Raises unless the call is three frontend
-    launches (CALL_LAUNCHES) of fewer device operations than the four-launch
-    call's (CALL_OPS_BEFORE) and nothing between its argument copies and
-    its result copy makes the host wait for the device."""
+    frontend kernels' launches.  Raises unless the call's frontend launches
+    are ``expect`` and nothing between its argument copies and its result
+    copy makes the host wait for the device.  Returns (busy ms, device
+    operations)."""
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     _, _, pose, depth, _, det = frame
 
@@ -1587,7 +1441,8 @@ def extraction_overhead(extractor, frame, ground_plane):
     # .cpu(), a copy from pageable host memory or a stream synchronisation
     # between upload and fetch is an error
     per_call = {k.name: k.launches for k in fk.KERNELS}
-    up = extractor.upload(depth, det[:, 1:5].copy(), pose, ground_plane)
+    up = extractor.upload(depth, det[:, 1:5].copy(), det[:, 5].astype(int),
+                          pose, ground_plane)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = extractor.run(*up)
@@ -1597,12 +1452,12 @@ def extraction_overhead(extractor, frame, ground_plane):
     per_call = {k.name: k.launches - per_call[k.name] for k in fk.KERNELS}
     if sum(k.launches for k in fk.KERNELS) == before:
         raise RuntimeError("the extraction call launched no kernel")
-    if per_call != CALL_LAUNCHES:
+    if per_call != expect:
         raise RuntimeError(f"an extraction call launched {per_call}, not "
-                           f"{CALL_LAUNCHES}")
+                           f"{expect}")
     if host.shape != (out.shape[0], 12) or not np.isfinite(host).all():
         raise RuntimeError("the fetched extraction result is malformed")
-    print(f"[depth] one extraction call ({len(det)} detections, "
+    print(f"[{tag}] one extraction call ({len(det)} detections, "
           f"{extractor.stats}): {wall:.3f} ms wall (host clock, mean of 5, "
           f"copies of the depth image and the arguments included); device "
           f"busy {busy:.3f} ms over {ops} device operations, "
@@ -1610,9 +1465,246 @@ def extraction_overhead(extractor, frame, ground_plane):
           f"{per_call}; no host synchronisation between the argument copies "
           f"and the result copy; device idle share {1 - busy / wall:.3f}; "
           f"top kernels (name, launches, ms) {top}")
-    if not ops < CALL_OPS_BEFORE:
-        raise RuntimeError(f"an extraction call is {ops} device operations, "
-                           f"not fewer than {CALL_OPS_BEFORE}")
+    return busy, ops
+
+
+def scene24_sym():
+    """scene24 with explicit labels: the seed-7 draw (reflections 57, 59, 62,
+    63 and the 56, 58, 60, 61 without a prior) with four objects spread
+    round the ring set to 28 (dual reflection).  The labels are drawn after
+    the geometry, so the objects are scene24's."""
+    from object_oriented_slam_tpu_torch.io.synthetic import make_scene
+    labels = scene24().labels.copy()
+    labels[list(SYM_DUAL_OBJECTS)] = 28
+    return make_scene(n_objects=24, seed=SEED, radius_range=(1.3, 2.2),
+                      scale_range=(0.2, 0.4), labels=labels)
+
+
+def phase_symmetry_path(dev, tmp, depth_call):
+    """The depth path with symmetry completion (synthetic_depth_sym.yaml)
+    on the card; returns every kernel's launches and the mid-orbit frame,
+    the latched plane and the extractor's stats of it for the kernel phase.
+    ``depth_call``: (busy ms, device operations) of the three-launch call,
+    printed beside this path's four-launch call."""
+    from object_oriented_slam_tpu_torch.frontend.symmetry import \
+        sym_type_of_labels
+    scene = scene24_sym()
+    slam, frames, e2e, stats, latched_at, launches = drive_depth_path(
+        dev, tmp, "synthetic_depth_sym.yaml", scene)
+    tr = slam.tracker
+    if not tr.extractor.cfg.open_symmetry:
+        raise RuntimeError("synthetic_depth_sym.yaml did not turn symmetry on")
+    objs = slam.map_objects
+    errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                     for i, v in objs.items()])
+    e2e_ms, ext_ms, backend_ms = path_times(tr, e2e)
+    ran = [s for s in stats if s]
+    searched = sum(1 for s in ran if s["sym_single"] + s["sym_dual"])
+    duals = sum(1 for s in ran if s["sym_dual"])
+    probs = np.array([p for r in tr.state.objects.values()
+                      for p in r.obs3d_prob])
+    types = sym_type_of_labels(scene.labels)
+    print(f"[symmetry] {len(frames)} frames, labels {scene.labels.tolist()} "
+          f"(types: {int((types == 1).sum())} reflections, "
+          f"{int((types == 2).sum())} dual, {int((types == 0).sum())} none); "
+          f"ground plane latched at frame {latched_at}")
+    print(f"[symmetry] {len(objs)}/24 objects initialized; centre error vs "
+          f"ground truth: median {np.median(errs):.3g} m, max "
+          f"{errs.max():.3g} m; stored 3D observations {len(probs)}, "
+          f"symmetry prob min {probs.min():.4f} median "
+          f"{np.median(probs):.4f}")
+    print(f"[symmetry] e2e ms/frame p50 {np.median(e2e_ms):.3f} mean "
+          f"{e2e_ms.mean():.3f} p99 {np.percentile(e2e_ms, 99):.3f}; "
+          f"extraction (dispatch + wait + copy) p50 {np.median(ext_ms):.3f} "
+          f"mean {ext_ms.mean():.3f} p99 {np.percentile(ext_ms, 99):.3f}; "
+          f"backend mean {backend_ms.mean():.3f} over all frames, "
+          f"{backend_ms.sum() / max(tr._backend_calls, 1):.3f} over the "
+          f"{tr._backend_calls} with an LM call (host clock, synchronized "
+          f"per frame)")
+    print(f"[symmetry] extraction ran on {len(ran)} frames, {searched} of "
+          f"them with a detection of type 1 or 2 ({duals} with a dual); "
+          f"kernel launches in the path: {launches}")
+    if latched_at != 0:
+        raise RuntimeError(f"ground plane latched at frame {latched_at}")
+    if len(objs) != 24:
+        raise RuntimeError(f"{len(objs)} of 24 objects initialized")
+    if not np.median(errs) <= 0.05:
+        raise RuntimeError(f"median centre error {np.median(errs):.3g} m")
+    if launches["symmetry_search"] != searched or not duals:
+        raise RuntimeError(
+            f"symmetry_search launched {launches['symmetry_search']} times "
+            f"for {searched} frames with a detection of type 1 or 2 ({duals} "
+            "with a dual)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    if not (np.isfinite(probs).all() and (probs < 1).any()
+            and (probs > 1e-8).all()):
+        raise RuntimeError("the stored symmetry probs are not in (1e-8, 1]")
+    mid = len(frames) // 2
+    busy, ops = extraction_overhead("symmetry", tr.extractor, frames[mid],
+                                    tr.state.ground_plane, SYM_CALL_LAUNCHES)
+    print(f"[symmetry] the four-launch call: {ops} device operations, busy "
+          f"{busy:.3f} ms; the depth path's three-launch call: "
+          f"{depth_call[1]} device operations, busy {depth_call[0]:.3f} ms")
+    return launches, (frames[mid], tr.state.ground_plane, stats[mid])
+
+
+def sym_passes(analytic, dual, iters=5):
+    """Cost passes of one initial plane's search: 1 + 2 iters with the
+    exact gradient, 1 + iters (2 n_par + 1) with central differences."""
+    n_par = 3 if dual else 2
+    return 1 + 2 * iters if analytic else 1 + iters * (2 * n_par + 1)
+
+
+def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
+                    analytic):
+    """symmetry_search (K8) against estimate_symmetry_plain on the card, on
+    the same inputs: every searched detection's 9 initial planes, params
+    within 1e-4 and costs within 1e-5 relative, the same winner unless the
+    two best probs lie within 1e-6, whether the bits are equal, and a
+    second launch bit-equal.  Its time beside its bound (the pair tests
+    this data needs, SYM_PAIR_OPS each), the plain version's time and the
+    yardstick (torch.cdist + torch.amin of one pass, times the passes).
+    Returns its record."""
+    from object_oriented_slam_tpu_torch.frontend import symmetry as sym
+    from object_oriented_slam_tpu_torch.ops import backproject as bp
+    cfg = sym.SymmetryConfig(analytic_grad=analytic)
+    args = (pts, mask, bbox, pose_oc, depth, types, run, cam, cfg)
+    got = sym.estimate_symmetry(*args)
+    again = sym.estimate_symmetry(*args)
+    proj = bp.proj_depth_map(depth, cam)
+    want = sym.estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj, types,
+                                       run, cam, cfg)
+    torch.cuda.synchronize()
+    if not all_bits(got, again):
+        raise RuntimeError(f"symmetry_search ({tag}): two launches differ")
+    bits = all_bits(got, want)
+    live = (run & (types > 0)).cpu()
+    gi, wi = got.inits.cpu()[live], want.inits.cpu()[live]
+    p_err = float((gi[..., :3] - wi[..., :3]).abs().max())
+    c_err = rel_err(gi[..., 3], wi[..., 3])
+    same_winner = True
+    for d in range(gi.shape[0]):
+        top = wi[d, :, 4].sort().values[-2:]
+        if float(top[1] - top[0]) > 1e-6:
+            same_winner &= int(gi[d, :, 4].argmax()) == int(
+                wi[d, :, 4].argmax())
+    off = (~live).nonzero().flatten()
+    if not (p_err <= 1e-4 and c_err <= 1e-5 and same_winner):
+        raise RuntimeError(
+            f"symmetry_search ({tag}) disagrees with its plain version: "
+            f"params {p_err:.3g}, costs {c_err:.3g} relative, same winner "
+            f"{same_winner}")
+    if bool(got.inits.cpu()[off].any()) or bool(got.prob.cpu()[off].any()):
+        raise RuntimeError(f"symmetry_search ({tag}) searched a detection of "
+                           "type 0 or off the run mask")
+    # the work this data needs
+    n = mask.sum(1).cpu()
+    pairs, groups = 0.0, {}
+    for d in live.nonzero().flatten().tolist():
+        dual = int(types[d]) == 2
+        P, passes = 1 + dual, sym_passes(analytic, dual)
+        pairs += 9 * passes * P * float(n[d]) * float(n[d])
+        groups.setdefault(dual, []).append(d)
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        pts, mask, bbox, pose_oc, types, run, *got))
+    t_o = pairs * SYM_PAIR_OPS / PEAK_F32 * 1e3
+    t_b = n_bytes / PEAK_BYTES * 1e3
+    # the yardstick: one pass's mirrored points against the live points by
+    # torch.cdist and torch.amin, batched over detection and initial plane
+    # at the most live points of the group, times the group's passes
+    yard = 0.0
+    for dual, rows in groups.items():
+        m = int(n[rows].max())
+        q = pts[rows][:, None, :m].expand(-1, 9, -1, -1).reshape(
+            -1, m, 3).contiguous()
+        ref = q.clone()
+        if dual:
+            q = torch.cat([q, q], 1)
+        yard += busy_ms(lambda: torch.cdist(q, ref).amin(-1)) * \
+            sym_passes(analytic, dual)
+    r = dict(kernel="symmetry_search", shape=tuple(pts.shape),
+             max_abs_err=max(p_err, float((got.prob - want.prob).abs().max())),
+             max_rel_err=c_err, bits_equal=bits,
+             bound=max((t_b, "bytes"), (t_o, "operations")),
+             ms=device_ms(lambda: sym.estimate_symmetry(*args), 10,
+                          name="symmetry_search"),
+             plain_ms=cuda_ms(lambda: sym.estimate_symmetry_plain(
+                 pts, mask, bbox, pose_oc, proj, types, run, cam, cfg), 1, 1),
+             library_ms=yard, pair_tests=pairs,
+             searched=int(live.sum()), live_points=int(n[live].sum()))
+    print(f"[frontend] symmetry ({tag}, {'analytic' if analytic else 'central'}"
+          f"): {int(live.sum())} detections searched (types "
+          f"{types.tolist()}), live points {n.tolist()}: 9 inits' params "
+          f"within {p_err:.3g} (limit 1e-4), costs within {c_err:.3g} "
+          f"relative (limit 1e-5), same winners, bits equal to the plain "
+          f"version on the card: {bits}; repeat bit-equal; kernel "
+          f"{r['ms']:.4f} ms, {bound_text(r['ms'], r['bound'])} "
+          f"({pairs:.4g} pair tests); plain {r['plain_ms']:.3f} ms; "
+          f"yardstick (cdist + amin x passes) {yard:.4f} ms")
+    return r
+
+
+def full_symmetry_inputs(dev, D=8, S=512, seed=SEED):
+    """sym_capacity filled: D detections of S live points each, all dual,
+    half of each cloud mirrored across y = 0 (a symmetric object) and the
+    near camera of the path over a wall that occludes part of the mirror."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((D, S, 3), np.float32)
+    for d in range(D):
+        half = rng.uniform(-0.4, 0.4, (S // 2, 3)).astype(np.float32)
+        half[:, 1] = np.abs(half[:, 1]) * 0.5 + 0.01
+        pts[d] = np.concatenate([half, half * np.float32([1, -1, 1])])
+        pts[d] += rng.normal(0, 0.005, (S, 3)).astype(np.float32)
+    mask = np.ones((D, S), bool)
+    bbox = np.tile(np.float32([120, 80, 520, 400]), (D, 1))
+    pose = np.tile(np.float32([0.1, -0.05, -2.5, 0, 0, 0, 1]), (D, 1))
+    depth = np.full((480, 640), 11000, np.int32)
+    depth[:, :260] = 0
+    return [torch.from_numpy(t).to(dev) for t in (pts, mask, bbox, pose,
+                                                  depth)] + [
+        torch.full((D,), 2, dtype=torch.int32, device=dev),
+        torch.ones(D, dtype=torch.bool, device=dev)]
+
+
+def phase_symmetry_kernel(dev, path):
+    """K8 against its plain version at the shapes the symmetry path gave it
+    on its mid-orbit frame (the frame through the extractor's own packing
+    and stages (a)-(f) on the card), single and dual detections in one
+    launch, with the exact gradient and with central differences; then at
+    sym_capacity filled (8 detections x 512 live points, dual).  Returns
+    (path records, full-shape records)."""
+    from object_oriented_slam_tpu_torch.core import se3
+    from object_oriented_slam_tpu_torch.frontend import extractor as text
+    scene = scene24_sym()
+    cam = scene.camera
+    (_, _, pose, depth, _, det), plane, stats = path
+    cfg = text.ExtractorConfig(open_symmetry=True)
+    flat, pad, _, cfg_t, n_sym = text._pack_frame(
+        cam, cfg, det[:, 1:5].copy(), det[:, 5].astype(int), pose, plane)
+    if (n_sym[0], n_sym[1]) != (stats["sym_single"], stats["sym_dual"]) \
+            or not (n_sym[0] and n_sym[1]):
+        raise RuntimeError(f"the mid-orbit frame has {n_sym} single / dual "
+                           f"detections, the path's stats {stats}")
+    flat_d = torch.from_numpy(flat).to(dev)
+    depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)).to(dev)
+    bb = flat_d[:pad * 4].reshape(pad, 4)
+    pose_d = flat_d[pad * 6:pad * 6 + 7]
+    plane_d = flat_d[pad * 6 + 7:pad * 6 + 11]
+    a = text._stage_a(depth_d, bb, pose_d, plane_d, cam, cfg_t)
+    sel, _ = text._cluster_select_batch(a[1], a[3], a[4], a[7], cfg_t)
+    Two, pts_n, obj_m = text._stage_post(a[1], sel, plane_d, cfg_t)
+    pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_d.expand(pad, 7))
+    types = flat_d[pad * 5:pad * 6].to(torch.int32)
+    run = flat_d[pad * 4:pad * 5] > 0.5
+    args = (pts_n.contiguous(), obj_m.contiguous(), bb.contiguous(),
+            pose_oc.contiguous(), depth_d, types, run, cam)
+    recs = {f"symmetry_search (path, {'analytic' if an else 'central'})":
+            symmetry_checks("path", *args, an) for an in (True, False)}
+    full_args = (*full_symmetry_inputs(dev), cam)
+    full = {"symmetry_search (full, analytic)":
+            symmetry_checks("full", *full_args, True)}
+    return recs, full
 
 
 def main():
@@ -1643,13 +1735,16 @@ def main():
     phase_whole_lm(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches_2d = phase_main_path(dev, tmp)
-        launches, path = phase_depth_path(dev, tmp)
+        launches, path, depth_call = phase_depth_path(dev, tmp)
+        launches_sym, path_sym = phase_symmetry_path(dev, tmp, depth_call)
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
+    sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
 
-    def record(name, r, source, replaces, on_path=True, **more):
+    def record(name, r, source, replaces, path_launches=None, **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": launches[r["kernel"]] if on_path else 0,
+                "launches": (path_launches[r["kernel"]]
+                             if path_launches is not None else 0),
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1658,41 +1753,41 @@ def main():
                 "library_ms": r.get("library_ms"), "shape": list(r["shape"]),
                 **{k: r[k] for k in (
                     "events_ms", "all_pairs_bound_ms", "tested_pairs",
-                    "all_pairs", "every_pair_ms", "world_axes_ms", "loop_ms",
-                    "sort_ms", "single_steps_ms", "single_steps_bound_ms",
-                    "live_points", "box_pixels")
+                    "all_pairs", "every_pair_ms", "world_axes_ms", "sort_ms",
+                    "live_points", "box_pixels", "bits_equal", "pair_tests",
+                    "searched")
                    if k in r},
                 **more}
 
-    # launches: the depth main path's counts; the BA kernels also carry the
-    # 2D-only path's.  The frontend records under "kernels" are taken at the
-    # shapes that path launched; the single-step entry points (bbox_cloud,
-    # voxel_segment_mean, one clustering pass, 12 jumps), which the path no
-    # longer launches, and the shapes it never reached (the full tier, the
-    # dense clouds; launches 0) stand apart.  library_ms: for the
-    # downsamples (depth_cloud, voxel_downsample, voxel_segment_mean) a
-    # stable torch.sort (not for voxel_segment_mean, which takes sorted
-    # keys), a gather and torch.segment_reduce's mean, the nearest PyTorch
-    # has to them (library_yardstick); null elsewhere: no PyTorch call
-    # computes the BA residual chains with their Jacobians and reductions,
-    # a strided window back-projection with its gates, or a radius-graph
-    # min-label pass.
+    # launches: each path's counts, set to 0 just before it and read just
+    # after: the depth path's for K1-K7 (the BA kernels also carry the 2D
+    # path's), the symmetry path's for K8 (symmetry_search; the depth path
+    # without symmetry launches it 0 times).  The frontend records under
+    # "kernels" are taken at the shapes those paths launched; the shapes
+    # they never reached (the full tier, the dense clouds, sym_capacity
+    # filled; launches 0) stand apart.  library_ms: for the downsamples
+    # (depth_cloud, voxel_downsample) a stable torch.sort, a gather and
+    # torch.segment_reduce's mean, the nearest PyTorch has to them
+    # (library_yardstick); for symmetry_search torch.cdist + torch.amin of
+    # one cost pass times the passes (no PyTorch call computes the
+    # occlusion-aware mirrored 1-NN cost with its LM); null elsewhere: no
+    # PyTorch call computes the BA residual chains with their Jacobians and
+    # reductions or a radius-graph min-label propagation.
     # cluster_components and cluster_select are one kernel without and with
     # its selection epilogue and share a launch counter, as ba_normal_eq
     # and lm_solve_step do.
     kernels = [record(f"{r['kernel']} ({k})", r, SOURCE, REPLACES.get(
         k, REPLACES["K1" if r["kernel"] == "ba_normal_eq" else "K3"]),
-        launches_2d_path=launches_2d[r["kernel"]]) for k, r in recs.items()]
-    kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
-                for k, r in fe_recs.items() if r["kernel"] not in SINGLE_STEP]
-    single_step = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
-                          on_path=False)
-                   for k, r in fe_recs.items() if r["kernel"] in SINGLE_STEP]
-    at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
-                           on_path=False) for k, r in fe_full.items()]
+        launches, launches_2d_path=launches_2d[r["kernel"]])
+        for k, r in recs.items()]
+    kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]], launches)
+                for k, r in fe_recs.items()]
+    kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
+                       launches_sym) for k, r in sym_recs.items()]
+    at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
+                    for k, r in {**fe_full, **sym_full}.items()]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
-                      "single_step_kernels": single_step,
                       "kernels_at_full_tier": at_full_tier}))
     print(card)
     print(json.dumps({"ok": True, "device": {

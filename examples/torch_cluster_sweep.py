@@ -77,7 +77,8 @@ def path_clouds(dev, frame):
     plane = np.array([0.0, 0.0, 1.0, 0.0])
     out = {}
     cfg = ExtractorConfig()
-    flat, pad, _, cfg_t = _pack_frame(cam, cfg, bbs[vis].numpy(), pose, plane)
+    flat, pad, _, cfg_t, _ = _pack_frame(
+        cam, cfg, bbs[vis].numpy(), scene.labels[vis.numpy()], pose, plane)
     flat_d = torch.from_numpy(flat).to(dev)
     a = _stage_a(depth, flat_d[:pad * 4].reshape(pad, 4),
                  flat_d[pad * 6:pad * 6 + 7],

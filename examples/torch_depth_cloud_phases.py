@@ -99,7 +99,8 @@ def main():
                                   pose.astype(np.float32), cam)
     plane = np.array([0.0, 0.0, 1.0, 0.0])
     cfg = ExtractorConfig()
-    flat, pad, _, cfg_t = _pack_frame(cam, cfg, bbs[vis].numpy(), pose, plane)
+    flat, pad, _, cfg_t, _ = _pack_frame(
+        cam, cfg, bbs[vis].numpy(), scene.labels[vis.numpy()], pose, plane)
     flat_d = torch.from_numpy(flat).to(dev)
     boxes = flat_d[:pad * 4].reshape(pad, 4)
     pose_d = flat_d[pad * 6:pad * 6 + 7]

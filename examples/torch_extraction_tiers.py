@@ -27,8 +27,8 @@ from object_oriented_slam_tpu_torch.frontend import (  # noqa: E402
 from object_oriented_slam_tpu_torch.io import synthetic as syn  # noqa: E402
 from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk  # noqa: E402
 
-FRONTEND = ("depth_cloud", "voxel_downsample", "bbox_cloud",
-            "voxel_segment_mean", "cluster_components")
+FRONTEND = ("depth_cloud", "voxel_downsample", "cluster_components",
+            "symmetry_search")
 
 
 def profile_call(extractor, depth, det, pose, plane):

@@ -3,13 +3,16 @@
 
     python3 examples/torch_run_synthetic.py --frames 160 --out out/
     python3 examples/torch_run_synthetic.py --device cpu --frames 6 --objects 4
+    python3 examples/torch_run_synthetic.py \
+        --settings object_oriented_slam_tpu_torch/configs/synthetic_depth_sym.yaml
 
 Builds the extractor and the plane estimator from the settings file's
 ``EllipsoidExtraction.*`` / ``EllipsoidExtractor_DEPTH_RANGE`` / ``Plane.*``
-keys as ``run_tum.py`` does, runs ground plane -> per-frame monolithic
-extraction -> 3D observations -> LM on ``--device`` (the CUDA device by
-default; there is no fall-back), writes ``objects.txt`` and prints the
-per-stage host times and every kernel's launch count.
+keys as ``run_tum.py`` does (``EllipsoidExtraction.Symmetry.Open: 1``, as in
+synthetic_depth_sym.yaml, turns symmetry completion on), runs ground plane
+-> per-frame monolithic extraction -> 3D observations -> LM on ``--device``
+(the CUDA device by default; there is no fall-back), writes ``objects.txt``
+and prints the per-stage host times and every kernel's launch count.
 """
 import argparse
 import os

@@ -8,20 +8,14 @@
 //                        frame in one launch
 //   voxel_downsample     ops/voxel.voxel_downsample: keys, sort and means of
 //                        the object downsample in one launch
-//   bbox_cloud           ops/backproject.bbox_point_cloud, all D detections
-//                        of a frame in one launch (off the main path)
-//   voxel_segment_mean   the segment part of ops/voxel._voxel_core (after
-//                        the key sort), optionally with the extractor's
-//                        world transform and supporting-plane mask (off the
-//                        main path)
-//   min_label_pass       ops/cluster._min_label_pass_mm, one neighbour
-//                        min-label pass of the radius graph
-//   pointer_jumps        ops/cluster._propagate's `jumps`, plus the
-//                        "did any label change this round" flag
 //   cluster_components   ops/cluster.components_compacted: compaction and
 //                        every round (pass + jumps) of a frame's
 //                        propagation in one launch, a thread block cluster
 //                        per detection
+//   symmetry_search      frontend/symmetry.estimate_symmetry: the 9-plane
+//                        symmetry search of stage (g), every initial plane
+//                        with all its LM iterations, a block per
+//                        (detection, initial plane), in one launch
 //
 // Built with -fmad=false and without fast math: every multiply, add and
 // divide rounds on its own (IEEE), in the order the plain PyTorch versions
@@ -43,190 +37,11 @@ extern "C" const char* oslam_fe_error_string(int rc) {
 }
 
 // ---------------------------------------------------------------------------
-// bbox_cloud.  Replaces ops/backproject.bbox_point_cloud.
-// Bound by bytes: D * gh * gw * 13 bytes written, the depth pixels under the
-// boxes read once.  One thread per grid position and detection; the depth
-// read is a strided gather (every third pixel of every third row), the
-// writes are contiguous.  The truncating casts, the window's zero padding,
-// z = d / scale and x = (px - cx) * z / fx keep the reference order.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256) bbox_cloud_kernel(
-    const int* __restrict__ depth, const float* __restrict__ bboxes,
-    int H, int W, int gh, int gw, float scale, float fx, float fy, float cx,
-    float cy, float depth_range, float* __restrict__ pts,
-    uint8_t* __restrict__ mask)
-{
-    const int g = blockIdx.x * blockDim.x + threadIdx.x;
-    const int d = blockIdx.y;
-    const int G = gh * gw;
-    if (g >= G) return;
-    const int i = g / gw, j = g - i * gw;
-    const float* bb = bboxes + 4 * d;
-    const int x1 = min(max((int)bb[0], 0), W - 1);
-    const int y1 = min(max((int)bb[1], 0), H - 1);
-    const int x2 = min(max((int)bb[2], 0), W);
-    const int y2 = min(max((int)bb[3], 0), H);
-    const int px = x1 + OSLAM_STRIDE * j;
-    const int py = y1 + OSLAM_STRIDE * i;
-    const bool in_box = (px < x2) && (py < y2);
-    // the window may run past the image: those positions read 0
-    const int dv = (px < W && py < H) ? depth[py * W + px] : 0;
-    const float z = (float)dv / scale;
-    const bool valid = in_box && (z > 0.1f) && (z <= depth_range);
-    const int pxc = min(px, W - 1), pyc = min(py, H - 1);
-    const float x = ((float)pxc - cx) * z / fx;
-    const float y = ((float)pyc - cy) * z / fy;
-    float* o = pts + ((size_t)d * G + g) * 3;
-    o[0] = x;
-    o[1] = y;
-    o[2] = z;
-    mask[(size_t)d * G + g] = valid ? 1 : 0;
-}
-
-extern "C" int oslam_bbox_cloud(
-    const void* depth, const void* bboxes, int D, int H, int W, float scale,
-    float fx, float fy, float cx, float cy, float depth_range, void* pts,
-    void* mask, void* stream)
-{
-    const int gh = (H + OSLAM_STRIDE - 1) / OSLAM_STRIDE;
-    const int gw = (W + OSLAM_STRIDE - 1) / OSLAM_STRIDE;
-    dim3 grid((gh * gw + 255) / 256, D);
-    bbox_cloud_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)depth, (const float*)bboxes, H, W, gh, gw, scale, fx, fy,
-        cx, cy, depth_range, (float*)pts, (uint8_t*)mask);
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// voxel_segment_mean.  Replaces the segment part of ops/voxel._voxel_core.
-// Bound by bytes (keys, sort order and points read once, the capacity-sized
-// outputs written once).  Given the keys sorted stably and the sort order,
-// one block per detection scans the sorted keys in chunks of 1024: a thread
-// whose key starts a segment gets the segment's rank from a block-wide
-// exclusive scan (ballot + one warp over the 32 warp totals), walks its run
-// and adds the points in sorted order, so the centroid's sum has the order
-// of the plain version's sequential index_add_ on the CPU: deterministic,
-// no atomics.  Segments of rank >= capacity are dropped; unused slots are
-// zeroed.  With `world` (R row-major [9], t [3], plane [4], den, clearance)
-// it also writes the slot's world point p R^T + t and the supporting-plane
-// mask (n . p_w + d) / den > clearance.
-// ---------------------------------------------------------------------------
-#define OSLAM_VT 1024
-
-__device__ __forceinline__ void write_slot(
-    int slot, float mx, float my, float mz, int c0, int c1, int c2, bool live,
-    float* out_pts, int* out_cells, uint8_t* out_mask,
-    const float* world, float* pts_w, uint8_t* m2)
-{
-    out_pts[3 * slot + 0] = mx;
-    out_pts[3 * slot + 1] = my;
-    out_pts[3 * slot + 2] = mz;
-    out_cells[3 * slot + 0] = c0;
-    out_cells[3 * slot + 1] = c1;
-    out_cells[3 * slot + 2] = c2;
-    out_mask[slot] = live ? 1 : 0;
-    if (world != nullptr) {
-        const float wx = mx * world[0] + my * world[1] + mz * world[2] + world[9];
-        const float wy = mx * world[3] + my * world[4] + mz * world[5] + world[10];
-        const float wz = mx * world[6] + my * world[7] + mz * world[8] + world[11];
-        pts_w[3 * slot + 0] = wx;
-        pts_w[3 * slot + 1] = wy;
-        pts_w[3 * slot + 2] = wz;
-        const float dist = (wx * world[12] + wy * world[13] + wz * world[14]
-                            + world[15]) / world[16];
-        m2[slot] = (live && dist > world[17]) ? 1 : 0;
-    }
-}
-
-__global__ void __launch_bounds__(OSLAM_VT) voxel_segment_mean_kernel(
-    const int* __restrict__ key_s, const long long* __restrict__ order,
-    const float* __restrict__ pts, const int* __restrict__ cmin, int G,
-    int capacity, float* __restrict__ out_pts, int* __restrict__ out_cells,
-    uint8_t* __restrict__ out_mask, const float* __restrict__ world,
-    float* __restrict__ pts_w, uint8_t* __restrict__ m2)
-{
-    const int d = blockIdx.x;
-    key_s += (size_t)d * G;
-    order += (size_t)d * G;
-    pts += (size_t)d * G * 3;
-    cmin += 3 * d;
-    out_pts += (size_t)d * capacity * 3;
-    out_cells += (size_t)d * capacity * 3;
-    out_mask += (size_t)d * capacity;
-    if (world != nullptr) {
-        pts_w += (size_t)d * capacity * 3;
-        m2 += (size_t)d * capacity;
-    }
-    __shared__ int warp_off[32];
-    __shared__ int chunk_total;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int base = 0;       // segments started in earlier chunks
-    for (int start = 0; start < G; start += OSLAM_VT) {
-        const int i = start + threadIdx.x;
-        int key = OSLAM_BIG;
-        bool is_new = false;
-        if (i < G) {
-            key = key_s[i];
-            is_new = key != OSLAM_BIG && (i == 0 || key != key_s[i - 1]);
-        }
-        const unsigned ballot = __ballot_sync(0xffffffffu, is_new);
-        const int before = __popc(ballot & ((1u << lane) - 1u));
-        if (lane == 0) warp_off[warp] = __popc(ballot);
-        __syncthreads();
-        if (warp == 0) {
-            const int mine = warp_off[lane];
-            int incl = mine;
-            for (int o = 1; o < 32; o <<= 1) {
-                const int up = __shfl_up_sync(0xffffffffu, incl, o);
-                if (lane >= o) incl += up;
-            }
-            warp_off[lane] = incl - mine;
-            if (lane == 31) chunk_total = incl;
-        }
-        __syncthreads();
-        const int slot = base + warp_off[warp] + before;
-        if (is_new && slot < capacity) {
-            float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-            int n = 0;
-            for (int k = i; k < G && key_s[k] == key; ++k) {
-                const float* p = pts + 3 * order[k];
-                sx += p[0];
-                sy += p[1];
-                sz += p[2];
-                ++n;
-            }
-            const float c = fmaxf((float)n, 1.0f);
-            write_slot(slot, sx / c, sy / c, sz / c,
-                       ((key >> 20) & 1023) + cmin[0],
-                       ((key >> 10) & 1023) + cmin[1], (key & 1023) + cmin[2],
-                       true, out_pts, out_cells, out_mask, world, pts_w, m2);
-        }
-        base += chunk_total;
-        __syncthreads();        // warp_off and chunk_total are reused
-    }
-    for (int slot = base + threadIdx.x; slot < capacity; slot += OSLAM_VT)
-        write_slot(slot, 0.0f, 0.0f, 0.0f, 0, 0, 0, false, out_pts, out_cells,
-                   out_mask, world, pts_w, m2);
-}
-
-extern "C" int oslam_voxel_segment_mean(
-    const void* key_s, const void* order, const void* pts, const void* cmin,
-    int D, int G, int capacity, void* out_pts, void* out_cells,
-    void* out_mask, const void* world, void* pts_w, void* m2, void* stream)
-{
-    voxel_segment_mean_kernel<<<D, OSLAM_VT, 0, (cudaStream_t)stream>>>(
-        (const int*)key_s, (const long long*)order, (const float*)pts,
-        (const int*)cmin, G, capacity, (float*)out_pts, (int*)out_cells,
-        (uint8_t*)out_mask, (const float*)world, (float*)pts_w, (uint8_t*)m2);
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // depth_cloud and voxel_downsample: a whole voxel downsample of a detection
 // in one thread block cluster, from its points to its cell means.
-// depth_cloud replaces bbox_cloud, the key and sort operations around
-// voxel_segment_mean, that kernel with its world epilogue, center_estimate
-// and the world transform of the centre (JAX: ops/backproject.py:28
+// depth_cloud replaces the back-projection, the key and sort operations,
+// the segment means with the world epilogue, center_estimate and the world
+// transform of the centre (JAX: ops/backproject.py:28
 // bbox_point_cloud, ops/voxel.py voxel_keys and _voxel_core,
 // frontend/extractor.py:155-167); voxel_downsample replaces the same
 // operations of the 0.1 m object downsample (JAX: frontend/extractor.py:204,
@@ -234,12 +49,12 @@ extern "C" int oslam_voxel_segment_mean(
 //
 // Bound by bytes: the depth pixels under the boxes (or the input points),
 // the centre samples and the outputs, each moved once, against a sort of a
-// few thousand keys a detection.  What held the single-step kernels back
-// was what lay between them: every detection's whole (160 x 214) grid of
+// few thousand keys a detection.  What held the earlier single-step
+// kernels (a launch per step, since deleted) back was what lay between them: every detection's whole (160 x 214) grid of
 // points and masks written to device memory and read back by the keys, the
 // sort and the means, the sort itself (a finished segmented sort over every
-// lane, padding included), ~130 small eager operations, and in
-// voxel_segment_mean one thread walking a whole run of gathered points.
+// lane, padding included), ~130 small eager operations, and in the
+// segment means one thread walking a whole run of gathered points.
 // Here a cluster of S blocks of OSLAM_DS_T threads takes one detection
 // (grid S x D; S from the largest input the launch can hold, see ds_shape:
 // 3 for a 640 x 480 image, 1 for an object cloud of 4,096 lanes).  The
@@ -537,7 +352,8 @@ __device__ __forceinline__ int key_axis(int cell, int least)
 }
 
 // The strided pixels of one detection's box as points: id p is the pixel
-// (y1 + 3 (p / bw), x1 + 3 (p % bw)), row by row; bbox_cloud's arithmetic.
+// (y1 + 3 (p / bw), x1 + 3 (p % bw)), row by row; the arithmetic of
+// ops/backproject.bbox_point_cloud_plain.
 // A sorted point keeps its raw depth.
 struct BoxPixels {
     typedef int Staged;
@@ -1020,7 +836,7 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     }
     DS_CLOCK(1);
 
-    // (a) the box's strided pixels, as bbox_cloud clips them
+    // (a) the box's strided pixels, clipped as bbox_point_cloud_plain clips
     const int x1 = min(max((int)bb[0], 0), W - 1);
     const int y1 = min(max((int)bb[1], 0), H - 1);
     const int x2 = min(max((int)bb[2], 0), W);
@@ -1180,25 +996,12 @@ extern "C" int oslam_voxel_downsample(
 }
 
 // ---------------------------------------------------------------------------
-// min_label_pass.  Replaces ops/cluster._min_label_pass_mm.
-// Bound by operations: D * N^2 pair tests of ~10 f32 operations each against
-// 17 bytes per point.  For every point i of every detection: the least
-// label_j over the j with  nrm_i + nrm_j - 2 (x_i . x_j) <= tol2  and both
-// unmasked.  Grid (ceil(N / 256), D); a thread owns one point i and keeps it
-// in registers; the j points are staged 256 at a time in shared memory as
-// (x, y, z, nrm) + label (a masked j carries the label 2^30, which never
-// wins), and every thread of the block reads the same staged j, a broadcast.
-// A block none of whose points is unmasked copies its labels and leaves:
-// after compaction (ops/cluster._compact) the unmasked points
-// are in front, so the tail blocks cost nothing.
+// Device functions of cluster_components.
 // ---------------------------------------------------------------------------
-#define OSLAM_PT 256
-
-// The radius test of one pair, shared by min_label_pass and
-// cluster_components: point i (xi, yi, zi, squared norm ni) against the
-// staged point p = (x, y, z, squared norm) carrying label l; returns the
-// lesser of `best` and l if the pair is within the radius.  The operations
-// and their order are ops/cluster.min_label_pass_plain's.
+// The radius test of one pair: point i (xi, yi, zi, squared norm ni)
+// against the staged point p = (x, y, z, squared norm) carrying label l;
+// returns the lesser of `best` and l if the pair is within the radius.  The
+// operations and their order are ops/cluster.min_label_pass_plain's.
 __device__ __forceinline__ int closer_label(
     float xi, float yi, float zi, float ni, const float4 p, int l, float tol2,
     int best)
@@ -1208,78 +1011,8 @@ __device__ __forceinline__ int closer_label(
     return (d2 <= tol2 && l < best) ? l : best;
 }
 
-__global__ void __launch_bounds__(OSLAM_PT) min_label_pass_kernel(
-    const float* __restrict__ pts_c, const float* __restrict__ nrm,
-    const uint8_t* __restrict__ mask, const int* __restrict__ labels, int N,
-    float tol2, int* __restrict__ out)
-{
-    const int d = blockIdx.y;
-    pts_c += (size_t)d * N * 3;
-    nrm += (size_t)d * N;
-    mask += (size_t)d * N;
-    labels += (size_t)d * N;
-    out += (size_t)d * N;
-    __shared__ float4 sp[OSLAM_PT];
-    __shared__ int sl[OSLAM_PT];
-    const int i = blockIdx.x * OSLAM_PT + threadIdx.x;
-    float xi = 0.0f, yi = 0.0f, zi = 0.0f, ni = 0.0f;
-    int li = 0;
-    bool mi = false;
-    if (i < N) {
-        xi = pts_c[3 * i];
-        yi = pts_c[3 * i + 1];
-        zi = pts_c[3 * i + 2];
-        ni = nrm[i];
-        li = labels[i];
-        mi = mask[i] != 0;
-    }
-    if (!__syncthreads_or(mi)) {
-        if (i < N) out[i] = li;
-        return;
-    }
-    int best = OSLAM_BIG;
-    for (int j0 = 0; j0 < N; j0 += OSLAM_PT) {
-        const int j = j0 + threadIdx.x;
-        float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        int lj = OSLAM_BIG;
-        if (j < N) {
-            q = make_float4(pts_c[3 * j], pts_c[3 * j + 1], pts_c[3 * j + 2],
-                            nrm[j]);
-            if (mask[j] != 0) lj = labels[j];
-        }
-        sp[threadIdx.x] = q;
-        sl[threadIdx.x] = lj;
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < OSLAM_PT; ++k) {
-            best = closer_label(xi, yi, zi, ni, sp[k], sl[k], tol2, best);
-        }
-        __syncthreads();
-    }
-    if (i < N) out[i] = mi ? min(li, best) : li;
-}
-
-extern "C" int oslam_min_label_pass(
-    const void* pts_c, const void* nrm, const void* mask, const void* labels,
-    int D, int N, float tol2, void* out, void* stream)
-{
-    dim3 grid((N + OSLAM_PT - 1) / OSLAM_PT, D);
-    min_label_pass_kernel<<<grid, OSLAM_PT, 0, (cudaStream_t)stream>>>(
-        (const float*)pts_c, (const float*)nrm, (const uint8_t*)mask,
-        (const int*)labels, N, tol2, (int*)out);
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// pointer_jumps.  Replaces `jumps` of ops/cluster._propagate: `iters` times
-// label_i <- label_{label_i} (labels >= N, the masked points', stay), every
-// jump reading the labels of the jump before (two buffers, swapped), then
-// changed[d] = any(label != prev).  Bound by latency: one block per
-// detection, so that a __syncthreads() separates the jumps.
-// ---------------------------------------------------------------------------
-// One synchronous jump over n labels, shared by pointer_jumps and
-// cluster_components: b_i = a_{a_i} (a label >= n, a masked point's,
-// stays), by all threads of the block; with kTrack it returns whether a
+// One synchronous jump over n labels: b_i = a_{a_i} (a label >= n, a
+// masked point's, stays), by all threads of the block; with kTrack it returns whether a
 // label of this thread's changed.  The caller separates jumps with
 // __syncthreads().
 template <bool kTrack>
@@ -1295,46 +1028,6 @@ __device__ __forceinline__ bool jump_once(const int* a, int* b, int n)
     return diff;
 }
 
-__global__ void __launch_bounds__(1024) pointer_jumps_kernel(
-    int* lab, int* tmp, const int* prev, int N, int iters, int* __restrict__ changed)
-{
-    const int d = blockIdx.x;
-    lab += (size_t)d * N;
-    tmp += (size_t)d * N;
-    prev += (size_t)d * N;
-    int* a = lab;
-    int* b = tmp;
-    for (int it = 0; it < iters; ++it) {
-        jump_once<false>(a, b, N);
-        __syncthreads();
-        int* t = a;
-        a = b;
-        b = t;
-    }
-    if (a != lab) {
-        for (int i = threadIdx.x; i < N; i += blockDim.x) lab[i] = a[i];
-        __syncthreads();
-    }
-    __shared__ int any;
-    if (threadIdx.x == 0) any = 0;
-    __syncthreads();
-    bool diff = false;
-    for (int i = threadIdx.x; i < N; i += blockDim.x)
-        diff = diff || (lab[i] != prev[i]);
-    if (diff) any = 1;
-    __syncthreads();
-    if (threadIdx.x == 0) changed[d] = any;
-}
-
-extern "C" int oslam_pointer_jumps(
-    void* lab, void* tmp, const void* prev, int D, int N, int iters,
-    void* changed, void* stream)
-{
-    pointer_jumps_kernel<<<D, 1024, 0, (cudaStream_t)stream>>>(
-        (int*)lab, (int*)tmp, (const int*)prev, N, iters, (int*)changed);
-    return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // cluster_components.  Replaces ops/cluster.components_compacted of the JAX
 // package (compaction, then _propagate's rounds of one min-label pass and
@@ -1342,15 +1035,16 @@ extern "C" int oslam_pointer_jumps(
 // propagation of a frame in ONE launch, no host read between rounds.
 //
 // Bound by operations (the pair tests, ~11 f32 / integer operations each,
-// against 17 bytes a point).  The single-step min_label_pass already runs
-// its pair tests at the card's instruction rate; what the loop of the two
-// single-step kernels lost was two launches and a fraction of a host read
-// per round, pair tests against every lane of the frame's cap and against
-// points far beyond the radius, and every detection held to the rounds of
-// the slowest.  What the design does about it:
+// against 17 bytes a point).  The earlier one-pass kernel already ran its
+// pair tests at the card's instruction rate; what the loop of the two
+// single-step kernels (a pass, the jumps; since deleted) lost was two
+// launches and a fraction of a host read per round, pair tests against
+// every lane of the frame's cap and against points far beyond the radius,
+// and every detection held to the rounds of the slowest.  What the design
+// does about it:
 //  - One thread block cluster per detection (grid S x D, cluster dimension
-//    S).  Every block scans the detection's mask (ballot + warp totals, as
-//    voxel_segment_mean does) into the list of unmasked lanes in their
+//    S).  Every block scans the detection's mask (ballot + warp totals)
+//    into the list of unmasked lanes in their
 //    original order, so the least compacted index is the least original
 //    index, and from there on works on the detection's own n points.  A
 //    detection without an unmasked point leaves at once.
@@ -1914,4 +1608,496 @@ extern "C" int oslam_cluster_select(
     return cluster_launch(pts_c, nrm, mask, labels0, D, N, tol2, outer_iters,
                           jump_iters, S, T, P, smem_bytes, prune, sort_frame,
                           out_labels, converged, rounds, sel, stream);
+}
+
+// ---------------------------------------------------------------------------
+// symmetry_search.  Replaces frontend/symmetry.py _mirror_cost (:72) inside
+// _optimize_one_init (:156) and estimate_symmetry (:217) of the JAX package
+// (left to XLA there): for every detection of a frame whose symmetry type is
+// 1 (one plane) or 2 (a dual pair) and each of its 9 initial planes, the
+// 5-iteration LM over the plane parameters, then the pick of the winner.
+//
+// Bound by operations: a cost pass tests every mirrored point against every
+// live point of the cloud (P n x n pair tests of ~10 f32 operations, P = 1
+// or 2 planes, n <= 512 live points), and a search runs 1 + 2 iters passes
+// with the exact gradient, 1 + iters (2 n_par + 1) with central
+// differences; the bytes are a few KB a detection.  At the path's shapes
+// (tens of live points) that is little work: what bounds a launch is the
+// chain of dependent passes in each block, each ending in a block
+// reduction and a small solve by one thread.  The design:
+//  - one block of OSLAM_SYM_T threads per (initial plane, detection); a
+//    detection of type 0 or off the run mask leaves at once (the JAX
+//    package computes it and throws it away), and a detection's own type
+//    picks one plane or two, so one launch serves both variants;
+//  - the live points compacted into shared memory in index order as float4
+//    (x, y, z, |p|^2): the 1-NN loop runs over them only;
+//  - a thread per mirrored point (strided over the block); the inner loop
+//    keeps the least squared distance by the norm expansion
+//    q + r - 2 m.p (JAX's cost is defined by it) and, for the gradient, how
+//    many points lie at that distance and their sum (jnp.min splits its
+//    gradient evenly over equal minima); max(d2, 0) passes 1 above 0, 1/2
+//    at 0 (jnp.maximum) and 0 below; the occlusion, box and mask tests are
+//    piecewise constant;
+//  - the gradient by hand in the same pass: dd2/dm = 2 m - 2 p_nn, through
+//    m = p - 2 s n, s = (n.p + d) / max(|n|^2, 1e-8) to (n0, n1, d) of each
+//    plane, then to (angle, distance[, dual distance]); the dual plane's
+//    azimuth goes through atan2;
+//  - the pixel of a mirrored point truncates toward zero (astype(int32));
+//    the ray depth d sqrt(xi^2 + f^2 + yi^2) / f of ops/backproject.
+//    proj_depth_map is computed at the looked-up pixel, so no map is
+//    written;
+//  - the sums of a pass in a fixed order (a thread's points in order, the
+//    lanes by a fixed xor pattern, the warps in rank order): repeats are
+//    bit-equal;
+//  - thread 0 runs the LM between passes (frontend/symmetry.
+//    optimize_inits_plain: the 2x2 / 3x3 Cholesky solve in ops/linalg.
+//    chol_solve_small's order, the finite-step gate, the accept test, the
+//    damping);
+//  - the nine blocks of a detection count themselves in on a counter (zero
+//    at the launch); the last one picks the winner, the first maximum of
+//    exp(-cost) as jnp.argmax.
+// The plain arithmetic (the mirror, the projection, the pair test) is
+// written in frontend/symmetry._mirror_cost's order.
+// ---------------------------------------------------------------------------
+#define OSLAM_SYM_T 256
+#define OSLAM_SYM_W (OSLAM_SYM_T / 32)
+#define OSLAM_SYM_MAX_S 2048        // ops/frontend_kernels.SYM_MAX_POINTS
+#define OSLAM_SYM_INITS 9
+#define OSLAM_SYM_FIELDS 5          // angle, distance, dual distance, cost, prob
+#define OSLAM_SYM_SUMS 7            // cost sum, (dn0, dn1, dd) of each plane
+
+struct SymArgs {
+    const float* pts;       // [D, S, 3] normalized object clouds
+    const uint8_t* mask;    // [D, S]
+    const float* bbox;      // [D, 4]
+    const float* pose_oc;   // [D, 7] the camera in the normalized frame
+    const int* depth;       // [H, W] raw depth
+    const int* types;       // [D] 0 none, 1 reflection, 2 dual reflection
+    const uint8_t* run;     // [D]
+    int S, H, W;
+    float fx, fy, cx, cy, scale;
+    float ff;               // fx * fx rounded once from double
+    float coef;             // -0.5 / sigma^2
+    float ang_step, step_dis, h, two_h;
+    int iters, analytic;
+    float* plane;           // [D, 4]
+    float* dual_dis;        // [D]
+    float* prob;            // [D]
+    float* error;           // [D]
+    float* inits;           // [D, 9, 5]
+    int* done;              // [D] blocks finished, zero at the launch
+};
+
+// max that propagates a NaN, as torch.clamp_min / jnp.maximum
+__device__ __forceinline__ float max_nan(float a, float b)
+{
+    return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+
+// The planes of the parameters (angle, distance[, dual distance]):
+// (sin a, -cos a, 0, -dis) and, for the dual type, the plane of the same
+// azimuth atan2(n1, n0) at the dual distance.  n2 = max(|n|^2, 1e-8).
+struct SymPlanes {
+    float n0[2], n1[2], d[2], n2[2];
+    float az;
+};
+
+__device__ __forceinline__ SymPlanes sym_planes(const float* par, bool dual)
+{
+    SymPlanes pl;
+    pl.n0[0] = sinf(par[0]);
+    pl.n1[0] = -cosf(par[0]);
+    pl.d[0] = -par[1];
+    pl.n2[0] = max_nan(pl.n0[0] * pl.n0[0] + pl.n1[0] * pl.n1[0]
+                       + 0.0f * 0.0f, 1e-8f);
+    pl.az = 0.0f;
+    pl.n0[1] = pl.n1[1] = pl.d[1] = pl.n2[1] = 0.0f;
+    if (dual) {
+        pl.az = atan2f(pl.n1[0], pl.n0[0]);
+        pl.n0[1] = sinf(pl.az);
+        pl.n1[1] = -cosf(pl.az);
+        pl.d[1] = -par[2];
+        pl.n2[1] = max_nan(pl.n0[1] * pl.n0[1] + pl.n1[1] * pl.n1[1]
+                           + 0.0f * 0.0f, 1e-8f);
+    }
+    return pl;
+}
+
+// One cost pass of a block at the parameters `par`: every thread scores
+// its mirrored points, the partial sums go to red[warp][.] (cost sum and,
+// with kGrad, d cost / d(n0, n1, d) of each plane), then one barrier.
+// `pose` holds R (9) and t (3) of T_c<-o and the camera centre (3); `gd2`
+// is d cost / d d2 of a scored point.
+template <bool kGrad>
+__device__ void sym_pass(const SymArgs& a, const float4* ref, int n,
+                         bool dual, const float* par, const float* pose,
+                         const float* bb, const int* depth, float gd2,
+                         float (*red)[OSLAM_SYM_SUMS])
+{
+    const SymPlanes pl = sym_planes(par, dual);
+    const int M = (dual ? 2 : 1) * n;
+    float acc[OSLAM_SYM_SUMS];
+#pragma unroll
+    for (int c = 0; c < OSLAM_SYM_SUMS; ++c) acc[c] = 0.0f;
+    for (int i = threadIdx.x; i < M; i += OSLAM_SYM_T) {
+        const int q = i < n ? 0 : 1;
+        const float4 p = ref[i - q * n];
+        const float n0 = pl.n0[q], n1 = pl.n1[q], n2 = pl.n2[q];
+        const float s = (n0 * p.x + n1 * p.y + 0.0f * p.z + pl.d[q]) / n2;
+        const float mx = p.x - 2.0f * s * n0;
+        const float my = p.y - 2.0f * s * n1;
+        const float mz = p.z - 2.0f * s * 0.0f;
+
+        // into the image: occluded where it falls strictly inside the box
+        // on a zero ray depth or one nearer than the point
+        const float pcx = pose[0] * mx + pose[1] * my + pose[2] * mz + pose[9];
+        const float pcy = pose[3] * mx + pose[4] * my + pose[5] * mz + pose[10];
+        const float pcz = pose[6] * mx + pose[7] * my + pose[8] * mz + pose[11];
+        const float den = max_nan(pcz, 1e-6f);
+        const float u = a.fx * pcx / den + a.cx;
+        const float v = a.fy * pcy / den + a.cy;
+        const int xi = __float2int_rz(u), yi = __float2int_rz(v);
+        const float xf = (float)xi, yf = (float)yi;
+        const bool inside = xi >= 0 && xi < a.W && yi >= 0 && yi < a.H
+                            && pcz > 0.0f;
+        bool occluded = false;
+        if (bb[0] < xf && xf < bb[2] && bb[1] < yf && yf < bb[3] && inside) {
+            const float rx = (float)xi - a.cx, ry = (float)yi - a.cy;
+            const float ray = (float)depth[yi * a.W + xi]
+                              * (sqrtf(rx * rx + a.ff + ry * ry) / a.fx);
+            const float dm = ray / a.scale;
+            const float ex = mx - pose[12], ey = my - pose[13],
+                        ez = mz - pose[14];
+            const float dis = sqrtf(ex * ex + ey * ey + ez * ez);
+            occluded = dm <= 1e-9f || dis > dm;
+        }
+
+        // the least squared distance to the live points
+        const float qn = mx * mx + my * my + mz * mz;
+        float best = 1e30f, sx = 0.0f, sy = 0.0f, sz = 0.0f;
+        int cnt = 0;
+        for (int j = 0; j < n; ++j) {
+            const float4 r = ref[j];
+            const float cross = mx * r.x + my * r.y + mz * r.z;
+            const float d2 = qn + r.w - 2.0f * cross;
+            if (kGrad) {
+                if (d2 < best) {
+                    best = d2;
+                    cnt = 1;
+                    sx = r.x;
+                    sy = r.y;
+                    sz = r.z;
+                } else if (d2 == best) {
+                    ++cnt;
+                    sx += r.x;
+                    sy += r.y;
+                    sz += r.z;
+                }
+            } else {
+                best = fminf(best, d2);
+            }
+        }
+        const float nn2 = max_nan(best, 0.0f);
+        acc[0] += a.coef * (occluded ? 0.0f : nn2);
+
+        if (kGrad && !occluded) {
+            const float w = best > 0.0f ? gd2 : (best == 0.0f ? 0.5f * gd2
+                                                              : 0.0f);
+            if (w != 0.0f && cnt > 0) {
+                // d cost / dm = w (2 m - 2 mean of the nearest points)
+                const float wc = w / (float)cnt;
+                const float gx = 2.0f * (mx * w) - 2.0f * (wc * sx);
+                const float gy = 2.0f * (my * w) - 2.0f * (wc * sy);
+                const float gz = 2.0f * (mz * w) - 2.0f * (wc * sz);
+                // m = p - 2 s n, s = (n.p + d) / n2: d/ds, then (n0, n1, d)
+                const float gsn = -2.0f * (gx * n0 + gy * n1 + gz * 0.0f) / n2;
+                acc[1 + 3 * q] += -2.0f * s * gx + gsn * mx;
+                acc[2 + 3 * q] += -2.0f * s * gy + gsn * my;
+                acc[3 + 3 * q] += gsn;
+            }
+        }
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int c = 0; c < OSLAM_SYM_SUMS; ++c) {
+        if (!kGrad && c > 0) break;
+        float v = acc[c];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) red[warp][c] = v;
+    }
+    __syncthreads();
+}
+
+// sum c of the warps' partials, in rank order (thread 0)
+__device__ __forceinline__ float sym_total(float (*red)[OSLAM_SYM_SUMS],
+                                           int c)
+{
+    float s = red[0][c];
+    for (int w = 1; w < OSLAM_SYM_W; ++w) s += red[w][c];
+    return s;
+}
+
+__global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
+    const SymArgs a)
+{
+    extern __shared__ float4 ref[];     // the detection's live points
+    __shared__ float red[OSLAM_SYM_W][OSLAM_SYM_SUMS];
+    __shared__ float par[3];            // the parameters of the next pass
+    __shared__ int wcount[OSLAM_SYM_W];
+    __shared__ int last;
+    const int k = blockIdx.x, d = blockIdx.y, tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int type = a.types[d];
+    const bool dual = type == 2;
+    float* ini = a.inits + ((size_t)d * OSLAM_SYM_INITS + k)
+                           * OSLAM_SYM_FIELDS;
+    if (a.run[d] == 0 || (type != 1 && type != 2)) {
+        if (tid < OSLAM_SYM_FIELDS) ini[tid] = 0.0f;
+        if (k == 0 && tid == 0) {
+            a.plane[4 * d + 0] = 0.0f;
+            a.plane[4 * d + 1] = -1.0f;
+            a.plane[4 * d + 2] = 0.0f;
+            a.plane[4 * d + 3] = 0.0f;
+            a.dual_dis[d] = 0.0f;
+            a.prob[d] = 0.0f;
+            a.error[d] = 0.0f;
+        }
+        return;
+    }
+
+    // the live points, in index order
+    const float* pts = a.pts + (size_t)d * a.S * 3;
+    const uint8_t* msk = a.mask + (size_t)d * a.S;
+    int n = 0;
+    for (int c0 = 0; c0 < a.S; c0 += OSLAM_SYM_T) {
+        const int i = c0 + tid;
+        const bool live = i < a.S && msk[i] != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) wcount[warp] = __popc(bal);
+        __syncthreads();
+        int off = n, total = n;
+        for (int w = 0; w < OSLAM_SYM_W; ++w) {
+            if (w < warp) off += wcount[w];
+            total += wcount[w];
+        }
+        if (live) {
+            const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
+            ref[off + __popc(bal & ((1u << lane) - 1u))] =
+                make_float4(x, y, z, x * x + y * y + z * z);
+        }
+        n = total;
+        __syncthreads();        // wcount is reused
+    }
+
+    // T_c<-o = inv(pose_oc) as core/se3.se3_inv and quat_to_mat write it
+    float pose[15];
+    {
+        const float* po = a.pose_oc + 7 * d;
+        const float qx = -po[3], qy = -po[4], qz = -po[5], qw = po[6];
+        const float vx = po[0], vy = po[1], vz = po[2];
+        const float t2x = 2.0f * (qy * vz - qz * vy);
+        const float t2y = 2.0f * (qz * vx - qx * vz);
+        const float t2z = 2.0f * (qx * vy - qy * vx);
+        pose[9] = -(vx + qw * t2x + (qy * t2z - qz * t2y));
+        pose[10] = -(vy + qw * t2y + (qz * t2x - qx * t2z));
+        pose[11] = -(vz + qw * t2z + (qx * t2y - qy * t2x));
+        const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+        const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+        const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+        pose[0] = 1.0f - 2.0f * (yy + zz);
+        pose[1] = 2.0f * (xy - wz);
+        pose[2] = 2.0f * (xz + wy);
+        pose[3] = 2.0f * (xy + wz);
+        pose[4] = 1.0f - 2.0f * (xx + zz);
+        pose[5] = 2.0f * (yz - wx);
+        pose[6] = 2.0f * (xz - wy);
+        pose[7] = 2.0f * (yz + wx);
+        pose[8] = 1.0f - 2.0f * (xx + yy);
+        pose[12] = po[0];
+        pose[13] = po[1];
+        pose[14] = po[2];
+    }
+    const float* bb = a.bbox + 4 * d;
+    const int n_par = dual ? 3 : 2;
+    const float nv = fmaxf((float)((dual ? 2 : 1) * n), 1.0f);
+    const float gd2 = -(1.0f / nv) * a.coef;    // d cost / d d2
+
+    // thread 0's LM state: params, cost, damping
+    float p[3], c = 0.0f, lam = -1.0f, nu = 2.0f;
+    {
+        const float steps[3] = {-1.0f, 0.0f, 1.0f};
+        p[0] = steps[k / 3] * a.ang_step;
+        p[1] = steps[k % 3] * a.step_dis;
+        p[2] = 0.0f;
+    }
+    if (tid == 0) {
+        par[0] = p[0];
+        par[1] = p[1];
+        par[2] = p[2];
+    }
+    __syncthreads();
+    sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+    if (tid == 0) c = -sym_total(red, 0) / nv;
+
+    for (int it = 0; it < a.iters; ++it) {
+        float g[3] = {0.0f, 0.0f, 0.0f};
+        if (a.analytic) {
+            // par holds p here
+            __syncthreads();
+            sym_pass<true>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+            if (tid == 0) {
+                const SymPlanes pl = sym_planes(p, dual);
+                float g_n0 = sym_total(red, 1), g_n1 = sym_total(red, 2);
+                if (dual) {
+                    // the second plane's azimuth is atan2(n1, n0) of the first
+                    const float g_az = sym_total(red, 4) * cosf(pl.az)
+                                       + sym_total(red, 5) * sinf(pl.az);
+                    const float r2 = pl.n0[0] * pl.n0[0] + pl.n1[0] * pl.n1[0];
+                    g_n0 += g_az * (-pl.n1[0] / r2);
+                    g_n1 += g_az * (pl.n0[0] / r2);
+                    g[2] = -sym_total(red, 6);
+                }
+                g[0] = g_n0 * cosf(p[0]) + g_n1 * sinf(p[0]);
+                g[1] = -sym_total(red, 3);
+            }
+        } else {
+            // central differences, step h
+            float cp[3], cm[3];
+            for (int kk = 0; kk < n_par; ++kk) {
+                for (int sgn = 0; sgn < 2; ++sgn) {
+                    if (tid == 0) {
+                        for (int j = 0; j < 3; ++j) {
+                            const float step = j == kk ? a.h : 0.0f;
+                            par[j] = sgn == 0 ? p[j] + step : p[j] - step;
+                        }
+                    }
+                    __syncthreads();
+                    sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth,
+                                    gd2, red);
+                    if (tid == 0) {
+                        const float ck = -sym_total(red, 0) / nv;
+                        if (sgn == 0) cp[kk] = ck; else cm[kk] = ck;
+                    }
+                }
+            }
+            if (tid == 0)
+                for (int kk = 0; kk < n_par; ++kk)
+                    g[kk] = (cp[kk] - cm[kk]) / a.two_h;
+        }
+
+        // the LM step (thread 0): H = g g^T, b = g c, A = H + lam0 I
+        float p_new[3] = {p[0], p[1], p[2]};
+        float lam0 = lam;
+        if (tid == 0) {
+            float A[3][3], b[3];
+            float mdiag = g[0] * g[0] * 1.0f;
+            for (int i = 0; i < n_par; ++i) {
+                for (int j = 0; j < n_par; ++j) A[i][j] = g[i] * g[j] * 1.0f;
+                b[i] = g[i] * c;
+                if (i > 0) mdiag = max_nan(mdiag, A[i][i]);
+            }
+            if (lam < 0.0f) lam0 = 1e-5f * max_nan(mdiag, 1e-6f);
+            for (int i = 0; i < n_par; ++i)
+                for (int j = 0; j < n_par; ++j)
+                    A[i][j] = A[i][j] + lam0 * (i == j ? 1.0f : 0.0f);
+            // Cholesky, forward and back substitution
+            float L[3][3], y[3], x[3];
+            for (int i = 0; i < n_par; ++i)
+                for (int j = 0; j <= i; ++j) {
+                    float s = A[i][j];
+                    for (int q = 0; q < j; ++q) s = s - L[i][q] * L[j][q];
+                    L[i][j] = i == j ? sqrtf(max_nan(s, 1e-20f)) : s / L[j][j];
+                }
+            for (int i = 0; i < n_par; ++i) {
+                float s = b[i];
+                for (int q = 0; q < i; ++q) s = s - L[i][q] * y[q];
+                y[i] = s / L[i][i];
+            }
+            bool finite = true;
+            for (int i = n_par - 1; i >= 0; --i) {
+                float s = y[i];
+                for (int q = i + 1; q < n_par; ++q) s = s - L[q][i] * x[q];
+                x[i] = s / L[i][i];
+                finite = finite && isfinite(x[i]);
+            }
+            for (int i = 0; i < n_par; ++i)
+                p_new[i] = p[i] + (finite ? -x[i] : 0.0f);
+            par[0] = p_new[0];
+            par[1] = p_new[1];
+            par[2] = p_new[2];
+        }
+        __syncthreads();
+        sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+        if (tid == 0) {
+            const float c_new = -sym_total(red, 0) / nv;
+            const bool accept = c_new < c && isfinite(c_new);
+            if (accept) {
+                p[0] = p_new[0];
+                p[1] = p_new[1];
+                p[2] = p_new[2];
+            }
+            lam = accept ? lam0 / 3.0f : lam0 * nu;
+            nu = accept ? 2.0f : nu * 2.0f;
+            c = accept ? c_new : c;
+            par[0] = p[0];
+            par[1] = p[1];
+            par[2] = p[2];
+        }
+    }
+
+    // this init's result; the last block of the detection picks the winner
+    if (tid == 0) {
+        ini[0] = p[0];
+        ini[1] = p[1];
+        ini[2] = dual ? p[2] : 0.0f;
+        ini[3] = c;
+        ini[4] = expf(-c);
+        __threadfence();
+        last = atomicAdd(a.done + d, 1) == OSLAM_SYM_INITS - 1;
+    }
+    __syncthreads();
+    if (!last || tid != 0) return;
+    __threadfence();
+    const volatile float* all = a.inits + (size_t)d * OSLAM_SYM_INITS
+                                          * OSLAM_SYM_FIELDS;
+    int bi = 0;
+    float bp = all[4];
+    for (int q = 1; q < OSLAM_SYM_INITS; ++q) {
+        const float pq = all[q * OSLAM_SYM_FIELDS + 4];
+        if (pq > bp || (pq != pq && bp == bp)) {
+            bi = q;
+            bp = pq;
+        }
+    }
+    a.plane[4 * d + 0] = sinf(all[bi * OSLAM_SYM_FIELDS]);
+    a.plane[4 * d + 1] = -cosf(all[bi * OSLAM_SYM_FIELDS]);
+    a.plane[4 * d + 2] = 0.0f;
+    a.plane[4 * d + 3] = -all[bi * OSLAM_SYM_FIELDS + 1];
+    a.dual_dis[d] = all[bi * OSLAM_SYM_FIELDS + 2];
+    a.prob[d] = bp;
+    a.error[d] = all[bi * OSLAM_SYM_FIELDS + 3];
+}
+
+extern "C" int oslam_symmetry_search(
+    const void* pts, const void* mask, const void* bbox, const void* pose_oc,
+    const void* depth, const void* types, const void* run, int D, int S,
+    int H, int W, float fx, float fy, float cx, float cy, float scale,
+    float ff, float coef, float ang_step, float step_dis, float h,
+    float two_h, int iters, int analytic, void* plane, void* dual_dis,
+    void* prob, void* error, void* inits, void* done, void* stream)
+{
+    if (S < 1 || S > OSLAM_SYM_MAX_S) return (int)cudaErrorInvalidValue;
+    const SymArgs a = {
+        (const float*)pts, (const uint8_t*)mask, (const float*)bbox,
+        (const float*)pose_oc, (const int*)depth, (const int*)types,
+        (const uint8_t*)run, S, H, W, fx, fy, cx, cy, scale, ff, coef,
+        ang_step, step_dis, h, two_h, iters, analytic, (float*)plane,
+        (float*)dual_dis, (float*)prob, (float*)error, (float*)inits,
+        (int*)done};
+    const dim3 grid(OSLAM_SYM_INITS, D);
+    symmetry_search_kernel<<<grid, OSLAM_SYM_T, (size_t)S * sizeof(float4),
+                             (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }

@@ -18,21 +18,26 @@ a frame as one batch on the device (a leading axis D where the JAX package
       calibration (:170-196, 207-267, 760-788)
   (f) normalized object frame (x from PCA, z from ground normal), 0.1 m
       downsample of the object cloud (:321-347)
+  (g) with ``open_symmetry``: the symmetry plane of each detection whose
+      label has a symmetry prior (frontend/symmetry.py), the cloud
+      completed by its mirror image and the object frame re-derived from
+      the plane (:352-456)
   (h) scale from max |coord| per axis in the normalized frame
       (ProcessPCANormalized, :495-531); result returned camera-local
       (:459-492)
 
 Failure gates (miSystemState analogues) are carried as a validity mask.
-On a CUDA device stages (a)-(c), (d) and the downsample of (f) are three
-launches of the hand-written kernels of ``csrc/frontend.cu``: depth_cloud
-(``ops/depth_cloud``), cluster_select (``ops/cluster``) and
-voxel_downsample (``ops/voxel``); the rest is plain PyTorch.
+On a CUDA device stages (a)-(c), (d), the downsample of (f) and the plane
+search of (g) are launches of the hand-written kernels of
+``csrc/frontend.cu``: depth_cloud (``ops/depth_cloud``), cluster_select
+(``ops/cluster``), voxel_downsample (``ops/voxel``) and, when the frame
+has a detection with a symmetry prior, symmetry_search
+(``frontend/symmetry``); the rest is plain PyTorch.
 
 Not ported (each raises ``NotImplementedError`` naming the option):
-symmetry completion (stage (g), ``open_symmetry`` / ``sparse_symmetry``),
-grid-hash clustering (``grid_cluster``), interleaved chain passes
-(``cluster_chains > 0``), the split and fused extractors and LM fusion
-(``dispatch_with_lm``).
+sparse symmetry (``sparse_symmetry``), grid-hash clustering
+(``grid_cluster``), interleaved chain passes (``cluster_chains > 0``), the
+split and fused extractors and LM fusion (``dispatch_with_lm``).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from ..ops import cluster as cl
 from ..ops import pca as pca_mod
 from ..ops import voxel as vx
 from ..ops.depth_cloud import depth_cloud
+from . import symmetry as sym_mod
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
 
@@ -78,14 +84,13 @@ class ExtractorConfig:
     compact_tiers: bool = True
     compact_rungs: tuple = (4, 5, 6, 7, 8, 12)
     grid_cluster: bool = False  # grid-hash clustering: not ported
-    open_symmetry: bool = False             # not ported
+    open_symmetry: bool = False
     sparse_symmetry: bool = False           # not ported
-    sym_analytic_grad: bool = True          # symmetry only: not ported
+    sym_analytic_grad: bool = True   # False: central differences
 
 
 def _check_ported(cfg: ExtractorConfig):
-    for name, why in (("open_symmetry", "symmetry completion"),
-                      ("sparse_symmetry", "sparse symmetry"),
+    for name, why in (("sparse_symmetry", "sparse symmetry"),
                       ("grid_cluster", "grid-hash clustering")):
         if getattr(cfg, name):
             raise NotImplementedError(
@@ -98,12 +103,12 @@ def _check_ported(cfg: ExtractorConfig):
     # options that nothing in the port reads: a value other than the
     # default would be silently ignored, so it raises
     for f in dataclasses.fields(cfg):
-        if f.name in ("compact_tiers", "compact_rungs", "sym_analytic_grad") \
+        if f.name in ("compact_tiers", "compact_rungs") \
                 and getattr(cfg, f.name) != f.default:
             raise NotImplementedError(
                 f"ExtractorConfig.{f.name}={getattr(cfg, f.name)!r}: the "
-                "compaction ladder and the symmetry gradient switch are not "
-                "ported to the torch package (only the default is accepted)")
+                "compaction ladder is not ported to the torch package (only "
+                "the default is accepted)")
 
 
 def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
@@ -200,17 +205,54 @@ def _finish(Two, pts_n, obj_m, pose_wc):
     return torch.cat([pose_local, mx], dim=-1)
 
 
+def _stage_sym(Two, pts_n, obj_m, bboxes, run, sym_types, pose_wc, depth,
+               cam: Camera, cfg: ExtractorConfig, need_single: bool,
+               need_dual: bool):
+    """Stage (g) for the whole detection batch (JAX ``_sym_finish_one``):
+    the symmetry search of every detection whose type needs it (one launch
+    on a CUDA device, both variants), the completed clouds of the variants
+    the frame needs, and the selection by each detection's type.  Type 0,
+    and a detection off the run mask, keep the plain cloud padded to 4S and
+    prob 1.  Returns (Two, pts [D, 4S, 3], mask [D, 4S], prob [D])."""
+    D, S = obj_m.shape
+    pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_wc.expand(D, 7))
+    res = sym_mod.estimate_symmetry(
+        pts_n.contiguous(), obj_m.contiguous(), bboxes.contiguous(),
+        pose_oc.contiguous(), depth, sym_types, run, cam,
+        sym_mod.SymmetryConfig(analytic_grad=cfg.sym_analytic_grad))
+    pts_fin = torch.cat([pts_n, pts_n.new_zeros((D, 3 * S, 3))], dim=1)
+    m_fin = torch.cat([obj_m, obj_m.new_zeros((D, 3 * S))], dim=1)
+    Two_fin, prob = Two, torch.ones_like(res.prob)
+    for t, need in ((1, need_single), (2, need_dual)):
+        if not need:
+            continue
+        pts_s, m_s, Tom = sym_mod.complete_cloud(pts_n, obj_m, res, t == 2)
+        use = (sym_types == t) & run
+        pts_fin = torch.where(use[:, None, None], pts_s, pts_fin)
+        m_fin = torch.where(use[:, None], m_s, m_fin)
+        Two_fin = torch.where(use[:, None], se3.se3_mul(Two, Tom), Two_fin)
+        prob = torch.where(use, res.prob, prob)
+    return Two_fin, pts_fin, m_fin, prob
+
+
 def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
-                             cam: Camera, cfg: ExtractorConfig, stats=None):
+                             cam: Camera, cfg: ExtractorConfig, stats=None,
+                             sym_types=None, need_single: bool = True,
+                             need_dual: bool = True):
     """Batched single-frame estimation over all detections.
 
     depth: [H, W] int32; bboxes: [D, 4]; run_mask: [D] bool; pose_wc: [7];
     ground_plane: [4] world frame; all on one device.  ``stats``: an
     optional dict that receives the clustering stage's round count, lane
     count, survivor count and convergence as 0-dim tensors on that device
-    (the call reads nothing back).
+    (the call reads nothing back).  ``sym_types``: [D] int {0 none,
+    1 reflection, 2 dual} (read only with ``cfg.open_symmetry``; None: all
+    0); ``need_single`` / ``need_dual``: host flags, derived from the
+    frame's labels, that the frame has a detection of that type, so only
+    the completions it needs are computed (the search itself runs when
+    either holds).
     Returns (local vec10 [D, 10], prob [D], valid [D], debug tuple
-    (pts_n, obj_m, Two)).
+    (pts_n, obj_m, Two); after symmetry the completed clouds [D, 4S]).
     """
     _check_ported(cfg)
     depth = depth.to(torch.int32)
@@ -222,9 +264,16 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
         depth, bboxes, pose_wc, ground_plane, cam, cfg)
     sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
     Two, pts_n, obj_m = _stage_post(pts_w, sel, ground_plane, cfg)
-    e_local = _finish(Two, pts_n, obj_m, pose_wc)
     prob = torch.ones(bboxes.shape[0], dtype=torch.float32,
                       device=bboxes.device)
+    if cfg.open_symmetry and (need_single or need_dual):
+        if sym_types is None:
+            sym_types = torch.zeros(bboxes.shape[0], dtype=torch.int32,
+                                    device=bboxes.device)
+        Two, pts_n, obj_m, prob = _stage_sym(
+            Two, pts_n, obj_m, bboxes, run_mask, sym_types.to(torch.int32),
+            pose_wc, depth, cam, cfg, need_single, need_dual)
+    e_local = _finish(Two, pts_n, obj_m, pose_wc)
     ok = (ok_p & ok_c & ok_cl & run_mask
           & torch.isfinite(e_local).all(dim=1) & (prob > 1e-8))
     return e_local, prob, ok, (pts_n, obj_m, Two)
@@ -255,13 +304,14 @@ def _cloud_tier(bboxes, run, rows, cols, cap_max):
     return min(cap, cap_max)
 
 
-def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, pose_wc,
+def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, labels, pose_wc,
                 ground_plane):
     """Host packing of a frame: detection padding to a power of two, the
     single flat f32 argument vector [bboxes(pad,4) | run(pad) |
-    sym_type(pad, zeros: symmetry is not ported) | pose_wc(7) |
-    ground_plane(4)] and the cloud-capacity tier.
-    Returns (flat, pad, n, cfg at the tier)."""
+    sym_type(pad) | pose_wc(7) | ground_plane(4)] (the symmetry types from
+    the labels, SYMMETRY_PRIOR) and the cloud-capacity tier.
+    Returns (flat, pad, n, cfg at the tier, (detections of type 1, of type
+    2) when ``cfg.open_symmetry``, else (0, 0))."""
     D = len(bboxes)
     n = min(D, 32)
     if D > 32:
@@ -274,13 +324,17 @@ def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, pose_wc,
     if n:
         flat[:n * 4] = np.asarray(bboxes[:n], np.float32).ravel()
     flat[pad * 4:pad * 4 + n] = 1.0
+    st = sym_mod.sym_type_of_labels(labels[:n])
+    flat[pad * 5:pad * 5 + n] = st
+    n_sym = ((int((st == 1).sum()), int((st == 2).sum()))
+             if cfg.open_symmetry else (0, 0))
     flat[pad * 6:pad * 6 + 7] = pose_wc
     flat[pad * 6 + 7:] = ground_plane
     tier = _cloud_tier(bboxes[:n], flat[pad * 4:pad * 4 + n] > 0,
                        cam.height, cam.width, cfg.cloud_capacity)
     cfg_t = (cfg if tier == cfg.cloud_capacity
              else dataclasses.replace(cfg, cloud_capacity=tier))
-    return flat, pad, n, cfg_t
+    return flat, pad, n, cfg_t, n_sym
 
 
 _STAT_KEYS = ("cluster_rounds", "cluster_lanes", "cluster_survivors",
@@ -301,7 +355,9 @@ class MonolithicExtractor:
     counts stay on the device and ride the result's copy as one more row:
     ``fetch`` makes that one device-to-host copy and then fills ``stats``
     (the last frame's clustering rounds, lanes, survivors and convergence;
-    the cloud tier is known at the call).
+    the cloud tier and the counts of detections that take the single and
+    the dual symmetry search, ``sym_single`` / ``sym_dual``, are known at
+    the call from the labels).
     """
     def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
         from ..system.tracking import resolve_device
@@ -312,26 +368,30 @@ class MonolithicExtractor:
         self.stats = {}
         self._packed = None      # [pad + 1, 12]: the result and the stats row
 
-    def upload(self, depth, bboxes, pose_wc, ground_plane):
+    def upload(self, depth, bboxes, labels, pose_wc, ground_plane):
         """The frame's two host-to-device copies: the depth image and the
         packed arguments.  Returns what ``run`` takes."""
-        flat, pad, _, cfg_t = _pack_frame(self.cam, self.cfg, bboxes,
-                                          pose_wc, ground_plane)
+        flat, pad, _, cfg_t, n_sym = _pack_frame(
+            self.cam, self.cfg, bboxes, labels, pose_wc, ground_plane)
         depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)
                                    ).to(self.device)
-        return depth_d, torch.from_numpy(flat).to(self.device), pad, cfg_t
+        return (depth_d, torch.from_numpy(flat).to(self.device), pad, cfg_t,
+                n_sym)
 
-    def run(self, depth_d, flat_d, pad, cfg_t):
+    def run(self, depth_d, flat_d, pad, cfg_t, n_sym):
         """The extraction on the device: launches only, no copy and no
         wait.  Returns the [pad, 12] result (a view of the packed buffer
         whose last row carries the clustering counts)."""
         bb = flat_d[:pad * 4].reshape(pad, 4)
         run = flat_d[pad * 4:pad * 5] > 0.5
-        self.stats = {"cloud_tier": cfg_t.cloud_capacity}
+        self.stats = {"cloud_tier": cfg_t.cloud_capacity,
+                      "sym_single": n_sym[0], "sym_dual": n_sym[1]}
         dev_stats = {}
         e, p, v, _ = extract_local_ellipsoids(
             depth_d, bb, run, flat_d[pad * 6:pad * 6 + 7],
-            flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, dev_stats)
+            flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, dev_stats,
+            sym_types=flat_d[pad * 5:pad * 6], need_single=n_sym[0] > 0,
+            need_dual=n_sym[1] > 0)
         res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
         row = torch.nn.functional.pad(
             torch.stack([dev_stats[k].to(e.dtype) for k in _STAT_KEYS]),
@@ -342,7 +402,8 @@ class MonolithicExtractor:
     def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
         if ground_plane is None:
             return None
-        return self.run(*self.upload(depth, bboxes, pose_wc, ground_plane))
+        return self.run(*self.upload(depth, bboxes, labels, pose_wc,
+                                     ground_plane))
 
     def fetch(self, out):
         """The frame's one device-to-host copy: the result of the last call

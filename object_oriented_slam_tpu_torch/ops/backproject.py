@@ -13,20 +13,18 @@ The JAX functions take one detection and are ``vmap``-ed; here the
 detections are a leading axis D.  All outputs are fixed-capacity tensors +
 validity masks.
 
-``bbox_point_cloud`` is the ``bbox_cloud`` CUDA kernel (csrc/frontend.cu)
-for tensors on a CUDA device and ``bbox_point_cloud_plain`` for tensors on
-the CPU; it is an entry point off the main path, whose back-projection and
-centre estimate are part of ``ops/depth_cloud``.  Divisions are by 0-dim
-tensors on the tensor's device: dividing a CUDA tensor by a Python number
-(or by a CPU scalar tensor) multiplies by the reciprocal instead, which
-lands in another last bit than the CPU.
+``bbox_point_cloud_plain`` is plain PyTorch on any device: the main
+path's back-projection and centre estimate are part of the ``depth_cloud``
+kernel (``ops/depth_cloud``), and ``depth_cloud_plain`` is built on it.
+Divisions are by 0-dim tensors on the tensor's device: dividing a CUDA
+tensor by a Python number (or by a CPU scalar tensor) multiplies by the
+reciprocal instead, which lands in another last bit than the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.camera import Camera
-from . import frontend_kernels as fk
 
 # stride-3 scan of a full 640x480 image fits in a (160, 214) grid
 BBOX_GRID_H = 160
@@ -49,7 +47,14 @@ def _bbox_corners(bboxes, H, W):
 
 def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
                            cam: Camera, depth_range: float):
-    """Plain PyTorch version of ``bbox_point_cloud`` (any device)."""
+    """Strided back-projection of every detection's bbox region, plain
+    PyTorch on any device.
+
+    depth: [H, W] int32; bboxes: [D, 4] x1 y1 x2 y2 (float32, may be
+    fractional; truncated like the reference's int casts).
+    Returns (points [D, gh*gw, 3] camera-frame, mask [D, gh*gw]) with
+    gh, gw = ceil(H/3), ceil(W/3).
+    """
     H, W = depth.shape
     x1, y1, x2, y2 = _bbox_corners(bboxes, H, W)
     gh = (H + STRIDE - 1) // STRIDE
@@ -72,36 +77,6 @@ def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
     y = (pyc.to(torch.float32) - cam.cy) * z / scalar(cam.fy, d)
     pts = torch.stack([x.expand_as(z), y.expand_as(z), z], dim=-1)
     return pts.reshape(len(bboxes), -1, 3), valid.reshape(len(bboxes), -1)
-
-
-def bbox_point_cloud(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
-                     depth_range: float):
-    """Strided back-projection of every detection's bbox region.
-
-    depth: [H, W] int32; bboxes: [D, 4] x1 y1 x2 y2 (float32, may be
-    fractional; truncated like the reference's int casts).
-    Returns (points [D, gh*gw, 3] camera-frame, mask [D, gh*gw]) with
-    gh, gw = ceil(H/3), ceil(W/3).
-
-    On a CUDA device this is one launch of the ``bbox_cloud`` kernel; on the
-    CPU the plain version.
-    """
-    if depth.device.type != "cuda":
-        return bbox_point_cloud_plain(depth, bboxes, cam, depth_range)
-    H, W = depth.shape
-    D = bboxes.shape[0]
-    dev = depth.device
-    fk.check("depth", depth, torch.int32, (H, W), dev)
-    fk.check("bboxes", bboxes, torch.float32, (D, 4), dev)
-    G = ((H + STRIDE - 1) // STRIDE) * ((W + STRIDE - 1) // STRIDE)
-    pts = torch.empty((D, G, 3), dtype=torch.float32, device=dev)
-    mask = torch.empty((D, G), dtype=torch.bool, device=dev)
-    if D:
-        fk.launch(fk.BBOX_CLOUD, "oslam_bbox_cloud", dev,
-                  [depth.data_ptr(), bboxes.data_ptr(), D, H, W, cam.scale,
-                   cam.fx, cam.fy, cam.cx, cam.cy, depth_range,
-                   pts.data_ptr(), mask.data_ptr()])
-    return pts, mask
 
 
 def full_point_cloud(depth: torch.Tensor, cam: Camera, stride: int = 1,
@@ -155,3 +130,17 @@ def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
         acc = acc + pw[:, k]
     center = acc / count.clamp_min(1.0)[:, None]
     return center, count >= 2
+
+
+def proj_depth_map(depth: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """Plane-depth -> ray-length depth, elementwise (Symmetry.cpp:137-161):
+    d' = d * sqrt(xi^2 + f^2 + yi^2) / f with xi = x-cx, yi = y-cy.
+    depth [H, W] int32 -> [H, W] float32; f^2 is rounded to float32 from
+    double, as the JAX package's weakly typed constant is."""
+    H, W = depth.shape
+    xi = torch.arange(W, dtype=torch.float32, device=depth.device)[None] - cam.cx
+    yi = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None] \
+        - cam.cy
+    f = scalar(cam.fx, depth)
+    scale = torch.sqrt(xi * xi + scalar(cam.fx * cam.fx, depth) + yi * yi) / f
+    return depth.to(torch.float32) * scale

@@ -23,10 +23,9 @@ For tensors on a CUDA device the compaction and all rounds of a frame are
 one launch of the ``cluster_components`` kernel (csrc/frontend.cu, a thread
 block cluster per detection, nothing read back between rounds), with the
 cluster selection as its epilogue when ``cluster_select`` asks for it; on
-the CPU ``cluster_components_plain``, a loop over the plain versions of one
-pass and of the jumps, and ``select_cluster``.  ``min_label_pass`` and
-``pointer_jumps`` stay as entry points for one step each (their kernels
-share the device functions of the whole-frame kernel).  The JAX module's
+the CPU ``cluster_components_plain``, a loop over ``min_label_pass_plain``
+(one pass) and ``pointer_jumps_plain`` (the jumps), and
+``select_cluster``.  The JAX module's
 grid-hash path, its exact broadcast pass and its interleaved chain passes
 (``chains > 0``) are not ported and raise.
 """
@@ -41,8 +40,11 @@ _PLAIN_ELEMS = 1 << 24   # most [rows, N] elements a plain pass holds at once
 
 
 def min_label_pass_plain(pts_c, nrm, mask, labels, tol2: float):
-    """Plain PyTorch version of ``min_label_pass`` (any device): row blocks
-    of the [N, N] test, so the matrix is never held whole."""
+    """One pass: label_i <- min(label_i, min over neighbours j of label_j),
+    plain PyTorch on any device.  pts_c [D, N, 3] float32 centred points
+    (masked ones zeroed), nrm [D, N] their squared norms, mask [D, N] bool,
+    labels [D, N] int32.  Row blocks of the [N, N] test, so the matrix is
+    never held whole."""
     D, N = mask.shape
     rows = max(1, min(N, _PLAIN_ELEMS // max(D * N, 1)))
     x, y, z = pts_c.unbind(-1)
@@ -58,59 +60,17 @@ def min_label_pass_plain(pts_c, nrm, mask, labels, tol2: float):
     return torch.where(mask, torch.minimum(labels, new), labels)
 
 
-def min_label_pass(pts_c, nrm, mask, labels, tol2: float):
-    """One pass: label_i <- min(label_i, min over neighbours j of label_j).
-
-    pts_c [D, N, 3] float32 centred points (masked ones zeroed), nrm [D, N]
-    their squared norms, mask [D, N] bool, labels [D, N] int32.  On a CUDA
-    device one launch of the ``min_label_pass`` kernel; on the CPU the plain
-    version.
-    """
-    if pts_c.device.type != "cuda":
-        return min_label_pass_plain(pts_c, nrm, mask, labels, tol2)
-    D, N = mask.shape
-    dev = pts_c.device
-    fk.check("pts_c", pts_c, torch.float32, (D, N, 3), dev)
-    fk.check("nrm", nrm, torch.float32, (D, N), dev)
-    fk.check("mask", mask, torch.bool, (D, N), dev)
-    fk.check("labels", labels, torch.int32, (D, N), dev)
-    out = torch.empty_like(labels)
-    if D and N:
-        fk.launch(fk.MIN_LABEL_PASS, "oslam_min_label_pass", dev,
-                  [pts_c.data_ptr(), nrm.data_ptr(), mask.data_ptr(),
-                   labels.data_ptr(), D, N, tol2, out.data_ptr()])
-    return out
-
-
 def pointer_jumps_plain(labels, prev, iters: int):
-    """Plain PyTorch version of ``pointer_jumps`` (any device)."""
+    """``iters`` pointer jumps label_i <- label_{label_i} (labels >= N, the
+    masked points', stay), each reading the labels of the jump before, plain
+    PyTorch on any device.  Returns (labels, changed [D] int32: any label
+    differs from ``prev``)."""
     N = labels.shape[1]
     for _ in range(iters):
         safe = labels.clamp(0, N - 1).long()
         labels = torch.where(labels < N, torch.gather(labels, 1, safe),
                              labels)
     return labels, (labels != prev).any(dim=1).to(torch.int32)
-
-
-def pointer_jumps(labels, prev, iters: int):
-    """``iters`` pointer jumps label_i <- label_{label_i} (labels >= N, the
-    masked points', stay), each reading the labels of the jump before.
-    Returns (labels, changed [D] int32: any label differs from ``prev``).
-    ``labels`` may be overwritten.  On a CUDA device one launch of the
-    ``pointer_jumps`` kernel; on the CPU the plain version."""
-    if labels.device.type != "cuda":
-        return pointer_jumps_plain(labels, prev, iters)
-    D, N = labels.shape
-    dev = labels.device
-    fk.check("labels", labels, torch.int32, (D, N), dev)
-    fk.check("prev", prev, torch.int32, (D, N), dev)
-    changed = torch.empty((D,), dtype=torch.int32, device=dev)
-    if D:
-        tmp = torch.empty_like(labels)
-        fk.launch(fk.POINTER_JUMPS, "oslam_pointer_jumps", dev,
-                  [labels.data_ptr(), tmp.data_ptr(), prev.data_ptr(), D, N,
-                   iters, changed.data_ptr()])
-    return labels, changed
 
 
 def _seg_min_scan(vals, start):
@@ -169,11 +129,11 @@ def _compact(mask, *lanes):
     return sub, torch.gather(mask, 1, sub).contiguous(), out
 
 
-def _rounds_loop(pass_fn, jumps_fn, pts_c, nrm, mask, labels0, tol2: float,
-                 outer_iters: int, jump_iters: int):
+def _rounds_loop(pts_c, nrm, mask, labels0, tol2: float, outer_iters: int,
+                 jump_iters: int):
     """The propagation as a loop of single steps: the unmasked points are
-    compacted to the front with a stable sort, rounds of (``pass_fn``,
-    ``jump_iters`` jumps by ``jumps_fn``) run until no detection changes a
+    compacted to the front with a stable sort, rounds of (one pass,
+    ``jump_iters`` jumps) run until no detection changes a
     label or ``outer_iters`` rounds ran (one host read a round), and the
     labels are mapped back to the original lanes.
 
@@ -193,8 +153,9 @@ def _rounds_loop(pass_fn, jumps_fn, pts_c, nrm, mask, labels0, tol2: float,
     rounds = torch.zeros(D, dtype=torch.int32, device=dev)
     still = torch.ones(D, dtype=torch.bool, device=dev)
     for r in range(1, outer_iters + 1):
-        lab, changed = jumps_fn(pass_fn(pts_k, nrm_k, m_c, lab, tol2), lab,
-                                jump_iters)
+        lab, changed = pointer_jumps_plain(
+            min_label_pass_plain(pts_k, nrm_k, m_c, lab, tol2), lab,
+            jump_iters)
         rounds = torch.where(still, r, rounds).to(torch.int32)
         still = still & (changed != 0)
         if not bool(still.any()):
@@ -213,8 +174,8 @@ def cluster_components_plain(pts_c, nrm, mask, labels0, tol2: float,
     """Plain PyTorch version of ``cluster_components`` (any device):
     ``_rounds_loop`` over ``min_label_pass_plain`` and
     ``pointer_jumps_plain``."""
-    return _rounds_loop(min_label_pass_plain, pointer_jumps_plain, pts_c, nrm,
-                        mask, labels0, tol2, outer_iters, jump_iters)
+    return _rounds_loop(pts_c, nrm, mask, labels0, tol2, outer_iters,
+                        jump_iters)
 
 
 # the clustering kernel's launch: blocks per detection (the cluster size),

@@ -6,13 +6,11 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 ``depth_cloud.depth_cloud`` (depth_cloud: stages (a)-(c) of an extraction
 call), ``cluster.cluster_components`` and ``cluster.cluster_select`` (the
 clustering: one kernel, without and with the selection epilogue, one launch
-counter) and ``voxel.voxel_downsample`` (voxel_downsample: the object
-downsample).  Kept as entry points off that path: ``backproject.
-bbox_point_cloud`` (bbox_cloud) and ``voxel.voxel_segment_mean``, the
-single steps that depth_cloud took over, and ``cluster.min_label_pass`` and
-``cluster.pointer_jumps`` (one step of the clustering each).  Each launch runs
-on PyTorch's current stream and does not synchronise; the wrappers allocate
-the outputs with ``torch.empty``.
+counter), ``voxel.voxel_downsample`` (voxel_downsample: the object
+downsample) and ``frontend.symmetry.estimate_symmetry`` (symmetry_search:
+the symmetry-plane search of stage (g)).  Each launch runs on PyTorch's
+current stream and does not synchronise; the wrappers allocate the outputs
+with ``torch.empty``.
 """
 from __future__ import annotations
 
@@ -29,13 +27,12 @@ SOURCE = os.path.join(_cuda_build.CSRC_DIR, "frontend.cu")
 
 DEPTH_CLOUD = Kernel("depth_cloud")
 VOXEL_DOWNSAMPLE = Kernel("voxel_downsample")
-BBOX_CLOUD = Kernel("bbox_cloud")
-VOXEL_SEGMENT_MEAN = Kernel("voxel_segment_mean")
-MIN_LABEL_PASS = Kernel("min_label_pass")
-POINTER_JUMPS = Kernel("pointer_jumps")
 CLUSTER_COMPONENTS = Kernel("cluster_components")
-KERNELS = (DEPTH_CLOUD, VOXEL_DOWNSAMPLE, BBOX_CLOUD, VOXEL_SEGMENT_MEAN,
-           MIN_LABEL_PASS, POINTER_JUMPS, CLUSTER_COMPONENTS)
+SYMMETRY_SEARCH = Kernel("symmetry_search")
+KERNELS = (DEPTH_CLOUD, VOXEL_DOWNSAMPLE, CLUSTER_COMPONENTS, SYMMETRY_SEARCH)
+# the most points of a detection's cloud symmetry_search takes (its shared
+# memory holds them as float4: OSLAM_SYM_MAX_S in csrc/frontend.cu)
+SYM_MAX_POINTS = 2048
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
@@ -74,15 +71,13 @@ def _bind(lib_path: str) -> ctypes.CDLL:
             ("oslam_depth_cloud",
              [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 8),
             ("oslam_voxel_downsample", [p, p, i, i, f, i, p, p, p]),
-            ("oslam_bbox_cloud", [p, p, i, i, i, f, f, f, f, f, f, p, p]),
-            ("oslam_voxel_segment_mean", [p] * 4 + [i] * 3 + [p] * 6),
-            ("oslam_min_label_pass", [p] * 4 + [i, i, f, p]),
-            ("oslam_pointer_jumps", [p] * 3 + [i] * 3 + [p]),
             ("oslam_cluster_components",
              [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4),
             ("oslam_cluster_select",
              [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4
-             + [p, p, i, f, p, p, p])):
+             + [p, p, i, f, p, p, p]),
+            ("oslam_symmetry_search",
+             [p] * 7 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [p]      # ..., then the stream
         fn.restype = i

@@ -12,8 +12,7 @@ fixed-capacity prefix.
 ``voxel_downsample`` / ``voxel_downsample_cells`` are one launch of the
 ``voxel_downsample`` CUDA kernel (csrc/frontend.cu: keys, sort and means)
 for tensors on a CUDA device, and ``voxel_downsample_plain`` for tensors
-on the CPU.  The segment part alone is the ``voxel_segment_mean`` kernel /
-``voxel_segment_mean_plain`` (an entry point off the main path: the
+on the CPU; ``voxel_segment_mean_plain`` is its segment part (the
 extractor's first downsample is part of ``ops/depth_cloud``).  The
 attribute variants of the JAX module belong to sparse symmetry and are not
 ported.
@@ -72,8 +71,17 @@ def world_points_plain(pts: torch.Tensor, world: World):
 
 def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
                              world: Optional[World] = None):
-    """Plain PyTorch version of ``voxel_segment_mean`` (any device; on the
-    CPU ``index_add_`` adds in index order, i.e. in sorted order)."""
+    """Segment means of the stably sorted keys, plain PyTorch on any device
+    (on the CPU ``index_add_`` adds in index order, i.e. in sorted order).
+
+    key_s [D, G] int32 sorted keys, order [D, G] int64 the sort's indices,
+    pts [D, G, 3] the points in their ORIGINAL order, cmin [D, 3] int32.
+    Returns (centroids [D, capacity, 3], cells [D, capacity, 3] int32,
+    mask [D, capacity], world points | None, supporting-plane mask | None).
+    Segments past ``capacity`` are dropped.  Cells come from the segment's
+    own key (decoding it rather than re-flooring the centroid, which can
+    land in the next cell under f32 rounding), so each unmasked output
+    point has a unique cell."""
     D, G = key_s.shape
     dev = key_s.device
     pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
@@ -107,65 +115,6 @@ def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
         return out, cells, out_mask, None, None
     pts_w, dist = world_points_plain(out, world)
     return out, cells, out_mask, pts_w, out_mask & (dist > world.clearance)
-
-
-def voxel_segment_mean(key_s, order, pts, cmin, capacity: int,
-                       world: Optional[World] = None):
-    """Segment means of the stably sorted keys.
-
-    key_s [D, G] int32 sorted keys, order [D, G] int64 the sort's indices,
-    pts [D, G, 3] the points in their ORIGINAL order, cmin [D, 3] int32.
-    Returns (centroids [D, capacity, 3], cells [D, capacity, 3] int32,
-    mask [D, capacity], world points | None, supporting-plane mask | None).
-    Segments past ``capacity`` are dropped.
-
-    On a CUDA device this is one launch of the ``voxel_segment_mean``
-    kernel; on the CPU the plain version.
-    """
-    if key_s.device.type != "cuda":
-        return voxel_segment_mean_plain(key_s, order, pts, cmin, capacity,
-                                        world)
-    D, G = key_s.shape
-    dev = key_s.device
-    fk.check("key_s", key_s, torch.int32, (D, G), dev)
-    fk.check("order", order, torch.int64, (D, G), dev)
-    fk.check("pts", pts, torch.float32, (D, G, 3), dev)
-    fk.check("cmin", cmin, torch.int32, (D, 3), dev)
-    out = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
-    cells = torch.empty((D, capacity, 3), dtype=torch.int32, device=dev)
-    out_mask = torch.empty((D, capacity), dtype=torch.bool, device=dev)
-    pts_w = m2 = wbuf = None
-    if world is not None:
-        wbuf = torch.cat([world.R.reshape(9), world.t, world.plane,
-                          world.den.reshape(1),
-                          scalar(world.clearance, pts).reshape(1)])
-        fk.check("world", wbuf, torch.float32, (18,), dev)
-        pts_w = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
-        m2 = torch.empty((D, capacity), dtype=torch.bool, device=dev)
-    if D:
-        fk.launch(fk.VOXEL_SEGMENT_MEAN, "oslam_voxel_segment_mean", dev,
-                  [key_s.data_ptr(), order.data_ptr(), pts.data_ptr(),
-                   cmin.data_ptr(), D, G, capacity, out.data_ptr(),
-                   cells.data_ptr(), out_mask.data_ptr(),
-                   wbuf.data_ptr() if world is not None else None,
-                   pts_w.data_ptr() if world is not None else None,
-                   m2.data_ptr() if world is not None else None])
-    return out, cells, out_mask, pts_w, m2
-
-
-def _voxel_core(pts, mask, leaf: float, capacity: int,
-                world: Optional[World] = None):
-    """Shared downsample body of the single steps: key, stable sort, segment
-    means (``voxel_segment_mean``).
-
-    Cells come from the downsample's own keys (decoding the segment key
-    rather than re-flooring the centroid, which can land in the next cell
-    under f32 rounding), so each unmasked output point has a unique cell.
-    """
-    key, cmin = voxel_keys(pts, mask, leaf)
-    key_s, order = torch.sort(key, dim=1, stable=True)
-    return voxel_segment_mean(key_s, order, pts.contiguous(), cmin, capacity,
-                              world)
 
 
 def voxel_downsample_plain(pts: torch.Tensor, mask: torch.Tensor, leaf: float,

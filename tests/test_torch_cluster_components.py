@@ -271,7 +271,8 @@ def test_launch_memory_covers_the_lanes():
 
 def test_extractor_counts_ride_the_fetch():
     """After a CPU call the clustering counts are device values in the
-    packed result; ``fetch`` fills ``stats`` from its last row."""
+    packed result; ``fetch`` fills ``stats`` from its last row (the host's
+    counts are there from the call on)."""
     scene = tsyn.make_scene(n_objects=3, seed=5, radius_range=(1.3, 2.0),
                             scale_range=(0.2, 0.35))
     frames = list(tsyn.SyntheticDataset(scene, n_frames=2, orbit_radius=3.6,
@@ -281,7 +282,10 @@ def test_extractor_counts_ride_the_fetch():
     ex = make_extractor(scene.camera, cfg, device="cpu")
     plane = np.array([0.0, 0.0, 1.0, 0.0])
     out = ex(depth, det[:, 1:5].copy(), det[:, 5].astype(int), pose, plane)
-    assert set(ex.stats) == {"cloud_tier"}
+    # before the fetch only what the host knows: the tier and the counts of
+    # detections that take the symmetry search (none: symmetry is off)
+    assert ex.stats == {"cloud_tier": ex.stats["cloud_tier"], "sym_single": 0,
+                        "sym_dual": 0}
     host = ex.fetch(out)
     assert host.shape == (out.shape[0], 12) and host.dtype == np.float64
     np.testing.assert_array_equal(host, out.numpy().astype(np.float64))
@@ -290,8 +294,8 @@ def test_extractor_counts_ride_the_fetch():
     assert isinstance(st["cluster_rounds"], int) and 2 <= st["cluster_rounds"]
     assert 100 < st["cluster_survivors"] == st["cluster_lanes"] <= 2048
     # the same counts from the stage itself, as 0-dim tensors
-    up = ex.upload(depth, det[:, 1:5].copy(), pose, plane)
-    depth_d, flat_d, pad, cfg_t = up
+    up = ex.upload(depth, det[:, 1:5].copy(), det[:, 5], pose, plane)
+    depth_d, flat_d, pad, cfg_t, _ = up
     a = text._stage_a(depth_d, flat_d[:pad * 4].reshape(pad, 4),
                       flat_d[pad * 6:pad * 6 + 7],
                       flat_d[pad * 6 + 7:pad * 6 + 11], scene.camera, cfg_t)

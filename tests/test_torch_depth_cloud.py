@@ -82,10 +82,19 @@ def _assert_like_jax(got, want, name):
         np.testing.assert_allclose(got, want, atol=TOL, err_msg=name)
 
 
+def _single_steps(pts, mask, leaf, capacity, world=None):
+    """The downsample as the plain single steps: keys, a stable sort and
+    the segment means (with the world epilogue when ``world`` is given)."""
+    key, cmin = vx.voxel_keys(pts, mask, leaf)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    return vx.voxel_segment_mean_plain(key_s, order, pts, cmin, capacity,
+                                       world)
+
+
 def _cell_span(depth, bboxes, cam, leaf):
     """The most cells a box's live points span on one axis."""
-    pts, m0 = bp.bbox_point_cloud(torch.from_numpy(depth),
-                                  torch.from_numpy(bboxes), cam, 6.0)
+    pts, m0 = bp.bbox_point_cloud_plain(torch.from_numpy(depth),
+                                        torch.from_numpy(bboxes), cam, 6.0)
     cell = vx.voxel_cells(pts, leaf)
     big = 2 ** 30
     span = (torch.where(m0[..., None], cell, -big).amax(1)
@@ -142,8 +151,8 @@ def test_depth_cloud_plain_is_the_single_steps(scene, leaf):
     d_t, b_t = torch.from_numpy(depth), torch.from_numpy(bboxes)
     pose_t, plane_t = torch.from_numpy(pose), torch.from_numpy(PLANE)
     world = dc.plane_world(pose_t, plane_t, 0.05)
-    pts, m0 = bp.bbox_point_cloud(d_t, b_t, cam, 6.0)
-    pts_v, cells_v, _, pts_w, m2 = vx._voxel_core(pts, m0, leaf, 4096, world)
+    pts, m0 = bp.bbox_point_cloud_plain(d_t, b_t, cam, 6.0)
+    pts_v, cells_v, _, pts_w, m2 = _single_steps(pts, m0, leaf, 4096, world)
     for g, w in ((got.pts_v, pts_v), (got.cells_v, cells_v),
                  (got.pts_w, pts_w), (got.m2, m2), (got.R_wc, world.R)):
         assert _bits(g, w)
@@ -185,7 +194,7 @@ def test_voxel_downsample_plain_matches_jax(scene, k, leaf, capacity):
     if capacity == 64:
         assert bool(m[:, -1].any())
     # the single steps, bit for bit
-    single = vx._voxel_core(pts, mask, leaf, capacity)
+    single = _single_steps(pts, mask, leaf, capacity)
     assert _bits(out, single[0]) and torch.equal(cells, single[1])
     assert torch.equal(m, single[2])
 

@@ -202,10 +202,27 @@ def test_cloud_tier_matches_jax(bboxes, want):
 
 
 @pytest.mark.parametrize("option", [
-    dict(open_symmetry=True), dict(sparse_symmetry=True),
-    dict(grid_cluster=True), dict(cluster_chains=2),
-    dict(compact_tiers=False), dict(compact_rungs=(8, 16)),
-    dict(sym_analytic_grad=False)])
+    dict(open_symmetry=True),
+    dict(open_symmetry=True, sym_analytic_grad=False)])
+def test_symmetry_options_run(option, frame):
+    """Symmetry completion, with the exact gradient and with central
+    differences: make_extractor accepts it and a call (label 57 is a
+    reflection) returns finite results with a search prob below 1."""
+    ex = text.make_extractor(frame["cam"],
+                             text.ExtractorConfig(**KW, **option),
+                             device="cpu")
+    host = ex.fetch(ex(frame["depth"], frame["bboxes"],
+                       np.array([56, 57, 58]), frame["pose"].astype(float),
+                       frame["plane"].astype(float)))
+    assert np.isfinite(host).all() and (host[:3, 11] > 0.5).sum() >= 2
+    assert ex.stats["sym_single"] == 1 and ex.stats["sym_dual"] == 0
+    assert host[0, 10] == 1 and host[2, 10] == 1 and 0 < host[1, 10] <= 1
+
+
+@pytest.mark.parametrize("option", [
+    dict(sparse_symmetry=True), dict(grid_cluster=True),
+    dict(cluster_chains=2), dict(compact_tiers=False),
+    dict(compact_rungs=(8, 16))])
 def test_unported_extractor_options_raise(option, frame):
     name = next(iter(option))
     cfg = text.ExtractorConfig(**option)

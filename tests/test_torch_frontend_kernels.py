@@ -6,14 +6,17 @@ with the card has no JAX, so run this file without the JAX test setup:
     python -m pytest tests/test_torch_frontend_kernels.py --noconftest -q
 
 Inputs: frames of a seeded synthetic scene rendered by the port
-(io/synthetic.py), 640x480, and a seeded depth image valid at every pixel
-(a whole-image box of 34,240 live points).  The kernels are built with IEEE
+(io/synthetic.py), 640x480, a seeded depth image valid at every pixel
+(a whole-image box of 34,240 live points), and seeded object clouds for
+the symmetry search.  The kernels are built with IEEE
 division and without fused multiply-add, in the plain versions' order of
 operations, so masks, cells and labels must be EQUAL.  Floats are held bit
 for bit against the plain version evaluated on the CPU (whose
 ``index_add_`` adds in sorted order, like the kernel), and within 1e-6
 against the plain version on the card (whose ``index_add_`` adds with
-atomics in any order; 5e-6 for the 0.1 m object downsample).
+atomics in any order; 5e-6 for the 0.1 m object downsample).  The
+symmetry search is held bit for bit against its plain version on the card
+(the same libdevice functions, every sum in the kernel's order).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ import torch
 from object_oriented_slam_tpu_torch.core import se3
 from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
                                                      extract_local_ellipsoids)
+from object_oriented_slam_tpu_torch.frontend import symmetry as sym
 from object_oriented_slam_tpu_torch.io import synthetic as syn
 from object_oriented_slam_tpu_torch.ops import backproject as bp
 from object_oriented_slam_tpu_torch.ops import cluster as cl
@@ -74,90 +78,15 @@ def _bits_equal(a, b):
                        b.cpu().contiguous().view(torch.uint8))
 
 
-def test_bbox_cloud_equals_plain(device):
-    depth, bboxes, _, cam = _frame()
-    n0 = fk.BBOX_CLOUD.launches
-    pts, mask = bp.bbox_point_cloud(depth.to(device), bboxes.to(device), cam,
-                                    6.0)
-    torch.cuda.synchronize()
-    assert fk.BBOX_CLOUD.launches == n0 + 1
-    assert pts.shape == (len(bboxes), bp.BBOX_GRID_H * bp.BBOX_GRID_W, 3)
-    for want in (bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0),
-                 bp.bbox_point_cloud_plain(depth.to(device),
-                                           bboxes.to(device), cam, 6.0)):
-        assert torch.equal(mask.cpu(), want[1].cpu())
-        assert _bits_equal(pts, want[0])
-    assert int(mask.sum()) > 10000 and not bool(mask[-1].any())
-
-
-@pytest.mark.parametrize("capacity", [16384, 2048])
-def test_voxel_segment_mean_equals_plain(device, capacity):
-    depth, bboxes, pose, cam = _frame()
-    pts, mask = bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0)
-    key, cmin = vx.voxel_keys(pts, mask, 0.01)
-    key_s, order = torch.sort(key, dim=1, stable=True)
-    world = _world(pose, device)
-    n0 = fk.VOXEL_SEGMENT_MEAN.launches
-    got = vx.voxel_segment_mean(key_s.to(device), order.to(device),
-                                pts.to(device), cmin.to(device), capacity,
-                                world)
-    torch.cuda.synchronize()
-    assert fk.VOXEL_SEGMENT_MEAN.launches == n0 + 1
-    # bit for bit against the CPU (sequential sums in sorted order)
-    want = vx.voxel_segment_mean_plain(key_s, order, pts, cmin, capacity,
-                                       _world_cpu(world))
-    for g, w in zip(got, want):
-        assert _bits_equal(g, w)
-    # against the card's plain version: atomics add in any order
-    card = vx.voxel_segment_mean_plain(key_s.to(device), order.to(device),
-                                       pts.to(device), cmin.to(device),
-                                       capacity, world)
-    assert torch.equal(got[1], card[1]) and torch.equal(got[2], card[2])
-    assert float((got[0] - card[0]).abs().max()) <= 1e-6
-    assert float((got[3] - card[3]).abs().max()) <= 1e-6
-    # without the world epilogue
-    bare = vx.voxel_segment_mean(key_s.to(device), order.to(device),
-                                 pts.to(device), cmin.to(device), capacity)
-    assert bare[3] is None and bare[4] is None
-    assert _bits_equal(bare[0], got[0]) and torch.equal(bare[2], got[2])
-    if capacity == 2048:      # the big boxes overflow: segments are dropped
-        assert bool(got[2][:, -1].any())
-
-
 def _cluster_inputs(n_lanes=4096):
     depth, bboxes, pose, cam = _frame()
     pts, mask = bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0)
     world = _world_cpu(_world(pose, torch.device("cpu")))
-    _, _, _, pts_w, m2 = vx._voxel_core(pts, mask, 0.01, n_lanes, world)
+    key, cmin = vx.voxel_keys(pts, mask, 0.01)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    _, _, _, pts_w, m2 = vx.voxel_segment_mean_plain(key_s, order, pts, cmin,
+                                                     n_lanes, world)
     return pts_w, m2
-
-
-def test_min_label_pass_and_jumps_equal_plain(device):
-    pts_w, m2 = _cluster_inputs()
-    D, N = m2.shape
-    w = m2[..., None]
-    c = torch.where(w, pts_w, 0.0).sum(1) / m2.sum(1).clamp_min(1)[:, None]
-    pts_c = torch.where(w, pts_w - c[:, None, :], 0.0).contiguous()
-    nrm = (pts_c * pts_c).sum(-1)
-    labels = torch.where(m2, torch.arange(N, dtype=torch.int32), N)
-    tol2 = float(torch.tensor(0.02 * 0.02, dtype=torch.float32))
-    args_d = [t.to(device) for t in (pts_c, nrm, m2, labels)]
-    for _ in range(3):       # three rounds, each held against the plain one
-        n0 = (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches)
-        got = cl.min_label_pass(*args_d, tol2)
-        want = cl.min_label_pass_plain(pts_c, nrm, m2, labels, tol2)
-        assert torch.equal(got.cpu(), want)
-        got_j, got_ch = cl.pointer_jumps(got, args_d[3], 12)
-        want_j, want_ch = cl.pointer_jumps_plain(want, labels, 12)
-        torch.cuda.synchronize()
-        assert (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches) \
-            == (n0[0] + 1, n0[1] + 1)
-        assert torch.equal(got_j.cpu(), want_j)
-        assert torch.equal(got_ch.cpu(), want_ch) and bool(want_ch.any())
-        labels, args_d[3] = want_j, got_j
-    # an odd number of jumps ends in the scratch buffer and is copied back
-    odd, _ = cl.pointer_jumps(args_d[3].clone(), args_d[3], 3)
-    assert torch.equal(odd.cpu(), cl.pointer_jumps_plain(labels, labels, 3)[0])
 
 
 def _on(device, args):
@@ -181,13 +110,15 @@ def test_cluster_components_equals_plain_and_repeat(device, chains):
     want = cl.cluster_components_plain(*args, 96, 12)
     assert bool(want[1].all()) and int(want[2].max()) > 3
     n0 = fk.CLUSTER_COMPONENTS.launches
-    step0 = (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches)
+    others0 = {k.name: k.launches for k in fk.KERNELS
+               if k is not fk.CLUSTER_COMPONENTS}
     args_d = _on(device, args)
     for _ in range(2):
         _assert_same(cl.cluster_components(*args_d, 96, 12), want)
     torch.cuda.synchronize()
     assert fk.CLUSTER_COMPONENTS.launches == n0 + 2
-    assert (fk.MIN_LABEL_PASS.launches, fk.POINTER_JUMPS.launches) == step0
+    assert {k.name: k.launches for k in fk.KERNELS
+            if k is not fk.CLUSTER_COMPONENTS} == others0
     P = cl.LAUNCH_SHAPE[2]
 
     def launch(frame=None, **kw):
@@ -351,11 +282,10 @@ def test_extraction_on_card_matches_cpu(device):
                                    run.to(device), pose_t.to(device),
                                    plane.to(device), cam, cfg)
     torch.cuda.synchronize()
-    # three launches; the single-step kernels are not on this path
+    # three launches; no symmetry search without open_symmetry
     assert {k.name: k.launches - before[k.name] for k in fk.KERNELS} == {
         "depth_cloud": 1, "cluster_components": 1, "voxel_downsample": 1,
-        "bbox_cloud": 0, "voxel_segment_mean": 0, "min_label_pass": 0,
-        "pointer_jumps": 0}
+        "symmetry_search": 0}
     want = extract_local_ellipsoids(depth, bboxes, run, pose_t, plane, cam,
                                     cfg)
     assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
@@ -364,17 +294,6 @@ def test_extraction_on_card_matches_cpu(device):
     assert float((got[0].cpu()[v, :3] - want[0][v, :3]).abs().max()) < 1e-4
     assert float((got[0].cpu()[v, 7:].sort(1).values
                   - want[0][v, 7:].sort(1).values).abs().max()) < 1e-3
-
-
-def test_wrappers_refuse_what_the_kernels_do_not_take(device):
-    depth, bboxes, _, cam = _frame()
-    with pytest.raises(TypeError):
-        bp.bbox_point_cloud(depth.to(device).float(), bboxes.to(device), cam,
-                            6.0)
-    with pytest.raises(ValueError):
-        bp.bbox_point_cloud(depth.to(device), bboxes, cam, 6.0)
-    with pytest.raises(ValueError):
-        bp.bbox_point_cloud(depth.to(device).T, bboxes.to(device), cam, 6.0)
 
 
 def _full_depth(seed=11):
@@ -418,9 +337,8 @@ def test_depth_cloud_equals_plain(device, capacity, whole_image):
     again = dc.depth_cloud(*args_d, *rest)
     torch.cuda.synchronize()
     assert {k.name: k.launches - n0[k.name] for k in fk.KERNELS} == {
-        "depth_cloud": 2, "voxel_downsample": 0, "bbox_cloud": 0,
-        "voxel_segment_mean": 0, "cluster_components": 0,
-        "min_label_pass": 0, "pointer_jumps": 0}
+        "depth_cloud": 2, "voxel_downsample": 0, "cluster_components": 0,
+        "symmetry_search": 0}
     want = dc.depth_cloud_plain(*args, *rest)
     card = dc.depth_cloud_plain(*args_d, *rest)
     for name, g, a, w, c in zip(dc.DepthCloud._fields, got, again, want,
@@ -511,3 +429,98 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
         vx.voxel_downsample(pts[:, :512], mask, 0.1, 512)
     with pytest.raises(ValueError):
         vx.voxel_downsample(pts, mask, 0.1, 0)
+
+
+def _sym_inputs(dev, lanes=512, seed=3):
+    """Four detections for the symmetry search: a reflection-symmetric cloud
+    seen from afar (type 1), a random cloud under a near camera whose box
+    and depth occlude part of its mirror (type 2), a cloud of type 0 and
+    one off the run mask; live lanes scattered."""
+    rng = np.random.default_rng(seed)
+    half = rng.uniform(-0.3, 0.3, (200, 3)).astype(np.float32)
+    half = half[half[:, 1] > 0.02][:100]
+    sym_cloud = np.concatenate([half, half * np.float32([1, -1, 1])])
+    rand = rng.uniform(-0.2, 0.2, (lanes, 3)).astype(np.float32)
+    pts = np.zeros((4, lanes, 3), np.float32)
+    mask = np.zeros((4, lanes), bool)
+    for d, cloud in enumerate((sym_cloud, rand, sym_cloud, rand[:50])):
+        idx = rng.permutation(lanes)[:len(cloud)]
+        pts[d, idx], mask[d, idx] = cloud, True
+    bbox = np.array([[0, 0, 1, 1], [0, 0, 639, 479]] * 2, np.float32)
+    pose = np.array([[0, 0, -50, 0, 0, 0, 1], [0.1, 0.05, -1.5, 0, 0, 0, 1]]
+                    * 2, np.float32)
+    depth = np.full((480, 640), 7000, np.int32)
+    depth[:, :300] = 0
+    types = torch.tensor([1, 2, 0, 1], dtype=torch.int32)
+    run = torch.tensor([True, True, True, False])
+    return [t.to(dev) for t in (torch.from_numpy(pts), torch.from_numpy(mask),
+                                torch.from_numpy(bbox), torch.from_numpy(pose),
+                                torch.from_numpy(depth), types, run)]
+
+
+@pytest.mark.parametrize("analytic", [True, False],
+                         ids=["analytic", "central"])
+def test_symmetry_search_equals_plain(device, analytic):
+    """One launch for every detection, initial plane and LM iteration,
+    bit-equal to the plain version on the card and to a second launch;
+    no search for type 0 or off the run mask."""
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
+    args = _sym_inputs(device)
+    cfg = sym.SymmetryConfig(analytic_grad=analytic)
+    n0 = fk.SYMMETRY_SEARCH.launches
+    got = sym.estimate_symmetry(*args[:6], args[6], cam, cfg)
+    again = sym.estimate_symmetry(*args[:6], args[6], cam, cfg)
+    torch.cuda.synchronize()
+    assert fk.SYMMETRY_SEARCH.launches == n0 + 2
+    want = sym.estimate_symmetry_plain(
+        *args[:4], bp.proj_depth_map(args[4], cam), args[5], args[6], cam,
+        cfg)
+    for name, g, a, w in zip(sym.SymSearch._fields, got, again, want):
+        assert _bits_equal(g, a), name
+        assert _bits_equal(g, w), (name, float((g - w).abs().max()))
+    assert 0 < float(got.prob[0]) <= 1 and 0 < float(got.prob[1]) < 1
+    assert float(got.prob[2]) == 0 and float(got.prob[3]) == 0
+
+
+def test_symmetry_search_refuses_what_it_does_not_take(device):
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
+    args = _sym_inputs(device)
+    with pytest.raises(TypeError):
+        sym.estimate_symmetry(args[0].double(), *args[1:], cam)
+    with pytest.raises(ValueError):
+        sym.estimate_symmetry(*args[:5], args[5].cpu(), args[6], cam)
+    big = _sym_inputs(device, lanes=fk.SYM_MAX_POINTS + 1)
+    with pytest.raises(ValueError):
+        sym.estimate_symmetry(*big, cam)
+
+
+def test_extraction_with_symmetry_on_card(device):
+    """open_symmetry on the card: four launches (the search once, both
+    variants), the CPU's valid flags, finite results."""
+    scene = syn.make_scene(n_objects=6, seed=7, radius_range=(1.3, 2.2),
+                           scale_range=(0.2, 0.4),
+                           labels=[28, 57, 58, 28, 63, 59])
+    pose = syn.orbit_trajectory(12, 3.6, 1.7)[0]
+    depth = syn.render_depth(scene.ellipsoids, pose, scene.camera)
+    bbs, vis = syn.project_bboxes(scene.ellipsoids.astype(np.float32),
+                                  pose.astype(np.float32), scene.camera)
+    types = torch.from_numpy(sym.sym_type_of_labels(scene.labels[vis.numpy()]))
+    cfg = ExtractorConfig(open_symmetry=True)
+    args = (depth, bbs[vis], torch.ones(len(types), dtype=torch.bool),
+            torch.as_tensor(pose, dtype=torch.float32),
+            torch.tensor([0.0, 0.0, 1.0, 0.0]))
+    before = {k.name: k.launches for k in fk.KERNELS}
+    got = extract_local_ellipsoids(*(t.to(device) for t in args),
+                                   scene.camera, cfg, sym_types=types.to(
+                                       device))
+    torch.cuda.synchronize()
+    assert {k.name: k.launches - before[k.name] for k in fk.KERNELS} == {
+        "depth_cloud": 1, "cluster_components": 1, "voxel_downsample": 1,
+        "symmetry_search": 1}
+    want = extract_local_ellipsoids(*args, scene.camera, cfg,
+                                    sym_types=types)
+    assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool(((got[1] > 0) & (got[1] <= 1)).all())

@@ -27,7 +27,7 @@ print(" ".join(names))
 DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "ops.backproject", "ops.voxel", "ops.cluster", "ops.pca",
                  "ops.linalg", "frontend", "frontend.ground_plane",
-                 "frontend.extractor", "io.synthetic", "system.tracking",
+                 "frontend.extractor", "frontend.symmetry", "io.synthetic", "system.tracking",
                  "system.system", "system.checkpoint", "backend.ba_kernels"]
 
 
@@ -85,7 +85,8 @@ def test_chip_smoke_and_port_examples_import_no_jax():
     assert out.returncode == 0, out.stderr
     for phase in ("phase_kernels", "phase_steps", "phase_whole_lm",
                   "phase_main_path", "phase_frontend_kernels",
-                  "phase_depth_path"):
+                  "phase_depth_path", "phase_symmetry_path",
+                  "phase_symmetry_kernel"):
         assert phase in out.stdout, phase
 
 

@@ -58,7 +58,7 @@ BBOXES = np.array([[40.6, 30.2, 90.9, 80.4], [95.0, 55.5, 159.0, 119.0],
 
 def test_bbox_point_cloud_matches_jax():
     depth = _depth()
-    pts, mask = tbp.bbox_point_cloud(_t(depth), _t(BBOXES), CAM, 6.0)
+    pts, mask = tbp.bbox_point_cloud_plain(_t(depth), _t(BBOXES), CAM, 6.0)
     jpts, jmask = jax.vmap(lambda b: jbp.bbox_point_cloud(
         jnp.asarray(depth), b, JCAM, 6.0))(jnp.asarray(BBOXES))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
@@ -88,7 +88,7 @@ def test_full_point_cloud_matches_jax():
 
 def _cloud():
     depth = _depth()
-    pts, mask = tbp.bbox_point_cloud(_t(depth), _t(BBOXES), CAM, 6.0)
+    pts, mask = tbp.bbox_point_cloud_plain(_t(depth), _t(BBOXES), CAM, 6.0)
     return pts.numpy(), mask.numpy()
 
 
