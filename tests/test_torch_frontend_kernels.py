@@ -458,16 +458,91 @@ def _sym_inputs(dev, lanes=512, seed=3):
                                 torch.from_numpy(depth), types, run)]
 
 
-@pytest.mark.parametrize("analytic", [True, False],
-                         ids=["analytic", "central"])
-def test_symmetry_search_equals_plain(device, analytic):
+def _sym_ties(dev):
+    """_sym_inputs with three points of each searched cloud repeated three
+    times: a mirrored point whose nearest live point is one of them ties
+    three ways, so the tie count and the tie sums run past two terms."""
+    pts, mask, *rest = _sym_inputs(torch.device("cpu"))
+    for d in (0, 1):
+        live = mask[d].nonzero().flatten()
+        for k in range(3):
+            pts[d, live[3 * k + 1:3 * k + 3]] = pts[d, live[3 * k]].clone()
+    return [t.to(dev) for t in (pts, mask, *rest)]
+
+
+def _sym_capacity(dev, D=8, S=512, seed=7):
+    """sym_capacity filled: D dual detections of S live points each, half
+    of each cloud mirrored across y = 0 and jittered, under a near camera
+    over a wall that occludes part of the mirror."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((D, S, 3), np.float32)
+    for d in range(D):
+        half = rng.uniform(-0.4, 0.4, (S // 2, 3)).astype(np.float32)
+        half[:, 1] = np.abs(half[:, 1]) * 0.5 + 0.01
+        pts[d] = np.concatenate([half, half * np.float32([1, -1, 1])])
+        pts[d] += rng.normal(0, 0.005, (S, 3)).astype(np.float32)
+    bbox = np.tile(np.float32([120, 80, 520, 400]), (D, 1))
+    pose = np.tile(np.float32([0.1, -0.05, -2.5, 0, 0, 0, 1]), (D, 1))
+    depth = np.full((480, 640), 11000, np.int32)
+    depth[:, :260] = 0
+    return [torch.from_numpy(t).to(dev) for t in (
+        pts, np.ones((D, S), bool), bbox, pose, depth)] + [
+        torch.full((D,), 2, dtype=torch.int32, device=dev),
+        torch.ones(D, dtype=torch.bool, device=dev)]
+
+
+def _sym_ragged(dev, counts=(1, 255, 257, 511, 2048), types=(2, 1, 2, 1, 2),
+                seed=5):
+    """Live counts that leave the kernel's tiles of mirrored points partly
+    filled, up to SYM_MAX_POINTS (a dual detection of 2048 points mirrors
+    4096), single and dual detections mixed, lanes scattered; the near
+    camera and the wall of _sym_inputs."""
+    rng = np.random.default_rng(seed)
+    S = fk.SYM_MAX_POINTS
+    pts = np.zeros((len(counts), S, 3), np.float32)
+    mask = np.zeros((len(counts), S), bool)
+    for d, n in enumerate(counts):
+        idx = rng.permutation(S)[:n]
+        pts[d, idx] = rng.uniform(-0.25, 0.25, (n, 3)).astype(np.float32)
+        mask[d, idx] = True
+    D = len(counts)
+    bbox = np.tile(np.float32([0, 0, 639, 479]), (D, 1))
+    pose = np.tile(np.float32([0.1, 0.05, -1.5, 0, 0, 0, 1]), (D, 1))
+    depth = np.full((480, 640), 7000, np.int32)
+    depth[:, :300] = 0
+    return [torch.from_numpy(t).to(dev) for t in (pts, mask, bbox, pose,
+                                                  depth)] + [
+        torch.tensor(types, dtype=torch.int32, device=dev),
+        torch.ones(D, dtype=torch.bool, device=dev)]
+
+
+_SYM_CASES = {"path": _sym_inputs, "ties": _sym_ties,
+              "capacity": _sym_capacity, "ragged": _sym_ragged}
+
+
+@pytest.mark.parametrize("case,analytic,iters", [
+    pytest.param("path", True, 5, id="analytic"),
+    pytest.param("path", False, 5, id="central"),
+    *(pytest.param("path", an, it, id=f"iters{it}-{name}")
+      for it in (1, 8) for an, name in ((True, "analytic"),
+                                        (False, "central"))),
+    pytest.param("ties", True, 5, id="ties-analytic"),
+    pytest.param("ties", False, 5, id="ties-central"),
+    pytest.param("capacity", True, 5, id="capacity-analytic"),
+    pytest.param("capacity", False, 5, id="capacity-central"),
+    pytest.param("ragged", True, 5, id="ragged-analytic")])
+def test_symmetry_search_equals_plain(device, case, analytic, iters):
     """One launch for every detection, initial plane and LM iteration,
     bit-equal to the plain version on the card and to a second launch;
-    no search for type 0 or off the run mask."""
+    no search for type 0 or off the run mask.  The cases: the path's
+    clouds (whose plain search rejects some LM steps and accepts others,
+    tests/test_torch_symmetry.py), with 1, 5 and 8 iterations; the same
+    with three-way ties; sym_capacity filled; ragged live counts up to
+    SYM_MAX_POINTS."""
     from object_oriented_slam_tpu_torch.core.camera import Camera
     cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
-    args = _sym_inputs(device)
-    cfg = sym.SymmetryConfig(analytic_grad=analytic)
+    args = _SYM_CASES[case](device)
+    cfg = sym.SymmetryConfig(analytic_grad=analytic, iters=iters)
     n0 = fk.SYMMETRY_SEARCH.launches
     got = sym.estimate_symmetry(*args[:6], args[6], cam, cfg)
     again = sym.estimate_symmetry(*args[:6], args[6], cam, cfg)
@@ -479,8 +554,13 @@ def test_symmetry_search_equals_plain(device, analytic):
     for name, g, a, w in zip(sym.SymSearch._fields, got, again, want):
         assert _bits_equal(g, a), name
         assert _bits_equal(g, w), (name, float((g - w).abs().max()))
-    assert 0 < float(got.prob[0]) <= 1 and 0 < float(got.prob[1]) < 1
-    assert float(got.prob[2]) == 0 and float(got.prob[3]) == 0
+    searched = (args[6] & (args[5] > 0)).cpu()
+    prob = got.prob.cpu()
+    assert bool((prob[searched] > 0).all() and (prob[searched] <= 1).all())
+    assert not bool(prob[~searched].any())
+    assert not bool(got.inits.cpu()[~searched].any())
+    if case == "path":
+        assert float(prob[1]) < 1
 
 
 def test_symmetry_search_refuses_what_it_does_not_take(device):

@@ -331,6 +331,63 @@ def test_estimate_symmetry_runs_each_detection_by_its_type(analytic):
         assert not off.dual_dis.any() and not off.inits.any()
 
 
+def _kernel_case_clouds(lanes=512, seed=3):
+    """The two searched detections of test_torch_frontend_kernels.py's
+    _sym_inputs (the symmetry_search kernel's path case), made the same way:
+    a reflection-symmetric cloud seen from afar (type 1) and a random cloud
+    under a near camera whose box and depth occlude part of its mirror
+    (type 2).  Returns [(pts, mask, bbox, pose_oc, dual)] and the depth."""
+    rng = np.random.default_rng(seed)
+    half = rng.uniform(-0.3, 0.3, (200, 3)).astype(np.float32)
+    half = half[half[:, 1] > 0.02][:100]
+    sym_cloud = np.concatenate([half, half * np.float32([1, -1, 1])])
+    rand = rng.uniform(-0.2, 0.2, (lanes, 3)).astype(np.float32)
+    out = []
+    for d, cloud in enumerate((sym_cloud, rand)):
+        idx = rng.permutation(lanes)[:len(cloud)]
+        pts = np.zeros((1, lanes, 3), np.float32)
+        mask = np.zeros((1, lanes), bool)
+        pts[0, idx], mask[0, idx] = cloud, True
+        bbox = np.array([[0, 0, 1, 1], [0, 0, 639, 479]][d:d + 1], np.float32)
+        pose = np.array([[0, 0, -50, 0, 0, 0, 1],
+                         [0.1, 0.05, -1.5, 0, 0, 0, 1]][d:d + 1], np.float32)
+        out.append((pts, mask, bbox, pose, d == 1))
+    depth = np.full((480, 640), 7000, np.int32)
+    depth[:, :300] = 0
+    return out, depth
+
+
+def test_search_rejects_and_accepts_steps():
+    """The kernel's exact-gradient search keeps the gradient of the last
+    accepted trial: on a rejected step p is unchanged, and so is g.  Its
+    path case must therefore reject some LM steps and accept others.  The
+    plain search taken one lm_step at a time on those clouds: over the 9
+    initial planes and 5 iterations of each detection both occur, and the
+    result is optimize_inits_plain's to the bit."""
+    cases, depth = _kernel_case_clouds()
+    proj = tbp.proj_depth_map(_t(depth), CAM)
+    cfg = tsym.SymmetryConfig()
+    accepted = rejected = 0
+    for pts, mask, bbox, pose, dual in cases:
+        args = (_t(pts), _t(mask), _t(bbox), _t(pose), proj, CAM)
+        cl = tsym._clouds(*args, cfg.sigma)
+        ang, dis = tsym.init_grid(cfg)
+        p = torch.zeros((1, tsym.N_INITS, 3 if dual else 2))
+        p[..., 0], p[..., 1] = ang, dis
+        c = tsym._mirror_eval(p, cl, dual)
+        lam, nu = torch.full_like(c, -1.0), torch.full_like(c, 2.0)
+        for _ in range(cfg.iters):
+            _, g = tsym._mirror_eval(p, cl, dual, want_grad=True)
+            p, c_next, lam, nu = tsym.lm_step(
+                p, g, c, lam, nu, lambda q: tsym._mirror_eval(q, cl, dual))
+            accepted += int((c_next < c).sum())
+            rejected += int((c_next == c).sum())
+            c = c_next
+        want_p, want_c = tsym.optimize_inits_plain(*args, dual, cfg)
+        assert torch.equal(p, want_p) and torch.equal(c, want_c)
+    assert accepted > 0 and rejected > 0, (accepted, rejected)
+
+
 def test_search_recovers_the_plane():
     """As tests/test_symmetry.py: the symmetric cloud's plane, up to sign."""
     pts, mask, bbox, pose_oc, _ = CASES["symmetric"]
