@@ -1619,8 +1619,9 @@ extern "C" int oslam_cluster_select(
 //
 // Bound by operations: a cost pass tests every mirrored point against every
 // live point of the cloud (P n x n pair tests of ~10 f32 operations, P = 1
-// or 2 planes, n <= 512 live points), and a search runs 1 + 2 iters passes
-// with the exact gradient, 1 + iters (2 n_par + 1) with central
+// or 2 planes, n <= 512 live points), and a search runs 1 + iters passes
+// with the exact gradient (a trial pass carries the gradient at its
+// parameters, kept on a reject), 1 + iters (2 n_par + 1) with central
 // differences; the bytes are a few KB a detection.  At the path's shapes
 // (tens of live points) that is little work: what bounds a launch is the
 // chain of dependent passes in each block, each ending in a block
@@ -1839,6 +1840,25 @@ __device__ __forceinline__ float sym_total(float (*red)[OSLAM_SYM_SUMS],
     return s;
 }
 
+// The gradient over the parameters from a kGrad pass's totals at the
+// parameters whose planes are pl: cos and sin of the angle and of the
+// azimuth are read off the planes (n0 = sin, n1 = -cos).
+__device__ __forceinline__ void sym_grad(const float* tot, const SymPlanes& pl,
+                                         bool dual, float* g)
+{
+    float g_n0 = tot[1], g_n1 = tot[2];
+    if (dual) {
+        // the second plane's azimuth is atan2(n1, n0) of the first
+        const float g_az = tot[4] * -pl.n1[1] + tot[5] * pl.n0[1];
+        const float r2 = pl.n0[0] * pl.n0[0] + pl.n1[0] * pl.n1[0];
+        g_n0 += g_az * (-pl.n1[0] / r2);
+        g_n1 += g_az * (pl.n0[0] / r2);
+        g[2] = -tot[6];
+    }
+    g[0] = g_n0 * -pl.n1[0] + g_n1 * pl.n0[0];
+    g[1] = -tot[3];
+}
+
 __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     const SymArgs a)
 {
@@ -1924,45 +1944,24 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     const float nv = fmaxf((float)((dual ? 2 : 1) * n), 1.0f);
     const float gd2 = -(1.0f / nv) * a.coef;    // d cost / d d2
 
-    // thread 0's LM state: params, cost, damping
-    float p[3], c = 0.0f, lam = -1.0f, nu = 2.0f;
+    // thread 0's LM state: params, cost, damping, the gradient at p
+    float p[3], p_new[3], c = 0.0f, lam = -1.0f, nu = 2.0f;
+    float g[3] = {0.0f, 0.0f, 0.0f};
     {
         const float steps[3] = {-1.0f, 0.0f, 1.0f};
-        p[0] = steps[k / 3] * a.ang_step;
-        p[1] = steps[k % 3] * a.step_dis;
-        p[2] = 0.0f;
+        p_new[0] = p[0] = steps[k / 3] * a.ang_step;
+        p_new[1] = p[1] = steps[k % 3] * a.step_dis;
+        p_new[2] = p[2] = 0.0f;
     }
-    if (tid == 0) {
-        par[0] = p[0];
-        par[1] = p[1];
-        par[2] = p[2];
-    }
-    __syncthreads();
-    sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
-    if (tid == 0) c = -sym_total(red, 0) / nv;
 
-    for (int it = 0; it < a.iters; ++it) {
-        float g[3] = {0.0f, 0.0f, 0.0f};
-        if (a.analytic) {
-            // par holds p here
-            __syncthreads();
-            sym_pass<true>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
-            if (tid == 0) {
-                const SymPlanes pl = sym_planes(p, dual);
-                float g_n0 = sym_total(red, 1), g_n1 = sym_total(red, 2);
-                if (dual) {
-                    // the second plane's azimuth is atan2(n1, n0) of the first
-                    const float g_az = sym_total(red, 4) * cosf(pl.az)
-                                       + sym_total(red, 5) * sinf(pl.az);
-                    const float r2 = pl.n0[0] * pl.n0[0] + pl.n1[0] * pl.n1[0];
-                    g_n0 += g_az * (-pl.n1[0] / r2);
-                    g_n1 += g_az * (pl.n0[0] / r2);
-                    g[2] = -sym_total(red, 6);
-                }
-                g[0] = g_n0 * cosf(p[0]) + g_n1 * sinf(p[0]);
-                g[1] = -sym_total(red, 3);
-            }
-        } else {
+    // Pass it = -1 scores p0, pass it >= 0 the trial p_new of LM iteration
+    // it.  With the exact gradient a pass carries the gradient at its
+    // parameters too, all but the last trial: on accept it is the next
+    // iteration's gradient, on reject p stays and so does g.  That is
+    // 1 + iters passes a search; central differences add 2 n_par.
+    for (int it = -1; it < a.iters; ++it) {
+        float lam0 = lam;
+        if (it >= 0 && !a.analytic) {
             // central differences, step h
             float cp[3], cm[3];
             for (int kk = 0; kk < n_par; ++kk) {
@@ -1987,10 +1986,8 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                     g[kk] = (cp[kk] - cm[kk]) / a.two_h;
         }
 
-        // the LM step (thread 0): H = g g^T, b = g c, A = H + lam0 I
-        float p_new[3] = {p[0], p[1], p[2]};
-        float lam0 = lam;
-        if (tid == 0) {
+        if (it >= 0 && tid == 0) {
+            // the LM step: H = g g^T, b = g c, A = H + lam0 I
             float A[3][3], b[3];
             float mdiag = g[0] * g[0] * 1.0f;
             for (int i = 0; i < n_par; ++i) {
@@ -2022,28 +2019,40 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                 x[i] = s / L[i][i];
                 finite = finite && isfinite(x[i]);
             }
+            for (int i = 0; i < 3; ++i) p_new[i] = p[i];
             for (int i = 0; i < n_par; ++i)
                 p_new[i] = p[i] + (finite ? -x[i] : 0.0f);
+        }
+        if (tid == 0) {
             par[0] = p_new[0];
             par[1] = p_new[1];
             par[2] = p_new[2];
         }
         __syncthreads();
-        sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+        const bool grad = a.analytic && it + 1 < a.iters;
+        if (grad)
+            sym_pass<true>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+        else
+            sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
         if (tid == 0) {
             const float c_new = -sym_total(red, 0) / nv;
-            const bool accept = c_new < c && isfinite(c_new);
+            const bool accept = it < 0 || (c_new < c && isfinite(c_new));
             if (accept) {
                 p[0] = p_new[0];
                 p[1] = p_new[1];
                 p[2] = p_new[2];
+                c = c_new;
+                if (grad) {
+                    float tot[OSLAM_SYM_SUMS];
+                    for (int s = 0; s < OSLAM_SYM_SUMS; ++s)
+                        tot[s] = sym_total(red, s);
+                    sym_grad(tot, sym_planes(p, dual), dual, g);
+                }
             }
-            lam = accept ? lam0 / 3.0f : lam0 * nu;
-            nu = accept ? 2.0f : nu * 2.0f;
-            c = accept ? c_new : c;
-            par[0] = p[0];
-            par[1] = p[1];
-            par[2] = p[2];
+            if (it >= 0) {
+                lam = accept ? lam0 / 3.0f : lam0 * nu;
+                nu = accept ? 2.0f : nu * 2.0f;
+            }
         }
     }
 
