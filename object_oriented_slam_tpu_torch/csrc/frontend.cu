@@ -1619,7 +1619,7 @@ extern "C" int oslam_cluster_select(
 //
 // Bound by operations: a cost pass tests every mirrored point against every
 // live point of the cloud (P n x n pair tests of ~10 f32 operations, P = 1
-// or 2 planes, n <= 512 live points), and a search runs 1 + iters passes
+// or 2 planes, n <= 2048 live points), and a search runs 1 + iters passes
 // with the exact gradient (a trial pass carries the gradient at its
 // parameters, kept on a reject), 1 + iters (2 n_par + 1) with central
 // differences; the bytes are a few KB a detection.  At the path's shapes
@@ -1632,8 +1632,10 @@ extern "C" int oslam_cluster_select(
 //    picks one plane or two, so one launch serves both variants;
 //  - the live points compacted into shared memory in index order as float4
 //    (x, y, z, |p|^2): the 1-NN loop runs over them only;
-//  - a thread per mirrored point (strided over the block); the inner loop
-//    keeps the least squared distance by the norm expansion
+//  - the mirrored points strided over the block, up to OSLAM_SYM_R a
+//    thread at once: one scan over the live points feeds a 1-NN chain per
+//    point (sym_tile), one shared-memory load a step for all of them; a
+//    chain keeps the least squared distance by the norm expansion
 //    q + r - 2 m.p (JAX's cost is defined by it) and, for the gradient, how
 //    many points lie at that distance and their sum (jnp.min splits its
 //    gradient evenly over equal minima); max(d2, 0) passes 1 above 0, 1/2
@@ -1666,6 +1668,7 @@ extern "C" int oslam_cluster_select(
 #define OSLAM_SYM_INITS 9
 #define OSLAM_SYM_FIELDS 5          // angle, distance, dual distance, cost, prob
 #define OSLAM_SYM_SUMS 7            // cost sum, (dn0, dn1, dd) of each plane
+#define OSLAM_SYM_R 4               // mirrored points a thread scans at once
 
 struct SymArgs {
     const float* pts;       // [D, S, 3] normalized object clouds
@@ -1724,36 +1727,47 @@ __device__ __forceinline__ SymPlanes sym_planes(const float* par, bool dual)
     return pl;
 }
 
-// One cost pass of a block at the parameters `par`: every thread scores
-// its mirrored points, the partial sums go to red[warp][.] (cost sum and,
-// with kGrad, d cost / d(n0, n1, d) of each plane), then one barrier.
-// `pose` holds R (9) and t (3) of T_c<-o and the camera centre (3); `gd2`
-// is d cost / d d2 of a scored point.
-template <bool kGrad>
-__device__ void sym_pass(const SymArgs& a, const float4* ref, int n,
-                         bool dual, const float* par, const float* pose,
-                         const float* bb, const int* depth, float gd2,
-                         float (*red)[OSLAM_SYM_SUMS])
+// A tile of mirrored points: slot r of a thread holds mirrored point
+// i = base + r T + tid (T = OSLAM_SYM_T) if i < M, plane 0's points
+// (src[i], i < ns) first, then plane 1's.  One scan over the reference
+// points feeds RR independent 1-NN chains, one float4 load a step for all
+// of them; each chain keeps its minimum, the count of points at it and
+// their sum in reference order (jnp.min splits its gradient evenly over
+// equal minima), so the slots' terms, added to acc in increasing i, carry
+// the bits of a scan per point.  `pose` holds R (9) and t (3) of T_c<-o and
+// the camera centre (3); `gd2` is d cost / d d2 of a scored point.
+template <bool kGrad, int RR>
+__device__ __forceinline__ void sym_tile(
+    const SymArgs& a, const float4* src, int ns, const float4* ref, int nr,
+    int M, int base, const SymPlanes& pl, const float* pose, const float* bb,
+    const int* depth, float gd2, float* acc)
 {
-    const SymPlanes pl = sym_planes(par, dual);
-    const int M = (dual ? 2 : 1) * n;
-    float acc[OSLAM_SYM_SUMS];
+    float mx[RR], my[RR], mz[RR], qn[RR], sv[RR];
+    bool on[RR], second[RR], occ[RR];
 #pragma unroll
-    for (int c = 0; c < OSLAM_SYM_SUMS; ++c) acc[c] = 0.0f;
-    for (int i = threadIdx.x; i < M; i += OSLAM_SYM_T) {
-        const int q = i < n ? 0 : 1;
-        const float4 p = ref[i - q * n];
-        const float n0 = pl.n0[q], n1 = pl.n1[q], n2 = pl.n2[q];
-        const float s = (n0 * p.x + n1 * p.y + 0.0f * p.z + pl.d[q]) / n2;
-        const float mx = p.x - 2.0f * s * n0;
-        const float my = p.y - 2.0f * s * n1;
-        const float mz = p.z - 2.0f * s * 0.0f;
+    for (int r = 0; r < RR; ++r) {
+        const int i = base + r * OSLAM_SYM_T + (int)threadIdx.x;
+        on[r] = i < M;
+        second[r] = i >= ns;
+        const float4 p = src[on[r] ? (second[r] ? i - ns : i) : 0];
+        const float n0 = second[r] ? pl.n0[1] : pl.n0[0];
+        const float n1 = second[r] ? pl.n1[1] : pl.n1[0];
+        const float n2 = second[r] ? pl.n2[1] : pl.n2[0];
+        const float dq = second[r] ? pl.d[1] : pl.d[0];
+        const float s = (n0 * p.x + n1 * p.y + 0.0f * p.z + dq) / n2;
+        sv[r] = s;
+        mx[r] = p.x - 2.0f * s * n0;
+        my[r] = p.y - 2.0f * s * n1;
+        mz[r] = p.z - 2.0f * s * 0.0f;
 
         // into the image: occluded where it falls strictly inside the box
         // on a zero ray depth or one nearer than the point
-        const float pcx = pose[0] * mx + pose[1] * my + pose[2] * mz + pose[9];
-        const float pcy = pose[3] * mx + pose[4] * my + pose[5] * mz + pose[10];
-        const float pcz = pose[6] * mx + pose[7] * my + pose[8] * mz + pose[11];
+        const float pcx = pose[0] * mx[r] + pose[1] * my[r] + pose[2] * mz[r]
+                          + pose[9];
+        const float pcy = pose[3] * mx[r] + pose[4] * my[r] + pose[5] * mz[r]
+                          + pose[10];
+        const float pcz = pose[6] * mx[r] + pose[7] * my[r] + pose[8] * mz[r]
+                          + pose[11];
         const float den = max_nan(pcz, 1e-6f);
         const float u = a.fx * pcx / den + a.cx;
         const float v = a.fy * pcy / den + a.cy;
@@ -1761,62 +1775,119 @@ __device__ void sym_pass(const SymArgs& a, const float4* ref, int n,
         const float xf = (float)xi, yf = (float)yi;
         const bool inside = xi >= 0 && xi < a.W && yi >= 0 && yi < a.H
                             && pcz > 0.0f;
-        bool occluded = false;
-        if (bb[0] < xf && xf < bb[2] && bb[1] < yf && yf < bb[3] && inside) {
+        occ[r] = false;
+        if (on[r] && bb[0] < xf && xf < bb[2] && bb[1] < yf && yf < bb[3]
+            && inside) {
             const float rx = (float)xi - a.cx, ry = (float)yi - a.cy;
             const float ray = (float)depth[yi * a.W + xi]
                               * (sqrtf(rx * rx + a.ff + ry * ry) / a.fx);
             const float dm = ray / a.scale;
-            const float ex = mx - pose[12], ey = my - pose[13],
-                        ez = mz - pose[14];
+            const float ex = mx[r] - pose[12], ey = my[r] - pose[13],
+                        ez = mz[r] - pose[14];
             const float dis = sqrtf(ex * ex + ey * ey + ez * ez);
-            occluded = dm <= 1e-9f || dis > dm;
+            occ[r] = dm <= 1e-9f || dis > dm;
         }
+        qn[r] = mx[r] * mx[r] + my[r] * my[r] + mz[r] * mz[r];
+    }
 
-        // the least squared distance to the live points
-        const float qn = mx * mx + my * my + mz * mz;
-        float best = 1e30f, sx = 0.0f, sy = 0.0f, sz = 0.0f;
-        int cnt = 0;
-        for (int j = 0; j < n; ++j) {
-            const float4 r = ref[j];
-            const float cross = mx * r.x + my * r.y + mz * r.z;
-            const float d2 = qn + r.w - 2.0f * cross;
+    // the least squared distance to the reference points, by selects
+    float best[RR], sx[RR], sy[RR], sz[RR];
+    int cnt[RR];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+        best[r] = 1e30f;
+        sx[r] = sy[r] = sz[r] = 0.0f;
+        cnt[r] = 0;
+    }
+#pragma unroll 2
+    for (int j = 0; j < nr; ++j) {
+        const float4 q = ref[j];
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {
+            const float cross = mx[r] * q.x + my[r] * q.y + mz[r] * q.z;
+            const float d2 = qn[r] + q.w - 2.0f * cross;
             if (kGrad) {
-                if (d2 < best) {
-                    best = d2;
-                    cnt = 1;
-                    sx = r.x;
-                    sy = r.y;
-                    sz = r.z;
-                } else if (d2 == best) {
-                    ++cnt;
-                    sx += r.x;
-                    sy += r.y;
-                    sz += r.z;
-                }
+                const bool lt = d2 < best[r], eq = d2 == best[r];
+                best[r] = lt ? d2 : best[r];
+                cnt[r] = lt ? 1 : (eq ? cnt[r] + 1 : cnt[r]);
+                sx[r] = lt ? q.x : (eq ? sx[r] + q.x : sx[r]);
+                sy[r] = lt ? q.y : (eq ? sy[r] + q.y : sy[r]);
+                sz[r] = lt ? q.z : (eq ? sz[r] + q.z : sz[r]);
             } else {
-                best = fminf(best, d2);
+                best[r] = fminf(best[r], d2);
             }
         }
-        const float nn2 = max_nan(best, 0.0f);
-        acc[0] += a.coef * (occluded ? 0.0f : nn2);
+    }
 
-        if (kGrad && !occluded) {
-            const float w = best > 0.0f ? gd2 : (best == 0.0f ? 0.5f * gd2
-                                                              : 0.0f);
-            if (w != 0.0f && cnt > 0) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+        if (!on[r]) continue;
+        const float nn2 = max_nan(best[r], 0.0f);
+        acc[0] += a.coef * (occ[r] ? 0.0f : nn2);
+        if (kGrad && !occ[r]) {
+            const float w = best[r] > 0.0f ? gd2
+                            : (best[r] == 0.0f ? 0.5f * gd2 : 0.0f);
+            if (w != 0.0f && cnt[r] > 0) {
+                const float n0 = second[r] ? pl.n0[1] : pl.n0[0];
+                const float n1 = second[r] ? pl.n1[1] : pl.n1[0];
+                const float n2 = second[r] ? pl.n2[1] : pl.n2[0];
                 // d cost / dm = w (2 m - 2 mean of the nearest points)
-                const float wc = w / (float)cnt;
-                const float gx = 2.0f * (mx * w) - 2.0f * (wc * sx);
-                const float gy = 2.0f * (my * w) - 2.0f * (wc * sy);
-                const float gz = 2.0f * (mz * w) - 2.0f * (wc * sz);
+                const float wc = w / (float)cnt[r];
+                const float gx = 2.0f * (mx[r] * w) - 2.0f * (wc * sx[r]);
+                const float gy = 2.0f * (my[r] * w) - 2.0f * (wc * sy[r]);
+                const float gz = 2.0f * (mz[r] * w) - 2.0f * (wc * sz[r]);
                 // m = p - 2 s n, s = (n.p + d) / n2: d/ds, then (n0, n1, d)
                 const float gsn = -2.0f * (gx * n0 + gy * n1 + gz * 0.0f) / n2;
-                acc[1 + 3 * q] += -2.0f * s * gx + gsn * mx;
-                acc[2 + 3 * q] += -2.0f * s * gy + gsn * my;
-                acc[3 + 3 * q] += gsn;
+                const float e0 = -2.0f * sv[r] * gx + gsn * mx[r];
+                const float e1 = -2.0f * sv[r] * gy + gsn * my[r];
+                if (second[r]) {
+                    acc[4] += e0;
+                    acc[5] += e1;
+                    acc[6] += gsn;
+                } else {
+                    acc[1] += e0;
+                    acc[2] += e1;
+                    acc[3] += gsn;
+                }
             }
         }
+    }
+}
+
+// One cost pass of a block at the parameters `par`: the mirrored points
+// (src[0, ns) across each plane) are scored against the reference points
+// ref[0, nr) (today both the live points), a tile of up to
+// OSLAM_SYM_R points a thread at a time; the partial sums go to
+// red[warp][.] (cost sum and, with kGrad, d cost / d(n0, n1, d) of each
+// plane), then one barrier.
+template <bool kGrad>
+__device__ void sym_pass(const SymArgs& a, const float4* src, int ns,
+                         const float4* ref, int nr, bool dual,
+                         const float* par, const float* pose, const float* bb,
+                         const int* depth, float gd2,
+                         float (*red)[OSLAM_SYM_SUMS])
+{
+    const SymPlanes pl = sym_planes(par, dual);
+    const int M = (dual ? 2 : 1) * ns;
+    float acc[OSLAM_SYM_SUMS];
+#pragma unroll
+    for (int c = 0; c < OSLAM_SYM_SUMS; ++c) acc[c] = 0.0f;
+    // a tile's rows for the warp: the slots that hold a point for its
+    // lane 0 (the most of any lane), warp-uniform
+    const int lane0 = threadIdx.x & ~31;
+    for (int base = 0; base < M; base += OSLAM_SYM_R * OSLAM_SYM_T) {
+        const int left = M - base - lane0;
+        if (left <= 0) break;
+        const int rows = (left + OSLAM_SYM_T - 1) / OSLAM_SYM_T;
+        if (rows >= 3)
+            sym_tile<kGrad, 4>(a, src, ns, ref, nr, M, base, pl, pose, bb,
+                               depth, gd2, acc);
+        else if (rows == 2)
+            sym_tile<kGrad, 2>(a, src, ns, ref, nr, M, base, pl, pose, bb,
+                               depth, gd2, acc);
+        else
+            sym_tile<kGrad, 1>(a, src, ns, ref, nr, M, base, pl, pose, bb,
+                               depth, gd2, acc);
     }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -1973,8 +2044,8 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                         }
                     }
                     __syncthreads();
-                    sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth,
-                                    gd2, red);
+                    sym_pass<false>(a, ref, n, ref, n, dual, par, pose, bb,
+                                    a.depth, gd2, red);
                     if (tid == 0) {
                         const float ck = -sym_total(red, 0) / nv;
                         if (sgn == 0) cp[kk] = ck; else cm[kk] = ck;
@@ -2031,9 +2102,11 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
         __syncthreads();
         const bool grad = a.analytic && it + 1 < a.iters;
         if (grad)
-            sym_pass<true>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+            sym_pass<true>(a, ref, n, ref, n, dual, par, pose, bb, a.depth,
+                           gd2, red);
         else
-            sym_pass<false>(a, ref, n, dual, par, pose, bb, a.depth, gd2, red);
+            sym_pass<false>(a, ref, n, ref, n, dual, par, pose, bb, a.depth,
+                            gd2, red);
         if (tid == 0) {
             const float c_new = -sym_total(red, 0) / nv;
             const bool accept = it < 0 || (c_new < c && isfinite(c_new));
