@@ -1650,9 +1650,10 @@ extern "C" int oslam_cluster_select(
 //    proj_depth_map is computed at the looked-up pixel, so no map is
 //    written;
 //  - the sums of a pass in a fixed order (a thread's points in order, the
-//    lanes by a fixed xor pattern, the warps in rank order): repeats are
-//    bit-equal;
-//  - thread 0 runs the LM between passes (frontend/symmetry.
+//    lanes by a fixed xor pattern, the warps in rank order, lane c of warp
+//    0 adding sum c): repeats are bit-equal;
+//  - thread 0 runs the LM between passes and computes the planes of the
+//    next pass once for the block (frontend/symmetry.
 //    optimize_inits_plain: the 2x2 / 3x3 Cholesky solve in ops/linalg.
 //    chol_solve_small's order, the finite-step gate, the accept test, the
 //    damping);
@@ -1854,7 +1855,8 @@ __device__ __forceinline__ void sym_tile(
     }
 }
 
-// One cost pass of a block at the parameters `par`: the mirrored points
+// One cost pass of a block at the planes `spl` (thread 0 computes them once
+// a pass and publishes them in shared memory): the mirrored points
 // (src[0, ns) across each plane) are scored against the reference points
 // ref[0, nr) (today both the live points), a tile of up to
 // OSLAM_SYM_R points a thread at a time; the partial sums go to
@@ -1863,11 +1865,11 @@ __device__ __forceinline__ void sym_tile(
 template <bool kGrad>
 __device__ void sym_pass(const SymArgs& a, const float4* src, int ns,
                          const float4* ref, int nr, bool dual,
-                         const float* par, const float* pose, const float* bb,
-                         const int* depth, float gd2,
+                         const SymPlanes* spl, const float* pose,
+                         const float* bb, const int* depth, float gd2,
                          float (*red)[OSLAM_SYM_SUMS])
 {
-    const SymPlanes pl = sym_planes(par, dual);
+    const SymPlanes pl = *spl;
     const int M = (dual ? 2 : 1) * ns;
     float acc[OSLAM_SYM_SUMS];
 #pragma unroll
@@ -1902,13 +1904,20 @@ __device__ void sym_pass(const SymArgs& a, const float4* src, int ns,
     __syncthreads();
 }
 
-// sum c of the warps' partials, in rank order (thread 0)
-__device__ __forceinline__ float sym_total(float (*red)[OSLAM_SYM_SUMS],
-                                           int c)
+// The totals of a pass for thread 0, called by all of warp 0: lane c adds
+// partial c over the warps in rank order, lane 0 gathers them.
+template <int kSums>
+__device__ __forceinline__ void sym_totals(float (*red)[OSLAM_SYM_SUMS],
+                                           float* tot)
 {
-    float s = red[0][c];
-    for (int w = 1; w < OSLAM_SYM_W; ++w) s += red[w][c];
-    return s;
+    const int lane = threadIdx.x & 31;
+    float s = 0.0f;
+    if (lane < kSums) {
+        s = red[0][lane];
+        for (int w = 1; w < OSLAM_SYM_W; ++w) s += red[w][lane];
+    }
+#pragma unroll
+    for (int c = 0; c < kSums; ++c) tot[c] = __shfl_sync(0xffffffffu, s, c);
 }
 
 // The gradient over the parameters from a kGrad pass's totals at the
@@ -1935,7 +1944,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
 {
     extern __shared__ float4 ref[];     // the detection's live points
     __shared__ float red[OSLAM_SYM_W][OSLAM_SYM_SUMS];
-    __shared__ float par[3];            // the parameters of the next pass
+    __shared__ SymPlanes spl;           // the planes of the next pass
     __shared__ int wcount[OSLAM_SYM_W];
     __shared__ int last;
     const int k = blockIdx.x, d = blockIdx.y, tid = threadIdx.x;
@@ -2018,6 +2027,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     // thread 0's LM state: params, cost, damping, the gradient at p
     float p[3], p_new[3], c = 0.0f, lam = -1.0f, nu = 2.0f;
     float g[3] = {0.0f, 0.0f, 0.0f};
+    SymPlanes pl_new;                   // the planes of p_new
     {
         const float steps[3] = {-1.0f, 0.0f, 1.0f};
         p_new[0] = p[0] = steps[k / 3] * a.ang_step;
@@ -2038,16 +2048,20 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
             for (int kk = 0; kk < n_par; ++kk) {
                 for (int sgn = 0; sgn < 2; ++sgn) {
                     if (tid == 0) {
+                        float q[3];
                         for (int j = 0; j < 3; ++j) {
                             const float step = j == kk ? a.h : 0.0f;
-                            par[j] = sgn == 0 ? p[j] + step : p[j] - step;
+                            q[j] = sgn == 0 ? p[j] + step : p[j] - step;
                         }
+                        spl = sym_planes(q, dual);
                     }
                     __syncthreads();
-                    sym_pass<false>(a, ref, n, ref, n, dual, par, pose, bb,
+                    sym_pass<false>(a, ref, n, ref, n, dual, &spl, pose, bb,
                                     a.depth, gd2, red);
-                    if (tid == 0) {
-                        const float ck = -sym_total(red, 0) / nv;
+                    if (warp == 0) {
+                        float tot[1];
+                        sym_totals<1>(red, tot);
+                        const float ck = -tot[0] / nv;
                         if (sgn == 0) cp[kk] = ck; else cm[kk] = ck;
                     }
                 }
@@ -2095,32 +2109,30 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                 p_new[i] = p[i] + (finite ? -x[i] : 0.0f);
         }
         if (tid == 0) {
-            par[0] = p_new[0];
-            par[1] = p_new[1];
-            par[2] = p_new[2];
+            pl_new = sym_planes(p_new, dual);
+            spl = pl_new;
         }
         __syncthreads();
         const bool grad = a.analytic && it + 1 < a.iters;
-        if (grad)
-            sym_pass<true>(a, ref, n, ref, n, dual, par, pose, bb, a.depth,
+        float tot[OSLAM_SYM_SUMS];
+        if (grad) {
+            sym_pass<true>(a, ref, n, ref, n, dual, &spl, pose, bb, a.depth,
                            gd2, red);
-        else
-            sym_pass<false>(a, ref, n, ref, n, dual, par, pose, bb, a.depth,
+            if (warp == 0) sym_totals<OSLAM_SYM_SUMS>(red, tot);
+        } else {
+            sym_pass<false>(a, ref, n, ref, n, dual, &spl, pose, bb, a.depth,
                             gd2, red);
+            if (warp == 0) sym_totals<1>(red, tot);
+        }
         if (tid == 0) {
-            const float c_new = -sym_total(red, 0) / nv;
+            const float c_new = -tot[0] / nv;
             const bool accept = it < 0 || (c_new < c && isfinite(c_new));
             if (accept) {
                 p[0] = p_new[0];
                 p[1] = p_new[1];
                 p[2] = p_new[2];
                 c = c_new;
-                if (grad) {
-                    float tot[OSLAM_SYM_SUMS];
-                    for (int s = 0; s < OSLAM_SYM_SUMS; ++s)
-                        tot[s] = sym_total(red, s);
-                    sym_grad(tot, sym_planes(p, dual), dual, g);
-                }
+                if (grad) sym_grad(tot, pl_new, dual, g);
             }
             if (it >= 0) {
                 lam = accept ? lam0 / 3.0f : lam0 * nu;
