@@ -56,9 +56,10 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      sort's own time; symmetry_search against its plain version at the
      symmetry path's mid-orbit frame (single and dual detections in one
      launch, exact gradient and central differences) and at sym_capacity
-     filled (8 dual detections x 512 points): all 9 initial planes within
-     1e-4 (params) / 1e-5 (costs), the same winners, repeats bit-equal,
-     time beside the bound and the torch.cdist + torch.amin yardstick;
+     filled (8 dual detections x 512 points): every output bit for bit
+     (all 9 initial planes' parameters and costs, the winners, prob,
+     error), repeats bit-equal, time and cost passes a search beside the
+     bound and the torch.cdist + torch.amin yardstick;
   8. one JSON line with a record per kernel, the card line, and the result
      line {"ok": true, "device": {...}} last.
 """
@@ -1550,22 +1551,21 @@ def phase_symmetry_path(dev, tmp, depth_call):
 
 
 def sym_passes(analytic, dual, iters=5):
-    """Cost passes of one initial plane's search: 1 + 2 iters with the
-    exact gradient, 1 + iters (2 n_par + 1) with central differences."""
+    """Cost passes of one initial plane's search: 1 + iters with the exact
+    gradient (each pass but the last carries the gradient at its
+    parameters), 1 + iters (2 n_par + 1) with central differences."""
     n_par = 3 if dual else 2
-    return 1 + 2 * iters if analytic else 1 + iters * (2 * n_par + 1)
+    return 1 + iters if analytic else 1 + iters * (2 * n_par + 1)
 
 
 def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
                     analytic):
     """symmetry_search (K8) against estimate_symmetry_plain on the card, on
-    the same inputs: every searched detection's 9 initial planes, params
-    within 1e-4 and costs within 1e-5 relative, the same winner unless the
-    two best probs lie within 1e-6, whether the bits are equal, and a
-    second launch bit-equal.  Its time beside its bound (the pair tests
-    this data needs, SYM_PAIR_OPS each), the plain version's time and the
-    yardstick (torch.cdist + torch.amin of one pass, times the passes).
-    Returns its record."""
+    the same inputs: every output bit for bit (the plain version sums in
+    the kernel's order), and a second launch bit-equal.  Its time beside
+    its bound (the pair tests this data needs, SYM_PAIR_OPS each), the
+    plain version's time and the yardstick (torch.cdist + torch.amin of
+    one pass, times the passes).  Returns its record."""
     from object_oriented_slam_tpu_torch.frontend import symmetry as sym
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     cfg = sym.SymmetryConfig(analytic_grad=analytic)
@@ -1583,18 +1583,13 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
     gi, wi = got.inits.cpu()[live], want.inits.cpu()[live]
     p_err = float((gi[..., :3] - wi[..., :3]).abs().max())
     c_err = rel_err(gi[..., 3], wi[..., 3])
-    same_winner = True
-    for d in range(gi.shape[0]):
-        top = wi[d, :, 4].sort().values[-2:]
-        if float(top[1] - top[0]) > 1e-6:
-            same_winner &= int(gi[d, :, 4].argmax()) == int(
-                wi[d, :, 4].argmax())
     off = (~live).nonzero().flatten()
-    if not (p_err <= 1e-4 and c_err <= 1e-5 and same_winner):
+    if not bits:
         raise RuntimeError(
-            f"symmetry_search ({tag}) disagrees with its plain version: "
-            f"params {p_err:.3g}, costs {c_err:.3g} relative, same winner "
-            f"{same_winner}")
+            f"symmetry_search ({tag}) is not bit-equal to its plain version: "
+            f"params within {p_err:.3g}, costs within {c_err:.3g} relative, "
+            f"winners {got.prob.cpu()[live].tolist()} against "
+            f"{want.prob.cpu()[live].tolist()}")
     if bool(got.inits.cpu()[off].any()) or bool(got.prob.cpu()[off].any()):
         raise RuntimeError(f"symmetry_search ({tag}) searched a detection of "
                            "type 0 or off the run mask")
@@ -1606,6 +1601,8 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
         P, passes = 1 + dual, sym_passes(analytic, dual)
         pairs += 9 * passes * P * float(n[d]) * float(n[d])
         groups.setdefault(dual, []).append(d)
+    passes = {("dual" if dual else "single"): sym_passes(analytic, dual)
+              for dual in groups}
     n_bytes = sum(t.numel() * t.element_size() for t in (
         pts, mask, bbox, pose_oc, types, run, *got))
     t_o = pairs * SYM_PAIR_OPS / PEAK_F32 * 1e3
@@ -1635,13 +1632,14 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
              searched=int(live.sum()), live_points=int(n[live].sum()))
     print(f"[frontend] symmetry ({tag}, {'analytic' if analytic else 'central'}"
           f"): {int(live.sum())} detections searched (types "
-          f"{types.tolist()}), live points {n.tolist()}: 9 inits' params "
-          f"within {p_err:.3g} (limit 1e-4), costs within {c_err:.3g} "
-          f"relative (limit 1e-5), same winners, bits equal to the plain "
-          f"version on the card: {bits}; repeat bit-equal; kernel "
-          f"{r['ms']:.4f} ms, {bound_text(r['ms'], r['bound'])} "
-          f"({pairs:.4g} pair tests); plain {r['plain_ms']:.3f} ms; "
-          f"yardstick (cdist + amin x passes) {yard:.4f} ms")
+          f"{types.tolist()}), live points {n.tolist()}: bit-equal to the "
+          f"plain version on the card and to a repeat; kernel "
+          f"{r['ms']:.4f} ms at "
+          f"{', '.join(f'{v} ({k})' for k, v in passes.items())} cost "
+          f"passes a search, "
+          f"{bound_text(r['ms'], r['bound'])} ({pairs:.4g} pair tests); "
+          f"plain {r['plain_ms']:.3f} ms; yardstick (cdist + amin x passes) "
+          f"{yard:.4f} ms")
     return r
 
 
