@@ -1,6 +1,6 @@
 """K8 (symmetry_search) alone, at the three shapes chip_smoke.py holds it at.
 
-    python3 examples/torch_symmetry_bench.py [--root CHECKOUT] [--reps 20]
+    python3 examples/torch_symmetry_bench.py [--root CHECKOUT] [--reps 20] [--path]
 
 ``--root`` names the checkout whose package (and chip_smoke.py) is imported
 and whose csrc/frontend.cu is built, so that one command can time two
@@ -12,7 +12,10 @@ sym_capacity filled (8 dual detections x 512 points, exact gradient).  For
 each it prints the device time of one launch (the mean of ``--reps``
 profiler kernel events) and a digest of the outputs' bits (equal digests:
 equal outputs); then the ptxas report of the kernel and one JSON line.
-Needs an NVIDIA GPU and nvcc.
+With ``--path`` it first drives chip_smoke's symmetry path (160 frames,
+synthetic_depth_sym.yaml) and prints its objects, the median centre error
+in full, a digest of the map's bits, the K8 launches and the e2e,
+extraction and backend ms per frame.  Needs an NVIDIA GPU and nvcc.
 """
 import argparse
 import hashlib
@@ -76,11 +79,37 @@ def digest(result):
     return h.hexdigest()[:16]
 
 
+def drive_path(cs, dev):
+    """The symmetry path as chip_smoke drives it, the BA kernels built
+    first; returns its record."""
+    import tempfile
+    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    ba_kernels.build()
+    scene = cs.scene24_sym()
+    with tempfile.TemporaryDirectory() as tmp:
+        slam, frames, e2e, stats, latched_at, launches = cs.drive_depth_path(
+            dev, tmp, "synthetic_depth_sym.yaml", scene)
+        objs = slam.map_objects
+        errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                         for i, v in sorted(objs.items())])
+        h = hashlib.sha256()
+        for i, v in sorted(objs.items()):
+            h.update(np.asarray(v, np.float64).tobytes())
+        e2e_ms, ext_ms, backend_ms = cs.path_times(slam.tracker, e2e)
+    return {"objects": len(objs), "median_centre_error": float(
+        np.median(errs)), "map_digest": h.hexdigest()[:16],
+        "symmetry_search_launches": launches["symmetry_search"],
+        "e2e_mean_ms": float(e2e_ms.mean()),
+        "extraction_mean_ms": float(ext_ms.mean()),
+        "backend_mean_ms": float(backend_ms.mean())}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--path", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_symmetry_bench: no CUDA device", file=sys.stderr)
@@ -101,6 +130,9 @@ def main():
     full = (*cs.full_symmetry_inputs(dev), cs.scene24_sym().camera)
     shapes = [("path", path, True), ("path", path, False), ("full", full, True)]
     out = {"root": root, "ptxas": report, "shapes": []}
+    if opts.path:
+        out["path"] = drive_path(cs, dev)
+        print(f"[path] {out['path']}")
     for tag, args, analytic in shapes:
         cfg = sym.SymmetryConfig(analytic_grad=analytic)
         types, run = args[5], args[6]

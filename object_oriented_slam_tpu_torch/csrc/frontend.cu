@@ -1800,7 +1800,7 @@ __device__ __forceinline__ void sym_tile(
         sx[r] = sy[r] = sz[r] = 0.0f;
         cnt[r] = 0;
     }
-#pragma unroll 2
+#pragma unroll 8
     for (int j = 0; j < nr; ++j) {
         const float4 q = ref[j];
 #pragma unroll
@@ -2027,7 +2027,6 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     // thread 0's LM state: params, cost, damping, the gradient at p
     float p[3], p_new[3], c = 0.0f, lam = -1.0f, nu = 2.0f;
     float g[3] = {0.0f, 0.0f, 0.0f};
-    SymPlanes pl_new;                   // the planes of p_new
     {
         const float steps[3] = {-1.0f, 0.0f, 1.0f};
         p_new[0] = p[0] = steps[k / 3] * a.ang_step;
@@ -2108,10 +2107,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
             for (int i = 0; i < n_par; ++i)
                 p_new[i] = p[i] + (finite ? -x[i] : 0.0f);
         }
-        if (tid == 0) {
-            pl_new = sym_planes(p_new, dual);
-            spl = pl_new;
-        }
+        if (tid == 0) spl = sym_planes(p_new, dual);
         __syncthreads();
         const bool grad = a.analytic && it + 1 < a.iters;
         float tot[OSLAM_SYM_SUMS];
@@ -2132,7 +2128,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                 p[1] = p_new[1];
                 p[2] = p_new[2];
                 c = c_new;
-                if (grad) sym_grad(tot, pl_new, dual, g);
+                if (grad) sym_grad(tot, spl, dual, g);     // p_new's planes
             }
             if (it >= 0) {
                 lam = accept ? lam0 / 3.0f : lam0 * nu;
