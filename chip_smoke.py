@@ -1601,8 +1601,8 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
         P, passes = 1 + dual, sym_passes(analytic, dual)
         pairs += 9 * passes * P * float(n[d]) * float(n[d])
         groups.setdefault(dual, []).append(d)
-    passes = {("dual" if dual else "single"): sym_passes(analytic, dual)
-              for dual in groups}
+    per_search = {("dual" if dual else "single"): sym_passes(analytic, dual)
+                  for dual in groups}
     n_bytes = sum(t.numel() * t.element_size() for t in (
         pts, mask, bbox, pose_oc, types, run, *got))
     t_o = pairs * SYM_PAIR_OPS / PEAK_F32 * 1e3
@@ -1635,7 +1635,7 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
           f"{types.tolist()}), live points {n.tolist()}: bit-equal to the "
           f"plain version on the card and to a repeat; kernel "
           f"{r['ms']:.4f} ms at "
-          f"{', '.join(f'{v} ({k})' for k, v in passes.items())} cost "
+          f"{', '.join(f'{v} ({k})' for k, v in per_search.items())} cost "
           f"passes a search, "
           f"{bound_text(r['ms'], r['bound'])} ({pairs:.4g} pair tests); "
           f"plain {r['plain_ms']:.3f} ms; yardstick (cdist + amin x passes) "
