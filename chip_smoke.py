@@ -39,6 +39,16 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      launched once per frame with a detection of type 1 or 2, e2e /
      extraction / backend ms; one extraction call under the profiler and
      the synchronisation check, which must be four frontend launches;
+  6b. the sparse symmetry path: the symmetry path's scene, orbit and
+     settings with ExtractorConfig(open_symmetry=True,
+     sparse_symmetry=True) (no settings key turns it on): each point's
+     depth-border flag rides depth_cloud and voxel_downsample, and
+     symmetry_search mirrors the border cells only; objects, centre error,
+     map IoU, e2e / extraction / backend ms, per frame the detections
+     searched, their sources against their live points and the dense
+     fall-backs (it raises if no detection had a proper border subset),
+     launches, and one extraction call of four frontend launches without
+     host synchronisation;
   7. the depth-frontend kernels (depth_cloud, cluster_components,
      voxel_downsample) against their plain versions at the shapes the depth
      main path gave them on its mid-orbit frame (that frame through the
@@ -59,9 +69,20 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      filled (8 dual detections x 512 points): every output bit for bit
      (all 9 initial planes' parameters and costs, the winners, prob,
      error), repeats bit-equal, time and cost passes a search beside the
-     bound and the torch.cdist + torch.amin yardstick;
+     bound and the torch.cdist + torch.amin yardstick; sparse symmetry's
+     lanes at the sparse path's mid-orbit frame: depth_cloud with the
+     border attribute and voxel_downsample with it (the attribute within
+     the points' tolerances, the other outputs bit-equal to the launches
+     without the lane, the cells whose mean lies within 1e-6 of the 0.3
+     threshold counted on the card and in the plain version),
+     symmetry_search with the border cells as sources bit-equal to its
+     plain version (and with every live point as a source bit-equal to
+     the search without a mask), and at sym_capacity filled with about
+     half the points as sources;
   8. one JSON line with a record per kernel, the card line, and the result
      line {"ok": true, "device": {...}} last.
+Every path prints its map's IoU against the ground truth
+(system/metrics.object_map_iou).
 """
 import json
 import os
@@ -129,6 +150,10 @@ SYM_DUAL_OBJECTS = (0, 6, 12, 18)
 # mean's 3 divisions and cell decode (9), for depth_cloud the world point
 # and plane distance (22)
 DS_OPS_POINT, DS_OPS_SLOT, DS_OPS_WORLD = 60, 12, 22
+# sparse symmetry's lane: per live point of depth_cloud the border test (5
+# divisions, 5 compares, 4 differences and absolutes, the ors: ~25) and per
+# point of either downsample the attribute's add; per slot its division
+DS_OPS_BORDER, DS_OPS_ATTR = 25, 1
 # the functions of the JAX package (left to XLA there) that the frontend
 # kernels replace
 FE_REPLACES = {
@@ -136,6 +161,11 @@ FE_REPLACES = {
     "voxel_downsample": "object_oriented_slam_tpu/ops/voxel.py:101",
     "cluster_components": "object_oriented_slam_tpu/ops/cluster.py:379",
     "symmetry_search": "object_oriented_slam_tpu/frontend/symmetry.py:72"}
+# with sparse symmetry's lanes: the border map, sampled and averaged in
+# _stage_a_one (ops/filters.py:54, ops/backproject.py:80, ops/voxel.py:111);
+# the attribute downsample; the cost with its src_mask
+SPARSE_REPLACES = dict(
+    FE_REPLACES, voxel_downsample="object_oriented_slam_tpu/ops/voxel.py:118")
 REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
@@ -703,7 +733,8 @@ def phase_main_path(dev, tmp):
           f"LM call's launches)")
     print(f"[main] kernel launches in the main path: {launches}")
     print(f"[main] centre error vs ground truth: median {np.median(errs):.3g} "
-          f"m, max {errs.max():.3g} m")
+          f"m, max {errs.max():.3g} m; map IoU median %.4f, min %.4f"
+          % map_iou(objs, scene))
     out = os.path.join(tmp, "objects.txt")
     slam.save_objects_to_file(out)
     rows = np.loadtxt(out, ndmin=2)
@@ -727,6 +758,18 @@ def scene24():
     from object_oriented_slam_tpu_torch.io.synthetic import make_scene
     return make_scene(n_objects=24, seed=SEED, radius_range=(1.3, 2.2),
                       scale_range=(0.2, 0.4))
+
+
+def map_iou(objs, scene):
+    """(median, min) 3D IoU of the map's objects against the ground truth
+    (system/metrics.object_map_iou)."""
+    from object_oriented_slam_tpu_torch.system.metrics import object_map_iou
+    iou = np.array(list(object_map_iou(
+        objs, {i: scene.ellipsoids[i] for i in objs}).values()))
+    if not np.isfinite(iou).all():
+        raise RuntimeError("the map's IoU against the ground truth is not "
+                           "finite")
+    return float(np.median(iou)), float(iou.min())
 
 
 def bytes_bound(tensors):
@@ -802,32 +845,66 @@ def library_yardstick(key, pts, capacity):
     return busy_ms(call), sort_ms, err
 
 
-def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
+def near_threshold(attr, mask):
+    """The live cells whose border mean lies within 1e-6 of the 0.3 that
+    makes a cell a border cell (frontend/extractor._stage_post), where two
+    sums in other orders may fall on either side."""
+    return int(((attr - 0.3).abs() < 1e-6)[mask].sum())
+
+
+def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg,
+                       border=False):
     """depth_cloud (stages (a)-(c), one launch) against depth_cloud_plain:
     bit for bit against it on the CPU, masks, cells and flags equal to it
     on the card and floats within 1e-6 (its index_add_ adds with atomics);
-    a second launch bit-equal.  Returns its record."""
+    a second launch bit-equal.  With ``border`` the same launch with sparse
+    symmetry's lane (depth_cloud_border against depth_cloud_border_plain):
+    the voxels' border means held as the floats, the other outputs
+    bit-equal to the launch without the lane.  Returns its record (with
+    ``border``, and the border means)."""
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
     from object_oriented_slam_tpu_torch.ops import voxel as vx
     rest = (cfg.voxel_leaf, cfg.depth_range, cfg.plane_clearance,
             cfg.cloud_capacity)
     args = (depth, bboxes, pose_wc, plane, cam)
-    got = dc.depth_cloud(*args, *rest)
-    again = dc.depth_cloud(*args, *rest)
-    card = dc.depth_cloud_plain(*args, *rest)
-    cpu = dc.depth_cloud_plain(depth.cpu(), bboxes.cpu(), pose_wc.cpu(),
-                               plane.cpu(), cam, *rest)
+    cpu_args = (depth.cpu(), bboxes.cpu(), pose_wc.cpu(), plane.cpu(), cam)
+    if border:
+        def kernel():
+            return tuple(dc.depth_cloud_border(*args, *rest))
+
+        def plain(*a):
+            return tuple(dc.depth_cloud_border_plain(*a, *rest))
+        fields = (*dc.DepthCloud._fields, "battr_v")
+    else:
+        def kernel():
+            return dc.depth_cloud(*args, *rest)
+
+        def plain(*a):
+            return dc.depth_cloud_plain(*a, *rest)
+        fields = dc.DepthCloud._fields
+
+    def flat(out):         # (DepthCloud, battr_v) -> one tuple of tensors
+        return (*out[0], out[1]) if border else tuple(out)
+    got = flat(kernel())
+    again = flat(kernel())
+    card = flat(plain(*args))
+    cpu = flat(plain(*cpu_args))
+    n_cloud = len(dc.DepthCloud._fields)
+    bare = dc.depth_cloud(*args, *rest) if border else got
     torch.cuda.synchronize()
     if not all_bits(got, again):
         raise RuntimeError(f"depth_cloud ({tag}): two launches differ")
-    differ = [f for f, g, w in zip(dc.DepthCloud._fields, got, cpu)
+    if not all_bits(got[:n_cloud], bare):
+        raise RuntimeError(f"depth_cloud ({tag}): the launch with the border "
+                           "lane differs from the launch without it")
+    differ = [f for f, g, w in zip(fields, got, cpu)
               if not same_bits(g.cpu(), w)]
     if differ:
         raise RuntimeError(f"depth_cloud ({tag}) differs from the plain "
                            f"version on the CPU in {differ}")
     err = 0.0
-    for f, g, w in zip(dc.DepthCloud._fields, got, card):
+    for f, g, w in zip(fields, got, card):
         if g.dtype in (torch.bool, torch.int32):
             if not torch.equal(g, w):
                 raise RuntimeError(f"depth_cloud ({tag}): {f} differs from "
@@ -836,6 +913,7 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
             err = max(err, float((g - w).abs().max()))
     if err > 1e-6:
         raise RuntimeError(f"depth_cloud ({tag}) disagrees: {err:.3g}")
+    outs, got = got, dc.DepthCloud(*got[:n_cloud])
     # the work: the depth pixels under the boxes, 100 centre samples a box,
     # the boxes, pose and plane read once, the outputs written once; the
     # operations of the live points and the output slots
@@ -845,21 +923,37 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
     pts_cam, m0 = bp.bbox_point_cloud_plain(depth, bboxes, cam,
                                             cfg.depth_range)
     live = int(m0.sum())
-    n_bytes = (int(n_pix.sum()) + 100 * D) * 4 + sum(
+    # with the border lane: each live point's 4 neighbours read (off the
+    # strided grid), the border means written; the border test and the
+    # attribute's share of the mean
+    n_bytes = (int(n_pix.sum()) + 4 * live * border + 100 * D) * 4 + sum(
         t.numel() * t.element_size()
-        for t in (bboxes, pose_wc, plane, *got))
-    n_ops = live * DS_OPS_POINT + D * cap * (DS_OPS_SLOT + DS_OPS_WORLD)
+        for t in (bboxes, pose_wc, plane, *outs))
+    n_ops = (live * (DS_OPS_POINT + border * (DS_OPS_BORDER + DS_OPS_ATTR))
+             + D * cap * (DS_OPS_SLOT + DS_OPS_WORLD + border * DS_OPS_ATTR))
     t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
     key, _ = vx.voxel_keys(pts_cam, m0, cfg.voxel_leaf)
     lib_ms, sort_ms, lib_err = library_yardstick(key, pts_cam.contiguous(),
                                                  cap)
     r = dict(kernel="depth_cloud", shape=(D, m0.shape[1], cap),
              max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
-             ms=device_ms(lambda: dc.depth_cloud(*args, *rest), 20,
-                          name="depth_cloud"),
-             plain_ms=cuda_ms(lambda: dc.depth_cloud_plain(*args, *rest), 5),
+             ms=device_ms(kernel, 20, name="depth_cloud"),
+             plain_ms=cuda_ms(lambda: plain(*args), 5),
              library_ms=lib_ms, sort_ms=sort_ms,
              live_points=live, box_pixels=int(n_pix.sum()))
+    lane = ""
+    if border:
+        battr, m_live = outs[-1], got.pts_v[..., 2] > 0
+        r["near_threshold"] = (near_threshold(battr, m_live),
+                               near_threshold(card[-1], m_live),
+                               near_threshold(cpu[-1].to(battr.device),
+                                              m_live))
+        lane = (f" With the border lane: {int((battr > 0).sum())} voxels with "
+                f"a border point, their means within {err:.3g} of the plain "
+                f"version on the card and bit-equal on the CPU, the other "
+                f"outputs bit-equal to the launch without the lane; voxels "
+                f"within 1e-6 of 0.3 (card, plain on the card, on the CPU): "
+                f"{r['near_threshold']}.")
     print(f"[frontend] {tag}: depth_cloud at D={D}, {int(n_pix.sum())} box "
           f"pixels ({int(n_pix.max())} in the largest box), {live} live "
           f"points, capacity {cap}: {int(got.m2.sum())} voxels above the "
@@ -869,8 +963,8 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg):
           f"card, max_abs_err there {err:.3g} (limit 1e-6); repeat "
           f"bit-equal; yardstick (sort + gather + segment_reduce) "
           f"{lib_ms} ms, max |mean - plain| {lib_err}; the stable sort "
-          f"alone {sort_ms:.4f} ms")
-    return r
+          f"alone {sort_ms:.4f} ms.{lane}")
+    return (r, outs[-1]) if border else r
 
 
 def voxel_downsample_checks(tag, pts, sel, leaf, capacity):
@@ -922,6 +1016,73 @@ def voxel_downsample_checks(tag, pts, sel, leaf, capacity):
           f"yardstick {lib_ms} ms, max |mean - plain| {lib_err}; the stable "
           f"sort alone {sort_ms:.4f} ms")
     return r, got
+
+
+def voxel_attrs_checks(tag, pts, sel, attrs, leaf, capacity):
+    """voxel_downsample with sparse symmetry's attribute (the voxels' border
+    means) against voxel_downsample_full_plain: bit for bit against it on
+    the CPU, masks and cells equal to it on the card, points and attribute
+    means within 5e-6 there; the points, cells and mask bit-equal to the
+    launch without the attribute; the main path's variant (no cells)
+    bit-equal.  Returns (its record, the attribute variant's outputs)."""
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    pts, attrs = pts.contiguous(), attrs.contiguous()
+    got = vx.voxel_downsample_full(pts, attrs, sel, leaf, capacity)
+    again = vx.voxel_downsample_full(pts, attrs, sel, leaf, capacity)
+    path = vx.voxel_downsample_attrs(pts, attrs, sel, leaf, capacity)
+    bare = vx.voxel_downsample_cells(pts, sel, leaf, capacity)
+    card = vx.voxel_downsample_full_plain(pts, attrs, sel, leaf, capacity)
+    cpu = vx.voxel_downsample_full_plain(pts.cpu(), attrs.cpu(), sel.cpu(),
+                                         leaf, capacity)
+    torch.cuda.synchronize()
+    if not (all_bits(got, again) and all_bits(got, cpu)):
+        raise RuntimeError(f"voxel_downsample with attributes ({tag}): "
+                           "repeats differ or it differs from the plain "
+                           "version on the CPU")
+    if not (all_bits((got[0], got[2], got[3]), bare)
+            and all_bits(path, (got[0], got[1], got[3]))):
+        raise RuntimeError(f"voxel_downsample with attributes ({tag}) "
+                           "differs from the launch without them or without "
+                           "cells")
+    if not (torch.equal(got[2], card[2]) and torch.equal(got[3], card[3])):
+        raise RuntimeError(f"voxel_downsample with attributes ({tag}): "
+                           "cells or mask differ")
+    err = max(float((got[0] - card[0]).abs().max()),
+              float((got[1] - card[1]).abs().max()))
+    if err > 5e-6:
+        raise RuntimeError(f"voxel_downsample with attributes ({tag}) "
+                           f"disagrees: {err:.3g}")
+    D, N = sel.shape
+    live = int(sel.sum())
+    n_bytes = sel.numel() + live * 16 + sum(
+        t.numel() * t.element_size() for t in path)
+    n_ops = (live * (DS_OPS_POINT + DS_OPS_ATTR)
+             + D * capacity * (DS_OPS_SLOT + DS_OPS_ATTR))
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    key, _ = vx.voxel_keys(pts, sel, leaf)
+    lib_ms, sort_ms, lib_err = library_yardstick(key, pts, capacity)
+    near = (near_threshold(got[1], got[3]), near_threshold(card[1], got[3]),
+            near_threshold(cpu[1].to(got[1].device), got[3]))
+    r = dict(kernel="voxel_downsample", shape=(D, N, capacity),
+             max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
+             ms=device_ms(lambda: vx.voxel_downsample_attrs(
+                 pts, attrs, sel, leaf, capacity), 20,
+                 name="voxel_downsample"),
+             plain_ms=cuda_ms(lambda: vx.voxel_downsample_full_plain(
+                 pts, attrs, sel, leaf, capacity), 5),
+             library_ms=lib_ms, sort_ms=sort_ms, live_points=live,
+             near_threshold=near)
+    border = got[3] & (got[1] > 0.3)
+    print(f"[frontend] {tag}: voxel_downsample with the border attribute at "
+          f"D={D}, {N} lanes, {live} live points, capacity {capacity}: "
+          f"{int(got[3].sum())} cells, {int(border.sum())} of them border "
+          f"cells (mean above 0.3); bit-equal to the plain version on the "
+          f"CPU, cells and masks equal to it on the card, max_abs_err there "
+          f"{err:.3g} (limit 5e-6); points, cells and mask bit-equal to the "
+          f"launch without the attribute; cells within 1e-6 of 0.3 (card, "
+          f"plain on the card, on the CPU): {near}; yardstick {lib_ms} ms, "
+          f"max |mean - plain| {lib_err}")
+    return r, path
 
 
 def frontend_checks(dev, tag, depth, bboxes, pose_wc, plane, cam, cfg,
@@ -1267,12 +1428,14 @@ def extractor_config(settings):
         "EllipsoidExtraction.Symmetry.Open") == 1)
 
 
-def drive_depth_path(dev, tmp, settings_name, scene):
+def drive_depth_path(dev, tmp, settings_name, scene, cfg=None):
     """System with the extractor and the plane estimator (both on the card
     by default) over the N_DEPTH_FRAMES orbit of ``scene`` with rendered
     depth, every launch counter set to 0 just before and read just after.
-    Returns (System, frames, e2e seconds per frame, the extractor's stats
-    per frame, the frame the plane latched on, launches)."""
+    ``cfg``: the ExtractorConfig (None: the settings file's,
+    ``extractor_config``).  Returns (System, frames, e2e seconds per frame,
+    the extractor's stats per frame, the frame the plane latched on,
+    launches)."""
     from object_oriented_slam_tpu_torch.backend import ba_kernels
     from object_oriented_slam_tpu_torch.frontend import (
         make_extractor, make_plane_estimator)
@@ -1285,7 +1448,8 @@ def drive_depth_path(dev, tmp, settings_name, scene):
                           height=1.7, depth_device=dev)
     frames = list(ds.frames())       # set-up: depth rendered up front
     settings = write_settings(tmp, settings_name)
-    extractor = make_extractor(cam, extractor_config(settings))
+    extractor = make_extractor(cam, cfg if cfg is not None
+                               else extractor_config(settings))
     slam = System(settings, extractor=extractor,
                   plane_estimator=make_plane_estimator(cam))
     if slam.tracker.device.type != "cuda" or extractor.device.type != "cuda":
@@ -1372,7 +1536,8 @@ def phase_depth_path(dev, tmp):
           f"{unconverged}")
     print(f"[depth] kernel launches in the depth path: {launches}")
     print(f"[depth] centre error vs ground truth: median "
-          f"{np.median(errs):.3g} m, max {errs.max():.3g} m")
+          f"{np.median(errs):.3g} m, max {errs.max():.3g} m; map IoU median "
+          f"%.4f, min %.4f" % map_iou(objs, scene))
     out = os.path.join(tmp, "objects_depth.txt")
     slam.save_objects_to_file(out)
     rows = np.loadtxt(out, ndmin=2)
@@ -1511,9 +1676,9 @@ def phase_symmetry_path(dev, tmp, depth_call):
           f"ground plane latched at frame {latched_at}")
     print(f"[symmetry] {len(objs)}/24 objects initialized; centre error vs "
           f"ground truth: median {np.median(errs):.3g} m, max "
-          f"{errs.max():.3g} m; stored 3D observations {len(probs)}, "
-          f"symmetry prob min {probs.min():.4f} median "
-          f"{np.median(probs):.4f}")
+          f"{errs.max():.3g} m; map IoU median %.4f, min %.4f; stored 3D "
+          f"observations {len(probs)}, symmetry prob min {probs.min():.4f} "
+          f"median {np.median(probs):.4f}" % map_iou(objs, scene))
     print(f"[symmetry] e2e ms/frame p50 {np.median(e2e_ms):.3f} mean "
           f"{e2e_ms.mean():.3f} p99 {np.percentile(e2e_ms, 99):.3f}; "
           f"extraction (dispatch + wait + copy) p50 {np.median(ext_ms):.3f} "
@@ -1547,7 +1712,158 @@ def phase_symmetry_path(dev, tmp, depth_call):
     print(f"[symmetry] the four-launch call: {ops} device operations, busy "
           f"{busy:.3f} ms; the depth path's three-launch call: "
           f"{depth_call[1]} device operations, busy {depth_call[0]:.3f} ms")
+    return (launches, (frames[mid], tr.state.ground_plane, stats[mid]),
+            (busy, ops))
+
+
+def sparse_config():
+    """The sparse symmetry path's extractor: synthetic_depth_sym.yaml's
+    (symmetry on, the other keys the defaults) with sparse_symmetry.  The
+    JAX package has no settings key or CLI flag for it; its tests build
+    the config, as this does."""
+    from object_oriented_slam_tpu_torch.frontend import ExtractorConfig
+    return ExtractorConfig(open_symmetry=True, sparse_symmetry=True)
+
+
+def phase_sparse_path(dev, tmp, sym_call):
+    """The symmetry path's scene, orbit and settings with sparse symmetry on
+    the card: each point's depth-border flag rides depth_cloud and
+    voxel_downsample, symmetry_search mirrors the border cells only.
+    Returns every kernel's launches and (the mid-orbit frame, the latched
+    plane, the extractor's stats of it) for the kernel phase.
+    ``sym_call``: (busy ms, device operations) of the dense symmetry path's
+    call, printed beside this one's."""
+    scene = scene24_sym()
+    slam, frames, e2e, stats, latched_at, launches = drive_depth_path(
+        dev, tmp, "synthetic_depth_sym.yaml", scene, sparse_config())
+    tr = slam.tracker
+    if not tr.extractor.cfg.sparse_symmetry:
+        raise RuntimeError("the sparse path's extractor is not sparse")
+    objs = slam.map_objects
+    errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                     for i, v in objs.items()])
+    iou = map_iou(objs, scene)
+    e2e_ms, ext_ms, backend_ms = path_times(tr, e2e)
+    ran = [s for s in stats if s]
+    searched = np.array([s["sym_single"] + s["sym_dual"] for s in ran])
+    sources = np.array([s.get("sym_sources", 0) for s in ran])
+    points = np.array([s.get("sym_points", 0) for s in ran])
+    dense = np.array([s.get("sym_dense", 0) for s in ran])
+    proper = int((searched - dense).sum())
+    probs = np.array([p for r in tr.state.objects.values()
+                      for p in r.obs3d_prob])
+    rows = np.array([v for _, v in sorted(objs.items())])
+    print(f"[sparse] {len(frames)} frames, ExtractorConfig(open_symmetry="
+          f"True, sparse_symmetry=True) over synthetic_depth_sym.yaml's scene "
+          f"and orbit; ground plane latched at frame {latched_at}")
+    print(f"[sparse] {len(objs)}/24 objects initialized; centre error vs "
+          f"ground truth: median {np.median(errs):.3g} m, max "
+          f"{errs.max():.3g} m; map IoU median %.4f, min %.4f; stored 3D "
+          f"observations {len(probs)}, symmetry prob min {probs.min():.4f} "
+          f"median {np.median(probs):.4f}" % iou)
+    print(f"[sparse] e2e ms/frame p50 {np.median(e2e_ms):.3f} mean "
+          f"{e2e_ms.mean():.3f} p99 {np.percentile(e2e_ms, 99):.3f}; "
+          f"extraction (dispatch + wait + copy) p50 {np.median(ext_ms):.3f} "
+          f"mean {ext_ms.mean():.3f} p99 {np.percentile(ext_ms, 99):.3f}; "
+          f"backend mean {backend_ms.mean():.3f} over all frames, "
+          f"{backend_ms.sum() / max(tr._backend_calls, 1):.3f} over the "
+          f"{tr._backend_calls} with an LM call (host clock, synchronized "
+          f"per frame)")
+    print(f"[sparse] per frame: detections searched min {searched.min()} "
+          f"median {int(np.median(searched))} max {searched.max()}; their "
+          f"sources (border cells) against their live cells: {sources.sum()} "
+          f"of {points.sum()} over the run "
+          f"({sources.sum() / max(points.sum(), 1):.3f}), "
+          f"median a frame {int(np.median(sources))} of "
+          f"{int(np.median(points))}; searched with every live cell (the "
+          f"dense fall-back, or every cell a border cell) {dense.sum()} of "
+          f"{searched.sum()}, on a proper border subset {proper}")
+    print(f"[sparse] kernel launches in the path: {launches}")
+    if len(objs) < 16:
+        raise RuntimeError(f"{len(objs)} of 24 objects initialized")
+    if not (np.isfinite(rows).all() and np.isfinite(probs).all()
+            and np.isfinite(errs).all()):
+        raise RuntimeError("the sparse path's map or probs are not finite")
+    if proper <= 0:
+        raise RuntimeError("no detection of the sparse path was searched "
+                           "over a proper border subset: every one fell "
+                           "back to the dense cost")
+    if launches["symmetry_search"] != int((searched > 0).sum()) or \
+            min(launches.values()) <= 0:
+        raise RuntimeError(f"launches {launches} for "
+                           f"{int((searched > 0).sum())} frames with a "
+                           "detection to search")
+    mid = len(frames) // 2
+    busy, ops = extraction_overhead("sparse", tr.extractor, frames[mid],
+                                    tr.state.ground_plane, SYM_CALL_LAUNCHES)
+    print(f"[sparse] its call: {ops} device operations, busy {busy:.3f} ms; "
+          f"the dense symmetry path's: {sym_call[1]} device operations, busy "
+          f"{sym_call[0]:.3f} ms")
     return launches, (frames[mid], tr.state.ground_plane, stats[mid])
+
+
+def phase_sparse_kernels(dev, path):
+    """Sparse symmetry's three kernel lanes against their plain versions at
+    the shapes the sparse path gave them on its mid-orbit frame (the frame
+    through the extractor's own packing and stages on the card):
+    depth_cloud with the border attribute, voxel_downsample with it and
+    symmetry_search with the border cells as sources (exact gradient); then
+    symmetry_search at sym_capacity filled with about half the points as
+    sources.  Returns (path records, full-shape records)."""
+    from object_oriented_slam_tpu_torch.core import se3
+    from object_oriented_slam_tpu_torch.frontend import extractor as text
+    scene = scene24_sym()
+    cam = scene.camera
+    (_, _, pose, depth, _, det), plane, stats = path
+    cfg = sparse_config()
+    flat, pad, _, cfg_t, n_sym = text._pack_frame(
+        cam, cfg, det[:, 1:5].copy(), det[:, 5].astype(int), pose, plane)
+    if stats["cloud_tier"] != cfg_t.cloud_capacity or \
+            (n_sym[0], n_sym[1]) != (stats["sym_single"], stats["sym_dual"]):
+        raise RuntimeError(f"the sparse path ran its mid-orbit frame at "
+                           f"{stats}, the packing gives tier "
+                           f"{cfg_t.cloud_capacity} and {n_sym}")
+    flat_d = torch.from_numpy(flat).to(dev)
+    depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)).to(dev)
+    bb = flat_d[:pad * 4].reshape(pad, 4)
+    pose_d = flat_d[pad * 6:pad * 6 + 7]
+    plane_d = flat_d[pad * 6 + 7:pad * 6 + 11]
+    recs = {}
+    r, battr = depth_cloud_checks("sparse path", depth_d, bb, pose_d, plane_d,
+                                  cam, cfg_t, border=True)
+    recs["depth_cloud (sparse path)"] = r
+    a = text._stage_a(depth_d, bb, pose_d, plane_d, cam, cfg_t)
+    if not same_bits(a[8], battr):
+        raise RuntimeError("the extractor's stage (a) border means differ "
+                           "from the checked launch's")
+    sel, _ = text._cluster_select_batch(a[1], a[3], a[4], a[7], cfg_t)
+    r, _ = voxel_attrs_checks("sparse path", a[1], sel, a[8], cfg_t.sym_grid,
+                              cfg_t.sym_capacity)
+    recs["voxel_downsample (sparse path)"] = r
+    Two, pts_n, obj_m, src = text._stage_post(a[1], sel, plane_d, cfg_t, a[8])
+    pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_d.expand(pad, 7))
+    types = flat_d[pad * 5:pad * 6].to(torch.int32)
+    run = flat_d[pad * 4:pad * 5] > 0.5
+    searched = (types > 0) & run
+    n_src, n_pts = (src & searched[:, None]).sum(1), (obj_m & searched[:, None]
+                                                      ).sum(1)
+    if (int(n_src.sum()), int(n_pts.sum())) != (stats["sym_sources"],
+                                                 stats["sym_points"]):
+        raise RuntimeError(f"the kernel phase's sources {int(n_src.sum())} / "
+                           f"{int(n_pts.sum())} differ from the path's "
+                           f"{stats}")
+    args = (pts_n.contiguous(), obj_m.contiguous(), bb.contiguous(),
+            pose_oc.contiguous(), depth_d, types, run, cam)
+    recs["symmetry_search (sparse path, analytic)"] = symmetry_checks(
+        "sparse path", *args, True, src.contiguous())
+    # sym_capacity filled, about half of each cloud's points the sources
+    full_args = full_symmetry_inputs(dev)
+    rng = np.random.default_rng(SEED)
+    half = torch.from_numpy(rng.random(tuple(full_args[1].shape)) < 0.5)
+    full = {"symmetry_search (sparse full, analytic)": symmetry_checks(
+        "sparse full", *full_args, cam, True,
+        (full_args[1] & half.to(dev)).contiguous())}
+    return recs, full
 
 
 def sym_passes(analytic, dual, iters=5):
@@ -1559,25 +1875,35 @@ def sym_passes(analytic, dual, iters=5):
 
 
 def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
-                    analytic):
+                    analytic, src_mask=None):
     """symmetry_search (K8) against estimate_symmetry_plain on the card, on
     the same inputs: every output bit for bit (the plain version sums in
-    the kernel's order), and a second launch bit-equal.  Its time beside
-    its bound (the pair tests this data needs, SYM_PAIR_OPS each), the
-    plain version's time and the yardstick (torch.cdist + torch.amin of
-    one pass, times the passes).  Returns its record."""
+    the kernel's order), and a second launch bit-equal.  With ``src_mask``
+    (sparse symmetry: only the live points it holds are mirrored) also the
+    search with every live point as a source, which must be the search
+    without a mask bit for bit.  Its time beside its bound (the pair tests
+    this data needs, SYM_PAIR_OPS each), the plain version's time and the
+    yardstick (torch.cdist + torch.amin of one pass, times the passes).
+    Returns its record."""
     from object_oriented_slam_tpu_torch.frontend import symmetry as sym
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     cfg = sym.SymmetryConfig(analytic_grad=analytic)
     args = (pts, mask, bbox, pose_oc, depth, types, run, cam, cfg)
-    got = sym.estimate_symmetry(*args)
-    again = sym.estimate_symmetry(*args)
+    got = sym.estimate_symmetry(*args, src_mask)
+    again = sym.estimate_symmetry(*args, src_mask)
     proj = bp.proj_depth_map(depth, cam)
     want = sym.estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj, types,
-                                       run, cam, cfg)
+                                       run, cam, cfg, src_mask)
+    if src_mask is not None:
+        every = sym.estimate_symmetry(*args, mask.clone())
+        dense = sym.estimate_symmetry(*args)
     torch.cuda.synchronize()
     if not all_bits(got, again):
         raise RuntimeError(f"symmetry_search ({tag}): two launches differ")
+    if src_mask is not None and not all_bits(every, dense):
+        raise RuntimeError(f"symmetry_search ({tag}) with every live point "
+                           "as a source differs from the search without a "
+                           "source mask")
     bits = all_bits(got, want)
     live = (run & (types > 0)).cpu()
     gi, wi = got.inits.cpu()[live], want.inits.cpu()[live]
@@ -1593,18 +1919,21 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
     if bool(got.inits.cpu()[off].any()) or bool(got.prob.cpu()[off].any()):
         raise RuntimeError(f"symmetry_search ({tag}) searched a detection of "
                            "type 0 or off the run mask")
-    # the work this data needs
+    # the work this data needs: each pass tests the P n_src mirrored points
+    # against the n live ones
     n = mask.sum(1).cpu()
+    n_src = n if src_mask is None else (src_mask & mask).sum(1).cpu()
     pairs, groups = 0.0, {}
     for d in live.nonzero().flatten().tolist():
         dual = int(types[d]) == 2
         P, passes = 1 + dual, sym_passes(analytic, dual)
-        pairs += 9 * passes * P * float(n[d]) * float(n[d])
+        pairs += 9 * passes * P * float(n_src[d]) * float(n[d])
         groups.setdefault(dual, []).append(d)
     per_search = {("dual" if dual else "single"): sym_passes(analytic, dual)
                   for dual in groups}
     n_bytes = sum(t.numel() * t.element_size() for t in (
-        pts, mask, bbox, pose_oc, types, run, *got))
+        pts, mask, bbox, pose_oc, types, run, *got)) + (
+        0 if src_mask is None else src_mask.numel())
     t_o = pairs * SYM_PAIR_OPS / PEAK_F32 * 1e3
     t_b = n_bytes / PEAK_BYTES * 1e3
     # the yardstick: one pass's mirrored points against the live points by
@@ -1612,10 +1941,10 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
     # at the most live points of the group, times the group's passes
     yard = 0.0
     for dual, rows in groups.items():
-        m = int(n[rows].max())
-        q = pts[rows][:, None, :m].expand(-1, 9, -1, -1).reshape(
+        m, ms = int(n[rows].max()), max(int(n_src[rows].max()), 1)
+        ref = pts[rows][:, None, :m].expand(-1, 9, -1, -1).reshape(
             -1, m, 3).contiguous()
-        ref = q.clone()
+        q = ref[:, :ms].contiguous()
         if dual:
             q = torch.cat([q, q], 1)
         yard += busy_ms(lambda: torch.cdist(q, ref).amin(-1)) * \
@@ -1624,16 +1953,22 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
              max_abs_err=max(p_err, float((got.prob - want.prob).abs().max())),
              max_rel_err=c_err, bits_equal=bits,
              bound=max((t_b, "bytes"), (t_o, "operations")),
-             ms=device_ms(lambda: sym.estimate_symmetry(*args), 10,
+             ms=device_ms(lambda: sym.estimate_symmetry(*args, src_mask), 10,
                           name="symmetry_search"),
              plain_ms=cuda_ms(lambda: sym.estimate_symmetry_plain(
-                 pts, mask, bbox, pose_oc, proj, types, run, cam, cfg), 1, 1),
+                 pts, mask, bbox, pose_oc, proj, types, run, cam, cfg,
+                 src_mask), 1, 1),
              library_ms=yard, pair_tests=pairs,
              searched=int(live.sum()), live_points=int(n[live].sum()))
+    sources = ""
+    if src_mask is not None:
+        r["source_points"] = int(n_src[live].sum())
+        sources = (f", sources {n_src.tolist()} (with every live point as "
+                   f"a source bit-equal to the search without a mask)")
     print(f"[frontend] symmetry ({tag}, {'analytic' if analytic else 'central'}"
           f"): {int(live.sum())} detections searched (types "
-          f"{types.tolist()}), live points {n.tolist()}: bit-equal to the "
-          f"plain version on the card and to a repeat; kernel "
+          f"{types.tolist()}), live points {n.tolist()}{sources}: bit-equal "
+          f"to the plain version on the card and to a repeat; kernel "
           f"{r['ms']:.4f} ms at "
           f"{', '.join(f'{v} ({k})' for k, v in per_search.items())} cost "
           f"passes a search, "
@@ -1691,7 +2026,7 @@ def phase_symmetry_kernel(dev, path):
     plane_d = flat_d[pad * 6 + 7:pad * 6 + 11]
     a = text._stage_a(depth_d, bb, pose_d, plane_d, cam, cfg_t)
     sel, _ = text._cluster_select_batch(a[1], a[3], a[4], a[7], cfg_t)
-    Two, pts_n, obj_m = text._stage_post(a[1], sel, plane_d, cfg_t)
+    Two, pts_n, obj_m, _ = text._stage_post(a[1], sel, plane_d, cfg_t)
     pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_d.expand(pad, 7))
     types = flat_d[pad * 5:pad * 6].to(torch.int32)
     run = flat_d[pad * 4:pad * 5] > 0.5
@@ -1734,9 +2069,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches_2d = phase_main_path(dev, tmp)
         launches, path, depth_call = phase_depth_path(dev, tmp)
-        launches_sym, path_sym = phase_symmetry_path(dev, tmp, depth_call)
+        launches_sym, path_sym, sym_call = phase_symmetry_path(dev, tmp,
+                                                               depth_call)
+        launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
+    sparse_recs, sparse_full = phase_sparse_kernels(dev, path_sparse)
 
     def record(name, r, source, replaces, path_launches=None, **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -1753,14 +2091,16 @@ def main():
                     "events_ms", "all_pairs_bound_ms", "tested_pairs",
                     "all_pairs", "every_pair_ms", "world_axes_ms", "sort_ms",
                     "live_points", "box_pixels", "bits_equal", "pair_tests",
-                    "searched")
+                    "searched", "source_points", "near_threshold")
                    if k in r},
                 **more}
 
     # launches: each path's counts, set to 0 just before it and read just
     # after: the depth path's for K1-K7 (the BA kernels also carry the 2D
     # path's), the symmetry path's for K8 (symmetry_search; the depth path
-    # without symmetry launches it 0 times).  The frontend records under
+    # without symmetry launches it 0 times), the sparse path's for the
+    # records of sparse symmetry's lanes (the same three kernels).  The
+    # frontend records under
     # "kernels" are taken at the shapes those paths launched; the shapes
     # they never reached (the full tier, the dense clouds, sym_capacity
     # filled; launches 0) stand apart.  library_ms: for the downsamples
@@ -1782,8 +2122,12 @@ def main():
                 for k, r in fe_recs.items()]
     kernels += [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]],
                        launches_sym) for k, r in sym_recs.items()]
+    kernels += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]],
+                       launches_sparse) for k, r in sparse_recs.items()]
     at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
                     for k, r in {**fe_full, **sym_full}.items()]
+    at_full_tier += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]])
+                     for k, r in sparse_full.items()]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "kernels_at_full_tier": at_full_tier}))

@@ -11,7 +11,9 @@ lanes) with the exact gradient and with central differences, and
 sym_capacity filled (8 dual detections x 512 points, exact gradient).  For
 each it prints the device time of one launch (the mean of ``--reps``
 profiler kernel events) and a digest of the outputs' bits (equal digests:
-equal outputs); then the ptxas report of the kernel and one JSON line.
+equal outputs); then the digests of the path frame's depth_cloud and
+voxel_downsample outputs (the launches without sparse symmetry's lanes),
+the ptxas report of the kernel and one JSON line.
 With ``--path`` it first drives chip_smoke's symmetry path (160 frames,
 synthetic_depth_sym.yaml) and prints its objects, the median centre error
 in full, a digest of the map's bits, the K8 launches and the e2e,
@@ -42,7 +44,9 @@ def ptxas_report(log):
 def path_args(cs, dev):
     """The arguments symmetry_search takes on the symmetry path's mid-orbit
     frame: the frame packed by the extractor and stages (a)-(f) run on the
-    card, as chip_smoke.phase_symmetry_kernel takes them."""
+    card, as chip_smoke.phase_symmetry_kernel takes them; and the digests
+    of that frame's depth_cloud (stages (a)-(c)) and voxel_downsample (the
+    object downsample with cells) outputs."""
     from object_oriented_slam_tpu_torch.core import se3
     from object_oriented_slam_tpu_torch.frontend import extractor as text
     from object_oriented_slam_tpu_torch.io import synthetic as syn
@@ -64,12 +68,16 @@ def path_args(cs, dev):
     plane_d = flat_d[pad * 6 + 7:pad * 6 + 11]
     a = text._stage_a(depth_d, bb, pose_d, plane_d, cam, cfg_t)
     sel, _ = text._cluster_select_batch(a[1], a[3], a[4], a[7], cfg_t)
-    Two, pts_n, obj_m = text._stage_post(a[1], sel, plane_d, cfg_t)
+    Two, pts_n, obj_m = text._stage_post(a[1], sel, plane_d, cfg_t)[:3]
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    frontend = {"depth_cloud": digest(a[:8]),
+                "voxel_downsample": digest(vx.voxel_downsample_cells(
+                    a[1], sel, cfg_t.sym_grid, cfg_t.sym_capacity))}
     pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_d.expand(pad, 7))
     types = flat_d[pad * 5:pad * 6].to(torch.int32)
     run = flat_d[pad * 4:pad * 5] > 0.5
     return (pts_n.contiguous(), obj_m.contiguous(), bb.contiguous(),
-            pose_oc.contiguous(), depth_d, types, run, cam)
+            pose_oc.contiguous(), depth_d, types, run, cam), frontend
 
 
 def digest(result):
@@ -126,10 +134,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     fk.build()
     report = ptxas_report(fk.build_log)
-    path = path_args(cs, dev)
+    path, frontend = path_args(cs, dev)
     full = (*cs.full_symmetry_inputs(dev), cs.scene24_sym().camera)
     shapes = [("path", path, True), ("path", path, False), ("full", full, True)]
-    out = {"root": root, "ptxas": report, "shapes": []}
+    out = {"root": root, "ptxas": report, "shapes": [], "frontend": frontend}
+    print(f"[bench] path frame outputs: {frontend}")
     if opts.path:
         out["path"] = drive_path(cs, dev)
         print(f"[path] {out['path']}")

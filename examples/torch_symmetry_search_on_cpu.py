@@ -14,9 +14,13 @@ host's, not libdevice, so the results are not the card's bits; but two
 versions whose sums and operations come in the same order give the same
 bits here too, and one that reorders a sum shows.  CASE names cases of
 ``tests/test_torch_frontend_kernels.py`` (``path``, ``ties``, ``capacity``,
-``ragged``, or one ``<case>-<analytic|central>-<iters>``); all by default.
-Exits 1 if any case differs.  Needs g++ with C++20; the ragged case takes
-about a minute.
+``ragged``, the sparse symmetry cases ``sparse-path`` and
+``sparse-capacity`` with their source masks, which both versions must
+take, and ``every-live-path`` / ``every-live-capacity``: NEW with a source
+mask of every point against OLD without one; or one
+``<case>-<analytic|central>-<iters>``); all by default.  Exits 1 if any
+case differs.  Needs g++ with C++20; the ragged case takes about a
+minute.
 """
 import ctypes
 import os
@@ -105,11 +109,13 @@ inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
-template <class A> void emu_launch(dim3 g, size_t smem, const A& a);
+template <class F, class A>
+void emu_launch(F kernel, dim3 g, size_t smem, const A& a);
 '''
 
 POSTLUDE = r'''
-template <class A> void emu_launch(dim3 g, size_t smem, const A& a)
+template <class F, class A>
+void emu_launch(F kernel, dim3 g, size_t smem, const A& a)
 {
     std::vector<char> mem(smem + 16);
     g_smem = mem.data();
@@ -123,7 +129,7 @@ template <class A> void emu_launch(dim3 g, size_t smem, const A& a)
                 th.emplace_back([=, &a]() {
                     threadIdx = {t, 0, 0};
                     blockIdx = {bx, by, 0};
-                    symmetry_search_kernel(a);
+                    kernel(a);
                 });
             for (auto& x : th) x.join();
             for (int w = 0; w < 8; ++w) delete g_warp[w];
@@ -138,9 +144,11 @@ def build(source, out):
     body = text[text.index("// symmetry_search.  Replaces"):]
     body = body.replace("extern __shared__ float4 ref[];",
                         "float4* ref = (float4*)g_smem;")
-    body = re.sub(r"symmetry_search_kernel\s*<<<[^>]*>>>\s*\(a\);",
-                  "emu_launch(grid, (size_t)S * sizeof(float4), a);", body,
-                  flags=re.S)
+    # room for the sources' 16-bit indices after the live points
+    body = re.sub(
+        r"\b(symmetry_search_kernel|kernel)\s*<<<[^>]*>>>\s*\(a\);",
+        r"emu_launch(\1, grid, (size_t)S * (sizeof(float4) + 2), a);", body,
+        flags=re.S)
     cpp = out + ".cpp"
     with open(cpp, "w") as f:
         f.write(PRELUDE + body + POSTLUDE)
@@ -150,16 +158,19 @@ def build(source, out):
     if proc.returncode:
         raise RuntimeError(f"g++ failed on {source}:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
+    lib.takes_src = "src_mask" in body       # a source with sparse symmetry
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.oslam_symmetry_search.argtypes = ([p] * 7 + [i] * 4 + [f] * 11
-                                          + [i, i] + [p] * 7)
+    lib.oslam_symmetry_search.argtypes = ([p] * (7 + lib.takes_src)
+                                          + [i] * 4 + [f] * 11 + [i, i]
+                                          + [p] * 7)
     lib.oslam_symmetry_search.restype = i
     return lib
 
 
-def search(lib, args, cam, cfg):
+def search(lib, args, cam, cfg, src_mask=None):
     """One call of the CPU build, the arguments as estimate_symmetry passes
-    them; returns its outputs."""
+    them (``src_mask`` only to a source that takes one); returns its
+    outputs."""
     pts, mask, bbox, pose, depth, types, run = [t.contiguous() for t in args]
     D, S = mask.shape
     H, W = depth.shape
@@ -167,8 +178,11 @@ def search(lib, args, cam, cfg):
            torch.zeros(D, sym.N_INITS, sym.INIT_FIELDS)]
     done = torch.zeros(D, dtype=torch.int32)
     inv = 1.0 / cfg.sigma
+    src = [] if not lib.takes_src else [
+        None if src_mask is None else src_mask.contiguous().data_ptr()]
     rc = lib.oslam_symmetry_search(
-        pts.data_ptr(), mask.data_ptr(), bbox.data_ptr(), pose.data_ptr(),
+        pts.data_ptr(), mask.data_ptr(), *src, bbox.data_ptr(),
+        pose.data_ptr(),
         depth.data_ptr(), types.data_ptr(), run.data_ptr(), D, S, H, W,
         cam.fx, cam.fy, cam.cx, cam.cy, cam.scale, cam.fx * cam.fx,
         -0.5 * inv * inv,
@@ -194,7 +208,10 @@ def main():
     cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
     cases = [("path", an, it) for it in (5, 1, 8) for an in (True, False)]
     cases += [("ties", True, 5), ("ties", False, 5), ("capacity", True, 5),
-              ("capacity", False, 5), ("ragged", True, 5)]
+              ("capacity", False, 5), ("ragged", True, 5),
+              ("sparse-path", True, 5), ("sparse-path", False, 5),
+              ("sparse-capacity", True, 5), ("every-live-path", True, 5),
+              ("every-live-path", False, 5), ("every-live-capacity", True, 5)]
     bad = 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = [build(p, os.path.join(tmp, f"k{i}.so"))
@@ -203,10 +220,23 @@ def main():
             name = f"{case}-{'analytic' if analytic else 'central'}-{iters}"
             if wanted and case not in wanted and name not in wanted:
                 continue
-            args = kt._SYM_CASES[case](torch.device("cpu"))
+            cpu = torch.device("cpu")
+            srcs = (None, None)
+            if case.startswith("sparse-"):
+                if not all(lib.takes_src for lib in libs):
+                    print(f"{name}: skipped, a version takes no source mask")
+                    continue
+                args, src = kt._SYM_SPARSE_CASES[case](cpu)
+                srcs = (src, src)
+            elif case.startswith("every-live-"):
+                args = kt._SYM_CASES[case[len("every-live-"):]](cpu)
+                srcs = (None, args[1])
+            else:
+                args = kt._SYM_CASES[case](cpu)
             cfg = sym.SymmetryConfig(analytic_grad=analytic, iters=iters)
             t0 = time.perf_counter()
-            old, new = (search(lib, args, cam, cfg) for lib in libs)
+            old, new = (search(lib, args, cam, cfg, src)
+                        for lib, src in zip(libs, srcs))
             same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                        for a, b in zip(old, new))
             bad += not same

@@ -26,6 +26,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -96,6 +97,18 @@ extern "C" const char* oslam_fe_error_string(int rc) {
 //      detection are written, by rank.
 // The chunks and the arithmetic do not depend on S, so neither do cells
 // and sums.
+//
+// Sparse symmetry adds an attribute lane (JAX ops/voxel.py _voxel_core's
+// attrs, :80-86): a value a point, staged in (4) beside the point's data and
+// summed in (5) beside its coordinates, in the same order, divided by the
+// same count.  depth_cloud<true> stages each pixel's depth-border flag
+// (ops/filters.depth_border_mask: a jump above `jump` metres against one of
+// its 4 neighbours, with indices wrapped across the image edge as jnp.roll
+// has them, or a neighbour without depth), read from the depth image at the
+// staging of a live point: no border map of the image is written.
+// voxel_downsample<true> stages the attribute it is given.  Without the
+// lane (the template's false) the code and the bits are those of the
+// kernels before it.
 // ---------------------------------------------------------------------------
 #define OSLAM_DS_T 512              // threads of a downsample block
 #define OSLAM_DS_W (OSLAM_DS_T / 32)
@@ -351,26 +364,64 @@ __device__ __forceinline__ int key_axis(int cell, int least)
     return min(max(cell - least, 0), 1023);
 }
 
+// A staged point with its attribute lane (4-byte aligned: the staged array
+// starts 8 C bytes into a block's working arrays, C any count)
+struct RawFlag {
+    int raw, flag;
+};
+struct PointAttr {
+    float x, y, z, a;
+};
+
 // The strided pixels of one detection's box as points: id p is the pixel
 // (y1 + 3 (p / bw), x1 + 3 (p % bw)), row by row; the arithmetic of
 // ops/backproject.bbox_point_cloud_plain.
-// A sorted point keeps its raw depth.
+// A sorted point keeps its raw depth and, with kBorder, its border flag.
+template <bool kBorder>
 struct BoxPixels {
-    typedef int Staged;
+    typedef typename std::conditional<kBorder, RawFlag, int>::type Staged;
+    static constexpr bool kAttr = kBorder;
     const int* depth;
     int W, x1, y1, bw;
     float scale, fx, fy, cx, cy, depth_range;
+    int H;
+    float jump;                 // the border's depth jump (kBorder)
     __device__ __forceinline__ int pixel(int p) const
     {
         const int i = p / bw, j = p - i * bw;
         return (y1 + OSLAM_STRIDE * i) * W + x1 + OSLAM_STRIDE * j;
     }
+    // filters.depth_border_mask at the point's pixel: z = raw / scale, valid
+    // above 1e-6; the 4 neighbours' indices wrap across the image edge
+    __device__ __forceinline__ int border(int p) const
+    {
+        const int i = p / bw, j = p - i * bw;
+        const int px = x1 + OSLAM_STRIDE * j, py = y1 + OSLAM_STRIDE * i;
+        const float z = (float)depth[py * W + px] / scale;
+        const bool valid = z > 1e-6f;
+        const int up = (py == 0 ? H - 1 : py - 1) * W + px;
+        const int down = (py == H - 1 ? 0 : py + 1) * W + px;
+        const int left = py * W + (px == 0 ? W - 1 : px - 1);
+        const int right = py * W + (px == W - 1 ? 0 : px + 1);
+        const int nb[4] = {up, down, left, right};
+        bool b = false;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const float zn = (float)depth[nb[k]] / scale;
+            const bool vn = zn > 1e-6f;
+            b = b || (valid && vn && fabsf(z - zn) > jump) || (valid && !vn);
+        }
+        return b ? 1 : 0;
+    }
     __device__ __forceinline__ Staged stage(int p) const
     {
-        return depth[pixel(p)];
+        if constexpr (kBorder)
+            return RawFlag{depth[pixel(p)], border(p)};
+        else
+            return depth[pixel(p)];
     }
-    __device__ __forceinline__ void from_stage(int p, Staged raw, float& x,
-                                               float& y, float& z) const
+    __device__ __forceinline__ void from_raw(int p, int raw, float& x,
+                                             float& y, float& z) const
     {
         const int i = p / bw, j = p - i * bw;
         const int px = x1 + OSLAM_STRIDE * j, py = y1 + OSLAM_STRIDE * i;
@@ -378,23 +429,43 @@ struct BoxPixels {
         x = ((float)px - cx) * z / fx;
         y = ((float)py - cy) * z / fy;
     }
+    __device__ __forceinline__ void from_stage(int p, Staged s, float& x,
+                                               float& y, float& z) const
+    {
+        if constexpr (kBorder)
+            from_raw(p, s.raw, x, y, z);
+        else
+            from_raw(p, s, x, y, z);
+    }
+    __device__ __forceinline__ float attr(Staged s) const   // kBorder only
+    {
+        return (float)s.flag;
+    }
     __device__ __forceinline__ bool point(int p, float& x, float& y,
                                           float& z) const
     {
-        from_stage(p, stage(p), x, y, z);
+        from_raw(p, depth[pixel(p)], x, y, z);
         return (z > 0.1f) && (z <= depth_range);
     }
 };
 
-// A detection's points [N, 3] and their mask [N]; a sorted point keeps its
-// coordinates.
+// A detection's points [N, 3] and their mask [N] (with kAttr_, one f32
+// attribute a point [N]); a sorted point keeps its coordinates and
+// attribute.
+template <bool kAttr_>
 struct MaskedPoints {
-    typedef float3 Staged;
+    typedef typename std::conditional<kAttr_, PointAttr, float3>::type Staged;
+    static constexpr bool kAttr = kAttr_;
     const float* pts;
     const uint8_t* mask;
+    const float* attrs;
     __device__ __forceinline__ Staged stage(int i) const
     {
-        return make_float3(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]);
+        if constexpr (kAttr_)
+            return PointAttr{pts[3 * i], pts[3 * i + 1], pts[3 * i + 2],
+                             attrs[i]};
+        else
+            return make_float3(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]);
     }
     __device__ __forceinline__ void from_stage(int, Staged s, float& x,
                                                float& y, float& z) const
@@ -403,10 +474,16 @@ struct MaskedPoints {
         y = s.y;
         z = s.z;
     }
+    __device__ __forceinline__ float attr(Staged s) const   // kAttr_ only
+    {
+        return s.a;
+    }
     __device__ __forceinline__ bool point(int i, float& x, float& y,
                                           float& z) const
     {
-        from_stage(i, stage(i), x, y, z);
+        x = pts[3 * i];
+        y = pts[3 * i + 1];
+        z = pts[3 * i + 2];
         return mask[i] != 0;
     }
 };
@@ -437,8 +514,9 @@ extern "C" int oslam_ds_clocks_clear()
 
 // The downsample of one detection's n_src candidate points, steps (1)-(5)
 // above, by the cluster's blocks; sink(slot, mean x, y, z, cell x, y, z,
-// live) writes each of the `capacity` output slots (slots past the
-// segments with zeros and live = false).  Phase clocks 2-6.
+// live, mean attribute) writes each of the `capacity` output slots (slots
+// past the segments with zeros and live = false; the attribute is 0 unless
+// Src::kAttr).  Phase clocks 2-6.
 template <class Src, class Sink>
 __device__ void downsample_cluster(const Src& src, int n_src, float leaf,
                                    int capacity,
@@ -653,7 +731,7 @@ __device__ void downsample_cluster(const Src& src, int n_src, float leaf,
              j += OSLAM_DS_T) {
             const int k0 = c0 + starts[j];
             const int k1 = j + 1 < n_loc ? c0 + starts[j + 1] : ws.end;
-            float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+            float sx = 0.0f, sy = 0.0f, sz = 0.0f, sa = 0.0f;
             for (int k = k0; k < k1;) {         // a chunk at a time
                 const int b = k / pc, kb = b * pc, stop = min(k1, kb + pc);
                 const uint16_t* bid = cl.at(ids, b);
@@ -666,6 +744,7 @@ __device__ void downsample_cluster(const Src& src, int n_src, float leaf,
                     sx += x;
                     sy += y;
                     sz += z;
+                    if constexpr (Src::kAttr) sa += src.attr(bst[k - kb]);
                 }
             }
             const float c = (float)(k1 - k0);
@@ -673,7 +752,7 @@ __device__ void downsample_cluster(const Src& src, int n_src, float leaf,
             sink(seg_off + j, sx / c, sy / c, sz / c,
                  ((kk >> 20) & 1023) + ws.gmin[0],
                  ((kk >> 10) & 1023) + ws.gmin[1], (kk & 1023) + ws.gmin[2],
-                 true);
+                 true, Src::kAttr ? sa / c : 0.0f);
         }
     } else {
         DS_CLOCK(3);
@@ -683,13 +762,14 @@ __device__ void downsample_cluster(const Src& src, int n_src, float leaf,
     // the empty slots, spread over the cluster
     for (int s = n_out + rank * OSLAM_DS_T + tid; s < capacity;
          s += S * OSLAM_DS_T)
-        sink(s, 0.0f, 0.0f, 0.0f, 0, 0, 0, false);
+        sink(s, 0.0f, 0.0f, 0.0f, 0, 0, 0, false, 0.0f);
     DS_CLOCK(6);
 }
 
 // The world epilogue of depth_cloud: the voxel means and cells in the
 // camera frame, the world point p R^T + t and the supporting-plane mask
-// (n . p_w + d) / den > clearance (ops/voxel.world_points_plain's order).
+// (n . p_w + d) / den > clearance (ops/voxel.world_points_plain's order);
+// with battr, the voxels' mean border flags.
 // w: R row-major [9], t [3], plane [4], den, clearance.
 struct CloudSink {
     const float* w;
@@ -697,10 +777,12 @@ struct CloudSink {
     uint8_t* m2;
     float* pts_v;
     int* cells_v;
+    float* battr;               // may be null
     bool any;
     __device__ void operator()(int r, float mx, float my, float mz, int c0,
-                               int c1, int c2, bool live)
+                               int c1, int c2, bool live, float a)
     {
+        if (battr != nullptr) battr[r] = a;
         pts_v[3 * r] = mx;
         pts_v[3 * r + 1] = my;
         pts_v[3 * r + 2] = mz;
@@ -725,9 +807,11 @@ struct PointsSink {
     float* out;
     uint8_t* out_mask;
     int* cells;                 // may be null
+    float* out_attrs;           // may be null
     __device__ void operator()(int r, float mx, float my, float mz, int c0,
-                               int c1, int c2, bool live)
+                               int c1, int c2, bool live, float a)
     {
+        if (out_attrs != nullptr) out_attrs[r] = a;
         out[3 * r] = mx;
         out[3 * r + 1] = my;
         out[3 * r + 2] = mz;
@@ -744,7 +828,9 @@ struct CameraArgs {
     float scale, fx, fy, cx, cy, depth_range;
 };
 
-// Grid (S, max(D, 1)), clusters of S; C list entries a block.
+// Grid (S, max(D, 1)), clusters of S; C list entries a block.  kBorder:
+// the voxels' mean border flags into battr_v (sparse symmetry).
+template <bool kBorder>
 __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     const int* __restrict__ depth, int H, int W, int D,
     const float* __restrict__ bboxes, const float* __restrict__ pose,
@@ -753,7 +839,7 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     uint8_t* __restrict__ m2, float* __restrict__ center_w,
     uint8_t* __restrict__ ok_points, uint8_t* __restrict__ ok_center,
     float* __restrict__ R_out, float* __restrict__ pts_v,
-    int* __restrict__ cells_v)
+    int* __restrict__ cells_v, float* __restrict__ battr_v, float jump)
 {
     __shared__ DsShared ws;
     __shared__ float w[18];
@@ -843,15 +929,18 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     const int y2 = min(max((int)bb[3], 0), H);
     const int bw = x2 > x1 ? (x2 - x1 + OSLAM_STRIDE - 1) / OSLAM_STRIDE : 0;
     const int bh = y2 > y1 ? (y2 - y1 + OSLAM_STRIDE - 1) / OSLAM_STRIDE : 0;
-    const BoxPixels src = {depth, W, x1, y1, bw, cam.scale, cam.fx, cam.fy,
-                           cam.cx, cam.cy, cam.depth_range};
+    const BoxPixels<kBorder> src = {depth, W, x1, y1, bw, cam.scale, cam.fx,
+                                    cam.fy, cam.cx, cam.cy, cam.depth_range,
+                                    H, jump};
     const size_t o = (size_t)d * capacity;
     CloudSink sink = {w, pts_w + 3 * o, m2 + o, pts_v + 3 * o,
-                      cells_v + 3 * o, false};
+                      cells_v + 3 * o, kBorder ? battr_v + o : nullptr, false};
     // (a, b) downsample, world transform, plane mask; ok_points is the OR
     // of the blocks' planes tests, gathered in the first block
-    downsample_cluster(src, bw * bh, leaf, capacity,
-                       ds_mem<BoxPixels::Staged>(ds_smem, C), ws, cl, sink);
+    downsample_cluster(
+        src, bw * bh, leaf, capacity,
+        ds_mem<typename BoxPixels<kBorder>::Staged>(ds_smem, C), ws, cl,
+        sink);
     if (__syncthreads_or(sink.any ? 1 : 0) && tid == 0)
         atomicOr(cl.at(&ws.any, 0), 1);
     cl.sync();                // nothing reads a block's memory after this
@@ -859,11 +948,14 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     DS_CLOCK(7);
 }
 
-// Grid (S, D), clusters of S; C list entries a block.
+// Grid (S, D), clusters of S; C list entries a block.  kAttr: the
+// attributes [D, N] averaged per cell into out_attrs [D, capacity].
+template <bool kAttr>
 __global__ void __launch_bounds__(OSLAM_DS_T, 1) voxel_downsample_kernel(
     const float* __restrict__ pts, const uint8_t* __restrict__ mask, int N,
     float leaf, int capacity, int C, float* __restrict__ out,
-    uint8_t* __restrict__ out_mask, int* __restrict__ cells)
+    uint8_t* __restrict__ out_mask, int* __restrict__ cells,
+    const float* __restrict__ attrs, float* __restrict__ out_attrs)
 {
     __shared__ DsShared ws;
     extern __shared__ __align__(16) char ds_smem[];
@@ -871,14 +963,18 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) voxel_downsample_kernel(
                    (int)gridDim.x};
     const int d = blockIdx.y;
     const size_t o = (size_t)d * capacity;
-    const MaskedPoints src = {pts + (size_t)d * N * 3, mask + (size_t)d * N};
+    const MaskedPoints<kAttr> src = {pts + (size_t)d * N * 3,
+                                     mask + (size_t)d * N,
+                                     kAttr ? attrs + (size_t)d * N : nullptr};
     PointsSink sink = {out + 3 * o, out_mask + o,
-                       cells != nullptr ? cells + 3 * o : nullptr};
+                       cells != nullptr ? cells + 3 * o : nullptr,
+                       kAttr ? out_attrs + o : nullptr};
     DS_CLOCK(0);
     DS_CLOCK(1);
-    downsample_cluster(src, N, leaf, capacity,
-                       ds_mem<MaskedPoints::Staged>(ds_smem, C), ws, cl,
-                       sink);
+    downsample_cluster(
+        src, N, leaf, capacity,
+        ds_mem<typename MaskedPoints<kAttr>::Staged>(ds_smem, C), ws, cl,
+        sink);
     cl.sync();                // nothing reads a block's memory after this
     DS_CLOCK(7);
 }
@@ -944,18 +1040,44 @@ static int ds_launch(void (*kernel)(Params...), int S, int blocks, int smem,
     return (int)rc;
 }
 
-static DsKernel ds_cloud = {(const void*)depth_cloud_kernel, -1, 0};
-static DsKernel ds_object = {(const void*)voxel_downsample_kernel, -1, 0};
+static DsKernel ds_cloud = {(const void*)depth_cloud_kernel<false>, -1, 0};
+static DsKernel ds_cloud_border = {(const void*)depth_cloud_kernel<true>, -1,
+                                   0};
+static DsKernel ds_object = {(const void*)voxel_downsample_kernel<false>, -1,
+                             0};
+static DsKernel ds_object_attr = {(const void*)voxel_downsample_kernel<true>,
+                                  -1, 0};
+
+template <bool kBorder>
+static int depth_cloud_launch(
+    long long G, const int* depth, int H, int W, const float* bboxes, int D,
+    const float* pose, const float* plane, const CameraArgs cam, float leaf,
+    float clearance, int capacity, float* pts_w, uint8_t* m2,
+    float* center_w, uint8_t* ok_points, uint8_t* ok_center, float* R_out,
+    float* pts_v, int* cells_v, float* battr_v, float jump, void* stream)
+{
+    const int per = 12 + (int)sizeof(typename BoxPixels<kBorder>::Staged);
+    int S = 0, C = 0;
+    const int rc = ds_shape(kBorder ? ds_cloud_border : ds_cloud, G, per, &S,
+                            &C);
+    if (rc != 0) return rc;
+    return ds_launch(depth_cloud_kernel<kBorder>, S, D > 0 ? D : 1, C * per,
+                     stream, depth, H, W, D, bboxes, pose, plane, cam, leaf,
+                     clearance, capacity, C, pts_w, m2, center_w, ok_points,
+                     ok_center, R_out, pts_v, cells_v, battr_v, jump);
+}
 
 // A cluster of S blocks per detection (and one cluster for D = 0, which
 // writes R only), S from the whole image's G = ceil(H / 3) * ceil(W / 3)
-// <= 65535 strided pixels (16-bit point ids): every box fits.
+// <= 65535 strided pixels (16-bit point ids): every box fits.  battr_v
+// [D, capacity] may be null: without it the kernel does not test borders.
 extern "C" int oslam_depth_cloud(
     const void* depth, int H, int W, const void* bboxes, int D,
     const void* pose, const void* plane, float scale, float fx, float fy,
     float cx, float cy, float depth_range, float leaf, float clearance,
     int capacity, void* pts_w, void* m2, void* center_w, void* ok_points,
-    void* ok_center, void* R_out, void* pts_v, void* cells_v, void* stream)
+    void* ok_center, void* R_out, void* pts_v, void* cells_v, void* battr_v,
+    float jump, void* stream)
 {
     const long long G = (long long)((H + OSLAM_STRIDE - 1) / OSLAM_STRIDE)
                         * ((W + OSLAM_STRIDE - 1) / OSLAM_STRIDE);
@@ -963,36 +1085,49 @@ extern "C" int oslam_depth_cloud(
         G > OSLAM_DS_MAX_IDS || (D > 0 && (pts_v == nullptr ||
                                            cells_v == nullptr)))
         return (int)cudaErrorInvalidValue;
-    const int per = 12 + (int)sizeof(BoxPixels::Staged);
-    int S = 0, C = 0;
-    const int rc = ds_shape(ds_cloud, G, per, &S, &C);
-    if (rc != 0) return rc;
     const CameraArgs cam = {scale, fx, fy, cx, cy, depth_range};
-    return ds_launch(depth_cloud_kernel, S, D > 0 ? D : 1, C * per, stream,
-                     (const int*)depth, H, W, D, (const float*)bboxes,
-                     (const float*)pose, (const float*)plane, cam, leaf,
-                     clearance, capacity, C, (float*)pts_w, (uint8_t*)m2,
-                     (float*)center_w, (uint8_t*)ok_points,
-                     (uint8_t*)ok_center, (float*)R_out, (float*)pts_v,
-                     (int*)cells_v);
+    auto launch = battr_v != nullptr ? depth_cloud_launch<true>
+                                     : depth_cloud_launch<false>;
+    return launch(G, (const int*)depth, H, W, (const float*)bboxes, D,
+                  (const float*)pose, (const float*)plane, cam, leaf,
+                  clearance, capacity, (float*)pts_w, (uint8_t*)m2,
+                  (float*)center_w, (uint8_t*)ok_points, (uint8_t*)ok_center,
+                  (float*)R_out, (float*)pts_v, (int*)cells_v,
+                  (float*)battr_v, jump, stream);
+}
+
+template <bool kAttr>
+static int voxel_downsample_launch(
+    const float* pts, const uint8_t* mask, int D, int N, float leaf,
+    int capacity, float* out, uint8_t* out_mask, int* cells,
+    const float* attrs, float* out_attrs, void* stream)
+{
+    const int per = 12 + (int)sizeof(typename MaskedPoints<kAttr>::Staged);
+    int S = 0, C = 0;
+    const int rc = ds_shape(kAttr ? ds_object_attr : ds_object, N, per, &S,
+                            &C);
+    if (rc != 0) return rc;
+    return ds_launch(voxel_downsample_kernel<kAttr>, S, D, C * per, stream,
+                     pts, mask, N, leaf, capacity, C, out, out_mask, cells,
+                     attrs, out_attrs);
 }
 
 // A cluster of S blocks per detection, S from N <= 65535 (16-bit point
-// ids; more than ~63,000 do not fit 8 blocks); cells may be null.
+// ids; more than ~63,000 do not fit 8 blocks); cells may be null; attrs
+// [D, N] and out_attrs [D, capacity] both null or both given.
 extern "C" int oslam_voxel_downsample(
     const void* pts, const void* mask, int D, int N, float leaf, int capacity,
-    void* out, void* out_mask, void* cells, void* stream)
+    void* out, void* out_mask, void* cells, const void* attrs,
+    void* out_attrs, void* stream)
 {
-    if (D < 1 || D > 65535 || N < 0 || N > OSLAM_DS_MAX_IDS || capacity < 1)
+    if (D < 1 || D > 65535 || N < 0 || N > OSLAM_DS_MAX_IDS || capacity < 1
+        || (attrs == nullptr) != (out_attrs == nullptr))
         return (int)cudaErrorInvalidValue;
-    const int per = 12 + (int)sizeof(MaskedPoints::Staged);
-    int S = 0, C = 0;
-    const int rc = ds_shape(ds_object, N, per, &S, &C);
-    if (rc != 0) return rc;
-    return ds_launch(voxel_downsample_kernel, S, D, C * per, stream,
-                     (const float*)pts, (const uint8_t*)mask, N, leaf,
-                     capacity, C, (float*)out, (uint8_t*)out_mask,
-                     (int*)cells);
+    auto launch = attrs != nullptr ? voxel_downsample_launch<true>
+                                   : voxel_downsample_launch<false>;
+    return launch((const float*)pts, (const uint8_t*)mask, D, N, leaf,
+                  capacity, (float*)out, (uint8_t*)out_mask, (int*)cells,
+                  (const float*)attrs, (float*)out_attrs, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1632,6 +1767,14 @@ extern "C" int oslam_cluster_select(
 //    picks one plane or two, so one launch serves both variants;
 //  - the live points compacted into shared memory in index order as float4
 //    (x, y, z, |p|^2): the 1-NN loop runs over them only;
+//  - with a source mask (sparse symmetry, JAX's src_mask): the mirrored
+//    points are the live points it holds, kept as 16-bit indices into the
+//    live points (2 bytes a point beside the 16 of a float4: 36 KB at 2048
+//    points, under the 48 KB a block has without an opt-in), compacted in
+//    index order in the same pass; every live point stays the 1-NN
+//    reference and the cost is the mean over P n_src mirrored points.
+//    Without one the sources are the live points themselves, read as
+//    before;
 //  - the mirrored points strided over the block, up to OSLAM_SYM_R a
 //    thread at once: one scan over the live points feeds a 1-NN chain per
 //    point (sym_tile), one shared-memory load a step for all of them; a
@@ -1674,6 +1817,7 @@ extern "C" int oslam_cluster_select(
 struct SymArgs {
     const float* pts;       // [D, S, 3] normalized object clouds
     const uint8_t* mask;    // [D, S]
+    const uint8_t* src_mask;    // [D, S] the points mirrored, or null: all
     const float* bbox;      // [D, 4]
     const float* pose_oc;   // [D, 7] the camera in the normalized frame
     const int* depth;       // [H, W] raw depth
@@ -1730,16 +1874,17 @@ __device__ __forceinline__ SymPlanes sym_planes(const float* par, bool dual)
 
 // A tile of mirrored points: slot r of a thread holds mirrored point
 // i = base + r T + tid (T = OSLAM_SYM_T) if i < M, plane 0's points
-// (src[i], i < ns) first, then plane 1's.  One scan over the reference
+// (source i < ns: ref[sidx[i]] with kSparse, else ref[i]) first, then
+// plane 1's.  One scan over the reference
 // points feeds RR independent 1-NN chains, one float4 load a step for all
 // of them; each chain keeps its minimum, the count of points at it and
 // their sum in reference order (jnp.min splits its gradient evenly over
 // equal minima), so the slots' terms, added to acc in increasing i, carry
 // the bits of a scan per point.  `pose` holds R (9) and t (3) of T_c<-o and
 // the camera centre (3); `gd2` is d cost / d d2 of a scored point.
-template <bool kGrad, int RR>
+template <bool kGrad, int RR, bool kSparse>
 __device__ __forceinline__ void sym_tile(
-    const SymArgs& a, const float4* src, int ns, const float4* ref, int nr,
+    const SymArgs& a, const uint16_t* sidx, int ns, const float4* ref, int nr,
     int M, int base, const SymPlanes& pl, const float* pose, const float* bb,
     const int* depth, float gd2, float* acc)
 {
@@ -1750,7 +1895,12 @@ __device__ __forceinline__ void sym_tile(
         const int i = base + r * OSLAM_SYM_T + (int)threadIdx.x;
         on[r] = i < M;
         second[r] = i >= ns;
-        const float4 p = src[on[r] ? (second[r] ? i - ns : i) : 0];
+        const int k = on[r] ? (second[r] ? i - ns : i) : 0;
+        float4 p;
+        if constexpr (kSparse)
+            p = ref[sidx[k]];
+        else
+            p = ref[k];
         const float n0 = second[r] ? pl.n0[1] : pl.n0[0];
         const float n1 = second[r] ? pl.n1[1] : pl.n1[0];
         const float n2 = second[r] ? pl.n2[1] : pl.n2[0];
@@ -1856,14 +2006,14 @@ __device__ __forceinline__ void sym_tile(
 }
 
 // One cost pass of a block at the planes `spl` (thread 0 computes them once
-// a pass and publishes them in shared memory): the mirrored points
-// (src[0, ns) across each plane) are scored against the reference points
-// ref[0, nr) (today both the live points), a tile of up to
-// OSLAM_SYM_R points a thread at a time; the partial sums go to
-// red[warp][.] (cost sum and, with kGrad, d cost / d(n0, n1, d) of each
+// a pass and publishes them in shared memory): the mirrored points (the ns
+// sources, ref[sidx[.]] with kSparse, else ref[0, ns), across each plane)
+// are scored against the reference points ref[0, nr) (the live points), a
+// tile of up to OSLAM_SYM_R points a thread at a time; the partial sums go
+// to red[warp][.] (cost sum and, with kGrad, d cost / d(n0, n1, d) of each
 // plane), then one barrier.
-template <bool kGrad>
-__device__ void sym_pass(const SymArgs& a, const float4* src, int ns,
+template <bool kGrad, bool kSparse>
+__device__ void sym_pass(const SymArgs& a, const uint16_t* sidx, int ns,
                          const float4* ref, int nr, bool dual,
                          const SymPlanes* spl, const float* pose,
                          const float* bb, const int* depth, float gd2,
@@ -1882,14 +2032,14 @@ __device__ void sym_pass(const SymArgs& a, const float4* src, int ns,
         if (left <= 0) break;
         const int rows = (left + OSLAM_SYM_T - 1) / OSLAM_SYM_T;
         if (rows >= 3)
-            sym_tile<kGrad, 4>(a, src, ns, ref, nr, M, base, pl, pose, bb,
-                               depth, gd2, acc);
+            sym_tile<kGrad, 4, kSparse>(a, sidx, ns, ref, nr, M, base, pl,
+                                        pose, bb, depth, gd2, acc);
         else if (rows == 2)
-            sym_tile<kGrad, 2>(a, src, ns, ref, nr, M, base, pl, pose, bb,
-                               depth, gd2, acc);
+            sym_tile<kGrad, 2, kSparse>(a, sidx, ns, ref, nr, M, base, pl,
+                                        pose, bb, depth, gd2, acc);
         else
-            sym_tile<kGrad, 1>(a, src, ns, ref, nr, M, base, pl, pose, bb,
-                               depth, gd2, acc);
+            sym_tile<kGrad, 1, kSparse>(a, sidx, ns, ref, nr, M, base, pl,
+                                        pose, bb, depth, gd2, acc);
     }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -1939,13 +2089,17 @@ __device__ __forceinline__ void sym_grad(const float* tot, const SymPlanes& pl,
     g[1] = -tot[3];
 }
 
+// kSparse: a.src_mask is given (the sources are kept as indices); without
+// it the kernel is the dense search, instruction for instruction.
+template <bool kSparse>
 __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     const SymArgs a)
 {
-    extern __shared__ float4 ref[];     // the detection's live points
+    extern __shared__ float4 ref[];     // the detection's live points, then
+                                        // with a source mask the sources
     __shared__ float red[OSLAM_SYM_W][OSLAM_SYM_SUMS];
     __shared__ SymPlanes spl;           // the planes of the next pass
-    __shared__ int wcount[OSLAM_SYM_W];
+    __shared__ int wcount[OSLAM_SYM_W], scount[OSLAM_SYM_W];
     __shared__ int last;
     const int k = blockIdx.x, d = blockIdx.y, tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
@@ -1967,29 +2121,51 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
         return;
     }
 
-    // the live points, in index order
+    // the live points, in index order; with a source mask the indices of
+    // the sources among them, in index order too
     const float* pts = a.pts + (size_t)d * a.S * 3;
     const uint8_t* msk = a.mask + (size_t)d * a.S;
-    int n = 0;
+    const uint8_t* smsk = kSparse ? a.src_mask + (size_t)d * a.S : nullptr;
+    uint16_t* sidx = kSparse ? (uint16_t*)(ref + a.S) : nullptr;
+    int n = 0, ns = 0;
     for (int c0 = 0; c0 < a.S; c0 += OSLAM_SYM_T) {
         const int i = c0 + tid;
         const bool live = i < a.S && msk[i] != 0;
         const unsigned bal = __ballot_sync(0xffffffffu, live);
-        if (lane == 0) wcount[warp] = __popc(bal);
+        bool src = false;
+        unsigned sbal = 0u;
+        if constexpr (kSparse) {
+            src = live && smsk[i] != 0;
+            sbal = __ballot_sync(0xffffffffu, src);
+        }
+        if (lane == 0) {
+            wcount[warp] = __popc(bal);
+            if constexpr (kSparse) scount[warp] = __popc(sbal);
+        }
         __syncthreads();
-        int off = n, total = n;
+        int off = n, total = n, soff = ns, stotal = ns;
         for (int w = 0; w < OSLAM_SYM_W; ++w) {
-            if (w < warp) off += wcount[w];
+            if (w < warp) {
+                off += wcount[w];
+                if constexpr (kSparse) soff += scount[w];
+            }
             total += wcount[w];
+            if constexpr (kSparse) stotal += scount[w];
         }
         if (live) {
+            const int at = off + __popc(bal & ((1u << lane) - 1u));
             const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
-            ref[off + __popc(bal & ((1u << lane) - 1u))] =
-                make_float4(x, y, z, x * x + y * y + z * z);
+            ref[at] = make_float4(x, y, z, x * x + y * y + z * z);
+            if constexpr (kSparse)
+                if (src)
+                    sidx[soff + __popc(sbal & ((1u << lane) - 1u))] =
+                        (uint16_t)at;
         }
         n = total;
-        __syncthreads();        // wcount is reused
+        ns = stotal;
+        __syncthreads();        // wcount and scount are reused
     }
+    if constexpr (!kSparse) ns = n;
 
     // T_c<-o = inv(pose_oc) as core/se3.se3_inv and quat_to_mat write it
     float pose[15];
@@ -2021,7 +2197,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     }
     const float* bb = a.bbox + 4 * d;
     const int n_par = dual ? 3 : 2;
-    const float nv = fmaxf((float)((dual ? 2 : 1) * n), 1.0f);
+    const float nv = fmaxf((float)((dual ? 2 : 1) * ns), 1.0f);
     const float gd2 = -(1.0f / nv) * a.coef;    // d cost / d d2
 
     // thread 0's LM state: params, cost, damping, the gradient at p
@@ -2055,8 +2231,9 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                         spl = sym_planes(q, dual);
                     }
                     __syncthreads();
-                    sym_pass<false>(a, ref, n, ref, n, dual, &spl, pose, bb,
-                                    a.depth, gd2, red);
+                    sym_pass<false, kSparse>(a, sidx, ns, ref, n, dual,
+                                             &spl, pose, bb, a.depth, gd2,
+                                             red);
                     if (warp == 0) {
                         float tot[1];
                         sym_totals<1>(red, tot);
@@ -2112,12 +2289,12 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
         const bool grad = a.analytic && it + 1 < a.iters;
         float tot[OSLAM_SYM_SUMS];
         if (grad) {
-            sym_pass<true>(a, ref, n, ref, n, dual, &spl, pose, bb, a.depth,
-                           gd2, red);
+            sym_pass<true, kSparse>(a, sidx, ns, ref, n, dual, &spl, pose,
+                                    bb, a.depth, gd2, red);
             if (warp == 0) sym_totals<OSLAM_SYM_SUMS>(red, tot);
         } else {
-            sym_pass<false>(a, ref, n, ref, n, dual, &spl, pose, bb, a.depth,
-                            gd2, red);
+            sym_pass<false, kSparse>(a, sidx, ns, ref, n, dual, &spl, pose,
+                                     bb, a.depth, gd2, red);
             if (warp == 0) sym_totals<1>(red, tot);
         }
         if (tid == 0) {
@@ -2170,24 +2347,31 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     a.error[d] = all[bi * OSLAM_SYM_FIELDS + 3];
 }
 
+// src_mask may be null (dense: every live point is mirrored).
 extern "C" int oslam_symmetry_search(
-    const void* pts, const void* mask, const void* bbox, const void* pose_oc,
-    const void* depth, const void* types, const void* run, int D, int S,
-    int H, int W, float fx, float fy, float cx, float cy, float scale,
-    float ff, float coef, float ang_step, float step_dis, float h,
-    float two_h, int iters, int analytic, void* plane, void* dual_dis,
-    void* prob, void* error, void* inits, void* done, void* stream)
+    const void* pts, const void* mask, const void* src_mask,
+    const void* bbox, const void* pose_oc, const void* depth,
+    const void* types, const void* run, int D, int S, int H, int W, float fx,
+    float fy, float cx, float cy, float scale, float ff, float coef,
+    float ang_step, float step_dis, float h, float two_h, int iters,
+    int analytic, void* plane, void* dual_dis, void* prob, void* error,
+    void* inits, void* done, void* stream)
 {
     if (S < 1 || S > OSLAM_SYM_MAX_S) return (int)cudaErrorInvalidValue;
     const SymArgs a = {
-        (const float*)pts, (const uint8_t*)mask, (const float*)bbox,
+        (const float*)pts, (const uint8_t*)mask, (const uint8_t*)src_mask,
+        (const float*)bbox,
         (const float*)pose_oc, (const int*)depth, (const int*)types,
         (const uint8_t*)run, S, H, W, fx, fy, cx, cy, scale, ff, coef,
         ang_step, step_dis, h, two_h, iters, analytic, (float*)plane,
         (float*)dual_dis, (float*)prob, (float*)error, (float*)inits,
         (int*)done};
     const dim3 grid(OSLAM_SYM_INITS, D);
-    symmetry_search_kernel<<<grid, OSLAM_SYM_T, (size_t)S * sizeof(float4),
-                             (cudaStream_t)stream>>>(a);
+    const size_t smem = (size_t)S * sizeof(float4)
+                        + (src_mask != nullptr ? (size_t)S * 2 : 0);
+    void (*kernel)(const SymArgs) = src_mask != nullptr
+                                    ? symmetry_search_kernel<true>
+                                    : symmetry_search_kernel<false>;
+    kernel<<<grid, OSLAM_SYM_T, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -21,7 +21,12 @@ a frame as one batch on the device (a leading axis D where the JAX package
   (g) with ``open_symmetry``: the symmetry plane of each detection whose
       label has a symmetry prior (frontend/symmetry.py), the cloud
       completed by its mirror image and the object frame re-derived from
-      the plane (:352-456)
+      the plane (:352-456).  With ``sparse_symmetry`` too
+      (Symmetry::SetBorders, Symmetry.cpp:163-167): each point carries its
+      depth-border flag from (a) through both downsamples, and only the
+      object cells whose mean flag exceeds 0.3 are mirrored and scored,
+      every live cell staying the 1-NN reference (all of them where no
+      cell passes)
   (h) scale from max |coord| per axis in the normalized frame
       (ProcessPCANormalized, :495-531); result returned camera-local
       (:459-492)
@@ -29,15 +34,18 @@ a frame as one batch on the device (a leading axis D where the JAX package
 Failure gates (miSystemState analogues) are carried as a validity mask.
 On a CUDA device stages (a)-(c), (d), the downsample of (f) and the plane
 search of (g) are launches of the hand-written kernels of
-``csrc/frontend.cu``: depth_cloud (``ops/depth_cloud``), cluster_select
-(``ops/cluster``), voxel_downsample (``ops/voxel``) and, when the frame
-has a detection with a symmetry prior, symmetry_search
-(``frontend/symmetry``); the rest is plain PyTorch.
+``csrc/frontend.cu``: depth_cloud (``ops/depth_cloud``; with sparse
+symmetry it also tests each strided pixel's 4 neighbours for the border
+flag and averages the flag per voxel), cluster_select (``ops/cluster``),
+voxel_downsample (``ops/voxel``; averaging the flag per object cell with
+sparse symmetry) and, when the frame has a detection with a symmetry prior,
+symmetry_search (``frontend/symmetry``; with the border cells as its
+sources with sparse symmetry); the rest is plain PyTorch.
 
 Not ported (each raises ``NotImplementedError`` naming the option):
-sparse symmetry (``sparse_symmetry``), grid-hash clustering
-(``grid_cluster``), interleaved chain passes (``cluster_chains > 0``), the
-split and fused extractors and LM fusion (``dispatch_with_lm``).
+grid-hash clustering (``grid_cluster``), interleaved chain passes
+(``cluster_chains > 0``), the split and fused extractors and LM fusion
+(``dispatch_with_lm``).
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ from ..ops import backproject as bp
 from ..ops import cluster as cl
 from ..ops import pca as pca_mod
 from ..ops import voxel as vx
-from ..ops.depth_cloud import depth_cloud
+from ..ops.depth_cloud import depth_cloud, depth_cloud_border
 from . import symmetry as sym_mod
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
@@ -85,17 +93,17 @@ class ExtractorConfig:
     compact_rungs: tuple = (4, 5, 6, 7, 8, 12)
     grid_cluster: bool = False  # grid-hash clustering: not ported
     open_symmetry: bool = False
-    sparse_symmetry: bool = False           # not ported
+    sparse_symmetry: bool = False  # mirror only depth-border points in the
+    #                                symmetry cost (Symmetry::SetBorders
+    #                                path; inactive in the reference demo)
     sym_analytic_grad: bool = True   # False: central differences
 
 
 def _check_ported(cfg: ExtractorConfig):
-    for name, why in (("sparse_symmetry", "sparse symmetry"),
-                      ("grid_cluster", "grid-hash clustering")):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"ExtractorConfig.{name}=True: {why} is not ported to the "
-                "torch package")
+    if cfg.grid_cluster:
+        raise NotImplementedError(
+            "ExtractorConfig.grid_cluster=True: grid-hash clustering is not "
+            "ported to the torch package")
     if cfg.cluster_chains > 0:
         raise NotImplementedError(
             f"ExtractorConfig.cluster_chains={cfg.cluster_chains}: "
@@ -119,19 +127,28 @@ def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
 
     Returns (pts_v [D, cap, 3] camera-frame voxel cloud, pts_w world cloud,
     cells_v, m2 filtered mask, center_w [D, 3], ok_points [D],
-    ok_center [D], R_wc [3, 3]).
+    ok_center [D], R_wc [3, 3], battr_v [D, cap] | None).  battr_v, each
+    voxel's mean depth-border flag, is computed with sparse symmetry only
+    (JAX ``border_map``, extractor.py:333,458), in the same launch.
     """
-    dc = depth_cloud(depth, bboxes, pose_wc, ground_plane, cam,
-                     cfg.voxel_leaf, cfg.depth_range, cfg.plane_clearance,
-                     cfg.cloud_capacity)
+    args = (depth, bboxes, pose_wc, ground_plane, cam, cfg.voxel_leaf,
+            cfg.depth_range, cfg.plane_clearance, cfg.cloud_capacity)
+    battr_v = None
+    if cfg.open_symmetry and cfg.sparse_symmetry:
+        dc, battr_v = depth_cloud_border(*args)
+    else:
+        dc = depth_cloud(*args)
     return (dc.pts_v, dc.pts_w, dc.cells_v, dc.m2, dc.center_w, dc.ok_points,
-            dc.ok_center, dc.R_wc)
+            dc.ok_center, dc.R_wc, battr_v)
 
 
-def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):
+def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig,
+                battr_v=None):
     """Stages (e)-(f) after cluster selection: PCA, rotation
     post-processing, normalized object frame, 0.1 m object-cloud
-    downsample.  Returns (Two [D, 7], pts_n [D, S, 3], obj_m [D, S])."""
+    downsample.  Returns (Two [D, 7], pts_n [D, S, 3], obj_m [D, S],
+    sym_src [D, S] | None); sym_src, with the voxels' border attribute
+    battr_v, marks the object cells to mirror (JAX :196-202)."""
     # (e) PCA + rotation post-processing
     res = pca_mod.masked_pca(pts_w, sel)
     rot = pca_mod.adjust_chirality(res.rot)
@@ -153,13 +170,24 @@ def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig):
     # 0.1 m downsample of the object cloud for the scale stats
     # (EllipsoidExtractor.cpp:321-324: downsample happens in world frame,
     # then the cloud is moved to the normalized frame)
-    obj_pts, obj_m = vx.voxel_downsample(pts_w, sel, cfg.sym_grid,
-                                         cfg.sym_capacity)
+    sym_src = None
+    if battr_v is None:
+        obj_pts, obj_m = vx.voxel_downsample(pts_w, sel, cfg.sym_grid,
+                                             cfg.sym_capacity)
+    else:
+        # the border flag averaged again per object cell (a mean of the
+        # voxels' means); a cell above 0.3 is a border cell.  A detection
+        # with none (e.g. a fully interior view) falls back to the dense
+        # cost rather than a zero-point average
+        obj_pts, obj_battr, obj_m = vx.voxel_downsample_attrs(
+            pts_w, battr_v, sel, cfg.sym_grid, cfg.sym_capacity)
+        sym_src = obj_m & (obj_battr > 0.3)
+        sym_src = torch.where(sym_src.any(1, keepdim=True), sym_src, obj_m)
     Tow = se3.se3_inv(Two)
     R_ow = se3.quat_to_mat(Tow[:, 3:])
     pts_n = obj_pts @ R_ow.transpose(-1, -2) + Tow[:, None, :3]
     pts_n = torch.where(obj_m[..., None], pts_n, 0.0)
-    return Two, pts_n, obj_m
+    return Two, pts_n, obj_m, sym_src
 
 
 def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
@@ -207,19 +235,22 @@ def _finish(Two, pts_n, obj_m, pose_wc):
 
 def _stage_sym(Two, pts_n, obj_m, bboxes, run, sym_types, pose_wc, depth,
                cam: Camera, cfg: ExtractorConfig, need_single: bool,
-               need_dual: bool):
+               need_dual: bool, sym_src=None):
     """Stage (g) for the whole detection batch (JAX ``_sym_finish_one``):
     the symmetry search of every detection whose type needs it (one launch
     on a CUDA device, both variants), the completed clouds of the variants
     the frame needs, and the selection by each detection's type.  Type 0,
     and a detection off the run mask, keep the plain cloud padded to 4S and
-    prob 1.  Returns (Two, pts [D, 4S, 3], mask [D, 4S], prob [D])."""
+    prob 1.  ``sym_src`` (sparse symmetry): the points the search mirrors;
+    the completion mirrors the whole cloud (JAX :382-391).  Returns (Two,
+    pts [D, 4S, 3], mask [D, 4S], prob [D])."""
     D, S = obj_m.shape
     pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_wc.expand(D, 7))
     res = sym_mod.estimate_symmetry(
         pts_n.contiguous(), obj_m.contiguous(), bboxes.contiguous(),
         pose_oc.contiguous(), depth, sym_types, run, cam,
-        sym_mod.SymmetryConfig(analytic_grad=cfg.sym_analytic_grad))
+        sym_mod.SymmetryConfig(analytic_grad=cfg.sym_analytic_grad),
+        None if sym_src is None else sym_src.contiguous())
     pts_fin = torch.cat([pts_n, pts_n.new_zeros((D, 3 * S, 3))], dim=1)
     m_fin = torch.cat([obj_m, obj_m.new_zeros((D, 3 * S))], dim=1)
     Two_fin, prob = Two, torch.ones_like(res.prob)
@@ -245,7 +276,11 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     ground_plane: [4] world frame; all on one device.  ``stats``: an
     optional dict that receives the clustering stage's round count, lane
     count, survivor count and convergence as 0-dim tensors on that device
-    (the call reads nothing back).  ``sym_types``: [D] int {0 none,
+    (the call reads nothing back); with sparse symmetry and a detection to
+    search also, over the detections searched, their sources
+    (``sym_sources``), their live points (``sym_points``) and how many
+    mirror every live point (``sym_dense``: the fall-back, or every cell a
+    border cell).  ``sym_types``: [D] int {0 none,
     1 reflection, 2 dual} (read only with ``cfg.open_symmetry``; None: all
     0); ``need_single`` / ``need_dual``: host flags, derived from the
     frame's labels, that the frame has a detection of that type, so only
@@ -260,19 +295,27 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     pose_wc = pose_wc.to(torch.float32)
     ground_plane = ground_plane.to(torch.float32)
 
-    (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc) = _stage_a(
+    (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc, battr_v) = _stage_a(
         depth, bboxes, pose_wc, ground_plane, cam, cfg)
     sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
-    Two, pts_n, obj_m = _stage_post(pts_w, sel, ground_plane, cfg)
+    Two, pts_n, obj_m, sym_src = _stage_post(pts_w, sel, ground_plane, cfg,
+                                             battr_v)
     prob = torch.ones(bboxes.shape[0], dtype=torch.float32,
                       device=bboxes.device)
     if cfg.open_symmetry and (need_single or need_dual):
         if sym_types is None:
             sym_types = torch.zeros(bboxes.shape[0], dtype=torch.int32,
                                     device=bboxes.device)
+        sym_types = sym_types.to(torch.int32)
+        if sym_src is not None and stats is not None:
+            searched = (sym_types > 0) & run_mask
+            n_src = (sym_src & searched[:, None]).sum(1)
+            n_pts = (obj_m & searched[:, None]).sum(1)
+            stats.update(sym_sources=n_src.sum(), sym_points=n_pts.sum(),
+                         sym_dense=(searched & (n_src == n_pts)).sum())
         Two, pts_n, obj_m, prob = _stage_sym(
-            Two, pts_n, obj_m, bboxes, run_mask, sym_types.to(torch.int32),
-            pose_wc, depth, cam, cfg, need_single, need_dual)
+            Two, pts_n, obj_m, bboxes, run_mask, sym_types, pose_wc, depth,
+            cam, cfg, need_single, need_dual, sym_src)
     e_local = _finish(Two, pts_n, obj_m, pose_wc)
     ok = (ok_p & ok_c & ok_cl & run_mask
           & torch.isfinite(e_local).all(dim=1) & (prob > 1e-8))
@@ -338,7 +381,7 @@ def _pack_frame(cam: Camera, cfg: ExtractorConfig, bboxes, labels, pose_wc,
 
 
 _STAT_KEYS = ("cluster_rounds", "cluster_lanes", "cluster_survivors",
-              "cluster_converged")
+              "cluster_converged", "sym_sources", "sym_points", "sym_dense")
 
 
 class MonolithicExtractor:
@@ -357,7 +400,9 @@ class MonolithicExtractor:
     (the last frame's clustering rounds, lanes, survivors and convergence;
     the cloud tier and the counts of detections that take the single and
     the dual symmetry search, ``sym_single`` / ``sym_dual``, are known at
-    the call from the labels).
+    the call from the labels; with sparse symmetry the searched
+    detections' sources, live points and dense fall-backs,
+    ``sym_sources`` / ``sym_points`` / ``sym_dense``, ride the row too).
     """
     def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
         from ..system.tracking import resolve_device
@@ -367,6 +412,7 @@ class MonolithicExtractor:
         self.device = resolve_device(device)
         self.stats = {}
         self._packed = None      # [pad + 1, 12]: the result and the stats row
+        self._stat_keys = []     # the counts of that row, in order
 
     def upload(self, depth, bboxes, labels, pose_wc, ground_plane):
         """The frame's two host-to-device copies: the depth image and the
@@ -393,9 +439,10 @@ class MonolithicExtractor:
             sym_types=flat_d[pad * 5:pad * 6], need_single=n_sym[0] > 0,
             need_dual=n_sym[1] > 0)
         res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
+        self._stat_keys = [k for k in _STAT_KEYS if k in dev_stats]
         row = torch.nn.functional.pad(
-            torch.stack([dev_stats[k].to(e.dtype) for k in _STAT_KEYS]),
-            (0, 12 - len(_STAT_KEYS)))
+            torch.stack([dev_stats[k].to(e.dtype) for k in self._stat_keys]),
+            (0, 12 - len(self._stat_keys)))
         self._packed = torch.cat([res, row[None]], dim=0)
         return self._packed[:pad]
 
@@ -413,10 +460,8 @@ class MonolithicExtractor:
                              "last call: the clustering counts of any other "
                              "are gone")
         host = self._packed.cpu().numpy().astype(np.float64)
-        rounds, lanes, survivors, conv = host[-1, :len(_STAT_KEYS)]
-        self.stats.update(cluster_rounds=int(rounds), cluster_lanes=int(lanes),
-                          cluster_survivors=int(survivors),
-                          cluster_converged=bool(conv))
+        for k, v in zip(self._stat_keys, host[-1]):
+            self.stats[k] = bool(v) if k == "cluster_converged" else int(v)
         return host[:-1]
 
     def dispatch_with_lm(self, *args, **kwargs):

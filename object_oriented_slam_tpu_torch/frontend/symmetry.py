@@ -144,10 +144,15 @@ def _block_sum(v):
 
 class _Clouds(NamedTuple):
     """The live points of each detection, compacted to the front in index
-    order as the kernel holds them, and what the cost needs beside them."""
+    order as the kernel holds them (the 1-NN reference), the points that
+    are mirrored (the sources: every live point, or with a source mask the
+    live points it holds, compacted in index order too), and what the cost
+    needs beside them."""
     pts: torch.Tensor        # [D, S, 3], S = the most live points
     live: torch.Tensor       # [D, S]
     n: torch.Tensor          # [D] live points
+    src: torch.Tensor        # [D, Ss, 3] the sources (pts itself if dense)
+    ns: torch.Tensor         # [D] sources
     bbox: torch.Tensor
     pose_oc: torch.Tensor
     proj_depth: torch.Tensor
@@ -155,23 +160,37 @@ class _Clouds(NamedTuple):
     coef: float              # -0.5 / sigma^2
 
 
-def _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, sigma) -> _Clouds:
-    order = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
-    n = mask.sum(1)
+def _compact(keep, pts):
+    """The points of pts [D, L, 3] that ``keep`` [D, L] holds, to the front
+    in index order: (points [D, S, 3] zero past each count, kept [D, S],
+    counts [D]), S the largest count (at least 1)."""
+    order = torch.sort((~keep).to(torch.int32), dim=1, stable=True).indices
+    n = keep.sum(1)
     S = max(int(n.max()) if n.numel() else 1, 1)
     order = order[:, :S]
     pts_c = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
-    live = torch.arange(S, device=pts.device) < n[:, None]
+    kept = torch.arange(S, device=pts.device) < n[:, None]
+    return torch.where(kept[..., None], pts_c, 0.0), kept, n, order
+
+
+def _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, sigma,
+            src_mask=None) -> _Clouds:
+    pts_c, live, n, order = _compact(mask, pts)
+    src, ns = pts_c, n
+    if src_mask is not None:
+        src, _, ns, _ = _compact(torch.gather(src_mask, 1, order) & live,
+                                 pts_c)
     inv_sig = 1.0 / sigma
-    return _Clouds(torch.where(live[..., None], pts_c, 0.0), live, n, bbox,
-                   pose_oc, proj_depth, cam, -0.5 * inv_sig * inv_sig)
+    return _Clouds(pts_c, live, n, src, ns, bbox, pose_oc, proj_depth, cam,
+                   -0.5 * inv_sig * inv_sig)
 
 
 def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
     """Cost [D, K] of K candidate parameter sets params [D, K, n_par] per
-    detection (JAX ``_mirror_cost``): mirror the cloud across the plane(s),
-    score every mirrored point with the occlusion-aware Gaussian 1-NN
-    model, return -mean ln P; with ``want_grad`` also its gradient
+    detection (JAX ``_mirror_cost``): mirror the sources (the cloud, or the
+    points of JAX's ``src_mask``) across the plane(s), score every mirrored
+    point with the occlusion-aware Gaussian 1-NN model against the live
+    points, return -mean ln P; with ``want_grad`` also its gradient
     [D, K, n_par], written out by hand.
 
     The nearest-neighbour distance is the norm expansion q + r - 2 m.p
@@ -180,17 +199,18 @@ def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
     at a tie with 0 and the gradient split evenly over equal minima, as
     ``jnp.maximum`` / ``jnp.min`` have it, and the hand gradient follows the
     same rules.  Each mirrored point sits on the kernel's lane (plane 0's
-    points, then plane 1's, of the detection's own live count) and every
+    points, then plane 1's, of the detection's own source count) and every
     sum is ``_block_sum``: the symmetry_search kernel computes the same
     bits.  Differentiable in ``params``.
     """
     D, K = params.shape[:2]
     pts, S = cl.pts, cl.pts.shape[1]
+    Ss = cl.src.shape[1]
     P = 2 if dual else 1
     n0, n1, d, n2, az = _planes(params, dual)            # [D, K, P]
-    x, y, z = (pts[:, None, None, :, c] for c in range(3))  # [D, 1, 1, S]
+    x, y, z = (cl.src[:, None, None, :, c] for c in range(3))  # [D,1,1,Ss]
     n0_, n1_, d_, n2_ = (t[..., None] for t in (n0, n1, d, n2))
-    s = (n0_ * x + n1_ * y + 0.0 * z + d_) / n2_         # [D, K, P, S]
+    s = (n0_ * x + n1_ * y + 0.0 * z + d_) / n2_         # [D, K, P, Ss]
     mx = x - 2.0 * s * n0_
     my = y - 2.0 * s * n1_
     mz = z - 2.0 * s * 0.0
@@ -225,25 +245,25 @@ def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
     px, py, pz = (pts[:, None, None, None, :, c] for c in range(3))
     ref_nrm = px * px + py * py + pz * pz                # [D,1,1,1,S]
     cross = mx[..., None] * px + my[..., None] * py + mz[..., None] * pz
-    d2m = q_nrm[..., None] + ref_nrm - 2.0 * cross       # [D, K, P, S, S]
+    d2m = q_nrm[..., None] + ref_nrm - 2.0 * cross       # [D, K, P, Ss, S]
     d2m = torch.where(cl.live[:, None, None, None, :], d2m, 1e30)
     best = torch.amin(d2m, dim=-1)
     nn2 = torch.maximum(best, bp.scalar(0.0, pts))
     terms = [cl.coef * torch.where(occluded, 0.0, nn2)]
 
-    # the kernel's lanes: plane q's point j of a detection of n live points
-    # is lane q n + j; lanes past P n hold nothing
-    L = P * S
+    # the kernel's lanes: plane q's point j of a detection of n sources is
+    # lane q n + j; lanes past P n hold nothing
+    L = P * Ss
     lane = torch.arange(L, device=pts.device)[None]      # [1, L]
-    n = cl.n[:, None]
+    n = cl.ns[:, None]
     q = (lane >= n).to(torch.int64)
-    src = (q * S + (lane - q * n)).clamp(0, L - 1)[:, None].expand(D, K, L)
+    src = (q * Ss + (lane - q * n)).clamp(0, L - 1)[:, None].expand(D, K, L)
     on = (lane < P * n)[:, None]                         # [D, 1, L]
 
-    def lanes(t):                                        # [D, K, P, S] -> lanes
+    def lanes(t):                                      # [D, K, P, Ss] -> lanes
         return torch.where(on, torch.gather(t.reshape(D, K, L), 2, src), 0.0)
 
-    nv = torch.clamp_min((P * cl.n).to(pts.dtype), 1.0)[:, None]
+    nv = torch.clamp_min((P * cl.ns).to(pts.dtype), 1.0)[:, None]
     cost = -_block_sum(lanes(terms[0])) / nv
     if not want_grad:
         return cost
@@ -292,16 +312,19 @@ def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
 
 
 def optimize_inits_plain(pts, mask, bbox, pose_oc, proj_depth, cam: Camera,
-                         dual: bool, cfg: SymmetryConfig):
+                         dual: bool, cfg: SymmetryConfig, src_mask=None):
     """The 9-init search of each detection (JAX ``_optimize_one_init``
     under ``vmap``), plain PyTorch on any device, in the symmetry_search
     kernel's arithmetic.
 
     pts [D, S, 3], mask [D, S], bbox [D, 4], pose_oc [D, 7], proj_depth
-    [H, W] (``ops/backproject.proj_depth_map``).  Returns (params [D, 9,
-    n_par], cost [D, 9]) after ``cfg.iters`` LM iterations.
+    [H, W] (``ops/backproject.proj_depth_map``); src_mask [D, S] or None:
+    the points mirrored and scored (sparse symmetry), among the live ones.
+    Returns (params [D, 9, n_par], cost [D, 9]) after ``cfg.iters`` LM
+    iterations.
     """
-    cl = _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, cfg.sigma)
+    cl = _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, cfg.sigma,
+                 src_mask)
     D, dev = pts.shape[0], pts.device
     n_par = 3 if dual else 2
     ang, dis = init_grid(cfg, dev)
@@ -370,8 +393,8 @@ def _pick(params, cost, dual: bool) -> SymSearch:
 
 def estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj_depth, sym_types,
                             run, cam: Camera,
-                            cfg: SymmetryConfig = SymmetryConfig()
-                            ) -> SymSearch:
+                            cfg: SymmetryConfig = SymmetryConfig(),
+                            src_mask=None) -> SymSearch:
     """Plain PyTorch version of ``estimate_symmetry`` (any device; it reads
     the types back to the host to pick the detections of each variant).
     Takes the ray-length depth map ``proj_depth`` [H, W] float32 where the
@@ -388,15 +411,15 @@ def estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj_depth, sym_types,
             continue
         res = _pick(*optimize_inits_plain(
             pts[rows], mask[rows], bbox[rows], pose_oc[rows], proj_depth, cam,
-            dual, cfg), dual)
+            dual, cfg, None if src_mask is None else src_mask[rows]), dual)
         for f, v in zip(out, res):
             f[rows] = v
     return out
 
 
 def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
-                      cam: Camera, cfg: SymmetryConfig = SymmetryConfig()
-                      ) -> SymSearch:
+                      cam: Camera, cfg: SymmetryConfig = SymmetryConfig(),
+                      src_mask=None) -> SymSearch:
     """Grid of 9 initial planes -> best plane per detection
     (Symmetry.cpp:88-128), single and dual detections in one call.
 
@@ -404,7 +427,10 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     pose_oc [D, 7] the camera in each normalized frame, depth [H, W] int32
     the raw depth image, sym_types [D] int32 {0, 1, 2}, run [D] bool.  A
     detection of type 0 or off the run mask gets no search: plane (0, -1,
-    0, 0), dual distance, prob, error and its inits 0.
+    0, 0), dual distance, prob, error and its inits 0.  ``src_mask`` [D, S]
+    bool (sparse symmetry, JAX's ``src_mask``; None: dense): only the live
+    points it holds are mirrored and scored, while every live point stays
+    the 1-NN reference and the cost is the mean over the mirrored ones.
 
     On a CUDA device one launch of the ``symmetry_search`` kernel (which
     computes the ray depth at each looked-up pixel); on the CPU
@@ -413,7 +439,7 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     if pts.device.type != "cuda":
         return estimate_symmetry_plain(pts, mask, bbox, pose_oc,
                                        bp.proj_depth_map(depth, cam),
-                                       sym_types, run, cam, cfg)
+                                       sym_types, run, cam, cfg, src_mask)
     D, S = mask.shape
     H, W = depth.shape
     dev = pts.device
@@ -424,6 +450,8 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     fk.check("depth", depth, torch.int32, (H, W), dev)
     fk.check("sym_types", sym_types, torch.int32, (D,), dev)
     fk.check("run", run, torch.bool, (D,), dev)
+    if src_mask is not None:
+        fk.check("src_mask", src_mask, torch.bool, (D, S), dev)
     if S > fk.SYM_MAX_POINTS:
         raise ValueError(f"symmetry_search takes at most {fk.SYM_MAX_POINTS} "
                          f"points a detection (got {S})")
@@ -439,7 +467,9 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     inv_sig = 1.0 / cfg.sigma
     if D:
         fk.launch(fk.SYMMETRY_SEARCH, "oslam_symmetry_search", dev,
-                  [pts.data_ptr(), mask.data_ptr(), bbox.data_ptr(),
+                  [pts.data_ptr(), mask.data_ptr(),
+                   None if src_mask is None else src_mask.data_ptr(),
+                   bbox.data_ptr(),
                    pose_oc.data_ptr(), depth.data_ptr(), sym_types.data_ptr(),
                    run.data_ptr(), D, S, H, W, cam.fx, cam.fy, cam.cx, cam.cy,
                    cam.scale, cam.fx * cam.fx, -0.5 * inv_sig * inv_sig,

@@ -13,9 +13,10 @@ The JAX functions take one detection and are ``vmap``-ed; here the
 detections are a leading axis D.  All outputs are fixed-capacity tensors +
 validity masks.
 
-``bbox_point_cloud_plain`` is plain PyTorch on any device: the main
-path's back-projection and centre estimate are part of the ``depth_cloud``
-kernel (``ops/depth_cloud``), and ``depth_cloud_plain`` is built on it.
+``bbox_point_cloud_plain`` and ``bbox_pixel_lookup`` are plain PyTorch on
+any device: the main path's back-projection, border lookup and centre
+estimate are part of the ``depth_cloud`` kernel (``ops/depth_cloud``), and
+``depth_cloud_plain`` is built on them.
 Divisions are by 0-dim tensors on the tensor's device: dividing a CUDA
 tensor by a Python number (or by a CPU scalar tensor) multiplies by the
 reciprocal instead, which lands in another last bit than the CPU.
@@ -77,6 +78,27 @@ def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
     y = (pyc.to(torch.float32) - cam.cy) * z / scalar(cam.fy, d)
     pts = torch.stack([x.expand_as(z), y.expand_as(z), z], dim=-1)
     return pts.reshape(len(bboxes), -1, 3), valid.reshape(len(bboxes), -1)
+
+
+def bbox_pixel_lookup(attr_map: torch.Tensor, bboxes: torch.Tensor):
+    """A per-pixel attribute map [H, W] (bool or float) sampled at the SAME
+    strided grid as ``bbox_point_cloud_plain``, so the result [D, gh*gw]
+    float32 aligns row for row with its points (the sparse symmetry mode
+    tags each point with its depth-border flag, BorderExtractor.cpp:58-132).
+    Positions past the image read 0, as the JAX package's zero pad."""
+    H, W = attr_map.shape
+    x1, y1, _, _ = _bbox_corners(bboxes, H, W)
+    gh = (H + STRIDE - 1) // STRIDE
+    gw = (W + STRIDE - 1) // STRIDE
+    dev = attr_map.device
+    jj = torch.arange(gw, dtype=torch.int32, device=dev)[None, None, :]
+    ii = torch.arange(gh, dtype=torch.int32, device=dev)[None, :, None]
+    px = x1[:, None, None] + STRIDE * jj
+    py = y1[:, None, None] + STRIDE * ii
+    inside = (px < W) & (py < H)
+    a = attr_map[py.clamp(max=H - 1).long(), px.clamp(max=W - 1).long()]
+    a = torch.where(inside, a.to(torch.float32), 0.0)
+    return a.reshape(len(bboxes), -1)
 
 
 def full_point_cloud(depth: torch.Tensor, cam: Camera, stride: int = 1,

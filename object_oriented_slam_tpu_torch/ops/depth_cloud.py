@@ -11,7 +11,11 @@ centre estimate with its world transform.  The JAX package writes these as
 ``depth_cloud`` is one launch of the ``depth_cloud`` CUDA kernel
 (csrc/frontend.cu) for tensors on a CUDA device and ``depth_cloud_plain``,
 the plain functions composed in the extractor's order, for tensors on the
-CPU.
+CPU.  ``depth_cloud_border`` (sparse symmetry) is the same launch with one
+more output, each voxel's mean depth-border flag (JAX ``_stage_a_one`` with
+``border_map``: ``ops/filters.depth_border_mask``,
+``ops/backproject.bbox_pixel_lookup``, ``ops/voxel.voxel_downsample_full``);
+its plain version is ``depth_cloud_border_plain``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from ..core import se3
 from ..core.camera import Camera
 from . import backproject as bp
+from . import filters
 from . import frontend_kernels as fk
 from . import voxel as vx
 
@@ -47,10 +52,9 @@ def plane_world(pose_wc: torch.Tensor, plane: torch.Tensor,
                     clearance)
 
 
-def depth_cloud_plain(depth, bboxes, pose_wc, plane, cam: Camera,
-                      leaf: float, depth_range: float, clearance: float,
-                      capacity: int) -> DepthCloud:
-    """Plain PyTorch version of ``depth_cloud`` (any device)."""
+def _plain(depth, bboxes, pose_wc, plane, cam: Camera, leaf: float,
+           depth_range: float, clearance: float, capacity: int,
+           border: bool):
     world = plane_world(pose_wc, plane, clearance)
     pts_cam, m0 = bp.bbox_point_cloud_plain(depth, bboxes, cam, depth_range)
     key, cmin = vx.voxel_keys(pts_cam, m0, leaf)
@@ -59,27 +63,39 @@ def depth_cloud_plain(depth, bboxes, pose_wc, plane, cam: Camera,
         key_s, order, pts_cam, cmin, capacity, world)
     center, ok_center = bp.center_estimate(depth, bboxes, cam, depth_range)
     center_w, _ = vx.world_points_plain(center, world)
-    return DepthCloud(pts_w, m2, center_w, m2.any(1), ok_center, world.R,
-                      pts_v, cells_v)
+    cloud = DepthCloud(pts_w, m2, center_w, m2.any(1), ok_center, world.R,
+                       pts_v, cells_v)
+    if not border:
+        return cloud
+    attr = bp.bbox_pixel_lookup(filters.depth_border_mask(depth, cam.scale),
+                                bboxes)
+    return cloud, vx.voxel_attr_mean_plain(key_s, order, attr, capacity)
 
 
-def depth_cloud(depth, bboxes, pose_wc, plane, cam: Camera, leaf: float,
-                depth_range: float, clearance: float, capacity: int
-                ) -> DepthCloud:
-    """Stages (a)-(c) of every detection.
+def depth_cloud_plain(depth, bboxes, pose_wc, plane, cam: Camera,
+                      leaf: float, depth_range: float, clearance: float,
+                      capacity: int) -> DepthCloud:
+    """Plain PyTorch version of ``depth_cloud`` (any device)."""
+    return _plain(depth, bboxes, pose_wc, plane, cam, leaf, depth_range,
+                  clearance, capacity, False)
 
-    depth [H, W] int32; bboxes [D, 4] float32 x1 y1 x2 y2 (padded lanes
-    zero); pose_wc [7] camera -> world (t, quaternion x y z w); plane [4]
-    the world ground plane; all on one device.  ``leaf``: the voxel size,
-    ``clearance``: the height above the plane a voxel needs, ``capacity``:
-    the voxels kept per detection (the first in key order).
 
-    On a CUDA device this is one launch of the ``depth_cloud`` kernel; on
-    the CPU the plain version.
-    """
-    if depth.device.type != "cuda":
-        return depth_cloud_plain(depth, bboxes, pose_wc, plane, cam, leaf,
-                                 depth_range, clearance, capacity)
+def depth_cloud_border_plain(depth, bboxes, pose_wc, plane, cam: Camera,
+                             leaf: float, depth_range: float,
+                             clearance: float, capacity: int):
+    """Plain PyTorch version of ``depth_cloud_border`` (any device): the
+    border map of the whole image (``filters.depth_border_mask``), sampled
+    at the boxes' strided pixels (``backproject.bbox_pixel_lookup``) and
+    averaged per voxel in the points' sorted order."""
+    return _plain(depth, bboxes, pose_wc, plane, cam, leaf, depth_range,
+                  clearance, capacity, True)
+
+
+def _launch(depth, bboxes, pose_wc, plane, cam: Camera, leaf: float,
+            depth_range: float, clearance: float, capacity: int,
+            border: bool):
+    """One launch of the ``depth_cloud`` kernel; with ``border`` also the
+    voxels' border attribute.  Returns (DepthCloud, battr_v | None)."""
     H, W = depth.shape
     D = bboxes.shape[0]
     dev = depth.device
@@ -105,12 +121,58 @@ def depth_cloud(depth, bboxes, pose_wc, plane, cam: Camera, leaf: float,
     R_wc = empty(3, 3)
     pts_v = empty(D, capacity, 3)
     cells_v = empty(D, capacity, 3, dtype=torch.int32)
+    battr_v = empty(D, capacity) if border else None
     fk.launch(fk.DEPTH_CLOUD, "oslam_depth_cloud", dev,
               [depth.data_ptr(), H, W, bboxes.data_ptr(), D,
                pose_wc.data_ptr(), plane.data_ptr(), cam.scale, cam.fx,
                cam.fy, cam.cx, cam.cy, depth_range, leaf, clearance, capacity,
                pts_w.data_ptr(), m2.data_ptr(), center_w.data_ptr(),
                ok_points.data_ptr(), ok_center.data_ptr(), R_wc.data_ptr(),
-               pts_v.data_ptr(), cells_v.data_ptr()])
+               pts_v.data_ptr(), cells_v.data_ptr(),
+               battr_v.data_ptr() if border else None, filters.BORDER_JUMP])
     return DepthCloud(pts_w, m2, center_w, ok_points, ok_center, R_wc, pts_v,
-                      cells_v)
+                      cells_v), battr_v
+
+
+def depth_cloud(depth, bboxes, pose_wc, plane, cam: Camera, leaf: float,
+                depth_range: float, clearance: float, capacity: int
+                ) -> DepthCloud:
+    """Stages (a)-(c) of every detection.
+
+    depth [H, W] int32; bboxes [D, 4] float32 x1 y1 x2 y2 (padded lanes
+    zero); pose_wc [7] camera -> world (t, quaternion x y z w); plane [4]
+    the world ground plane; all on one device.  ``leaf``: the voxel size,
+    ``clearance``: the height above the plane a voxel needs, ``capacity``:
+    the voxels kept per detection (the first in key order).
+
+    On a CUDA device this is one launch of the ``depth_cloud`` kernel; on
+    the CPU the plain version.
+    """
+    if depth.device.type != "cuda":
+        return depth_cloud_plain(depth, bboxes, pose_wc, plane, cam, leaf,
+                                 depth_range, clearance, capacity)
+    return _launch(depth, bboxes, pose_wc, plane, cam, leaf, depth_range,
+                   clearance, capacity, False)[0]
+
+
+def depth_cloud_border(depth, bboxes, pose_wc, plane, cam: Camera,
+                       leaf: float, depth_range: float, clearance: float,
+                       capacity: int):
+    """``depth_cloud`` with each voxel's depth-border attribute (sparse
+    symmetry): a strided pixel is a border pixel where its depth jumps by
+    more than ``filters.BORDER_JUMP`` metres against one of its 4
+    neighbours (wrapped across the image edge) or a neighbour has no depth
+    (``filters.depth_border_mask``); a voxel's attribute is the mean of its
+    points' flags.  Returns (DepthCloud, battr_v [D, capacity] float32, 0
+    on empty slots).
+
+    On a CUDA device one launch of the ``depth_cloud`` kernel, which tests
+    the neighbours of the boxes' strided pixels itself (no border map of
+    the image); on the CPU ``depth_cloud_border_plain``.
+    """
+    if depth.device.type != "cuda":
+        return depth_cloud_border_plain(depth, bboxes, pose_wc, plane, cam,
+                                        leaf, depth_range, clearance,
+                                        capacity)
+    return _launch(depth, bboxes, pose_wc, plane, cam, leaf, depth_range,
+                   clearance, capacity, True)

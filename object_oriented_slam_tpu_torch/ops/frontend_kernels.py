@@ -3,12 +3,15 @@
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and bound with ctypes.  The wrappers that call
 ``launch`` live beside their plain PyTorch versions.  The main path's:
-``depth_cloud.depth_cloud`` (depth_cloud: stages (a)-(c) of an extraction
-call), ``cluster.cluster_components`` and ``cluster.cluster_select`` (the
-clustering: one kernel, without and with the selection epilogue, one launch
-counter), ``voxel.voxel_downsample`` (voxel_downsample: the object
-downsample) and ``frontend.symmetry.estimate_symmetry`` (symmetry_search:
-the symmetry-plane search of stage (g)).  Each launch runs on PyTorch's
+``depth_cloud.depth_cloud`` and ``depth_cloud.depth_cloud_border``
+(depth_cloud: stages (a)-(c) of an extraction call, the latter with each
+point's depth-border flag averaged per voxel), ``cluster.cluster_components``
+and ``cluster.cluster_select`` (the clustering: one kernel, without and with
+the selection epilogue, one launch counter), ``voxel.voxel_downsample`` and
+its attribute variants (voxel_downsample: the object downsample) and
+``frontend.symmetry.estimate_symmetry`` (symmetry_search: the
+symmetry-plane search of stage (g), over every live point or, with a source
+mask, over the border points).  Each launch runs on PyTorch's
 current stream and does not synchronise; the wrappers allocate the outputs
 with ``torch.empty``.
 """
@@ -69,15 +72,15 @@ def _bind(lib_path: str) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, argtypes in (
             ("oslam_depth_cloud",
-             [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 8),
-            ("oslam_voxel_downsample", [p, p, i, i, f, i, p, p, p]),
+             [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 9 + [f]),
+            ("oslam_voxel_downsample", [p, p, i, i, f, i] + [p] * 5),
             ("oslam_cluster_components",
              [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4),
             ("oslam_cluster_select",
              [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4
              + [p, p, i, f, p, p, p]),
             ("oslam_symmetry_search",
-             [p] * 7 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
+             [p] * 8 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [p]      # ..., then the stream
         fn.restype = i

@@ -9,13 +9,15 @@ sorted STABLY (``torch.sort(stable=True)``: equal keys keep pixel order, so
 the centroid sums have one order), and the sorted runs are averaged into a
 fixed-capacity prefix.
 
-``voxel_downsample`` / ``voxel_downsample_cells`` are one launch of the
-``voxel_downsample`` CUDA kernel (csrc/frontend.cu: keys, sort and means)
-for tensors on a CUDA device, and ``voxel_downsample_plain`` for tensors
-on the CPU; ``voxel_segment_mean_plain`` is its segment part (the
-extractor's first downsample is part of ``ops/depth_cloud``).  The
-attribute variants of the JAX module belong to sparse symmetry and are not
-ported.
+``voxel_downsample`` / ``voxel_downsample_cells`` and the attribute
+variants ``voxel_downsample_full`` / ``voxel_downsample_attrs`` (a
+per-point value averaged per cell beside the points: the border flags of
+sparse symmetry) are one launch of the ``voxel_downsample`` CUDA kernel
+(csrc/frontend.cu: keys, sort and means) for tensors on a CUDA device, and
+``voxel_downsample_plain`` / ``voxel_downsample_full_plain`` for tensors on
+the CPU; ``voxel_segment_mean_plain`` and ``voxel_attr_mean_plain`` are
+their segment part (the extractor's first downsample is part of
+``ops/depth_cloud``).
 """
 from __future__ import annotations
 
@@ -69,6 +71,23 @@ def world_points_plain(pts: torch.Tensor, world: World):
     return torch.stack(w, dim=-1), dist
 
 
+def _segment_slots(key_s, capacity: int):
+    """(is_new [D, G]: a sorted key starts a segment, flat [D * G]: each
+    sorted point's output slot in a [D * (capacity + 1)] buffer).  Invalid
+    points and segments past the capacity go to each detection's dump slot,
+    its last."""
+    D = key_s.shape[0]
+    dev = key_s.device
+    valid_s = key_s != _INVALID
+    is_new = torch.cat([torch.ones((D, 1), dtype=torch.bool, device=dev),
+                        key_s[:, 1:] != key_s[:, :-1]], dim=1) & valid_s
+    seg = torch.cumsum(is_new, dim=1) - 1
+    seg = torch.where(valid_s & (seg < capacity), seg, capacity)
+    flat = (seg + torch.arange(D, device=dev)[:, None] * (capacity + 1)
+            ).reshape(-1)
+    return is_new, flat
+
+
 def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
                              world: Optional[World] = None):
     """Segment means of the stably sorted keys, plain PyTorch on any device
@@ -85,14 +104,7 @@ def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
     D, G = key_s.shape
     dev = key_s.device
     pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
-    valid_s = key_s != _INVALID
-    is_new = torch.cat([torch.ones((D, 1), dtype=torch.bool, device=dev),
-                        key_s[:, 1:] != key_s[:, :-1]], dim=1) & valid_s
-    seg = torch.cumsum(is_new, dim=1) - 1
-    # invalid points and segments past the capacity go to a dump slot
-    seg = torch.where(valid_s & (seg < capacity), seg, capacity)
-    flat = (seg + torch.arange(D, device=dev)[:, None] * (capacity + 1)
-            ).reshape(-1)
+    is_new, flat = _segment_slots(key_s, capacity)
     sums = torch.zeros((D * (capacity + 1), 3), dtype=pts.dtype, device=dev)
     sums.index_add_(0, flat, pts_s.reshape(-1, 3))
     cnts = torch.zeros(D * (capacity + 1), dtype=pts.dtype, device=dev)
@@ -117,6 +129,24 @@ def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
     return out, cells, out_mask, pts_w, out_mask & (dist > world.clearance)
 
 
+def voxel_attr_mean_plain(key_s, order, attrs, capacity: int):
+    """The per-segment mean [D, capacity] of a per-point attribute attrs
+    [D, G] (points in their ORIGINAL order), summed in sorted order as
+    ``voxel_segment_mean_plain`` sums the points (JAX ``_voxel_core``'s
+    attribute branch); 0 where a slot holds no segment."""
+    D = key_s.shape[0]
+    _, flat = _segment_slots(key_s, capacity)
+    a_s = torch.gather(attrs, 1, order)
+    sums = torch.zeros(D * (capacity + 1), dtype=attrs.dtype,
+                       device=attrs.device)
+    sums.index_add_(0, flat, a_s.reshape(-1))
+    cnts = torch.zeros_like(sums)
+    cnts.index_add_(0, flat, torch.ones_like(a_s.reshape(-1)))
+    sums = sums.reshape(D, capacity + 1)[:, :capacity]
+    cnts = cnts.reshape(D, capacity + 1)[:, :capacity]
+    return torch.where(cnts > 0, sums / cnts.clamp_min(1.0), 0.0)
+
+
 def voxel_downsample_plain(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
                            capacity: int):
     """Plain PyTorch version of ``voxel_downsample_cells`` (any device):
@@ -128,30 +158,60 @@ def voxel_downsample_plain(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
     return out, cells, out_mask
 
 
-def _downsample(pts, mask, leaf: float, capacity: int, with_cells: bool):
+def voxel_downsample_full_plain(pts: torch.Tensor, attrs: torch.Tensor,
+                                mask: torch.Tensor, leaf: float,
+                                capacity: int):
+    """Plain PyTorch version of ``voxel_downsample_full`` (any device):
+    ``voxel_downsample_plain`` and ``voxel_attr_mean_plain`` on one sort."""
+    key, cmin = voxel_keys(pts, mask, leaf)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    out, cells, out_mask, _, _ = voxel_segment_mean_plain(
+        key_s, order, pts, cmin, capacity)
+    return (out, voxel_attr_mean_plain(key_s, order, attrs, capacity), cells,
+            out_mask)
+
+
+def _downsample(pts, mask, leaf: float, capacity: int, with_cells: bool,
+                attrs=None):
     """One launch of the ``voxel_downsample`` kernel on CUDA tensors (cells
-    are written only when asked for); the plain version on the CPU."""
+    are written only when asked for; with ``attrs`` [D, N] float32 the
+    kernel averages them per cell beside the points); the plain version on
+    the CPU.  Returns (points, attribute means | None, cells | None,
+    mask)."""
     if pts.device.type != "cuda":
-        return voxel_downsample_plain(pts, mask, leaf, capacity)
+        if attrs is not None:
+            return voxel_downsample_full_plain(pts, attrs, mask, leaf,
+                                               capacity)
+        out, cells, out_mask = voxel_downsample_plain(pts, mask, leaf,
+                                                      capacity)
+        return out, None, cells, out_mask
     D, N = mask.shape
     dev = pts.device
     fk.check("pts", pts, torch.float32, (D, N, 3), dev)
     fk.check("mask", mask, torch.bool, (D, N), dev)
+    if attrs is not None:
+        fk.check("attrs", attrs, torch.float32, (D, N), dev)
     if N > MAX_IDS:
         raise ValueError(f"voxel_downsample takes at most {MAX_IDS} points a "
                          f"detection (got {N}): point ids are 16-bit")
     if capacity < 1:
         raise ValueError(f"capacity={capacity}")
-    out = torch.empty((D, capacity, 3), dtype=torch.float32, device=dev)
-    out_mask = torch.empty((D, capacity), dtype=torch.bool, device=dev)
-    cells = (torch.empty((D, capacity, 3), dtype=torch.int32, device=dev)
-             if with_cells else None)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out, out_mask = empty(D, capacity, 3), empty(D, capacity,
+                                                 dtype=torch.bool)
+    cells = empty(D, capacity, 3, dtype=torch.int32) if with_cells else None
+    out_a = empty(D, capacity) if attrs is not None else None
     if D:
         fk.launch(fk.VOXEL_DOWNSAMPLE, "oslam_voxel_downsample", dev,
                   [pts.data_ptr(), mask.data_ptr(), D, N, leaf, capacity,
                    out.data_ptr(), out_mask.data_ptr(),
-                   cells.data_ptr() if with_cells else None])
-    return out, cells, out_mask
+                   cells.data_ptr() if with_cells else None,
+                   attrs.data_ptr() if attrs is not None else None,
+                   out_a.data_ptr() if attrs is not None else None])
+    return out, out_a, cells, out_mask
 
 
 def voxel_downsample_cells(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
@@ -163,7 +223,8 @@ def voxel_downsample_cells(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
     out_mask [D, capacity]).  On a CUDA device one launch of the
     ``voxel_downsample`` kernel; on the CPU the plain version.
     """
-    return _downsample(pts, mask, leaf, capacity, True)
+    out, _, cells, out_mask = _downsample(pts, mask, leaf, capacity, True)
+    return out, cells, out_mask
 
 
 def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
@@ -174,5 +235,25 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
     device one launch of the ``voxel_downsample`` kernel; on the CPU the
     plain version.
     """
-    out, _, out_mask = _downsample(pts, mask, leaf, capacity, False)
+    out, _, _, out_mask = _downsample(pts, mask, leaf, capacity, False)
     return out, out_mask
+
+
+def voxel_downsample_full(pts: torch.Tensor, attrs: torch.Tensor,
+                          mask: torch.Tensor, leaf: float, capacity: int):
+    """Downsample with a per-point attribute attrs [D, G] (e.g. the border
+    flags of sparse symmetry) averaged per cell like the points, AND cell
+    coordinates.  Returns (pts, attrs [D, capacity], cells, mask).  On a
+    CUDA device one launch of the ``voxel_downsample`` kernel; on the CPU
+    ``voxel_downsample_full_plain``."""
+    return _downsample(pts, mask, leaf, capacity, True, attrs)
+
+
+def voxel_downsample_attrs(pts: torch.Tensor, attrs: torch.Tensor,
+                           mask: torch.Tensor, leaf: float, capacity: int):
+    """Like ``voxel_downsample`` but also averages the per-point attribute
+    attrs [D, G] within each cell.  Returns (pts, attrs [D, capacity],
+    mask); one launch on a CUDA device."""
+    out, out_a, _, out_mask = _downsample(pts, mask, leaf, capacity, False,
+                                          attrs)
+    return out, out_a, out_mask

@@ -113,7 +113,7 @@ def test_stage_outputs_match_jax(frame):
     assert 200 < st["cluster_survivors"] == st["cluster_lanes"] <= 2048
 
     # stages (e)-(f)
-    Two, pts_n, obj_m = text._stage_post(pts_w, sel, plane_t, tcfg)
+    Two, pts_n, obj_m, _ = text._stage_post(pts_w, sel, plane_t, tcfg)
     jTwo, jpts_n, jobj_m, _ = jax.vmap(lambda p, s: jext._stage_post_one(
         p, s, None, pose_j, plane_j, f["jcam"], jcfg))(
         jnp.asarray(pts_w.numpy()), jnp.asarray(sel.numpy()))
@@ -220,7 +220,7 @@ def test_symmetry_options_run(option, frame):
 
 
 @pytest.mark.parametrize("option", [
-    dict(sparse_symmetry=True), dict(grid_cluster=True),
+    dict(grid_cluster=True),
     dict(cluster_chains=2), dict(compact_tiers=False),
     dict(compact_rungs=(8, 16))])
 def test_unported_extractor_options_raise(option, frame):

@@ -16,7 +16,13 @@ for bit against the plain version evaluated on the CPU (whose
 against the plain version on the card (whose ``index_add_`` adds with
 atomics in any order; 5e-6 for the 0.1 m object downsample).  The
 symmetry search is held bit for bit against its plain version on the card
-(the same libdevice functions, every sum in the kernel's order).
+(the same libdevice functions, every sum in the kernel's order).  Sparse
+symmetry's lanes: depth_cloud with the border attribute and
+voxel_downsample with an attribute against their plain versions (the
+attribute within the same tolerances as the points), their other outputs
+bit-equal to the launches without the lane; the symmetry search with a
+source mask bit-equal to its plain version, and with every live point as
+a source bit-equal to the search without a mask.
 """
 import numpy as np
 import pytest
@@ -516,6 +522,24 @@ def _sym_ragged(dev, counts=(1, 255, 257, 511, 2048), types=(2, 1, 2, 1, 2),
         torch.ones(D, dtype=torch.bool, device=dev)]
 
 
+def _sym_sparse(base, dev, seed=13):
+    """``base``'s inputs with a source mask: about half of each cloud's live
+    points, scattered, and a few lanes that are not live (only the live
+    points the mask holds are mirrored).  Returns (inputs, src_mask)."""
+    args = base(torch.device("cpu"))
+    mask = args[1]
+    rng = np.random.default_rng(seed)
+    pick = torch.from_numpy(rng.random(tuple(mask.shape)) < 0.5)
+    stray = torch.from_numpy(rng.random(tuple(mask.shape)) < 0.05)
+    src = (mask & pick) | (~mask & stray)
+    return [t.to(dev) for t in args], src.to(dev)
+
+
+_SYM_SPARSE_CASES = {
+    "sparse-path": lambda dev: _sym_sparse(_sym_inputs, dev),
+    "sparse-capacity": lambda dev: _sym_sparse(_sym_capacity, dev)}
+
+
 _SYM_CASES = {"path": _sym_inputs, "ties": _sym_ties,
               "capacity": _sym_capacity, "ragged": _sym_ragged}
 
@@ -604,3 +628,166 @@ def test_extraction_with_symmetry_on_card(device):
     assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
     assert bool(torch.isfinite(got[0]).all())
     assert bool(((got[1] > 0) & (got[1] <= 1)).all())
+
+
+@pytest.mark.parametrize("case,analytic", [
+    ("sparse-path", True), ("sparse-path", False),
+    ("sparse-capacity", True)])
+def test_symmetry_search_with_sources_equals_plain(device, case, analytic):
+    """Sparse symmetry: the search with a source mask (half the live points
+    mirrored, every live point the 1-NN reference) bit-equal to its plain
+    version on the card and to a second launch; the mask changes the
+    result; with every live point a source it is the search without a
+    mask, bit for bit."""
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
+    args, src = _SYM_SPARSE_CASES[case](device)
+    cfg = sym.SymmetryConfig(analytic_grad=analytic)
+    n0 = fk.SYMMETRY_SEARCH.launches
+    got = sym.estimate_symmetry(*args, cam, cfg, src)
+    again = sym.estimate_symmetry(*args, cam, cfg, src)
+    every = sym.estimate_symmetry(*args, cam, cfg, args[1].clone())
+    dense = sym.estimate_symmetry(*args, cam, cfg)
+    torch.cuda.synchronize()
+    assert fk.SYMMETRY_SEARCH.launches == n0 + 4
+    want = sym.estimate_symmetry_plain(
+        *args[:4], bp.proj_depth_map(args[4], cam), args[5], args[6], cam,
+        cfg, src)
+    for name, g, a, w, e, d in zip(sym.SymSearch._fields, got, again, want,
+                                   every, dense):
+        assert _bits_equal(g, a), name
+        assert _bits_equal(g, w), (name, float((g - w).abs().max()))
+        assert _bits_equal(e, d), name
+    searched = (args[6] & (args[5] > 0)).cpu()
+    assert not torch.equal(got.inits.cpu()[searched],
+                           dense.inits.cpu()[searched])
+
+
+def _border_depth():
+    """_full_depth with steps that touch the image's edges: the left 4
+    columns and the top 2 rows 1 m nearer, a hole at the bottom right
+    corner; the border test wraps there (column 0 against column 639, row
+    0 against row 479)."""
+    d = _full_depth().clone()
+    d[:, :4] -= 5000
+    d[:2] -= 5000
+    d[470:, 630:] = 0
+    return d
+
+
+@pytest.mark.parametrize("capacity,whole_image", [(4096, False),
+                                                  (16384, True)])
+def test_depth_cloud_border_equals_plain(device, capacity, whole_image):
+    """Sparse symmetry's depth_cloud: one launch that also averages each
+    voxel's depth-border flag.  The flags' means (battr_v) bit-equal to the
+    plain version (the image's border map, sampled at the boxes' pixels,
+    averaged per voxel) on the CPU and within 1e-6 of it on the card; the
+    other outputs bit-equal to depth_cloud without the lane.  The whole
+    image case has discontinuities at the image's edges, where the test
+    wraps."""
+    args = list(_depth_cloud_inputs(whole_image))
+    if whole_image:
+        args[0] = _border_depth()
+    rest = (0.01, 6.0, 0.05, capacity)
+    args_d = _on_card(args, device)
+    n0 = fk.DEPTH_CLOUD.launches
+    got, battr = dc.depth_cloud_border(*args_d, *rest)
+    again, battr2 = dc.depth_cloud_border(*args_d, *rest)
+    bare = dc.depth_cloud(*args_d, *rest)
+    torch.cuda.synchronize()
+    assert fk.DEPTH_CLOUD.launches == n0 + 3
+    want, wattr = dc.depth_cloud_border_plain(*args, *rest)
+    _, cattr = dc.depth_cloud_border_plain(*args_d, *rest)
+    for name, g, b in zip(dc.DepthCloud._fields, got, bare):
+        assert _bits_equal(g, b), name
+    assert _bits_equal(battr, battr2) and _bits_equal(battr, wattr)
+    assert float((battr - cattr).abs().max()) <= 1e-6
+    live = want.pts_v[..., 2] > 0
+    assert not bool(wattr[~live].any())
+    assert int((wattr > 0).sum()) > 50 and bool((wattr[live] < 1).any())
+    if whole_image:
+        from object_oriented_slam_tpu_torch.ops import filters
+        border = filters.depth_border_mask(args[0], args[4].scale)
+        assert bool(border[300, 0]) and bool(border[0, 300])
+
+
+@pytest.mark.parametrize("leaf,capacity", [(0.1, 512), (0.05, 64)])
+def test_voxel_downsample_attrs_equals_plain(device, leaf, capacity):
+    """The object downsample with sparse symmetry's attribute (the voxels'
+    border means from depth_cloud_border_plain): the attribute means
+    bit-equal to the plain version on the CPU and within 5e-6 of it on the
+    card; points, cells and mask bit-equal to the launch without it."""
+    args = _depth_cloud_inputs()
+    cloud, battr = dc.depth_cloud_border_plain(*args, 0.01, 6.0, 0.05, 4096)
+    pts, mask, attrs = (t.to(device) for t in (cloud.pts_w, cloud.m2, battr))
+    n0 = fk.VOXEL_DOWNSAMPLE.launches
+    got = vx.voxel_downsample_full(pts, attrs, mask, leaf, capacity)
+    again = vx.voxel_downsample_full(pts, attrs, mask, leaf, capacity)
+    short = vx.voxel_downsample_attrs(pts, attrs, mask, leaf, capacity)
+    bare = vx.voxel_downsample_cells(pts, mask, leaf, capacity)
+    torch.cuda.synchronize()
+    assert fk.VOXEL_DOWNSAMPLE.launches == n0 + 4
+    want = vx.voxel_downsample_full_plain(cloud.pts_w, battr, cloud.m2, leaf,
+                                          capacity)
+    card = vx.voxel_downsample_full_plain(pts, attrs, mask, leaf, capacity)
+    for g, a, w in zip(got, again, want):
+        assert _bits_equal(g, a) and _bits_equal(g, w)
+    assert float((got[1] - card[1]).abs().max()) <= 5e-6
+    for g, b in zip((got[0], got[2], got[3]), bare):
+        assert _bits_equal(g, b)
+    assert _bits_equal(short[1], got[1]) and _bits_equal(short[0], got[0])
+    assert int(((want[1] > 0) & want[3]).sum()) > 5
+
+
+def test_attribute_lanes_refuse_what_they_do_not_take(device):
+    pts, mask = _on_card(_cluster_inputs(1024), device)
+    attrs = torch.zeros(mask.shape, device=device)
+    with pytest.raises(TypeError):
+        vx.voxel_downsample_full(pts, attrs.double(), mask, 0.1, 512)
+    with pytest.raises(ValueError):
+        vx.voxel_downsample_attrs(pts, attrs[:, :512], mask, 0.1, 512)
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
+    args = _sym_inputs(device)
+    with pytest.raises(TypeError):
+        sym.estimate_symmetry(*args, cam, sym.SymmetryConfig(),
+                              args[1].to(torch.uint8))
+    with pytest.raises(ValueError):
+        sym.estimate_symmetry(*args, cam, sym.SymmetryConfig(),
+                              args[1][:, :100].contiguous())
+
+
+def test_extraction_with_sparse_symmetry_on_card(device):
+    """sparse_symmetry on the card: the same four launches as open_symmetry
+    (the border lane rides depth_cloud and voxel_downsample, the sources
+    the search), the CPU's valid flags and source counts, finite
+    results."""
+    scene = syn.make_scene(n_objects=6, seed=7, radius_range=(1.3, 2.2),
+                           scale_range=(0.2, 0.4),
+                           labels=[28, 57, 58, 28, 63, 59])
+    pose = syn.orbit_trajectory(12, 3.6, 1.7)[0]
+    depth = syn.render_depth(scene.ellipsoids, pose, scene.camera)
+    bbs, vis = syn.project_bboxes(scene.ellipsoids.astype(np.float32),
+                                  pose.astype(np.float32), scene.camera)
+    types = torch.from_numpy(sym.sym_type_of_labels(scene.labels[vis.numpy()]))
+    cfg = ExtractorConfig(open_symmetry=True, sparse_symmetry=True)
+    args = (depth, bbs[vis], torch.ones(len(types), dtype=torch.bool),
+            torch.as_tensor(pose, dtype=torch.float32),
+            torch.tensor([0.0, 0.0, 1.0, 0.0]))
+    before = {k.name: k.launches for k in fk.KERNELS}
+    st, st_cpu = {}, {}
+    got = extract_local_ellipsoids(*(t.to(device) for t in args),
+                                   scene.camera, cfg, st,
+                                   sym_types=types.to(device))
+    torch.cuda.synchronize()
+    assert {k.name: k.launches - before[k.name] for k in fk.KERNELS} == {
+        "depth_cloud": 1, "cluster_components": 1, "voxel_downsample": 1,
+        "symmetry_search": 1}
+    want = extract_local_ellipsoids(*args, scene.camera, cfg, st_cpu,
+                                    sym_types=types)
+    assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool(((got[1] > 0) & (got[1] <= 1)).all())
+    for k in ("sym_sources", "sym_points", "sym_dense"):
+        assert int(st[k]) == int(st_cpu[k]), k
+    assert int(st["sym_sources"]) < int(st["sym_points"])
