@@ -79,8 +79,23 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      plain version (and with every live point as a source bit-equal to
      the search without a mask), and at sym_capacity filled with about
      half the points as sources;
-  8. one JSON line with a record per kernel, the card line, and the result
-     line {"ok": true, "device": {...}} last.
+  6c. the command line ([cli]): the symmetry path's scene and orbit
+     exported as a TUM sequence by examples/torch_make_synthetic_tum.py and
+     run by examples/torch_run_tum.py with synthetic_depth_sym.yaml, once
+     at --pipeline-depth 1 and once at the default (the adaptive deferred
+     pipeline, depth 4 to 8, and the asynchronous plane): 24/24 objects
+     within a median centre error of 0.05 m of objects_gt.txt, map IoU,
+     the two objects.txt within 1e-4 (and whether bit-equal), every kernel
+     launched, and every frame after the plane latch under PyTorch's
+     synchronisation check set to raise (the host waits only on the
+     events of the due fetch, the drain and the plane); per run the
+     frames' host ms, frames/s, fetch waits and blocked share, the depth
+     trace and launches; the numpy PNG decode ms of a depth frame (Up
+     filter), of its Paeth-filtered copy and, where cv2 is installed, of the
+     frame as cv2 writes it;
+  8. one JSON line with a record per kernel (``launches_cli``: the
+     adaptive CLI run's count of that kernel), the card line, and the
+     result line {"ok": true, "device": {...}} last.
 Every path prints its map's IoU against the ground truth
 (system/metrics.object_map_iou).
 """
@@ -602,6 +617,14 @@ def write_settings(tmp, name="synthetic_2d.yaml"):
     return path
 
 
+def pin_eager(slam):
+    """The eager loop (pipeline_depth 1, no adaptation, so no asynchronous
+    plane): the paths before [cli] keep measuring the loop they measured
+    before the deferred pipeline was ported."""
+    slam.tracker.pipeline_depth = 1
+    slam.tracker.adaptive_depth = False
+
+
 def wall_ms(fn, reps):
     """Mean host-clock time of fn() per call, synchronized, after warm-up."""
     for _ in range(2):
@@ -703,6 +726,7 @@ def phase_main_path(dev, tmp):
                           with_depth=False)
     frames = list(ds.frames())           # set-up: detections made up front
     slam = System(write_settings(tmp), device=dev)
+    pin_eager(slam)
 
     for k in ba_kernels.KERNELS:
         k.launches = 0
@@ -1454,6 +1478,7 @@ def drive_depth_path(dev, tmp, settings_name, scene, cfg=None):
                   plane_estimator=make_plane_estimator(cam))
     if slam.tracker.device.type != "cuda" or extractor.device.type != "cuda":
         raise RuntimeError("the depth path does not default to the card")
+    pin_eager(slam)
     slam.open_ground_plane_estimation()
     tr = slam.tracker
 
@@ -1621,7 +1646,7 @@ def extraction_overhead(tag, extractor, frame, ground_plane, expect):
     if per_call != expect:
         raise RuntimeError(f"an extraction call launched {per_call}, not "
                            f"{expect}")
-    if host.shape != (out.shape[0], 12) or not np.isfinite(host).all():
+    if host.shape != (out.rows.shape[0], 12) or not np.isfinite(host).all():
         raise RuntimeError("the fetched extraction result is malformed")
     print(f"[{tag}] one extraction call ({len(det)} detections, "
           f"{extractor.stats}): {wall:.3f} ms wall (host clock, mean of 5, "
@@ -1800,6 +1825,211 @@ def phase_sparse_path(dev, tmp, sym_call):
           f"the dense symmetry path's: {sym_call[1]} device operations, busy "
           f"{sym_call[0]:.3f} ms")
     return launches, (frames[mid], tr.state.ground_plane, stats[mid])
+
+
+def example(name):
+    """A script of examples/ as a module (examples/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decode_times(seq, tmp):
+    """ms of the numpy PNG decode (io/png.py) of a depth frame, each a mean
+    over repeats on this host: the export's frames (Up filter: the
+    whole-row path), one frame re-written with the Paeth filter (the
+    anti-diagonal path every Average or Paeth row takes) and, where cv2 is
+    installed, the same frame written by cv2 with its default filter and
+    with libpng's choice per row (IMWRITE_PNG_ALL_FILTERS), each decode
+    checked against cv2.imread.  Returns {what: ms}."""
+    import importlib.util
+    from object_oriented_slam_tpu_torch.io import png
+
+    def ms(path, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = png.read_png(path)
+        return (time.perf_counter() - t0) * 1e3 / reps, got
+
+    files = sorted(os.listdir(os.path.join(seq, "depth")))
+    paths = [os.path.join(seq, "depth", f) for f in files[:40]]
+    t0 = time.perf_counter()
+    for p in paths:
+        png.read_png(p)
+    out = {"up": (time.perf_counter() - t0) * 1e3 / len(paths)}
+    img = png.read_png(paths[len(paths) // 2])
+    paeth = os.path.join(tmp, "paeth.png")
+    png.write_png(paeth, img, png.PAETH)
+    out["paeth"], back = ms(paeth, 5)
+    if not np.array_equal(back, img):
+        raise RuntimeError("the Paeth round trip of a depth frame differs")
+    if importlib.util.find_spec("cv2") is not None:
+        import cv2
+        every_filter = [cv2.IMWRITE_PNG_FILTER, cv2.IMWRITE_PNG_ALL_FILTERS]
+        for name, flags in (("cv2 default", []),
+                            ("cv2 all filters", every_filter)):
+            path = os.path.join(tmp, name.replace(" ", "_") + ".png")
+            cv2.imwrite(path, img, flags)
+            out[name], got = ms(path, 5)
+            if not np.array_equal(got, cv2.imread(path,
+                                                  cv2.IMREAD_UNCHANGED)):
+                raise RuntimeError(f"read_png differs from cv2 ({name})")
+    return out
+
+
+def drive_cli(dev, settings, seq, out, extra):
+    """examples/torch_run_tum.main on the export ``seq`` with ``extra``
+    flags, every launch counter set to 0 just before and read just after.
+    Every frame after the plane latch runs under PyTorch's synchronisation
+    check set to raise: the host may wait only on the events of the due
+    fetch, the backend drain and the plane's resolve.  Returns (System, the
+    CLI's printout, host seconds of each frame's track_with_objects, frames
+    checked, fetch waits of the loop (the final flush left out),
+    launches)."""
+    import contextlib
+    import io
+    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    from object_oriented_slam_tpu_torch.system import System
+
+    grab = System.track_with_objects
+    e2e, checked, loop_fetches = [], [0], [0]
+
+    def track(self, *args, **kwargs):
+        if self.tracker.device.type != "cuda":
+            raise RuntimeError(f"the CLI runs on {self.tracker.device}")
+        check = self.tracker.state.ground_state == 2
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            return grab(self, *args, **kwargs)
+        finally:
+            e2e.append(time.perf_counter() - t0)
+            if check:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[0] += 1
+            loop_fetches[0] = len(self.tracker.metrics["fetch"])
+
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    for k in all_kernels:
+        k.launches = 0
+    System.track_with_objects = track
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            slam = example("torch_run_tum").main(
+                [settings, seq, "--out", out, *extra])
+    finally:
+        System.track_with_objects = grab
+    launches = {k.name: k.launches for k in all_kernels}
+    fetch = np.array(slam.tracker.metrics["fetch"][:loop_fetches[0]])
+    return slam, printed.getvalue(), np.array(e2e), checked[0], fetch, \
+        launches
+
+
+def phase_cli(dev, tmp):
+    """examples/torch_run_tum.py end to end on the card: the symmetry
+    path's scene and orbit (24 objects, seed 7, N_DEPTH_FRAMES frames,
+    640x480) exported as a TUM sequence by
+    examples/torch_make_synthetic_tum.py (depth rendered on the card), run
+    with configs/synthetic_depth_sym.yaml at --pipeline-depth 1 and at the
+    default (adaptive depth 4..8, asynchronous plane).  Raises unless both
+    map 24/24 objects within a median centre error of 0.05 m of
+    objects_gt.txt, their objects.txt agree within 1e-4, every kernel
+    launched in each run, and no frame after the plane latch made the host
+    wait other than on an event.  Returns the adaptive run's launches."""
+    import importlib.util
+    import object_oriented_slam_tpu_torch as pkg
+    from object_oriented_slam_tpu_torch.io.native_loader import \
+        native_available
+    from object_oriented_slam_tpu_torch.io.synthetic import SyntheticDataset
+    from object_oriented_slam_tpu_torch.io.writers import load_objects
+    from object_oriented_slam_tpu_torch.system.metrics import object_map_iou
+
+    scene = scene24_sym()
+    seq = os.path.join(tmp, "tum_sequence")
+    t0 = time.perf_counter()
+    n = example("torch_make_synthetic_tum").export_synthetic_tum(
+        seq, scene, SyntheticDataset(scene, n_frames=N_DEPTH_FRAMES,
+                                     orbit_radius=3.6, height=1.7,
+                                     depth_device=dev))
+    export_s = time.perf_counter() - t0
+    decode = decode_times(seq, tmp)
+    print(f"[cli] exported {n} frames (depth rendered on the card, 16-bit "
+          f"PNG depth and 8-bit PNG RGB by io/png.py) in {export_s:.1f} s")
+    print(f"[cli] numpy decode of a 640x480 depth frame, ms (host clock): "
+          f"{ {k: round(v, 3) for k, v in decode.items()} } (up: the "
+          f"export's Up filter, mean of 40 frames; paeth: one frame "
+          f"Paeth-filtered; cv2 *: written by cv2, each equal to cv2.imread; "
+          f"means of 5); cv2 installed: "
+          f"{importlib.util.find_spec('cv2') is not None}, "
+          f"native/lib/liboslam_native.so loads: {native_available()}")
+    gt = {int(r[0]): r[1:] for r in np.loadtxt(
+        os.path.join(seq, "objects_gt.txt"), ndmin=2)}
+    settings = os.path.join(os.path.dirname(pkg.__file__), "configs",
+                            "synthetic_depth_sym.yaml")
+    maps = {}
+    for name, extra in (("depth 1", ["--pipeline-depth", "1"]),
+                        ("adaptive", [])):
+        out = os.path.join(tmp, "cli_" + name.replace(" ", "_"))
+        slam, printed, e2e, checked, fetch, launches = drive_cli(
+            dev, settings, seq, out, extra)
+        tr = slam.tracker
+        insts, vecs = load_objects(os.path.join(out, "objects.txt"))
+        objs = dict(zip(insts, vecs))
+        maps[name] = (objs, open(os.path.join(out, "objects.txt")).read())
+        errs = np.array([np.linalg.norm(v[:3] - gt[i][:3])
+                         for i, v in objs.items()])
+        iou = np.array(list(object_map_iou(
+            objs, {i: gt[i] for i in objs}).values()))
+        trace = tr.depth_trace
+        e2e_ms, fetch_ms = e2e * 1e3, fetch * 1e3
+        fps = len(e2e) / max(e2e.sum(), 1e-9)
+        for line in printed.splitlines():
+            if line.startswith(("Processed", "Timing", "Pipeline depth")):
+                print(f"[cli] {name}: CLI: {line}")
+        print(f"[cli] {name}: {len(objs)}/24 objects; centre error median "
+              f"{np.median(errs):.4g} m, max {errs.max():.4g} m; map IoU "
+              f"median {np.median(iou):.4f}, min {iou.min():.4f}")
+        print(f"[cli] {name}: track_with_objects ms/frame p50 "
+              f"{np.median(e2e_ms):.3f} mean {e2e_ms.mean():.3f} p99 "
+              f"{np.percentile(e2e_ms, 99):.3f} (host clock, not synchronized "
+              f"per frame), {fps:.1f} frames/s over the calls; fetch wait "
+              f"p50 {np.median(fetch_ms):.3f} p99 "
+              f"{np.percentile(fetch_ms, 99):.3f} ms, blocked (> 3 ms) "
+              f"{(fetch_ms > 3).mean():.3f} of {len(fetch_ms)}; plane wait "
+              f"{np.round(np.array(tr.metrics['plane_wait']) * 1e3, 3)} ms; "
+              f"depth trace start {trace[0]} final {trace[-1]} max "
+              f"{max(trace)}; {checked} frames under the synchronisation "
+              f"check")
+        print(f"[cli] {name}: kernel launches {launches}")
+        if len(e2e) != N_DEPTH_FRAMES or len(trace) != N_DEPTH_FRAMES:
+            raise RuntimeError(f"the CLI ran {len(e2e)} frames")
+        if len(objs) != 24 or not np.median(errs) < 0.05:
+            raise RuntimeError(f"{len(objs)} of 24 objects, median centre "
+                               f"error {np.median(errs):.4g} m")
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"a kernel of the CLI path never launched: "
+                               f"{launches}")
+        if checked < N_DEPTH_FRAMES - 2:
+            raise RuntimeError(f"only {checked} frames ran under the "
+                               "synchronisation check")
+        if name == "adaptive" and not (trace[0] >= 4 and tr.adaptive_depth
+                                       and tr.async_plane):
+            raise RuntimeError(f"the default run was not pipelined: {trace}")
+        cli_launches = launches
+    (a, text_a), (b, text_b) = maps["depth 1"], maps["adaptive"]
+    diff = max(np.abs(a[i] - b[i]).max() for i in a)
+    print(f"[cli] depth 1 against adaptive: objects.txt max |diff| {diff:.3g} "
+          f"(limit 1e-4), bit-equal files: {text_a == text_b}")
+    if sorted(a) != sorted(b) or not diff <= 1e-4:
+        raise RuntimeError(f"the pipelined run's objects.txt differs from "
+                           f"the eager run's by {diff}")
+    return cli_launches
 
 
 def phase_sparse_kernels(dev, path):
@@ -2072,6 +2302,7 @@ def main():
         launches_sym, path_sym, sym_call = phase_symmetry_path(dev, tmp,
                                                                depth_call)
         launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
+        launches_cli = phase_cli(dev, tmp)
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
     sparse_recs, sparse_full = phase_sparse_kernels(dev, path_sparse)
@@ -2081,6 +2312,8 @@ def main():
                 "replaces": replaces,
                 "launches": (path_launches[r["kernel"]]
                              if path_launches is not None else 0),
+                "launches_cli": (launches_cli[r["kernel"]]
+                                 if path_launches is not None else 0),
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -1,0 +1,212 @@
+#!/usr/bin/env python
+"""TUM RGB-D command line of the PyTorch + CUDA port.
+
+Twin of ``examples/run_tum.py`` (the reference's
+``Example/interface/rgbd.cpp``):
+
+    python examples/torch_run_tum.py <settings.yaml> <dataset_dir> [options]
+
+Loads the sequence and its bbox detections (``io/tum.py``: the depth PNGs
+decoded in numpy, no ``cv2``), runs the full pipeline per frame on the
+card (ground-plane estimation, monolithic single-frame ellipsoid
+extraction, with symmetry when the yaml opens it, data association, SVD /
+3D initialization, global object-graph LM) with the adaptive deferred
+pipeline, and saves ``objects.txt`` / ``object_history.txt``.  ``--device
+cpu`` runs the plain PyTorch versions on the CPU; without CUDA the default
+device raises.  Flags of ``run_tum.py`` whose subsystem is not ported raise
+``NotImplementedError`` naming its item of ``ROADMAP.md``'s queue 1.
+"""
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+_UNPORTED = (
+    # (flag, is it set?, what, ROADMAP.md queue 1 item)
+    ("--build-dense", lambda a: a.build_dense, "the dense builder", 9),
+    ("--map-format", lambda a: a.map_format != "ply",
+     "the dense builder's map export", 9),
+    ("--viz", lambda a: a.viz, "the renders (viz/export.py)", 9),
+    ("--viz-live", lambda a: a.viz_live, "the live web viewer", 9),
+    ("--slam-mode", lambda a: (a.slam_mode or a.slam_max_frames is not None
+                               or a.slam_max_objects is not None
+                               or a.odo_weight != 1.0), "SLAM mode", 7),
+    ("--distributed", lambda a: a.distributed, "the distributed backend", 8),
+    ("--offline", lambda a: (a.offline or a.offline_shard or a.offline_split
+                             or a.offline_per_frame_ba or a.batch != 8),
+     "the offline batch mapper", 6),
+    ("--extractor", lambda a: a.extractor != "mono",
+     "the probe and the split and fused (host-clustered) extractors", 5),
+)
+
+
+def parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("settings")
+    ap.add_argument("dataset")
+    ap.add_argument("--out", default=".", help="output directory")
+    ap.add_argument("--no-depth", action="store_true",
+                    help="2D-only pipeline (no ellipsoid extraction)")
+    ap.add_argument("--no-symmetry", action="store_true")
+    ap.add_argument("--auto-assoc", action="store_true",
+                    help="automatic data association instead of column 7")
+    ap.add_argument("--odometry", default=None,
+                    help="odometry txt (ts x y z qx qy qz qw)")
+    ap.add_argument("--map-format", default="ply", choices=["ply", "pcd"])
+    ap.add_argument("--build-dense", action="store_true")
+    ap.add_argument("--viz", action="store_true")
+    ap.add_argument("--viz-live", type=int, default=0, metavar="N")
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--extractor", default="mono",
+                    choices=["auto", "mono", "split", "fused"],
+                    help="mono = one device pass per frame including the "
+                         "clustering (the only one ported)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="save state checkpoint at the end")
+    ap.add_argument("--resume", default=None,
+                    help="resume from a state checkpoint (skips the "
+                         "frames it already processed)")
+    ap.add_argument("--slam-mode", action="store_true")
+    ap.add_argument("--slam-max-frames", type=int, default=None, metavar="F")
+    ap.add_argument("--slam-max-objects", type=int, default=None,
+                    metavar="K")
+    ap.add_argument("--odo-weight", type=float, default=1.0)
+    ap.add_argument("--pipeline-depth", type=int, default=0, metavar="N",
+                    help="pin the extraction-deferral window (1=eager; "
+                         "default: adaptive, 4 deepening to 8 on blocked "
+                         "fetches). Pinning disables adaptation.")
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--offline", action="store_true")
+    ap.add_argument("--batch", type=int, default=8, metavar="B")
+    ap.add_argument("--offline-shard", action="store_true")
+    ap.add_argument("--offline-split", action="store_true")
+    ap.add_argument("--offline-per-frame-ba", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the extraction and the LM "
+                         "(default cuda; cpu runs the plain versions)")
+    return ap
+
+
+def main(argv=None):
+    """Run the CLI on ``argv`` (default: the command line); returns the
+    System after its outputs are written."""
+    args = parser().parse_args(argv)
+    for flag, is_set, what, item in _UNPORTED:
+        if is_set(args):
+            raise NotImplementedError(
+                f"{flag}: {what} is not ported to the torch package "
+                f"(ROADMAP.md queue 1, item {item})")
+
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    from object_oriented_slam_tpu_torch.frontend import (
+        ExtractorConfig, make_extractor, make_plane_estimator)
+    from object_oriented_slam_tpu_torch.io import Config
+    from object_oriented_slam_tpu_torch.io.tum import TUMDataset
+    from object_oriented_slam_tpu_torch.system import System
+    from object_oriented_slam_tpu_torch.system.tracking import \
+        resolve_device
+
+    device = resolve_device(args.device)
+    cfg = Config(args.settings)
+    cam = Camera(fx=cfg.get_float("Camera.fx"), fy=cfg.get_float("Camera.fy"),
+                 cx=cfg.get_float("Camera.cx"), cy=cfg.get_float("Camera.cy"),
+                 scale=cfg.get_float("Camera.scale"),
+                 width=cfg.get_int("Camera.width", 640),
+                 height=cfg.get_int("Camera.height", 480))
+
+    extractor = None
+    plane_est = None
+    if not args.no_depth:
+        open_sym = (not args.no_symmetry
+                    and cfg.get_int("EllipsoidExtraction.Symmetry.Open") == 1)
+        ext_cfg = ExtractorConfig(
+            depth_range=cfg.read_value("EllipsoidExtractor_DEPTH_RANGE", 6.0),
+            cluster_tolerance=cfg.get_float(
+                "EllipsoidExtraction.Euclidean.ClusterTolerance", 0.02),
+            cluster_min_size=cfg.get_int(
+                "EllipsoidExtraction.Euclidean.MinClusterSize", 100),
+            cluster_center_dis=cfg.get_float(
+                "EllipsoidExtraction.Euclidean.CenterDis", 0.5),
+            sym_grid=cfg.get_float("EllipsoidExtraction.Symmetry.GridSize",
+                                   0.1),
+            open_symmetry=open_sym)
+        extractor = make_extractor(cam, ext_cfg, device)
+        plane_est = make_plane_estimator(cam, device=device)
+
+    slam = System(args.settings, extractor=extractor,
+                  plane_estimator=plane_est, device=device)
+    if args.pipeline_depth > 0:
+        slam.tracker.pipeline_depth = args.pipeline_depth
+        slam.tracker.adaptive_depth = False
+    if not args.no_depth:
+        slam.open_ground_plane_estimation()
+
+    skip = 0
+    if args.resume:
+        from object_oriented_slam_tpu_torch.system.checkpoint import \
+            load_state
+        st = load_state(args.resume)
+        slam.tracker.restore_state(st)
+        skip = len(st.frames_ts)
+        print(f"Resumed from {args.resume}: {skip} frames, "
+              f"{len(st.objects)} instances")
+
+    os.makedirs(args.out, exist_ok=True)
+    ds = TUMDataset(args.dataset)
+    if args.odometry:
+        ds.set_odometry(args.odometry)
+    try:
+        _online_loop(args, slam, ds, skip)
+    finally:
+        ds.close()
+    _save_outputs(args, slam)
+    return slam
+
+
+def _online_loop(args, slam, ds, skip):
+    from object_oriented_slam_tpu_torch.system.metrics import timing_summary
+
+    t0 = time.time()
+    n = 0
+    n_seen = 0
+    for i, ts, pose, depth, rgb, det in ds.frames():
+        n_seen += 1
+        if n_seen <= skip:
+            continue
+        slam.track_with_objects(ts, pose, det, depth=depth, rgb=rgb,
+                                with_association=not args.auto_assoc)
+        n += 1
+        if n % 10 == 0:
+            print(f"frame {n} ({time.time() - t0:.1f}s)", flush=True)
+        if args.max_frames and n >= args.max_frames:
+            break
+    dt = time.time() - t0
+    print(f"Processed {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps)")
+    print("Timing:", timing_summary(slam.tracker.metrics))
+    trace = slam.tracker.depth_trace
+    if trace and max(trace) != min(trace):
+        print(f"Pipeline depth (adaptive): start {trace[0]} "
+              f"final {trace[-1]} max {max(trace)}")
+    return n
+
+
+def _save_outputs(args, slam):
+    import numpy as np
+
+    slam.save_objects_to_file(os.path.join(args.out, "objects.txt"))
+    slam.save_object_history(os.path.join(args.out, "object_history.txt"))
+    print("Objects:")
+    for inst, v in slam.map_objects.items():
+        print(f"  #{inst}: {np.round(v, 4)}")
+    if args.checkpoint:
+        # after save_objects_to_file's sync(): no frame is pending
+        from object_oriented_slam_tpu_torch.system.checkpoint import \
+            save_state
+        save_state(slam.tracker.state, args.checkpoint)
+        print(f"Saved checkpoint to {args.checkpoint}")
+
+
+if __name__ == "__main__":
+    main()

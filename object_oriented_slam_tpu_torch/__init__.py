@@ -7,8 +7,10 @@ Plain tensor code is PyTorch on whatever device its tensors live on; the
 bundle-adjustment edge work (``csrc/ba_edges.cu``) and the extraction's
 back-projection, voxel means and clustering rounds (``csrc/frontend.cu``)
 run in hand-written CUDA kernels when the tensors are on a CUDA device.
-Ported so far: the eager online mapping loop (``system.System``), 2D-only
-or with depth (ground plane, monolithic extraction, 3D observations).
+Ported so far: the online mapping loop (``system.System``) with the deferred
+frame pipeline, 2D-only or with depth (ground plane, monolithic extraction
+with symmetry, 3D observations), and its TUM command line
+(``examples/torch_run_tum.py`` over ``io.tum``).
 """
 
 __version__ = "0.1.0"

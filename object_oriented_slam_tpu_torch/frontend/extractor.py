@@ -62,6 +62,7 @@ from ..ops import cluster as cl
 from ..ops import pca as pca_mod
 from ..ops import voxel as vx
 from ..ops.depth_cloud import depth_cloud, depth_cloud_border
+from ..utils.transfer import HostCopy, to_device
 from . import symmetry as sym_mod
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
@@ -384,25 +385,42 @@ _STAT_KEYS = ("cluster_rounds", "cluster_lanes", "cluster_survivors",
               "cluster_converged", "sym_sources", "sym_points", "sym_dense")
 
 
+@dataclasses.dataclass
+class ExtractionHandle:
+    """One extraction call in flight: ``rows`` the [pad, 12] device result
+    (vec10, prob, valid), ``stats`` the call's counts (those the host knows
+    at the call; the device's after ``fetch``), ``keys`` the device counts
+    riding the packed result's last row, ``copy`` that packed result's
+    copy to the host, started at the call."""
+    rows: torch.Tensor
+    stats: dict
+    keys: list
+    copy: HostCopy
+
+
 class MonolithicExtractor:
     """Whole-frame extraction on ``device`` (the production default).
 
-    Returns a DEVICE tensor packed [pad, 12] (vec10, prob, valid) so the
-    caller folds it into one device-to-host copy per frame.  The detection
-    axis is padded to the next power of two (extraction work is linear in
-    the padded count).  Detections beyond the 32-slot safety cap fall back
-    to 2D-only observations (tracking masks them invalid).
+    A call returns an ``ExtractionHandle``: the DEVICE result packed
+    [pad, 12] (vec10, prob, valid) and its copy to the host, started at
+    once, so the caller reads it with one wait (``fetch``) whenever it
+    likes, also after later calls.  The detection axis is padded to the
+    next power of two (extraction work is linear in the padded count).
+    Detections beyond the 32-slot safety cap fall back to 2D-only
+    observations (tracking masks them invalid).
 
-    A call is two host-to-device copies (``upload``) and launches
-    (``run``); nothing in it waits for the device.  The clustering stage's
-    counts stay on the device and ride the result's copy as one more row:
-    ``fetch`` makes that one device-to-host copy and then fills ``stats``
-    (the last frame's clustering rounds, lanes, survivors and convergence;
-    the cloud tier and the counts of detections that take the single and
-    the dual symmetry search, ``sym_single`` / ``sym_dual``, are known at
-    the call from the labels; with sparse symmetry the searched
-    detections' sources, live points and dense fall-backs,
+    A call is two host-to-device copies from pinned memory (``upload``)
+    and launches (``run``); nothing in it waits for the device.  The
+    clustering stage's counts stay on the device and ride the result's
+    copy as one more row: ``fetch(handle)`` waits for that copy and fills
+    the call's ``stats`` (its clustering rounds, lanes, survivors and
+    convergence; the cloud tier and the counts of detections that take the
+    single and the dual symmetry search, ``sym_single`` / ``sym_dual``,
+    are known at the call from the labels; with sparse symmetry the
+    searched detections' sources, live points and dense fall-backs,
     ``sym_sources`` / ``sym_points`` / ``sym_dense``, ride the row too).
+    ``extractor.stats`` is the stats of the call last fetched, or of the
+    call last run before its fetch.
     """
     def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
         from ..system.tracking import resolve_device
@@ -411,23 +429,18 @@ class MonolithicExtractor:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.stats = {}
-        self._packed = None      # [pad + 1, 12]: the result and the stats row
-        self._stat_keys = []     # the counts of that row, in order
 
     def upload(self, depth, bboxes, labels, pose_wc, ground_plane):
         """The frame's two host-to-device copies: the depth image and the
         packed arguments.  Returns what ``run`` takes."""
         flat, pad, _, cfg_t, n_sym = _pack_frame(
             self.cam, self.cfg, bboxes, labels, pose_wc, ground_plane)
-        depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)
-                                   ).to(self.device)
-        return (depth_d, torch.from_numpy(flat).to(self.device), pad, cfg_t,
-                n_sym)
+        depth_d = to_device(np.asarray(depth, np.int32), self.device)
+        return depth_d, to_device(flat, self.device), pad, cfg_t, n_sym
 
-    def run(self, depth_d, flat_d, pad, cfg_t, n_sym):
-        """The extraction on the device: launches only, no copy and no
-        wait.  Returns the [pad, 12] result (a view of the packed buffer
-        whose last row carries the clustering counts)."""
+    def run(self, depth_d, flat_d, pad, cfg_t, n_sym) -> ExtractionHandle:
+        """The extraction on the device: launches and the start of the
+        result's copy home, no wait."""
         bb = flat_d[:pad * 4].reshape(pad, 4)
         run = flat_d[pad * 4:pad * 5] > 0.5
         self.stats = {"cloud_tier": cfg_t.cloud_capacity,
@@ -439,12 +452,13 @@ class MonolithicExtractor:
             sym_types=flat_d[pad * 5:pad * 6], need_single=n_sym[0] > 0,
             need_dual=n_sym[1] > 0)
         res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
-        self._stat_keys = [k for k in _STAT_KEYS if k in dev_stats]
+        keys = [k for k in _STAT_KEYS if k in dev_stats]
         row = torch.nn.functional.pad(
-            torch.stack([dev_stats[k].to(e.dtype) for k in self._stat_keys]),
-            (0, 12 - len(self._stat_keys)))
-        self._packed = torch.cat([res, row[None]], dim=0)
-        return self._packed[:pad]
+            torch.stack([dev_stats[k].to(e.dtype) for k in keys]),
+            (0, 12 - len(keys)))
+        packed = torch.cat([res, row[None]], dim=0)
+        return ExtractionHandle(packed[:pad], self.stats, keys,
+                                HostCopy.start(packed))
 
     def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
         if ground_plane is None:
@@ -452,16 +466,14 @@ class MonolithicExtractor:
         return self.run(*self.upload(depth, bboxes, labels, pose_wc,
                                      ground_plane))
 
-    def fetch(self, out):
-        """The frame's one device-to-host copy: the result of the last call
-        (``out``) as a float64 array [pad, 12]; fills ``stats``."""
-        if self._packed is None or out.data_ptr() != self._packed.data_ptr():
-            raise ValueError("fetch takes the result of this extractor's "
-                             "last call: the clustering counts of any other "
-                             "are gone")
-        host = self._packed.cpu().numpy().astype(np.float64)
-        for k, v in zip(self._stat_keys, host[-1]):
-            self.stats[k] = bool(v) if k == "cluster_converged" else int(v)
+    def fetch(self, handle: ExtractionHandle) -> np.ndarray:
+        """The call's result on the host as a float64 array [pad, 12]: waits
+        for the copy ``run`` started (the call's own event), then fills the
+        call's ``stats`` with the counts of its last row."""
+        host = handle.copy.wait().numpy().astype(np.float64)
+        for k, v in zip(handle.keys, host[-1]):
+            handle.stats[k] = bool(v) if k == "cluster_converged" else int(v)
+        self.stats = handle.stats
         return host[:-1]
 
     def dispatch_with_lm(self, *args, **kwargs):

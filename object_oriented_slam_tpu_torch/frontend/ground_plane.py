@@ -27,6 +27,7 @@ import torch
 from ..core.camera import Camera
 from ..ops import backproject as bp
 from ..ops import linalg
+from ..utils.transfer import HostCopy, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,23 +134,26 @@ def make_plane_estimator(cam: Camera,
     ``estimator(depth) -> plane [4] float64 numpy (camera frame) | None``
     that runs on ``device`` (the CUDA device unless the caller names one).
 
-    ``dispatch`` / ``resolve`` split the call as the JAX package's
-    estimator does; here ``resolve`` is where the host waits for the
-    result (the asynchronous one-shot plane belongs to the deferred
-    pipeline, which is not ported).
+    ``dispatch`` / ``resolve`` split the call for the tracker's
+    asynchronous one-shot plane, as the JAX package's estimator does:
+    ``dispatch`` copies the depth image from pinned memory, queues the
+    estimate and starts the copy of (plane, ok) home behind an event,
+    without waiting for the device; ``resolve`` waits on that event only
+    (a frame later the copy has usually landed).
     """
     from ..system.tracking import resolve_device
     dev = resolve_device(device)
 
     def _dispatch(depth):
-        return estimate_ground_plane(
-            torch.from_numpy(np.asarray(depth, np.int32)).to(dev), cam, cfg)
+        plane, ok = estimate_ground_plane(
+            to_device(np.asarray(depth, np.int32), dev), cam, cfg)
+        return HostCopy.start(torch.cat([plane, ok.to(plane.dtype)[None]]))
 
     def _resolve(handle):
-        plane, ok = handle
-        if not bool(ok):
+        host = handle.wait().numpy().astype(np.float64)
+        if not host[4] > 0.5:
             return None
-        return plane.cpu().numpy().astype(np.float64)
+        return host[:4]
 
     def estimator(depth):
         return _resolve(_dispatch(depth))

@@ -1,4 +1,4 @@
-"""Per-frame pipeline orchestrator, eager (``pipeline_depth`` = 1).
+"""Per-frame pipeline orchestrator with the deferred frame pipeline.
 
 Port of ``object_oriented_slam_tpu/system/tracking.py`` (the reference's
 ``src/core/Tracking.cpp``): the host drives the frame loop and appends
@@ -18,14 +18,35 @@ Per-frame flow (GrabPoseAndObjects, Tracking.cpp:170-204):
   3. JudgeInitialization (:566-638): incremental SVD init on the host,
      or directly from the latest 3D estimate
   4. ProcessCurrentFrame (:219-257): the LM over all observations, warm
-     started from the previous call's estimate kept on the device; its
-     host copy is drained one call later (``pipeline_depth`` = 1)
+     started from the previous call's estimate kept on the device
+
+The pipeline keeps that per-frame order and those inputs; only the moment
+the host reads a device result moves, so results do not depend on the
+depth:
+  * extraction deferral: frame t's extraction is launched at once, its
+    result's copy home starts with it (``MonolithicExtractor.run``), and
+    the host-side half of the frame (steps 2-4) runs ``pipeline_depth`` - 1
+    frames later, when the copy has usually landed;
+  * backend chaining: each LM call starts from the previous call's device
+    estimate; its copy home starts at dispatch behind an event and is
+    drained (history, outputs) once ``pipeline_depth`` later calls have
+    been dispatched;
+  * the asynchronous one-shot plane: the frame that estimates the plane
+    defers its whole body to the next grab (or ``sync()``), where the
+    plane is read and the frame replayed first;
+  * the adaptive depth: 4 by default, one deeper (up to 8) after three
+    blocked fetches in a row (> 3 ms), one shallower (down to the set
+    depth) after 16 free ones (< 1 ms).
+Every host-to-device copy of a frame comes from pinned memory and every
+device-to-host copy lands in pinned memory behind an event
+(``utils/transfer.py``): the host waits for the device only on the due
+frame's fetch, the backend drain and the plane's resolve.
+``pipeline_depth = 1`` is the eager loop.  ``sync()`` flushes everything.
 
 What is not ported raises ``NotImplementedError``: a two-phase or fused
-extractor, a precomputed extraction result, LM fusion, the asynchronous
-plane, the interactive plane check, the distributed backend, the dense
-builder, the batch SVD initializer, the array-of-structs backend, a
-deferred pipeline (``pipeline_depth`` > 1) and the adaptive depth.
+extractor, a precomputed extraction result, LM fusion, the interactive
+plane check, the distributed backend, the dense builder, the batch SVD
+initializer and the array-of-structs backend.
 """
 from __future__ import annotations
 
@@ -46,6 +67,7 @@ from ..core import plane as plane_mod
 from ..init.svd_incremental import IncrementalQuadricInit
 from ..io.config import Config
 from ..utils import calibrate_measurement_np
+from ..utils.transfer import HostCopy, to_device
 from .state import SlamState
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
@@ -125,12 +147,6 @@ class Tracking:
     MAX_OBS3D = 256
 
     fuse_lm = _pinned("fuse_lm", False, "LM fusion into extraction")
-    pipeline_depth = _pinned("pipeline_depth", 1,
-                             "the deferred extraction pipeline")
-    adaptive_depth = _pinned("adaptive_depth", False,
-                             "the adaptive pipeline depth")
-    async_plane = _pinned("async_plane", False,
-                          "the asynchronous ground-plane estimate")
     use_incremental_init = _pinned("use_incremental_init", True,
                                    "the batch SVD initializer")
     use_soa_backend = _pinned("use_soa_backend", True,
@@ -196,17 +212,50 @@ class Tracking:
         self.object_list_path = "./object_list.txt"
 
         self._inc_init = IncrementalQuadricInit(self.K, self.rows, self.cols)
-        self._pending_backends = deque()   # (call_no, est, slots, nobs)
+        # the pipeline (module docstring); the JAX package's defaults.
+        # ``pipeline_depth`` is a property: setting it pins the depth and
+        # re-bases the adaptive controller, which moves ``_pipeline_depth``
+        # itself and never goes below the base
+        self.pipeline_depth = 4
+        self.adaptive_depth = True
+        self.adapt_depth_max = 8
+        self.adapt_deepen_s = 3e-3
+        self.adapt_shallow_s = 1e-3
+        self._adapt_fetches = deque(maxlen=16)
+        self._saturation_logged = False
+        self._flushing = False     # sync(): its fetches do not adapt
+        self.async_plane = True
+        self._pending_plane = None
+        self._plane_deferred: List[tuple] = []
+        self._pending_extraction = deque()
+        # (call_no, est, its HostCopy, slots, nobs)
+        self._pending_backends = deque()
         self._backend_calls = 0
         self.max_objects = self.MAX_OBJECTS  # current object-axis tier
         self._init_np_buffers()
-        # per-frame instrumentation (host seconds): "dispatch" is the
-        # extraction call (it waits on the device for the survivor count
-        # and the clustering rounds' flags), "fetch" the wait for its last
-        # launches and the result's copy to the host
+        # per-frame instrumentation (host seconds): "dispatch" the
+        # extraction call's launches, "fetch" the wait for a frame's
+        # extraction result (its copy's event) and its conversion, "host"
+        # the host-side half of a frame, "plane_wait" the asynchronous
+        # plane's resolve; ``depth_trace`` the depth at each frame
         self.metrics: Dict[str, List[float]] = {"backend": [], "frontend": [],
                                                 "total": [], "dispatch": [],
-                                                "fetch": []}
+                                                "fetch": [], "host": [],
+                                                "plane_wait": []}
+        self.depth_trace: List[int] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def pipeline_depth(self) -> int:
+        return self._pipeline_depth
+
+    @pipeline_depth.setter
+    def pipeline_depth(self, value: int):
+        """Pin the deferral window and re-base the adaptive controller."""
+        self._pipeline_depth = int(value)
+        self._depth_base = int(value)
+        if hasattr(self, "_adapt_fetches"):
+            self._adapt_fetches.clear()
 
     # ------------------------------------------------------------------
     def open_ground_plane_estimation(self):
@@ -232,6 +281,10 @@ class Tracking:
             raise NotImplementedError(
                 "ext_result: precomputed extraction (the offline batch "
                 "mapper) is not ported to the torch package")
+        # a plane estimate dispatched by an earlier frame: read it and
+        # replay that frame's body first, before this frame's t0 (the wait
+        # and the replayed body carry their own metric entries)
+        self._resolve_pending_plane()
         t0 = time.perf_counter()
         pose_wc = np.asarray(pose_wc, np.float64)
         frame_id = len(self.state.frames_pose_wc)
@@ -239,9 +292,18 @@ class Tracking:
         self.state.frames_ts.append(timestamp)
         det_mat = np.asarray(det_mat, np.float64).reshape(-1, 8) \
             if det_mat is not None and det_mat.size else np.zeros((0, 8))
-        # ---- [1.1] ground plane estimation (once), synchronous ---------
+        # ---- [1.1] ground plane estimation (once) ---------------------
         if self.state.ground_state == 1 and self.plane_estimator is not None \
                 and depth is not None:
+            if (self.async_plane and self.pipeline_depth >= 2
+                    and hasattr(self.plane_estimator, "dispatch")):
+                # queue the estimate and its copy home, and defer this
+                # frame's whole body to the next grab (or sync())
+                self._pending_plane = (self.plane_estimator.dispatch(depth),
+                                       pose_wc)
+                self._plane_deferred.append(
+                    (frame_id, pose_wc, det_mat, depth, with_association))
+                return True
             plane_cam = self.plane_estimator(depth)
             if plane_cam is not None:
                 self._latch_plane(plane_cam, pose_wc)
@@ -260,10 +322,30 @@ class Tracking:
         self.state.ground_state = 2
 
     # ------------------------------------------------------------------
+    def _resolve_pending_plane(self):
+        """Read an asynchronous plane estimate and replay the frames that
+        waited for it, in order.  On a failed estimate they replay without
+        a plane (ground_state stays 1), which skips their extraction as the
+        reference's state machine does while estimation is open."""
+        if self._pending_plane is None:
+            return
+        handle, disp_pose = self._pending_plane
+        self._pending_plane = None
+        t0 = time.perf_counter()
+        plane_cam = self.plane_estimator.resolve(handle)
+        if plane_cam is not None:
+            self._latch_plane(plane_cam, disp_pose)
+        self.metrics["plane_wait"].append(time.perf_counter() - t0)
+        deferred, self._plane_deferred = self._plane_deferred, []
+        for fid, pw, dm, dep, wa in deferred:
+            self._frame_body(fid, pw, dm, dep, wa, time.perf_counter())
+
+    # ------------------------------------------------------------------
     def _frame_body(self, frame_id, pose_wc, det_mat, depth,
                     with_association, t0):
-        """Everything after ground-plane handling for one frame: the eager
-        extraction dispatch, then the host-side processing."""
+        """Everything after ground-plane handling for one frame: the
+        extraction's launches, then the host-side half of this frame
+        (eager) or of the frames now due (deferred)."""
         # ---- [1.2] single-frame ellipsoid estimation (dispatch) --------
         n_det = det_mat.shape[0]
         ext_out = None
@@ -276,11 +358,22 @@ class Tracking:
                                          det_mat[:, 5].astype(int), pose_wc,
                                          self.state.ground_plane)
         self.metrics["dispatch"].append(time.perf_counter() - t0)
-        self._process_frame_obs(frame_id, pose_wc, det_mat, ext_out, run,
-                                with_association)
-        self.metrics["backend"].append(self._t3 - self._t2)
-        self.metrics["frontend"].append(self._t1 - t0)
-        self.metrics["total"].append(self._t3 - t0)
+        item = (frame_id, pose_wc, det_mat, ext_out, run, with_association)
+        if self.pipeline_depth >= 2 and self.extractor is not None:
+            self._pending_extraction.append(item)
+            # `while`, not `if`: a shallower adaptive depth drains the
+            # surplus
+            while len(self._pending_extraction) >= self.pipeline_depth:
+                self._process_frame_obs(*self._pending_extraction.popleft())
+            # the backend time is recorded by the deferred processing
+            t1 = t2 = t3 = time.perf_counter()
+        else:
+            self._process_frame_obs(*item)
+            t1, t2, t3 = self._t1, self._t2, self._t3
+            self.metrics["backend"].append(t3 - t2)
+        self.metrics["frontend"].append(t1 - t0)
+        self.metrics["total"].append(t3 - t0)
+        self.depth_trace.append(self.pipeline_depth)
         return True
 
     # ------------------------------------------------------------------
@@ -303,7 +396,9 @@ class Tracking:
     def _process_frame_obs(self, frame_id, pose_wc, det_mat, ext_out, run,
                            with_association):
         """Host-side half of a frame: fetch the extraction result,
-        associate, store observations, initialize, dispatch the backend."""
+        associate, store observations, initialize, dispatch the backend.
+        With ``pipeline_depth`` >= 2 it runs ``pipeline_depth`` - 1 frames
+        after the frame's dispatch, with the same inputs."""
         tp0 = time.perf_counter()
         n_det = det_mat.shape[0]
         local_vec10 = np.zeros((n_det, 10))
@@ -311,15 +406,17 @@ class Tracking:
         local_valid = np.zeros(n_det, bool)
 
         # ---- fetch the extraction result -----------------------------
-        # the extractor returns None or the device tensor [pad, 12] (vec10,
-        # prob, valid).  This is the frame's ONE device-to-host copy for the
-        # extraction (the host waits here for its kernels to finish)
+        # the extractor returned None or the call's handle, whose copy home
+        # started at dispatch: the wait is what is left of the frame's
+        # kernels and copy.  The call's counts (clustering rounds, lanes)
+        # ride the same copy into its stats
         ext_np = None
         if ext_out is not None:
-            # ``fetch`` brings the extractor's counts of the frame
-            # (clustering rounds, lanes) home in the same copy
             ext_np = self.extractor.fetch(ext_out)
-        self.metrics["fetch"].append(time.perf_counter() - tp0)
+        fetch_s = time.perf_counter() - tp0
+        self.metrics["fetch"].append(fetch_s)
+        if ext_np is not None and self.pipeline_depth >= 2:
+            self._adapt_depth(fetch_s)
         if ext_np is not None:
             # the extractor may return fewer rows than detections (its
             # detection-axis capacity); the overflow keeps 2D-only obs
@@ -334,8 +431,9 @@ class Tracking:
             local_prob[:n_rows][r] = ext_np[:n_rows][r, 10]
             local_valid[:n_rows][r] = ext_np[:n_rows][r, 11] > 0.5
 
-        # drain the previous backend result (its estimate stays on the
-        # device for the warm start; the host copy feeds history/outputs)
+        # drain the backend results whose copies have had their window
+        # (the warm start stays on the device; the host copy feeds the
+        # history and the outputs only)
         self._drain_ready_backends()
 
         # ---- [1.3] data association ----------------------------------
@@ -405,6 +503,38 @@ class Tracking:
         if self.open_optimization and self.state.initialized_instances():
             self._run_backend()
         self._t3 = time.perf_counter()
+        self.metrics["host"].append(self._t3 - tp0)
+        if self.pipeline_depth >= 2 and self.extractor is not None:
+            # a deferred frame: the grab recorded its dispatch only
+            self.metrics["backend"].append(self._t3 - self._t2)
+
+    # ------------------------------------------------------------------
+    def _adapt_depth(self, fetch_s: float):
+        """Adjust the depth from the wait of the due frame's fetch: three
+        blocked fetches in a row (> ``adapt_deepen_s``) deepen it by one up
+        to ``adapt_depth_max``; a full window of free ones (<
+        ``adapt_shallow_s``) makes it one shallower, down to the set
+        depth."""
+        if not self.adaptive_depth or self._flushing:
+            # sync()'s fetches read copies that never had their window
+            return
+        w = self._adapt_fetches
+        w.append(fetch_s)
+        recent = list(w)
+        blocked = len(recent) >= 3 and min(recent[-3:]) > self.adapt_deepen_s
+        if (blocked and self._pipeline_depth >= self.adapt_depth_max
+                and not self._saturation_logged):
+            self._saturation_logged = True
+            _log.info("extraction fetches still block at the maximum "
+                      "pipeline depth (%d)", self.adapt_depth_max)
+        if blocked and self._pipeline_depth < self.adapt_depth_max:
+            self._pipeline_depth += 1
+            w.clear()
+        elif (len(recent) == w.maxlen
+                and max(recent) < self.adapt_shallow_s
+                and self._pipeline_depth > self._depth_base):
+            self._pipeline_depth -= 1
+            w.clear()
 
     # ------------------------------------------------------------------
     def _check_keyframes(self, associations, pose_wc) -> List[bool]:
@@ -612,8 +742,9 @@ class Tracking:
         return flat_t, est_prev, self.max_objects, M2t, M3t
 
     def _unpack(self, prep) -> ObjectObservations:
-        """One host->device copy of the packed batch, then views into it."""
-        flat = torch.from_numpy(prep["flat"]).to(self.device)
+        """One host->device copy of the packed batch (from pinned memory,
+        no wait), then views into it."""
+        flat = to_device(prep["flat"], self.device)
         out = {}
         for name, off, shp in self._lm_layout(prep["O"], prep["M2t"],
                                               prep["M3t"]):
@@ -677,15 +808,16 @@ class Tracking:
     def _dispatch_prepared(self, prep):
         obs = self._unpack(prep)
         est, _chi2 = optimize_objects_soa(
-            obs, self._K_dev, torch.as_tensor(prep["normal"],
-                                              device=self.device),
+            obs, self._K_dev, to_device(prep["normal"], self.device),
             prep["gset"], self.lm_cfg)
-        # the next LM call chains from this device tensor; the host copy
-        # (history/outputs) is drained one call later
+        # the next LM call chains from this device tensor; its copy home
+        # (history/outputs) starts now and is drained ``pipeline_depth``
+        # calls later
         self._est_prev_dev = est
         self._backend_calls += 1
         self._pending_backends.append(
-            (self._backend_calls, est, prep["slots"], prep["nobs"]))
+            (self._backend_calls, HostCopy.start(est), prep["slots"],
+             prep["nobs"]))
 
     def _run_backend(self):
         self._dispatch_prepared(self._prepare_backend())
@@ -697,8 +829,8 @@ class Tracking:
             age = self._backend_calls - self._pending_backends[0][0]
             if not all_pending and age < self.pipeline_depth:
                 break
-            _, est, slot_to_instance, nobs = self._pending_backends.popleft()
-            est = est.cpu().numpy().astype(np.float64)
+            _, copy, slot_to_instance, nobs = self._pending_backends.popleft()
+            est = copy.wait().numpy().astype(np.float64)
             for slot, inst in slot_to_instance:
                 self.state.objects[inst].vec10 = est[slot]
             self._refresh_history(nobs)
@@ -713,8 +845,16 @@ class Tracking:
                     [self.state.objects[i].label for i in insts])
 
     def sync(self):
-        """Drain every pending backend result."""
-        self._drain_ready_backends(all_pending=True)
+        """Flush the pipeline: resolve a pending plane, process the
+        deferred frames in order, drain every backend result."""
+        self._resolve_pending_plane()
+        self._flushing = True
+        try:
+            while self._pending_extraction:
+                self._process_frame_obs(*self._pending_extraction.popleft())
+            self._drain_ready_backends(all_pending=True)
+        finally:
+            self._flushing = False
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -271,8 +271,8 @@ def test_launch_memory_covers_the_lanes():
 
 def test_extractor_counts_ride_the_fetch():
     """After a CPU call the clustering counts are device values in the
-    packed result; ``fetch`` fills ``stats`` from its last row (the host's
-    counts are there from the call on)."""
+    packed result; ``fetch`` fills the call's ``stats`` from its last row
+    (the host's counts are there from the call on)."""
     scene = tsyn.make_scene(n_objects=3, seed=5, radius_range=(1.3, 2.0),
                             scale_range=(0.2, 0.35))
     frames = list(tsyn.SyntheticDataset(scene, n_frames=2, orbit_radius=3.6,
@@ -287,9 +287,10 @@ def test_extractor_counts_ride_the_fetch():
     assert ex.stats == {"cloud_tier": ex.stats["cloud_tier"], "sym_single": 0,
                         "sym_dual": 0}
     host = ex.fetch(out)
-    assert host.shape == (out.shape[0], 12) and host.dtype == np.float64
-    np.testing.assert_array_equal(host, out.numpy().astype(np.float64))
+    assert host.shape == (out.rows.shape[0], 12) and host.dtype == np.float64
+    np.testing.assert_array_equal(host, out.rows.numpy().astype(np.float64))
     st = ex.stats
+    assert st is out.stats
     assert st["cluster_converged"] is True
     assert isinstance(st["cluster_rounds"], int) and 2 <= st["cluster_rounds"]
     assert 100 < st["cluster_survivors"] == st["cluster_lanes"] <= 2048
@@ -306,6 +307,11 @@ def test_extractor_counts_ride_the_fetch():
     assert int(dev_stats["cluster_rounds"]) == st["cluster_rounds"]
     assert int(dev_stats["cluster_lanes"]) == st["cluster_lanes"] \
         == int(a[3].sum(1).max())
-    # only the last call's result can be fetched: its counts ride with it
-    with pytest.raises(ValueError, match="last call"):
-        ex.fetch(torch.zeros(2, 12))
+    # the counts ride with their own call's result: fetched after a later
+    # call (of another frame), the handle still gives this frame's
+    later = ex(frames[0][3], frames[0][5][:, 1:5].copy(),
+               frames[0][5][:, 5].astype(int), frames[0][2], plane)
+    np.testing.assert_array_equal(ex.fetch(out), host)
+    assert ex.stats is out.stats and ex.stats == st
+    ex.fetch(later)
+    assert ex.stats is later.stats

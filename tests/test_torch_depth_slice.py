@@ -58,11 +58,14 @@ def small_object_tier(monkeypatch):
 
 
 def _port_system(cam, ext_kw=EXT_KW):
+    """The port's System, eager like the JAX one it is held against (the
+    deferred pipeline against the eager loop: tests/test_torch_pipeline.py)."""
     slam = System(YAML,
                   extractor=make_extractor(cam, ExtractorConfig(**ext_kw),
                                            device="cpu"),
                   plane_estimator=make_plane_estimator(cam, device="cpu"),
                   device="cpu")
+    slam.tracker.pipeline_depth = 1
     slam.open_ground_plane_estimation()
     return slam
 
@@ -235,6 +238,7 @@ def test_no_plane_no_extraction():
     tr = Tracking(Config(YAML), extractor=extractor,
                   plane_estimator=make_plane_estimator(cam, device="cpu"),
                   device="cpu")
+    tr.pipeline_depth = 1           # eager: the plane latches in its frame
     tr.open_optimization = False
     i, ts, pose, depth, rgb, det = frames[0]
     tr.grab_pose_and_objects(ts, pose, det, depth)

@@ -173,13 +173,15 @@ def test_monolithic_extractor_packs_pad_by_12(frame):
                              device="cpu")
     out = ex(f["depth"], f["bboxes"], np.array([56, 57, 58]),
              f["pose"].astype(np.float64), f["plane"].astype(np.float64))
-    assert isinstance(out, torch.Tensor) and tuple(out.shape) == (4, 12)
-    assert not out[3, 11] and set(out[:, 11].tolist()) <= {0.0, 1.0}
+    assert isinstance(out, text.ExtractionHandle)
+    rows = out.rows
+    assert isinstance(rows, torch.Tensor) and tuple(rows.shape) == (4, 12)
+    assert not rows[3, 11] and set(rows[:, 11].tolist()) <= {0.0, 1.0}
     assert ex.stats["cloud_tier"] in (1024, 2048)
     # the clustering counts ride the result's copy: there after the fetch
     assert "cluster_rounds" not in ex.stats
     host = ex.fetch(out)
-    np.testing.assert_array_equal(host, out.numpy().astype(np.float64))
+    np.testing.assert_array_equal(host, rows.numpy().astype(np.float64))
     assert 2 <= ex.stats["cluster_rounds"] < 96 and ex.stats["cluster_converged"]
     assert 200 < ex.stats["cluster_survivors"] == ex.stats["cluster_lanes"]
     assert ex(f["depth"], f["bboxes"], None, f["pose"], None) is None
@@ -188,7 +190,7 @@ def test_monolithic_extractor_packs_pad_by_12(frame):
         torch.ones(3, dtype=torch.bool), torch.from_numpy(f["pose"]),
         torch.from_numpy(f["plane"]), f["cam"],
         text.ExtractorConfig(**dict(KW, cloud_capacity=ex.stats["cloud_tier"])))
-    np.testing.assert_allclose(out[:3, :10].numpy(), e.numpy(), atol=1e-6)
+    np.testing.assert_allclose(rows[:3, :10].numpy(), e.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("bboxes,want", [
@@ -292,7 +294,7 @@ def default_extraction(frame):
     out = ex(frame["depth"], frame["bboxes"], np.array([56, 57, 58]),
              frame["pose"].astype(np.float64),
              frame["plane"].astype(np.float64))
-    out = out.numpy().astype(np.float64)
+    out = ex.fetch(out)
     assert (out[:3, 11] > 0.5).sum() >= 2
     return out
 

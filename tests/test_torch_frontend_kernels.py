@@ -791,3 +791,55 @@ def test_extraction_with_sparse_symmetry_on_card(device):
     for k in ("sym_sources", "sym_points", "sym_dense"):
         assert int(st[k]) == int(st_cpu[k]), k
     assert int(st["sym_sources"]) < int(st["sym_points"])
+
+
+def test_pipelined_frames_wait_only_on_events(device):
+    """Eight frames of the depth path at pipeline depth 4 on the card, each
+    grab under PyTorch's synchronisation check set to raise: every copy of
+    a frame is pinned and asynchronous, and the host waits only on the
+    events of the due fetch and the backend drain.  Two frames before them
+    latch the plane (the asynchronous plane defers the first to the
+    second's grab).  After the flush the map equals the eager run's within
+    1e-4 (tests/test_torch_pipeline.py's bound)."""
+    import os
+
+    from object_oriented_slam_tpu_torch.frontend import (
+        make_extractor, make_plane_estimator)
+    from object_oriented_slam_tpu_torch.system import System
+    yaml = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "object_oriented_slam_tpu_torch", "configs",
+                        "synthetic_depth.yaml")
+    scene = syn.make_scene(n_objects=8, seed=7, radius_range=(1.3, 2.2),
+                           scale_range=(0.2, 0.4))
+    frames = list(syn.SyntheticDataset(scene, n_frames=10, orbit_radius=3.6,
+                                       height=1.7,
+                                       depth_device=device).frames())
+
+    def run(depth_n, checked):
+        cam = scene.camera
+        slam = System(yaml, extractor=make_extractor(cam, ExtractorConfig(),
+                                                     device),
+                      plane_estimator=make_plane_estimator(cam,
+                                                           device=device),
+                      device=device)
+        slam.tracker.pipeline_depth = depth_n
+        slam.tracker.adaptive_depth = False
+        slam.open_ground_plane_estimation()
+        for i, ts, pose, depth, rgb, det in frames:
+            if checked and i >= 2:
+                assert slam.tracker.state.ground_state == 2
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                slam.track_with_objects(ts, pose, det, depth=depth)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return slam
+
+    before = fk.DEPTH_CLOUD.launches
+    piped = run(4, True)
+    assert fk.DEPTH_CLOUD.launches - before == 10
+    assert len(piped.tracker._pending_extraction) == 3
+    got, want = piped.map_objects, run(1, False).map_objects
+    assert sorted(got) == sorted(want) and len(want) >= 6
+    for inst in want:
+        np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)

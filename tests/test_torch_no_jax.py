@@ -28,7 +28,8 @@ DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "ops.backproject", "ops.voxel", "ops.cluster", "ops.pca",
                  "ops.linalg", "frontend", "frontend.ground_plane",
                  "frontend.extractor", "frontend.symmetry", "io.synthetic", "system.tracking",
-                 "system.system", "system.checkpoint", "backend.ba_kernels"]
+                 "system.system", "system.checkpoint", "backend.ba_kernels",
+                 "io.png", "io.tum", "io.native_loader", "utils.transfer"]
 
 
 def _sources():
@@ -71,6 +72,9 @@ def test_chip_smoke_and_port_examples_import_no_jax():
     chip_smoke with JAX blocked works and starts nothing."""
     scripts = list(_scripts())
     assert len(scripts) >= 2
+    names = [os.path.basename(p) for p in scripts]
+    assert "torch_run_tum.py" in names and \
+        "torch_make_synthetic_tum.py" in names
     for p in scripts:
         src = open(p).read()
         assert not _IMPORT.search(src), p
@@ -86,7 +90,7 @@ def test_chip_smoke_and_port_examples_import_no_jax():
     for phase in ("phase_kernels", "phase_steps", "phase_whole_lm",
                   "phase_main_path", "phase_frontend_kernels",
                   "phase_depth_path", "phase_symmetry_path",
-                  "phase_symmetry_kernel"):
+                  "phase_symmetry_kernel", "phase_cli"):
         assert phase in out.stdout, phase
 
 

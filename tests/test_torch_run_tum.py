@@ -1,0 +1,174 @@
+"""The port's TUM command line (examples/torch_run_tum.py) against the JAX
+package's (examples/run_tum.py) on the CPU.
+
+One TUM-format export, written by the port's exporter
+(examples/torch_make_synthetic_tum.py), of tests/test_torch_depth_slice.py's
+scene: 6 objects, 12 frames, 640x480, odometry noise 0.01 m.  The JAX CLI
+runs it with ``--extractor mono`` (the port's only extractor), the port's
+with ``--device cpu``; both at their default pipeline (adaptive depth 4,
+asynchronous plane).  Two settings differ from the CLI's defaults, on both
+sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
+(as in tests/test_torch_depth_slice.py; the CLI's 16384 lets a frame's tier
+grow to its largest box), and the port's LM batch starts at 8 object slots
+instead of 24 (empty slots are masked, so results are the same; the plain
+normal equations' CPU cost goes with the slots).  The file takes about
+three minutes: the port's plain LM costs seconds a call on the CPU, and the
+checkpoint case runs the sequence a second time.  Tolerance:
+tests/test_torch_depth_slice.py's TOL = 2e-3 on centres and sorted scales
+(f32 LM round-off accumulated over the run), the same instances, and
+object_history.txt with the same rows per instance.
+"""
+import contextlib
+import functools
+import importlib.util
+import io
+import os
+import sys
+
+import numpy as np
+import pytest
+
+import object_oriented_slam_tpu.frontend as jfrontend
+import object_oriented_slam_tpu_torch.frontend as tfrontend
+from object_oriented_slam_tpu_torch.io import synthetic as tsyn
+from object_oriented_slam_tpu_torch.io.writers import load_objects
+from object_oriented_slam_tpu_torch.system import Tracking
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAML = os.path.join(ROOT, "object_oriented_slam_tpu_torch", "configs",
+                    "synthetic_depth.yaml")
+SCENE_KW = dict(n_objects=6, seed=3, radius_range=(1.3, 2.2),
+                scale_range=(0.2, 0.4))
+DATA_KW = dict(n_frames=12, orbit_radius=3.6, height=1.7)
+CLOUD_CAPACITY = 2048
+SPLIT = 9           # checkpoint after this many frames
+TOL = 2e-3
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _port_cli(argv):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Tracking, "MAX_OBJECTS", 8)
+        mp.setattr(tfrontend, "ExtractorConfig", functools.partial(
+            tfrontend.ExtractorConfig, cloud_capacity=CLOUD_CAPACITY))
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            slam = _example("torch_run_tum").main(argv)
+    return slam, out.getvalue()
+
+
+def _jax_cli(argv):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "argv", ["run_tum.py", *argv])
+        mp.setattr(jfrontend, "ExtractorConfig", functools.partial(
+            jfrontend.ExtractorConfig, cloud_capacity=CLOUD_CAPACITY))
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            _example("run_tum").main()
+    return out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The export, and the JAX CLI's and the port CLI's output directories:
+    the whole run, and a run to SPLIT frames checkpointed then resumed."""
+    tmp = tmp_path_factory.mktemp("tum_cli")
+    seq = str(tmp / "seq")
+    scene = tsyn.make_scene(**SCENE_KW)
+    n = _example("torch_make_synthetic_tum").export_synthetic_tum(
+        seq, scene, tsyn.SyntheticDataset(scene, **DATA_KW),
+        odometry_noise=0.01)
+    assert n == DATA_KW["n_frames"]
+    out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed")}
+    ckpt = str(tmp / "state.npz")
+    jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
+                        "mono"])
+    slam, log = _port_cli([YAML, seq, "--out", out["port"],
+                           "--device", "cpu"])
+    _port_cli([YAML, seq, "--out", out["split"], "--device", "cpu",
+               "--max-frames", str(SPLIT), "--checkpoint", ckpt])
+    _port_cli([YAML, seq, "--out", out["resumed"], "--device", "cpu",
+               "--resume", ckpt])
+    return seq, out, slam, log, jax_log
+
+
+def _objects(d):
+    insts, vecs = load_objects(os.path.join(d, "objects.txt"))
+    return dict(zip(insts, vecs))
+
+
+def _history_rows(d):
+    """Rows per instance of object_history.txt (a count line, then per
+    instance a header ``instance n_rows`` and its rows)."""
+    with open(os.path.join(d, "object_history.txt")) as f:
+        lines = [ln.split() for ln in f if ln.strip()]
+    rows, i = {}, 1
+    while i < len(lines):
+        inst, n = int(lines[i][0]), int(lines[i][1])
+        rows[inst] = n
+        i += 1 + n
+    return rows
+
+
+def test_cli_matches_jax(runs):
+    seq, out, slam, log, jax_log = runs
+    got, want = _objects(out["port"]), _objects(out["jax"])
+    assert sorted(got) == sorted(want) and len(want) >= 5
+    for inst in want:
+        np.testing.assert_allclose(got[inst][:3], want[inst][:3], atol=TOL)
+        np.testing.assert_allclose(np.sort(got[inst][7:]),
+                                   np.sort(want[inst][7:]), atol=TOL)
+    assert _history_rows(out["port"]) == _history_rows(out["jax"])
+    # the run went through the deferred pipeline and printed what the JAX
+    # CLI prints
+    tr = slam.tracker
+    assert tr.pipeline_depth >= 4 and tr.adaptive_depth
+    assert len(tr.metrics["plane_wait"]) == 1
+    assert len(tr.depth_trace) == 12 == len(tr.metrics["fetch"])
+    for line in ("Processed 12 frames", "Timing:", "Objects:"):
+        assert line in log and line in jax_log
+
+
+def test_cli_map_against_ground_truth(runs):
+    seq, out = runs[:2]
+    got = _objects(out["port"])
+    gt = {int(r[0]): r[1:] for r in np.loadtxt(
+        os.path.join(seq, "objects_gt.txt"), ndmin=2)}
+    err = [np.linalg.norm(v[:3] - gt[i][:3]) for i, v in got.items()]
+    assert np.median(err) < 0.05, err
+
+
+def test_checkpoint_then_resume_reproduces_the_run(runs):
+    out = runs[1]
+    whole, resumed = _objects(out["port"]), _objects(out["resumed"])
+    assert sorted(resumed) == sorted(whole)
+    for inst in whole:
+        np.testing.assert_allclose(resumed[inst], whole[inst], atol=1e-6)
+    assert _history_rows(out["resumed"]) == _history_rows(out["port"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
+    ["--viz-live", "5"], ["--slam-mode"], ["--odo-weight", "2"],
+    ["--distributed"], ["--offline"], ["--offline-split"], ["--batch", "4"],
+    ["--extractor", "auto"], ["--extractor", "split"],
+    ["--extractor", "fused"]])
+def test_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        _example("torch_run_tum").main(
+            [YAML, str(tmp_path), "--device", "cpu", *flags])
+
+
+def test_default_device_is_the_card(tmp_path):
+    """Without a CUDA device the CLI's default device raises: there is no
+    fall-back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="not available"):
+        _example("torch_run_tum").main([YAML, str(tmp_path)])

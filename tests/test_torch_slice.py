@@ -205,14 +205,14 @@ def test_observation_tiers_are_powers_of_two():
 
 
 @pytest.mark.parametrize("what", [
-    "extractor", "plane_estimator", "ext_result", "fuse_lm",
-    "pipeline_depth", "adaptive_depth", "batch_svd_init", "aos_backend",
+    "extractor", "ext_result", "fuse_lm", "batch_svd_init", "aos_backend",
     "distributed", "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
     """What is not ported raises: "extractor" is a split or fused
-    extractor, "plane_estimator" the asynchronous plane estimate and
-    "ground_plane" its interactive confirmation (the monolithic extractor,
-    the synchronous estimate and the plane latch are ported)."""
+    extractor and "ground_plane" the plane's interactive confirmation (the
+    monolithic extractor, the plane estimate and its latch, the deferred
+    pipeline, the adaptive depth and the asynchronous plane are ported:
+    tests/test_torch_pipeline.py)."""
     cfg = Config(YAML)
     if what == "extractor":
         for attr in ("two_phase", "fused"):
@@ -233,12 +233,9 @@ def test_unported_options_raise(what):
         "ext_result": lambda: tr.grab_pose_and_objects(
             0.0, pose, np.zeros((0, 8)), None, ext_result=np.zeros((0, 12))),
         "fuse_lm": lambda: setattr(tr, "fuse_lm", True),
-        "pipeline_depth": lambda: setattr(tr, "pipeline_depth", 4),
-        "adaptive_depth": lambda: setattr(tr, "adaptive_depth", True),
         "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
         "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
         "distributed": tr.enable_distributed,
-        "plane_estimator": lambda: setattr(tr, "async_plane", True),
     }[what]
     with pytest.raises(NotImplementedError):
         act()

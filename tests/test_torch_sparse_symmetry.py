@@ -532,8 +532,9 @@ def test_whole_run_sparse_matches_jax(monkeypatch):
                   device="cpu")
     jslam = JSystem(yaml, extractor=jmake_ext(jcam, JExtCfg(**kw)),
                     plane_estimator=jmake_plane(jcam))
-    jslam.tracker.pipeline_depth = 1
     for s in (slam, jslam):
+        # eager, so the extractor's stats after a frame are that frame's
+        s.tracker.pipeline_depth = 1
         s.open_ground_plane_estimation()
     proper = 0
     for i, ts, pose, depth, rgb, det in frames:

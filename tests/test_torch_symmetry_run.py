@@ -48,8 +48,9 @@ def test_whole_run_with_symmetry_matches_jax(monkeypatch):
                   device="cpu")
     jslam = JSystem(YAML, extractor=jmake_ext(jcam, JExtCfg(**kw)),
                     plane_estimator=jmake_plane(jcam))
-    jslam.tracker.pipeline_depth = 1
     for s in (slam, jslam):
+        # eager, so the extractor's stats after a frame are that frame's
+        s.tracker.pipeline_depth = 1
         s.open_ground_plane_estimation()
     duals = []
     for i, ts, pose, depth, rgb, det in frames:
