@@ -6,7 +6,9 @@ Phases (each raises on failure; the script exits non-zero if any fails):
   1. the card's name and power limit; TF32 off for the plain versions'
      matmuls;
   2. build the BA edge kernels from csrc/ba_edges.cu and the depth-frontend
-     kernels from csrc/frontend.cu (nvcc, sm_90a, both at once);
+     kernels from csrc/frontend.cu (nvcc, sm_90a) and the host clustering
+     of the split extractors from native/src/cluster.cpp (g++), all at
+     once;
   3. each kernel against its plain PyTorch version on the same card
      tensors, at full capacity (24 objects, 512 2D and 256 3D edges each,
      gravity on) and at the main path's tier (24, 512, 32), with its time
@@ -79,23 +81,30 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      plain version (and with every live point as a source bit-equal to
      the search without a mask), and at sym_capacity filled with about
      half the points as sources;
-  6c. the command line ([cli]): the symmetry path's scene and orbit
+  6c. the command line ([cli]): the probe's round trip and choice (which
+     must be fused-split with LM fusion on the card); one split extraction
+     call (phase A, the host middle stage, phase B) under the profiler
+     beside the monolithic call; the symmetry path's scene and orbit
      exported as a TUM sequence by examples/torch_make_synthetic_tum.py and
-     run by examples/torch_run_tum.py with synthetic_depth_sym.yaml, once
-     at --pipeline-depth 1 and once at the default (the adaptive deferred
-     pipeline, depth 4 to 8, and the asynchronous plane): 24/24 objects
-     within a median centre error of 0.05 m of objects_gt.txt, map IoU,
-     the two objects.txt within 1e-4 (and whether bit-equal), every kernel
-     launched, and every frame after the plane latch under PyTorch's
-     synchronisation check set to raise (the host waits only on the
-     events of the due fetch, the drain and the plane); per run the
-     frames' host ms, frames/s, fetch waits and blocked share, the depth
-     trace and launches; the numpy PNG decode ms of a depth frame (Up
-     filter), of its Paeth-filtered copy and, where cv2 is installed, of the
-     frame as cv2 writes it;
+     run by examples/torch_run_tum.py with synthetic_depth_sym.yaml, with
+     --extractor mono at --pipeline-depth 1 and at the default (the
+     adaptive deferred pipeline, depth 4 to 8, and the asynchronous plane),
+     split, fused and the default auto: 24/24 objects within a median
+     centre error of 0.05 m of objects_gt.txt, map IoU, each objects.txt
+     within 1e-4 of the adaptive mono run's (and whether bit-equal), every
+     kernel of the run's path launched (cluster_components never on the
+     host-clustered runs), and every frame after the plane latch under
+     PyTorch's synchronisation check set to raise (the host waits only on
+     the events of the due fetch, the drain, the plane and phase A's
+     copy); per run the frames' host ms, frames/s, fetch waits and blocked
+     share, the depth trace and launches, and on the host-clustered runs
+     the middle stage's host ms and phase A's bytes a frame; the numpy PNG
+     decode ms of a depth frame (Up filter), of its Paeth-filtered copy
+     and, where cv2 is installed, of the frame as cv2 writes it;
   8. one JSON line with a record per kernel (``launches_cli``: the
-     adaptive CLI run's count of that kernel), the card line, and the
-     result line {"ok": true, "device": {...}} last.
+     adaptive mono CLI run's count of that kernel, ``launches_cli_split``
+     / ``_fused`` / ``_auto`` the host-clustered runs'), the card line,
+     and the result line {"ok": true, "device": {...}} last.
 Every path prints its map's IoU against the ground truth
 (system/metrics.object_map_iou).
 """
@@ -185,6 +194,16 @@ REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
             "K4": "attic/pallas_ba_kernels.py:238"}
+
+
+def build_cluster():
+    """The host clustering library of the split extractors, built from
+    native/src/cluster.cpp with g++ (io/native_loader.py); raises with the
+    compiler's error."""
+    from object_oriented_slam_tpu_torch.io import native_loader
+    if not native_loader.cluster_available():
+        raise RuntimeError(f"native/src/cluster.cpp does not build: "
+                           f"{native_loader.cluster_error()}")
 
 
 def card_line():
@@ -1886,18 +1905,49 @@ def drive_cli(dev, settings, seq, out, extra):
     flags, every launch counter set to 0 just before and read just after.
     Every frame after the plane latch runs under PyTorch's synchronisation
     check set to raise: the host may wait only on the events of the due
-    fetch, the backend drain and the plane's resolve.  Returns (System, the
-    CLI's printout, host seconds of each frame's track_with_objects, frames
-    checked, fetch waits of the loop (the final flush left out),
-    launches)."""
+    fetch, the backend drain, the plane's resolve and, with a
+    host-clustered extractor, phase A's copy.  The split extractors' host
+    middle stage, its labelling (io/native_loader.cluster_labels) and
+    phase A are wrapped here (the program keeps no metric of them): host
+    seconds of each middle stage and of the labelling inside it, bytes of
+    each phase A result copied home.  Returns (System, the CLI's printout,
+    host seconds of each frame's track_with_objects, frames checked, fetch
+    waits of the loop (the final flush left out), launches, [middle-stage
+    seconds, labelling seconds] per middle stage, phase-A bytes)."""
     import contextlib
     import io
     from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.frontend.extractor import \
+        SplitExtractor
+    from object_oriented_slam_tpu_torch.io import native_loader
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     from object_oriented_slam_tpu_torch.system import System
 
     grab = System.track_with_objects
+    middle, phase_a = SplitExtractor.middle, SplitExtractor.phase_a
+    labels = native_loader.cluster_labels
     e2e, checked, loop_fetches = [], [0], [0]
+    middle_s, a_bytes, labels_s = [], [], [0.0]
+
+    def timed_labels(*args):
+        t0 = time.perf_counter()
+        try:
+            return labels(*args)
+        finally:
+            labels_s[0] += time.perf_counter() - t0
+
+    def timed_middle(self, h):
+        labels_s[0] = 0.0
+        t0 = time.perf_counter()
+        try:
+            return middle(self, h)
+        finally:
+            middle_s.append((time.perf_counter() - t0, labels_s[0]))
+
+    def sized_phase_a(self, *args):
+        h = phase_a(self, *args)
+        a_bytes.append(h.a_out.numel() * h.a_out.element_size())
+        return h
 
     def track(self, *args, **kwargs):
         if self.tracker.device.type != "cuda":
@@ -1919,29 +1969,102 @@ def drive_cli(dev, settings, seq, out, extra):
     for k in all_kernels:
         k.launches = 0
     System.track_with_objects = track
+    SplitExtractor.middle = timed_middle
+    SplitExtractor.phase_a = sized_phase_a
+    native_loader.cluster_labels = timed_labels
     try:
         with contextlib.redirect_stdout(io.StringIO()) as printed:
             slam = example("torch_run_tum").main(
                 [settings, seq, "--out", out, *extra])
     finally:
         System.track_with_objects = grab
+        SplitExtractor.middle, SplitExtractor.phase_a = middle, phase_a
+        native_loader.cluster_labels = labels
     launches = {k.name: k.launches for k in all_kernels}
     fetch = np.array(slam.tracker.metrics["fetch"][:loop_fetches[0]])
     return slam, printed.getvalue(), np.array(e2e), checked[0], fetch, \
-        launches
+        launches, np.array(middle_s).reshape(-1, 2), np.array(a_bytes)
 
 
-def phase_cli(dev, tmp):
+CLI_RUNS = (("mono depth 1", ["--extractor", "mono", "--pipeline-depth", "1"]),
+            ("mono adaptive", ["--extractor", "mono"]),
+            ("split", ["--extractor", "split"]),
+            ("fused", ["--extractor", "fused"]),
+            ("auto", []))
+HOST_CLUSTERED = ("split", "fused", "auto")
+
+
+def split_call_overhead(settings, frame, ground_plane, mono_call):
+    """One split extraction call (phase A, the host middle stage, phase B
+    and the fetch) at the symmetry path's mid-orbit frame under the
+    profiler: device operations and busy time beside the monolithic
+    call's ``mono_call`` (busy ms, operations).  Raises unless it launches
+    depth_cloud, voxel_downsample and symmetry_search once each and
+    cluster_components never, and unless phase A's and phase B's launches
+    run without a host synchronisation (the middle stage waits on phase
+    A's copy event only).  Returns (busy ms, device operations)."""
+    from object_oriented_slam_tpu_torch.frontend import make_split_extractor
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    _, _, pose, depth, _, det = frame
+    ex = make_split_extractor(scene24_sym().camera,
+                              extractor_config(settings))
+    args = (depth, det[:, 1:5].copy(), det[:, 5].astype(int), pose,
+            ground_plane)
+
+    def call():
+        return ex.fetch(ex.midway(ex(*args)))
+
+    wall = wall_ms(call, 5)
+    prof = device_busy(call)
+    if prof is None:
+        raise RuntimeError("the profiler shows no device time for a split "
+                           "extraction call")
+    busy, ops, top = prof
+    before = {k.name: k.launches for k in fk.KERNELS}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = ex(*args)
+        out = ex.midway(h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = ex.fetch(out)
+    per_call = {k.name: k.launches - before[k.name] for k in fk.KERNELS}
+    want = {"depth_cloud": 1, "voxel_downsample": 1,
+            "cluster_components": 0, "symmetry_search": 1}
+    if per_call != want:
+        raise RuntimeError(f"a split extraction call launched {per_call}, "
+                           f"not {want}")
+    if not np.isfinite(host).all():
+        raise RuntimeError("the split call's result is not finite")
+    print(f"[cli] one split extraction call ({len(det)} detections, "
+          f"{ex.stats}): {wall:.3f} ms wall (host clock, mean of 5, the "
+          f"middle stage included); device busy {busy:.3f} ms over {ops} "
+          f"device operations (phase A + phase B, launches {per_call}); the "
+          f"monolithic call: {mono_call[1]} device operations, busy "
+          f"{mono_call[0]:.3f} ms; phase A's copy home "
+          f"{h.a_out.numel() * h.a_out.element_size()} bytes; no host "
+          f"synchronisation in phase A or phase B; top kernels {top}")
+    return busy, ops
+
+
+def phase_cli(dev, tmp, sym_path, sym_call):
     """examples/torch_run_tum.py end to end on the card: the symmetry
     path's scene and orbit (24 objects, seed 7, N_DEPTH_FRAMES frames,
     640x480) exported as a TUM sequence by
     examples/torch_make_synthetic_tum.py (depth rendered on the card), run
-    with configs/synthetic_depth_sym.yaml at --pipeline-depth 1 and at the
-    default (adaptive depth 4..8, asynchronous plane).  Raises unless both
-    map 24/24 objects within a median centre error of 0.05 m of
-    objects_gt.txt, their objects.txt agree within 1e-4, every kernel
-    launched in each run, and no frame after the plane latch made the host
-    wait other than on an event.  Returns the adaptive run's launches."""
+    with configs/synthetic_depth_sym.yaml once per architecture of
+    CLI_RUNS: --extractor mono at --pipeline-depth 1 and at the default
+    (adaptive depth 4..8, asynchronous plane), split, fused and the default
+    auto (the probe's choice, which must be fused with LM fusion on this
+    card).  Raises unless every run maps 24/24 objects within a median
+    centre error of 0.05 m of objects_gt.txt, its objects.txt agrees with
+    the adaptive mono run's within 1e-4, every kernel of its path launched
+    (depth_cloud, voxel_downsample and symmetry_search once a frame;
+    cluster_components once a frame on mono and never on the host-clustered
+    runs), and no frame after the plane latch made the host wait other
+    than on an event.  Also one split call under the profiler at
+    ``sym_path``'s frame beside the mono call ``sym_call``.  Returns the
+    launches of each run by name."""
     import importlib.util
     import object_oriented_slam_tpu_torch as pkg
     from object_oriented_slam_tpu_torch.io.native_loader import \
@@ -1949,6 +2072,17 @@ def phase_cli(dev, tmp):
     from object_oriented_slam_tpu_torch.io.synthetic import SyntheticDataset
     from object_oriented_slam_tpu_torch.io.writers import load_objects
     from object_oriented_slam_tpu_torch.system.metrics import object_map_iou
+    from object_oriented_slam_tpu_torch.system.probe import (
+        RTT_THRESHOLD_MS, choose_architecture, probe_device_rtt_ms)
+
+    rtt = probe_device_rtt_ms()
+    choice = choose_architecture(rtt)
+    print(f"[cli] probe: device round trip {rtt:.4f} ms (median of 7, a "
+          f"trivial operation and a blocking scalar read; threshold "
+          f"{RTT_THRESHOLD_MS} ms) -> extractor={choice[0]}, "
+          f"fuse_lm={choice[1]}")
+    if choice != ("fused", True):
+        raise RuntimeError(f"the probe chose {choice} on this card")
 
     scene = scene24_sym()
     seq = os.path.join(tmp, "tum_sequence")
@@ -1972,12 +2106,12 @@ def phase_cli(dev, tmp):
         os.path.join(seq, "objects_gt.txt"), ndmin=2)}
     settings = os.path.join(os.path.dirname(pkg.__file__), "configs",
                             "synthetic_depth_sym.yaml")
-    maps = {}
-    for name, extra in (("depth 1", ["--pipeline-depth", "1"]),
-                        ("adaptive", [])):
+    split_call_overhead(settings, sym_path[0], sym_path[1], sym_call)
+    maps, cli_launches = {}, {}
+    for name, extra in CLI_RUNS:
         out = os.path.join(tmp, "cli_" + name.replace(" ", "_"))
-        slam, printed, e2e, checked, fetch, launches = drive_cli(
-            dev, settings, seq, out, extra)
+        slam, printed, e2e, checked, fetch, launches, middle, a_bytes = \
+            drive_cli(dev, settings, seq, out, extra)
         tr = slam.tracker
         insts, vecs = load_objects(os.path.join(out, "objects.txt"))
         objs = dict(zip(insts, vecs))
@@ -1989,16 +2123,19 @@ def phase_cli(dev, tmp):
         trace = tr.depth_trace
         e2e_ms, fetch_ms = e2e * 1e3, fetch * 1e3
         fps = len(e2e) / max(e2e.sum(), 1e-9)
+        arch = (type(tr.extractor).__name__, tr.fuse_lm)
         for line in printed.splitlines():
-            if line.startswith(("Processed", "Timing", "Pipeline depth")):
+            if line.startswith(("Processed", "Timing", "Pipeline depth",
+                                "probed")):
                 print(f"[cli] {name}: CLI: {line}")
-        print(f"[cli] {name}: {len(objs)}/24 objects; centre error median "
-              f"{np.median(errs):.4g} m, max {errs.max():.4g} m; map IoU "
-              f"median {np.median(iou):.4f}, min {iou.min():.4f}")
+        print(f"[cli] {name}: {arch[0]}, fuse_lm={arch[1]}; {len(objs)}/24 "
+              f"objects; centre error median {np.median(errs):.4g} m, max "
+              f"{errs.max():.4g} m; map IoU median {np.median(iou):.4f}, "
+              f"min {iou.min():.4f}")
         print(f"[cli] {name}: track_with_objects ms/frame p50 "
               f"{np.median(e2e_ms):.3f} mean {e2e_ms.mean():.3f} p99 "
               f"{np.percentile(e2e_ms, 99):.3f} (host clock, not synchronized "
-              f"per frame), {fps:.1f} frames/s over the calls; fetch wait "
+              f"per frame), {fps:.2f} frames/s over the calls; fetch wait "
               f"p50 {np.median(fetch_ms):.3f} p99 "
               f"{np.percentile(fetch_ms, 99):.3f} ms, blocked (> 3 ms) "
               f"{(fetch_ms > 3).mean():.3f} of {len(fetch_ms)}; plane wait "
@@ -2006,29 +2143,64 @@ def phase_cli(dev, tmp):
               f"depth trace start {trace[0]} final {trace[-1]} max "
               f"{max(trace)}; {checked} frames under the synchronisation "
               f"check")
+        if name in HOST_CLUSTERED:
+            mid_ms, lab_ms = middle[:, 0] * 1e3, middle[:, 1] * 1e3
+            print(f"[cli] {name}: host middle stage (labels and selection of "
+                  f"every run lane) ms p50 {np.median(mid_ms):.3f} p99 "
+                  f"{np.percentile(mid_ms, 99):.3f} mean {mid_ms.mean():.3f} "
+                  f"over {len(mid_ms)} calls, of it the labels "
+                  f"(cluster.cpp) p50 {np.median(lab_ms):.3f} mean "
+                  f"{lab_ms.mean():.3f} and the rest (the copy's wait, "
+                  f"slicing, _select_cluster_np) p50 "
+                  f"{np.median(mid_ms - lab_ms):.3f}; phase A's copy home "
+                  f"bytes a frame mean {a_bytes.mean():.0f} max "
+                  f"{a_bytes.max()} over {len(a_bytes)} frames")
+            if len(middle) != N_DEPTH_FRAMES or len(a_bytes) != N_DEPTH_FRAMES:
+                raise RuntimeError(f"{len(middle)} middle stages and "
+                                   f"{len(a_bytes)} phase A calls")
         print(f"[cli] {name}: kernel launches {launches}")
+        want_arch = {"mono depth 1": ("MonolithicExtractor", False),
+                     "mono adaptive": ("MonolithicExtractor", False),
+                     "split": ("SplitExtractor", False),
+                     "fused": ("FusedSplitExtractor", False),
+                     "auto": ("FusedSplitExtractor", True)}[name]
+        if arch != want_arch:
+            raise RuntimeError(f"the {name} run used {arch}")
+        if name == "auto" and not any(
+                line.startswith("probed device RTT")
+                and line.endswith("-> extractor=fused, fuse_lm=True")
+                for line in printed.splitlines()):
+            raise RuntimeError("the auto run did not print its probed choice")
         if len(e2e) != N_DEPTH_FRAMES or len(trace) != N_DEPTH_FRAMES:
             raise RuntimeError(f"the CLI ran {len(e2e)} frames")
         if len(objs) != 24 or not np.median(errs) < 0.05:
             raise RuntimeError(f"{len(objs)} of 24 objects, median centre "
                                f"error {np.median(errs):.4g} m")
-        if min(launches.values()) <= 0:
-            raise RuntimeError(f"a kernel of the CLI path never launched: "
-                               f"{launches}")
+        want = {k: N_DEPTH_FRAMES for k in ("depth_cloud", "voxel_downsample",
+                                            "symmetry_search")}
+        want["cluster_components"] = (0 if name in HOST_CLUSTERED
+                                      else N_DEPTH_FRAMES)
+        if ({k: launches[k] for k in want} != want
+                or min(launches["ba_normal_eq"], launches["ba_chi2"]) <= 0):
+            raise RuntimeError(f"the {name} run launched {launches}, the "
+                               f"frontend kernels not {want}")
         if checked < N_DEPTH_FRAMES - 2:
             raise RuntimeError(f"only {checked} frames ran under the "
                                "synchronisation check")
-        if name == "adaptive" and not (trace[0] >= 4 and tr.adaptive_depth
-                                       and tr.async_plane):
-            raise RuntimeError(f"the default run was not pipelined: {trace}")
-        cli_launches = launches
-    (a, text_a), (b, text_b) = maps["depth 1"], maps["adaptive"]
-    diff = max(np.abs(a[i] - b[i]).max() for i in a)
-    print(f"[cli] depth 1 against adaptive: objects.txt max |diff| {diff:.3g} "
-          f"(limit 1e-4), bit-equal files: {text_a == text_b}")
-    if sorted(a) != sorted(b) or not diff <= 1e-4:
-        raise RuntimeError(f"the pipelined run's objects.txt differs from "
-                           f"the eager run's by {diff}")
+        if name != "mono depth 1" and not (
+                trace[0] >= 4 and tr.adaptive_depth and tr.async_plane):
+            raise RuntimeError(f"the {name} run was not pipelined: {trace}")
+        cli_launches[name] = launches
+    ref, text_ref = maps["mono adaptive"]
+    for name, (objs, text) in maps.items():
+        if name == "mono adaptive":
+            continue
+        diff = max(np.abs(objs[i] - ref[i]).max() for i in ref)
+        print(f"[cli] {name} against mono adaptive: objects.txt max |diff| "
+              f"{diff:.3g} (limit 1e-4), bit-equal files: {text == text_ref}")
+        if sorted(objs) != sorted(ref) or not diff <= 1e-4:
+            raise RuntimeError(f"the {name} run's objects.txt differs from "
+                               f"the adaptive mono run's by {diff}")
     return cli_launches
 
 
@@ -2285,10 +2457,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        for job in [pool.submit(ba_kernels.build), pool.submit(fk.build)]:
+    # one nvcc per source and g++ for the host clustering, all together
+    with ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(ba_kernels.build), pool.submit(fk.build),
+                    pool.submit(build_cluster)]:
             job.result()
-    print(f"[build] {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {time.perf_counter() - t0:.1f} s (the host clustering "
+          f"library from native/src/cluster.cpp with g++ among them)")
     for line in (ba_kernels.build_log + fk.build_log).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
@@ -2302,7 +2477,8 @@ def main():
         launches_sym, path_sym, sym_call = phase_symmetry_path(dev, tmp,
                                                                depth_call)
         launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
-        launches_cli = phase_cli(dev, tmp)
+        launches_by_run = phase_cli(dev, tmp, path_sym, sym_call)
+    launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
     sparse_recs, sparse_full = phase_sparse_kernels(dev, path_sparse)
@@ -2314,6 +2490,10 @@ def main():
                              if path_launches is not None else 0),
                 "launches_cli": (launches_cli[r["kernel"]]
                                  if path_launches is not None else 0),
+                **{"launches_cli_" + run: (launches_by_run[run][r["kernel"]]
+                                           if path_launches is not None
+                                           else 0)
+                   for run in HOST_CLUSTERED},
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -8,10 +8,16 @@ Twin of ``examples/run_tum.py`` (the reference's
 
 Loads the sequence and its bbox detections (``io/tum.py``: the depth PNGs
 decoded in numpy, no ``cv2``), runs the full pipeline per frame on the
-card (ground-plane estimation, monolithic single-frame ellipsoid
-extraction, with symmetry when the yaml opens it, data association, SVD /
-3D initialization, global object-graph LM) with the adaptive deferred
-pipeline, and saves ``objects.txt`` / ``object_history.txt``.  ``--device
+card (ground-plane estimation, single-frame ellipsoid extraction, with
+symmetry when the yaml opens it, data association, SVD / 3D
+initialization, global object-graph LM) with the adaptive deferred
+pipeline, and saves ``objects.txt`` / ``object_history.txt``.
+``--extractor`` picks the extraction architecture as ``run_tum.py`` does:
+``auto`` (the default) probes the device's round trip
+(``system/probe.py``) and prints its choice, fused-split extraction with
+LM fusion on a local device; ``mono`` clusters on the device; ``split`` /
+``fused`` cluster on the host between two device phases
+(``native/src/cluster.cpp``, built with g++ at first use).  ``--device
 cpu`` runs the plain PyTorch versions on the CPU; without CUDA the default
 device raises.  Flags of ``run_tum.py`` whose subsystem is not ported raise
 ``NotImplementedError`` naming its item of ``ROADMAP.md``'s queue 1.
@@ -37,8 +43,6 @@ _UNPORTED = (
     ("--offline", lambda a: (a.offline or a.offline_shard or a.offline_split
                              or a.offline_per_frame_ba or a.batch != 8),
      "the offline batch mapper", 6),
-    ("--extractor", lambda a: a.extractor != "mono",
-     "the probe and the split and fused (host-clustered) extractors", 5),
 )
 
 
@@ -59,10 +63,15 @@ def parser():
     ap.add_argument("--viz", action="store_true")
     ap.add_argument("--viz-live", type=int, default=0, metavar="N")
     ap.add_argument("--max-frames", type=int, default=0)
-    ap.add_argument("--extractor", default="mono",
+    ap.add_argument("--extractor", default="auto",
                     choices=["auto", "mono", "split", "fused"],
-                    help="mono = one device pass per frame including the "
-                         "clustering (the only one ported)")
+                    help="extraction architecture: auto = probe the "
+                         "device's round trip at start-up and pick "
+                         "(default; >= 5 ms -> mono, a local device -> "
+                         "fused + LM fusion); mono = the clustering on the "
+                         "device; split/fused = the host's grid-hash "
+                         "clustering between two device phases (fused: "
+                         "one call a frame)")
     ap.add_argument("--checkpoint", default=None,
                     help="save state checkpoint at the end")
     ap.add_argument("--resume", default=None,
@@ -101,7 +110,8 @@ def main(argv=None):
 
     from object_oriented_slam_tpu_torch.core.camera import Camera
     from object_oriented_slam_tpu_torch.frontend import (
-        ExtractorConfig, make_extractor, make_plane_estimator)
+        ExtractorConfig, make_extractor, make_fused_extractor,
+        make_plane_estimator, make_split_extractor)
     from object_oriented_slam_tpu_torch.io import Config
     from object_oriented_slam_tpu_torch.io.tum import TUMDataset
     from object_oriented_slam_tpu_torch.system import System
@@ -118,6 +128,7 @@ def main(argv=None):
 
     extractor = None
     plane_est = None
+    fuse_lm = False
     if not args.no_depth:
         open_sym = (not args.no_symmetry
                     and cfg.get_int("EllipsoidExtraction.Symmetry.Open") == 1)
@@ -132,7 +143,24 @@ def main(argv=None):
             sym_grid=cfg.get_float("EllipsoidExtraction.Symmetry.GridSize",
                                    0.1),
             open_symmetry=open_sym)
-        extractor = make_extractor(cam, ext_cfg, device)
+        choice = args.extractor
+        if choice == "auto":
+            # the probe's rule (JAX system/probe.py): the measured round
+            # trip picks mono (a remote link) or fused-split + LM fusion
+            from object_oriented_slam_tpu_torch.io.native_loader import (
+                cluster_available, cluster_error)
+            from object_oriented_slam_tpu_torch.system.probe import (
+                choose_architecture, probe_device_rtt_ms)
+            rtt = probe_device_rtt_ms(device=device)
+            choice, fuse_lm = choose_architecture(rtt)
+            print(f"probed device RTT {rtt:.2f} ms -> extractor="
+                  f"{choice}, fuse_lm={fuse_lm}")
+            if not cluster_available():
+                print(f"host clustering library unavailable: "
+                      f"{cluster_error()}")
+        make = {"mono": make_extractor, "split": make_split_extractor,
+                "fused": make_fused_extractor}[choice]
+        extractor = make(cam, ext_cfg, device)
         plane_est = make_plane_estimator(cam, device=device)
 
     slam = System(args.settings, extractor=extractor,
@@ -142,6 +170,8 @@ def main(argv=None):
         slam.tracker.adaptive_depth = False
     if not args.no_depth:
         slam.open_ground_plane_estimation()
+        if fuse_lm:
+            slam.tracker.fuse_lm = True
 
     skip = 0
     if args.resume:

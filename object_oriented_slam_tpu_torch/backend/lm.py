@@ -63,6 +63,24 @@ def observations_from_numpy(arrays: Dict[str, np.ndarray],
     return ObjectObservations(**out)
 
 
+def observations_from_flat(flat: torch.Tensor, est_prev: torch.Tensor,
+                           layout) -> ObjectObservations:
+    """Views into one packed f32 batch on the device (the tracker's
+    ``_lm_layout``: ((name, offset, shape), ...)), the slots with
+    ``useprev`` warm-started from ``est_prev``, the previous LM call's
+    device estimate (JAX ``Tracking._get_unpack`` / ``_lm_from_flat``)."""
+    out = {}
+    for name, off, shp in layout:
+        out[name] = flat[off:off + int(np.prod(shp))].reshape(shp)
+    est0 = torch.where(out["useprev"][:, None] > 0.5, est_prev, out["est0"])
+    return ObjectObservations(
+        est0=est0, obj_mask=out["objmask"] > 0.5,
+        pose2d_cw=out["p2"], bbox2d=out["b2"], prob2d=out["pr2"],
+        mask2d=out["m2"] > 0.5,
+        pose3d_wc=out["p3"], meas3d=out["me3"], prob3d=out["pr3"],
+        mask3d=out["m3"] > 0.5)
+
+
 class LMConfig(NamedTuple):
     scale_3d: float = 10000.0        # Optimizer.Edges.3DEllipsoid.Scale
     gravity_scale: float = 100.0     # Optimizer.Edges.GravityPrior.Scale

@@ -42,15 +42,23 @@ sparse symmetry) and, when the frame has a detection with a symmetry prior,
 symmetry_search (``frontend/symmetry``; with the border cells as its
 sources with sparse symmetry); the rest is plain PyTorch.
 
+The host-clustered extractors (``SplitExtractor``,
+``FusedSplitExtractor``) run stage (d) on the host between two device
+phases: phase A is depth_cloud, its result copied home in one piece;
+the host labels each detection's cloud with the grid-hash union-find of
+``native/src/cluster.cpp`` (built at first use, ``io/native_loader``) and
+selects its cluster; phase B runs stages (e)-(h) on the device from that
+selection.  No cluster_select launch happens on those paths.
+
 Not ported (each raises ``NotImplementedError`` naming the option):
-grid-hash clustering (``grid_cluster``), interleaved chain passes
-(``cluster_chains > 0``), the split and fused extractors and LM fusion
-(``dispatch_with_lm``).
+grid-hash clustering on the device (``grid_cluster``), interleaved chain
+passes (``cluster_chains > 0``).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+from collections import deque
 
 import numpy as np
 import torch
@@ -299,6 +307,22 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc, battr_v) = _stage_a(
         depth, bboxes, pose_wc, ground_plane, cam, cfg)
     sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
+    e_local, prob, ok, debug = _stages_after_selection(
+        pts_w, sel, battr_v, depth, bboxes, run_mask, pose_wc, ground_plane,
+        cam, cfg, stats, sym_types, need_single, need_dual)
+    return e_local, prob, ok_p & ok_c & ok_cl & run_mask & ok, debug
+
+
+def _stages_after_selection(pts_w, sel, battr_v, depth, bboxes, run_mask,
+                            pose_wc, ground_plane, cam: Camera,
+                            cfg: ExtractorConfig, stats, sym_types,
+                            need_single: bool, need_dual: bool):
+    """Stages (e)-(h) from the selected cluster ``sel`` [D, N] of the world
+    cloud ``pts_w``: ``_stage_post``, with ``open_symmetry`` ``_stage_sym``
+    over the detections of ``run_mask``, and ``_finish`` (shared by the
+    monolithic call and the split extractors' phase B).  Returns (local
+    vec10 [D, 10], prob [D], ok [D]: the result finite and prob > 1e-8,
+    debug tuple)."""
     Two, pts_n, obj_m, sym_src = _stage_post(pts_w, sel, ground_plane, cfg,
                                              battr_v)
     prob = torch.ones(bboxes.shape[0], dtype=torch.float32,
@@ -318,8 +342,7 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
             Two, pts_n, obj_m, bboxes, run_mask, sym_types, pose_wc, depth,
             cam, cfg, need_single, need_dual, sym_src)
     e_local = _finish(Two, pts_n, obj_m, pose_wc)
-    ok = (ok_p & ok_c & ok_cl & run_mask
-          & torch.isfinite(e_local).all(dim=1) & (prob > 1e-8))
+    ok = torch.isfinite(e_local).all(dim=1) & (prob > 1e-8)
     return e_local, prob, ok, (pts_n, obj_m, Two)
 
 
@@ -398,7 +421,61 @@ class ExtractionHandle:
     copy: HostCopy
 
 
-class MonolithicExtractor:
+def _handle(e, p, v, stats, dev_stats) -> ExtractionHandle:
+    """Pack (vec10, prob, valid) into [pad, 12] with the device counts
+    ``dev_stats`` as one more row and start that tensor's copy home."""
+    res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
+    keys = [k for k in _STAT_KEYS if k in dev_stats]
+    row = (torch.nn.functional.pad(
+        torch.stack([dev_stats[k].to(e.dtype) for k in keys]),
+        (0, 12 - len(keys))) if keys else e.new_zeros(12))
+    packed = torch.cat([res, row[None]], dim=0)
+    return ExtractionHandle(packed[:-1], stats, keys, HostCopy.start(packed))
+
+
+class _Extractor:
+    """What the monolithic and the split extractors share: the frame's
+    packing and its two host-to-device copies, and ``fetch``."""
+    supports_lm_fusion = False
+
+    def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
+        from ..system.tracking import resolve_device
+        _check_ported(cfg)
+        self.cam = cam
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.stats = {}
+
+    def upload(self, depth, bboxes, labels, pose_wc, ground_plane):
+        """The frame's two host-to-device copies, the depth image and the
+        packed arguments: (host flat, depth on the device, flat on the
+        device, pad, cfg at the frame's cloud tier, symmetry counts)."""
+        flat, pad, _, cfg_t, n_sym = _pack_frame(
+            self.cam, self.cfg, bboxes, labels, pose_wc, ground_plane)
+        depth_d = to_device(np.asarray(depth, np.int32), self.device)
+        return flat, depth_d, to_device(flat, self.device), pad, cfg_t, n_sym
+
+    def fetch(self, handle: ExtractionHandle) -> np.ndarray:
+        """The call's result on the host as a float64 array [pad, 12]: waits
+        for the copy the call started (its own event), then fills the
+        call's ``stats`` with the counts of its last row."""
+        host = handle.copy.wait().numpy().astype(np.float64)
+        for k, v in zip(handle.keys, host[-1]):
+            handle.stats[k] = bool(v) if k == "cluster_converged" else int(v)
+        self.stats = handle.stats
+        return host[:-1]
+
+
+def _lm_from_flat(lm_flat, est_prev, K, normal, gset, layout, lm_cfg):
+    """The due global-BA LM call from its packed batch (JAX
+    ``_lm_from_flat``): ``lm_flat`` the batch on the device, ``layout``
+    the tracker's ``_lm_layout``.  Returns (estimates [O, 10], chi2)."""
+    from ..backend import observations_from_flat, optimize_objects_soa
+    obs = observations_from_flat(lm_flat, est_prev, layout)
+    return optimize_objects_soa(obs, K, normal, gset, lm_cfg)
+
+
+class MonolithicExtractor(_Extractor):
     """Whole-frame extraction on ``device`` (the production default).
 
     A call returns an ``ExtractionHandle``: the DEVICE result packed
@@ -421,22 +498,17 @@ class MonolithicExtractor:
     ``sym_sources`` / ``sym_points`` / ``sym_dense``, ride the row too).
     ``extractor.stats`` is the stats of the call last fetched, or of the
     call last run before its fetch.
+
+    ``dispatch_with_lm`` (LM fusion, ``Tracking.fuse_lm``) issues the
+    frame's extraction and the due LM call from one call.
     """
-    def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
-        from ..system.tracking import resolve_device
-        _check_ported(cfg)
-        self.cam = cam
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.stats = {}
+    supports_lm_fusion = True
 
     def upload(self, depth, bboxes, labels, pose_wc, ground_plane):
         """The frame's two host-to-device copies: the depth image and the
         packed arguments.  Returns what ``run`` takes."""
-        flat, pad, _, cfg_t, n_sym = _pack_frame(
-            self.cam, self.cfg, bboxes, labels, pose_wc, ground_plane)
-        depth_d = to_device(np.asarray(depth, np.int32), self.device)
-        return depth_d, to_device(flat, self.device), pad, cfg_t, n_sym
+        return super().upload(depth, bboxes, labels, pose_wc,
+                              ground_plane)[1:]
 
     def run(self, depth_d, flat_d, pad, cfg_t, n_sym) -> ExtractionHandle:
         """The extraction on the device: launches and the start of the
@@ -451,14 +523,7 @@ class MonolithicExtractor:
             flat_d[pad * 6 + 7:pad * 6 + 11], self.cam, cfg_t, dev_stats,
             sym_types=flat_d[pad * 5:pad * 6], need_single=n_sym[0] > 0,
             need_dual=n_sym[1] > 0)
-        res = torch.cat([e, p[:, None], v[:, None].to(e.dtype)], dim=1)
-        keys = [k for k in _STAT_KEYS if k in dev_stats]
-        row = torch.nn.functional.pad(
-            torch.stack([dev_stats[k].to(e.dtype) for k in keys]),
-            (0, 12 - len(keys)))
-        packed = torch.cat([res, row[None]], dim=0)
-        return ExtractionHandle(packed[:pad], self.stats, keys,
-                                HostCopy.start(packed))
+        return _handle(e, p, v, self.stats, dev_stats)
 
     def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
         if ground_plane is None:
@@ -466,20 +531,20 @@ class MonolithicExtractor:
         return self.run(*self.upload(depth, bboxes, labels, pose_wc,
                                      ground_plane))
 
-    def fetch(self, handle: ExtractionHandle) -> np.ndarray:
-        """The call's result on the host as a float64 array [pad, 12]: waits
-        for the copy ``run`` started (the call's own event), then fills the
-        call's ``stats`` with the counts of its last row."""
-        host = handle.copy.wait().numpy().astype(np.float64)
-        for k, v in zip(handle.keys, host[-1]):
-            handle.stats[k] = bool(v) if k == "cluster_converged" else int(v)
-        self.stats = handle.stats
-        return host[:-1]
-
-    def dispatch_with_lm(self, *args, **kwargs):
-        raise NotImplementedError(
-            "dispatch_with_lm: LM fusion into the extraction (fuse_lm) is "
-            "not ported to the torch package")
+    def dispatch_with_lm(self, depth, bboxes, labels, pose_wc, ground_plane,
+                         lm_args):
+        """This frame's extraction and the prepared LM batch from one call
+        (JAX ``dispatch_with_lm`` over ``_combined_ext_lm``): the
+        extraction's launches and its copy home first, then the LM's.
+        ``lm_args`` = (lm_flat, est_prev, K, normal, gset, layout, lm_cfg),
+        all on this device.  Returns (handle, est, chi2), or None when the
+        extraction cannot run (no ground plane: the caller then dispatches
+        the LM alone)."""
+        if ground_plane is None:
+            return None
+        handle = self(depth, bboxes, labels, pose_wc, ground_plane)
+        est, chi2 = _lm_from_flat(*lm_args)
+        return handle, est, chi2
 
 
 def make_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
@@ -488,13 +553,277 @@ def make_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
     return MonolithicExtractor(cam, cfg, device)
 
 
+# ---------------------------------------------------------------------------
+# The host-clustered extractors: stage (d) on the host between two device
+# phases (JAX ``_extract_phase_a`` / ``_host_cluster_select`` /
+# ``_extract_phase_b``).  No cluster_components launch on these paths.
+
+
+def _select_cluster_np(pts_w, mask, labels, center, min_size, center_dis):
+    """Host mirror of ops.cluster.select_cluster (same semantics,
+    EllipsoidExtractor.cpp:675-736; numpy copy of the JAX package's).
+    Returns (sel mask, ok)."""
+    N = len(pts_w)
+    valid = mask & (labels < N)
+    lab = labels[valid]
+    sizes = np.zeros(N, np.float32)
+    np.add.at(sizes, lab, 1.0)
+    d = np.linalg.norm(pts_w - center, axis=1)
+    min_d = np.full(N, np.inf, np.float32)
+    np.minimum.at(min_d, lab, d[valid].astype(np.float32))
+
+    is_cluster = sizes >= min_size
+    n_clusters = int(is_cluster.sum())
+    near = is_cluster & (min_d < center_dis)
+    size_key = np.where(near, sizes, -1.0)
+    best_near = int(np.argmax(size_key))
+    size_key_all = np.where(is_cluster, sizes, -1.0)
+    best_any = int(np.argmax(size_key_all))
+
+    use_fallback = (n_clusters == 1) and (near.sum() == 0)
+    chosen = best_any if use_fallback else best_near
+    ok = bool(near.sum() > 0 or use_fallback)
+    sel = valid & (labels == chosen) & ok
+    return sel, ok
+
+
+@dataclasses.dataclass
+class PhaseAHandle:
+    """A split extraction with phase A launched and phase B not yet:
+    ``a_out`` phase A's [pad, row] device output, ``copy`` its copy home
+    (started at the launch), the frame's host ``flat`` and its device
+    copies, the tier's config and the symmetry counts."""
+    a_out: torch.Tensor
+    copy: HostCopy
+    flat: np.ndarray
+    depth_d: torch.Tensor
+    flat_d: torch.Tensor
+    pad: int
+    cfg: ExtractorConfig
+    n_sym: tuple
+    is_phase_a = True
+
+
+def _phase_a(depth_d, flat_d, pad, cam: Camera, cfg: ExtractorConfig):
+    """Phase A (JAX ``_extract_phase_a``): stages (a)-(c) of every
+    detection (``_stage_a``: one depth_cloud launch, the border lane with
+    sparse symmetry), packed into ONE [pad, row] device tensor for a single
+    copy home.  Row: [pts_w (cap*3) | m2 (cap) | battr (cap, sparse
+    symmetry only) | center_w (3), ok_points, ok_center]."""
+    (_, pts_w, _, m2, center_w, okp, okc, _, battr_v) = _stage_a(
+        depth_d, flat_d[:pad * 4].reshape(pad, 4),
+        flat_d[pad * 6:pad * 6 + 7], flat_d[pad * 6 + 7:pad * 6 + 11], cam,
+        cfg)
+    f32 = pts_w.dtype
+    parts = [pts_w.reshape(pad, -1), m2.to(f32)]
+    if battr_v is not None:
+        parts.append(battr_v)
+    parts += [center_w, okp[:, None].to(f32), okc[:, None].to(f32)]
+    return torch.cat(parts, dim=1)
+
+
+def _host_cluster_select(h: PhaseAHandle):
+    """The host middle stage (JAX ``_host_cluster_select``): waits on phase
+    A's copy (its event only), then per run lane the grid-hash union-find
+    labels (io/native_loader.cluster_labels) and the reference's cluster
+    selection.  Returns (flat_b: the flat with ok_points & ok_center &
+    ok_cluster folded into the run lane, sel [pad, cap] bool, the most
+    survivors of a run lane)."""
+    from ..io.native_loader import cluster_labels
+    cfg, pad = h.cfg, h.pad
+    cap = cfg.cloud_capacity
+    sparse = cfg.open_symmetry and cfg.sparse_symmetry
+    a_np = h.copy.wait().numpy()
+    sel = np.zeros((pad, cap), bool)
+    flat_b = h.flat.copy()
+    survivors = 0
+    for i in range(pad):
+        if not h.flat[pad * 4 + i] > 0.5:
+            flat_b[pad * 4 + i] = 0.0
+            continue
+        row = a_np[i]
+        pts_w = row[:cap * 3].reshape(cap, 3)
+        m2 = row[cap * 3:cap * 4] > 0.5
+        tail = row[cap * (5 if sparse else 4):]
+        center_w, okp, okc = tail[:3], tail[3] > 0.5, tail[4] > 0.5
+        labels = cluster_labels(pts_w, m2, cfg.cluster_tolerance)
+        sel[i], okcl = _select_cluster_np(
+            pts_w, m2, labels, center_w, cfg.cluster_min_size,
+            cfg.cluster_center_dis)
+        flat_b[pad * 4 + i] = float(okp and okc and okcl)
+        survivors = max(survivors, int(m2.sum()))
+    return flat_b, sel, survivors
+
+
+def _phase_b(h: PhaseAHandle, flat_b_d, sel_d, cam: Camera):
+    """Phase B (JAX ``_extract_phase_b``): stages (e)-(h) from the host's
+    selection ``sel_d`` [pad, cap]; the world cloud (and the border lane)
+    are sliced out of phase A's DEVICE output, with no re-upload.  The
+    symmetry stage runs over the frame's run lane as in the monolithic
+    call; ``flat_b_d``'s run lane, the folded validity, gates the result.
+    Returns (vec10, prob, valid, device stats)."""
+    cfg, pad = h.cfg, h.pad
+    cap = cfg.cloud_capacity
+    pts_w = h.a_out[:, :cap * 3].reshape(pad, cap, 3).contiguous()
+    battr_v = None
+    if cfg.open_symmetry and cfg.sparse_symmetry:
+        battr_v = h.a_out[:, cap * 4:cap * 5].contiguous()
+    flat_d = h.flat_d
+    dev_stats = {}
+    e, p, ok, _ = _stages_after_selection(
+        pts_w, sel_d, battr_v, h.depth_d, flat_d[:pad * 4].reshape(pad, 4),
+        flat_d[pad * 4:pad * 5] > 0.5, flat_d[pad * 6:pad * 6 + 7],
+        flat_d[pad * 6 + 7:pad * 6 + 11], cam, cfg, dev_stats,
+        flat_d[pad * 5:pad * 6], h.n_sym[0] > 0, h.n_sym[1] > 0)
+    return e, p, (flat_b_d[pad * 4:pad * 5] > 0.5) & ok, dev_stats
+
+
+class SplitExtractor(_Extractor):
+    """Two-phase extractor (JAX ``SplitExtractor``): device stages (a)-(c),
+    the host's grid-hash union-find clustering and cluster selection
+    (native/src/cluster.cpp, built at first use), device stages
+    (e)-(h) + symmetry.
+
+    A call launches phase A (one depth_cloud launch) and starts its
+    result's copy home; it returns a ``PhaseAHandle``.  ``Tracking`` calls
+    ``midway`` on it ``pipeline_depth // 2`` frames later: the host middle
+    stage (``middle``: waits on the copy's event, labels and selects), then
+    phase B (two pinned host-to-device copies, the selection and the new
+    flat; launches from ``_stage_post`` on) returns an
+    ``ExtractionHandle`` that ``fetch`` reads.  Its ``stats``: the cloud
+    tier, the symmetry counts and ``cluster_survivors`` (the host's), with
+    sparse symmetry the device counts of the monolithic call's after
+    ``fetch``.  Raises a ``RuntimeError`` naming the compiler's error when
+    the clustering library cannot be built: there is no fall-back to the
+    monolithic extractor.
+    """
+    two_phase = True
+
+    def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
+        from ..io import native_loader
+        super().__init__(cam, cfg, device)
+        if not native_loader.cluster_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: the host clustering library does "
+                f"not build from {native_loader.CLUSTER_SOURCE}: "
+                f"{native_loader.cluster_error()}")
+
+    def phase_a(self, flat, depth_d, flat_d, pad, cfg_t,
+                n_sym) -> PhaseAHandle:
+        a_out = _phase_a(depth_d, flat_d, pad, self.cam, cfg_t)
+        return PhaseAHandle(a_out, HostCopy.start(a_out), flat, depth_d,
+                            flat_d, pad, cfg_t, n_sym)
+
+    def __call__(self, depth, bboxes, labels, pose_wc, ground_plane):
+        if ground_plane is None:
+            return None
+        return self.phase_a(*self.upload(depth, bboxes, labels, pose_wc,
+                                         ground_plane))
+
+    def middle(self, h: PhaseAHandle):
+        """The host middle stage (``_host_cluster_select``)."""
+        return _host_cluster_select(h)
+
+    def midway(self, h: PhaseAHandle) -> ExtractionHandle:
+        """The host middle stage, then phase B's launches and the start of
+        its result's copy home."""
+        flat_b, sel, survivors = self.middle(h)
+        flat_b_d = to_device(flat_b, self.device)
+        sel_d = to_device(sel, self.device)
+        self.stats = {"cloud_tier": h.cfg.cloud_capacity,
+                      "sym_single": h.n_sym[0], "sym_dual": h.n_sym[1],
+                      "cluster_survivors": survivors}
+        e, p, v, dev_stats = _phase_b(h, flat_b_d, sel_d, self.cam)
+        return _handle(e, p, v, self.stats, dev_stats)
+
+
 def make_split_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
-    raise NotImplementedError(
-        "make_split_extractor: the split (host-clustered) extractor is not "
-        "ported to the torch package; use make_extractor")
+    """The split extractor on ``device``; raises when the host clustering
+    library cannot be built (no fall-back to the monolithic one)."""
+    return SplitExtractor(cam, cfg, device)
+
+
+class FusedSplitExtractor(SplitExtractor):
+    """Host-clustered extraction at one call a frame (JAX
+    ``FusedSplitExtractor``).
+
+    ``step`` launches the new frame's phase A first (its copy home starts
+    earliest), then takes the oldest pending frame at least ``chain_lag``
+    steps behind, runs its host middle stage (its phase-A copy had that
+    many frames to land) and launches its phase B.  Results therefore
+    arrive tagged with the earlier frame's id; ``Tracking`` keeps a
+    frame-id -> result map.  ``step_with_lm`` also issues the due LM call
+    (LM fusion).  The cloud tier only grows over a run (JAX's monotone
+    tier: its fused program was compiled per pair of tiers; here it keeps
+    the same shapes, the results do not depend on the tier).  Eager
+    PyTorch has no program to fuse: the launches are those of phase A,
+    phase B and the LM, issued from one call.
+    """
+    two_phase = False
+    fused = True
+    supports_lm_fusion = True
+    chain_lag = 2
+
+    def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
+        super().__init__(cam, cfg, device)
+        self._chain = deque()      # pending (frame_id, PhaseAHandle)
+        self._tier = 0
+
+    def _step(self, frame_id, depth, bboxes, labels, pose_wc, ground_plane,
+              lm_args=None):
+        if ground_plane is None:
+            return False, [], None, None
+        up = list(self.upload(depth, bboxes, labels, pose_wc, ground_plane))
+        cfg_t = up[4]
+        self._tier = max(self._tier, cfg_t.cloud_capacity)
+        if cfg_t.cloud_capacity != self._tier:
+            up[4] = dataclasses.replace(cfg_t, cloud_capacity=self._tier)
+        h = self.phase_a(*up)
+        results = []
+        est = chi2 = None
+        if len(self._chain) >= self.chain_lag:
+            fid_prev, hp = self._chain.popleft()
+            results.append((fid_prev, self.midway(hp)))
+            if lm_args is not None:
+                est, chi2 = _lm_from_flat(*lm_args)
+        self._chain.append((frame_id, h))
+        return True, results, est, chi2
+
+    def step(self, frame_id, depth, bboxes, labels, pose_wc, ground_plane):
+        """Launch the frame; returns (ran, [(frame_id, handle), ...])."""
+        return self._step(frame_id, depth, bboxes, labels, pose_wc,
+                          ground_plane)[:2]
+
+    def step_with_lm(self, frame_id, depth, bboxes, labels, pose_wc,
+                     ground_plane, lm_args):
+        """``step`` with the due LM call issued after phase B.  Returns
+        (ran, results, est, chi2); est / chi2 are None when no phase B was
+        due (the caller then dispatches the prepared batch alone)."""
+        return self._step(frame_id, depth, bboxes, labels, pose_wc,
+                          ground_plane, lm_args)
+
+    def drain(self, current_frame_id):
+        """Phase B of the pending frames at least ``chain_lag`` frames old,
+        without a new frame (``Tracking`` calls this on frames that launch
+        no extraction)."""
+        out = []
+        while (self._chain and current_frame_id - self._chain[0][0]
+               >= self.chain_lag):
+            fid, hp = self._chain.popleft()
+            out.append((fid, self.midway(hp)))
+        return out
+
+    def flush(self):
+        """Phase B of every pending frame (the tail, ``sync``)."""
+        out = []
+        while self._chain:
+            fid, hp = self._chain.popleft()
+            out.append((fid, self.midway(hp)))
+        return out
 
 
 def make_fused_extractor(cam: Camera, cfg: ExtractorConfig, device=None):
-    raise NotImplementedError(
-        "make_fused_extractor: the fused split extractor is not ported to "
-        "the torch package; use make_extractor")
+    """The fused split extractor on ``device``; raises when the host
+    clustering library cannot be built (no fall-back to the monolithic
+    one)."""
+    return FusedSplitExtractor(cam, cfg, device)

@@ -1,12 +1,21 @@
-"""ctypes binding of the repository's native frame loader.
+"""ctypes bindings of the repository's native code.
 
-Port of ``object_oriented_slam_tpu/io/native_loader.py`` over the committed
-``native/lib/liboslam_native.so`` (``native/src/tum_loader.cpp``: a
-threaded-prefetch PNG / JPEG decoder on libpng and libjpeg;
-``native/src/cluster.cpp``: grid-hash connected components).  The port
-never builds that library and never writes into ``native/``: where it does
-not load (a machine without libpng or libjpeg), ``native_available()`` is
-False and every entry point raises instead of falling back.
+Port of ``object_oriented_slam_tpu/io/native_loader.py``, in two parts:
+
+* the frame decoder, over the committed ``native/lib/liboslam_native.so``
+  (``native/src/tum_loader.cpp``: a threaded-prefetch PNG / JPEG decoder on
+  libpng and libjpeg).  The port never builds that library and never
+  writes into ``native/``: where it does not load (a machine without libpng
+  or libjpeg), ``native_available()`` is False and every decoder entry
+  point raises instead of falling back;
+* the host clustering of the split extractors (``native/src/cluster.cpp``:
+  grid-hash connected components, the C++ standard library only), built
+  from that source alone at first use with the host C++ compiler into
+  ``object_oriented_slam_tpu_torch/build/`` (``ops/_cuda_build.build_host``:
+  named by the hash of source and flags, an atomic rename) and bound from
+  there.  ``cluster_available()`` says whether it builds and loads,
+  ``cluster_error()`` why not; ``cluster_labels`` raises with the
+  compiler's error.
 """
 from __future__ import annotations
 
@@ -19,8 +28,11 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 LIBRARY = os.path.join(_REPO, "native", "lib", "liboslam_native.so")
+CLUSTER_SOURCE = os.path.join(_REPO, "native", "src", "cluster.cpp")
 _LIB = None
 _LOAD_ERROR = None
+_CLUSTER_LIB = None
+_CLUSTER_ERROR = None
 
 
 def _load_lib():
@@ -51,15 +63,12 @@ def _load_lib():
     lib.oslam_decode_rgb.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.oslam_cluster_labels.restype = ctypes.c_int
-    lib.oslam_cluster_labels.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int32)]
     _LIB = lib
     return lib
 
 
 def native_available() -> bool:
+    """Whether the committed frame-decoder library loads."""
     return _load_lib() is not None
 
 
@@ -70,6 +79,41 @@ def _lib():
     return lib
 
 
+def _load_cluster():
+    """Build ``native/src/cluster.cpp`` (once per source and flags) and
+    bind ``oslam_cluster_labels``; None with ``_CLUSTER_ERROR`` set when
+    the build or the load fails."""
+    global _CLUSTER_LIB, _CLUSTER_ERROR
+    if _CLUSTER_LIB is not None or _CLUSTER_ERROR is not None:
+        return _CLUSTER_LIB
+    from ..ops import _cuda_build
+    try:
+        lib = ctypes.CDLL(_cuda_build.build_host(CLUSTER_SOURCE)[0])
+        fn = lib.oslam_cluster_labels
+    except (OSError, RuntimeError, AttributeError) as e:
+        _CLUSTER_ERROR = str(e)
+        return None
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int32)]
+    _CLUSTER_LIB = lib
+    return lib
+
+
+def cluster_available() -> bool:
+    """Whether the host clustering library builds from
+    ``native/src/cluster.cpp`` and loads (built at the first call)."""
+    return _load_cluster() is not None
+
+
+def cluster_error() -> str:
+    """Why the host clustering library is unavailable ("" when it is
+    not)."""
+    _load_cluster()
+    return _CLUSTER_ERROR or ""
+
+
 def cluster_labels(pts: np.ndarray, mask: np.ndarray,
                    tol: float) -> np.ndarray:
     """Grid-hash union-find connected components (native/src/cluster.cpp).
@@ -77,7 +121,11 @@ def cluster_labels(pts: np.ndarray, mask: np.ndarray,
     pts: [N, 3] float32; mask: [N] bool.  Returns int32 labels [N] with
     the ops/cluster.py convention (label = min point index in component,
     masked points -> N)."""
-    lib = _lib()
+    lib = _load_cluster()
+    if lib is None:
+        raise RuntimeError(f"the host clustering library "
+                           f"({CLUSTER_SOURCE}) is unavailable: "
+                           f"{_CLUSTER_ERROR}")
     pts = np.ascontiguousarray(pts, np.float32)
     m = np.ascontiguousarray(mask, np.uint8)
     n = len(pts)

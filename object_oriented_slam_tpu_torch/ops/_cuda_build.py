@@ -1,11 +1,13 @@
-"""Build-by-hash of a CUDA source into a shared library, and launch counters.
+"""Build-by-hash of a source into a shared library, and launch counters.
 
 Shared by the kernel modules (``backend/ba_kernels.py``,
 ``ops/frontend_kernels.py``): a source under ``csrc/`` is compiled with
 ``nvcc`` for ``sm_90a`` at first use into
 ``object_oriented_slam_tpu_torch/build/`` (the library is named by the hash
 of source and flags, so an edited source rebuilds) and bound with ctypes by
-the caller.  Nothing is built when a module is imported.
+the caller.  ``io/native_loader.py`` builds the host clustering
+(``native/src/cluster.cpp``) the same way with the host C++ compiler
+(``build_host``).  Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # versions' elementwise kernels, so both compute the same bits
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# native/build.sh's flags, without its -pthread and libraries: cluster.cpp
+# includes only the C++ standard library
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 
 
 class Kernel:
@@ -43,9 +48,19 @@ def nvcc() -> str:
     return path
 
 
-def build(source: str, flags=NVCC_FLAGS):
-    """Compile ``source`` (if this source is not built yet).  Returns
-    (path of the shared library, nvcc's output or "" when nothing ran)."""
+def host_cxx() -> str:
+    """The host C++ compiler (the one nvcc drives)."""
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: native/src/cluster.cpp is built "
+                           "with the host C++ compiler")
+    return path
+
+
+def build(source: str, flags=NVCC_FLAGS, compiler=None):
+    """Compile ``source`` with ``compiler`` (nvcc by default) if this
+    source is not built yet with these flags.  Returns (path of the shared
+    library, the compiler's output or "" when nothing ran)."""
     with open(source, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
@@ -57,13 +72,20 @@ def build(source: str, flags=NVCC_FLAGS):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *flags, "-o", tmp, source],
+        compiler = compiler or nvcc()
+        proc = subprocess.run([compiler, *flags, "-o", tmp, source],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                               f"{source}:\n{log}")
         os.replace(tmp, lib_path)   # atomic: concurrent builds agree
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib_path, log
+
+
+def build_host(source: str, flags=HOST_FLAGS):
+    """``build`` with the host C++ compiler."""
+    return build(source, flags, host_cxx())

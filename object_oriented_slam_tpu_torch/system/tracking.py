@@ -43,10 +43,25 @@ device-to-host copy lands in pinned memory behind an event
 frame's fetch, the backend drain and the plane's resolve.
 ``pipeline_depth = 1`` is the eager loop.  ``sync()`` flushes everything.
 
-What is not ported raises ``NotImplementedError``: a two-phase or fused
-extractor, a precomputed extraction result, LM fusion, the interactive
-plane check, the distributed backend, the dense builder, the batch SVD
-initializer and the array-of-structs backend.
+The extractor may also be host-clustered (``frontend.SplitExtractor``,
+``FusedSplitExtractor``):
+  * a two-phase extractor's call launches phase A only; ``_midway_due``
+    runs its host middle stage and phase B ``pipeline_depth // 2`` frames
+    later (or at the frame's processing, eagerly or at a flush);
+  * a fused extractor's ``step`` launches this frame's phase A and the
+    phase B of a frame ``chain_lag`` frames older, whose result is kept by
+    frame id (``_ext_results``) until that frame is processed; frames that
+    launch nothing ``drain`` the due ones.
+``fuse_lm`` (LM fusion, JAX ``Tracking.fuse_lm``): with a deferred
+pipeline, the due frame is processed before this frame's extraction, its
+LM batch packed but not launched (``defer_backend``), and the extraction
+call issues it (``dispatch_with_lm`` / ``step_with_lm``).  Every wait
+these add is on a pinned copy's event.
+
+What is not ported raises ``NotImplementedError``: a precomputed
+extraction result, the interactive plane check, the distributed backend,
+the dense builder, the batch SVD initializer and the array-of-structs
+backend.
 """
 from __future__ import annotations
 
@@ -61,7 +76,8 @@ import torch
 
 from ..assoc import (InstanceCounter, associate_observations,
                      associate_observations_optimal)
-from ..backend import LMConfig, ObjectObservations, optimize_objects_soa
+from ..backend import (LMConfig, ObjectObservations, observations_from_flat,
+                       optimize_objects_soa)
 from ..core import camera as cam_mod
 from ..core import plane as plane_mod
 from ..init.svd_incremental import IncrementalQuadricInit
@@ -71,6 +87,10 @@ from ..utils.transfer import HostCopy, to_device
 from .state import SlamState
 
 _log = logging.getLogger("object_oriented_slam_tpu_torch")
+
+# sentinel: this frame's extraction ran under the fused protocol; the
+# result is (or will be) in Tracking._ext_results[frame_id]
+_FUSED_PENDING = object()
 
 
 def _np_se3_inv(p):
@@ -130,11 +150,14 @@ class Tracking:
     """Host orchestrator of the mapping loop on ``device`` (the CUDA device
     unless the caller passes one, e.g. ``device="cpu"``).
 
-    ``extractor``: optional callable implementing single-frame ellipsoid
-    estimation (``frontend.make_extractor``).  Signature:
-    ``extractor(depth, bboxes[N,4], labels[N], pose_wc7,
-    ground_plane_vec4) -> [pad, 12] device tensor (vec10, prob, valid)``
-    or a tuple of three host arrays.  ``plane_estimator``: optional
+    ``extractor``: optional single-frame ellipsoid estimation
+    (``frontend.make_extractor``, ``make_split_extractor`` or
+    ``make_fused_extractor``): ``extractor(depth, bboxes[N,4], labels[N],
+    pose_wc7, ground_plane_vec4)`` returns a handle that
+    ``extractor.fetch`` turns into the [pad, 12] host result (vec10, prob,
+    valid); a two-phase extractor's handle goes through
+    ``extractor.midway`` first, a fused extractor is driven by ``step``.
+    ``plane_estimator``: optional
     callable ``depth -> plane vec4 (camera frame) | None``
     (``frontend.make_plane_estimator``).
     """
@@ -146,7 +169,6 @@ class Tracking:
     MAX_OBS2D = 512
     MAX_OBS3D = 256
 
-    fuse_lm = _pinned("fuse_lm", False, "LM fusion into extraction")
     use_incremental_init = _pinned("use_incremental_init", True,
                                    "the batch SVD initializer")
     use_soa_backend = _pinned("use_soa_backend", True,
@@ -154,12 +176,6 @@ class Tracking:
 
     def __init__(self, config: Config, extractor=None, plane_estimator=None,
                  device=None):
-        for attr in ("two_phase", "fused"):
-            if getattr(extractor, attr, False):
-                raise NotImplementedError(
-                    f"extractor.{attr}: the split and fused (host-clustered) "
-                    "extractors are not ported to the torch package; use "
-                    "frontend.make_extractor")
         if config.get_int("Plane.MannualCheck.Open") == 1:
             raise NotImplementedError(
                 "Plane.MannualCheck.Open: the interactive ground-plane "
@@ -228,7 +244,12 @@ class Tracking:
         self._pending_plane = None
         self._plane_deferred: List[tuple] = []
         self._pending_extraction = deque()
-        # (call_no, est, its HostCopy, slots, nobs)
+        # LM fusion (off by default, as in the JAX package; the CLI's
+        # probe turns it on for a local device)
+        self.fuse_lm = False
+        self._deferred_lm = None
+        self._ext_results: Dict[int, object] = {}  # fused-protocol results
+        # (call_no, its HostCopy, slots, nobs)
         self._pending_backends = deque()
         self._backend_calls = 0
         self.max_objects = self.MAX_OBJECTS  # current object-axis tier
@@ -354,17 +375,24 @@ class Tracking:
                 and self.state.ground_state == 2:
             run[:] = self.run_gates(det_mat, with_association)
             if np.any(run):
-                ext_out = self.extractor(depth, det_mat[:, 1:5].copy(),
-                                         det_mat[:, 5].astype(int), pose_wc,
-                                         self.state.ground_plane)
+                ext_out = self._dispatch_extraction(
+                    frame_id, pose_wc, depth, det_mat[:, 1:5].copy(),
+                    det_mat[:, 5].astype(int))
+        if ext_out is None and getattr(self.extractor, "fused", False):
+            # a frame that launches no extraction: the fused chain's due
+            # frames run their phase B now (their copies landed long ago)
+            self._ext_results.update(self.extractor.drain(frame_id))
         self.metrics["dispatch"].append(time.perf_counter() - t0)
-        item = (frame_id, pose_wc, det_mat, ext_out, run, with_association)
+        item = [frame_id, pose_wc, det_mat, ext_out, run, with_association]
         if self.pipeline_depth >= 2 and self.extractor is not None:
             self._pending_extraction.append(item)
+            self._midway_due()
             # `while`, not `if`: a shallower adaptive depth drains the
-            # surplus
+            # surplus.  _midway_due after every pop: a two-item drain moves
+            # the queue by 2 and the midway index by 1
             while len(self._pending_extraction) >= self.pipeline_depth:
                 self._process_frame_obs(*self._pending_extraction.popleft())
+                self._midway_due()
             # the backend time is recorded by the deferred processing
             t1 = t2 = t3 = time.perf_counter()
         else:
@@ -375,6 +403,65 @@ class Tracking:
         self.metrics["total"].append(t3 - t0)
         self.depth_trace.append(self.pipeline_depth)
         return True
+
+    def _dispatch_extraction(self, frame_id, pose_wc, depth, bboxes, labels):
+        """The frame's extraction call.  With ``fuse_lm`` the due frame is
+        processed FIRST, its LM batch packed, not launched, so that this
+        frame's extraction call issues it (it is consumed one call earlier
+        than by the pop in ``_frame_body``).  Returns the extraction's
+        handle, ``_FUSED_PENDING`` for a fused extractor or None."""
+        ex = self.extractor
+        gp = self.state.ground_plane
+        self._deferred_lm = None
+        if (self.fuse_lm and self.pipeline_depth >= 2
+                and getattr(ex, "supports_lm_fusion", False)
+                and len(self._pending_extraction)
+                >= self.pipeline_depth - 1):
+            self._process_frame_obs(*self._pending_extraction.popleft(),
+                                    defer_backend=True)
+        prep, self._deferred_lm = self._deferred_lm, None
+        if getattr(ex, "fused", False):
+            # the results delivered now belong to EARLIER frames
+            if prep is not None:
+                ran, results, est, _ = ex.step_with_lm(
+                    frame_id, depth, bboxes, labels, pose_wc, gp,
+                    self._lm_args(prep))
+                if est is not None:
+                    self._finish_backend(prep, est)
+                    prep = None
+            else:
+                ran, results = ex.step(frame_id, depth, bboxes, labels,
+                                       pose_wc, gp)
+            self._ext_results.update(results)
+            ext_out = _FUSED_PENDING if ran else None
+        elif prep is not None:
+            res = ex.dispatch_with_lm(depth, bboxes, labels, pose_wc, gp,
+                                      self._lm_args(prep))
+            ext_out = None
+            if res is not None:
+                ext_out, est, _ = res
+                self._finish_backend(prep, est)
+                prep = None
+        else:
+            ext_out = ex(depth, bboxes, labels, pose_wc, gp)
+        if prep is not None:
+            # the call could not carry the prepared LM: launch it alone
+            self._dispatch_prepared(prep)
+        return ext_out
+
+    def _midway_due(self):
+        """Two-phase extractor: the host middle stage and phase B of the
+        item ``pipeline_depth // 2`` frames behind the queue's head (its
+        phase-A copy has had that long to land; phase B gets the rest of
+        the window)."""
+        if not getattr(self.extractor, "two_phase", False):
+            return
+        k = len(self._pending_extraction) - 1 - max(
+            1, self.pipeline_depth // 2)
+        if k >= 0:
+            it = self._pending_extraction[k]
+            if getattr(it[3], "is_phase_a", False):
+                it[3] = self.extractor.midway(it[3])
 
     # ------------------------------------------------------------------
     def run_gates(self, det_mat, with_association: bool) -> np.ndarray:
@@ -394,12 +481,23 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _process_frame_obs(self, frame_id, pose_wc, det_mat, ext_out, run,
-                           with_association):
+                           with_association, defer_backend=False):
         """Host-side half of a frame: fetch the extraction result,
         associate, store observations, initialize, dispatch the backend.
         With ``pipeline_depth`` >= 2 it runs ``pipeline_depth`` - 1 frames
-        after the frame's dispatch, with the same inputs."""
+        after the frame's dispatch, with the same inputs.
+        ``defer_backend``: pack the LM batch into ``_deferred_lm`` instead
+        of launching it (LM fusion: the next extraction call issues it)."""
         tp0 = time.perf_counter()
+        if ext_out is _FUSED_PENDING:
+            ext_out = self._ext_results.pop(frame_id, None)
+            if ext_out is None:
+                # not delivered by a later step yet: flush the chain
+                self._ext_results.update(self.extractor.flush())
+                ext_out = self._ext_results.pop(frame_id)
+        elif getattr(ext_out, "is_phase_a", False):
+            # a two-phase handle not taken midway (eager, or a flush)
+            ext_out = self.extractor.midway(ext_out)
         n_det = det_mat.shape[0]
         local_vec10 = np.zeros((n_det, 10))
         local_prob = np.zeros(n_det)
@@ -501,7 +599,10 @@ class Tracking:
         # ---- [3] global optimization ----------------------------------
         self._t2 = time.perf_counter()
         if self.open_optimization and self.state.initialized_instances():
-            self._run_backend()
+            if defer_backend:
+                self._deferred_lm = self._prepare_backend()
+            else:
+                self._run_backend()
         self._t3 = time.perf_counter()
         self.metrics["host"].append(self._t3 - tp0)
         if self.pipeline_depth >= 2 and self.extractor is not None:
@@ -744,19 +845,18 @@ class Tracking:
     def _unpack(self, prep) -> ObjectObservations:
         """One host->device copy of the packed batch (from pinned memory,
         no wait), then views into it."""
-        flat = to_device(prep["flat"], self.device)
-        out = {}
-        for name, off, shp in self._lm_layout(prep["O"], prep["M2t"],
-                                              prep["M3t"]):
-            out[name] = flat[off:off + int(np.prod(shp))].reshape(shp)
-        est0 = torch.where(out["useprev"][:, None] > 0.5, prep["est_prev"],
-                           out["est0"])
-        return ObjectObservations(
-            est0=est0, obj_mask=out["objmask"] > 0.5,
-            pose2d_cw=out["p2"], bbox2d=out["b2"], prob2d=out["pr2"],
-            mask2d=out["m2"] > 0.5,
-            pose3d_wc=out["p3"], meas3d=out["me3"], prob3d=out["pr3"],
-            mask3d=out["m3"] > 0.5)
+        return observations_from_flat(
+            to_device(prep["flat"], self.device), prep["est_prev"],
+            self._lm_layout(prep["O"], prep["M2t"], prep["M3t"]))
+
+    def _lm_args(self, prep):
+        """A prepared batch as the extractor's LM fusion takes it: (flat on
+        the device, est_prev, K, normal, gset, layout, lm_cfg)."""
+        return (to_device(prep["flat"], self.device), prep["est_prev"],
+                self._K_dev, to_device(prep["normal"], self.device),
+                prep["gset"],
+                self._lm_layout(prep["O"], prep["M2t"], prep["M3t"]),
+                self.lm_cfg)
 
     def restore_state(self, state: SlamState):
         """Resume from a checkpointed SlamState (system/checkpoint.py).
@@ -806,13 +906,17 @@ class Tracking:
                 "slots": list(self._slot_to_instance)}
 
     def _dispatch_prepared(self, prep):
+        """The LM call of a prepared batch, launched alone."""
         obs = self._unpack(prep)
         est, _chi2 = optimize_objects_soa(
             obs, self._K_dev, to_device(prep["normal"], self.device),
             prep["gset"], self.lm_cfg)
-        # the next LM call chains from this device tensor; its copy home
-        # (history/outputs) starts now and is drained ``pipeline_depth``
-        # calls later
+        self._finish_backend(prep, est)
+
+    def _finish_backend(self, prep, est):
+        """After any LM launch: the next LM call chains from this device
+        tensor; its copy home (history/outputs) starts now and is drained
+        ``pipeline_depth`` calls later."""
         self._est_prev_dev = est
         self._backend_calls += 1
         self._pending_backends.append(
@@ -845,11 +949,15 @@ class Tracking:
                     [self.state.objects[i].label for i in insts])
 
     def sync(self):
-        """Flush the pipeline: resolve a pending plane, process the
-        deferred frames in order, drain every backend result."""
+        """Flush the pipeline: resolve a pending plane, run the fused
+        chain's pending phase B, process the deferred frames in order,
+        drain every backend result."""
         self._resolve_pending_plane()
         self._flushing = True
         try:
+            if getattr(self.extractor, "fused", False):
+                # phase B of every frame still in the fused chain
+                self._ext_results.update(self.extractor.flush())
             while self._pending_extraction:
                 self._process_frame_obs(*self._pending_extraction.popleft())
             self._drain_ready_backends(all_pending=True)

@@ -238,18 +238,6 @@ def test_unported_extractor_options_raise(option, frame):
             torch.from_numpy(frame["plane"]), frame["cam"], cfg)
 
 
-@pytest.mark.parametrize("make", ["make_split_extractor",
-                                  "make_fused_extractor", "dispatch_with_lm"])
-def test_unported_extractors_raise(make, frame):
-    cfg = text.ExtractorConfig(**KW)
-    with pytest.raises(NotImplementedError, match=make):
-        if make == "dispatch_with_lm":
-            text.make_extractor(frame["cam"], cfg, device="cpu"
-                                ).dispatch_with_lm()
-        else:
-            getattr(text, make)(frame["cam"], cfg)
-
-
 def test_extractor_config_has_the_jax_fields_and_defaults():
     got = {f.name: f.default for f in
            text.dataclasses.fields(text.ExtractorConfig)}

@@ -4,9 +4,12 @@ package's (examples/run_tum.py) on the CPU.
 One TUM-format export, written by the port's exporter
 (examples/torch_make_synthetic_tum.py), of tests/test_torch_depth_slice.py's
 scene: 6 objects, 12 frames, 640x480, odometry noise 0.01 m.  The JAX CLI
-runs it with ``--extractor mono`` (the port's only extractor), the port's
-with ``--device cpu``; both at their default pipeline (adaptive depth 4,
-asynchronous plane).  Two settings differ from the CLI's defaults, on both
+runs it with ``--extractor mono``, the port's with ``--extractor mono
+--device cpu``; both at their default pipeline (adaptive depth 4,
+asynchronous plane).  The port's host-clustered architectures run the
+first SPLIT frames (``--extractor split`` and the default ``auto``, which
+probes the CPU and picks fused-split with LM fusion) and are held to the
+port's mono run of those frames within 1e-4.  Two settings differ from the CLI's defaults, on both
 sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
 (as in tests/test_torch_depth_slice.py; the CLI's 16384 lets a frame's tier
 grow to its largest box), and the port's LM batch starts at 8 object slots
@@ -84,17 +87,22 @@ def runs(tmp_path_factory):
         seq, scene, tsyn.SyntheticDataset(scene, **DATA_KW),
         odometry_noise=0.01)
     assert n == DATA_KW["n_frames"]
-    out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed")}
+    out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed",
+                                      "host_split", "auto")}
     ckpt = str(tmp / "state.npz")
+    mono = ["--device", "cpu", "--extractor", "mono"]
     jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
                         "mono"])
-    slam, log = _port_cli([YAML, seq, "--out", out["port"],
-                           "--device", "cpu"])
-    _port_cli([YAML, seq, "--out", out["split"], "--device", "cpu",
+    slam, log = _port_cli([YAML, seq, "--out", out["port"], *mono])
+    _port_cli([YAML, seq, "--out", out["split"], *mono,
                "--max-frames", str(SPLIT), "--checkpoint", ckpt])
-    _port_cli([YAML, seq, "--out", out["resumed"], "--device", "cpu",
-               "--resume", ckpt])
-    return seq, out, slam, log, jax_log
+    _port_cli([YAML, seq, "--out", out["resumed"], *mono, "--resume", ckpt])
+    host = {}
+    for name, extra in (("host_split", ["--extractor", "split"]),
+                        ("auto", [])):
+        host[name] = _port_cli([YAML, seq, "--out", out[name], "--device",
+                                "cpu", "--max-frames", str(SPLIT), *extra])
+    return seq, out, slam, log, jax_log, host
 
 
 def _objects(d):
@@ -116,7 +124,7 @@ def _history_rows(d):
 
 
 def test_cli_matches_jax(runs):
-    seq, out, slam, log, jax_log = runs
+    seq, out, slam, log, jax_log = runs[:5]
     got, want = _objects(out["port"]), _objects(out["jax"])
     assert sorted(got) == sorted(want) and len(want) >= 5
     for inst in want:
@@ -143,6 +151,26 @@ def test_cli_map_against_ground_truth(runs):
     assert np.median(err) < 0.05, err
 
 
+def test_host_clustered_cli_matches_mono(runs):
+    """``--extractor split`` and the default ``auto`` (on this CPU the
+    probe picks fused-split with LM fusion, and says so) reproduce the
+    mono run of the same frames within 1e-4."""
+    out, host = runs[1], runs[5]
+    want = _objects(out["split"])
+    assert "probed device RTT" in host["auto"][1]
+    assert "-> extractor=fused, fuse_lm=True" in host["auto"][1]
+    assert "probed device RTT" not in host["host_split"][1]
+    kinds = {"host_split": "SplitExtractor", "auto": "FusedSplitExtractor"}
+    for name, (slam, _) in host.items():
+        assert type(slam.tracker.extractor).__name__ == kinds[name]
+        assert slam.tracker.fuse_lm == (name == "auto")
+        got = _objects(out[name])
+        assert sorted(got) == sorted(want) and len(want) >= 5
+        for inst in want:
+            np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)
+        assert _history_rows(out[name]) == _history_rows(out["split"])
+
+
 def test_checkpoint_then_resume_reproduces_the_run(runs):
     out = runs[1]
     whole, resumed = _objects(out["port"]), _objects(out["resumed"])
@@ -155,9 +183,7 @@ def test_checkpoint_then_resume_reproduces_the_run(runs):
 @pytest.mark.parametrize("flags", [
     ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
     ["--viz-live", "5"], ["--slam-mode"], ["--odo-weight", "2"],
-    ["--distributed"], ["--offline"], ["--offline-split"], ["--batch", "4"],
-    ["--extractor", "auto"], ["--extractor", "split"],
-    ["--extractor", "fused"]])
+    ["--distributed"], ["--offline"], ["--offline-split"], ["--batch", "4"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _example("torch_run_tum").main(

@@ -205,21 +205,15 @@ def test_observation_tiers_are_powers_of_two():
 
 
 @pytest.mark.parametrize("what", [
-    "extractor", "ext_result", "fuse_lm", "batch_svd_init", "aos_backend",
-    "distributed", "ground_plane", "dense_builder"])
+    "ext_result", "batch_svd_init", "aos_backend", "distributed",
+    "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
-    """What is not ported raises: "extractor" is a split or fused
-    extractor and "ground_plane" the plane's interactive confirmation (the
-    monolithic extractor, the plane estimate and its latch, the deferred
-    pipeline, the adaptive depth and the asynchronous plane are ported:
-    tests/test_torch_pipeline.py)."""
+    """What is not ported raises: "ground_plane" is the plane's interactive
+    confirmation (the extractors, LM fusion, the plane estimate and its
+    latch, the deferred pipeline, the adaptive depth and the asynchronous
+    plane are ported: tests/test_torch_pipeline.py,
+    tests/test_torch_split_extractor.py, tests/test_torch_lm_fusion.py)."""
     cfg = Config(YAML)
-    if what == "extractor":
-        for attr in ("two_phase", "fused"):
-            split = type("SplitExtractor", (), {attr: True})()
-            with pytest.raises(NotImplementedError, match=attr):
-                Tracking(cfg, extractor=split, device="cpu")
-        return
     if what in ("dense_builder", "ground_plane"):
         key = {"dense_builder": "Visualization.Builder.Open",
                "ground_plane": "Plane.MannualCheck.Open"}[what]
@@ -232,7 +226,6 @@ def test_unported_options_raise(what):
     act = {
         "ext_result": lambda: tr.grab_pose_and_objects(
             0.0, pose, np.zeros((0, 8)), None, ext_result=np.zeros((0, 12))),
-        "fuse_lm": lambda: setattr(tr, "fuse_lm", True),
         "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
         "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
         "distributed": tr.enable_distributed,
