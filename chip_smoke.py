@@ -101,10 +101,32 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      the middle stage's host ms and phase A's bytes a frame; the numpy PNG
      decode ms of a depth frame (Up filter), of its Paeth-filtered copy
      and, where cv2 is installed, of the frame as cv2 writes it;
+  6d. the offline batch mapper ([offline]): [cli]'s export run by
+     examples/torch_run_tum.py --offline in batches of 8 frames with one BA
+     a batch, with --offline-per-frame-ba and with --offline-split (the
+     u16 phase A): 24/24 objects within a median centre error of 0.05 m,
+     map IoU, frames/s and host ms a frame beside the adaptive mono CLI
+     run's, the per-frame-BA run's objects.txt within 1e-3 of the adaptive
+     mono run's (and whether bit-equal), depth_cloud, voxel_downsample and
+     symmetry_search launched once a batch plus once a bootstrap frame
+     (cluster_components too, never on the split run), fewer BA launches
+     with one BA a batch than one a frame, every batched frame and call
+     under the synchronisation check; one batched call of 8 mid-orbit
+     frames under the profiler (device operations, busy ms, idle share,
+     operations a frame against the online call's); at that batch's
+     shapes depth_cloud with the frame lane (and the border lane) and
+     symmetry_search with the frame lane against their plain versions and
+     bit for bit against the same detections launched one frame at a time,
+     and the clustering's sort-frame hint one rotation a detection against
+     one for all (labels, rounds and selections equal, device ms);
   8. one JSON line with a record per kernel (``launches_cli``: the
      adaptive mono CLI run's count of that kernel, ``launches_cli_split``
-     / ``_fused`` / ``_auto`` the host-clustered runs'), the card line,
-     and the result line {"ok": true, "device": {...}} last.
+     / ``_fused`` / ``_auto`` the host-clustered runs',
+     ``launches_offline`` / ``_offline_per_frame_ba`` /
+     ``_offline_split`` the offline runs'; the frame lanes' records at the
+     offline batch's shapes, the border lane's with the frame lane among
+     the shapes no path reached), the card line, and the result line
+     {"ok": true, "device": {...}} last.
 Every path prints its map's IoU against the ground truth
 (system/metrics.object_map_iou).
 """
@@ -190,6 +212,13 @@ FE_REPLACES = {
 # the attribute downsample; the cost with its src_mask
 SPARSE_REPLACES = dict(
     FE_REPLACES, voxel_downsample="object_oriented_slam_tpu/ops/voxel.py:118")
+# with the offline batch mapper's frame lane: JAX's batched stages (a)-(c)
+# with each detection's row0 (extract_local_ellipsoids_multi's _stage_a_one
+# under vmap) and its symmetry with proj_row0 (_sym_finish_one under vmap)
+OFFLINE_REPLACES = {
+    "depth_cloud": "object_oriented_slam_tpu/frontend/batch_extractor.py:91",
+    "symmetry_search":
+        "object_oriented_slam_tpu/frontend/batch_extractor.py:126"}
 REPLACES = {"K1": "attic/pallas_ba_kernels.py:183",
             "K2": "attic/pallas_ba_kernels.py:202",
             "K3": "attic/pallas_ba_kernels.py:219",
@@ -232,10 +261,11 @@ def cuda_ms(fn, reps, warmup=2):
 def profiled(fn, reps=1, expect=None):
     """The profiler's CUDA events (kernels, copies, memsets) of reps fn()
     calls, synchronized.  In a process that has run for a while a trace
-    lacks its first one or two launches, so eight random fills go first (a
-    kernel nothing else here launches) and are left out by name.  A trace
-    that still comes back empty, or with fewer than ``expect`` operations,
-    is taken again, up to three times."""
+    lacks its first launches (one or two, and up to ten once the offline
+    phase has run), so 64 random fills go first (a kernel nothing else
+    here launches), 8 more after, all left out by name.  A trace that still
+    comes back empty, or with fewer than ``expect`` operations, is taken
+    again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     first = torch.empty(8, device="cuda")
@@ -244,11 +274,13 @@ def profiled(fn, reps=1, expect=None):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
+            for _ in range(64):
                 first.random_()
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
+            for _ in range(8):
+                first.random_()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -268,7 +300,7 @@ def device_ms(fn, reps, warmup=2, name=None):
     copy a few scalars to the card)."""
     for _ in range(warmup):
         fn()
-    for _ in range(3):      # a trace may lack the named kernel's events
+    for _ in range(6):      # a trace may lack the named kernel's events
         events = profiled(fn, reps, expect=reps)
         if name is not None:
             events = [e for e in events if name in e.key]
@@ -896,15 +928,17 @@ def near_threshold(attr, mask):
 
 
 def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg,
-                       border=False):
+                       border=False, frame=None):
     """depth_cloud (stages (a)-(c), one launch) against depth_cloud_plain:
     bit for bit against it on the CPU, masks, cells and flags equal to it
     on the card and floats within 1e-6 (its index_add_ adds with atomics);
     a second launch bit-equal.  With ``border`` the same launch with sparse
     symmetry's lane (depth_cloud_border against depth_cloud_border_plain):
     the voxels' border means held as the floats, the other outputs
-    bit-equal to the launch without the lane.  Returns its record (with
-    ``border``, and the border means)."""
+    bit-equal to the launch without the lane.  With ``frame`` (the offline
+    batch mapper's frame lane: depth [B, H, W], pose_wc [B, 7], each
+    detection's frame index) the same checks on the lane's launch.
+    Returns its record (with ``border``, and the border means)."""
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
     from object_oriented_slam_tpu_torch.ops import voxel as vx
@@ -912,29 +946,31 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg,
             cfg.cloud_capacity)
     args = (depth, bboxes, pose_wc, plane, cam)
     cpu_args = (depth.cpu(), bboxes.cpu(), pose_wc.cpu(), plane.cpu(), cam)
+    fr = {"frame": frame}
+    cpu_fr = {"frame": None if frame is None else frame.cpu()}
     if border:
         def kernel():
-            return tuple(dc.depth_cloud_border(*args, *rest))
+            return tuple(dc.depth_cloud_border(*args, *rest, **fr))
 
-        def plain(*a):
-            return tuple(dc.depth_cloud_border_plain(*a, *rest))
+        def plain(*a, **kw):
+            return tuple(dc.depth_cloud_border_plain(*a, *rest, **kw))
         fields = (*dc.DepthCloud._fields, "battr_v")
     else:
         def kernel():
-            return dc.depth_cloud(*args, *rest)
+            return dc.depth_cloud(*args, *rest, **fr)
 
-        def plain(*a):
-            return dc.depth_cloud_plain(*a, *rest)
+        def plain(*a, **kw):
+            return dc.depth_cloud_plain(*a, *rest, **kw)
         fields = dc.DepthCloud._fields
 
     def flat(out):         # (DepthCloud, battr_v) -> one tuple of tensors
         return (*out[0], out[1]) if border else tuple(out)
     got = flat(kernel())
     again = flat(kernel())
-    card = flat(plain(*args))
-    cpu = flat(plain(*cpu_args))
+    card = flat(plain(*args, **fr))
+    cpu = flat(plain(*cpu_args, **cpu_fr))
     n_cloud = len(dc.DepthCloud._fields)
-    bare = dc.depth_cloud(*args, *rest) if border else got
+    bare = dc.depth_cloud(*args, *rest, **fr) if border else got
     torch.cuda.synchronize()
     if not all_bits(got, again):
         raise RuntimeError(f"depth_cloud ({tag}): two launches differ")
@@ -960,18 +996,18 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg,
     # the work: the depth pixels under the boxes, 100 centre samples a box,
     # the boxes, pose and plane read once, the outputs written once; the
     # operations of the live points and the output slots
-    H, W = depth.shape
+    H, W = depth.shape[-2:]
     D, cap = got.m2.shape
     n_pix = box_pixels(bboxes, H, W)
     pts_cam, m0 = bp.bbox_point_cloud_plain(depth, bboxes, cam,
-                                            cfg.depth_range)
+                                            cfg.depth_range, frame)
     live = int(m0.sum())
     # with the border lane: each live point's 4 neighbours read (off the
     # strided grid), the border means written; the border test and the
     # attribute's share of the mean
     n_bytes = (int(n_pix.sum()) + 4 * live * border + 100 * D) * 4 + sum(
         t.numel() * t.element_size()
-        for t in (bboxes, pose_wc, plane, *outs))
+        for t in (bboxes, pose_wc, plane, frame, *outs) if t is not None)
     n_ops = (live * (DS_OPS_POINT + border * (DS_OPS_BORDER + DS_OPS_ATTR))
              + D * cap * (DS_OPS_SLOT + DS_OPS_WORLD + border * DS_OPS_ATTR))
     t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
@@ -981,7 +1017,7 @@ def depth_cloud_checks(tag, depth, bboxes, pose_wc, plane, cam, cfg,
     r = dict(kernel="depth_cloud", shape=(D, m0.shape[1], cap),
              max_abs_err=err, bound=max((t_b, "bytes"), (t_o, "operations")),
              ms=device_ms(kernel, 20, name="depth_cloud"),
-             plain_ms=cuda_ms(lambda: plain(*args), 5),
+             plain_ms=cuda_ms(lambda: plain(*args, **fr), 5),
              library_ms=lib_ms, sort_ms=sort_ms,
              live_points=live, box_pixels=int(n_pix.sum()))
     lane = ""
@@ -2107,7 +2143,7 @@ def phase_cli(dev, tmp, sym_path, sym_call):
     settings = os.path.join(os.path.dirname(pkg.__file__), "configs",
                             "synthetic_depth_sym.yaml")
     split_call_overhead(settings, sym_path[0], sym_path[1], sym_call)
-    maps, cli_launches = {}, {}
+    maps, cli_launches, rates = {}, {}, {}
     for name, extra in CLI_RUNS:
         out = os.path.join(tmp, "cli_" + name.replace(" ", "_"))
         slam, printed, e2e, checked, fetch, launches, middle, a_bytes = \
@@ -2123,6 +2159,7 @@ def phase_cli(dev, tmp, sym_path, sym_call):
         trace = tr.depth_trace
         e2e_ms, fetch_ms = e2e * 1e3, fetch * 1e3
         fps = len(e2e) / max(e2e.sum(), 1e-9)
+        rates[name] = (fps, e2e_ms.mean())
         arch = (type(tr.extractor).__name__, tr.fuse_lm)
         for line in printed.splitlines():
             if line.startswith(("Processed", "Timing", "Pipeline depth",
@@ -2201,7 +2238,369 @@ def phase_cli(dev, tmp, sym_path, sym_call):
         if sorted(objs) != sorted(ref) or not diff <= 1e-4:
             raise RuntimeError(f"the {name} run's objects.txt differs from "
                                f"the adaptive mono run's by {diff}")
-    return cli_launches
+    return cli_launches, dict(seq=seq, settings=settings, gt=gt, ref=maps[
+        "mono adaptive"], rates=rates, launches=cli_launches["mono adaptive"])
+
+
+# the offline runs of [offline]: (name, flags); --extractor names the
+# bootstrap frames' extractor (the plane's frame goes through the per-frame
+# path), the batches are the offline mapper's
+OFFLINE_RUNS = (
+    ("offline", ["--extractor", "mono", "--offline"]),
+    ("offline per-frame BA", ["--extractor", "mono", "--offline",
+                              "--offline-per-frame-ba"]),
+    ("offline split", ["--extractor", "split", "--offline",
+                       "--offline-split"]))
+OFFLINE_BATCH = 8
+# their records' keys in the JSON line: launches_offline, ...
+OFFLINE_KEYS = tuple((name, name.replace(" ", "_").replace("-", "_").lower())
+                     for name, _ in OFFLINE_RUNS)
+
+
+def drive_offline(settings, seq, out, extra):
+    """examples/torch_run_tum.main --offline on the export ``seq`` with
+    ``extra`` flags, every launch counter set to 0 just before and read just
+    after.  The batched frames run under PyTorch's synchronisation check
+    set to raise: each grab after the plane latch (it reads its
+    precomputed rows, the LM launches, the drains wait on events) and each
+    batched call (frontend/batch_extractor: the upload, the launches, the
+    host middle stage, the fetch).  OfflineMapper.run is wrapped to keep
+    its mapper and its returned counts.  Returns (System, printout, the
+    run's counts, the mapper, launches, grabs checked, batched calls
+    checked, grabs without precomputed rows)."""
+    import contextlib
+    import io
+    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    from object_oriented_slam_tpu_torch.system import offline
+    from object_oriented_slam_tpu_torch.system.tracking import Tracking
+
+    grab, run = Tracking.grab_pose_and_objects, offline.OfflineMapper.run
+    calls = {n: getattr(bx, n) for n in ("dispatch_batch",
+                                         "dispatch_batch_phase_a",
+                                         "dispatch_batch_phase_b",
+                                         "fetch_batch")}
+    seen = dict(grabs=0, calls=0, per_frame=0)
+    kept = {}
+
+    @contextlib.contextmanager
+    def checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def checked_grab(self, *args, **kwargs):
+        if kwargs.get("ext_result") is None:
+            seen["per_frame"] += 1
+        if self.state.ground_state != 2:
+            return grab(self, *args, **kwargs)
+        with checked():
+            out = grab(self, *args, **kwargs)
+        seen["grabs"] += 1
+        return out
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            with checked():
+                out = fn(*args, **kwargs)
+            seen["calls"] += 1
+            return out
+        return call
+
+    def kept_run(self, frames, progress=None):
+        kept["mapper"] = self
+        kept["stats"] = run(self, frames, progress)
+        return kept["stats"]
+
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    for k in all_kernels:
+        k.launches = 0
+    Tracking.grab_pose_and_objects = checked_grab
+    offline.OfflineMapper.run = kept_run
+    for n, fn in calls.items():
+        setattr(bx, n, wrap(fn))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            slam = example("torch_run_tum").main(
+                [settings, seq, "--out", out, *extra])
+    finally:
+        Tracking.grab_pose_and_objects = grab
+        offline.OfflineMapper.run = run
+        for n, fn in calls.items():
+            setattr(bx, n, fn)
+    launches = {k.name: k.launches for k in all_kernels}
+    return (slam, printed.getvalue(), kept["stats"], kept["mapper"],
+            launches, seen["grabs"], seen["calls"], seen["per_frame"])
+
+
+def offline_batch(dev, seq, settings, ground_plane, first=76):
+    """OFFLINE_BATCH consecutive mid-orbit frames of the export (from
+    frame ``first``) packed as the offline mapper packs them, with the
+    tracker's run gates.  Returns (FrameBatch, camera, the batch's device
+    inputs (depths, bboxes, frame index, run, types, poses, plane))."""
+    from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
+    from object_oriented_slam_tpu_torch.io.config import Config
+    from object_oriented_slam_tpu_torch.io.tum import TUMDataset
+    from object_oriented_slam_tpu_torch.system.tracking import Tracking
+    from object_oriented_slam_tpu_torch.utils.transfer import to_device
+    cam = scene24_sym().camera
+    tr = Tracking(Config(settings), device=dev)
+    ds = TUMDataset(seq)
+    packed = []
+    try:
+        for k, ts, pose, depth, rgb, det in ds.frames():
+            if k >= first:
+                det = np.asarray(det, np.float64).reshape(-1, 8)
+                packed.append((depth, det[:, 1:5], det[:, 5].astype(int),
+                               tr.run_gates(det, True), pose))
+            if len(packed) == OFFLINE_BATCH:
+                break
+    finally:
+        ds.close()
+    fb = bx.pack_frames_batch(cam, extractor_config(settings), packed,
+                              ground_plane, min_pad=OFFLINE_BATCH)
+    depths_d = to_device(np.asarray(fb.depths, np.int32), dev)
+    bb, fi, run, st, poses, plane = bx._unpack(to_device(fb.flat, dev),
+                                               fb.pad, fb.B)
+    return fb, cam, (depths_d, bb.contiguous(), fi, run, st.to(torch.int32),
+                     poses.contiguous(), plane.contiguous())
+
+
+def batch_call_overhead(dev, fb, cam, online_call):
+    """One batched extraction call of OFFLINE_BATCH frames
+    (batch_extractor.dispatch_batch + fetch_batch) under the profiler:
+    device operations, busy ms and the idle share of its wall, operations
+    a frame beside the online call's ``online_call`` (busy ms,
+    operations).  Raises unless it launches each frontend kernel exactly
+    once, and unless it runs under the synchronisation check.  Returns
+    (busy ms, operations, wall ms)."""
+    from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+
+    def call():
+        return bx.fetch_batch(bx.dispatch_batch(fb, cam, device=dev))
+
+    wall = wall_ms(call, 5)
+    prof = device_busy(call)
+    if prof is None:
+        raise RuntimeError("the profiler shows no device time for a batched "
+                           "extraction call")
+    busy, ops, top = prof
+    before = {k.name: k.launches for k in fk.KERNELS}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = bx.dispatch_batch(fb, cam, device=dev)
+        rows = bx.fetch_batch(h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per_call = {k.name: k.launches - before[k.name] for k in fk.KERNELS}
+    if per_call != SYM_CALL_LAUNCHES:
+        raise RuntimeError(f"a batched call launched {per_call}, not "
+                           f"{SYM_CALL_LAUNCHES}")
+    n = sum(n for _, n in fb.slices)
+    valid = int((rows[:n, 11] > 0.5).sum())
+    if not np.isfinite(rows).all() or not valid:
+        raise RuntimeError(f"the batched call's rows: {valid} valid of {n}")
+    print(f"[offline] one batched extraction call of {fb.B} frames ({n} "
+          f"detections, {valid} valid, in {fb.pad} lanes, tier "
+          f"{fb.cfg.cloud_capacity}, "
+          f"{h.stats}): {wall:.3f} ms wall (host clock, mean of 5); device "
+          f"busy {busy:.3f} ms over {ops} device operations, idle "
+          f"{1 - busy / wall:.3f} of the wall; {ops / fb.B:.1f} operations "
+          f"and {busy / fb.B:.3f} ms busy a frame against the online call's "
+          f"{online_call[1]} and {online_call[0]:.3f} ms; launches "
+          f"{per_call}; no host synchronisation; top kernels {top}")
+    return busy, ops, wall
+
+
+def frame_lane_checks(dev, fb, cam, inputs):
+    """The two kernels that gained a frame lane, at the batch's shapes:
+    depth_cloud (and with the border lane) and symmetry_search against
+    their plain versions (depth_cloud_checks / symmetry_checks with the
+    frame index) and bit for bit against the same detections launched one
+    frame at a time; the clustering kernel's sort-frame hint one rotation
+    a detection against one rotation for all (labels, rounds and
+    selections equal; device ms of each).  Returns (records, records of
+    the border lane, which no offline path launches)."""
+    from object_oriented_slam_tpu_torch.core import se3
+    from object_oriented_slam_tpu_torch.frontend import extractor as text
+    from object_oriented_slam_tpu_torch.frontend import symmetry as sym
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
+    depths, bb, fi, run, types, poses, plane = inputs
+    cfg = fb.cfg
+    rest = (cfg.voxel_leaf, cfg.depth_range, cfg.plane_clearance,
+            cfg.cloud_capacity)
+    rows = [(fi == b).nonzero().flatten() for b in range(fb.B)]
+    live = [r for r in rows if r.numel()]
+    recs, border_recs = {}, {}
+    recs["depth_cloud (offline batch, frame lane)"] = depth_cloud_checks(
+        "offline batch", depths, bb, poses, plane, cam, cfg, frame=fi)
+    r_b, _ = depth_cloud_checks("offline batch", depths, bb, poses, plane,
+                                cam, cfg, border=True, frame=fi)
+    border_recs["depth_cloud (offline batch, frame and border lanes)"] = r_b
+    for border in (False, True):
+        fn = dc.depth_cloud_border if border else dc.depth_cloud
+        got = fn(depths, bb, poses, plane, cam, *rest, frame=fi)
+        got = (*got[0], got[1]) if border else tuple(got)
+        for r in live:
+            b = int(fi[r[0]])
+            one = fn(depths[b], bb[r].contiguous(), poses[b].contiguous(),
+                     plane, cam, *rest)
+            one = (*one[0], one[1]) if border else tuple(one)
+            for name, g, o in zip((*dc.DepthCloud._fields, "battr_v"), got,
+                                  one):
+                same = (all(same_bits(g[d].cpu(), o.cpu()) for d in r.tolist())
+                        if name == "R_wc" else same_bits(g[r].cpu(), o.cpu()))
+                if not same:
+                    raise RuntimeError(
+                        f"depth_cloud's frame lane (border {border}): {name} "
+                        f"of frame {b} differs from its own launch")
+    print(f"[offline] depth_cloud with the frame lane (and with the border "
+          f"lane too): every output of the {fb.B} frames' one launch "
+          f"bit-equal to each frame's own launch ({len(live)} frames with "
+          f"detections)")
+    a = text._stage_a(depths, bb, poses, plane, cam, cfg, fi)
+    args = cl.centre_and_seed(a[1], a[3], cfg.cluster_tolerance,
+                              cfg.cluster_chains)
+    hints = {"one rotation a detection": a[7].transpose(-1, -2).contiguous(),
+             "the first frame's for all": a[7][0].T.contiguous(),
+             "the identity": None}
+    outs, hint_ms = {}, {}
+    for name, frame in hints.items():
+        def select(frame=frame):
+            return cl.cluster_select(
+                a[1].contiguous(), *args[:4], a[4].contiguous(), args[4],
+                cfg.cluster_iters, 12, cfg.cluster_min_size,
+                cfg.cluster_center_dis, frame=frame)
+        outs[name] = select()
+        hint_ms[name] = device_ms(select, 10, name="cluster_components")
+    first = next(iter(outs.values()))
+    if not all(all_bits(o, first) for o in outs.values()):
+        raise RuntimeError("the clustering's sort-frame hint changed a label, "
+                           "a round count or a selection")
+    print(f"[offline] cluster_select at the batch's shapes ({fb.pad} lanes, "
+          f"rounds max {int(first[4].max())}): labels, rounds and selections "
+          f"equal under every sort-frame hint; device ms "
+          f"{ {k: round(v, 4) for k, v in hint_ms.items()} } (the batch "
+          f"passes one rotation a detection)")
+    sel, _ = text._cluster_select_batch(a[1], a[3], a[4], a[7], cfg)
+    Two, pts_n, obj_m, _ = text._stage_post(a[1], sel, plane, cfg)
+    pose_oc = se3.se3_mul(se3.se3_inv(Two), poses[fi.long()])
+    s_args = (pts_n.contiguous(), obj_m.contiguous(), bb, pose_oc.contiguous(),
+              depths, types, run, cam)
+    recs["symmetry_search (offline batch, frame lane)"] = symmetry_checks(
+        "offline batch", *s_args, True, frame=fi)
+    s_cfg = sym.SymmetryConfig()
+    got = sym.estimate_symmetry(*s_args, s_cfg, frame=fi)
+    for r in live:
+        b = int(fi[r[0]])
+        one = sym.estimate_symmetry(*(t[r].contiguous() for t in s_args[:4]),
+                                    depths[b].contiguous(),
+                                    types[r].contiguous(),
+                                    run[r].contiguous(), cam, s_cfg)
+        for name, g, o in zip(sym.SymSearch._fields, got, one):
+            if not same_bits(g[r].cpu(), o.cpu()):
+                raise RuntimeError(f"symmetry_search's frame lane: {name} of "
+                                   f"frame {b} differs from its own launch")
+    print(f"[offline] symmetry_search with the frame lane: the {fb.B} frames' "
+          f"one launch bit-equal to each frame's own launch")
+    for r in (*recs.values(), *border_recs.values()):
+        r["hint_ms"] = hint_ms
+    return recs, border_recs
+
+
+def phase_offline(dev, tmp, cli, sym_call):
+    """examples/torch_run_tum.py --offline on [cli]'s export (24 objects,
+    N_DEPTH_FRAMES frames, synthetic_depth_sym.yaml), once per
+    OFFLINE_RUNS entry: batches of OFFLINE_BATCH frames with one BA a
+    batch, with the per-frame BA, and the split protocol (u16 phase A).
+    Raises unless every run maps 24/24 objects within a median centre
+    error of 0.05 m of objects_gt.txt, the per-frame-BA run's objects.txt
+    is within 1e-3 of the adaptive mono CLI run's, depth_cloud,
+    voxel_downsample and symmetry_search launched once a batch plus once a
+    bootstrap frame (cluster_components too on the monolithic runs, never
+    on the split run), and the batched frames ran under the
+    synchronisation check.  Then one batched call under the profiler
+    beside the online call ``sym_call`` and the frame lanes
+    (frame_lane_checks) at that batch's shapes.  Returns (launches of each
+    run by name, records, border-lane records)."""
+    from object_oriented_slam_tpu_torch.io.writers import load_objects
+    from object_oriented_slam_tpu_torch.system.metrics import object_map_iou
+    seq, settings, gt = cli["seq"], cli["settings"], cli["gt"]
+    ref, text_ref = cli["ref"]
+    fps_ref, host_ref = cli["rates"]["mono adaptive"]
+    launches_by_run, ground = {}, None
+    for name, extra in OFFLINE_RUNS:
+        out = os.path.join(tmp, name.replace(" ", "_"))
+        (slam, printed, stats, mapper, launches, grabs, calls,
+         per_frame) = drive_offline(settings, seq, out,
+                                    [*extra, "--batch", str(OFFLINE_BATCH)])
+        ground = slam.tracker.state.ground_plane
+        insts, vecs = load_objects(os.path.join(out, "objects.txt"))
+        objs = dict(zip(insts, vecs))
+        text_out = open(os.path.join(out, "objects.txt")).read()
+        errs = np.array([np.linalg.norm(v[:3] - gt[i][:3])
+                         for i, v in objs.items()])
+        iou = np.array(list(object_map_iou(
+            objs, {i: gt[i] for i in objs}).values()))
+        batches = stats["batches"]
+        host_ms = stats["seconds"] * 1e3 / stats["frames"]
+        for line in printed.splitlines():
+            if line.startswith("Offline:"):
+                print(f"[offline] {name}: CLI: {line}")
+        print(f"[offline] {name}: {len(objs)}/24 objects; centre error median "
+              f"{np.median(errs):.4g} m, max {errs.max():.4g} m; map IoU "
+              f"median {np.median(iou):.4f}, min {iou.min():.4f}; "
+              f"{stats['fps']:.2f} frames/s, {host_ms:.3f} host ms a frame "
+              f"(host clock around OfflineMapper.run, "
+              f"{stats['seconds']:.3f} s for {stats['frames']} frames) "
+              f"against the adaptive mono CLI run's {fps_ref:.2f} frames/s "
+              f"and {host_ref:.3f} ms a frame (track_with_objects); "
+              f"{batches} batches of {OFFLINE_BATCH}, {per_frame} frames "
+              f"through the per-frame path; batch counts of the first: "
+              f"{mapper.batch_stats[0]}; {grabs} grabs and {calls} batched "
+              f"calls under the synchronisation check")
+        print(f"[offline] {name}: kernel launches {launches}")
+        if stats["frames"] != N_DEPTH_FRAMES or len(objs) != 24 \
+                or not np.median(errs) <= 0.05:
+            raise RuntimeError(f"{name}: {stats['frames']} frames, "
+                               f"{len(objs)} of 24 objects, median centre "
+                               f"error {np.median(errs):.4g} m")
+        if grabs != N_DEPTH_FRAMES - per_frame or calls < batches:
+            raise RuntimeError(f"{name}: {grabs} grabs and {calls} batched "
+                               f"calls under the synchronisation check")
+        split = "split" in name
+        once = batches + per_frame
+        want = {"depth_cloud": once, "voxel_downsample": once,
+                "symmetry_search": once,
+                "cluster_components": 0 if split else once}
+        if {k: launches[k] for k in want} != want or per_frame < 1:
+            raise RuntimeError(f"{name} launched {launches}, the frontend "
+                               f"kernels not {want}")
+        if name == "offline per-frame BA":
+            diff = max(np.abs(objs[i] - ref[i]).max() for i in ref)
+            print(f"[offline] {name} against the adaptive mono CLI run: "
+                  f"objects.txt max |diff| {diff:.3g} (limit 1e-3), "
+                  f"bit-equal files: {text_out == text_ref}; LM launches "
+                  f"{launches['ba_normal_eq']} / {launches['ba_chi2']} "
+                  f"against its {cli['launches']['ba_normal_eq']} / "
+                  f"{cli['launches']['ba_chi2']}")
+            if sorted(objs) != sorted(ref) or not diff <= 1e-3:
+                raise RuntimeError(f"the {name} run's objects.txt differs "
+                                   f"from the adaptive mono run's by {diff}")
+        launches_by_run[name] = launches
+    if not (launches_by_run["offline"]["ba_normal_eq"]
+            < launches_by_run["offline per-frame BA"]["ba_normal_eq"]):
+        raise RuntimeError("one BA a batch launched no fewer BA kernels than "
+                           "one a frame")
+    fb, cam, inputs = offline_batch(dev, seq, settings, ground)
+    busy, ops, wall = batch_call_overhead(dev, fb, cam, sym_call)
+    recs, border_recs = frame_lane_checks(dev, fb, cam, inputs)
+    return launches_by_run, recs, border_recs, (busy, ops, wall)
 
 
 def phase_sparse_kernels(dev, path):
@@ -2277,7 +2676,7 @@ def sym_passes(analytic, dual, iters=5):
 
 
 def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
-                    analytic, src_mask=None):
+                    analytic, src_mask=None, frame=None):
     """symmetry_search (K8) against estimate_symmetry_plain on the card, on
     the same inputs: every output bit for bit (the plain version sums in
     the kernel's order), and a second launch bit-equal.  With ``src_mask``
@@ -2286,16 +2685,18 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
     without a mask bit for bit.  Its time beside its bound (the pair tests
     this data needs, SYM_PAIR_OPS each), the plain version's time and the
     yardstick (torch.cdist + torch.amin of one pass, times the passes).
-    Returns its record."""
+    With ``frame`` (the frame lane: depth [B, H, W], each detection's
+    frame index) the same checks on the lane's launch.  Returns its
+    record."""
     from object_oriented_slam_tpu_torch.frontend import symmetry as sym
     from object_oriented_slam_tpu_torch.ops import backproject as bp
     cfg = sym.SymmetryConfig(analytic_grad=analytic)
     args = (pts, mask, bbox, pose_oc, depth, types, run, cam, cfg)
-    got = sym.estimate_symmetry(*args, src_mask)
-    again = sym.estimate_symmetry(*args, src_mask)
+    got = sym.estimate_symmetry(*args, src_mask, frame)
+    again = sym.estimate_symmetry(*args, src_mask, frame)
     proj = bp.proj_depth_map(depth, cam)
     want = sym.estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj, types,
-                                       run, cam, cfg, src_mask)
+                                       run, cam, cfg, src_mask, frame)
     if src_mask is not None:
         every = sym.estimate_symmetry(*args, mask.clone())
         dense = sym.estimate_symmetry(*args)
@@ -2335,7 +2736,8 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
                   for dual in groups}
     n_bytes = sum(t.numel() * t.element_size() for t in (
         pts, mask, bbox, pose_oc, types, run, *got)) + (
-        0 if src_mask is None else src_mask.numel())
+        0 if src_mask is None else src_mask.numel()) + (
+        0 if frame is None else 4 * frame.numel())
     t_o = pairs * SYM_PAIR_OPS / PEAK_F32 * 1e3
     t_b = n_bytes / PEAK_BYTES * 1e3
     # the yardstick: one pass's mirrored points against the live points by
@@ -2355,11 +2757,12 @@ def symmetry_checks(tag, pts, mask, bbox, pose_oc, depth, types, run, cam,
              max_abs_err=max(p_err, float((got.prob - want.prob).abs().max())),
              max_rel_err=c_err, bits_equal=bits,
              bound=max((t_b, "bytes"), (t_o, "operations")),
-             ms=device_ms(lambda: sym.estimate_symmetry(*args, src_mask), 10,
+             ms=device_ms(lambda: sym.estimate_symmetry(*args, src_mask,
+                                                        frame), 10,
                           name="symmetry_search"),
              plain_ms=cuda_ms(lambda: sym.estimate_symmetry_plain(
                  pts, mask, bbox, pose_oc, proj, types, run, cam, cfg,
-                 src_mask), 1, 1),
+                 src_mask, frame), 1, 1),
              library_ms=yard, pair_tests=pairs,
              searched=int(live.sum()), live_points=int(n[live].sum()))
     sources = ""
@@ -2477,7 +2880,9 @@ def main():
         launches_sym, path_sym, sym_call = phase_symmetry_path(dev, tmp,
                                                                depth_call)
         launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
-        launches_by_run = phase_cli(dev, tmp, path_sym, sym_call)
+        launches_by_run, cli = phase_cli(dev, tmp, path_sym, sym_call)
+        (launches_offline, offline_recs, offline_border,
+         _) = phase_offline(dev, tmp, cli, sym_call)
     launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
@@ -2494,6 +2899,9 @@ def main():
                                            if path_launches is not None
                                            else 0)
                    for run in HOST_CLUSTERED},
+                **{"launches_" + key: (launches_offline[run][r["kernel"]]
+                                       if path_launches is not None else 0)
+                   for run, key in OFFLINE_KEYS},
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2504,7 +2912,7 @@ def main():
                     "events_ms", "all_pairs_bound_ms", "tested_pairs",
                     "all_pairs", "every_pair_ms", "world_axes_ms", "sort_ms",
                     "live_points", "box_pixels", "bits_equal", "pair_tests",
-                    "searched", "source_points", "near_threshold")
+                    "searched", "source_points", "near_threshold", "hint_ms")
                    if k in r},
                 **more}
 
@@ -2537,10 +2945,16 @@ def main():
                        launches_sym) for k, r in sym_recs.items()]
     kernels += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]],
                        launches_sparse) for k, r in sparse_recs.items()]
+    # the frame lanes: launches the one-BA-a-batch offline run's
+    kernels += [record(k, r, FE_SOURCE, OFFLINE_REPLACES[r["kernel"]],
+                       launches_offline["offline"])
+                for k, r in offline_recs.items()]
     at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
                     for k, r in {**fe_full, **sym_full}.items()]
     at_full_tier += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]])
                      for k, r in sparse_full.items()]
+    at_full_tier += [record(k, r, FE_SOURCE, OFFLINE_REPLACES[r["kernel"]])
+                     for k, r in offline_border.items()]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "kernels_at_full_tier": at_full_tier}))

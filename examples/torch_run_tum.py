@@ -19,8 +19,15 @@ LM fusion on a local device; ``mono`` clusters on the device; ``split`` /
 ``fused`` cluster on the host between two device phases
 (``native/src/cluster.cpp``, built with g++ at first use).  ``--device
 cpu`` runs the plain PyTorch versions on the CPU; without CUDA the default
-device raises.  Flags of ``run_tum.py`` whose subsystem is not ported raise
-``NotImplementedError`` naming its item of ``ROADMAP.md``'s queue 1.
+device raises.  ``--offline`` is the throughput mode of ``run_tum.py``
+(``system/offline.py``): after the ground plane's bootstrap through the
+per-frame path, every ``--batch`` frames (8) are extracted by one batched
+call, the global BA runs once a batch (``--offline-per-frame-ba``: once a
+frame, the online schedule), and ``--offline-split`` clusters on the host
+between two batched device phases (phase A's copy home quantized to u16);
+``--extractor`` then picks the bootstrap frames' extractor.  Flags of
+``run_tum.py`` whose subsystem is not ported raise ``NotImplementedError``
+naming its item of ``ROADMAP.md``'s queue 1.
 """
 import argparse
 import os
@@ -40,9 +47,8 @@ _UNPORTED = (
                                or a.slam_max_objects is not None
                                or a.odo_weight != 1.0), "SLAM mode", 7),
     ("--distributed", lambda a: a.distributed, "the distributed backend", 8),
-    ("--offline", lambda a: (a.offline or a.offline_shard or a.offline_split
-                             or a.offline_per_frame_ba or a.batch != 8),
-     "the offline batch mapper", 6),
+    ("--offline-shard", lambda a: a.offline_shard,
+     "the distributed backend (the offline batches sharded over devices)", 8),
 )
 
 
@@ -87,11 +93,22 @@ def parser():
                          "default: adaptive, 4 deepening to 8 on blocked "
                          "fetches). Pinning disables adaptation.")
     ap.add_argument("--distributed", action="store_true")
-    ap.add_argument("--offline", action="store_true")
-    ap.add_argument("--batch", type=int, default=8, metavar="B")
+    ap.add_argument("--offline", action="store_true",
+                    help="throughput mode: B frames' extraction in one "
+                         "batched call each (system/offline.py); the same "
+                         "results as the sequential loop with "
+                         "--offline-per-frame-ba. Requires depth (not "
+                         "--no-depth).")
+    ap.add_argument("--batch", type=int, default=8, metavar="B",
+                    help="frames per batched extraction call in --offline "
+                         "mode (default 8)")
     ap.add_argument("--offline-shard", action="store_true")
-    ap.add_argument("--offline-split", action="store_true")
-    ap.add_argument("--offline-per-frame-ba", action="store_true")
+    ap.add_argument("--offline-split", action="store_true",
+                    help="--offline with the device-A / host-cluster / "
+                         "device-B split protocol")
+    ap.add_argument("--offline-per-frame-ba", action="store_true",
+                    help="--offline with the reference's per-frame global "
+                         "BA schedule instead of one BA per batch")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the extraction and the LM "
                          "(default cuda; cpu runs the plain versions)")
@@ -101,7 +118,10 @@ def parser():
 def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     System after its outputs are written."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.offline and args.no_depth:
+        ap.error("--offline requires the depth pipeline")
     for flag, is_set, what, item in _UNPORTED:
         if is_set(args):
             raise NotImplementedError(
@@ -127,6 +147,7 @@ def main(argv=None):
                  height=cfg.get_int("Camera.height", 480))
 
     extractor = None
+    ext_cfg = None
     plane_est = None
     fuse_lm = False
     if not args.no_depth:
@@ -188,11 +209,35 @@ def main(argv=None):
     if args.odometry:
         ds.set_odometry(args.odometry)
     try:
-        _online_loop(args, slam, ds, skip)
+        if args.offline:
+            _offline(args, slam, ds, cam, ext_cfg)
+        else:
+            _online_loop(args, slam, ds, skip)
     finally:
         ds.close()
     _save_outputs(args, slam)
     return slam
+
+
+def _offline(args, slam, ds, cam, ext_cfg):
+    from object_oriented_slam_tpu_torch.system.offline import OfflineMapper
+
+    mapper = OfflineMapper(slam, cam, ext_cfg, batch_size=args.batch,
+                           with_association=not args.auto_assoc,
+                           split=args.offline_split,
+                           backend_per_batch=not args.offline_per_frame_ba)
+
+    def frames_limited():
+        for k, rec in enumerate(ds.frames()):
+            if args.max_frames and k >= args.max_frames:
+                return
+            yield rec
+
+    stats = mapper.run(frames_limited())
+    print(f"Offline: {stats['frames']} frames in {stats['seconds']:.1f}s "
+          f"({stats['fps']:.2f} fps, {stats['batches']} batched programs of "
+          f"{args.batch})")
+    return mapper
 
 
 def _online_loop(args, slam, ds, skip):

@@ -159,8 +159,11 @@ def build(source, out):
         raise RuntimeError(f"g++ failed on {source}:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
     lib.takes_src = "src_mask" in body       # a source with sparse symmetry
+    # a source with the offline batch mapper's frame lane
+    lib.takes_frame = "const void* frame," in body
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.oslam_symmetry_search.argtypes = ([p] * (7 + lib.takes_src)
+    lib.oslam_symmetry_search.argtypes = ([p] * (7 + lib.takes_src
+                                                 + lib.takes_frame)
                                           + [i] * 4 + [f] * 11 + [i, i]
                                           + [p] * 7)
     lib.oslam_symmetry_search.restype = i
@@ -180,10 +183,12 @@ def search(lib, args, cam, cfg, src_mask=None):
     inv = 1.0 / cfg.sigma
     src = [] if not lib.takes_src else [
         None if src_mask is None else src_mask.contiguous().data_ptr()]
+    frame = [None] if lib.takes_frame else []     # one frame
     rc = lib.oslam_symmetry_search(
         pts.data_ptr(), mask.data_ptr(), *src, bbox.data_ptr(),
         pose.data_ptr(),
-        depth.data_ptr(), types.data_ptr(), run.data_ptr(), D, S, H, W,
+        depth.data_ptr(), *frame, types.data_ptr(), run.data_ptr(), D, S, H,
+        W,
         cam.fx, cam.fy, cam.cx, cam.cy, cam.scale, cam.fx * cam.fx,
         -0.5 * inv * inv,
         float(np.float32(np.deg2rad(np.float32(cfg.step_angle_deg)))),

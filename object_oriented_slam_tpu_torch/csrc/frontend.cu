@@ -829,8 +829,13 @@ struct CameraArgs {
 };
 
 // Grid (S, max(D, 1)), clusters of S; C list entries a block.  kBorder:
-// the voxels' mean border flags into battr_v (sparse symmetry).
-template <bool kBorder>
+// the voxels' mean border flags into battr_v (sparse symmetry).  kFrames
+// (the offline batch mapper): the detections come from a batch of frames,
+// depth [B, H, W] and pose [B, 7], detection d from frame frame[d]; R_out
+// is then one rotation a detection [D, 3, 3].  Without it the launch is a
+// frame's (depth [H, W], pose [7], R_out [3, 3]), instruction for
+// instruction.
+template <bool kBorder, bool kFrames>
 __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     const int* __restrict__ depth, int H, int W, int D,
     const float* __restrict__ bboxes, const float* __restrict__ pose,
@@ -839,7 +844,8 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
     uint8_t* __restrict__ m2, float* __restrict__ center_w,
     uint8_t* __restrict__ ok_points, uint8_t* __restrict__ ok_center,
     float* __restrict__ R_out, float* __restrict__ pts_v,
-    int* __restrict__ cells_v, float* __restrict__ battr_v, float jump)
+    int* __restrict__ cells_v, float* __restrict__ battr_v, float jump,
+    const int* __restrict__ frame)
 {
     __shared__ DsShared ws;
     __shared__ float w[18];
@@ -850,6 +856,12 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
                    (int)gridDim.x};
     const int d = blockIdx.y, tid = threadIdx.x;
     DS_CLOCK(0);
+    // the detection's frame: its depth image and its pose (a size_t offset:
+    // B H W pixels pass 2^31 at 7,000 frames of 640 x 480)
+    int f = 0;
+    if constexpr (kFrames) f = frame[d];
+    depth += (size_t)f * H * W;
+    pose += 7 * f;
 
     // R from the quaternion in se3.quat_to_mat's order; t; the plane and its
     // den = max(|n|, 1e-8) as the extractor takes them
@@ -874,8 +886,12 @@ __global__ void __launch_bounds__(OSLAM_DS_T, 1) depth_cloud_kernel(
         w[16] = nn < 1e-8f ? 1e-8f : nn;    // a NaN stays NaN, as clamp_min
         w[17] = clearance;
         ws.any = 0;
-        if (d == 0 && cl.rank == 0)
+        if constexpr (kFrames) {
+            if (cl.rank == 0)
+                for (int k = 0; k < 9; ++k) R_out[9 * d + k] = w[k];
+        } else if (d == 0 && cl.rank == 0) {
             for (int k = 0; k < 9; ++k) R_out[k] = w[k];
+        }
     }
     if (d >= D) return;         // the launch for no detection writes R only
     const float* bb = bboxes + 4 * d;
@@ -1040,60 +1056,71 @@ static int ds_launch(void (*kernel)(Params...), int S, int blocks, int smem,
     return (int)rc;
 }
 
-static DsKernel ds_cloud = {(const void*)depth_cloud_kernel<false>, -1, 0};
-static DsKernel ds_cloud_border = {(const void*)depth_cloud_kernel<true>, -1,
-                                   0};
+// depth_cloud_kernel<kBorder, kFrames> at ds_cloud[kBorder][kFrames]
+static DsKernel ds_cloud[2][2] = {
+    {{(const void*)depth_cloud_kernel<false, false>, -1, 0},
+     {(const void*)depth_cloud_kernel<false, true>, -1, 0}},
+    {{(const void*)depth_cloud_kernel<true, false>, -1, 0},
+     {(const void*)depth_cloud_kernel<true, true>, -1, 0}}};
 static DsKernel ds_object = {(const void*)voxel_downsample_kernel<false>, -1,
                              0};
 static DsKernel ds_object_attr = {(const void*)voxel_downsample_kernel<true>,
                                   -1, 0};
 
-template <bool kBorder>
+template <bool kBorder, bool kFrames>
 static int depth_cloud_launch(
     long long G, const int* depth, int H, int W, const float* bboxes, int D,
     const float* pose, const float* plane, const CameraArgs cam, float leaf,
     float clearance, int capacity, float* pts_w, uint8_t* m2,
     float* center_w, uint8_t* ok_points, uint8_t* ok_center, float* R_out,
-    float* pts_v, int* cells_v, float* battr_v, float jump, void* stream)
+    float* pts_v, int* cells_v, float* battr_v, float jump, const int* frame,
+    void* stream)
 {
     const int per = 12 + (int)sizeof(typename BoxPixels<kBorder>::Staged);
     int S = 0, C = 0;
-    const int rc = ds_shape(kBorder ? ds_cloud_border : ds_cloud, G, per, &S,
-                            &C);
+    const int rc = ds_shape(ds_cloud[kBorder][kFrames], G, per, &S, &C);
     if (rc != 0) return rc;
-    return ds_launch(depth_cloud_kernel<kBorder>, S, D > 0 ? D : 1, C * per,
-                     stream, depth, H, W, D, bboxes, pose, plane, cam, leaf,
-                     clearance, capacity, C, pts_w, m2, center_w, ok_points,
-                     ok_center, R_out, pts_v, cells_v, battr_v, jump);
+    return ds_launch(depth_cloud_kernel<kBorder, kFrames>, S, D > 0 ? D : 1,
+                     C * per, stream, depth, H, W, D, bboxes, pose, plane,
+                     cam, leaf, clearance, capacity, C, pts_w, m2, center_w,
+                     ok_points, ok_center, R_out, pts_v, cells_v, battr_v,
+                     jump, frame);
 }
 
 // A cluster of S blocks per detection (and one cluster for D = 0, which
 // writes R only), S from the whole image's G = ceil(H / 3) * ceil(W / 3)
 // <= 65535 strided pixels (16-bit point ids): every box fits.  battr_v
 // [D, capacity] may be null: without it the kernel does not test borders.
+// frame [D] int32 may be null: one frame (depth [H, W], pose [7], R_out
+// [3, 3]); given, a batch of frames (depth [B, H, W], pose [B, 7], R_out
+// [D, 3, 3]), each detection's own frame index in [0, B), and D >= 1.
 extern "C" int oslam_depth_cloud(
     const void* depth, int H, int W, const void* bboxes, int D,
     const void* pose, const void* plane, float scale, float fx, float fy,
     float cx, float cy, float depth_range, float leaf, float clearance,
     int capacity, void* pts_w, void* m2, void* center_w, void* ok_points,
     void* ok_center, void* R_out, void* pts_v, void* cells_v, void* battr_v,
-    float jump, void* stream)
+    float jump, const void* frame, void* stream)
 {
     const long long G = (long long)((H + OSLAM_STRIDE - 1) / OSLAM_STRIDE)
                         * ((W + OSLAM_STRIDE - 1) / OSLAM_STRIDE);
     if (H < 1 || W < 1 || D < 0 || D > 65535 || capacity < 1 ||
         G > OSLAM_DS_MAX_IDS || (D > 0 && (pts_v == nullptr ||
-                                           cells_v == nullptr)))
+                                           cells_v == nullptr)) ||
+        (frame != nullptr && D < 1))
         return (int)cudaErrorInvalidValue;
     const CameraArgs cam = {scale, fx, fy, cx, cy, depth_range};
-    auto launch = battr_v != nullptr ? depth_cloud_launch<true>
-                                     : depth_cloud_launch<false>;
+    auto launch = battr_v != nullptr
+                      ? (frame != nullptr ? depth_cloud_launch<true, true>
+                                          : depth_cloud_launch<true, false>)
+                      : (frame != nullptr ? depth_cloud_launch<false, true>
+                                          : depth_cloud_launch<false, false>);
     return launch(G, (const int*)depth, H, W, (const float*)bboxes, D,
                   (const float*)pose, (const float*)plane, cam, leaf,
                   clearance, capacity, (float*)pts_w, (uint8_t*)m2,
                   (float*)center_w, (uint8_t*)ok_points, (uint8_t*)ok_center,
                   (float*)R_out, (float*)pts_v, (int*)cells_v,
-                  (float*)battr_v, jump, stream);
+                  (float*)battr_v, jump, (const int*)frame, stream);
 }
 
 template <bool kAttr>
@@ -1298,9 +1325,9 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     const float* __restrict__ pts_c, const float* __restrict__ nrm,
     const uint8_t* __restrict__ mask, const int* __restrict__ labels0, int N,
     float tol2, int outer_iters, int jump_iters, int smem_bytes, int prune,
-    const float* __restrict__ sort_frame, int* __restrict__ out_labels,
-    uint8_t* __restrict__ converged, int* __restrict__ rounds,
-    const Selection sel)
+    const float* __restrict__ sort_frame, int frame_stride,
+    int* __restrict__ out_labels, uint8_t* __restrict__ converged,
+    int* __restrict__ rounds, const Selection sel)
 {
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
@@ -1308,6 +1335,7 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     const int d = blockIdx.y;
     const int tid = threadIdx.x, T = blockDim.x;
     const int lane = tid & 31, warp = tid >> 5, W = T >> 5;
+    sort_frame += (size_t)frame_stride * d;     // 0: one frame for all
     pts_c += (size_t)d * N * 3;
     nrm += (size_t)d * N;
     mask += (size_t)d * N;
@@ -1655,8 +1683,9 @@ static int launch_cluster_components(
     const float* pts_c, const float* nrm, const uint8_t* mask,
     const int* labels0, int D, int N, float tol2, int outer_iters,
     int jump_iters, int S, int T, int smem_bytes, int prune,
-    const float* sort_frame, int* out_labels, uint8_t* converged, int* rounds,
-    const Selection& sel, cudaStream_t stream)
+    const float* sort_frame, int frame_stride, int* out_labels,
+    uint8_t* converged, int* rounds, const Selection& sel,
+    cudaStream_t stream)
 {
     auto kernel = cluster_components_kernel<P>;
     cudaError_t rc = cudaFuncSetAttribute(
@@ -1676,7 +1705,8 @@ static int launch_cluster_components(
     cfg.numAttrs = 1;
     rc = cudaLaunchKernelEx(&cfg, kernel, pts_c, nrm, mask, labels0, N, tol2,
                             outer_iters, jump_iters, smem_bytes, prune,
-                            sort_frame, out_labels, converged, rounds, sel);
+                            sort_frame, frame_stride, out_labels, converged,
+                            rounds, sel);
     if (rc == cudaSuccess) rc = cudaGetLastError();
     return (int)rc;
 }
@@ -1687,15 +1717,18 @@ static int launch_cluster_components(
 // built; examples/torch_cluster_sweep.py rebuilds with -DOSLAM_CC_P=4 or 8
 // to time the others); prune = 0 tests every pair (for timing the skip);
 // sort_frame is 9 floats, the rows of the rotation the cloud was sorted in
-// (the identity: the axes of the points' coordinates).  Needs
+// (the identity: the axes of the points' coordinates), or with
+// frame_stride = 9 one such rotation a detection [D, 9] (the offline batch
+// mapper's detections come from frames of B poses); 0 takes the one
+// rotation for all.  The rotation changes no result.  Needs
 // smem_bytes >= 13 bytes a lane (rounded up to 32 lanes) plus a tile of at
 // least 256 points.
 static int cluster_launch(
     const void* pts_c, const void* nrm, const void* mask, const void* labels0,
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
-    void* out_labels, void* converged, void* rounds, const Selection& sel,
-    void* stream)
+    int frame_stride, void* out_labels, void* converged, void* rounds,
+    const Selection& sel, void* stream)
 {
     const int n_pad = (N + 31) & ~31;
     if (D < 1 || D > 65535 || N < 1 || S < 1 || S > 8 || T < 32 ||
@@ -1703,11 +1736,13 @@ static int cluster_launch(
         outer_iters < 1 || jump_iters < 0 ||
         smem_bytes < 13 * n_pad + 16 * 256)
         return (int)cudaErrorInvalidConfiguration;
-    if (sort_frame == nullptr) return (int)cudaErrorInvalidValue;
+    if (sort_frame == nullptr || (frame_stride != 0 && frame_stride != 9))
+        return (int)cudaErrorInvalidValue;
     return launch_cluster_components<OSLAM_CC_P>(
         (const float*)pts_c, (const float*)nrm, (const uint8_t*)mask,
         (const int*)labels0, D, N, tol2, outer_iters, jump_iters, S, T,
-        smem_bytes, prune, (const float*)sort_frame, (int*)out_labels,
+        smem_bytes, prune, (const float*)sort_frame, frame_stride,
+        (int*)out_labels,
         (uint8_t*)converged, (int*)rounds, sel, (cudaStream_t)stream);
 }
 
@@ -1715,12 +1750,14 @@ extern "C" int oslam_cluster_components(
     const void* pts_c, const void* nrm, const void* mask, const void* labels0,
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
-    void* out_labels, void* converged, void* rounds, void* stream)
+    int frame_stride, void* out_labels, void* converged, void* rounds,
+    void* stream)
 {
     Selection none = {};
     return cluster_launch(pts_c, nrm, mask, labels0, D, N, tol2, outer_iters,
                           jump_iters, S, T, P, smem_bytes, prune, sort_frame,
-                          out_labels, converged, rounds, none, stream);
+                          frame_stride, out_labels, converged, rounds, none,
+                          stream);
 }
 
 // cluster_components with ops/cluster.select_cluster as its epilogue: the
@@ -1730,7 +1767,8 @@ extern "C" int oslam_cluster_select(
     const void* pts_c, const void* nrm, const void* mask, const void* labels0,
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
-    void* out_labels, void* converged, void* rounds, const void* pts,
+    int frame_stride, void* out_labels, void* converged, void* rounds,
+    const void* pts,
     const void* center, int min_size, float center_dis, void* least_d,
     void* sel_mask, void* sel_ok, void* stream)
 {
@@ -1742,7 +1780,8 @@ extern "C" int oslam_cluster_select(
         return (int)cudaErrorInvalidValue;
     return cluster_launch(pts_c, nrm, mask, labels0, D, N, tol2, outer_iters,
                           jump_iters, S, T, P, smem_bytes, prune, sort_frame,
-                          out_labels, converged, rounds, sel, stream);
+                          frame_stride, out_labels, converged, rounds, sel,
+                          stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1820,7 +1859,9 @@ struct SymArgs {
     const uint8_t* src_mask;    // [D, S] the points mirrored, or null: all
     const float* bbox;      // [D, 4]
     const float* pose_oc;   // [D, 7] the camera in the normalized frame
-    const int* depth;       // [H, W] raw depth
+    const int* depth;       // [H, W] raw depth, or [B, H, W] with frame
+    const int* frame;       // [D] each detection's frame of the batch, or
+                            // null: one frame
     const int* types;       // [D] 0 none, 1 reflection, 2 dual reflection
     const uint8_t* run;     // [D]
     int S, H, W;
@@ -2090,8 +2131,11 @@ __device__ __forceinline__ void sym_grad(const float* tot, const SymPlanes& pl,
 }
 
 // kSparse: a.src_mask is given (the sources are kept as indices); without
-// it the kernel is the dense search, instruction for instruction.
-template <bool kSparse>
+// it the kernel is the dense search, instruction for instruction.  kFrames:
+// a.frame is given (the offline batch mapper: each detection looks its
+// pixels up in its own frame's depth image); without it the launch is a
+// frame's, instruction for instruction.
+template <bool kSparse, bool kFrames>
 __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     const SymArgs a)
 {
@@ -2196,6 +2240,8 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
         pose[14] = po[2];
     }
     const float* bb = a.bbox + 4 * d;
+    const int* depth = a.depth;
+    if constexpr (kFrames) depth += (size_t)a.frame[d] * a.H * a.W;
     const int n_par = dual ? 3 : 2;
     const float nv = fmaxf((float)((dual ? 2 : 1) * ns), 1.0f);
     const float gd2 = -(1.0f / nv) * a.coef;    // d cost / d d2
@@ -2232,7 +2278,7 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
                     }
                     __syncthreads();
                     sym_pass<false, kSparse>(a, sidx, ns, ref, n, dual,
-                                             &spl, pose, bb, a.depth, gd2,
+                                             &spl, pose, bb, depth, gd2,
                                              red);
                     if (warp == 0) {
                         float tot[1];
@@ -2290,11 +2336,11 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
         float tot[OSLAM_SYM_SUMS];
         if (grad) {
             sym_pass<true, kSparse>(a, sidx, ns, ref, n, dual, &spl, pose,
-                                    bb, a.depth, gd2, red);
+                                    bb, depth, gd2, red);
             if (warp == 0) sym_totals<OSLAM_SYM_SUMS>(red, tot);
         } else {
             sym_pass<false, kSparse>(a, sidx, ns, ref, n, dual, &spl, pose,
-                                     bb, a.depth, gd2, red);
+                                     bb, depth, gd2, red);
             if (warp == 0) sym_totals<1>(red, tot);
         }
         if (tid == 0) {
@@ -2347,10 +2393,13 @@ __global__ void __launch_bounds__(OSLAM_SYM_T) symmetry_search_kernel(
     a.error[d] = all[bi * OSLAM_SYM_FIELDS + 3];
 }
 
-// src_mask may be null (dense: every live point is mirrored).
+// src_mask may be null (dense: every live point is mirrored).  frame [D]
+// int32 may be null (depth [H, W], one frame); given, depth is [B, H, W]
+// and detection d looks its pixels up in frame frame[d], in [0, B).
 extern "C" int oslam_symmetry_search(
     const void* pts, const void* mask, const void* src_mask,
     const void* bbox, const void* pose_oc, const void* depth,
+    const void* frame,
     const void* types, const void* run, int D, int S, int H, int W, float fx,
     float fy, float cx, float cy, float scale, float ff, float coef,
     float ang_step, float step_dis, float h, float two_h, int iters,
@@ -2361,7 +2410,8 @@ extern "C" int oslam_symmetry_search(
     const SymArgs a = {
         (const float*)pts, (const uint8_t*)mask, (const uint8_t*)src_mask,
         (const float*)bbox,
-        (const float*)pose_oc, (const int*)depth, (const int*)types,
+        (const float*)pose_oc, (const int*)depth, (const int*)frame,
+        (const int*)types,
         (const uint8_t*)run, S, H, W, fx, fy, cx, cy, scale, ff, coef,
         ang_step, step_dis, h, two_h, iters, analytic, (float*)plane,
         (float*)dual_dis, (float*)prob, (float*)error, (float*)inits,
@@ -2369,9 +2419,12 @@ extern "C" int oslam_symmetry_search(
     const dim3 grid(OSLAM_SYM_INITS, D);
     const size_t smem = (size_t)S * sizeof(float4)
                         + (src_mask != nullptr ? (size_t)S * 2 : 0);
-    void (*kernel)(const SymArgs) = src_mask != nullptr
-                                    ? symmetry_search_kernel<true>
-                                    : symmetry_search_kernel<false>;
+    void (*kernel)(const SymArgs) =
+        src_mask != nullptr
+            ? (frame != nullptr ? symmetry_search_kernel<true, true>
+                                : symmetry_search_kernel<true, false>)
+            : (frame != nullptr ? symmetry_search_kernel<false, true>
+                                : symmetry_search_kernel<false, false>);
     kernel<<<grid, OSLAM_SYM_T, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

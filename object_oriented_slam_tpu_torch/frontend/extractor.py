@@ -42,6 +42,13 @@ sparse symmetry) and, when the frame has a detection with a symmetry prior,
 symmetry_search (``frontend/symmetry``; with the border cells as its
 sources with sparse symmetry); the rest is plain PyTorch.
 
+The stages also take a batch of frames (the offline batch mapper,
+``frontend/batch_extractor.py``): depth [B, H, W], poses [B, 7] and each
+detection's frame index ``frame`` [D] int32, with which every stage reads
+its detection's own frame's image and pose; ``frame=None`` is the one frame
+of an online call (depth [H, W], pose [7]), and B = 1 with every index 0
+gives that call's bits.
+
 The host-clustered extractors (``SplitExtractor``,
 ``FusedSplitExtractor``) run stage (d) on the host between two device
 phases: phase A is depth_cloud, its result copied home in one piece;
@@ -129,19 +136,20 @@ def _check_ported(cfg: ExtractorConfig):
 
 
 def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
-             cfg: ExtractorConfig):
+             cfg: ExtractorConfig, frame=None):
     """Stages (a)-(c) of all detections: bbox cloud -> voxel -> world,
     supporting-plane filter (EllipsoidExtractor.cpp:562-578), center
     estimate; on a CUDA device one launch (ops/depth_cloud).
 
     Returns (pts_v [D, cap, 3] camera-frame voxel cloud, pts_w world cloud,
     cells_v, m2 filtered mask, center_w [D, 3], ok_points [D],
-    ok_center [D], R_wc [3, 3], battr_v [D, cap] | None).  battr_v, each
-    voxel's mean depth-border flag, is computed with sparse symmetry only
-    (JAX ``border_map``, extractor.py:333,458), in the same launch.
+    ok_center [D], R_wc [3, 3] ([D, 3, 3] with ``frame``), battr_v
+    [D, cap] | None).  battr_v, each voxel's mean depth-border flag, is
+    computed with sparse symmetry only (JAX ``border_map``,
+    extractor.py:333,458), in the same launch.
     """
     args = (depth, bboxes, pose_wc, ground_plane, cam, cfg.voxel_leaf,
-            cfg.depth_range, cfg.plane_clearance, cfg.cloud_capacity)
+            cfg.depth_range, cfg.plane_clearance, cfg.cloud_capacity, frame)
     battr_v = None
     if cfg.open_symmetry and cfg.sparse_symmetry:
         dc, battr_v = depth_cloud_border(*args)
@@ -210,9 +218,10 @@ def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
     receives 0-dim DEVICE tensors: the most rounds a detection ran, the
     largest survivor count (``cluster_lanes`` and ``cluster_survivors``: the
     lanes the pass works on are the survivors) and whether every detection
-    converged.  ``R_wc`` [3, 3] (camera to world) tells the kernel the frame
-    the voxel cloud is sorted in; it changes no result.  Reference hot
-    loop: EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
+    converged.  ``R_wc`` [3, 3] (camera to world; [D, 3, 3] one a detection
+    in a batch of frames) tells the kernel the frame the voxel cloud is
+    sorted in; it changes no result.  Reference hot loop:
+    EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
     """
     args = cl.centre_and_seed(pts_w, m2, cfg.cluster_tolerance,
                               cfg.cluster_chains)
@@ -223,7 +232,7 @@ def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
     sel, ok, _, conv, rounds = cl.cluster_select(
         pts_w.contiguous(), *args[:4], center_w.contiguous(), args[4],
         cfg.cluster_iters, 12, cfg.cluster_min_size, cfg.cluster_center_dis,
-        frame=R_wc.T.contiguous())
+        frame=R_wc.transpose(-1, -2).contiguous())
     if stats is not None and m2.shape[0]:
         survivors = m2.sum(1).max()
         stats.update(cluster_rounds=rounds.max(), cluster_lanes=survivors,
@@ -232,34 +241,44 @@ def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
     return sel, ok
 
 
-def _finish(Two, pts_n, obj_m, pose_wc):
+def _detection_poses(pose_wc, D: int, frame=None):
+    """Each detection's camera pose [D, 7]: the frame's pose [7] expanded,
+    or with ``frame`` [D] its own frame's of the batch's poses [B, 7]."""
+    if frame is None:
+        return pose_wc.expand(D, 7)
+    return pose_wc[frame.long()]
+
+
+def _finish(Two, pts_n, obj_m, pose_wc, frame=None):
     """(h) scale from normalized stats; assemble camera-local ellipsoid."""
     _, mx = pca_mod.normalized_frame_stats(pts_n, obj_m)
     # world -> camera-local (transform_from with inverse pose,
     # EllipsoidExtractor.cpp:465-469)
     Tcw = se3.se3_inv(pose_wc)
-    pose_local = se3.se3_mul(Tcw.expand(Two.shape[0], 7), Two)
+    pose_local = se3.se3_mul(_detection_poses(Tcw, Two.shape[0], frame), Two)
     return torch.cat([pose_local, mx], dim=-1)
 
 
 def _stage_sym(Two, pts_n, obj_m, bboxes, run, sym_types, pose_wc, depth,
                cam: Camera, cfg: ExtractorConfig, need_single: bool,
-               need_dual: bool, sym_src=None):
+               need_dual: bool, sym_src=None, frame=None):
     """Stage (g) for the whole detection batch (JAX ``_sym_finish_one``):
     the symmetry search of every detection whose type needs it (one launch
     on a CUDA device, both variants), the completed clouds of the variants
     the frame needs, and the selection by each detection's type.  Type 0,
     and a detection off the run mask, keep the plain cloud padded to 4S and
     prob 1.  ``sym_src`` (sparse symmetry): the points the search mirrors;
-    the completion mirrors the whole cloud (JAX :382-391).  Returns (Two,
-    pts [D, 4S, 3], mask [D, 4S], prob [D])."""
+    the completion mirrors the whole cloud (JAX :382-391).  ``frame``: the
+    detections' frames of a batch (depth [B, H, W], poses [B, 7]).
+    Returns (Two, pts [D, 4S, 3], mask [D, 4S], prob [D])."""
     D, S = obj_m.shape
-    pose_oc = se3.se3_mul(se3.se3_inv(Two), pose_wc.expand(D, 7))
+    pose_oc = se3.se3_mul(se3.se3_inv(Two),
+                          _detection_poses(pose_wc, D, frame))
     res = sym_mod.estimate_symmetry(
         pts_n.contiguous(), obj_m.contiguous(), bboxes.contiguous(),
         pose_oc.contiguous(), depth, sym_types, run, cam,
         sym_mod.SymmetryConfig(analytic_grad=cfg.sym_analytic_grad),
-        None if sym_src is None else sym_src.contiguous())
+        None if sym_src is None else sym_src.contiguous(), frame)
     pts_fin = torch.cat([pts_n, pts_n.new_zeros((D, 3 * S, 3))], dim=1)
     m_fin = torch.cat([obj_m, obj_m.new_zeros((D, 3 * S))], dim=1)
     Two_fin, prob = Two, torch.ones_like(res.prob)
@@ -278,11 +297,13 @@ def _stage_sym(Two, pts_n, obj_m, bboxes, run, sym_types, pose_wc, depth,
 def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
                              cam: Camera, cfg: ExtractorConfig, stats=None,
                              sym_types=None, need_single: bool = True,
-                             need_dual: bool = True):
+                             need_dual: bool = True, frame=None):
     """Batched single-frame estimation over all detections.
 
     depth: [H, W] int32; bboxes: [D, 4]; run_mask: [D] bool; pose_wc: [7];
-    ground_plane: [4] world frame; all on one device.  ``stats``: an
+    ground_plane: [4] world frame; all on one device.  ``frame`` [D] int32
+    (the offline batch mapper): depth [B, H, W] and pose_wc [B, 7] of a
+    batch of frames, detection d in frame frame[d].  ``stats``: an
     optional dict that receives the clustering stage's round count, lane
     count, survivor count and convergence as 0-dim tensors on that device
     (the call reads nothing back); with sparse symmetry and a detection to
@@ -305,22 +326,23 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     ground_plane = ground_plane.to(torch.float32)
 
     (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc, battr_v) = _stage_a(
-        depth, bboxes, pose_wc, ground_plane, cam, cfg)
+        depth, bboxes, pose_wc, ground_plane, cam, cfg, frame)
     sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
     e_local, prob, ok, debug = _stages_after_selection(
         pts_w, sel, battr_v, depth, bboxes, run_mask, pose_wc, ground_plane,
-        cam, cfg, stats, sym_types, need_single, need_dual)
+        cam, cfg, stats, sym_types, need_single, need_dual, frame)
     return e_local, prob, ok_p & ok_c & ok_cl & run_mask & ok, debug
 
 
 def _stages_after_selection(pts_w, sel, battr_v, depth, bboxes, run_mask,
                             pose_wc, ground_plane, cam: Camera,
                             cfg: ExtractorConfig, stats, sym_types,
-                            need_single: bool, need_dual: bool):
+                            need_single: bool, need_dual: bool, frame=None):
     """Stages (e)-(h) from the selected cluster ``sel`` [D, N] of the world
     cloud ``pts_w``: ``_stage_post``, with ``open_symmetry`` ``_stage_sym``
     over the detections of ``run_mask``, and ``_finish`` (shared by the
-    monolithic call and the split extractors' phase B).  Returns (local
+    monolithic call, the split extractors' phase B and the batch
+    extractor's; ``frame``: see ``extract_local_ellipsoids``).  Returns (local
     vec10 [D, 10], prob [D], ok [D]: the result finite and prob > 1e-8,
     debug tuple)."""
     Two, pts_n, obj_m, sym_src = _stage_post(pts_w, sel, ground_plane, cfg,
@@ -340,8 +362,8 @@ def _stages_after_selection(pts_w, sel, battr_v, depth, bboxes, run_mask,
                          sym_dense=(searched & (n_src == n_pts)).sum())
         Two, pts_n, obj_m, prob = _stage_sym(
             Two, pts_n, obj_m, bboxes, run_mask, sym_types, pose_wc, depth,
-            cam, cfg, need_single, need_dual, sym_src)
-    e_local = _finish(Two, pts_n, obj_m, pose_wc)
+            cam, cfg, need_single, need_dual, sym_src, frame)
+    e_local = _finish(Two, pts_n, obj_m, pose_wc, frame)
     ok = torch.isfinite(e_local).all(dim=1) & (prob > 1e-8)
     return e_local, prob, ok, (pts_n, obj_m, Two)
 
@@ -433,6 +455,16 @@ def _handle(e, p, v, stats, dev_stats) -> ExtractionHandle:
     return ExtractionHandle(packed[:-1], stats, keys, HostCopy.start(packed))
 
 
+def fetch_rows(handle: ExtractionHandle) -> np.ndarray:
+    """A handle's result on the host as float64 [pad, 12]: waits on its
+    copy's event only, then fills ``handle.stats`` with the device counts
+    that rode the copy as its last row."""
+    host = handle.copy.wait().numpy().astype(np.float64)
+    for k, v in zip(handle.keys, host[-1]):
+        handle.stats[k] = bool(v) if k == "cluster_converged" else int(v)
+    return host[:-1]
+
+
 class _Extractor:
     """What the monolithic and the split extractors share: the frame's
     packing and its two host-to-device copies, and ``fetch``."""
@@ -459,11 +491,9 @@ class _Extractor:
         """The call's result on the host as a float64 array [pad, 12]: waits
         for the copy the call started (its own event), then fills the
         call's ``stats`` with the counts of its last row."""
-        host = handle.copy.wait().numpy().astype(np.float64)
-        for k, v in zip(handle.keys, host[-1]):
-            handle.stats[k] = bool(v) if k == "cluster_converged" else int(v)
+        rows = fetch_rows(handle)
         self.stats = handle.stats
-        return host[:-1]
+        return rows
 
 
 def _lm_from_flat(lm_flat, est_prev, K, normal, gset, layout, lm_cfg):
@@ -610,16 +640,56 @@ def _phase_a(depth_d, flat_d, pad, cam: Camera, cfg: ExtractorConfig):
     sparse symmetry), packed into ONE [pad, row] device tensor for a single
     copy home.  Row: [pts_w (cap*3) | m2 (cap) | battr (cap, sparse
     symmetry only) | center_w (3), ok_points, ok_center]."""
-    (_, pts_w, _, m2, center_w, okp, okc, _, battr_v) = _stage_a(
+    return _phase_a_rows(*_stage_a(
         depth_d, flat_d[:pad * 4].reshape(pad, 4),
         flat_d[pad * 6:pad * 6 + 7], flat_d[pad * 6 + 7:pad * 6 + 11], cam,
-        cfg)
+        cfg))
+
+
+def _phase_a_rows(pts_v, pts_w, cells_v, m2, center_w, okp, okc, R_wc,
+                  battr_v):
+    """``_stage_a``'s outputs packed as phase A's [D, row] device tensor
+    (the row layout of ``_phase_a``)."""
     f32 = pts_w.dtype
-    parts = [pts_w.reshape(pad, -1), m2.to(f32)]
+    parts = [pts_w.reshape(pts_w.shape[0], -1), m2.to(f32)]
     if battr_v is not None:
         parts.append(battr_v)
     parts += [center_w, okp[:, None].to(f32), okc[:, None].to(f32)]
     return torch.cat(parts, dim=1)
+
+
+def _phase_a_row(row, cfg: ExtractorConfig):
+    """One detection's phase-A row on the host: (pts_w [cap, 3], m2 [cap],
+    center_w [3], ok_points, ok_center)."""
+    cap = cfg.cloud_capacity
+    sparse = cfg.open_symmetry and cfg.sparse_symmetry
+    tail = row[cap * (5 if sparse else 4):]
+    return (row[:cap * 3].reshape(cap, 3), row[cap * 3:cap * 4] > 0.5,
+            tail[:3], tail[3] > 0.5, tail[4] > 0.5)
+
+
+def _host_select(cfg: ExtractorConfig, run, row_of):
+    """The host middle stage over the lanes of ``run`` [pad] bool:
+    ``row_of(i)`` gives lane i's (pts_w, m2, center_w, ok_points,
+    ok_center) on the host; its grid-hash union-find labels
+    (io/native_loader.cluster_labels) and the reference's cluster
+    selection.  Returns (valid [pad] float32: ok_points & ok_center &
+    ok_cluster, 0 off the run lanes; sel [pad, cap] bool; the most
+    survivors of a run lane)."""
+    from ..io.native_loader import cluster_labels
+    pad, cap = len(run), cfg.cloud_capacity
+    sel = np.zeros((pad, cap), bool)
+    valid = np.zeros(pad, np.float32)
+    survivors = 0
+    for i in np.flatnonzero(run):
+        pts_w, m2, center_w, okp, okc = row_of(i)
+        labels = cluster_labels(pts_w, m2, cfg.cluster_tolerance)
+        sel[i], okcl = _select_cluster_np(
+            pts_w, m2, labels, center_w, cfg.cluster_min_size,
+            cfg.cluster_center_dis)
+        valid[i] = float(okp and okc and okcl)
+        survivors = max(survivors, int(m2.sum()))
+    return valid, sel, survivors
 
 
 def _host_cluster_select(h: PhaseAHandle):
@@ -629,29 +699,12 @@ def _host_cluster_select(h: PhaseAHandle):
     selection.  Returns (flat_b: the flat with ok_points & ok_center &
     ok_cluster folded into the run lane, sel [pad, cap] bool, the most
     survivors of a run lane)."""
-    from ..io.native_loader import cluster_labels
     cfg, pad = h.cfg, h.pad
-    cap = cfg.cloud_capacity
-    sparse = cfg.open_symmetry and cfg.sparse_symmetry
     a_np = h.copy.wait().numpy()
-    sel = np.zeros((pad, cap), bool)
     flat_b = h.flat.copy()
-    survivors = 0
-    for i in range(pad):
-        if not h.flat[pad * 4 + i] > 0.5:
-            flat_b[pad * 4 + i] = 0.0
-            continue
-        row = a_np[i]
-        pts_w = row[:cap * 3].reshape(cap, 3)
-        m2 = row[cap * 3:cap * 4] > 0.5
-        tail = row[cap * (5 if sparse else 4):]
-        center_w, okp, okc = tail[:3], tail[3] > 0.5, tail[4] > 0.5
-        labels = cluster_labels(pts_w, m2, cfg.cluster_tolerance)
-        sel[i], okcl = _select_cluster_np(
-            pts_w, m2, labels, center_w, cfg.cluster_min_size,
-            cfg.cluster_center_dis)
-        flat_b[pad * 4 + i] = float(okp and okc and okcl)
-        survivors = max(survivors, int(m2.sum()))
+    flat_b[pad * 4:pad * 5], sel, survivors = _host_select(
+        cfg, h.flat[pad * 4:pad * 5] > 0.5,
+        lambda i: _phase_a_row(a_np[i], cfg))
     return flat_b, sel, survivors
 
 

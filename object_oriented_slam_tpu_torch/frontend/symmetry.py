@@ -24,7 +24,10 @@ one launch of the ``symmetry_search`` CUDA kernel (csrc/frontend.cu) for
 tensors on a CUDA device: every detection of a frame and every initial
 plane with all its LM iterations, single and dual detections together (a
 detection's type picks its variant).  On the CPU it is
-``estimate_symmetry_plain``.
+``estimate_symmetry_plain``.  The offline batch mapper passes a batch of
+frames' depth images [B, H, W] and each detection's frame index ``frame``
+[D]: the same one launch (the kernel's frame lane), each detection's
+pixels looked up in its own frame (JAX's ``row0`` / ``hw``).
 """
 from __future__ import annotations
 
@@ -155,7 +158,8 @@ class _Clouds(NamedTuple):
     ns: torch.Tensor         # [D] sources
     bbox: torch.Tensor
     pose_oc: torch.Tensor
-    proj_depth: torch.Tensor
+    proj_depth: torch.Tensor     # [H, W], or [B, H, W] with frame
+    frame: object                # [D] each detection's frame, or None
     cam: Camera
     coef: float              # -0.5 / sigma^2
 
@@ -174,15 +178,15 @@ def _compact(keep, pts):
 
 
 def _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, sigma,
-            src_mask=None) -> _Clouds:
+            src_mask=None, frame=None) -> _Clouds:
     pts_c, live, n, order = _compact(mask, pts)
     src, ns = pts_c, n
     if src_mask is not None:
         src, _, ns, _ = _compact(torch.gather(src_mask, 1, order) & live,
                                  pts_c)
     inv_sig = 1.0 / sigma
-    return _Clouds(pts_c, live, n, src, ns, bbox, pose_oc, proj_depth, cam,
-                   -0.5 * inv_sig * inv_sig)
+    return _Clouds(pts_c, live, n, src, ns, bbox, pose_oc, proj_depth, frame,
+                   cam, -0.5 * inv_sig * inv_sig)
 
 
 def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
@@ -227,14 +231,14 @@ def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
     v = cam.fy * pc[1] / den + cam.cy
     xi = u.detach().to(torch.int32)                      # truncates, as astype
     yi = v.detach().to(torch.int32)
-    H, W = cl.proj_depth.shape
+    H, W = cl.proj_depth.shape[-2:]
     inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H) & (pc[2] > 0)
     b = cl.bbox[:, None, None, None, :]
     in_bbox = ((b[..., 0] < xi) & (xi < b[..., 2]) & (b[..., 1] < yi)
                & (yi < b[..., 3]) & inside)
-    d_meas = cl.proj_depth[yi.clamp(0, H - 1).long(),
-                           xi.clamp(0, W - 1).long()] / bp.scalar(cam.scale,
-                                                                  pts)
+    d_meas = bp.pixels(cl.proj_depth, cl.frame, yi.clamp(0, H - 1).long(),
+                       xi.clamp(0, W - 1).long()) / bp.scalar(cam.scale,
+                                                              pts)
     c0, c1, c2 = (cl.pose_oc[:, None, None, None, c] for c in range(3))
     ex, ey, ez = mx - c0, my - c1, mz - c2
     dis_cam = torch.sqrt(ex * ex + ey * ey + ez * ez)
@@ -312,19 +316,22 @@ def _mirror_eval(params, cl: _Clouds, dual: bool, want_grad: bool = False):
 
 
 def optimize_inits_plain(pts, mask, bbox, pose_oc, proj_depth, cam: Camera,
-                         dual: bool, cfg: SymmetryConfig, src_mask=None):
+                         dual: bool, cfg: SymmetryConfig, src_mask=None,
+                         frame=None):
     """The 9-init search of each detection (JAX ``_optimize_one_init``
     under ``vmap``), plain PyTorch on any device, in the symmetry_search
     kernel's arithmetic.
 
     pts [D, S, 3], mask [D, S], bbox [D, 4], pose_oc [D, 7], proj_depth
     [H, W] (``ops/backproject.proj_depth_map``); src_mask [D, S] or None:
-    the points mirrored and scored (sparse symmetry), among the live ones.
+    the points mirrored and scored (sparse symmetry), among the live ones;
+    frame [D] or None: with a batch of frames' maps proj_depth [B, H, W],
+    each detection's frame.
     Returns (params [D, 9, n_par], cost [D, 9]) after ``cfg.iters`` LM
     iterations.
     """
     cl = _clouds(pts, mask, bbox, pose_oc, proj_depth, cam, cfg.sigma,
-                 src_mask)
+                 src_mask, frame)
     D, dev = pts.shape[0], pts.device
     n_par = 3 if dual else 2
     ang, dis = init_grid(cfg, dev)
@@ -394,11 +401,11 @@ def _pick(params, cost, dual: bool) -> SymSearch:
 def estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj_depth, sym_types,
                             run, cam: Camera,
                             cfg: SymmetryConfig = SymmetryConfig(),
-                            src_mask=None) -> SymSearch:
+                            src_mask=None, frame=None) -> SymSearch:
     """Plain PyTorch version of ``estimate_symmetry`` (any device; it reads
     the types back to the host to pick the detections of each variant).
-    Takes the ray-length depth map ``proj_depth`` [H, W] float32 where the
-    kernel takes the raw depth."""
+    Takes the ray-length depth map ``proj_depth`` [H, W] float32 ([B, H, W]
+    with ``frame``) where the kernel takes the raw depth."""
     D, dev = pts.shape[0], pts.device
     out = SymSearch(
         plane=torch.tensor(_PLANE0, device=dev).repeat(D, 1),
@@ -411,7 +418,8 @@ def estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj_depth, sym_types,
             continue
         res = _pick(*optimize_inits_plain(
             pts[rows], mask[rows], bbox[rows], pose_oc[rows], proj_depth, cam,
-            dual, cfg, None if src_mask is None else src_mask[rows]), dual)
+            dual, cfg, None if src_mask is None else src_mask[rows],
+            None if frame is None else frame[rows]), dual)
         for f, v in zip(out, res):
             f[rows] = v
     return out
@@ -419,7 +427,7 @@ def estimate_symmetry_plain(pts, mask, bbox, pose_oc, proj_depth, sym_types,
 
 def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
                       cam: Camera, cfg: SymmetryConfig = SymmetryConfig(),
-                      src_mask=None) -> SymSearch:
+                      src_mask=None, frame=None) -> SymSearch:
     """Grid of 9 initial planes -> best plane per detection
     (Symmetry.cpp:88-128), single and dual detections in one call.
 
@@ -431,6 +439,8 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     bool (sparse symmetry, JAX's ``src_mask``; None: dense): only the live
     points it holds are mirrored and scored, while every live point stays
     the 1-NN reference and the cost is the mean over the mirrored ones.
+    ``frame`` [D] int32 (a batch of frames): depth [B, H, W], detection d
+    looked up in frame frame[d].
 
     On a CUDA device one launch of the ``symmetry_search`` kernel (which
     computes the ray depth at each looked-up pixel); on the CPU
@@ -439,15 +449,21 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
     if pts.device.type != "cuda":
         return estimate_symmetry_plain(pts, mask, bbox, pose_oc,
                                        bp.proj_depth_map(depth, cam),
-                                       sym_types, run, cam, cfg, src_mask)
+                                       sym_types, run, cam, cfg, src_mask,
+                                       frame)
     D, S = mask.shape
-    H, W = depth.shape
+    H, W = depth.shape[-2:]
     dev = pts.device
     fk.check("pts", pts, torch.float32, (D, S, 3), dev)
     fk.check("mask", mask, torch.bool, (D, S), dev)
     fk.check("bbox", bbox, torch.float32, (D, 4), dev)
     fk.check("pose_oc", pose_oc, torch.float32, (D, 7), dev)
-    fk.check("depth", depth, torch.int32, (H, W), dev)
+    if frame is None:
+        fk.check("depth", depth, torch.int32, (H, W), dev)
+    else:
+        fk.check("depth", depth, torch.int32,
+                 (depth.shape[0] if depth.dim() == 3 else -1, H, W), dev)
+        fk.check("frame", frame, torch.int32, (D,), dev)
     fk.check("sym_types", sym_types, torch.int32, (D,), dev)
     fk.check("run", run, torch.bool, (D,), dev)
     if src_mask is not None:
@@ -470,7 +486,9 @@ def estimate_symmetry(pts, mask, bbox, pose_oc, depth, sym_types, run,
                   [pts.data_ptr(), mask.data_ptr(),
                    None if src_mask is None else src_mask.data_ptr(),
                    bbox.data_ptr(),
-                   pose_oc.data_ptr(), depth.data_ptr(), sym_types.data_ptr(),
+                   pose_oc.data_ptr(), depth.data_ptr(),
+                   None if frame is None else frame.data_ptr(),
+                   sym_types.data_ptr(),
                    run.data_ptr(), D, S, H, W, cam.fx, cam.fy, cam.cx, cam.cy,
                    cam.scale, cam.fx * cam.fx, -0.5 * inv_sig * inv_sig,
                    float(np.float32(np.deg2rad(np.float32(

@@ -17,6 +17,10 @@ validity masks.
 any device: the main path's back-projection, border lookup and centre
 estimate are part of the ``depth_cloud`` kernel (``ops/depth_cloud``), and
 ``depth_cloud_plain`` is built on them.
+The offline batch mapper passes a batch of frames' images [B, H, W] and
+each detection's frame index ``frame`` [D] (JAX stacks them as [B*H, W]
+with a row offset ``row0`` per detection and ``hw`` the frame's shape:
+the same pixels).
 Divisions are by 0-dim tensors on the tensor's device: dividing a CUDA
 tensor by a Python number (or by a CPU scalar tensor) multiplies by the
 reciprocal instead, which lands in another last bit than the CPU.
@@ -46,17 +50,28 @@ def _bbox_corners(bboxes, H, W):
             b[:, 2].clamp(0, W), b[:, 3].clamp(0, H))
 
 
+def pixels(image: torch.Tensor, frame, py, px):
+    """image[py, px] ([H, W]), or image[frame, py, px] ([B, H, W]) with
+    ``frame`` [D] each detection's frame, broadcast over py / px's
+    trailing axes."""
+    if frame is None:
+        return image[py, px]
+    f = frame.long().reshape((-1,) + (1,) * (py.dim() - 1))
+    return image[f, py, px]
+
+
 def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
-                           cam: Camera, depth_range: float):
+                           cam: Camera, depth_range: float, frame=None):
     """Strided back-projection of every detection's bbox region, plain
     PyTorch on any device.
 
     depth: [H, W] int32; bboxes: [D, 4] x1 y1 x2 y2 (float32, may be
-    fractional; truncated like the reference's int casts).
+    fractional; truncated like the reference's int casts).  With ``frame``
+    [D] int: depth [B, H, W], detection d's box in frame frame[d].
     Returns (points [D, gh*gw, 3] camera-frame, mask [D, gh*gw]) with
     gh, gw = ceil(H/3), ceil(W/3).
     """
-    H, W = depth.shape
+    H, W = depth.shape[-2:]
     x1, y1, x2, y2 = _bbox_corners(bboxes, H, W)
     gh = (H + STRIDE - 1) // STRIDE
     gw = (W + STRIDE - 1) // STRIDE
@@ -71,7 +86,8 @@ def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
     inside = (px < W) & (py < H)
     pxc = px.clamp(max=W - 1).long()
     pyc = py.clamp(max=H - 1).long()
-    d = torch.where(inside, depth[pyc, pxc], 0).to(torch.float32)
+    d = torch.where(inside, pixels(depth, frame, pyc, pxc), 0).to(
+        torch.float32)
     z = d / scalar(cam.scale, d)
     valid = in_box & (z > 0.1) & (z <= depth_range)
     x = (pxc.to(torch.float32) - cam.cx) * z / scalar(cam.fx, d)
@@ -80,13 +96,15 @@ def bbox_point_cloud_plain(depth: torch.Tensor, bboxes: torch.Tensor,
     return pts.reshape(len(bboxes), -1, 3), valid.reshape(len(bboxes), -1)
 
 
-def bbox_pixel_lookup(attr_map: torch.Tensor, bboxes: torch.Tensor):
+def bbox_pixel_lookup(attr_map: torch.Tensor, bboxes: torch.Tensor,
+                      frame=None):
     """A per-pixel attribute map [H, W] (bool or float) sampled at the SAME
     strided grid as ``bbox_point_cloud_plain``, so the result [D, gh*gw]
     float32 aligns row for row with its points (the sparse symmetry mode
     tags each point with its depth-border flag, BorderExtractor.cpp:58-132).
-    Positions past the image read 0, as the JAX package's zero pad."""
-    H, W = attr_map.shape
+    Positions past the image read 0, as the JAX package's zero pad.  With
+    ``frame`` [D]: maps [B, H, W], detection d's in frame frame[d]."""
+    H, W = attr_map.shape[-2:]
     x1, y1, _, _ = _bbox_corners(bboxes, H, W)
     gh = (H + STRIDE - 1) // STRIDE
     gw = (W + STRIDE - 1) // STRIDE
@@ -96,7 +114,8 @@ def bbox_pixel_lookup(attr_map: torch.Tensor, bboxes: torch.Tensor):
     px = x1[:, None, None] + STRIDE * jj
     py = y1[:, None, None] + STRIDE * ii
     inside = (px < W) & (py < H)
-    a = attr_map[py.clamp(max=H - 1).long(), px.clamp(max=W - 1).long()]
+    a = pixels(attr_map, frame, py.clamp(max=H - 1).long(),
+                px.clamp(max=W - 1).long())
     a = torch.where(inside, a.to(torch.float32), 0.0)
     return a.reshape(len(bboxes), -1)
 
@@ -116,13 +135,14 @@ def full_point_cloud(depth: torch.Tensor, cam: Camera, stride: int = 1,
 
 
 def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
-                    depth_range: float):
+                    depth_range: float, frame=None):
     """10x10-sample 3D center estimate in camera frame per detection
-    (EllipsoidExtractor.cpp:583-643).
+    (EllipsoidExtractor.cpp:583-643).  With ``frame`` [D]: depth
+    [B, H, W], detection d's samples from frame frame[d].
 
     Returns (center [D, 3], ok [D] bool); ok requires >= 2 valid samples.
     """
-    H, W = depth.shape
+    H, W = depth.shape[-2:]
     n = 10
     two, four, ten = (scalar(v, bboxes) for v in (2.0, 4.0, float(n)))
     xc = ((bboxes[:, 0] + bboxes[:, 2]) / two).to(torch.int32)
@@ -135,8 +155,8 @@ def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
           ).clamp(0, W - 1).expand(-1, n, n)
     py = (yc[:, None, None] + k[None, :, None] * y_delta[:, None, None]
           ).clamp(0, H - 1).expand(-1, n, n)
-    z = depth[py.long(), px.long()].to(torch.float32) / scalar(cam.scale,
-                                                               bboxes)
+    z = pixels(depth, frame, py.long(), px.long()).to(
+        torch.float32) / scalar(cam.scale, bboxes)
     valid = (z > 0.1) & (z <= depth_range)
 
     x = (px.to(torch.float32) - cam.cx) * z / scalar(cam.fx, bboxes)
@@ -157,9 +177,10 @@ def center_estimate(depth: torch.Tensor, bboxes: torch.Tensor, cam: Camera,
 def proj_depth_map(depth: torch.Tensor, cam: Camera) -> torch.Tensor:
     """Plane-depth -> ray-length depth, elementwise (Symmetry.cpp:137-161):
     d' = d * sqrt(xi^2 + f^2 + yi^2) / f with xi = x-cx, yi = y-cy.
-    depth [H, W] int32 -> [H, W] float32; f^2 is rounded to float32 from
-    double, as the JAX package's weakly typed constant is."""
-    H, W = depth.shape
+    depth [..., H, W] int32 -> float32 of its shape (a batch of frames
+    [B, H, W] maps each frame); f^2 is rounded to float32 from double, as
+    the JAX package's weakly typed constant is."""
+    H, W = depth.shape[-2:]
     xi = torch.arange(W, dtype=torch.float32, device=depth.device)[None] - cam.cx
     yi = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None] \
         - cam.cy

@@ -28,6 +28,15 @@ the CPU ``cluster_components_plain``, a loop over ``min_label_pass_plain``
 ``select_cluster``.  The JAX module's
 grid-hash path, its exact broadcast pass and its interleaved chain passes
 (``chains > 0``) are not ported and raise.
+
+The offline batch mapper (``frontend/batch_extractor``) clusters the
+detections of B frames in the same one launch.  JAX's batch extractor
+scans its clustering frame by frame (``cluster_groups``, a ``lax.map``) so
+that each group pays its own rounds, not the slowest detection's of the
+batch; nothing here needs that: the kernel gives every detection its own
+rounds and stops each on its own.  Its sort-frame hint is then one
+rotation a detection (``frame`` [D, 3, 3]), since the batch's clouds are
+sorted in B cameras' frames.
 """
 from __future__ import annotations
 
@@ -138,7 +147,8 @@ def _rounds_loop(pts_c, nrm, mask, labels0, tol2: float, outer_iters: int,
     labels are mapped back to the original lanes.
 
     Labels are a fixed point once a round changes nothing, so a detection
-    that went quiet keeps its labels while the others go on: labels,
+    that went quiet keeps its labels while the others go on (a round
+    passes over the detections still changing only): labels,
     ``converged`` and ``rounds`` are those of a loop per detection.
     """
     D, N = mask.shape
@@ -153,11 +163,13 @@ def _rounds_loop(pts_c, nrm, mask, labels0, tol2: float, outer_iters: int,
     rounds = torch.zeros(D, dtype=torch.int32, device=dev)
     still = torch.ones(D, dtype=torch.bool, device=dev)
     for r in range(1, outer_iters + 1):
-        lab, changed = pointer_jumps_plain(
-            min_label_pass_plain(pts_k, nrm_k, m_c, lab, tol2), lab,
-            jump_iters)
-        rounds = torch.where(still, r, rounds).to(torch.int32)
-        still = still & (changed != 0)
+        rows = still.nonzero().flatten()
+        new, changed = pointer_jumps_plain(
+            min_label_pass_plain(pts_k[rows], nrm_k[rows], m_c[rows],
+                                 lab[rows], tol2), lab[rows], jump_iters)
+        lab = lab.index_copy(0, rows, new)
+        rounds[rows] = r
+        still = still.index_copy(0, rows, changed != 0)
         if not bool(still.any()):
             break
     sub32 = sub.to(torch.int32)
@@ -220,7 +232,9 @@ def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
     fk.check("nrm", nrm, torch.float32, (D, N), dev)
     fk.check("mask", mask, torch.bool, (D, N), dev)
     fk.check("labels0", labels0, torch.int32, (D, N), dev)
-    fk.check("frame", frame, torch.float32, (3, 3), dev)
+    per_detection = frame.dim() == 3
+    fk.check("frame", frame, torch.float32,
+             (D, 3, 3) if per_detection else (3, 3), dev)
     if outer_iters < 1 or jump_iters < 0:
         raise ValueError(f"outer_iters={outer_iters}, jump_iters={jump_iters}")
     labels = torch.empty_like(labels0)
@@ -230,7 +244,7 @@ def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
     args = [pts_c.data_ptr(), nrm.data_ptr(), mask.data_ptr(),
             labels0.data_ptr(), D, N, tol2, outer_iters, jump_iters, S, T, P,
             smem or launch_smem(N), int(prune), frame.data_ptr(),
-            labels.data_ptr(),
+            9 if per_detection else 0, labels.data_ptr(),
             conv.data_ptr(), rounds.data_ptr()]
     sel = ok = None
     fn = "oslam_cluster_components"
@@ -277,7 +291,9 @@ def cluster_components(pts_c, nrm, mask, labels0, tol2: float,
     rotation (rows u, v, w, in the coordinates of ``pts_c``) of the frame
     whose cells the cloud is sorted by, for a voxel cloud the camera's
     axes; left out, the identity (the kernel also takes the identity for a
-    matrix that is no rotation).
+    matrix that is no rotation).  ``frame`` [D, 3, 3] gives each detection
+    its own (the offline batch mapper: the detections of a batch come from
+    frames of different poses).
     """
     if pts_c.device.type != "cuda":
         return cluster_components_plain(pts_c, nrm, mask, labels0, tol2,

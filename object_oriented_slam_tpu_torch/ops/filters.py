@@ -64,11 +64,14 @@ def depth_border_mask(depth: torch.Tensor, scale: float,
     ``jump`` metres against any 4-neighbour, or a neighbour without depth
     (BorderExtractor analogue).  The neighbours are taken with
     ``torch.roll``, which wraps: the first column is the last one's
-    neighbour and the first row the last one's, as ``jnp.roll`` has it."""
+    neighbour and the first row the last one's, as ``jnp.roll`` has it.
+    ``depth`` [..., H, W]: a batch of frames [B, H, W] wraps each frame in
+    itself (JAX's batch extractor maps each frame before it stacks them),
+    never into the next frame of the stack."""
     z = depth.to(torch.float32) / scalar(scale, depth)
     valid = z > 1e-6
     border = torch.zeros_like(valid)
-    for shift, dim in ((1, 0), (-1, 0), (1, 1), (-1, 1)):
+    for shift, dim in ((1, -2), (-1, -2), (1, -1), (-1, -1)):
         zn = torch.roll(z, shift, dim)
         vn = torch.roll(valid, shift, dim)
         border = border | (valid & vn & ((z - zn).abs() > jump))

@@ -11,7 +11,10 @@ the selection epilogue, one launch counter), ``voxel.voxel_downsample`` and
 its attribute variants (voxel_downsample: the object downsample) and
 ``frontend.symmetry.estimate_symmetry`` (symmetry_search: the
 symmetry-plane search of stage (g), over every live point or, with a source
-mask, over the border points).  Each launch runs on PyTorch's
+mask, over the border points).  depth_cloud and symmetry_search also take a
+batch of frames with each detection's frame index (the offline batch
+mapper, ``frontend/batch_extractor``): still one launch a batch.  Each
+launch runs on PyTorch's
 current stream and does not synchronise; the wrappers allocate the outputs
 with ``torch.empty``.
 """
@@ -72,15 +75,15 @@ def _bind(lib_path: str) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, argtypes in (
             ("oslam_depth_cloud",
-             [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 9 + [f]),
+             [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 9 + [f, p]),
             ("oslam_voxel_downsample", [p, p, i, i, f, i] + [p] * 5),
             ("oslam_cluster_components",
-             [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4),
+             [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3),
             ("oslam_cluster_select",
-             [p] * 4 + [i, i, f] + [i] * 7 + [p] * 4
+             [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3
              + [p, p, i, f, p, p, p]),
             ("oslam_symmetry_search",
-             [p] * 8 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
+             [p] * 9 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [p]      # ..., then the stream
         fn.restype = i

@@ -36,8 +36,8 @@ class World(NamedTuple):
     """The extractor's epilogue of the first downsample: world points
     ``p R^T + t`` and the supporting-plane mask
     ``(n . p_w + d) / den > clearance`` (frontend/extractor.py)."""
-    R: torch.Tensor            # [3, 3] camera -> world rotation
-    t: torch.Tensor            # [3]
+    R: torch.Tensor            # [3, 3] camera -> world rotation, or [D, 3, 3]
+    t: torch.Tensor            # [3], or [D, 3]: one a detection
     plane: torch.Tensor        # [4] world ground plane
     den: torch.Tensor          # 0-dim, max(|n|, eps)
     clearance: float
@@ -66,7 +66,11 @@ def world_points_plain(pts: torch.Tensor, world: World):
     as the kernel's epilogue has them."""
     x, y, z = pts.unbind(-1)
     R, t, pi = world.R, world.t, world.plane
-    w = [x * R[i, 0] + y * R[i, 1] + z * R[i, 2] + t[i] for i in range(3)]
+    if R.dim() == 3:           # a rotation a detection (a batch of frames)
+        lead = (R.shape[0],) + (1,) * (x.dim() - 1)
+        R, t = R.reshape(lead + (3, 3)), t.reshape(lead + (3,))
+    w = [x * R[..., i, 0] + y * R[..., i, 1] + z * R[..., i, 2] + t[..., i]
+         for i in range(3)]
     dist = (w[0] * pi[0] + w[1] * pi[1] + w[2] * pi[2] + pi[3]) / world.den
     return torch.stack(w, dim=-1), dist
 

@@ -58,8 +58,12 @@ LM batch packed but not launched (``defer_backend``), and the extraction
 call issues it (``dispatch_with_lm`` / ``step_with_lm``).  Every wait
 these add is on a pinned copy's event.
 
-What is not ported raises ``NotImplementedError``: a precomputed
-extraction result, the interactive plane check, the distributed backend,
+A frame may also bring its extraction result, precomputed by the offline
+batch mapper (``ext_result``, ``system/offline.py``): the frame then
+launches no extraction and its host-side half reads those rows.
+
+What is not ported raises ``NotImplementedError``: the interactive
+plane check, the distributed backend,
 the dense builder, the batch SVD initializer and the array-of-structs
 backend.
 """
@@ -297,11 +301,10 @@ class Tracking:
 
         ``depth``: [H, W] integer depth image (TUM scale) or None; ``rgb``
         is accepted and unused (the dense builder is not ported).
+        ``ext_result``: the frame's extraction rows [n, 12] on the host
+        (vec10, prob, valid), precomputed by the offline batch mapper's
+        batched call; the frame then launches no extraction.
         """
-        if ext_result is not None:
-            raise NotImplementedError(
-                "ext_result: precomputed extraction (the offline batch "
-                "mapper) is not ported to the torch package")
         # a plane estimate dispatched by an earlier frame: read it and
         # replay that frame's body first, before this frame's t0 (the wait
         # and the replayed body carry their own metric entries)
@@ -323,14 +326,15 @@ class Tracking:
                 self._pending_plane = (self.plane_estimator.dispatch(depth),
                                        pose_wc)
                 self._plane_deferred.append(
-                    (frame_id, pose_wc, det_mat, depth, with_association))
+                    (frame_id, pose_wc, det_mat, depth, with_association,
+                     ext_result))
                 return True
             plane_cam = self.plane_estimator(depth)
             if plane_cam is not None:
                 self._latch_plane(plane_cam, pose_wc)
             # else: state stays 1, retry next frame (Tracking.cpp:766-771)
         return self._frame_body(frame_id, pose_wc, det_mat, depth,
-                                with_association, t0)
+                                with_association, t0, ext_result)
 
     # ------------------------------------------------------------------
     def _latch_plane(self, plane_cam, pose_wc):
@@ -358,12 +362,12 @@ class Tracking:
             self._latch_plane(plane_cam, disp_pose)
         self.metrics["plane_wait"].append(time.perf_counter() - t0)
         deferred, self._plane_deferred = self._plane_deferred, []
-        for fid, pw, dm, dep, wa in deferred:
-            self._frame_body(fid, pw, dm, dep, wa, time.perf_counter())
+        for fid, pw, dm, dep, wa, er in deferred:
+            self._frame_body(fid, pw, dm, dep, wa, time.perf_counter(), er)
 
     # ------------------------------------------------------------------
     def _frame_body(self, frame_id, pose_wc, det_mat, depth,
-                    with_association, t0):
+                    with_association, t0, ext_result=None):
         """Everything after ground-plane handling for one frame: the
         extraction's launches, then the host-side half of this frame
         (eager) or of the frames now due (deferred)."""
@@ -371,10 +375,14 @@ class Tracking:
         n_det = det_mat.shape[0]
         ext_out = None
         run = np.zeros(n_det, bool)
-        if self.depth_ellipsoid_opened and depth is not None and n_det > 0 \
+        if (self.depth_ellipsoid_opened or ext_result is not None) \
+                and depth is not None and n_det > 0 \
                 and self.state.ground_state == 2:
             run[:] = self.run_gates(det_mat, with_association)
-            if np.any(run):
+            if ext_result is not None:
+                # the offline batch mapper's rows: no dispatch
+                ext_out = ext_result if np.any(run) else None
+            elif np.any(run):
                 ext_out = self._dispatch_extraction(
                     frame_id, pose_wc, depth, det_mat[:, 1:5].copy(),
                     det_mat[:, 5].astype(int))
@@ -509,7 +517,9 @@ class Tracking:
         # kernels and copy.  The call's counts (clustering rounds, lanes)
         # ride the same copy into its stats
         ext_np = None
-        if ext_out is not None:
+        if isinstance(ext_out, np.ndarray):
+            ext_np = np.asarray(ext_out, np.float64)   # precomputed rows
+        elif ext_out is not None:
             ext_np = self.extractor.fetch(ext_out)
         fetch_s = time.perf_counter() - tp0
         self.metrics["fetch"].append(fetch_s)

@@ -843,3 +843,114 @@ def test_pipelined_frames_wait_only_on_events(device):
     assert sorted(got) == sorted(want) and len(want) >= 6
     for inst in want:
         np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)
+
+
+def _batch_inputs(B=3):
+    """B frames of _frame's scene along the orbit (frames 5, 15, 25 of 40),
+    for depth_cloud's frame lane: (depths [B, H, W] int32, boxes [D, 4] of
+    every frame flattened, poses [B, 7], frame index [D] int32, camera).
+    The middle frame also carries a box along its first rows and one along
+    its last rows, where the border test wraps (inside the frame)."""
+    depths, boxes, poses, frame = [], [], [], []
+    for b, k in enumerate((5, 15, 25)[:B]):
+        depth, bboxes, pose, cam = _frame(frame=k)
+        if b == 1:
+            bboxes = torch.cat([bboxes, torch.tensor([[40.0, 0.0, 600.0, 7.0],
+                                                      [40.0, 470.0, 600.0,
+                                                       480.0]])])
+        depths.append(depth)
+        boxes.append(bboxes)
+        poses.append(torch.as_tensor(pose, dtype=torch.float32))
+        frame.append(torch.full((len(bboxes),), b, dtype=torch.int32))
+    return (torch.stack(depths), torch.cat(boxes), torch.stack(poses),
+            torch.cat(frame), cam)
+
+
+@pytest.mark.parametrize("border", [False, True])
+def test_depth_cloud_frame_lane_equals_per_frame_launches(device, border):
+    """The offline batch mapper's frame lane: ONE launch over the
+    detections of three frames (depth [B, H, W], poses [B, 7], each
+    detection's frame index), bit-equal to each frame's own launch (R is
+    then one rotation a detection, its frame's), masks, cells and flags
+    equal to the frame-indexed plain version on the card and floats within
+    1e-6 of it (5e-6 on the border means is not needed: 1e-6), bit-equal
+    to it on the CPU."""
+    depths, boxes, poses, frame, cam = _batch_inputs()
+    plane = torch.tensor([0.001, -0.002, 1.0, -0.0005])
+    rest = (0.01, 6.0, 0.05, 4096)
+    fn = dc.depth_cloud_border if border else dc.depth_cloud
+    plain = dc.depth_cloud_border_plain if border else dc.depth_cloud_plain
+    args_d = _on_card((depths, boxes, poses, plane, cam), device)
+    frame_d = frame.to(device)
+
+    def flat(out):
+        return (*out[0], out[1]) if border else tuple(out)
+    n0 = fk.DEPTH_CLOUD.launches
+    got = flat(fn(*args_d, *rest, frame=frame_d))
+    assert fk.DEPTH_CLOUD.launches == n0 + 1
+    again = flat(fn(*args_d, *rest, frame=frame_d))
+    want = flat(plain(depths, boxes, poses, plane, cam, *rest, frame=frame))
+    card = flat(plain(*args_d, *rest, frame=frame_d))
+    fields = (*dc.DepthCloud._fields, "battr_v") if border \
+        else dc.DepthCloud._fields
+    for name, g, a, w, c in zip(fields, got, again, want, card):
+        assert _bits_equal(g, a), name
+        assert _bits_equal(g, w), name
+        if g.dtype in (torch.bool, torch.int32):
+            assert torch.equal(g, c), name
+        else:
+            assert float((g - c).abs().max()) <= 1e-6, name
+    assert tuple(got[5].shape) == (len(boxes), 3, 3)
+    for b in range(len(depths)):
+        rows = (frame == b).nonzero().flatten()
+        one = flat(fn(args_d[0][b].contiguous(), args_d[1][rows].contiguous(),
+                      args_d[2][b].contiguous(), *args_d[3:], *rest))
+        for name, g, o in zip(fields, got, one):
+            if name == "R_wc":
+                assert all(_bits_equal(g[d], o) for d in rows.tolist())
+            else:
+                assert _bits_equal(g[rows.to(device)], o), (b, name)
+    assert int(got[1].sum()) > 1000
+    if border:
+        assert int((got[-1] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+def test_symmetry_search_frame_lane_equals_per_frame_launches(device,
+                                                              analytic):
+    """symmetry_search with the frame lane: _sym_inputs' detections over
+    two frames (depth [2, H, W], the second frame's wall moved so that its
+    occlusion differs), ONE launch bit-equal to each frame's own launch
+    and to the frame-indexed plain version on the card."""
+    from object_oriented_slam_tpu_torch.core.camera import Camera
+    cam = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
+    pts, mask, bbox, pose, depth, types, run = _sym_inputs(device)
+    pts, mask = torch.cat([pts, pts]), torch.cat([mask, mask])
+    bbox, pose = torch.cat([bbox, bbox]), torch.cat([pose, pose])
+    types, run = torch.cat([types, types]), torch.cat([run, run])
+    second = depth.clone()
+    second[:, 300:420] = 0
+    depths = torch.stack([depth, second])
+    frame = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.int32,
+                         device=device)
+    cfg = sym.SymmetryConfig(analytic_grad=analytic)
+    n0 = fk.SYMMETRY_SEARCH.launches
+    got = sym.estimate_symmetry(pts, mask, bbox, pose, depths, types, run,
+                                cam, cfg, frame=frame)
+    assert fk.SYMMETRY_SEARCH.launches == n0 + 1
+    want = sym.estimate_symmetry_plain(
+        pts, mask, bbox, pose, bp.proj_depth_map(depths, cam), types, run,
+        cam, cfg, frame=frame)
+    for name, g, w in zip(sym.SymSearch._fields, got, want):
+        assert _bits_equal(g, w), (name, float((g - w).abs().max()))
+    for b in range(2):
+        rows = (frame == b).nonzero().flatten()
+        one = sym.estimate_symmetry(
+            pts[rows].contiguous(), mask[rows].contiguous(),
+            bbox[rows].contiguous(), pose[rows].contiguous(),
+            depths[b].contiguous(), types[rows].contiguous(),
+            run[rows].contiguous(), cam, cfg)
+        for name, g, o in zip(sym.SymSearch._fields, got, one):
+            assert _bits_equal(g[rows], o), (b, name)
+    # the second frame's wall moved the dual search there
+    assert not _bits_equal(got.inits[1], got.inits[5])

@@ -27,7 +27,9 @@ print(" ".join(names))
 DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "ops.backproject", "ops.voxel", "ops.cluster", "ops.pca",
                  "ops.linalg", "frontend", "frontend.ground_plane",
-                 "frontend.extractor", "frontend.symmetry", "io.synthetic", "system.tracking",
+                 "frontend.extractor", "frontend.symmetry",
+                 "frontend.batch_extractor", "io.synthetic",
+                 "system.tracking", "system.offline",
                  "system.system", "system.checkpoint", "backend.ba_kernels",
                  "io.png", "io.tum", "io.native_loader", "utils.transfer"]
 
@@ -90,7 +92,7 @@ def test_chip_smoke_and_port_examples_import_no_jax():
     for phase in ("phase_kernels", "phase_steps", "phase_whole_lm",
                   "phase_main_path", "phase_frontend_kernels",
                   "phase_depth_path", "phase_symmetry_path",
-                  "phase_symmetry_kernel", "phase_cli"):
+                  "phase_symmetry_kernel", "phase_cli", "phase_offline"):
         assert phase in out.stdout, phase
 
 

@@ -9,8 +9,10 @@ runs it with ``--extractor mono``, the port's with ``--extractor mono
 asynchronous plane).  The port's host-clustered architectures run the
 first SPLIT frames (``--extractor split`` and the default ``auto``, which
 probes the CPU and picks fused-split with LM fusion) and are held to the
-port's mono run of those frames within 1e-4.  Two settings differ from the CLI's defaults, on both
-sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
+port's mono run of those frames within 1e-4, as is the offline mode on
+those frames (``--offline --batch 4 --offline-per-frame-ba``: the plane's
+bootstrap frame, then two batches of 4).  Two settings differ from the
+CLI's defaults, on both sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
 (as in tests/test_torch_depth_slice.py; the CLI's 16384 lets a frame's tier
 grow to its largest box), and the port's LM batch starts at 8 object slots
 instead of 24 (empty slots are masked, so results are the same; the plain
@@ -88,7 +90,7 @@ def runs(tmp_path_factory):
         odometry_noise=0.01)
     assert n == DATA_KW["n_frames"]
     out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed",
-                                      "host_split", "auto")}
+                                      "host_split", "auto", "offline")}
     ckpt = str(tmp / "state.npz")
     mono = ["--device", "cpu", "--extractor", "mono"]
     jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
@@ -99,7 +101,10 @@ def runs(tmp_path_factory):
     _port_cli([YAML, seq, "--out", out["resumed"], *mono, "--resume", ckpt])
     host = {}
     for name, extra in (("host_split", ["--extractor", "split"]),
-                        ("auto", [])):
+                        ("auto", []),
+                        ("offline", ["--extractor", "mono", "--offline",
+                                     "--batch", "4",
+                                     "--offline-per-frame-ba"])):
         host[name] = _port_cli([YAML, seq, "--out", out[name], "--device",
                                 "cpu", "--max-frames", str(SPLIT), *extra])
     return seq, out, slam, log, jax_log, host
@@ -160,7 +165,8 @@ def test_host_clustered_cli_matches_mono(runs):
     assert "probed device RTT" in host["auto"][1]
     assert "-> extractor=fused, fuse_lm=True" in host["auto"][1]
     assert "probed device RTT" not in host["host_split"][1]
-    kinds = {"host_split": "SplitExtractor", "auto": "FusedSplitExtractor"}
+    kinds = {"host_split": "SplitExtractor", "auto": "FusedSplitExtractor",
+             "offline": "MonolithicExtractor"}
     for name, (slam, _) in host.items():
         assert type(slam.tracker.extractor).__name__ == kinds[name]
         assert slam.tracker.fuse_lm == (name == "auto")
@@ -183,11 +189,39 @@ def test_checkpoint_then_resume_reproduces_the_run(runs):
 @pytest.mark.parametrize("flags", [
     ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
     ["--viz-live", "5"], ["--slam-mode"], ["--odo-weight", "2"],
-    ["--distributed"], ["--offline"], ["--offline-split"], ["--batch", "4"]])
+    ["--distributed"], ["--offline-shard"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _example("torch_run_tum").main(
             [YAML, str(tmp_path), "--device", "cpu", *flags])
+
+
+def test_offline_cli_matches_online(runs):
+    """``--offline --batch 4 --offline-per-frame-ba`` on the first SPLIT
+    frames: the mono run's objects.txt within 1e-4 (the per-frame BA
+    schedule and the same rows per frame), and the JAX CLI's Offline
+    line."""
+    out, host = runs[1], runs[5]
+    slam, log = host["offline"]
+    assert f"Offline: {SPLIT} frames in " in log
+    assert "2 batched programs of 4" in log
+    assert slam.tracker.pipeline_depth == 4     # the run's override undone
+    got, want = _objects(out["offline"]), _objects(out["split"])
+    assert sorted(got) == sorted(want) and len(want) >= 5
+    for inst in want:
+        np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)
+    print(f"offline CLI objects.txt bit-equal to the mono run's: "
+          f"{all(np.array_equal(got[i], want[i]) for i in want)}")
+
+
+@pytest.mark.parametrize("flags", [["--no-depth"], ["--no-depth",
+                                                    "--offline-split"]])
+def test_offline_without_depth_is_a_usage_error(flags, tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        _example("torch_run_tum").main(
+            [YAML, str(tmp_path), "--device", "cpu", "--offline", *flags])
+    assert exc.value.code == 2
+    assert "--offline requires the depth pipeline" in capsys.readouterr().err
 
 
 def test_default_device_is_the_card(tmp_path):

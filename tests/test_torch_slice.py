@@ -205,14 +205,16 @@ def test_observation_tiers_are_powers_of_two():
 
 
 @pytest.mark.parametrize("what", [
-    "ext_result", "batch_svd_init", "aos_backend", "distributed",
+    "batch_svd_init", "aos_backend", "distributed",
     "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
     """What is not ported raises: "ground_plane" is the plane's interactive
     confirmation (the extractors, LM fusion, the plane estimate and its
     latch, the deferred pipeline, the adaptive depth and the asynchronous
     plane are ported: tests/test_torch_pipeline.py,
-    tests/test_torch_split_extractor.py, tests/test_torch_lm_fusion.py)."""
+    tests/test_torch_split_extractor.py, tests/test_torch_lm_fusion.py;
+    so are precomputed extraction rows, ``ext_result``:
+    tests/test_torch_offline.py)."""
     cfg = Config(YAML)
     if what in ("dense_builder", "ground_plane"):
         key = {"dense_builder": "Visualization.Builder.Open",
@@ -222,10 +224,7 @@ def test_unported_options_raise(what):
             Tracking(cfg, device="cpu")
         return
     tr = Tracking(cfg, device="cpu")
-    pose = np.array([0, 0, 0, 0, 0, 0, 1.0])
     act = {
-        "ext_result": lambda: tr.grab_pose_and_objects(
-            0.0, pose, np.zeros((0, 8)), None, ext_result=np.zeros((0, 12))),
         "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
         "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
         "distributed": tr.enable_distributed,
