@@ -5,8 +5,9 @@
 Phases (each raises on failure; the script exits non-zero if any fails):
   1. the card's name and power limit; TF32 off for the plain versions'
      matmuls;
-  2. build the BA edge kernels from csrc/ba_edges.cu and the depth-frontend
-     kernels from csrc/frontend.cu (nvcc, sm_90a) and the host clustering
+  2. build the BA edge kernels from csrc/ba_edges.cu, the depth-frontend
+     kernels from csrc/frontend.cu and the SLAM edge kernel K11 from
+     csrc/slam_edges.cu (nvcc, sm_90a) and the host clustering
      of the split extractors from native/src/cluster.cpp (g++), all at
      once;
   3. each kernel against its plain PyTorch version on the same card
@@ -119,6 +120,31 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      bit for bit against the same detections launched one frame at a time,
      and the clustering's sort-frame hint one rotation a detection against
      one for all (labels, rounds and selections equal, device ms);
+  6e. SLAM mode ([slam]): [cli]'s export (written with odometry.txt, 1 cm
+     of random-walk drift a frame) run by examples/torch_run_tum.py
+     --odometry --slam-mode --checkpoint: the online run, then the banded
+     Schur LM over every pose and object (10 iterations, the packer's
+     tiers: 256 frames, 32 objects, edges from the counts) with K11
+     (csrc/slam_edges.cu) launched 10 times for the edge terms and 11 for
+     the chi2; 24/24 objects and every pose finite, the ATE of the
+     odometry input and of trajectory_refined.txt against the ground
+     truth, objects_slam.txt's map beside objects.txt's; at the checkpoint's
+     graph K11 against its plain version (every edge's distance from the
+     float64 evaluation within 1e-4 of its output's largest entry or 4
+     times the plain version's own on that edge, on the card or the CPU;
+     the banded normal equations within 1e-4 of the plain version's or
+     twice its own CPU-to-card distance; chi2 within 1e-5, repeats
+     bit-equal), its time
+     beside its bound (the operations counted on this graph's live
+     edges), one optimize_slam call under the synchronisation check set
+     to raise (frame 0 within 1e-7, chi2 down, a repeat bit-equal, the
+     CLI's files to their digits) and under the profiler (wall, busy, device operations, idle
+     share), and the dense solve against the banded one (each Schur step
+     along the banded path within 2e-3, and end to end within 2e-3 unless
+     the paths part at an accept test tied within chi2's round-off); then
+     the
+     same export with --no-depth --odometry --slam-mode (no 3D edges), its
+     ATE beside the odometry's;
   8. one JSON line with a record per kernel (``launches_cli``: the
      adaptive mono CLI run's count of that kernel, ``launches_cli_split``
      / ``_fused`` / ``_auto`` the host-clustered runs',
@@ -480,7 +506,8 @@ def bound_text(ms, b):
 
 def same_bits(a, b):
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def same_or_both_nan(got, want, tol, scale=None):
@@ -1952,7 +1979,7 @@ def drive_cli(dev, settings, seq, out, extra):
     seconds, labelling seconds] per middle stage, phase-A bytes)."""
     import contextlib
     import io
-    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.frontend.extractor import \
         SplitExtractor
     from object_oriented_slam_tpu_torch.io import native_loader
@@ -2001,7 +2028,7 @@ def drive_cli(dev, settings, seq, out, extra):
                 checked[0] += 1
             loop_fetches[0] = len(self.tracker.metrics["fetch"])
 
-    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS)
     for k in all_kernels:
         k.launches = 0
     System.track_with_objects = track
@@ -2123,10 +2150,12 @@ def phase_cli(dev, tmp, sym_path, sym_call):
     scene = scene24_sym()
     seq = os.path.join(tmp, "tum_sequence")
     t0 = time.perf_counter()
+    # odometry.txt for [slam]: 1 cm of random-walk drift a frame; its draws
+    # are the exporter's only ones, so the other files are what they were
     n = example("torch_make_synthetic_tum").export_synthetic_tum(
         seq, scene, SyntheticDataset(scene, n_frames=N_DEPTH_FRAMES,
                                      orbit_radius=3.6, height=1.7,
-                                     depth_device=dev))
+                                     depth_device=dev), odometry_noise=0.01)
     export_s = time.perf_counter() - t0
     decode = decode_times(seq, tmp)
     print(f"[cli] exported {n} frames (depth rendered on the card, 16-bit "
@@ -2270,7 +2299,7 @@ def drive_offline(settings, seq, out, extra):
     checked, grabs without precomputed rows)."""
     import contextlib
     import io
-    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     from object_oriented_slam_tpu_torch.system import offline
@@ -2315,7 +2344,7 @@ def drive_offline(settings, seq, out, extra):
         kept["stats"] = run(self, frames, progress)
         return kept["stats"]
 
-    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS)
     for k in all_kernels:
         k.launches = 0
     Tracking.grab_pose_and_objects = checked_grab
@@ -2603,6 +2632,490 @@ def phase_offline(dev, tmp, cli, sym_call):
     return launches_by_run, recs, border_recs, (busy, ops, wall)
 
 
+# [slam]: SLAM mode on [cli]'s export with its odometry.txt (1 cm of
+# random-walk drift a frame), as the CLI runs it: LMConfig(iters=SLAM_ITERS),
+# the banded solve, the packer's grow-only tiers
+SLAM_ITERS = 10
+SLAM_SOURCE = "object_oriented_slam_tpu_torch/csrc/slam_edges.cu"
+# the JAX functions K11's two instantiations replace (left to XLA there)
+SLAM_REPLACES = {
+    "slam_edge_terms": "object_oriented_slam_tpu/backend/slam_ba.py:79",
+    "slam_chi2": "object_oriented_slam_tpu/backend/slam_ba.py:142"}
+K11_OUTPUTS = ("r2", "Jp2", "Jo2", "r3", "Jp3", "Jo3", "ro", "Ji", "Jj",
+               "rg", "Jg")
+
+
+def slam_ops(g, K_mat, normal, workdir):
+    """The f32 operations K11's two instantiations need on graph ``g``,
+    counted on this graph by examples/torch_slam_edges_on_cpu.count_ops:
+    the chains built on the host with g++ and an f32 type that counts its
+    operations (one per + - * / compare, sqrt, sin, cos, atan2, acos,
+    negation), over the live edges only (non-zero weight: the others' r
+    and J are zeros), an edge's primal chain once and its tangent work
+    once a direction (the kernel's three threads an edge each recompute
+    the primal chain; that is not counted)."""
+    return example("torch_slam_edges_on_cpu").count_ops(
+        type(g)(*[t.cpu() for t in g]), K_mat.cpu(), normal.cpu(), workdir)
+
+
+def slam_bound(kernel, g, K_mat, normal, outputs, ops):
+    """(bound_ms, bound_by) of one K11 launch on graph ``g``: every input
+    the kernel reads (the poses, objects and every edge array) read once
+    and every output written once, against ``ops`` (slam_ops) of the
+    instantiation."""
+    from object_oriented_slam_tpu_torch.backend import slam_ba
+    tensors = [getattr(g, name) for name in slam_ba.JAX_FIELDS
+               if name not in ("frame_mask", "obj_mask")]
+    tensors += [K_mat, normal, *outputs]
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n_ops = sum(ops[kernel].values())
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k11_errors(got, want, want64, want_cpu):
+    """K11's outputs (r2 ... Jg) against the plain version's, edge by edge:
+    (per output the largest |got - want| over the largest |want|, the
+    largest absolute error, per output whether every edge is within its
+    tolerance, per output the largest edge error over its tolerance).  An
+    edge's error is the largest distance of its entries from the float64
+    evaluation ``want64``; its tolerance 1e-4 of the output's largest
+    entry or, where larger, 4 times the largest distance of the edge's
+    entries in the plain version's two f32 evaluations, on the card
+    (``want``) and on the CPU (``want_cpu``), from ``want64``: the
+    projected-bbox chain (the conic's inverse and the ellipse's axes)
+    loses digits on some views, in every f32 evaluation alike, by an
+    amount that differs from one evaluation to the next, so the slack an
+    edge gets is its own.  NaN must match NaN and an infinity the same
+    infinity; raises where they do not."""
+    rel, abs_err, ok, worst = {}, 0.0, {}, {}
+    for name, a, b, c, p in zip(K11_OUTPUTS, got, want, want64, want_cpu):
+        if b.numel() == 0:
+            continue
+        E = b.shape[0]
+        a, b, c = (t.double().reshape(E, -1) for t in (a, b, c))
+        p = p.to(a.device).double().reshape(E, -1)
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise RuntimeError(f"K11 {name}: NaNs in different places")
+        inf = torch.isinf(a) | torch.isinf(b)
+        if not torch.equal(a[inf], b[inf]):
+            raise RuntimeError(f"K11 {name}: infinities in different places")
+        fin = torch.isfinite(b) & torch.isfinite(c) & torch.isfinite(p)
+        if not bool(fin.any()):
+            continue
+        a, b, c, p = (torch.where(fin, t, 0.0) for t in (a, b, c, p))
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max())
+        err = (a - c).abs().amax(1)
+        own = torch.maximum((b - c).abs(), (p - c).abs()).amax(1)
+        tol = torch.clamp(4 * own, min=1e-4 * scale)
+        rel[name] = d / scale if scale > 0 else (0.0 if d == 0 else
+                                                 float("inf"))
+        worst[name] = float((err / tol).max()) if scale > 0 else (
+            0.0 if float(err.max()) == 0 else float("inf"))
+        ok[name] = worst[name] <= 1.0
+        abs_err = max(abs_err, d)
+    return rel, abs_err, ok, worst
+
+
+def k11_neq_errors(got, want, g):
+    """K11 through the normal equations it feeds: the banded assembly's
+    blocks from K11's terms and from the plain version's, as neq_errors
+    holds K1-K4: per live frame max(|dD|, |dbp|, |dB|) over max|D| of the
+    frame, per live object max(|dHoo|, |dbo|) over max|Hoo| of the
+    object, and the coupling U over its largest entry.  Returns (largest
+    relative error, {part: largest relative error})."""
+    from object_oriented_slam_tpu_torch.backend import slam_ba
+    F, K = g.poses_cw.shape[0], g.objects.shape[0]
+    parts = []
+    for terms in (got, want):
+        terms = [t.to(g.poses_cw.device).double() for t in terms]
+        D, bp = slam_ba._pose_diagonal(terms, g, F)
+        B = slam_ba._seg(slam_ba._jtj(terms[7], terms[8]), g.seg_odo_i)
+        parts.append((D, bp, B, *slam_ba._object_blocks(terms, g, F, K)))
+    (D, bp, B, Hoo, bo, U), (Dp, bpp, Bp, Hoop, bop, Up) = parts
+    fm, om = g.frame_mask, g.obj_mask
+    s_f = Dp.abs().flatten(1).amax(1).clamp_min(1e-30)
+    s_o = Hoop.abs().flatten(1).amax(1).clamp_min(1e-30)
+    e_f = torch.stack([(D - Dp).abs().flatten(1).amax(1),
+                       (bp - bpp).abs().amax(1),
+                       (B - Bp).abs().flatten(1).amax(1)]).amax(0) / s_f
+    e_o = torch.maximum((Hoo - Hoop).abs().flatten(1).amax(1),
+                        (bo - bop).abs().amax(1)) / s_o
+    e_u = float((U - Up).abs().max() / Up.abs().max().clamp_min(1e-30))
+    out = {"frames": float(e_f[fm].max()), "objects": float(e_o[om].max()),
+           "U": e_u}
+    return max(out.values()), out
+
+
+def as_f64(g, *tensors):
+    """The graph and tensors with every float field in float64."""
+    g64 = type(g)(*[t.double() if t.is_floating_point() else t for t in g])
+    return (g64, *[t.double() for t in tensors])
+
+
+def nonfinite_tangent_edges(terms):
+    """Edges whose residual is finite and some Jacobian entry is not (the
+    JAX package gates a SLAM edge on its residual alone, so such an edge
+    reaches the normal equations): {kind: count}."""
+    out = {}
+    for kind, (r, *J) in (("2d", terms[0:3]), ("3d", terms[3:6]),
+                          ("odo", terms[6:9]), ("grav", terms[9:11])):
+        r_ok = torch.isfinite(r).all(-1)
+        J_ok = torch.stack([torch.isfinite(j).flatten(1).all(-1)
+                            for j in J]).all(0)
+        out[kind] = int((r_ok & ~J_ok).sum())
+    return out
+
+
+def dense_against_banded(g, K_mat, normal, cfg):
+    """optimize_slam's LM loop replayed with the same operations, banded
+    and dense, each on its own path: (per iteration of the banded path the
+    dense Schur step from the same iterate and lambda against the banded
+    one, as (largest |d dx_p| over max |dx_p|, the same for the objects);
+    {banded: {"trials": [(trial chi2, current chi2, accepted)],
+    "result": (poses, objects)}}).  The replay reads chi2 on the host, so
+    it is outside the synchronisation check."""
+    from object_oriented_slam_tpu_torch.backend import slam_ba
+    F = g.poses_cw.shape[0]
+    dev = g.poses_cw.device
+    free_f = g.frame_mask & (torch.arange(F, device=dev) > 0)
+    steps, paths = [], {}
+    for banded in (True, False):
+        poses, objects = g.poses_cw, g.objects
+        chi2 = slam_ba._chi2(poses, objects, g, K_mat, normal)
+        lam = torch.full((), -1.0, device=dev)
+        nu = torch.full((), 2.0, device=dev)
+        three = torch.full((), 3.0, device=dev)
+        trials = []
+        for _ in range(cfg.iters):
+            dense_step = slam_ba.solve_schur_step(
+                *slam_ba.build_normal_equations(poses, objects, g, K_mat,
+                                                normal),
+                lam, free_f, g.obj_mask, 64)
+            if banded:
+                banded_step = slam_ba.solve_schur_step_banded(
+                    *slam_ba.build_normal_equations_banded(
+                        poses, objects, g, K_mat, normal),
+                    lam, free_f, g.obj_mask, 64)
+                steps.append(tuple(
+                    float((a - b).abs().max() / b.abs().max().clamp_min(
+                        1e-30)) for a, b in zip(dense_step[:2],
+                                                banded_step[:2])))
+            dx_p, dx_o, lam0 = banded_step if banded else dense_step
+            pn, on = slam_ba.apply_updates(poses, objects, dx_p, dx_o)
+            c_new = slam_ba._chi2(pn, on, g, K_mat, normal)
+            accept = (c_new < chi2) & torch.isfinite(c_new)
+            trials.append((float(c_new), float(chi2), bool(accept)))
+            lam = torch.where(accept, lam0 / three, lam0 * nu)
+            nu = torch.where(accept, 2.0, nu * 2.0)
+            poses = torch.where(accept, pn, poses)
+            objects = torch.where(accept, on, objects)
+            chi2 = torch.where(accept, c_new, chi2)
+        paths[banded] = {"trials": trials, "result": (poses, objects)}
+    return steps, paths
+
+
+def phase_slam(dev, tmp, cli, keep=None):
+    """examples/torch_run_tum.py --odometry SEQ/odometry.txt --slam-mode on
+    [cli]'s export (24 objects, N_DEPTH_FRAMES frames, synthetic_depth_sym.
+    yaml, --extractor mono, --checkpoint), then the refinement again from
+    the checkpoint at the graph the CLI built (build_slam_graph's tiers:
+    frames 256, objects 32, edges from the counts).  Raises unless the run
+    wrote 24 objects and N_DEPTH_FRAMES poses, all finite, launched K11's
+    Jacobian instantiation SLAM_ITERS times and its chi2 one SLAM_ITERS + 1
+    times; unless K11 holds against its plain version at the graph (every
+    edge within 1e-4 of its output's largest entry of the float64
+    evaluation or 4 times the plain version's own f32 distance from it on
+    that edge, on the card or on the CPU, the NaN / infinity pattern
+    equal, chi2 within 1e-5 or 4 times the plain version's own f32 error;
+    k11_errors), gives the banded normal equations within 1e-4 of the
+    plain version's or twice the plain version's own distance between the
+    CPU and the card (k11_neq_errors), and repeats bit for bit; unless one
+    optimize_slam call makes no host synchronisation (checked with the
+    synchronisation check set to raise; the final read after), keeps
+    frame 0 within 1e-7, ends below its
+    initial chi2, repeats bit for bit, gives the CLI's files (to their
+    digits), and unless the dense Schur step agrees with the banded one
+    from every iterate of the banded path (2e-3 of the step) and the dense
+    solve with the banded one end to end (2e-3), or, where it does not,
+    the two paths part at an accept test whose trial and current chi2 tie
+    within 1e-5 (chi2's f32 round-off: K11's chi2 is held at 1e-5).
+    Prints the ATE of
+    the odometry input and of trajectory_refined.txt against the ground
+    truth, and objects_slam.txt's map beside objects.txt's; then the
+    2D-only run (--no-depth) with its ATE.  ``keep``: a directory to copy
+    the checkpoint, groundtruth.txt and the run's outputs into, before the
+    checks that follow the run.  Returns (launches of the run, K11's
+    records)."""
+    from object_oriented_slam_tpu_torch.backend import (LMConfig, slam_ba,
+                                                        slam_kernels)
+    from object_oriented_slam_tpu_torch.io.writers import load_objects
+    from object_oriented_slam_tpu_torch.system.checkpoint import load_state
+    from object_oriented_slam_tpu_torch.system.metrics import (
+        ate_rmse, object_map_iou)
+    from object_oriented_slam_tpu_torch.system.slam_mode import \
+        build_slam_graph
+    from object_oriented_slam_tpu_torch.system.tracking import _np_se3_inv
+
+    seq, settings, gt = cli["seq"], cli["settings"], cli["gt"]
+    out = os.path.join(tmp, "slam")
+    ckpt = os.path.join(tmp, "slam_state.npz")
+    t0 = time.perf_counter()
+    slam, printed, e2e, checked, _, launches, _, _ = drive_cli(
+        dev, settings, seq, out,
+        ["--extractor", "mono", "--odometry",
+         os.path.join(seq, "odometry.txt"), "--slam-mode", "--checkpoint",
+         ckpt])
+    run_s = time.perf_counter() - t0
+    want = {"slam_edge_terms": SLAM_ITERS, "slam_chi2": SLAM_ITERS + 1}
+    lines = [ln for ln in printed.splitlines() if ln.startswith("SLAM mode:")]
+    print(f"[slam] CLI: {lines[0] if lines else 'no SLAM mode line'}; the "
+          f"whole run {run_s:.1f} s (host clock), {len(e2e)} frames, "
+          f"{checked} under the synchronisation check; kernel launches "
+          f"{launches}")
+    if not lines or {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"the SLAM-mode run launched {launches}, K11 not "
+                           f"{want}")
+
+    if keep:
+        import shutil
+        os.makedirs(keep, exist_ok=True)
+        for src in (ckpt, os.path.join(seq, "groundtruth.txt"),
+                    os.path.join(seq, "objects_gt.txt"),
+                    *[os.path.join(out, name) for name in (
+                        "trajectory_refined.txt", "objects_slam.txt",
+                        "objects.txt")]):
+            shutil.copy(src, keep)
+    traj = np.loadtxt(os.path.join(out, "trajectory_refined.txt"), ndmin=2)
+    maps = {}
+    for name in ("objects.txt", "objects_slam.txt"):
+        insts, vecs = load_objects(os.path.join(out, name))
+        maps[name] = dict(zip(insts, vecs))
+    state = load_state(ckpt)
+    inp = np.stack(state.frames_pose_wc)
+    gt_traj = np.loadtxt(os.path.join(seq, "groundtruth.txt"), ndmin=2)[:, 1:]
+    if (traj.shape != (N_DEPTH_FRAMES, 8) or len(inp) != N_DEPTH_FRAMES
+            or len(maps["objects_slam.txt"]) != len(gt)
+            or not np.isfinite(traj).all()
+            or not all(np.isfinite(v).all()
+                       for v in maps["objects_slam.txt"].values())):
+        raise RuntimeError(f"SLAM mode wrote {traj.shape} poses and "
+                           f"{len(maps['objects_slam.txt'])} objects")
+    ate = {name: (ate_rmse(xyz, gt_traj[:, :3]),
+                  ate_rmse(xyz, gt_traj[:, :3], align=False))
+           for name, xyz in (("odometry input", inp[:, :3]),
+                             ("trajectory_refined.txt", traj[:, 1:4]))}
+    for name, (aligned, raw) in ate.items():
+        print(f"[slam] ATE of the {name} against groundtruth.txt: "
+              f"{aligned * 100:.4f} cm RMSE after the Umeyama alignment, "
+              f"{raw * 100:.4f} cm without")
+    for name, objs in maps.items():
+        errs = np.array([np.linalg.norm(v[:3] - gt[i][:3])
+                         for i, v in objs.items()])
+        iou = np.array(list(object_map_iou(
+            objs, {i: gt[i] for i in objs}).values()))
+        print(f"[slam] {name}: {len(objs)}/{len(gt)} objects; centre error "
+              f"median {np.median(errs):.4g} m, max {errs.max():.4g} m; map IoU "
+              f"median {np.median(iou):.4f}, min {iou.min():.4f}")
+
+    # the same on the 2D-only path (--no-depth: no 3D edges and no ground
+    # plane, so no gravity prior), where the JAX package's record has SLAM
+    # mode lower the odometry's ATE
+    out2 = os.path.join(tmp, "slam_2d")
+    _, printed2, _, _, _, launches2, _, _ = drive_cli(
+        dev, settings, seq, out2,
+        ["--no-depth", "--odometry", os.path.join(seq, "odometry.txt"),
+         "--slam-mode"])
+    traj2 = np.loadtxt(os.path.join(out2, "trajectory_refined.txt"), ndmin=2)
+    insts2, vecs2 = load_objects(os.path.join(out2, "objects_slam.txt"))
+    objs2 = dict(zip(insts2, vecs2))
+    lines2 = [ln for ln in printed2.splitlines()
+              if ln.startswith("SLAM mode:")]
+    errs2 = np.array([np.linalg.norm(v[:3] - gt[i][:3])
+                      for i, v in objs2.items()] or [np.nan])
+    ate2 = ate_rmse(traj2[:, 1:4], gt_traj[:, :3])
+    print(f"[slam] 2D-only (--no-depth): CLI: "
+          f"{lines2[0] if lines2 else 'no SLAM mode line'}; ATE of the "
+          f"refined trajectory {ate2 * 100:.4f} cm (Umeyama-aligned; the "
+          f"input's {ate['odometry input'][0] * 100:.4f} cm); "
+          f"objects_slam.txt {len(objs2)} objects, centre error median "
+          f"{np.median(errs2):.4g} m; K11 launches "
+          f"{ {k: launches2[k] for k in want} }")
+    if (not lines2 or {k: launches2[k] for k in want} != want
+            or traj2.shape != (N_DEPTH_FRAMES, 8)
+            or not np.isfinite(traj2).all()):
+        raise RuntimeError("the 2D-only SLAM-mode run failed")
+
+    # the graph the CLI refined, rebuilt from its checkpoint
+    cfg = LMConfig(iters=SLAM_ITERS)
+    g, insts = build_slam_graph(state, cfg, device=dev)
+    K_mat = torch.as_tensor(np.asarray(slam.tracker.K, np.float32), device=dev)
+    normal = torch.as_tensor(np.asarray(state.ground_plane[:3], np.float32),
+                             device=dev)
+    E2, E3, Eo = g.e2_w.shape[0], g.e3_w.shape[0], g.odo_w.shape[0]
+    F, Ko = g.poses_cw.shape[0], g.objects.shape[0]
+    live = [int((w != 0).sum()) for w in (g.e2_w, g.e3_w, g.odo_w, g.grav_w)]
+    shape = (F, Ko, E2, E3, Eo)
+    print(f"[slam] graph: frames {F} ({int(g.frame_mask.sum())} live), "
+          f"objects {Ko} ({int(g.obj_mask.sum())} live), 2D edges {E2} "
+          f"({live[0]} live), 3D edges {E3} ({live[1]}), odometry {Eo} "
+          f"({live[2]}), gravity priors {live[3]}")
+
+    # K11 against its plain version at the graph's initial estimate
+    args = (g.poses_cw, g.objects, g, K_mat, normal)
+    got = slam_kernels.edge_terms(*args)
+    again = slam_kernels.edge_terms(*args)
+    plain = slam_ba.edge_terms_plain(*args)
+    g64, p64, o64, K64, n64 = as_f64(g, g.poses_cw, g.objects, K_mat, normal)
+    plain64 = slam_ba.edge_terms_plain(p64, o64, g64, K64, n64)
+    gc = type(g)(*[t.cpu() for t in g])
+    plain_cpu = slam_ba.edge_terms_plain(gc.poses_cw, gc.objects, gc,
+                                         K_mat.cpu(), normal.cpu())
+    rel, abs_err, ok, worst = k11_errors(got, plain, plain64, plain_cpu)
+    neq_rel, neq_parts = k11_neq_errors(got, plain, g)
+    neq_cpu, neq_cpu_parts = k11_neq_errors(plain_cpu, plain, g)
+    bits = all(same_bits(a, b) for a, b in zip(got, again))
+    c_k, c_k2 = slam_kernels.chi2(*args), slam_kernels.chi2(*args)
+    c_p = slam_ba._chi2_plain(*args)
+    c_64 = float(slam_ba._chi2_plain(p64, o64, g64, K64, n64))
+    c_rel = rel_err(c_k.double(), c_p.double())
+    c_ok = abs(float(c_k) - float(c_p)) <= max(1e-5 * abs(float(c_p)),
+                                               4 * abs(float(c_p) - c_64))
+    frozen = nonfinite_tangent_edges(got)
+    print(f"[slam] K11 edge terms against the plain version: relative error "
+          f"per output {({k: float(f'{v:.3g}') for k, v in rel.items()})}; "
+          f"edge by edge, the largest distance from float64 over its "
+          f"tolerance (1e-4 of the output's largest entry, or 4 times the "
+          f"plain version's distance on the card and on the CPU) "
+          f"{({k: float(f'{v:.3g}') for k, v in worst.items()})}, within "
+          f"{all(ok.values())}; max abs {abs_err:.3g}; through the banded "
+          f"normal equations {neq_rel:.3g} "
+          f"{({k: float(f'{v:.3g}') for k, v in neq_parts.items()})}, the "
+          f"plain version on the CPU against on the card {neq_cpu:.3g} "
+          f"{({k: float(f'{v:.3g}') for k, v in neq_cpu_parts.items()})} "
+          f"(limit: 1e-4, or twice that); "
+          f"repeat bit-equal {bits}; chi2 {float(c_k):.8g} against "
+          f"{float(c_p):.8g} (float64 {c_64:.8g}), rel {c_rel:.3g} (1e-5, "
+          f"or 4 times the plain version's float64 distance), repeat "
+          f"bit-equal {same_bits(c_k, c_k2)}; edges with a finite residual "
+          f"and a non-finite Jacobian entry {frozen}")
+    if (not all(ok.values()) or not neq_rel <= max(1e-4, 2 * neq_cpu)
+            or not bits or not c_ok or not same_bits(c_k, c_k2)):
+        raise RuntimeError("K11 disagrees with its plain version or does not "
+                           "repeat")
+    ms = device_ms(lambda: slam_kernels.edge_terms(*args), 20,
+                   name="slam_edge_terms_kernel")
+    ms_c = device_ms(lambda: slam_kernels.chi2(*args), 20,
+                     name="slam_chi2_kernel")
+    plain_ms = cuda_ms(lambda: slam_ba.edge_terms_plain(*args), 3, 1)
+    plain_c = cuda_ms(lambda: slam_ba._chi2_plain(*args), 5, 1)
+    ops = slam_ops(g, K_mat, normal, tmp)
+    b_terms = slam_bound("slam_edge_terms", g, K_mat, normal, got, ops)
+    b_chi2 = slam_bound("slam_chi2", g, K_mat, normal, [c_k], ops)
+    print(f"[slam] K11's operations on this graph (live edges "
+          f"{ops['live']}): the edge terms {ops['slam_edge_terms']} = "
+          f"{sum(ops['slam_edge_terms'].values())}, the chi2 "
+          f"{ops['slam_chi2']} = {sum(ops['slam_chi2'].values())}")
+    print(f"[slam] K11 edge terms at {shape}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {bound_text(ms, b_terms)}; chi2 kernel "
+          f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, {bound_text(ms_c, b_chi2)}")
+
+    # one optimize_slam call: K11's launches, no host synchronisation
+    chi2_0 = float(slam_ba._chi2(*args))
+
+    def call(banded=True):
+        return slam_ba.optimize_slam(g, K_mat, normal, cfg, banded=banded)
+
+    for k in slam_kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per_call = {k.name: k.launches for k in slam_kernels.KERNELS}
+    repeat = all(same_bits(a, b) for a, b in zip(res, call()))
+    poses, objs, chi2 = (t.cpu() for t in res)
+    gauge = float((poses[0] - g.poses_cw[0].cpu()).abs().max())
+    poses_wc = np.stack([_np_se3_inv(p) for p in
+                         poses.double().numpy()[:len(inp)]])
+    cli_pose = float(np.abs(poses_wc - traj[:, 1:]).max())
+    cli_obj = max(float(np.abs(objs[k].double().numpy()
+                               - maps["objects_slam.txt"][i]).max())
+                  for k, i in enumerate(insts))
+    final = nonfinite_tangent_edges(slam_kernels.edge_terms(
+        res[0], res[1], g, K_mat, normal))
+    print(f"[slam] one optimize_slam call (banded, {SLAM_ITERS} iterations): "
+          f"K11 launches {per_call}; no host synchronisation inside; chi2 "
+          f"{chi2_0:.8g} -> {float(chi2):.8g}; frame 0 moved {gauge:.3g} "
+          f"(limit 1e-7); a second call bit-equal {repeat}; against the "
+          f"CLI's files (the same solve, written with 9 and 10 digits): "
+          f"poses {cli_pose:.3g}, objects {cli_obj:.3g} (limit 1e-8); edges "
+          f"with a finite residual and a non-finite Jacobian entry at the "
+          f"result {final}")
+    if (per_call != want or not gauge <= 1e-7 or not float(chi2) < chi2_0
+            or not bool(torch.isfinite(poses).all()
+                        & torch.isfinite(objs).all())
+            or not repeat or not cli_pose <= 1e-8 or not cli_obj <= 1e-8):
+        raise RuntimeError("optimize_slam on the card failed a check")
+
+    wall = wall_ms(call, 3)
+    prof = device_busy(call)
+    if prof is None:
+        raise RuntimeError("the profiler shows no device time for "
+                           "optimize_slam")
+    busy, ops, top = prof
+    print(f"[slam] one optimize_slam call: {wall:.3f} ms wall (host clock, "
+          f"mean of 3), device busy {busy:.3f} ms over {ops} device "
+          f"operations, idle {1 - busy / wall:.3f}; top {top}")
+
+    # the dense solve at the same graph: step by step along the banded
+    # call's path, then end to end
+    steps, paths = dense_against_banded(g, K_mat, normal, cfg)
+    p_d, o_d, c_d = (t.cpu() for t in call(banded=False))
+    d_p = float((p_d - poses).abs().max())
+    d_o = float((o_d - objs).abs().max())
+    replica = (all(same_bits(a, b.cpu()) for a, b in zip(
+        (poses, objs), paths[True]["result"])) and all(same_bits(a, b.cpu())
+        for a, b in zip((p_d, o_d), paths[False]["result"])))
+    tie = next(((i, a, b) for i, (a, b) in enumerate(zip(
+        paths[True]["trials"], paths[False]["trials"])) if a[2] != b[2]),
+        None)
+    print(f"[slam] dense Schur step against the banded one from each iterate "
+          f"of the banded path: poses {max(s[0] for s in steps):.3g}, objects "
+          f"{max(s[1] for s in steps):.3g} of the step's largest entry "
+          f"(limit 2e-3); the replayed paths bit-equal to the calls "
+          f"{replica}; end to end (10 iterations each): poses {d_p:.3g}, "
+          f"objects {d_o:.3g}, chi2 {float(c_d):.8g} against "
+          f"{float(chi2):.8g}; accept decisions "
+          f"{''.join('ar'[not t[2]] for t in paths[True]['trials'])} banded, "
+          f"{''.join('ar'[not t[2]] for t in paths[False]['trials'])} dense"
+          + (f"; they part at iteration {tie[0]}: trial chi2 {tie[1][0]:.9g} "
+             f"/ {tie[2][0]:.9g} against the current {tie[1][1]:.9g} / "
+             f"{tie[2][1]:.9g}" if tie else ""))
+    if not (max(s[0] for s in steps) <= 2e-3
+            and max(s[1] for s in steps) <= 2e-3 and replica):
+        raise RuntimeError("the dense and banded SLAM steps disagree")
+    if not (d_p <= 2e-3 and d_o <= 2e-3) and not (
+            tie and min(abs(t[0] - t[1]) / t[1] for t in tie[1:]) <= 1e-5):
+        raise RuntimeError("the dense and banded SLAM solves disagree, and "
+                           "not by an accept test tied within chi2's f32 "
+                           "round-off")
+    recs = {
+        "slam_edge_terms (K11)": dict(
+            kernel="slam_edge_terms", shape=shape, max_abs_err=abs_err,
+            max_rel_err=max(rel.values()), bound=b_terms, ms=ms,
+            plain_ms=plain_ms, bits_equal=bits),
+        "slam_chi2 (K11)": dict(
+            kernel="slam_chi2", shape=shape,
+            max_abs_err=float((c_k.double() - c_p.double()).abs()),
+            max_rel_err=c_rel, bound=b_chi2, ms=ms_c, plain_ms=plain_c,
+            bits_equal=same_bits(c_k, c_k2))}
+    return launches, recs
+
+
 def phase_sparse_kernels(dev, path):
     """Sparse symmetry's three kernel lanes against their plain versions at
     the shapes the sparse path gave them on its mid-orbit frame (the frame
@@ -2845,12 +3358,19 @@ def phase_symmetry_kernel(dev, path):
     return recs, full
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--keep", default=None, metavar="DIR",
+                    help="copy [slam]'s checkpoint, ground truth and "
+                         "refined outputs into DIR (for "
+                         "tests/jax_slam_on_checkpoint.py)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from concurrent.futures import ThreadPoolExecutor
-    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2861,13 +3381,15 @@ def main():
 
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host clustering, all together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for job in [pool.submit(ba_kernels.build), pool.submit(fk.build),
+                    pool.submit(slam_kernels.build),
                     pool.submit(build_cluster)]:
             job.result()
     print(f"[build] {time.perf_counter() - t0:.1f} s (the host clustering "
           f"library from native/src/cluster.cpp with g++ among them)")
-    for line in (ba_kernels.build_log + fk.build_log).splitlines():
+    for line in (ba_kernels.build_log + fk.build_log
+                 + slam_kernels.build_log).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
@@ -2883,6 +3405,7 @@ def main():
         launches_by_run, cli = phase_cli(dev, tmp, path_sym, sym_call)
         (launches_offline, offline_recs, offline_border,
          _) = phase_offline(dev, tmp, cli, sym_call)
+        launches_slam, slam_recs = phase_slam(dev, tmp, cli, args.keep)
     launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
@@ -2945,6 +3468,9 @@ def main():
                        launches_sym) for k, r in sym_recs.items()]
     kernels += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]],
                        launches_sparse) for k, r in sparse_recs.items()]
+    # K11: launches the SLAM-mode CLI run's (each instantiation its counter)
+    kernels += [record(k, r, SLAM_SOURCE, SLAM_REPLACES[r["kernel"]],
+                       launches_slam) for k, r in slam_recs.items()]
     # the frame lanes: launches the one-BA-a-batch offline run's
     kernels += [record(k, r, FE_SOURCE, OFFLINE_REPLACES[r["kernel"]],
                        launches_offline["offline"])

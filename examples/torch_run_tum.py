@@ -25,7 +25,12 @@ per-frame path, every ``--batch`` frames (8) are extracted by one batched
 call, the global BA runs once a batch (``--offline-per-frame-ba``: once a
 frame, the online schedule), and ``--offline-split`` clusters on the host
 between two batched device phases (phase A's copy home quantized to u16);
-``--extractor`` then picks the bootstrap frames' extractor.  Flags of
+``--extractor`` then picks the bootstrap frames' extractor.
+``--slam-mode`` refines the recorded trajectory and map after the run
+(``system/slam_mode.py``, the banded Schur LM, 10 iterations; the K11 edge
+kernel on the card) and writes ``trajectory_refined.txt`` and
+``objects_slam.txt``; with ``--odometry`` the input trajectory is the
+odometry's.  Flags of
 ``run_tum.py`` whose subsystem is not ported raise ``NotImplementedError``
 naming its item of ``ROADMAP.md``'s queue 1.
 """
@@ -43,9 +48,6 @@ _UNPORTED = (
      "the dense builder's map export", 9),
     ("--viz", lambda a: a.viz, "the renders (viz/export.py)", 9),
     ("--viz-live", lambda a: a.viz_live, "the live web viewer", 9),
-    ("--slam-mode", lambda a: (a.slam_mode or a.slam_max_frames is not None
-                               or a.slam_max_objects is not None
-                               or a.odo_weight != 1.0), "SLAM mode", 7),
     ("--distributed", lambda a: a.distributed, "the distributed backend", 8),
     ("--offline-shard", lambda a: a.offline_shard,
      "the distributed backend (the offline batches sharded over devices)", 8),
@@ -83,11 +85,26 @@ def parser():
     ap.add_argument("--resume", default=None,
                     help="resume from a state checkpoint (skips the "
                          "frames it already processed)")
-    ap.add_argument("--slam-mode", action="store_true")
-    ap.add_argument("--slam-max-frames", type=int, default=None, metavar="F")
+    ap.add_argument("--slam-mode", action="store_true",
+                    help="after the run, jointly refine trajectory + "
+                         "objects (the reference's bSLAM_mode, "
+                         "Optimizer.cpp:126-158) and save "
+                         "trajectory_refined.txt / objects_slam.txt")
+    ap.add_argument("--slam-max-frames", type=int, default=None,
+                    metavar="F",
+                    help="--slam-mode frame window; default unbounded "
+                         "(grow-only capacity tiers sized from the run, "
+                         "like the reference's unbounded graph loops, "
+                         "Optimizer.cpp:126-158)")
     ap.add_argument("--slam-max-objects", type=int, default=None,
-                    metavar="K")
-    ap.add_argument("--odo-weight", type=float, default=1.0)
+                    metavar="K",
+                    help="--slam-mode object cap; default unbounded")
+    ap.add_argument("--odo-weight", type=float, default=1.0,
+                    help="odometry sqrt-information for --slam-mode; the "
+                         "reference uses identity information "
+                         "(Optimizer.cpp:153-156), which lets pixel-scale "
+                         "projection residuals dominate -- raise this "
+                         "when the input trajectory is accurate")
     ap.add_argument("--pipeline-depth", type=int, default=0, metavar="N",
                     help="pin the extraction-deferral window (1=eager; "
                          "default: adaptive, 4 deepening to 8 on blocked "
@@ -281,6 +298,31 @@ def _save_outputs(args, slam):
             save_state
         save_state(slam.tracker.state, args.checkpoint)
         print(f"Saved checkpoint to {args.checkpoint}")
+
+    if args.slam_mode:
+        # after the objects' files: SLAM mode reads the state and leaves it
+        from object_oriented_slam_tpu_torch.backend.lm import LMConfig
+        from object_oriented_slam_tpu_torch.io.writers import save_objects
+        from object_oriented_slam_tpu_torch.system.slam_mode import \
+            run_slam_mode
+        st = slam.tracker.state
+        poses_ref, obj_ref, chi2 = run_slam_mode(
+            st, slam.tracker.K, LMConfig(iters=10),
+            max_frames=args.slam_max_frames,
+            max_objects=args.slam_max_objects,
+            odo_weight=args.odo_weight, device=slam.tracker.device)
+        with open(os.path.join(args.out, "trajectory_refined.txt"),
+                  "w") as f:
+            for ts, p in zip(st.frames_ts, poses_ref):
+                f.write(" ".join([f"{ts:.6f}"] + [f"{v:.9f}" for v in p])
+                        + "\n")
+        insts = sorted(obj_ref)
+        # np.array, not JAX's np.stack: a run without objects writes an
+        # empty file instead of raising
+        save_objects(os.path.join(args.out, "objects_slam.txt"), insts,
+                     np.array([obj_ref[i] for i in insts]).reshape(-1, 10))
+        print(f"SLAM mode: refined {len(poses_ref)} poses, "
+              f"{len(obj_ref)} objects (chi2 {chi2:.4g})")
 
 
 if __name__ == "__main__":

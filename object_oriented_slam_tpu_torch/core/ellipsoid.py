@@ -8,6 +8,8 @@ Every function broadcasts over leading batch dimensions.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import se3
@@ -30,6 +32,14 @@ def to_minimal(e: torch.Tensor) -> torch.Tensor:
     return torch.cat([e[..., :3], rpy, e[..., 7:10]], dim=-1)
 
 
+def pose_of(e: torch.Tensor) -> torch.Tensor:
+    return e[..., :7]
+
+
+def scale_of(e: torch.Tensor) -> torch.Tensor:
+    return e[..., 7:10]
+
+
 def make(pose7: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     lead = torch.broadcast_shapes(pose7.shape[:-1], scale.shape[:-1])
     return torch.cat([pose7.expand(lead + (7,)), scale.expand(lead + (3,))],
@@ -47,6 +57,40 @@ def exp_update(e: torch.Tensor, u9: torch.Tensor) -> torch.Tensor:
     """
     new_pose = se3.se3_mul(e[..., :7], se3.se3_exp(u9[..., :6]))
     return make(new_pose, e[..., 7:10] + u9[..., 6:9])
+
+
+def log_error_9dof(e: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """9-DoF log error between two ellipsoids (Ellipsoid.cpp:63-71):
+    ``log(other.pose^-1 * e.pose)``, then ``e.scale - other.scale``."""
+    pose_diff = se3.se3_mul(se3.se3_inv(pose_of(other)), pose_of(e))
+    return torch.cat([se3.se3_log(pose_diff), scale_of(e) - scale_of(other)],
+                     dim=-1)
+
+
+def rotate_yaw(e: torch.Tensor, k: int) -> torch.Tensor:
+    """Rotate the body frame about its z axis by k*90deg (Ellipsoid.cpp:
+    75-90); for odd k the x/y half-axes swap, so the shape is the same."""
+    yaw = k * math.pi / 2.0
+    z = e[..., :1] * 0.0
+    rot = torch.cat([z, z, z, z, z, z + math.sin(yaw * 0.5),
+                     z + math.cos(yaw * 0.5)], dim=-1)
+    new_pose = se3.se3_mul(pose_of(e), rot)
+    s = scale_of(e)
+    if k % 2 != 0:
+        s = s[..., [1, 0, 2]]
+    return make(new_pose, s)
+
+
+def min_log_error_9dof(e: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """Rotation-ambiguity-aware 9-DoF error (Ellipsoid.cpp:92-117): the
+    error to ``other`` rotated by {-90, 0, 90, 180} deg of yaw with the
+    least norm (the first on a tie); the branch index carries no tangent,
+    so a Jacobian differentiates the chosen branch alone."""
+    errs = torch.stack([log_error_9dof(e, rotate_yaw(other, k))
+                        for k in (-1, 0, 1, 2)], dim=-2)
+    idx = torch.argmin(torch.linalg.vector_norm(errs, dim=-1), dim=-1)
+    return torch.gather(errs, -2, idx[..., None, None].expand(
+        *idx.shape, 1, 9).detach())[..., 0, :]
 
 
 def transform_from(e: torch.Tensor, T: torch.Tensor) -> torch.Tensor:

@@ -235,3 +235,58 @@ def quat_to_euler_zyx(q: torch.Tensor) -> torch.Tensor:
     pitch = torch.asin(torch.clamp(2 * (qw * qy - qz * qx), -1.0, 1.0))
     yaw = torch.atan2(2 * (qw * qz + qx * qy), 1 - 2 * (qy * qy + qz * qz))
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rot_to_euler_zyx(R: torch.Tensor) -> torch.Tensor:
+    """matrix_utils.cpp:76-95 (non-degenerate branch; degeneracy clamped)."""
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def euler_zyx_to_rot(roll, pitch, yaw) -> torch.Tensor:
+    """matrix_utils.cpp:102-116; returns [..., 3, 3]."""
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    sr, cr = torch.sin(roll), torch.cos(roll)
+    sy, cy = torch.sin(yaw), torch.cos(yaw)
+    return torch.stack([
+        torch.stack([cp * cy, sr * sp * cy - cr * sy, cr * sp * cy + sr * sy],
+                    -1),
+        torch.stack([cp * sy, sr * sp * sy + cr * cy, cr * sp * sy - sr * cy],
+                    -1),
+        torch.stack([-sp, sr * cp, cr * cp], -1),
+    ], dim=-2)
+
+
+def pose7_to_xyzrpy(a: torch.Tensor) -> torch.Tensor:
+    """pose7 -> [x,y,z,roll,pitch,yaw] (se3quat.h toXYZPRYVector)."""
+    return torch.cat([a[..., :3], quat_to_euler_zyx(a[..., 3:])], dim=-1)
+
+
+def xyzrpy_to_pose7(v: torch.Tensor) -> torch.Tensor:
+    return torch.cat([v[..., :3], zyx_euler_to_quat(v[..., 3], v[..., 4],
+                                                     v[..., 5])], dim=-1)
+
+
+def se3_apply(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply transform(s) a [..., 7] to point(s) p [..., 3].  One pose and
+    a batch of points go through the rotation matrix (as in the JAX
+    package); otherwise the quaternion rotates each point."""
+    if a.dim() == 1 and p.dim() > 1:
+        return p @ quat_to_mat(a[3:]).T + a[:3]
+    return quat_rotate(a[..., 3:], p) + a[..., :3]
+
+
+def se3_to_mat(a: torch.Tensor) -> torch.Tensor:
+    """pose7 -> [..., 4, 4] homogeneous matrix (se3quat.h
+    to_homogeneous_matrix)."""
+    R = quat_to_mat(a[..., 3:])
+    top = torch.cat([R, a[..., :3, None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def mat_to_se3(m: torch.Tensor) -> torch.Tensor:
+    return torch.cat([m[..., :3, 3], mat_to_quat(m[..., :3, :3])], dim=-1)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,12 +58,26 @@ def host_cxx() -> str:
     return path
 
 
+def _local_includes(text: bytes, directory: str) -> bytes:
+    """The bytes of the headers ``text`` includes by ``#include "name"``
+    from ``directory`` (the shared csrc/*.cuh), so an edited header
+    rebuilds every source that includes it."""
+    out = b""
+    for name in re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M):
+        with open(os.path.join(directory, name.decode()), "rb") as f:
+            out += f.read()
+    return out
+
+
 def build(source: str, flags=NVCC_FLAGS, compiler=None):
     """Compile ``source`` with ``compiler`` (nvcc by default) if this
-    source is not built yet with these flags.  Returns (path of the shared
-    library, the compiler's output or "" when nothing ran)."""
+    source (with the headers it includes) is not built yet with these
+    flags.  Returns (path of the shared library, the compiler's output or
+    "" when nothing ran)."""
     with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+        text = f.read()
+    digest = hashlib.sha1(text + _local_includes(text, os.path.dirname(source))
+                          + " ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     lib_path = os.path.join(BUILD_DIR,
                             f"lib{stem}_{digest.hexdigest()[:12]}.so")

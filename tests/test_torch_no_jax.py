@@ -31,7 +31,9 @@ DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "frontend.batch_extractor", "io.synthetic",
                  "system.tracking", "system.offline",
                  "system.system", "system.checkpoint", "backend.ba_kernels",
-                 "io.png", "io.tum", "io.native_loader", "utils.transfer"]
+                 "io.png", "io.tum", "io.native_loader", "utils.transfer",
+                 "backend.residuals", "backend.slam_ba",
+                 "backend.slam_kernels", "system.slam_mode"]
 
 
 def _sources():
@@ -92,15 +94,17 @@ def test_chip_smoke_and_port_examples_import_no_jax():
     for phase in ("phase_kernels", "phase_steps", "phase_whole_lm",
                   "phase_main_path", "phase_frontend_kernels",
                   "phase_depth_path", "phase_symmetry_path",
-                  "phase_symmetry_kernel", "phase_cli", "phase_offline"):
+                  "phase_symmetry_kernel", "phase_cli", "phase_offline",
+                  "phase_slam"):
         assert phase in out.stdout, phase
 
 
 def test_cuda_sources_are_in_the_package():
     """Every kernel source the wrappers build ships inside the package."""
-    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.backend import (ba_kernels,
+                                                        slam_kernels)
     from object_oriented_slam_tpu_torch.ops import frontend_kernels
-    for mod in (ba_kernels, frontend_kernels):
+    for mod in (ba_kernels, frontend_kernels, slam_kernels):
         assert os.path.isfile(mod.SOURCE), mod.SOURCE
         assert os.path.samefile(os.path.dirname(mod.SOURCE),
                                 os.path.join(PKG_DIR, "csrc"))

@@ -6,7 +6,11 @@ One TUM-format export, written by the port's exporter
 scene: 6 objects, 12 frames, 640x480, odometry noise 0.01 m.  The JAX CLI
 runs it with ``--extractor mono``, the port's with ``--extractor mono
 --device cpu``; both at their default pipeline (adaptive depth 4,
-asynchronous plane).  The port's host-clustered architectures run the
+asynchronous plane); the port's whole run also takes ``--slam-mode
+--checkpoint`` (SLAM mode runs after objects.txt is written and leaves the
+state alone; tests/test_torch_slam.py runs ``--odometry --slam-mode`` on
+this export's first SPLIT frames, in its own module for this file's
+time).  The port's host-clustered architectures run the
 first SPLIT frames (``--extractor split`` and the default ``auto``, which
 probes the CPU and picks fused-split with LM fusion) and are held to the
 port's mono run of those frames within 1e-4, as is the offline mode on
@@ -35,6 +39,7 @@ import pytest
 
 import object_oriented_slam_tpu.frontend as jfrontend
 import object_oriented_slam_tpu_torch.frontend as tfrontend
+from object_oriented_slam_tpu_torch.backend import slam_ba
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.io.writers import load_objects
 from object_oriented_slam_tpu_torch.system import Tracking
@@ -94,8 +99,10 @@ def runs(tmp_path_factory):
     ckpt = str(tmp / "state.npz")
     mono = ["--device", "cpu", "--extractor", "mono"]
     jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
-                        "mono"])
-    slam, log = _port_cli([YAML, seq, "--out", out["port"], *mono])
+                        "mono", "--checkpoint", str(tmp / "jax.npz")])
+    slam, log = _port_cli([YAML, seq, "--out", out["port"], *mono,
+                           "--slam-mode", "--checkpoint",
+                           str(tmp / "full.npz")])
     _port_cli([YAML, seq, "--out", out["split"], *mono,
                "--max-frames", str(SPLIT), "--checkpoint", ckpt])
     _port_cli([YAML, seq, "--out", out["resumed"], *mono, "--resume", ckpt])
@@ -188,8 +195,7 @@ def test_checkpoint_then_resume_reproduces_the_run(runs):
 
 @pytest.mark.parametrize("flags", [
     ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
-    ["--viz-live", "5"], ["--slam-mode"], ["--odo-weight", "2"],
-    ["--distributed"], ["--offline-shard"]])
+    ["--viz-live", "5"], ["--distributed"], ["--offline-shard"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _example("torch_run_tum").main(
@@ -232,3 +238,102 @@ def test_default_device_is_the_card(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="not available"):
         _example("torch_run_tum").main([YAML, str(tmp_path)])
+
+
+def _trajectory(path):
+    rows = np.loadtxt(path, ndmin=2)
+    return rows[:, 0], rows[:, 1:]
+
+
+def test_slam_mode_cli_is_run_slam_mode_on_the_checkpoint(runs):
+    """``--slam-mode --checkpoint`` on the whole run: trajectory_refined.txt
+    and objects_slam.txt are the port's run_slam_mode on the checkpoint read
+    back with the port's load_state, in the JAX package's file formats, and
+    the graph packed from that checkpoint is JAX's build_slam_graph on the
+    same .npz read by JAX's load_state, array for array."""
+    import re
+
+    from object_oriented_slam_tpu.backend.lm import LMConfig as JLMConfig
+    from object_oriented_slam_tpu.io.writers import \
+        save_objects as jax_save_objects
+    from object_oriented_slam_tpu.system.checkpoint import \
+        load_state as jax_load_state
+    from object_oriented_slam_tpu.system.slam_mode import \
+        build_slam_graph as jax_build_slam_graph
+    from object_oriented_slam_tpu_torch.backend import LMConfig
+    from object_oriented_slam_tpu_torch.system.checkpoint import load_state
+    from object_oriented_slam_tpu_torch.system.slam_mode import (
+        build_slam_graph, run_slam_mode)
+
+    out, slam, log = runs[1], runs[2], runs[3]
+    ckpt = os.path.join(os.path.dirname(out["port"]), "full.npz")
+    state = load_state(ckpt)
+    poses, objs, chi2 = run_slam_mode(state, slam.tracker.K,
+                                      LMConfig(iters=10), device="cpu")
+    line = next(ln for ln in log.splitlines() if ln.startswith("SLAM mode:"))
+    assert line == (f"SLAM mode: refined {len(poses)} poses, {len(objs)} "
+                    f"objects (chi2 {chi2:.4g})")
+    assert len(poses) == 12 and len(objs) >= 5
+    ts, traj = _trajectory(os.path.join(out["port"], "trajectory_refined.txt"))
+    np.testing.assert_allclose(ts, state.frames_ts, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(traj, poses, rtol=0, atol=1e-9)
+    with open(os.path.join(out["port"], "trajectory_refined.txt")) as f:
+        assert all(re.fullmatch(r"\d+\.\d{6}( -?\d+\.\d{9}){7}", ln)
+                   for ln in f.read().splitlines())
+    insts = sorted(objs)
+    want = os.path.join(os.path.dirname(out["port"]), "objects_slam_jax.txt")
+    jax_save_objects(want, insts, np.stack([objs[i] for i in insts]))
+    with open(want) as f, open(os.path.join(out["port"],
+                                            "objects_slam.txt")) as g:
+        assert g.read() == f.read()
+    jg, jinsts = jax_build_slam_graph(jax_load_state(ckpt), JLMConfig())
+    tg, tinsts = build_slam_graph(state, LMConfig(), device="cpu")
+    assert tinsts == jinsts
+    for name in slam_ba.JAX_FIELDS:
+        a, b = getattr(tg, name).numpy(), np.asarray(getattr(jg, name))
+        assert a.shape == b.shape and np.array_equal(a, b), name
+
+
+def test_recorded_state_matches_jax(runs):
+    """What SLAM mode refines, as each package records it: the graph the
+    port packs from its whole run's checkpoint against the graph JAX packs
+    from the JAX CLI's checkpoint of the same export.  The same edges,
+    frames and weights; the camera poses equal; the objects' centres and
+    sorted scales and the 3D measurements (camera frame) within TOL, the
+    run's own LM round-off: a fault in the frame a recorded observation
+    is expressed in would move them by the camera's distance."""
+    from object_oriented_slam_tpu.backend.lm import LMConfig as JLMConfig
+    from object_oriented_slam_tpu.system.checkpoint import \
+        load_state as jax_load_state
+    from object_oriented_slam_tpu.system.slam_mode import \
+        build_slam_graph as jax_build_slam_graph
+    from object_oriented_slam_tpu_torch.backend import LMConfig
+    from object_oriented_slam_tpu_torch.system.checkpoint import load_state
+    from object_oriented_slam_tpu_torch.system.slam_mode import \
+        build_slam_graph
+
+    tmp = os.path.dirname(runs[1]["port"])
+    tg, tinsts = build_slam_graph(load_state(os.path.join(tmp, "full.npz")),
+                                  LMConfig(), device="cpu")
+    jg, jinsts = jax_build_slam_graph(
+        jax_load_state(os.path.join(tmp, "jax.npz")), JLMConfig())
+    assert tinsts == jinsts
+    got = {k: getattr(tg, k).numpy() for k in slam_ba.JAX_FIELDS}
+    want = {k: np.asarray(getattr(jg, k)) for k in slam_ba.JAX_FIELDS}
+    for name in slam_ba.JAX_FIELDS:
+        assert got[name].shape == want[name].shape, name
+    for name in (*slam_ba.INDEX_FIELDS, *slam_ba.MASK_FIELDS):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in ("poses_cw", "e2_bbox", "e2_w", "e3_w", "odo_meas", "odo_w",
+                 "grav_w"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    live = want["e3_w"] != 0
+    assert live.sum() >= 12
+    np.testing.assert_allclose(got["e3_meas"][live], want["e3_meas"][live],
+                               atol=TOL)
+    om = want["obj_mask"]
+    np.testing.assert_allclose(got["objects"][om, :3],
+                               want["objects"][om, :3], atol=TOL)
+    np.testing.assert_allclose(np.sort(got["objects"][om, 7:], 1),
+                               np.sort(want["objects"][om, 7:], 1), atol=TOL)
