@@ -145,12 +145,28 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      the
      same export with --no-depth --odometry --slam-mode (no 3D edges), its
      ATE beside the odometry's;
+  6f. the distributed backends ([dist], object_oriented_slam_tpu_torch/
+     parallel): NCCL at world size 1 in this process, then two gloo ranks
+     sharing the card (spawned processes, every tensor on cuda:0): the
+     observation-sharded LM at the FULL tier against optimize_objects_soa,
+     the edge- and frame-sharded SLAM solve (dense and banded) at [slam]'s
+     graph against optimize_slam on the same padded graph, and (gloo)
+     one [offline] batch through dispatch_batch(mesh=...) against the
+     unsharded call, at the dry run's tolerances (parallel/dryrun.py),
+     each rank's launches of K1-K4, K11 and K5-K8 on its own shard; then
+     examples/torch_run_tum.py --distributed --offline --offline-shard
+     --batch 8 on [cli]'s export under torch.distributed.run with two
+     gloo ranks, rank 0's objects.txt within 1e-3 of [offline]'s unsharded
+     run's; every group, rank and launch bounded by DIST_TIMEOUT seconds,
+     times printed beside the card's line and claimed nowhere;
   8. one JSON line with a record per kernel (``launches_cli``: the
      adaptive mono CLI run's count of that kernel, ``launches_cli_split``
      / ``_fused`` / ``_auto`` the host-clustered runs',
      ``launches_offline`` / ``_offline_per_frame_ba`` /
-     ``_offline_split`` the offline runs'; the frame lanes' records at the
-     offline batch's shapes, the border lane's with the frame lane among
+     ``_offline_split`` the offline runs', ``launches_dist_ranks`` /
+     ``launches_dist_cli`` [dist]'s per gloo rank; the frame lanes'
+     records at the offline batch's shapes, the border lane's with the
+     frame lane among
      the shapes no path reached), the card line, and the result line
      {"ok": true, "device": {...}} last.
 Every path prints its map's IoU against the ground truth
@@ -672,7 +688,7 @@ def phase_whole_lm(dev):
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
     t0 = time.perf_counter()
-    est_c, _ = optimize_objects_soa(observations_from_numpy(arrays),
+    est_c, _ = optimize_objects_soa(observations_from_numpy(arrays, "cpu"),
                                     K.cpu(), n.cpu(), True)
     t_cpu = time.perf_counter() - t0
     err = float((est_d.cpu() - est_c).abs().max())
@@ -2556,7 +2572,9 @@ def phase_offline(dev, tmp, cli, sym_call):
     synchronisation check.  Then one batched call under the profiler
     beside the online call ``sym_call`` and the frame lanes
     (frame_lane_checks) at that batch's shapes.  Returns (launches of each
-    run by name, records, border-lane records)."""
+    run by name, records, border-lane records, the batched call's (busy,
+    operations, wall), {"batch": that batch and its camera, "objects": the
+    one-BA-a-batch run's objects.txt})."""
     from object_oriented_slam_tpu_torch.io.writers import load_objects
     from object_oriented_slam_tpu_torch.system.metrics import object_map_iou
     seq, settings, gt = cli["seq"], cli["settings"], cli["gt"]
@@ -2629,7 +2647,9 @@ def phase_offline(dev, tmp, cli, sym_call):
     fb, cam, inputs = offline_batch(dev, seq, settings, ground)
     busy, ops, wall = batch_call_overhead(dev, fb, cam, sym_call)
     recs, border_recs = frame_lane_checks(dev, fb, cam, inputs)
-    return launches_by_run, recs, border_recs, (busy, ops, wall)
+    kept = {"batch": (fb, cam),
+            "objects": os.path.join(tmp, "offline", "objects.txt")}
+    return launches_by_run, recs, border_recs, (busy, ops, wall), kept
 
 
 # [slam]: SLAM mode on [cli]'s export with its odometry.txt (1 cm of
@@ -2847,7 +2867,7 @@ def phase_slam(dev, tmp, cli, keep=None):
     2D-only run (--no-depth) with its ATE.  ``keep``: a directory to copy
     the checkpoint, groundtruth.txt and the run's outputs into, before the
     checks that follow the run.  Returns (launches of the run, K11's
-    records)."""
+    records, (the checkpoint's graph, K, the ground normal))."""
     from object_oriented_slam_tpu_torch.backend import (LMConfig, slam_ba,
                                                         slam_kernels)
     from object_oriented_slam_tpu_torch.io.writers import load_objects
@@ -3113,7 +3133,7 @@ def phase_slam(dev, tmp, cli, keep=None):
             max_abs_err=float((c_k.double() - c_p.double()).abs()),
             max_rel_err=c_rel, bound=b_chi2, ms=ms_c, plain_ms=plain_c,
             bits_equal=same_bits(c_k, c_k2))}
-    return launches, recs
+    return launches, recs, (g, K_mat, normal)
 
 
 def phase_sparse_kernels(dev, path):
@@ -3358,6 +3378,249 @@ def phase_symmetry_kernel(dev, path):
     return recs, full
 
 
+# [dist]: the distributed backends (object_oriented_slam_tpu_torch/parallel)
+# on the card: NCCL at world size 1 in this process, then DIST_WORLD ranks
+# sharing the one card over gloo (spawned processes, every tensor on
+# cuda:0), then the command line under torchrun.  Every process group's
+# start and collectives, every spawned rank and the torchrun launch are
+# bounded by DIST_TIMEOUT seconds; a rank that fails fails the run.
+DIST_WORLD = 2
+DIST_TIMEOUT = 120
+# the kernels each sharded call launches on a rank: K1/K2 and K3/K4 once an
+# LM iteration (K3/K4 once more for the initial chi2), K11's two
+# instantiations the same way, the batch's frontend kernels once
+DIST_LM_LAUNCHES = {"ba_normal_eq": 10, "ba_chi2": 11}
+DIST_SLAM_LAUNCHES = {"slam_edge_terms": SLAM_ITERS,
+                      "slam_chi2": SLAM_ITERS + 1}
+DIST_BATCH_LAUNCHES = {"depth_cloud": 1, "cluster_components": 1,
+                       "voxel_downsample": 1, "symmetry_search": 1}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_checks(mesh, lm, slam, batch):
+    """The dry run's checks (parallel/dryrun.py) on ``mesh``: the LM at
+    ``lm`` (obs, K, normal), the SLAM solve on ``slam`` (graph, K, normal)
+    with shard_solve, dense and banded, and the offline batch ``batch``
+    (FrameBatch, camera) where given.  Each raises past the dry run's
+    tolerance; returns their reports by name."""
+    from object_oriented_slam_tpu_torch.backend import LMConfig
+    from object_oriented_slam_tpu_torch.parallel import dryrun
+    out = {"lm": dryrun.check_lm(*lm, mesh)}
+    for banded in (False, True):
+        out["slam " + ("banded" if banded else "dense")] = dryrun.check_slam(
+            *slam, mesh, LMConfig(iters=SLAM_ITERS), 64, shard_solve=True,
+            banded=banded)
+    if batch is not None:
+        out["batch"] = dryrun.check_batch(*batch, mesh)
+    return out
+
+
+def dist_expected(name):
+    return (DIST_LM_LAUNCHES if name == "lm" else DIST_BATCH_LAUNCHES
+            if name == "batch" else DIST_SLAM_LAUNCHES)
+
+
+def dist_report(tag, name, r, card):
+    errs = {k: (float(f"{v:.9g}") if k.startswith("chi2") else
+                float(f"{v:.3g}")) if isinstance(v, float) else v
+            for k, v in r.items() if k not in ("launches", "seconds")}
+    print(f"[dist] {tag} {name}: against the unsharded call {errs}; "
+          f"launches {r['launches']}; host s sharded {r['seconds'][0]:.4f}, "
+          f"unsharded {r['seconds'][1]:.4f} (informational; {card})")
+    want = dist_expected(name)
+    if r["launches"] != want:
+        raise RuntimeError(f"[dist] {tag} {name} launched {r['launches']}, "
+                           f"not {want}")
+
+
+def dist_rank_main(rank, workdir):
+    """One of the DIST_WORLD gloo ranks sharing cuda:0 (``chip_smoke.py
+    --dist-rank R --dist-dir DIR``): the dry run's checks on the inputs
+    phase_dist saved in DIR, the report in DIR/rank{R}.json."""
+    import pickle
+    from object_oriented_slam_tpu_torch.backend import (
+        observations_from_numpy, slam_ba)
+    from object_oriented_slam_tpu_torch.parallel import multihost
+    dev = torch.device("cuda", 0)
+    multihost.initialize(backend="gloo", device=dev,
+                         init_method="file://" + os.path.join(workdir,
+                                                              "store"),
+                         world_size=DIST_WORLD, rank=rank,
+                         timeout_s=DIST_TIMEOUT)
+    try:
+        mesh = multihost.observation_mesh(dev)
+        inp = np.load(os.path.join(workdir, "inputs.npz"))
+        K = torch.as_tensor(inp["K"], device=dev)
+        obs = observations_from_numpy(
+            {k[3:]: inp[k] for k in inp.files if k.startswith("lm_")}, dev)
+        g = slam_ba.graph_from_numpy(
+            {k[5:]: inp[k] for k in inp.files if k.startswith("slam_")}, dev)
+        with open(os.path.join(workdir, "batch.pkl"), "rb") as f:
+            batch = pickle.load(f)
+        out = dist_checks(
+            mesh, (obs, K, torch.as_tensor(inp["lm_normal_"], device=dev)),
+            (g, torch.as_tensor(inp["slam_K_"], device=dev),
+             torch.as_tensor(inp["slam_normal_"], device=dev)), batch)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def dist_cli_main(argv):
+    """examples/torch_run_tum.main on ``argv`` in one rank of a torchrun
+    launch (``chip_smoke.py --dist-cli ARGV``), every launch counter set to
+    0 just before; prints the rank's launches on a line of its own."""
+    from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS)
+    for k in kernels:
+        k.launches = 0
+    example("torch_run_tum").main(argv)
+    print("DIST_CLI " + json.dumps({
+        "rank": int(os.environ["RANK"]),
+        "launches": {k.name: k.launches for k in kernels}}), flush=True)
+    return 0
+
+
+def run_bounded(cmd, what, **kw):
+    """A child process bounded by DIST_TIMEOUT (killed past it); raises
+    unless it exits 0.  Returns its output."""
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=DIST_TIMEOUT, **kw)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"[dist] {what} ran past {DIST_TIMEOUT} s: "
+                           f"{(e.stdout or '')[-3000:]}") from e
+    if p.returncode != 0:
+        raise RuntimeError(f"[dist] {what} exited {p.returncode}:\n"
+                           f"{(p.stdout + p.stderr)[-6000:]}")
+    return p.stdout
+
+
+def phase_dist(dev, tmp, cli, slam_problem, offline):
+    """The distributed backends on the card.
+
+    1. NCCL at world size 1 in this process: optimize_objects_sharded at
+       the LM's FULL tier against optimize_objects_soa, and
+       optimize_slam_sharded(shard_solve=True), dense and banded, at
+       [slam]'s graph against optimize_slam on the same (padded) graph.
+    2. DIST_WORLD ranks sharing the card over gloo (chip_smoke.py
+       --dist-rank): the same solvers at the same sizes, each rank half
+       the observations or edges and half the frames of the Schur solve,
+       and one [offline] batch through dispatch_batch(mesh=...).
+    3. examples/torch_run_tum.py --distributed --offline --offline-shard
+       --batch 8 on [cli]'s export under torch.distributed.run with
+       DIST_WORLD gloo ranks: rank 0's objects.txt against [offline]'s
+       unsharded run's (24 objects within 1e-3).
+
+    Each sharded result is held against its unsharded twin at the dry
+    run's tolerances (parallel/dryrun.py), and each rank must have
+    launched K1-K4, K11 and K5-K8 on its own shard (its launch counters).
+    Times are two processes time-slicing one card over gloo: printed with
+    the card's line, claimed nowhere.  Returns (the spawned ranks'
+    reports, the CLI ranks' launches)."""
+    import pickle
+    from object_oriented_slam_tpu_torch.io.writers import load_objects
+    from object_oriented_slam_tpu_torch.parallel import multihost
+    card = card_line()
+    arrays, obs, args = lm_inputs(FULL, dev)
+    lm = (obs, args[6], args[5])
+    g, K_mat, normal = slam_problem
+
+    multihost.initialize(backend="nccl", device=dev,
+                         init_method=f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0, timeout_s=DIST_TIMEOUT)
+    try:
+        nccl = dist_checks(multihost.observation_mesh(dev), lm, slam_problem,
+                           None)
+    finally:
+        multihost.shutdown()
+    for name, r in nccl.items():
+        dist_report("nccl, world size 1:", name, r, card)
+
+    workdir = os.path.join(tmp, "dist")
+    os.makedirs(workdir)
+    np.savez(os.path.join(workdir, "inputs.npz"),
+             lm_normal_=np.asarray(NORMAL, np.float32),
+             K=args[6].cpu().numpy(),
+             slam_K_=K_mat.cpu().numpy(), slam_normal_=normal.cpu().numpy(),
+             **{"lm_" + k: v for k, v in arrays.items()},
+             **{"slam_" + k: getattr(g, k).cpu().numpy()
+                for k in type(g)._fields if not k.startswith("seg_")})
+    with open(os.path.join(workdir, "batch.pkl"), "wb") as f:
+        pickle.dump(offline["batch"], f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+         "--dist-dir", workdir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DIST_WORLD)]
+    try:
+        logs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"[dist] a gloo rank ran past {DIST_TIMEOUT} "
+                           "s") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"[dist] gloo rank {r} exited {p.returncode}:"
+                               f"\n{log[-6000:]}")
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        for name, rep in ranks[-1].items():
+            dist_report(f"gloo rank {r} of {DIST_WORLD} on cuda:0:", name,
+                        rep, card)
+
+    out = os.path.join(tmp, "dist_cli")
+    t0 = time.perf_counter()
+    printed = run_bounded(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(DIST_WORLD), os.path.abspath(__file__),
+         "--dist-cli", cli["settings"], cli["seq"], "--out", out,
+         "--extractor", "mono", "--distributed", "--offline",
+         "--offline-shard", "--batch", str(OFFLINE_BATCH), "--dist-backend",
+         "gloo"], "torchrun of torch_run_tum.py")
+    cli_s = time.perf_counter() - t0
+    cli_launches = [None] * DIST_WORLD
+    for line in printed.splitlines():
+        if line.startswith("DIST_CLI "):
+            rec = json.loads(line[len("DIST_CLI "):])
+            cli_launches[rec["rank"]] = rec["launches"]
+    got = dict(zip(*load_objects(os.path.join(out, "objects.txt"))))
+    want = dict(zip(*load_objects(offline["objects"])))
+    diff = max((np.abs(got[i] - want[i]).max() for i in want if i in got),
+               default=np.inf)
+    offline_line = next((ln for ln in printed.splitlines()
+                         if "Offline:" in ln), "no Offline line")
+    print(f"[dist] torch_run_tum.py --distributed --offline --offline-shard "
+          f"--batch {OFFLINE_BATCH} on {DIST_WORLD} gloo ranks sharing the "
+          f"card: {len(got)}/24 objects, objects.txt against the unsharded "
+          f"offline run's max |diff| {diff:.3g} (limit 1e-3); rank 0: "
+          f"{offline_line.strip()}; torchrun wall {cli_s:.1f} s "
+          f"(informational; {card}); launches per rank {cli_launches}")
+    if sorted(got) != sorted(want) or len(got) != 24 or not diff <= 1e-3:
+        raise RuntimeError("[dist] the distributed CLI's objects.txt "
+                           "differs from the unsharded offline run's")
+    for r, launched in enumerate(cli_launches):
+        if launched is None or not all(
+                launched[k] > 0 for k in (*DIST_LM_LAUNCHES,
+                                          *DIST_BATCH_LAUNCHES)):
+            raise RuntimeError(f"[dist] CLI rank {r} launched {launched}")
+    return ranks, cli_launches
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
@@ -3365,10 +3628,20 @@ def main(argv=None):
                     help="copy [slam]'s checkpoint, ground truth and "
                          "refined outputs into DIR (for "
                          "tests/jax_slam_on_checkpoint.py)")
+    # [dist]'s child processes (phase_dist starts them)
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-cli", nargs=argparse.REMAINDER, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_rank is not None:
+        return dist_rank_main(args.dist_rank, args.dist_dir)
+    if args.dist_cli is not None:
+        return dist_cli_main(args.dist_cli)
     from concurrent.futures import ThreadPoolExecutor
     from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
@@ -3403,9 +3676,12 @@ def main(argv=None):
                                                                depth_call)
         launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
         launches_by_run, cli = phase_cli(dev, tmp, path_sym, sym_call)
-        (launches_offline, offline_recs, offline_border,
-         _) = phase_offline(dev, tmp, cli, sym_call)
-        launches_slam, slam_recs = phase_slam(dev, tmp, cli, args.keep)
+        (launches_offline, offline_recs, offline_border, _,
+         offline) = phase_offline(dev, tmp, cli, sym_call)
+        launches_slam, slam_recs, slam_problem = phase_slam(
+            dev, tmp, cli, args.keep)
+        dist_ranks, dist_cli = phase_dist(dev, tmp, cli, slam_problem,
+                                          offline)
     launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
@@ -3425,6 +3701,16 @@ def main(argv=None):
                 **{"launches_" + key: (launches_offline[run][r["kernel"]]
                                        if path_launches is not None else 0)
                    for run, key in OFFLINE_KEYS},
+                # [dist]: per gloo rank, the launches of its sharded checks
+                # and of its torchrun CLI run
+                "launches_dist_ranks": [
+                    (sum(rep["launches"].get(r["kernel"], 0)
+                         for rep in rank.values())
+                     if path_launches is not None else 0)
+                    for rank in dist_ranks],
+                "launches_dist_cli": [
+                    (launched[r["kernel"]] if path_launches is not None
+                     else 0) for launched in dist_cli],
                 "max_abs_err": r["max_abs_err"],
                 "max_rel_err": r.get("max_rel_err", r["max_abs_err"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -30,7 +30,20 @@ between two batched device phases (phase A's copy home quantized to u16);
 (``system/slam_mode.py``, the banded Schur LM, 10 iterations; the K11 edge
 kernel on the card) and writes ``trajectory_refined.txt`` and
 ``objects_slam.txt``; with ``--odometry`` the input trajectory is the
-odometry's.  Flags of
+odometry's.  ``--distributed`` shards the global BA's observation axis over
+the ranks of a torchrun launch (``parallel/dist_lm.py``), and
+``--offline-shard`` each offline batch's detection axis
+(``batch_extractor.dispatch_batch(mesh=...)``):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        examples/torch_run_tum.py <yaml> <dir> --distributed [--offline \
+        --offline-shard] [--dist-backend nccl|gloo]
+
+``--dist-backend`` defaults to NCCL on the card (a GPU per rank) and gloo
+on the CPU; gloo also lets ranks share one GPU.  Without torchrun's
+environment they run as one shard.  Every rank runs the same frames and
+holds the same map; rank 0 alone writes the output files (and runs
+``--slam-mode``).  Flags of
 ``run_tum.py`` whose subsystem is not ported raise ``NotImplementedError``
 naming its item of ``ROADMAP.md``'s queue 1.
 """
@@ -48,9 +61,6 @@ _UNPORTED = (
      "the dense builder's map export", 9),
     ("--viz", lambda a: a.viz, "the renders (viz/export.py)", 9),
     ("--viz-live", lambda a: a.viz_live, "the live web viewer", 9),
-    ("--distributed", lambda a: a.distributed, "the distributed backend", 8),
-    ("--offline-shard", lambda a: a.offline_shard,
-     "the distributed backend (the offline batches sharded over devices)", 8),
 )
 
 
@@ -109,7 +119,10 @@ def parser():
                     help="pin the extraction-deferral window (1=eager; "
                          "default: adaptive, 4 deepening to 8 on blocked "
                          "fetches). Pinning disables adaptation.")
-    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard the backend BA over the ranks of a torchrun "
+                         "launch (MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK/"
+                         "LOCAL_RANK); one shard without them")
     ap.add_argument("--offline", action="store_true",
                     help="throughput mode: B frames' extraction in one "
                          "batched call each (system/offline.py); the same "
@@ -119,7 +132,13 @@ def parser():
     ap.add_argument("--batch", type=int, default=8, metavar="B",
                     help="frames per batched extraction call in --offline "
                          "mode (default 8)")
-    ap.add_argument("--offline-shard", action="store_true")
+    ap.add_argument("--offline-shard", action="store_true",
+                    help="shard the --offline detection batches over the "
+                         "ranks (data parallelism)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of --distributed / "
+                         "--offline-shard (default: nccl on cuda, gloo on "
+                         "cpu; gloo lets ranks share one GPU)")
     ap.add_argument("--offline-split", action="store_true",
                     help="--offline with the device-A / host-cluster / "
                          "device-B split protocol")
@@ -145,6 +164,30 @@ def main(argv=None):
                 f"{flag}: {what} is not ported to the torch package "
                 f"(ROADMAP.md queue 1, item {item})")
 
+    from object_oriented_slam_tpu_torch.system.tracking import \
+        resolve_device
+
+    device = resolve_device(args.device)
+    mesh, started = None, False
+    if args.distributed or args.offline_shard:
+        import torch.distributed as dist
+        from object_oriented_slam_tpu_torch.parallel import multihost
+        started = not dist.is_initialized() and multihost.initialize(
+            backend=args.dist_backend, device=device)
+        if started:
+            print(f"torch.distributed initialized: rank "
+                  f"{dist.get_rank()} of {dist.get_world_size()} "
+                  f"({dist.get_backend()})")
+        mesh = multihost.observation_mesh(device)
+        device = mesh.device
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _run(args, device, mesh):
     from object_oriented_slam_tpu_torch.core.camera import Camera
     from object_oriented_slam_tpu_torch.frontend import (
         ExtractorConfig, make_extractor, make_fused_extractor,
@@ -152,10 +195,7 @@ def main(argv=None):
     from object_oriented_slam_tpu_torch.io import Config
     from object_oriented_slam_tpu_torch.io.tum import TUMDataset
     from object_oriented_slam_tpu_torch.system import System
-    from object_oriented_slam_tpu_torch.system.tracking import \
-        resolve_device
 
-    device = resolve_device(args.device)
     cfg = Config(args.settings)
     cam = Camera(fx=cfg.get_float("Camera.fx"), fy=cfg.get_float("Camera.fy"),
                  cx=cfg.get_float("Camera.cx"), cy=cfg.get_float("Camera.cy"),
@@ -210,6 +250,9 @@ def main(argv=None):
         slam.open_ground_plane_estimation()
         if fuse_lm:
             slam.tracker.fuse_lm = True
+    if args.distributed:
+        slam.open_distributed_backend(mesh)
+        print(f"backend sharded over {mesh.size} rank(s)")
 
     skip = 0
     if args.resume:
@@ -227,20 +270,27 @@ def main(argv=None):
         ds.set_odometry(args.odometry)
     try:
         if args.offline:
-            _offline(args, slam, ds, cam, ext_cfg)
+            _offline(args, slam, ds, cam, ext_cfg, mesh)
         else:
             _online_loop(args, slam, ds, skip)
     finally:
         ds.close()
-    _save_outputs(args, slam)
+    if mesh is not None and mesh.rank != 0:
+        # the same map as rank 0's, which alone writes the files
+        slam.tracker.sync()
+    else:
+        _save_outputs(args, slam)
     return slam
 
 
-def _offline(args, slam, ds, cam, ext_cfg):
+def _offline(args, slam, ds, cam, ext_cfg, mesh):
     from object_oriented_slam_tpu_torch.system.offline import OfflineMapper
 
+    if args.offline_shard:
+        print(f"offline detection batches sharded over {mesh.size} rank(s)")
     mapper = OfflineMapper(slam, cam, ext_cfg, batch_size=args.batch,
                            with_association=not args.auto_assoc,
+                           mesh=mesh if args.offline_shard else None,
                            split=args.offline_split,
                            backend_per_batch=not args.offline_per_frame_ba)
 

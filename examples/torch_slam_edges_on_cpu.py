@@ -395,7 +395,7 @@ def orbit_graph(F=12, seed=0):
         grav_w=np.full(2, 1.0, np.float32))
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     normal = torch.tensor([0.05, -0.02, 1.0])
-    return slam_ba.graph_from_numpy(arrays), K, normal
+    return slam_ba.graph_from_numpy(arrays, device="cpu"), K, normal
 
 
 def state_graph(path):

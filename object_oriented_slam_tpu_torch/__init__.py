@@ -9,8 +9,10 @@ back-projection, voxel means and clustering rounds (``csrc/frontend.cu``)
 run in hand-written CUDA kernels when the tensors are on a CUDA device.
 Ported so far: the online mapping loop (``system.System``) with the deferred
 frame pipeline, 2D-only or with depth (ground plane, monolithic extraction
-with symmetry, 3D observations), and its TUM command line
-(``examples/torch_run_tum.py`` over ``io.tum``).
+with symmetry, 3D observations), the host-clustered extractors, the offline
+batch mapper, SLAM mode, the distributed backends on ``torch.distributed``
+(``parallel``), and the TUM command line (``examples/torch_run_tum.py``
+over ``io.tum``).
 """
 
 __version__ = "0.1.0"

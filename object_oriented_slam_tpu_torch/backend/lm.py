@@ -13,6 +13,8 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 class ObjectObservations(NamedTuple):
     """Fixed-capacity per-object observation buffers (padded + masked).
@@ -46,13 +48,15 @@ _MASKS = ("obj_mask", "mask2d", "mask3d")
 
 
 def observations_from_numpy(arrays: Dict[str, np.ndarray],
-                            device="cpu") -> ObjectObservations:
-    """Build the port's ObjectObservations from numpy arrays.
+                            device=None) -> ObjectObservations:
+    """Build the port's ObjectObservations from numpy arrays on ``device``
+    (the card unless the caller names one; it raises without one).
 
     ``arrays`` maps every field name of ``ObjectObservations`` (the JAX
     package's field names and shapes) to a numpy array, e.g.
     ``{k: np.asarray(v) for k, v in jax_obs._asdict().items()}``.
     """
+    device = resolve_device(device)
     missing = set(ObjectObservations._fields) - set(arrays)
     if missing:
         raise KeyError(f"missing observation fields: {sorted(missing)}")

@@ -708,12 +708,15 @@ def lm_accept_step(est, chi2, lam, nu, est_new, du, g, lam0, prep, w2d, w3d,
 # ---------------------------------------------------------------------------
 
 def soa_edge_weights(obs: ObjectObservations, prep: SoaPrep, K,
-                     ground_set, cfg: LMConfig):
+                     ground_set, cfg: LMConfig, n2d=None):
     """(w2d [O,M2], w3d [O,M3], wg [O]): sqrt-info edge weights with every
     gate folded in (>2-obs gate, NaN gate at est0, optional visibility
-    gate, gravity prior switch)."""
+    gate, gravity prior switch).  ``n2d`` [O]: each object's 2D
+    observations for the >2-obs gate, by default those of ``obs`` (the
+    observation-sharded LM passes the count over every shard)."""
     O = obs.mask2d.shape[0]
-    n2d = obs.mask2d.sum(dim=1)
+    if n2d is None:
+        n2d = obs.mask2d.sum(dim=1)
     gate2d = (n2d >= cfg.min_2d_obs)[:, None]
     w2d = torch.sqrt(torch.clamp_min(obs.prob2d, 0.0))
     w2d = torch.where(obs.mask2d & gate2d, w2d, 0.0)

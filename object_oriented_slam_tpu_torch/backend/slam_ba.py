@@ -42,6 +42,7 @@ import torch
 from ..core import ellipsoid as ell
 from ..core import se3
 from ..ops.linalg import chol_solve_small
+from ..utils.device import resolve_device
 from . import residuals as res
 from . import slam_kernels
 from .lm import LMConfig
@@ -146,10 +147,12 @@ def segment_plan(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return plan
 
 
-def graph_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> SlamGraph:
+def graph_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SlamGraph:
     """The port's SlamGraph, its segment plan included, from numpy arrays
     of the JAX package's fields, e.g. a JAX graph's ``{k: np.asarray(v)
-    for k, v in g._asdict().items()}``."""
+    for k, v in g._asdict().items()}``, on ``device`` (the card unless the
+    caller names one; it raises without one)."""
+    device = resolve_device(device)
     missing = set(JAX_FIELDS) - set(arrays)
     if missing:
         raise KeyError(f"missing graph fields: {sorted(missing)}")
@@ -388,25 +391,31 @@ def _inv_spd(H):
 _inv9 = _inv6 = _inv_spd     # the JAX package's names for the 9x9 / 6x6 use
 
 
-def _pcg(matvec, b, Minv_blocks, iters):
+def _pcg(matvec, b, Minv_blocks, iters, dot=None):
     """Block-Jacobi preconditioned CG on the reduced camera system, a
-    fixed number of iterations.  b: [F, 6]; Minv_blocks: [F, 6, 6]."""
+    fixed number of iterations.  b: [F, 6]; Minv_blocks: [F, 6, 6].
+    ``dot``: the inner product, by default the sum over ``b``'s rows (the
+    frame-sharded solves pass its sum over the ranks)."""
     def precond(r):
         return torch.einsum("fij,fj->fi", Minv_blocks, r)
+
+    if dot is None:
+        def dot(a, c):
+            return (a * c).sum()
 
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
-    rz = (r * z).sum()
+    rz = dot(r, z)
     for _ in range(iters):
         Ap = matvec(p)
-        pAp = (p * Ap).sum()
+        pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp.abs() > 1e-20, pAp, 1e-20)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = (r * z).sum()
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz.abs() > 1e-20, rz, 1e-20)
         p = z + beta * p
         rz = rz_new
@@ -519,7 +528,7 @@ def apply_updates(poses, objects, dx_p, dx_o):
 
 
 def optimize_slam(g: SlamGraph, K_mat, normal, cfg: LMConfig = LMConfig(),
-                  cg_iters: int = 64, banded: bool = False):
+                  cg_iters: int = 64, banded: bool = False, trace=None):
     """Joint pose + landmark LM with Schur-complement reduced solves.
 
     ``banded=True`` is the block-tridiagonal + low-rank formulation, O(F K)
@@ -527,7 +536,8 @@ def optimize_slam(g: SlamGraph, K_mat, normal, cfg: LMConfig = LMConfig(),
     build_slam_graph emits.  On CUDA tensors an iteration launches K11
     twice (the edge terms, the trial's chi2), after one launch for the
     initial chi2, and the call does not wait for the device.  The result
-    repeats bit for bit.
+    repeats bit for bit.  ``trace``: a list that receives each
+    iteration's (trial chi2, current chi2, accepted) as device tensors.
     Returns (poses_cw [F,7], objects [K,10], chi2 []) on the graph's
     device.
     """
@@ -557,6 +567,8 @@ def optimize_slam(g: SlamGraph, K_mat, normal, cfg: LMConfig = LMConfig(),
         chi2_new = _chi2(poses_new, objects_new, g, K_mat, normal)
 
         accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
+        if trace is not None:
+            trace.append((chi2_new, chi2, accept))
         lam = torch.where(accept, lam0 / three, lam0 * nu)
         nu = torch.where(accept, 2.0, nu * 2.0)
         poses = torch.where(accept, poses_new, poses)

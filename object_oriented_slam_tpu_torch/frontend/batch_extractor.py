@@ -31,10 +31,15 @@ Every call returns a handle whose result's copy home has started behind an
 event (``utils/transfer.HostCopy``); ``fetch_batch`` waits on that event
 only.  The depths go up as one [B, H, W] int32 tensor in one pinned copy,
 the packed arguments in a second.  There is no fall-back: the default
-device is the card (raises without one), the split protocol raises where
-``cluster.cpp`` does not build, and sharding the detection axis over a
-mesh (``mesh=``) is the distributed backend, not ported
-(``ROADMAP.md`` queue 1, item 8).
+device is the card (raises without one) and the split protocol raises
+where ``cluster.cpp`` does not build.
+
+With a mesh (``dispatch_batch(mesh=...)``, ``parallel/multihost.py``) the
+detection axis is sharded over its ranks, as JAX shards it over its
+devices: every rank packs the same batch (SPMD), runs the monolithic
+launches on its contiguous slice of the detection pad, and an
+``all_gather`` of the [pad, 12] rows hands every rank the whole result.
+Detections never communicate, so the rows are the unsharded call's.
 """
 from __future__ import annotations
 
@@ -58,13 +63,6 @@ Q_MASKED = 65535
 Q_MAX = 65534
 # the per-frame detection cap (as the online extractor's)
 MAX_DETECTIONS = 32
-
-
-def _mesh_unported():
-    raise NotImplementedError(
-        "mesh=: sharding the offline batches' detection axis over devices is "
-        "the distributed backend, not ported to the torch package "
-        "(ROADMAP.md queue 1, item 8)")
 
 
 def extract_local_ellipsoids_multi(depths, bboxes, frame_idx, run_mask,
@@ -261,19 +259,48 @@ def _stats(batch: FrameBatch) -> dict:
             "sym_dual": int((st == 2).sum()) if sym else 0}
 
 
+def shard_batch(batch: FrameBatch, rank: int, size: int) -> FrameBatch:
+    """Rank ``rank``'s contiguous slice of the batch's detection pad, of
+    ``size`` slices (the pad divides by it): its boxes, frame indices,
+    run and symmetry lanes, every frame's depth and pose and the plane.
+    The batch's symmetry flags stay, so every rank makes the same
+    launches."""
+    pad, B, f = batch.pad, batch.B, batch.flat
+    n = pad // size
+    lo, hi = rank * n, (rank + 1) * n
+    lanes = [f[pad * k + lo:pad * k + hi] for k in range(4, 7)]
+    flat = np.concatenate([f[lo * 4:hi * 4], *lanes, f[pad * 7:]])
+    return dataclasses.replace(batch, flat=flat, pad=n, slices=[])
+
+
 def dispatch_batch(batch: FrameBatch, cam: Camera, mesh=None,
                    device=None) -> ExtractionHandle:
     """The batch's extraction in one call (the monolithic launches, each
     once for the batch) on ``device`` (the card unless named): returns its
     handle, the [pad, 12] (vec10, prob, valid) device result with its copy
-    home started; ``fetch_batch`` reads it.  ``mesh`` raises (item 8)."""
-    if mesh is not None:
-        _mesh_unported()
-    depths_d, flat_d = _upload(batch, device)
+    home started; ``fetch_batch`` reads it.
+
+    With ``mesh`` (``parallel.multihost.observation_mesh``; ``device``
+    defaults to the mesh's) every rank passes the same batch and launches
+    on its slice of the detection pad (``shard_batch``); the rows are
+    gathered whole on every rank, and the device counts in the handle's
+    stats are this rank's.  A pad the ranks do not divide runs unsharded
+    on every rank, as in the JAX package."""
+    if device is None and mesh is not None:
+        device = mesh.device
+    sharded = mesh is not None and mesh.size > 1 and \
+        batch.pad % mesh.size == 0
+    part = shard_batch(batch, mesh.rank, mesh.size) if sharded else batch
+    depths_d, flat_d = _upload(part, device)
     dev_stats = {}
     e, p, v = _extract_multi_packed(
-        depths_d, flat_d, cam, batch.cfg, batch.pad, batch.B, batch.need_s,
-        batch.need_d, dev_stats)
+        depths_d, flat_d, cam, part.cfg, part.pad, part.B, part.need_s,
+        part.need_d, dev_stats)
+    if sharded:
+        from ..parallel.collectives import all_gather
+        rows = all_gather(torch.cat([e, p[:, None], v[:, None].to(e.dtype)],
+                                    dim=1), mesh)
+        e, p, v = rows[:, :10], rows[:, 10], rows[:, 11] > 0.5
     return _handle(e, p, v, _stats(batch), dev_stats)
 
 

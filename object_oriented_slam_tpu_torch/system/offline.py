@@ -43,8 +43,11 @@ class OfflineMapper:
     ``split``: the device-A / host-cluster / device-B protocol
     (``split_quant``: phase A's copy home quantized to u16); it needs the
     host clustering library (``native/src/cluster.cpp``) and raises where
-    it does not build.  ``mesh``: sharding the detection axis over devices
-    is the distributed backend, not ported: it raises.
+    it does not build.  ``mesh`` (``parallel.multihost.observation_mesh``
+    on the system's device): each batch's detection axis is sharded over
+    its ranks (``batch_extractor.dispatch_batch(mesh=...)``); every rank
+    runs the same frames and keeps the same map.  With a mesh ``split`` is
+    off, as in the JAX package.
     """
 
     def __init__(self, system, cam, ext_cfg, batch_size: int = 8,
@@ -52,8 +55,6 @@ class OfflineMapper:
                  split: Optional[bool] = None, queue_depth: int = 2,
                  backend_per_batch: bool = True,
                  split_quant: bool = True):
-        if mesh is not None:
-            bx._mesh_unported()
         self.system = system
         self.cam = cam
         self.ext_cfg = ext_cfg
@@ -64,7 +65,8 @@ class OfflineMapper:
         # batches in flight between a stage's dispatch and the read of its
         # result (the copy home streams meanwhile)
         self.queue_depth = max(1, int(queue_depth))
-        self.split = bool(split)
+        self.mesh = mesh
+        self.split = bool(split) and mesh is None
         if self.split:
             from ..io import native_loader
             if not native_loader.cluster_available():
@@ -164,7 +166,7 @@ class OfflineMapper:
                     consume_b()
             else:
                 stage_b.append((recs, fb, bx.dispatch_batch(
-                    fb, self.cam, device=dev)))
+                    fb, self.cam, mesh=self.mesh, device=dev)))
                 if len(stage_b) > self.queue_depth:
                     consume_b()
             self.batches_dispatched += 1

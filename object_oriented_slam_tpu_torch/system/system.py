@@ -47,6 +47,10 @@ class System:
         self.tracker.open_ground_plane_estimation()
 
     def open_distributed_backend(self, mesh=None):
+        """Shard the mapping-mode BA over a mesh's ranks
+        (``Tracking.enable_distributed``; ``mesh`` defaults to
+        ``parallel.multihost.observation_mesh`` on the system's device,
+        after ``multihost.initialize``)."""
         self.tracker.enable_distributed(mesh)
 
     # System.cpp:75-91

@@ -62,10 +62,13 @@ A frame may also bring its extraction result, precomputed by the offline
 batch mapper (``ext_result``, ``system/offline.py``): the frame then
 launches no extraction and its host-side half reads those rows.
 
+``enable_distributed(mesh)`` shards the LM call's observation axis over
+a mesh's ranks (``parallel/dist_lm.py``); LM fusion is off while a mesh is
+set, as in the JAX package.
+
 What is not ported raises ``NotImplementedError``: the interactive
-plane check, the distributed backend,
-the dense builder, the batch SVD initializer and the array-of-structs
-backend.
+plane check, the dense builder, the batch SVD initializer and the
+array-of-structs backend.
 """
 from __future__ import annotations
 
@@ -87,6 +90,7 @@ from ..core import plane as plane_mod
 from ..init.svd_incremental import IncrementalQuadricInit
 from ..io.config import Config
 from ..utils import calibrate_measurement_np
+from ..utils.device import resolve_device
 from ..utils.transfer import HostCopy, to_device
 from .state import SlamState
 
@@ -134,20 +138,6 @@ def _pinned(name: str, value, what: str):
             raise NotImplementedError(
                 f"{name}={v!r}: {what} is not ported to the torch package")
     return property(get, set_)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the loop runs on: ``cuda`` unless the caller names one.
-    There is no fall-back: without a usable CUDA device the default (or a
-    named cuda device) raises; ``device="cpu"`` asks for the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} is not available: the mapping loop runs "
-            "its LM on an NVIDIA GPU by default (torch.cuda.is_available() "
-            "is False here); pass device=\"cpu\" to run the plain PyTorch "
-            "versions on the CPU")
-    return dev
 
 
 class Tracking:
@@ -252,6 +242,7 @@ class Tracking:
         # probe turns it on for a local device)
         self.fuse_lm = False
         self._deferred_lm = None
+        self._mesh = None          # set by enable_distributed
         self._ext_results: Dict[int, object] = {}  # fused-protocol results
         # (call_no, its HostCopy, slots, nobs)
         self._pending_backends = deque()
@@ -288,8 +279,21 @@ class Tracking:
         self.state.ground_state = 1
 
     def enable_distributed(self, mesh=None):
-        raise NotImplementedError(
-            "the distributed backend is not ported to the torch package")
+        """Shard the mapping-mode backend over a mesh (JAX
+        ``Tracking.enable_distributed``): the LM call becomes the
+        observation-sharded ``parallel.dist_lm.optimize_objects_sharded``,
+        each rank on its slice of the observation tiers, with the same
+        iterates up to the order of the sums.  ``mesh`` defaults to
+        ``parallel.multihost.observation_mesh`` on this tracker's device
+        (call ``multihost.initialize`` first); it must live on this
+        device.  Every rank drives the same frames.  LM fusion is off
+        while a mesh is set."""
+        from ..parallel.multihost import observation_mesh
+        mesh = mesh if mesh is not None else observation_mesh(self.device)
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"tracker's {self.device}")
+        self._mesh = mesh
 
     # ------------------------------------------------------------------
     def grab_pose_and_objects(self, timestamp: float, pose_wc: np.ndarray,
@@ -422,6 +426,7 @@ class Tracking:
         gp = self.state.ground_plane
         self._deferred_lm = None
         if (self.fuse_lm and self.pipeline_depth >= 2
+                and self._mesh is None
                 and getattr(ex, "supports_lm_fusion", False)
                 and len(self._pending_extraction)
                 >= self.pipeline_depth - 1):
@@ -918,9 +923,15 @@ class Tracking:
     def _dispatch_prepared(self, prep):
         """The LM call of a prepared batch, launched alone."""
         obs = self._unpack(prep)
-        est, _chi2 = optimize_objects_soa(
-            obs, self._K_dev, to_device(prep["normal"], self.device),
-            prep["gset"], self.lm_cfg)
+        normal = to_device(prep["normal"], self.device)
+        if self._mesh is None:
+            est, _chi2 = optimize_objects_soa(
+                obs, self._K_dev, normal, prep["gset"], self.lm_cfg)
+        else:
+            from ..parallel.dist_lm import optimize_objects_sharded
+            est, _chi2 = optimize_objects_sharded(
+                obs, self._K_dev, normal, prep["gset"], self._mesh,
+                self.lm_cfg)
         self._finish_backend(prep, est)
 
     def _finish_backend(self, prep, est):

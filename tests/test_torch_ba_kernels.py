@@ -95,8 +95,8 @@ def test_lm_on_cuda_matches_cpu(device):
         True, cfg)
     assert ba_kernels.NORMAL_EQ.launches == before[0] + cfg.iters
     assert ba_kernels.CHI2.launches == before[1] + cfg.iters + 1
-    est_c, chi_c = optimize_objects_soa(observations_from_numpy(arrays), K,
-                                        n, True, cfg)
+    est_c, chi_c = optimize_objects_soa(
+        observations_from_numpy(arrays, device="cpu"), K, n, True, cfg)
     np.testing.assert_allclose(est_d.cpu().numpy(), est_c.numpy(), atol=2e-3)
     np.testing.assert_allclose(chi_d.cpu().numpy(), chi_c.numpy(),
                                rtol=1e-2, atol=1e-3)

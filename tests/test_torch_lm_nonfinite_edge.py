@@ -30,7 +30,7 @@ POISONED = (2, 1)           # object, 2D edge slot
 
 
 def _problem(arrays, gravity=True):
-    obs = observations_from_numpy(arrays)
+    obs = observations_from_numpy(arrays, device="cpu")
     prep = lm_soa.soa_prepare(obs.pose2d_cw, obs.bbox2d, obs.pose3d_wc,
                               obs.meas3d)
     w2, w3, wg = lm_soa.soa_edge_weights(obs, prep, K, gravity, LMConfig())
@@ -113,7 +113,7 @@ def test_poisoned_object_moves_again():
     out = lm_soa.lm_accept_step_plain(est, chi2, lam, torch.full((4,), 2.0),
                                       est_new, du, g, lam0, *problem)
     assert bool(torch.isfinite(out[1]).all())
-    obs = observations_from_numpy(arrays)
+    obs = observations_from_numpy(arrays, device="cpu")
     final, chi2_final = lm_soa.optimize_objects_soa(obs, K, NORMAL, True)
     assert float(chi2_final[o]) < float(chi2[o])
     assert not torch.equal(final[o], est[o])

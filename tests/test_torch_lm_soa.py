@@ -66,7 +66,7 @@ def _jax_weights(obs, cfg, gset):
 
 
 def _port_inputs(obs, cfg, gset):
-    tobs = observations_from_numpy(_np(obs))
+    tobs = observations_from_numpy(_np(obs), device="cpu")
     prep = lm_soa.soa_prepare(tobs.pose2d_cw, tobs.bbox2d, tobs.pose3d_wc,
                               tobs.meas3d)
     Kt = torch.as_tensor(K)
@@ -109,7 +109,7 @@ def test_visibility_gate_matches_jax():
     # a tighter image than the cameras see, so the gate drops edges
     want = np.asarray(jsoa.soa_visibility2d(obs.est0, jprep[0], jprep[1],
                                             jnp.asarray(K), 200, 300))
-    tobs = observations_from_numpy(_np(obs))
+    tobs = observations_from_numpy(_np(obs), device="cpu")
     prep = lm_soa.soa_prepare(tobs.pose2d_cw, tobs.bbox2d, tobs.pose3d_wc,
                               tobs.meas3d)
     got = lm_soa.soa_visibility2d(tobs.est0, prep.tcw, prep.qcw,
@@ -129,7 +129,7 @@ def test_optimize_objects_soa_matches_jax(case):
         obs, jnp.asarray(K), jnp.asarray(NORMAL), True, JLMConfig(**kw))
     launches = (ba_kernels.NORMAL_EQ.launches, ba_kernels.CHI2.launches)
     est_t, chi_t = lm_soa.optimize_objects_soa(
-        observations_from_numpy(_np(obs)), torch.as_tensor(K),
+        observations_from_numpy(_np(obs), device="cpu"), torch.as_tensor(K),
         torch.as_tensor(NORMAL), True, LMConfig(**kw))
     # CPU tensors run the plain versions: no kernel launch
     assert (ba_kernels.NORMAL_EQ.launches, ba_kernels.CHI2.launches) \
@@ -143,14 +143,14 @@ def test_optimize_objects_soa_matches_jax(case):
 
 def test_observations_from_numpy_types():
     arrays = _np(_mixed_obs())
-    tobs = observations_from_numpy(arrays)
+    tobs = observations_from_numpy(arrays, device="cpu")
     for name, t in tobs._asdict().items():
         assert tuple(t.shape) == arrays[name].shape
         want = torch.bool if arrays[name].dtype == bool else torch.float32
         assert t.dtype == want, name
     del arrays["mask3d"]
     with pytest.raises(KeyError):
-        observations_from_numpy(arrays)
+        observations_from_numpy(arrays, device="cpu")
 
 
 def test_unsupported_device_raises():
@@ -158,3 +158,27 @@ def test_unsupported_device_raises():
     meta = tobs.est0.to("meta")
     with pytest.raises(NotImplementedError):
         lm_soa.soa_chi2(meta, prep, w2, w3, wg, torch.zeros(3), Kt)
+
+
+def test_converters_default_to_the_card():
+    """observations_from_numpy and slam_ba.graph_from_numpy put their
+    tensors on the CUDA device unless the caller names one, as every entry
+    point of the port does: without a card the default raises."""
+    from object_oriented_slam_tpu_torch.backend import slam_ba
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="not available"):
+        observations_from_numpy(_np(_mixed_obs()))
+    graph = dict(
+        poses_cw=np.tile([0, 0, 0, 0, 0, 0, 1.0], (2, 1)),
+        frame_mask=np.ones(2, bool),
+        objects=np.array([[0, 0, 3, 0, 0, 0, 1, 0.5, 0.4, 0.3]]),
+        obj_mask=np.ones(1, bool), e2_frame=[0], e2_obj=[0],
+        e2_bbox=[[250.0, 200, 400, 320]], e2_w=[1.0], e3_frame=[1],
+        e3_obj=[0], e3_meas=[[0, 0, 3, 0, 0, 0, 1, 0.5, 0.4, 0.3]],
+        e3_w=[1.0], odo_i=[0], odo_j=[1],
+        odo_meas=[[0, 0, 0, 0, 0, 0, 1.0]], odo_w=[1.0], grav_w=[0.0])
+    with pytest.raises(RuntimeError, match="not available"):
+        slam_ba.graph_from_numpy(graph)
+    assert slam_ba.graph_from_numpy(graph, device="cpu").e2_w.device.type \
+        == "cpu"

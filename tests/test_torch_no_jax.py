@@ -33,7 +33,10 @@ DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "system.system", "system.checkpoint", "backend.ba_kernels",
                  "io.png", "io.tum", "io.native_loader", "utils.transfer",
                  "backend.residuals", "backend.slam_ba",
-                 "backend.slam_kernels", "system.slam_mode"]
+                 "backend.slam_kernels", "system.slam_mode",
+                 "utils.device", "parallel", "parallel.collectives",
+                 "parallel.multihost", "parallel.dist_lm",
+                 "parallel.dist_slam", "parallel.dryrun"]
 
 
 def _sources():
@@ -64,6 +67,8 @@ def test_no_source_imports_jax():
 
 def _scripts():
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the rank processes of the port's two-rank gloo tests
+    yield os.path.join(ROOT, "tests", "_torch_dist_worker.py")
     ex = os.path.join(ROOT, "examples")
     for f in sorted(os.listdir(ex)):
         if f.startswith("torch_") and f.endswith(".py"):
@@ -71,9 +76,10 @@ def _scripts():
 
 
 def test_chip_smoke_and_port_examples_import_no_jax():
-    """chip_smoke.py (every phase, the depth ones included) and the
-    examples/torch_*.py scripts import the port and never JAX; importing
-    chip_smoke with JAX blocked works and starts nothing."""
+    """chip_smoke.py (every phase, the depth ones included), the
+    examples/torch_*.py scripts and tests/_torch_dist_worker.py import the
+    port and never JAX; importing chip_smoke with JAX blocked works and
+    starts nothing."""
     scripts = list(_scripts())
     assert len(scripts) >= 2
     names = [os.path.basename(p) for p in scripts]
@@ -95,7 +101,7 @@ def test_chip_smoke_and_port_examples_import_no_jax():
                   "phase_main_path", "phase_frontend_kernels",
                   "phase_depth_path", "phase_symmetry_path",
                   "phase_symmetry_kernel", "phase_cli", "phase_offline",
-                  "phase_slam"):
+                  "phase_slam", "phase_dist"):
         assert phase in out.stdout, phase
 
 

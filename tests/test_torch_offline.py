@@ -191,19 +191,29 @@ def test_split_offline_matches_monolithic(sequence, quant):
           f"map: {all(np.array_equal(got[i], want[i]) for i in want)}")
 
 
-def test_mesh_raises_naming_the_distributed_item(sequence):
+def test_mesh_of_one_shard_runs_unsharded(sequence):
+    """A mesh with no group (``multihost.observation_mesh`` without
+    torch.distributed) is one shard: the batch's rows are the call's
+    without a mesh, bit for bit, and the mapper keeps its mesh with the
+    split protocol off, as JAX's does (two ranks:
+    tests/test_torch_dist.py)."""
+    import torch
+    from object_oriented_slam_tpu_torch.parallel.collectives import Mesh
     scene = sequence[0]
-    slam = System(YAML, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        OfflineMapper(slam, scene.camera, ExtractorConfig(), mesh=object())
+    mesh = Mesh(None, 0, 1, torch.device("cpu"))
+    mapper = OfflineMapper(System(YAML, device="cpu"), scene.camera,
+                           ExtractorConfig(), mesh=mesh, split=True)
+    assert mapper.mesh is mesh and not mapper.split
     fb = bx.pack_frames_batch(
         scene.camera, ExtractorConfig(**EXT_KW),
-        [(np.zeros((480, 640), np.uint16), np.zeros((0, 4)),
-          np.zeros(0, int), np.zeros(0, bool),
-          np.array([0, 0, 0, 0, 0, 0, 1.0]))],
+        [(depth, det[:, 1:5], det[:, 5].astype(int),
+          np.ones(len(det), bool), pose)
+         for _, _, pose, depth, _, det in sequence[1][:1]],
         np.array([0, 0, 1.0, 0]))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        bx.dispatch_batch(fb, scene.camera, mesh=object(), device="cpu")
+    rows = bx.fetch_batch(bx.dispatch_batch(fb, scene.camera, mesh=mesh))
+    np.testing.assert_array_equal(rows, bx.fetch_batch(
+        bx.dispatch_batch(fb, scene.camera, device="cpu")))
+    assert rows[:, 11].sum() >= 1
 
 
 def test_split_raises_without_the_cluster_library(sequence, tmp_path,

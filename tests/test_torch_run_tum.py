@@ -10,12 +10,11 @@ asynchronous plane); the port's whole run also takes ``--slam-mode
 --checkpoint`` (SLAM mode runs after objects.txt is written and leaves the
 state alone; tests/test_torch_slam.py runs ``--odometry --slam-mode`` on
 this export's first SPLIT frames, in its own module for this file's
-time).  The port's host-clustered architectures run the
-first SPLIT frames (``--extractor split`` and the default ``auto``, which
-probes the CPU and picks fused-split with LM fusion) and are held to the
-port's mono run of those frames within 1e-4, as is the offline mode on
-those frames (``--offline --batch 4 --offline-per-frame-ba``: the plane's
-bootstrap frame, then two batches of 4).  Two settings differ from the
+time).  A run to SPLIT frames is checkpointed and resumed.  The port's
+other architectures on the same export (the host-clustered extractors, the
+offline mode and the distributed backend) are in
+tests/test_torch_run_tum_host.py, so that the two files' runs go to two
+workers.  Two settings differ from the
 CLI's defaults, on both sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
 (as in tests/test_torch_depth_slice.py; the CLI's 16384 lets a frame's tier
 grow to its largest box), and the port's LM batch starts at 8 object slots
@@ -53,6 +52,7 @@ DATA_KW = dict(n_frames=12, orbit_radius=3.6, height=1.7)
 CLOUD_CAPACITY = 2048
 SPLIT = 9           # checkpoint after this many frames
 TOL = 2e-3
+MONO = ["--device", "cpu", "--extractor", "mono"]
 
 
 def _example(name):
@@ -83,38 +83,34 @@ def _jax_cli(argv):
     return out.getvalue()
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The export, and the JAX CLI's and the port CLI's output directories:
-    the whole run, and a run to SPLIT frames checkpointed then resumed."""
-    tmp = tmp_path_factory.mktemp("tum_cli")
+def export(tmp):
+    """The TUM export of the scene in ``tmp``/seq; returns its path."""
     seq = str(tmp / "seq")
     scene = tsyn.make_scene(**SCENE_KW)
     n = _example("torch_make_synthetic_tum").export_synthetic_tum(
         seq, scene, tsyn.SyntheticDataset(scene, **DATA_KW),
         odometry_noise=0.01)
     assert n == DATA_KW["n_frames"]
-    out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed",
-                                      "host_split", "auto", "offline")}
+    return seq
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The export, and the JAX CLI's and the port CLI's output directories:
+    the whole run, and a run to SPLIT frames checkpointed then resumed."""
+    tmp = tmp_path_factory.mktemp("tum_cli")
+    seq = export(tmp)
+    out = {k: str(tmp / k) for k in ("jax", "port", "split", "resumed")}
     ckpt = str(tmp / "state.npz")
-    mono = ["--device", "cpu", "--extractor", "mono"]
     jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
                         "mono", "--checkpoint", str(tmp / "jax.npz")])
-    slam, log = _port_cli([YAML, seq, "--out", out["port"], *mono,
+    slam, log = _port_cli([YAML, seq, "--out", out["port"], *MONO,
                            "--slam-mode", "--checkpoint",
                            str(tmp / "full.npz")])
-    _port_cli([YAML, seq, "--out", out["split"], *mono,
+    _port_cli([YAML, seq, "--out", out["split"], *MONO,
                "--max-frames", str(SPLIT), "--checkpoint", ckpt])
-    _port_cli([YAML, seq, "--out", out["resumed"], *mono, "--resume", ckpt])
-    host = {}
-    for name, extra in (("host_split", ["--extractor", "split"]),
-                        ("auto", []),
-                        ("offline", ["--extractor", "mono", "--offline",
-                                     "--batch", "4",
-                                     "--offline-per-frame-ba"])):
-        host[name] = _port_cli([YAML, seq, "--out", out[name], "--device",
-                                "cpu", "--max-frames", str(SPLIT), *extra])
-    return seq, out, slam, log, jax_log, host
+    _port_cli([YAML, seq, "--out", out["resumed"], *MONO, "--resume", ckpt])
+    return seq, out, slam, log, jax_log
 
 
 def _objects(d):
@@ -163,27 +159,6 @@ def test_cli_map_against_ground_truth(runs):
     assert np.median(err) < 0.05, err
 
 
-def test_host_clustered_cli_matches_mono(runs):
-    """``--extractor split`` and the default ``auto`` (on this CPU the
-    probe picks fused-split with LM fusion, and says so) reproduce the
-    mono run of the same frames within 1e-4."""
-    out, host = runs[1], runs[5]
-    want = _objects(out["split"])
-    assert "probed device RTT" in host["auto"][1]
-    assert "-> extractor=fused, fuse_lm=True" in host["auto"][1]
-    assert "probed device RTT" not in host["host_split"][1]
-    kinds = {"host_split": "SplitExtractor", "auto": "FusedSplitExtractor",
-             "offline": "MonolithicExtractor"}
-    for name, (slam, _) in host.items():
-        assert type(slam.tracker.extractor).__name__ == kinds[name]
-        assert slam.tracker.fuse_lm == (name == "auto")
-        got = _objects(out[name])
-        assert sorted(got) == sorted(want) and len(want) >= 5
-        for inst in want:
-            np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)
-        assert _history_rows(out[name]) == _history_rows(out["split"])
-
-
 def test_checkpoint_then_resume_reproduces_the_run(runs):
     out = runs[1]
     whole, resumed = _objects(out["port"]), _objects(out["resumed"])
@@ -195,29 +170,11 @@ def test_checkpoint_then_resume_reproduces_the_run(runs):
 
 @pytest.mark.parametrize("flags", [
     ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
-    ["--viz-live", "5"], ["--distributed"], ["--offline-shard"]])
+    ["--viz-live", "5"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _example("torch_run_tum").main(
             [YAML, str(tmp_path), "--device", "cpu", *flags])
-
-
-def test_offline_cli_matches_online(runs):
-    """``--offline --batch 4 --offline-per-frame-ba`` on the first SPLIT
-    frames: the mono run's objects.txt within 1e-4 (the per-frame BA
-    schedule and the same rows per frame), and the JAX CLI's Offline
-    line."""
-    out, host = runs[1], runs[5]
-    slam, log = host["offline"]
-    assert f"Offline: {SPLIT} frames in " in log
-    assert "2 batched programs of 4" in log
-    assert slam.tracker.pipeline_depth == 4     # the run's override undone
-    got, want = _objects(out["offline"]), _objects(out["split"])
-    assert sorted(got) == sorted(want) and len(want) >= 5
-    for inst in want:
-        np.testing.assert_allclose(got[inst], want[inst], atol=1e-4)
-    print(f"offline CLI objects.txt bit-equal to the mono run's: "
-          f"{all(np.array_equal(got[i], want[i]) for i in want)}")
 
 
 @pytest.mark.parametrize("flags", [["--no-depth"], ["--no-depth",

@@ -397,7 +397,7 @@ def oracle_run():
         e3_frame=np.arange(F), e3_obj=np.zeros(F), e3_meas=np.stack(e3m),
         e3_w=np.ones(F), odo_i=np.arange(F - 1), odo_j=np.arange(1, F),
         odo_meas=odo, odo_w=np.full(F - 1, 10.0), grav_w=np.full(1, grav_w))
-    g = tslam.graph_from_numpy(arrays)
+    g = tslam.graph_from_numpy(arrays, device="cpu")
     K, n = _t(ORACLE_K), _t(normal)
     runs = {banded: tslam.optimize_slam(g, K, n, LMConfig(iters=iters),
                                         cg_iters=64, banded=banded)
@@ -529,7 +529,7 @@ def test_build_slam_graph_matches_jax(tmp_path, caplog):
     assert int((tg.e2_w != 0).sum()) == 5 * 6
     # a JAX graph's arrays through graph_from_numpy give the same graph
     again = tslam.graph_from_numpy(
-        {k: np.asarray(v) for k, v in jg._asdict().items()})
+        {k: np.asarray(v) for k, v in jg._asdict().items()}, device="cpu")
     for a, b in zip(again, tmode.build_slam_graph(
             tstate, LMConfig(), device="cpu", max_frames=32, max_objects=4,
             max_e2=8, max_e3=4)[0]):

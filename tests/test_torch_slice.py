@@ -205,8 +205,7 @@ def test_observation_tiers_are_powers_of_two():
 
 
 @pytest.mark.parametrize("what", [
-    "batch_svd_init", "aos_backend", "distributed",
-    "ground_plane", "dense_builder"])
+    "batch_svd_init", "aos_backend", "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
     """What is not ported raises: "ground_plane" is the plane's interactive
     confirmation (the extractors, LM fusion, the plane estimate and its
@@ -214,7 +213,8 @@ def test_unported_options_raise(what):
     plane are ported: tests/test_torch_pipeline.py,
     tests/test_torch_split_extractor.py, tests/test_torch_lm_fusion.py;
     so are precomputed extraction rows, ``ext_result``:
-    tests/test_torch_offline.py)."""
+    tests/test_torch_offline.py, and the distributed backend:
+    tests/test_torch_dist.py)."""
     cfg = Config(YAML)
     if what in ("dense_builder", "ground_plane"):
         key = {"dense_builder": "Visualization.Builder.Open",
@@ -227,7 +227,6 @@ def test_unported_options_raise(what):
     act = {
         "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
         "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
-        "distributed": tr.enable_distributed,
     }[what]
     with pytest.raises(NotImplementedError):
         act()
