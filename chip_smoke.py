@@ -2789,51 +2789,27 @@ def nonfinite_tangent_edges(terms):
 
 
 def dense_against_banded(g, K_mat, normal, cfg):
-    """optimize_slam's LM loop replayed with the same operations, banded
-    and dense, each on its own path: (per iteration of the banded path the
-    dense Schur step from the same iterate and lambda against the banded
-    one, as (largest |d dx_p| over max |dx_p|, the same for the objects);
-    {banded: {"trials": [(trial chi2, current chi2, accepted)],
-    "result": (poses, objects)}}).  The replay reads chi2 on the host, so
-    it is outside the synchronisation check."""
+    """optimize_slam banded and dense, each on its own path, with their
+    traces: (per iteration of the banded path the dense Schur step from
+    the same iterate and lambda against the banded one, as (largest
+    |d dx_p| over max |dx_p|, the same for the objects); {banded: [(trial
+    chi2, current chi2, accepted)]}).  Reads the traces on the host, so it
+    is outside the synchronisation check."""
     from object_oriented_slam_tpu_torch.backend import slam_ba
-    F = g.poses_cw.shape[0]
-    dev = g.poses_cw.device
-    free_f = g.frame_mask & (torch.arange(F, device=dev) > 0)
-    steps, paths = [], {}
-    for banded in (True, False):
-        poses, objects = g.poses_cw, g.objects
-        chi2 = slam_ba._chi2(poses, objects, g, K_mat, normal)
-        lam = torch.full((), -1.0, device=dev)
-        nu = torch.full((), 2.0, device=dev)
-        three = torch.full((), 3.0, device=dev)
-        trials = []
-        for _ in range(cfg.iters):
-            dense_step = slam_ba.solve_schur_step(
-                *slam_ba.build_normal_equations(poses, objects, g, K_mat,
-                                                normal),
-                lam, free_f, g.obj_mask, 64)
-            if banded:
-                banded_step = slam_ba.solve_schur_step_banded(
-                    *slam_ba.build_normal_equations_banded(
-                        poses, objects, g, K_mat, normal),
-                    lam, free_f, g.obj_mask, 64)
-                steps.append(tuple(
-                    float((a - b).abs().max() / b.abs().max().clamp_min(
-                        1e-30)) for a, b in zip(dense_step[:2],
-                                                banded_step[:2])))
-            dx_p, dx_o, lam0 = banded_step if banded else dense_step
-            pn, on = slam_ba.apply_updates(poses, objects, dx_p, dx_o)
-            c_new = slam_ba._chi2(pn, on, g, K_mat, normal)
-            accept = (c_new < chi2) & torch.isfinite(c_new)
-            trials.append((float(c_new), float(chi2), bool(accept)))
-            lam = torch.where(accept, lam0 / three, lam0 * nu)
-            nu = torch.where(accept, 2.0, nu * 2.0)
-            poses = torch.where(accept, pn, poses)
-            objects = torch.where(accept, on, objects)
-            chi2 = torch.where(accept, c_new, chi2)
-        paths[banded] = {"trials": trials, "result": (poses, objects)}
-    return steps, paths
+    traces = {True: [], False: []}
+    for banded, trace in traces.items():
+        slam_ba.optimize_slam(g, K_mat, normal, cfg, 64, banded=banded,
+                              trace=trace)
+    dense = slam_ba.schur_step(g, K_mat, normal, 64, banded=False)
+    steps = []
+    for t in traces[True]:
+        dx_p, dx_o, _ = dense(t.poses, t.objects, t.lam)
+        steps.append(tuple(
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in ((dx_p, t.dx_p), (dx_o, t.dx_o))))
+    trials = {banded: [(float(t.trial_chi2), float(t.chi2), bool(t.accept))
+                       for t in trace] for banded, trace in traces.items()}
+    return steps, trials
 
 
 def phase_slam(dev, tmp, cli, keep=None):
@@ -3093,30 +3069,25 @@ def phase_slam(dev, tmp, cli, keep=None):
 
     # the dense solve at the same graph: step by step along the banded
     # call's path, then end to end
-    steps, paths = dense_against_banded(g, K_mat, normal, cfg)
+    steps, trials = dense_against_banded(g, K_mat, normal, cfg)
     p_d, o_d, c_d = (t.cpu() for t in call(banded=False))
     d_p = float((p_d - poses).abs().max())
     d_o = float((o_d - objs).abs().max())
-    replica = (all(same_bits(a, b.cpu()) for a, b in zip(
-        (poses, objs), paths[True]["result"])) and all(same_bits(a, b.cpu())
-        for a, b in zip((p_d, o_d), paths[False]["result"])))
     tie = next(((i, a, b) for i, (a, b) in enumerate(zip(
-        paths[True]["trials"], paths[False]["trials"])) if a[2] != b[2]),
-        None)
+        trials[True], trials[False])) if a[2] != b[2]), None)
     print(f"[slam] dense Schur step against the banded one from each iterate "
           f"of the banded path: poses {max(s[0] for s in steps):.3g}, objects "
           f"{max(s[1] for s in steps):.3g} of the step's largest entry "
-          f"(limit 2e-3); the replayed paths bit-equal to the calls "
-          f"{replica}; end to end (10 iterations each): poses {d_p:.3g}, "
+          f"(limit 2e-3); end to end (10 iterations each): poses {d_p:.3g}, "
           f"objects {d_o:.3g}, chi2 {float(c_d):.8g} against "
           f"{float(chi2):.8g}; accept decisions "
-          f"{''.join('ar'[not t[2]] for t in paths[True]['trials'])} banded, "
-          f"{''.join('ar'[not t[2]] for t in paths[False]['trials'])} dense"
+          f"{''.join('ar'[not t[2]] for t in trials[True])} banded, "
+          f"{''.join('ar'[not t[2]] for t in trials[False])} dense"
           + (f"; they part at iteration {tie[0]}: trial chi2 {tie[1][0]:.9g} "
              f"/ {tie[2][0]:.9g} against the current {tie[1][1]:.9g} / "
              f"{tie[2][1]:.9g}" if tie else ""))
     if not (max(s[0] for s in steps) <= 2e-3
-            and max(s[1] for s in steps) <= 2e-3 and replica):
+            and max(s[1] for s in steps) <= 2e-3):
         raise RuntimeError("the dense and banded SLAM steps disagree")
     if not (d_p <= 2e-3 and d_o <= 2e-3) and not (
             tie and min(abs(t[0] - t[1]) / t[1] for t in tie[1:]) <= 1e-5):
@@ -3511,7 +3482,8 @@ def phase_dist(dev, tmp, cli, slam_problem, offline):
     1. NCCL at world size 1 in this process: optimize_objects_sharded at
        the LM's FULL tier against optimize_objects_soa, and
        optimize_slam_sharded(shard_solve=True), dense and banded, at
-       [slam]'s graph against optimize_slam on the same (padded) graph.
+       [slam]'s graph against optimize_slam on the same (padded) graph;
+       a default System's open_distributed_backend() on the default mesh.
     2. DIST_WORLD ranks sharing the card over gloo (chip_smoke.py
        --dist-rank): the same solvers at the same sizes, each rank half
        the observations or edges and half the frames of the Schur solve,
@@ -3541,6 +3513,15 @@ def phase_dist(dev, tmp, cli, slam_problem, offline):
     try:
         nccl = dist_checks(multihost.observation_mesh(dev), lm, slam_problem,
                            None)
+        # the user's call: a default System (an unindexed cuda) opens the
+        # backend on the default mesh
+        from object_oriented_slam_tpu_torch.system import System
+        slam = System(cli["settings"])
+        slam.open_distributed_backend()
+        mesh = slam.tracker._mesh
+        print(f"[dist] System(settings).open_distributed_backend(): mesh of "
+              f"{mesh.size} rank(s) on {mesh.device}, the tracker on "
+              f"{slam.tracker.device}")
     finally:
         multihost.shutdown()
     for name, r in nccl.items():

@@ -527,6 +527,74 @@ def apply_updates(poses, objects, dx_p, dx_o):
             ell.exp_update(objects, dx_o))
 
 
+class LMTrial(NamedTuple):
+    """One iteration of ``lm_schur``, as device tensors: the iterate and
+    lambda it started from, its step and lam0, the trial's chi2 against
+    the current one, and the decision the run's own test made."""
+    poses: torch.Tensor
+    objects: torch.Tensor
+    lam: torch.Tensor
+    dx_p: torch.Tensor
+    dx_o: torch.Tensor
+    lam0: torch.Tensor
+    trial_chi2: torch.Tensor
+    chi2: torch.Tensor
+    accept: torch.Tensor
+
+
+def lm_schur(poses, objects, step, chi2_at, iters: int, trace=None):
+    """SLAM mode's LM schedule (g2o's): from lam < 0 (``_damping``'s lam0),
+    a step that lowers chi2 is taken and lam becomes lam0 / 3, else lam0 *
+    nu and nu doubles.  ``step(poses, objects, lam)`` -> (dx_p, dx_o,
+    lam0); ``chi2_at(poses, objects)`` -> chi2.  ``trace``: a list that
+    receives each iteration's ``LMTrial``.  Returns (poses, objects,
+    chi2)."""
+    dev = poses.device
+    chi2 = chi2_at(poses, objects)
+    lam = torch.full((), -1.0, device=dev)
+    nu = torch.full((), 2.0, device=dev)
+    three = torch.full((), 3.0, device=dev)    # lam0 / 3 a true division
+    for _ in range(iters):
+        dx_p, dx_o, lam0 = step(poses, objects, lam)
+        poses_new, objects_new = apply_updates(poses, objects, dx_p, dx_o)
+        chi2_new = chi2_at(poses_new, objects_new)
+
+        accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
+        if trace is not None:
+            trace.append(LMTrial(poses, objects, lam, dx_p, dx_o, lam0,
+                                 chi2_new, chi2, accept))
+        lam = torch.where(accept, lam0 / three, lam0 * nu)
+        nu = torch.where(accept, 2.0, nu * 2.0)
+        poses = torch.where(accept, poses_new, poses)
+        objects = torch.where(accept, objects_new, objects)
+        chi2 = torch.where(accept, chi2_new, chi2)
+    return poses, objects, chi2
+
+
+def schur_step(g: SlamGraph, K_mat, normal, cg_iters: int = 64,
+               banded: bool = False):
+    """``optimize_slam``'s LM step on ``g``: step(poses, objects, lam) ->
+    (dx_p, dx_o, lam0), the assembly and the Schur-complement solve, dense
+    or banded, frame 0 and the masked frames fixed."""
+    F = g.poses_cw.shape[0]
+    # frame 0 fixed (Optimizer.cpp:138); masked frames also fixed
+    free_frame = g.frame_mask & (torch.arange(F, device=g.poses_cw.device)
+                                 > 0)
+    free_obj = g.obj_mask
+
+    def step(poses, objects, lam):
+        if banded:
+            D, Bb, bp, Hoo, bo, U = build_normal_equations_banded(
+                poses, objects, g, K_mat, normal)
+            return solve_schur_step_banded(
+                D, Bb, bp, Hoo, bo, U, lam, free_frame, free_obj, cg_iters)
+        Hpp, bp, Hoo, bo, U = build_normal_equations(
+            poses, objects, g, K_mat, normal)
+        return solve_schur_step(Hpp, bp, Hoo, bo, U, lam, free_frame,
+                                free_obj, cg_iters)
+    return step
+
+
 def optimize_slam(g: SlamGraph, K_mat, normal, cfg: LMConfig = LMConfig(),
                   cg_iters: int = 64, banded: bool = False, trace=None):
     """Joint pose + landmark LM with Schur-complement reduced solves.
@@ -536,42 +604,10 @@ def optimize_slam(g: SlamGraph, K_mat, normal, cfg: LMConfig = LMConfig(),
     build_slam_graph emits.  On CUDA tensors an iteration launches K11
     twice (the edge terms, the trial's chi2), after one launch for the
     initial chi2, and the call does not wait for the device.  The result
-    repeats bit for bit.  ``trace``: a list that receives each
-    iteration's (trial chi2, current chi2, accepted) as device tensors.
-    Returns (poses_cw [F,7], objects [K,10], chi2 []) on the graph's
-    device.
+    repeats bit for bit.  ``trace``: as ``lm_schur``'s.  Returns (poses_cw
+    [F,7], objects [K,10], chi2 []) on the graph's device.
     """
-    F = g.poses_cw.shape[0]
-    dev = g.poses_cw.device
-    # frame 0 fixed (Optimizer.cpp:138); masked frames also fixed
-    free_frame = g.frame_mask & (torch.arange(F, device=dev) > 0)
-    free_obj = g.obj_mask
-
-    poses, objects = g.poses_cw, g.objects
-    chi2 = _chi2(poses, objects, g, K_mat, normal)
-    lam = torch.full((), -1.0, device=dev)
-    nu = torch.full((), 2.0, device=dev)
-    three = torch.full((), 3.0, device=dev)    # lam0 / 3 a true division
-    for _ in range(cfg.iters):
-        if banded:
-            D, Bb, bp, Hoo, bo, U = build_normal_equations_banded(
-                poses, objects, g, K_mat, normal)
-            dx_p, dx_o, lam0 = solve_schur_step_banded(
-                D, Bb, bp, Hoo, bo, U, lam, free_frame, free_obj, cg_iters)
-        else:
-            Hpp, bp, Hoo, bo, U = build_normal_equations(
-                poses, objects, g, K_mat, normal)
-            dx_p, dx_o, lam0 = solve_schur_step(
-                Hpp, bp, Hoo, bo, U, lam, free_frame, free_obj, cg_iters)
-        poses_new, objects_new = apply_updates(poses, objects, dx_p, dx_o)
-        chi2_new = _chi2(poses_new, objects_new, g, K_mat, normal)
-
-        accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
-        if trace is not None:
-            trace.append((chi2_new, chi2, accept))
-        lam = torch.where(accept, lam0 / three, lam0 * nu)
-        nu = torch.where(accept, 2.0, nu * 2.0)
-        poses = torch.where(accept, poses_new, poses)
-        objects = torch.where(accept, objects_new, objects)
-        chi2 = torch.where(accept, chi2_new, chi2)
-    return poses, objects, chi2
+    return lm_schur(g.poses_cw, g.objects,
+                    schur_step(g, K_mat, normal, cg_iters, banded),
+                    lambda p, o: _chi2(p, o, g, K_mat, normal), cfg.iters,
+                    trace)

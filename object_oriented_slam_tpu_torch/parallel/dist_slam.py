@@ -253,7 +253,8 @@ def optimize_slam_sharded(g: sb.SlamGraph, K_mat, normal, mesh: Mesh,
     """SLAM-mode BA with the edges sharded over ``mesh``: every rank passes
     the same full graph (SPMD) on its mesh device and gets the replicated
     (poses_cw, objects, chi2), ``slam_ba.optimize_slam``'s on the same
-    padded graph up to the order of the sums.
+    padded graph up to the order of the sums (``slam_ba.lm_schur``'s
+    schedule on the ranks' summed equations and chi2).
 
     The edge families are padded to a multiple of the ranks
     (``pad_graph_edges``) and, with ``shard_solve``, the frames too
@@ -262,7 +263,7 @@ def optimize_slam_sharded(g: sb.SlamGraph, K_mat, normal, mesh: Mesh,
     ``banded`` is the block-tridiagonal + low-rank formulation (chain
     odometry), whose sharded solve exchanges one-row halos and a [K,9]
     psum per PCG iteration instead of an [F,6] all_gather.  ``trace``: as
-    ``optimize_slam``'s.
+    ``lm_schur``'s.
     """
     g = pad_graph_edges(g, mesh.size)
     if shard_solve:
@@ -284,27 +285,12 @@ def optimize_slam_sharded(g: sb.SlamGraph, K_mat, normal, mesh: Mesh,
                  else sb.solve_schur_step)
     extra = (mesh,) if shard_solve else ()
 
+    def step(poses, objects, lam):
+        parts = _psum_parts(build(poses, objects, local, K_mat, normal), mesh)
+        return solve(*parts, lam, free_frame, free_obj, cg_iters, *extra)
+
     def chi2_at(poses, objects):
         return psum(sb._chi2(poses, objects, local, K_mat, normal), mesh)
 
-    poses, objects = g.poses_cw, g.objects
-    chi2 = chi2_at(poses, objects)
-    lam = torch.full((), -1.0, device=dev)
-    nu = torch.full((), 2.0, device=dev)
-    three = torch.full((), 3.0, device=dev)    # lam0 / 3 a true division
-    for _ in range(cfg.iters):
-        parts = _psum_parts(build(poses, objects, local, K_mat, normal), mesh)
-        dx_p, dx_o, lam0 = solve(*parts, lam, free_frame, free_obj, cg_iters,
-                                 *extra)
-        poses_new, objects_new = sb.apply_updates(poses, objects, dx_p, dx_o)
-        chi2_new = chi2_at(poses_new, objects_new)
-
-        accept = (chi2_new < chi2) & torch.isfinite(chi2_new)
-        if trace is not None:
-            trace.append((chi2_new, chi2, accept))
-        lam = torch.where(accept, lam0 / three, lam0 * nu)
-        nu = torch.where(accept, 2.0, nu * 2.0)
-        poses = torch.where(accept, poses_new, poses)
-        objects = torch.where(accept, objects_new, objects)
-        chi2 = torch.where(accept, chi2_new, chi2)
-    return poses, objects, chi2
+    return sb.lm_schur(g.poses_cw, g.objects, step, chi2_at, cfg.iters,
+                       trace)

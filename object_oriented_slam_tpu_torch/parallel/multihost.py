@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..utils.device import resolve_device
+from ..utils.device import indexed_device, resolve_device
 from .collectives import Mesh
 
 __all__ = ["Mesh", "initialize", "observation_mesh", "shutdown"]
@@ -92,9 +92,7 @@ def observation_mesh(device=None) -> Mesh:
     ``device`` (the card unless the caller names one; an unindexed
     ``cuda`` is the current device, the one ``initialize`` picked); one
     shard where no group is active."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = indexed_device(resolve_device(device))
     if not dist.is_initialized():
         return Mesh(None, 0, 1, dev)
     return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(),

@@ -90,7 +90,7 @@ from ..core import plane as plane_mod
 from ..init.svd_incremental import IncrementalQuadricInit
 from ..io.config import Config
 from ..utils import calibrate_measurement_np
-from ..utils.device import resolve_device
+from ..utils.device import indexed_device, resolve_device
 from ..utils.transfer import HostCopy, to_device
 from .state import SlamState
 
@@ -286,11 +286,11 @@ class Tracking:
         iterates up to the order of the sums.  ``mesh`` defaults to
         ``parallel.multihost.observation_mesh`` on this tracker's device
         (call ``multihost.initialize`` first); it must live on this
-        device.  Every rank drives the same frames.  LM fusion is off
-        while a mesh is set."""
+        device (an unindexed ``cuda`` is the current card).  Every rank
+        drives the same frames.  LM fusion is off while a mesh is set."""
         from ..parallel.multihost import observation_mesh
         mesh = mesh if mesh is not None else observation_mesh(self.device)
-        if mesh.device != self.device:
+        if indexed_device(mesh.device) != indexed_device(self.device):
             raise ValueError(f"the mesh's device {mesh.device} is not the "
                              f"tracker's {self.device}")
         self._mesh = mesh

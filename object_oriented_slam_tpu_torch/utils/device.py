@@ -16,3 +16,12 @@ def resolve_device(device=None) -> torch.device:
             "is False here); pass device=\"cpu\" to run the plain PyTorch "
             "versions on the CPU")
     return dev
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: an unindexed ``cuda`` is the current
+    device, so that two names of one card compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,23 +1,23 @@
 """One rank of the port's two-rank gloo runs on the CPU.
 
-    python tests/_torch_dist_worker.py RANK WORLD STORE_DIR INPUTS OUT
+    python tests/_torch_dist_worker.py RANK WORLD STORE_DIR INPUTS OUT \
+        PORT MAX_OBJECTS CLOUD_CAPACITY ARGV...
 
 (tests/test_torch_dist.py) joins the group through a FileStore in
 STORE_DIR, runs every scenario of the port's sharded paths on the inputs
 (an .npz the test writes from the JAX package's workloads) and saves this
 rank's results to OUT.  Each sharded entry point is wrapped to record the
-shard it ran on, so the test sees that each rank took its slice.
-
-    python -m torch.distributed.run --standalone --nproc_per_node 2 \
-        tests/_torch_dist_worker.py cli MAX_OBJECTS CLOUD_CAPACITY ARGV...
-
-(tests/test_torch_run_tum_host.py) runs examples/torch_run_tum.py's main
-on ARGV in each rank, with the LM batch's first object tier and the
-extractor's cloud capacity of that test's CPU settings.
+shard it ran on, so the test sees that each rank took its slice.  Then it
+ends that group and runs examples/torch_run_tum.py's main on ARGV as a
+rank of a torchrun launch would (torchrun's environment, the rendezvous on
+localhost:PORT), with the LM batch's first object tier and the
+extractor's cloud capacity of the test's CPU settings; the offline batches'
+pads go to OUT's ``.cli.json``.
 
 Imports the port and never JAX.
 """
 import functools
+import json
 import os
 import sys
 
@@ -36,7 +36,6 @@ from object_oriented_slam_tpu_torch.frontend import \
 from object_oriented_slam_tpu_torch.parallel import (  # noqa: E402
     dist_lm, dist_slam, dryrun, multihost)
 from object_oriented_slam_tpu_torch.system import Tracking  # noqa: E402
-from object_oriented_slam_tpu_torch.system import tracking  # noqa: E402
 
 SLAM_VARIANTS = [(banded, shard_solve) for banded in (False, True)
                  for shard_solve in (False, True)]
@@ -56,9 +55,9 @@ def _spy(owner, name, record):
     return calls
 
 
-
-
 def run(rank, world, store_dir, inputs, out_path):
+    """Every scenario on this rank, the results to out_path; returns the
+    (emptied) list that goes on recording each batched launch's pad."""
     torch.set_num_threads(1)
     multihost.initialize(backend="gloo", device="cpu",
                          init_method="file://" + os.path.join(store_dir,
@@ -120,49 +119,57 @@ def run(rank, world, store_dir, inputs, out_path):
         for i, t in enumerate(eqs):
             out[f"schur_{name}_eq{i}"] = t.numpy()
 
-    # the dry run (its LM and SLAM checks at tiny sizes, the sharded offline
-    # batch and the offline mapper over the mesh on the probe camera's one
-    # object; for the plain LM's CPU cost the maps' LM takes 4 object slots
-    # and 3 iterations a call, the same on both sides): each batched
-    # call's pad, the batch's two calls (sharded, unsharded) first
-    Tracking.MAX_OBJECTS = 4
-    tracking.LMConfig = functools.partial(LMConfig, iters=3)
+    # the dry run's LM, SLAM and batch checks at tiny sizes: each batched
+    # call's pad, the sharded call's then the unsharded one's
     pads = _spy(bx, "_extract_multi_packed", lambda d, f, cam, cfg, pad, *a:
                 pad)
-    dry = dryrun.dryrun_multichip(mesh)
-    out["batch_err"], out["offline_err"] = (dry["batch"]["rows"],
-                                            dry["offline"]["map"])
-    out["batch_pads"] = np.array([dryrun.probe_batch(world)[0].pad]
-                                 + pads[:2])
-    out["offline_pads"] = np.array(pads[2:])
+    dry = dryrun.dryrun_multichip(mesh, offline=False)
+    out["batch_err"] = dry["batch"]["rows"]
+    out["batch_pads"] = np.array([dryrun.probe_batch(world)[0].pad] + pads)
+    part = dry["slam"]["paths_part_at"]
+    out["slam_paths_part_at"] = np.array(-1 if part is None else part)
+    out["slam_err"] = np.array([dry["slam"][k] for k in (
+        "step_poses", "step_objects", "poses", "objects")])
     np.savez(out_path, **out)
     multihost.shutdown()
     print(f"RANK_OK {rank}")
+    pads.clear()
+    return pads
 
 
-def cli(max_objects, cloud_capacity, argv):
+def cli(rank, world, port, max_objects, cloud_capacity, argv, pads,
+        out_path):
+    """examples/torch_run_tum.py's main on argv as rank ``rank`` of a
+    torchrun launch of ``world`` processes; the pads of the offline
+    batches (each dispatch_batch call's, then each launch's) to
+    out_path."""
     import importlib.util
 
     import torch.distributed as dist
 
     import object_oriented_slam_tpu_torch.frontend as tfrontend
-    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
     Tracking.MAX_OBJECTS = max_objects
     tfrontend.ExtractorConfig = functools.partial(
         tfrontend.ExtractorConfig, cloud_capacity=cloud_capacity)
+    batches = _spy(bx, "dispatch_batch", lambda batch, cam, mesh=None, **k:
+                   (batch.pad, None if mesh is None else mesh.size))
     spec = importlib.util.spec_from_file_location(
         "torch_run_tum", os.path.join(ROOT, "examples", "torch_run_tum.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    rank = int(os.environ["RANK"])
     mod.main(argv)
     assert not dist.is_initialized()      # the CLI ended its group
+    with open(out_path, "w") as f:
+        json.dump({"batches": batches, "launch_pads": pads}, f)
     print(f"CLI_OK {rank}")
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "cli":
-        cli(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4:])
-    else:
-        r, w, store, inputs, out_path = sys.argv[1:6]
-        run(int(r), int(w), store, inputs, out_path)
+    r, w, store, inputs, out_path, port, max_objects, capacity = \
+        sys.argv[1:9]
+    pads = run(int(r), int(w), store, inputs, out_path)
+    cli(int(r), int(w), int(port), int(max_objects), int(capacity),
+        sys.argv[9:], pads, out_path + ".cli.json")

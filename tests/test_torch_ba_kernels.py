@@ -23,6 +23,8 @@ from object_oriented_slam_tpu_torch.backend import (LMConfig, ba_kernels,
                                                     optimize_objects_soa)
 from object_oriented_slam_tpu_torch.io.synthetic import make_lm_batch
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 pytestmark = pytest.mark.cuda
 
 NORMAL = np.array([0.05, -0.02, 1.0], np.float32)

@@ -63,6 +63,8 @@ from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
 from object_oriented_slam_tpu_torch.ops import filters
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 LABELS = [28, 57, 58, 28, 63, 59]
 SCENE_KW = dict(n_objects=6, seed=7, radius_range=(1.3, 2.2),
                 scale_range=(0.2, 0.4), labels=LABELS)

@@ -33,6 +33,8 @@ from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
 
 from test_torch_ops_depth import _blobs
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 N = 320
 TOL = 0.02
 

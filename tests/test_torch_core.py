@@ -21,6 +21,8 @@ from object_oriented_slam_tpu_torch.core import ellipsoid as tell
 from object_oriented_slam_tpu_torch.core import se3 as tse3
 from object_oriented_slam_tpu_torch.ops import linalg as tlinalg
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 N = 16
 RTOL, ATOL = 1e-5, 1e-5
 K = np.array([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1]], np.float32)

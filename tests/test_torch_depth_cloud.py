@@ -29,6 +29,8 @@ from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
 from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
 from object_oriented_slam_tpu_torch.ops import voxel as vx
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 TOL = 1e-5
 PLANE = np.array([0.001, -0.002, 1.0, -0.0005], np.float32)
 # a whole-image box, a zero (padded) box, a box over the sky (no valid

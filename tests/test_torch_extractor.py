@@ -24,6 +24,8 @@ from object_oriented_slam_tpu_torch.frontend import extractor as text
 from object_oriented_slam_tpu_torch.frontend import ground_plane as tgp
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 KW = dict(cloud_capacity=2048, cluster_min_size=30)
 TOL = 1e-5
 

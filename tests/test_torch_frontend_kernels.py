@@ -39,6 +39,8 @@ from object_oriented_slam_tpu_torch.ops import depth_cloud as dc
 from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
 from object_oriented_slam_tpu_torch.ops import voxel as vx
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 pytestmark = pytest.mark.cuda
 
 

@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from object_oriented_slam_tpu.core.camera import Camera as JCamera
 from object_oriented_slam_tpu.frontend import ExtractorConfig as JExtCfg
@@ -32,6 +33,8 @@ from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
                                                      make_plane_estimator)
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.system import System, Tracking
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 YAML = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                     "object_oriented_slam_tpu_torch", "configs",

@@ -24,6 +24,8 @@ from object_oriented_slam_tpu_torch.backend import (LMConfig, lm_soa,
                                                     observations_from_numpy)
 from object_oriented_slam_tpu_torch.io.synthetic import make_lm_batch
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 K = torch.tensor([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1]])
 NORMAL = torch.tensor([0.05, -0.02, 1.0])
 POISONED = (2, 1)           # object, 2D edge slot

@@ -24,6 +24,8 @@ from object_oriented_slam_tpu_torch.backend import (LMConfig, ba_kernels,
 import test_lm_soa
 from test_svd_init import K
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 NORMAL = np.array([0.05, -0.02, 1.0], np.float32)
 
 

@@ -30,6 +30,8 @@ from test_torch_ba_kernels import (device,  # noqa: F401
                                    test_step_kernels_match_plain)
 from test_torch_lm_soa import K, NORMAL, _mixed_obs, _port_inputs
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 
 def _spd_problem(seed, O=6):
     """Seeded SPD H [O,9,9] (condition number <= ~1e3), g [O,9], unit-

@@ -67,8 +67,10 @@ def test_no_source_imports_jax():
 
 def _scripts():
     yield os.path.join(ROOT, "chip_smoke.py")
-    # the rank processes of the port's two-rank gloo tests
+    # the rank processes of the port's two-rank gloo tests, and the mesh
+    # tests that also run on the card
     yield os.path.join(ROOT, "tests", "_torch_dist_worker.py")
+    yield os.path.join(ROOT, "tests", "test_torch_multihost.py")
     ex = os.path.join(ROOT, "examples")
     for f in sorted(os.listdir(ex)):
         if f.startswith("torch_") and f.endswith(".py"):
@@ -77,9 +79,9 @@ def _scripts():
 
 def test_chip_smoke_and_port_examples_import_no_jax():
     """chip_smoke.py (every phase, the depth ones included), the
-    examples/torch_*.py scripts and tests/_torch_dist_worker.py import the
-    port and never JAX; importing chip_smoke with JAX blocked works and
-    starts nothing."""
+    examples/torch_*.py scripts, tests/_torch_dist_worker.py and
+    tests/test_torch_multihost.py import the port and never JAX;
+    importing chip_smoke with JAX blocked works and starts nothing."""
     scripts = list(_scripts())
     assert len(scripts) >= 2
     names = [os.path.basename(p) for p in scripts]

@@ -28,6 +28,8 @@ from object_oriented_slam_tpu_torch.ops import linalg as tla
 from object_oriented_slam_tpu_torch.ops import pca as tpca
 from object_oriented_slam_tpu_torch.ops import voxel as tvx
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 CAM_KW = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0,
               width=160, height=120)
 CAM, JCAM = Camera(**CAM_KW), JCamera(**CAM_KW)

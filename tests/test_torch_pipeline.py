@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
                                                      make_extractor,
@@ -25,6 +26,8 @@ from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.io.config import Config
 from object_oriented_slam_tpu_torch.system import System, Tracking
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                        "object_oriented_slam_tpu_torch", "configs")

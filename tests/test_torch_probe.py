@@ -11,6 +11,8 @@ from object_oriented_slam_tpu_torch.io import native_loader as tnl
 from object_oriented_slam_tpu_torch.system.probe import (
     RTT_THRESHOLD_MS, choose_architecture, probe_device_rtt_ms)
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 
 def test_probe_measures_finite_rtt():
     rtt = probe_device_rtt_ms(n=3, device="cpu")

@@ -14,6 +14,8 @@ import torch
 from object_oriented_slam_tpu.io import synthetic as jsyn
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 SCENE_KW = dict(n_objects=6, seed=3, radius_range=(1.3, 2.2),
                 scale_range=(0.2, 0.4))
 

@@ -11,10 +11,10 @@ asynchronous plane); the port's whole run also takes ``--slam-mode
 state alone; tests/test_torch_slam.py runs ``--odometry --slam-mode`` on
 this export's first SPLIT frames, in its own module for this file's
 time).  A run to SPLIT frames is checkpointed and resumed.  The port's
-other architectures on the same export (the host-clustered extractors, the
-offline mode and the distributed backend) are in
-tests/test_torch_run_tum_host.py, so that the two files' runs go to two
-workers.  Two settings differ from the
+other architectures on the same export (the host-clustered extractors and
+the offline mode) are in tests/test_torch_run_tum_host.py, so that the two
+files' runs go to two workers, and the distributed command line is in
+tests/test_torch_dist.py.  Two settings differ from the
 CLI's defaults, on both sides alike, for the CPU's time: ``ExtractorConfig.cloud_capacity`` is 2048
 (as in tests/test_torch_depth_slice.py; the CLI's 16384 lets a frame's tier
 grow to its largest box), and the port's LM batch starts at 8 object slots
@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import object_oriented_slam_tpu.frontend as jfrontend
 import object_oriented_slam_tpu_torch.frontend as tfrontend
@@ -42,6 +43,8 @@ from object_oriented_slam_tpu_torch.backend import slam_ba
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.io.writers import load_objects
 from object_oriented_slam_tpu_torch.system import Tracking
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "object_oriented_slam_tpu_torch", "configs",

@@ -8,26 +8,19 @@ file, as in tests/test_torch_run_tum.py), then ``--extractor split`` and
 the default ``auto`` (which probes the CPU and picks fused-split with LM
 fusion), each held to the mono run within 1e-4, as is the offline mode
 (``--offline --batch 4 --offline-per-frame-ba``: the plane's bootstrap
-frame, then two batches of 4).  ``--distributed`` runs the same frames on
-two gloo ranks under torchrun (``python -m torch.distributed.run
---standalone --nproc_per_node 2``, through tests/_torch_dist_worker.py,
-which applies this file's two settings): its objects.txt, written by rank
-0 alone, within 1e-3 of the mono run's (the dry run's map tolerance; the
-sharded LM sums its normal equations in another order).  Each check is a
-case of its own: xdist (``--dist loadfile``) queues files by their number
-of cases, and this file's runs are long.
+frame, then two batches of 4).  The distributed command line runs in
+tests/test_torch_dist.py's rank processes.  Each check is a case of its
+own: xdist (``--dist loadfile``) queues files by their number of cases,
+and this file's runs are long.
 """
-import os
-import subprocess
-import sys
-
 import numpy as np
 import pytest
+import torch
 
-from test_torch_run_tum import (CLOUD_CAPACITY, MONO, SPLIT, YAML,
-                                _history_rows, _objects, _port_cli, export)
+from test_torch_run_tum import (SPLIT, YAML, _history_rows, _objects,
+                                _port_cli, export)
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+torch.set_num_threads(1)    # the test workers share the CPU
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +30,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tum_cli_host")
     seq = export(tmp)
     out = {k: str(tmp / k) for k in ("split", "host_split", "auto",
-                                      "offline", "distributed")}
+                                      "offline")}
     first = ["--device", "cpu", "--max-frames", str(SPLIT)]
     _port_cli([YAML, seq, "--out", out["split"], *first, "--extractor",
                "mono"])
@@ -49,14 +42,7 @@ def runs(tmp_path_factory):
                                      "--offline-per-frame-ba"])):
         host[name] = _port_cli([YAML, seq, "--out", out[name], *first,
                                 *extra])
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2",
-           os.path.join(HERE, "_torch_dist_worker.py"), "cli", "8",
-           str(CLOUD_CAPACITY), YAML, seq, "--out", out["distributed"],
-           *MONO, "--max-frames", str(SPLIT), "--distributed"]
-    dist = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
-                          env=dict(os.environ, OMP_NUM_THREADS="1"))
-    return out, host, dist
+    return out, host
 
 
 ARCHITECTURES = ["host_split", "auto", "offline"]
@@ -68,7 +54,7 @@ def test_host_clustered_cli_matches_mono(runs, name):
     probe picks fused-split with LM fusion, and says so) reproduce the
     mono run of the same frames within 1e-4, as does the offline mode
     (mono extraction)."""
-    out, host = runs[:2]
+    out, host = runs
     want = _objects(out["split"])
     slam, log = host[name]
     assert ("probed device RTT" in log) == (name == "auto")
@@ -113,45 +99,3 @@ def test_offline_cli_prints_its_batches(runs):
     assert f"Offline: {SPLIT} frames in " in log
     assert "2 batched programs of 4" in log
     assert slam.tracker.pipeline_depth == 4
-
-
-@pytest.mark.parametrize("rank", [0, 1])
-def test_distributed_cli_ranks_join_and_shard(runs, rank):
-    """Each of the two gloo ranks under torchrun starts the group, shards
-    the backend and ends its run."""
-    dist = runs[2]
-    log = dist.stdout + dist.stderr
-    assert dist.returncode == 0, log[-4000:]
-    assert f"torch.distributed initialized: rank {rank} of 2 (gloo)" in log, \
-        log[-4000:]
-    assert f"CLI_OK {rank}" in log
-    assert log.count("backend sharded over 2 rank(s)") == 2
-
-
-def test_distributed_cli_rank0_alone_writes(runs):
-    """One rank prints the map and writes objects.txt and
-    object_history.txt; the other writes nothing."""
-    out, _, dist = runs
-    assert dist.returncode == 0
-    assert (dist.stdout + dist.stderr).count("Objects:") == 1
-    assert sorted(os.listdir(out["distributed"])) == [
-        "object_history.txt", "objects.txt"]
-
-
-def test_distributed_cli_matches_mono(runs):
-    """``--distributed`` on two gloo ranks: the map is the mono run's
-    within 1e-3."""
-    out, _, dist = runs
-    assert dist.returncode == 0, (dist.stdout + dist.stderr)[-4000:]
-    got, want = _objects(out["distributed"]), _objects(out["split"])
-    assert sorted(got) == sorted(want) and len(want) >= 5
-    for inst in want:
-        np.testing.assert_allclose(got[inst], want[inst], atol=1e-3)
-
-
-def test_distributed_cli_history_matches_mono(runs):
-    """The distributed run's object_history.txt: the mono run's rows per
-    instance."""
-    out, _, dist = runs
-    assert dist.returncode == 0
-    assert _history_rows(out["distributed"]) == _history_rows(out["split"])

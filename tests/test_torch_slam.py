@@ -60,6 +60,8 @@ from test_slam_oracle import F as ORACLE_F
 from test_slam_oracle import K as ORACLE_K
 from test_slam_oracle import _build_graph as oracle_graph
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 16
 

@@ -31,6 +31,8 @@ import torch
 from object_oriented_slam_tpu_torch.backend import (LMConfig, slam_ba,
                                                     slam_kernels)
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,8 @@ from object_oriented_slam_tpu_torch.io.config import Config
 from object_oriented_slam_tpu_torch.system import System, Tracking
 from object_oriented_slam_tpu_torch.system import checkpoint as tckpt
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 YAML = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                     "object_oriented_slam_tpu_torch", "configs",
                     "synthetic_2d.yaml")

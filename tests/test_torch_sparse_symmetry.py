@@ -57,6 +57,8 @@ from object_oriented_slam_tpu_torch.ops import polygon as tpg
 from object_oriented_slam_tpu_torch.ops import voxel as tvx
 from object_oriented_slam_tpu_torch.system import metrics as tmt
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 CAM = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
 JCAM = JCamera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
 SIGMA = 0.1

@@ -51,6 +51,8 @@ from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.ops import cluster as tcl
 from object_oriented_slam_tpu_torch.system import System, Tracking
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 CAM_KW = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0,
               width=640, height=480)
 YAML = os.path.join(os.path.dirname(os.path.dirname(__file__)),

@@ -49,6 +49,8 @@ from object_oriented_slam_tpu_torch.ops import backproject as tbp
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle_frontend as orc  # noqa: E402
 
+torch.set_num_threads(1)    # the test workers share the CPU
+
 CAM = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
 JCAM = JCamera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
 SIGMA = 0.1

@@ -9,6 +9,7 @@ centres and sorted scales within tests/test_torch_depth_slice.py's 2e-3.
 import os
 
 import numpy as np
+import torch
 
 from object_oriented_slam_tpu.core.camera import Camera as JCamera
 from object_oriented_slam_tpu.frontend import ExtractorConfig as JExtCfg
@@ -21,6 +22,8 @@ from object_oriented_slam_tpu_torch.frontend import (ExtractorConfig,
                                                      make_plane_estimator)
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.system import System, Tracking
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 YAML = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                     "object_oriented_slam_tpu_torch", "configs",

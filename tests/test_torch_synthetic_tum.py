@@ -17,11 +17,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from object_oriented_slam_tpu.core.camera import Camera as JCamera
 from object_oriented_slam_tpu.io import synthetic as jsyn
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.io.png import read_png
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_KW = dict(n_objects=4, seed=3, radius_range=(1.3, 2.2),

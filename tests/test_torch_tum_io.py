@@ -19,11 +19,14 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from object_oriented_slam_tpu_torch.io import native_loader as tnl
 from object_oriented_slam_tpu_torch.io import png
 from object_oriented_slam_tpu_torch.io import synthetic as tsyn
 from object_oriented_slam_tpu_torch.io import tum as ttum
+
+torch.set_num_threads(1)    # the test workers share the CPU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

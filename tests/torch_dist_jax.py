@@ -2,7 +2,8 @@
 
     python tests/torch_dist_jax.py
 
-writes tests/torch_dist_jax.npz: JAX's ``optimize_objects_sharded`` on
+writes tests/torch_dist_jax.npz: the inputs (``in_*``) and JAX's
+``optimize_objects_sharded`` on
 tests/test_dist_lm.py's ``make_workload`` and ``optimize_slam_sharded``
 (dense and banded, ``shard_solve`` off and on) on tests/test_slam_ba.py's
 ``build_graph`` (a fresh draw of its seed), each on a two-device virtual
@@ -10,7 +11,8 @@ mesh of the CPU.  Their shard_map programs take ~4 min (the LM) and
 ~70-80 s (each SLAM variant) to trace and compile on the CPU, so the
 quick tier compares the port with these stored results, and the slow case
 ``test_torch_dist.py::test_stored_results_are_jax_sharded_solvers`` runs
-JAX again and holds it to them.  ~10 min.
+JAX again and holds it to them.  ``load_store`` refuses a store whose
+inputs are not the workloads' of today (run this script again).  ~10 min.
 """
 import os
 import sys
@@ -44,6 +46,23 @@ def inputs():
     out.update({"lm_" + k: np.asarray(v) for k, v in obs._asdict().items()})
     out.update({"slam_" + k: np.asarray(v) for k, v in g._asdict().items()})
     return out
+
+
+def load_store(arrays):
+    """The stored JAX results by name; raises where the store was made
+    from other inputs than ``arrays`` (``inputs()``)."""
+    import numpy as np
+    stored = dict(np.load(STORE))
+    kept = {k[3:]: stored.pop(k) for k in list(stored) if k.startswith("in_")}
+    stale = sorted(k for k in set(kept) | set(arrays)
+                   if k not in kept or k not in arrays
+                   or kept[k].dtype != arrays[k].dtype
+                   or not np.array_equal(kept[k], arrays[k]))
+    if stale:
+        raise AssertionError(
+            f"{STORE} was made from other inputs ({stale} differ): run "
+            f"python tests/torch_dist_jax.py to store JAX's results anew")
+    return stored
 
 
 def jax_sharded(arrays):
@@ -95,5 +114,7 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     import numpy as np
-    np.savez(STORE, **jax_sharded(inputs()))
+    arrays = inputs()
+    np.savez(STORE, **jax_sharded(arrays),
+             **{"in_" + k: v for k, v in arrays.items()})
     print(f"wrote {STORE}")
