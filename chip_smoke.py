@@ -3445,19 +3445,21 @@ def dist_rank_main(rank, workdir):
     return 0
 
 
-def dist_cli_main(argv):
+def dist_cli_main(argv, workdir):
     """examples/torch_run_tum.main on ``argv`` in one rank of a torchrun
-    launch (``chip_smoke.py --dist-cli ARGV``), every launch counter set to
-    0 just before; prints the rank's launches on a line of its own."""
+    launch (``chip_smoke.py --dist-dir DIR --dist-cli ARGV``), every launch
+    counter set to 0 just before; writes the rank's launches to
+    DIR/cli_rank{R}.json.  A file, not a line of output: the ranks share
+    torchrun's stdout, where their writes interleave mid-line."""
     from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS)
     for k in kernels:
         k.launches = 0
     example("torch_run_tum").main(argv)
-    print("DIST_CLI " + json.dumps({
-        "rank": int(os.environ["RANK"]),
-        "launches": {k.name: k.launches for k in kernels}}), flush=True)
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(workdir, f"cli_rank{rank}.json"), "w") as f:
+        json.dump({k.name: k.launches for k in kernels}, f)
     return 0
 
 
@@ -3569,16 +3571,16 @@ def phase_dist(dev, tmp, cli, slam_problem, offline):
     printed = run_bounded(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(DIST_WORLD), os.path.abspath(__file__),
-         "--dist-cli", cli["settings"], cli["seq"], "--out", out,
+         "--dist-dir", workdir, "--dist-cli", cli["settings"], cli["seq"],
+         "--out", out,
          "--extractor", "mono", "--distributed", "--offline",
          "--offline-shard", "--batch", str(OFFLINE_BATCH), "--dist-backend",
          "gloo"], "torchrun of torch_run_tum.py")
     cli_s = time.perf_counter() - t0
-    cli_launches = [None] * DIST_WORLD
-    for line in printed.splitlines():
-        if line.startswith("DIST_CLI "):
-            rec = json.loads(line[len("DIST_CLI "):])
-            cli_launches[rec["rank"]] = rec["launches"]
+    cli_launches = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(workdir, f"cli_rank{r}.json")) as f:
+            cli_launches.append(json.load(f))
     got = dict(zip(*load_objects(os.path.join(out, "objects.txt"))))
     want = dict(zip(*load_objects(offline["objects"])))
     diff = max((np.abs(got[i] - want[i]).max() for i in want if i in got),
@@ -3595,9 +3597,8 @@ def phase_dist(dev, tmp, cli, slam_problem, offline):
         raise RuntimeError("[dist] the distributed CLI's objects.txt "
                            "differs from the unsharded offline run's")
     for r, launched in enumerate(cli_launches):
-        if launched is None or not all(
-                launched[k] > 0 for k in (*DIST_LM_LAUNCHES,
-                                          *DIST_BATCH_LAUNCHES)):
+        if not all(launched[k] > 0
+                   for k in (*DIST_LM_LAUNCHES, *DIST_BATCH_LAUNCHES)):
             raise RuntimeError(f"[dist] CLI rank {r} launched {launched}")
     return ranks, cli_launches
 
@@ -3622,7 +3623,7 @@ def main(argv=None):
     if args.dist_rank is not None:
         return dist_rank_main(args.dist_rank, args.dist_dir)
     if args.dist_cli is not None:
-        return dist_cli_main(args.dist_cli)
+        return dist_cli_main(args.dist_cli, args.dist_dir)
     from concurrent.futures import ThreadPoolExecutor
     from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
