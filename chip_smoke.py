@@ -6,8 +6,9 @@ Phases (each raises on failure; the script exits non-zero if any fails):
   1. the card's name and power limit; TF32 off for the plain versions'
      matmuls;
   2. build the BA edge kernels from csrc/ba_edges.cu, the depth-frontend
-     kernels from csrc/frontend.cu and the SLAM edge kernel K11 from
-     csrc/slam_edges.cu (nvcc, sm_90a) and the host clustering
+     kernels from csrc/frontend.cu, the SLAM edge kernel K11 from
+     csrc/slam_edges.cu and the dense fuse K12 from csrc/dense_fuse.cu
+     (nvcc, sm_90a) and the host clustering
      of the split extractors from native/src/cluster.cpp (g++), all at
      once;
   3. each kernel against its plain PyTorch version on the same card
@@ -159,13 +160,35 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      gloo ranks, rank 0's objects.txt within 1e-3 of [offline]'s unsharded
      run's; every group, rank and launch bounded by DIST_TIMEOUT seconds,
      times printed beside the card's line and claimed nowhere;
+  6g. the dense builder ([dense], after [dist]): [cli]'s export run by
+     examples/torch_run_tum.py --extractor mono --build-dense (the
+     external DenseBuilder, 1 cm leaf, stride 4, 1 << 19 cells): K12
+     (csrc/dense_fuse.cu) launched once a frame, map.ply's point count the
+     builder's mask count, objects.txt byte for byte the adaptive mono
+     run's, frames/s beside that run's; K12 against its plain version on
+     the CPU (bit for bit, or it raises past points 1e-6 / colours 1e-4,
+     masks equal) and on the card at the export's first frame into an
+     empty map and at a mid-orbit frame into the run's filled map, repeats
+     bit-equal, device ms of a fuse beside its bound (the map's rows in and
+     out and the frame's strided pixels, each byte once), the plain
+     version's and the stable sort + gather + segment_reduce yardstick's;
+  6h. the AoS backend ([aos]): a tracker with use_soa_backend=False
+     (its _opt_fn picked again, the JAX package's wiring) and
+     use_incremental_init=False over 48 frames of the 2D path's scene:
+     the map within a median centre error of 0.05 m, one ba_normal_eq and
+     one ba_chi2 launch an iteration of every AoS LM call (+1 chi2 at
+     est0), the incremental initializer never fed; one AoS LM call's device
+     operations under the profiler; 4 more frames under
+     system/profiling.device_trace with an annotate range, whose trace must
+     name the range and both BA kernels;
   8. one JSON line with a record per kernel (``launches_cli``: the
      adaptive mono CLI run's count of that kernel, ``launches_cli_split``
      / ``_fused`` / ``_auto`` the host-clustered runs',
      ``launches_offline`` / ``_offline_per_frame_ba`` /
      ``_offline_split`` the offline runs', ``launches_dist_ranks`` /
-     ``launches_dist_cli`` [dist]'s per gloo rank; the frame lanes'
-     records at the offline batch's shapes, the border lane's with the
+     ``launches_dist_cli`` [dist]'s per gloo rank, ``launches_aos`` on
+     the BA records [aos]'s; K12's records with the --build-dense run's
+     launches; the frame lanes' records at the offline batch's shapes, the border lane's with the
      frame lane among
      the shapes no path reached), the card line, and the result line
      {"ok": true, "device": {...}} last.
@@ -2044,7 +2067,9 @@ def drive_cli(dev, settings, seq, out, extra):
                 checked[0] += 1
             loop_fetches[0] = len(self.tracker.metrics["fetch"])
 
-    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS)
+    from object_oriented_slam_tpu_torch.ops import dense_fuse
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *slam_kernels.KERNELS,
+                   *dense_fuse.KERNELS)
     for k in all_kernels:
         k.launches = 0
     System.track_with_objects = track
@@ -2188,7 +2213,7 @@ def phase_cli(dev, tmp, sym_path, sym_call):
     settings = os.path.join(os.path.dirname(pkg.__file__), "configs",
                             "synthetic_depth_sym.yaml")
     split_call_overhead(settings, sym_path[0], sym_path[1], sym_call)
-    maps, cli_launches, rates = {}, {}, {}
+    maps, cli_launches, rates, cli_rates = {}, {}, {}, {}
     for name, extra in CLI_RUNS:
         out = os.path.join(tmp, "cli_" + name.replace(" ", "_"))
         slam, printed, e2e, checked, fetch, launches, middle, a_bytes = \
@@ -2205,6 +2230,7 @@ def phase_cli(dev, tmp, sym_path, sym_call):
         e2e_ms, fetch_ms = e2e * 1e3, fetch * 1e3
         fps = len(e2e) / max(e2e.sum(), 1e-9)
         rates[name] = (fps, e2e_ms.mean())
+        cli_rates[name] = cli_fps(printed)
         arch = (type(tr.extractor).__name__, tr.fuse_lm)
         for line in printed.splitlines():
             if line.startswith(("Processed", "Timing", "Pipeline depth",
@@ -2284,7 +2310,17 @@ def phase_cli(dev, tmp, sym_path, sym_call):
             raise RuntimeError(f"the {name} run's objects.txt differs from "
                                f"the adaptive mono run's by {diff}")
     return cli_launches, dict(seq=seq, settings=settings, gt=gt, ref=maps[
-        "mono adaptive"], rates=rates, launches=cli_launches["mono adaptive"])
+        "mono adaptive"], rates=rates, launches=cli_launches["mono adaptive"],
+        cli_rates=cli_rates)
+
+
+def cli_fps(printed):
+    """The frames/s of the CLI's own "Processed N frames in Xs (Y fps)"
+    line (its host clock around the whole frame loop)."""
+    for line in printed.splitlines():
+        if line.startswith("Processed"):
+            return float(line.rsplit("(", 1)[1].split()[0])
+    raise RuntimeError("the CLI printed no Processed line")
 
 
 # the offline runs of [offline]: (name, flags); --extractor names the
@@ -3603,6 +3639,274 @@ def phase_dist(dev, tmp, cli, slam_problem, offline):
     return ranks, cli_launches
 
 
+# ---------------------------------------------------------------------------
+# [dense]: the dense builder on the command line, and K12
+# ---------------------------------------------------------------------------
+DENSE_SOURCE = "object_oriented_slam_tpu_torch/csrc/dense_fuse.cu"
+DENSE_REPLACES = ("object_oriented_slam_tpu/system/dense_builder.py:24 "
+                  "(_fuse_frame; ops/voxel.py:42 _voxel_core)")
+DENSE_FRAMES = (0, N_DEPTH_FRAMES // 2)    # the first frame, a mid-orbit one
+
+
+def dense_yardstick(key, vals, capacity):
+    """K12's PyTorch yardstick: a stable torch.sort of the keys [N], a
+    gather of the points and colours [N, 6] into that order and
+    torch.segment_reduce's mean over the runs (the first ``capacity``, then
+    one for the rest; run lengths taken beforehand).  Returns (device ms,
+    device ms of the sort alone)."""
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    ks, _ = torch.sort(key, stable=True)
+    valid = ks != vx._INVALID
+    new = torch.cat([torch.ones(1, dtype=torch.bool, device=key.device),
+                     ks[1:] != ks[:-1]]) & valid
+    seg = torch.cumsum(new, dim=0) - 1
+    seg = torch.where(valid & (seg < capacity), seg, capacity)
+    lengths = torch.zeros(capacity + 1, dtype=torch.int64,
+                          device=key.device).scatter_add_(
+                              0, seg, torch.ones_like(seg))
+
+    def call():
+        _, o = torch.sort(key, stable=True)
+        return torch.segment_reduce(vals[o], "mean", lengths=lengths)
+
+    return busy_ms(call), busy_ms(lambda: torch.sort(key, stable=True))
+
+
+def dense_checks(dev, tag, state, frame, cam, b):
+    """K12 at one (map, frame): against its plain version on the CPU (bit
+    for bit, or it raises past points 1e-6 / colours 1e-4 / masks equal)
+    and on the card (index_add_'s atomics: points 1e-6, colours 1e-4),
+    repeats bit-equal; device ms of one fuse (the profiler's events: the
+    two calls' kernels, the sort, the memsets) beside CUDA events, the
+    bound (map in and out, the frame's strided pixels, each byte once),
+    the plain version's ms on the card and the yardstick's.  Returns the
+    record."""
+    from object_oriented_slam_tpu_torch.ops import dense_fuse as df
+    depth, rgb, pose = frame
+    H, W = depth.shape
+    cap, stride = b.capacity, b.stride
+    args = (cam, b.leaf, b.depth_range)
+    work = df.FuseWork(cap, H, W, stride, dev)
+
+    def fuse():
+        work.load(*state)
+        return work.fuse(depth, rgb, pose, *args)
+
+    launched = df.DENSE_FUSE.launches       # comparisons are not the path's
+    got = [t.clone() for t in fuse()]
+    again = [t.clone() for t in fuse()]
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (*state, depth, rgb, pose)]
+    want = df.dense_fuse_plain(*cpu, cam, stride, b.leaf, cap, b.depth_range)
+    on_card = df.dense_fuse_plain(*state, depth, rgb, pose, cam, stride,
+                                  b.leaf, cap, b.depth_range)
+    bits = all(same_bits(g.cpu(), w) for g, w in zip(got, want))
+    err_p = float((got[0].cpu() - want[0]).abs().max())
+    err_c = float((got[1].cpu() - want[1]).abs().max())
+    card_p = float((got[0] - on_card[0]).abs().max())
+    card_c = float((got[1] - on_card[1]).abs().max())
+    masks = (torch.equal(got[2].cpu(), want[2])
+             and torch.equal(got[2], on_card[2]))
+    repeat = all(same_bits(g.cpu(), a.cpu()) for g, a in zip(got, again))
+    live_in, live_out = int(state[2].sum()), int(got[2].sum())
+    # a fuse into the map it reloads each time, so that every repeat sees
+    # the same map; the reload (a device copy) is timed alone and taken off
+    fuse_ms = busy_ms(fuse, reps=10) - busy_ms(lambda: work.load(*state),
+                                               reps=10)
+    ev_ms = cuda_ms(fuse, 10) - cuda_ms(lambda: work.load(*state), 10)
+    plain_ms = cuda_ms(lambda: df.dense_fuse_plain(
+        *state, depth, rgb, pose, cam, stride, b.leaf, cap, b.depth_range), 3)
+    hs, ws = df.frame_grid(H, W, stride)
+    F = hs * ws
+    n_bytes = cap * 25 * 2 + F * (4 + 12) + 28
+    bound = (n_bytes / PEAK_BYTES * 1e3, "bytes")
+    fuse()
+    a = 1 - work.cur                # the buffer the last fuse read
+    lib_ms, sort_ms = dense_yardstick(
+        work.keys.clone(), torch.cat([work.pts[a], work.col[a]], dim=1), cap)
+    print(f"[dense] K12 {tag}: map {live_in} -> {live_out} cells of {cap}, "
+          f"{F} strided pixels; against the plain version on the CPU "
+          f"bit-equal {bits} (points {err_p:.3g}, colours {err_c:.3g}), on "
+          f"the card points {card_p:.3g} colours {card_c:.3g}; masks equal "
+          f"{masks}; repeats bit-equal {repeat}; {fuse_ms:.4f} ms a fuse "
+          f"(profiler; CUDA events {ev_ms:.4f}), bound {bound[0] * 1e3:.2f} "
+          f"us ({n_bytes} bytes), share {bound[0] / fuse_ms:.4f}; plain on "
+          f"the card {plain_ms:.3f} ms; yardstick (stable sort + gather + "
+          f"segment_reduce) {lib_ms:.4f} ms, its sort {sort_ms:.4f} ms")
+    if not (masks and repeat and err_p <= 1e-6 and err_c <= 1e-4
+            and card_p <= 1e-6 and card_c <= 1e-4):
+        raise RuntimeError(f"K12 {tag} disagrees with its plain version")
+    df.DENSE_FUSE.launches = launched
+    return dict(kernel="dense_fuse", shape=(cap, F), max_abs_err=max(
+        err_p, err_c), max_rel_err=max(err_p, err_c), ms=fuse_ms,
+        events_ms=ev_ms, plain_ms=plain_ms, bound=bound, library_ms=lib_ms,
+        sort_ms=sort_ms, bits_equal=bits, live_points=live_out)
+
+
+def phase_dense(dev, tmp, cli):
+    """examples/torch_run_tum.py --build-dense on [cli]'s export (the
+    adaptive mono run with the external DenseBuilder: 1 cm leaf, stride 4,
+    1 << 19 cells), then K12 against its plain version at the export's
+    first frame into an empty map and at a mid-orbit frame into the run's
+    filled map.  Raises unless objects.txt is [cli]'s adaptive mono run's
+    byte for byte, K12 launched once a frame, map.ply holds the builder's
+    mask count of points, and K12 agrees (dense_checks).  Returns (the
+    run's launches, K12's records)."""
+    from object_oriented_slam_tpu_torch.io.tum import TUMDataset
+    from object_oriented_slam_tpu_torch.system import dense_builder as db
+    builders = []
+    init = db.DenseBuilder.__init__
+
+    def capture(self, *a, **k):
+        init(self, *a, **k)
+        builders.append(self)
+
+    out = os.path.join(tmp, "cli_dense")
+    db.DenseBuilder.__init__ = capture
+    try:
+        slam, printed, e2e, checked, _, launches, _, _ = drive_cli(
+            dev, cli["settings"], cli["seq"], out,
+            ["--extractor", "mono", "--build-dense"])
+    finally:
+        db.DenseBuilder.__init__ = init
+    if len(builders) != 1 or slam.tracker.dense_builder is not None:
+        raise RuntimeError(f"{len(builders)} dense builders were made")
+    b = builders[0]
+    text = open(os.path.join(out, "objects.txt")).read()
+    with open(os.path.join(out, "map.ply")) as f:
+        head = [next(f) for _ in range(3)]
+    n_file = int(head[2].split()[2])
+    n_mask = int(b.mask.sum())
+    fps, ref_fps = cli_fps(printed), cli["cli_rates"]["mono adaptive"]
+    print(f"[dense] --build-dense: {fps:.2f} frames/s (the CLI's line) "
+          f"against {ref_fps:.2f} without the builder ([cli] mono adaptive; "
+          f"informational); launches {launches}; map.ply {n_file} points, "
+          f"the builder's mask {n_mask} of {b.capacity}; objects.txt "
+          f"bit-equal to the run without the builder: "
+          f"{text == cli['ref'][1]}; {checked} frames under the "
+          f"synchronisation check")
+    if "Saved dense map.ply" not in printed:
+        raise RuntimeError("the CLI did not save its dense map")
+    if text != cli["ref"][1]:
+        raise RuntimeError("objects.txt differs from the run without the "
+                           "builder")
+    if launches["dense_fuse"] != N_DEPTH_FRAMES:
+        raise RuntimeError(f"K12 launched {launches['dense_fuse']} times "
+                           f"over {N_DEPTH_FRAMES} frames")
+    if n_file != n_mask or n_mask <= 0:
+        raise RuntimeError(f"map.ply holds {n_file} points, the builder's "
+                           f"mask {n_mask}")
+    ds = TUMDataset(cli["seq"], with_rgb=True)
+    try:
+        frames = {i: (depth, rgb, pose)
+                  for i, _, pose, depth, rgb, _ in ds.frames()
+                  if i in DENSE_FRAMES}
+    finally:
+        ds.close()
+
+    def on_card(depth, rgb, pose):
+        return (torch.as_tensor(depth.astype(np.int32), device=dev),
+                torch.as_tensor(rgb, device=dev).float(),
+                torch.as_tensor(pose.astype(np.float32), device=dev))
+
+    cap = b.capacity
+    empty = (torch.zeros(cap, 3, device=dev), torch.zeros(cap, 3, device=dev),
+             torch.zeros(cap, dtype=torch.bool, device=dev))
+    filled = (b.pts.clone(), b.rgb.clone(), b.mask.clone())
+    recs = {"dense_fuse (first frame, empty map)": dense_checks(
+                dev, "first frame", empty, on_card(*frames[0]), b.cam, b),
+            "dense_fuse (mid-orbit frame, filled map)": dense_checks(
+                dev, "filled map", filled,
+                on_card(*frames[DENSE_FRAMES[1]]), b.cam, b)}
+    return launches, recs
+
+
+# ---------------------------------------------------------------------------
+# [aos]: the AoS backend and the batch SVD initializer on the 2D path
+# ---------------------------------------------------------------------------
+AOS_FRAMES = 48
+
+
+def phase_aos(dev, tmp):
+    """A Tracking built with use_soa_backend=False and
+    use_incremental_init=False (the JAX package's wiring: the flag picks
+    ``_opt_fn`` when the tracker is built, so the script picks it again
+    after setting it) over AOS_FRAMES frames of the 2D path's scene: the
+    AoS LM (K1-K4, one ba_normal_eq and one ba_chi2 launch an iteration)
+    and the batch SVD initializer on the card.  Raises unless the map's
+    median centre error is within 0.05 m, K1-K4 launched and no attempt
+    fed the incremental initializer.  Then 4 more frames under
+    system/profiling.device_trace with an annotate range: the trace must
+    name the range and both BA kernels.  Returns the launches."""
+    from object_oriented_slam_tpu_torch.backend import ba_kernels
+    from object_oriented_slam_tpu_torch.io.synthetic import SyntheticDataset
+    from object_oriented_slam_tpu_torch.system import System, profiling
+    from object_oriented_slam_tpu_torch.system import tracking
+
+    scene = scene24()
+    frames = list(SyntheticDataset(scene, n_frames=AOS_FRAMES + 4,
+                                   orbit_radius=3.6, height=1.7,
+                                   with_depth=False).frames())
+    slam = System(write_settings(tmp), device=dev)
+    pin_eager(slam)
+    tr = slam.tracker
+    tr.use_soa_backend = False
+    tr._opt_fn = tracking._shared_opt_fn(tr.use_soa_backend)
+    tr.use_incremental_init = False
+    for k in ba_kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for i, ts, pose, depth, rgb, det in frames[:AOS_FRAMES]:
+        slam.track_with_objects(ts, pose, det)
+    tr.sync()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ba_kernels.KERNELS}
+    objs = slam.map_objects
+    errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                     for i, v in objs.items()])
+    fed = sum(tr._inc_init.n_planes(i) for i in range(64))
+    print(f"[aos] {AOS_FRAMES} frames, AoS LM + batch SVD init: "
+          f"{len(objs)}/24 objects, centre error median "
+          f"{np.median(errs):.4g} m max {errs.max():.4g} m; map IoU median "
+          f"%.4f, min %.4f; {tr._backend_calls} LM calls, launches "
+          f"{launches}; {wall * 1e3 / AOS_FRAMES:.2f} ms a frame (host "
+          f"clock, synchronized at the end)" % map_iou(objs, scene))
+    if not objs or not np.median(errs) < 0.05:
+        raise RuntimeError(f"{len(objs)} objects, median centre error "
+                           f"{np.median(errs) if objs else None}")
+    calls = tr._backend_calls
+    if (launches["ba_normal_eq"] != calls * tr.lm_cfg.iters
+            or launches["ba_chi2"] != calls * (tr.lm_cfg.iters + 1)):
+        raise RuntimeError(f"{calls} AoS LM calls launched {launches}")
+    if fed:
+        raise RuntimeError("the incremental initializer was fed")
+    prep = tr._prepare_backend()
+    obs = tr._unpack(prep)
+    n = torch.zeros(3, device=dev)
+    ops = device_busy(lambda: tr._opt_fn(obs, tr._K_dev, n, prep["gset"],
+                                         tr.lm_cfg))
+    if ops is None:
+        raise RuntimeError("the profiler shows no device time for an AoS "
+                           "LM call")
+    print(f"[aos] one AoS LM call at its tier: device busy {ops[0]:.3f} ms "
+          f"over {ops[1]} device operations (top {ops[2]})")
+    log_dir = os.path.join(tmp, "aos_trace")
+    with profiling.device_trace(log_dir):
+        with profiling.annotate("aos_frames"):
+            for i, ts, pose, depth, rgb, det in frames[AOS_FRAMES:]:
+                slam.track_with_objects(ts, pose, det)
+            tr.sync()
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    want = ("aos_frames", "ba_normal_eq_kernel", "ba_chi2_kernel")
+    found = {w: any(w in nm for nm in names) for w in want}
+    print(f"[aos] device_trace: {len(names)} event names, {found}")
+    if not all(found.values()):
+        raise RuntimeError(f"the trace lacks {found}")
+    return launches, ops
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
@@ -3626,6 +3930,7 @@ def main(argv=None):
         return dist_cli_main(args.dist_cli, args.dist_dir)
     from concurrent.futures import ThreadPoolExecutor
     from object_oriented_slam_tpu_torch.backend import ba_kernels, slam_kernels
+    from object_oriented_slam_tpu_torch.ops import dense_fuse
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3636,15 +3941,17 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host clustering, all together
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for job in [pool.submit(ba_kernels.build), pool.submit(fk.build),
                     pool.submit(slam_kernels.build),
+                    pool.submit(dense_fuse.build),
                     pool.submit(build_cluster)]:
             job.result()
     print(f"[build] {time.perf_counter() - t0:.1f} s (the host clustering "
           f"library from native/src/cluster.cpp with g++ among them)")
     for line in (ba_kernels.build_log + fk.build_log
-                 + slam_kernels.build_log).splitlines():
+                 + slam_kernels.build_log
+                 + dense_fuse.build_log).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
@@ -3664,6 +3971,8 @@ def main(argv=None):
             dev, tmp, cli, args.keep)
         dist_ranks, dist_cli = phase_dist(dev, tmp, cli, slam_problem,
                                           offline)
+        launches_dense, dense_recs = phase_dense(dev, tmp, cli)
+        launches_aos, aos_ops = phase_aos(dev, tmp)
     launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
@@ -3743,6 +4052,22 @@ def main(argv=None):
     kernels += [record(k, r, FE_SOURCE, OFFLINE_REPLACES[r["kernel"]],
                        launches_offline["offline"])
                 for k, r in offline_recs.items()]
+    # K12: launches the --build-dense CLI run's (one a frame)
+    kernels += [{"name": k, "route": "cuda", "source": DENSE_SOURCE,
+                 "replaces": DENSE_REPLACES,
+                 "launches": launches_dense["dense_fuse"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                 "bound_by": r["bound"][1],
+                 "share_of_bound": r["bound"][0] / r["ms"],
+                 "library_ms": r["library_ms"], "shape": list(r["shape"]),
+                 **{key: r[key] for key in ("events_ms", "sort_ms",
+                                             "bits_equal", "live_points")}}
+                for k, r in dense_recs.items()]
+    # [aos]: the AoS LM's launches of K1-K4 on its run, beside the records
+    for rec in kernels:
+        if rec["name"].startswith(("ba_normal_eq", "ba_chi2")):
+            rec["launches_aos"] = launches_aos[rec["name"].split()[0]]
     at_full_tier = [record(k, r, FE_SOURCE, FE_REPLACES[r["kernel"]])
                     for k, r in {**fe_full, **sym_full}.items()]
     at_full_tier += [record(k, r, FE_SOURCE, SPARSE_REPLACES[r["kernel"]])

@@ -33,7 +33,11 @@ kernel on the card) and writes ``trajectory_refined.txt`` and
 odometry's.  ``--distributed`` shards the global BA's observation axis over
 the ranks of a torchrun launch (``parallel/dist_lm.py``), and
 ``--offline-shard`` each offline batch's detection axis
-(``batch_extractor.dispatch_batch(mesh=...)``):
+(``batch_extractor.dispatch_batch(mesh=...)``).  ``--build-dense`` fuses
+every frame's RGB-D image into a voxel map (``system/dense_builder.py``,
+the K12 ``dense_fuse`` kernel on the card; on when the settings open
+``Visualization.Builder.Open`` too) and writes it as ``map.ply`` or, with
+``--map-format pcd``, ``map.pcd``:
 
     python -m torch.distributed.run --nproc_per_node 2 \
         examples/torch_run_tum.py <yaml> <dir> --distributed [--offline \
@@ -56,11 +60,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 _UNPORTED = (
     # (flag, is it set?, what, ROADMAP.md queue 1 item)
-    ("--build-dense", lambda a: a.build_dense, "the dense builder", 9),
-    ("--map-format", lambda a: a.map_format != "ply",
-     "the dense builder's map export", 9),
-    ("--viz", lambda a: a.viz, "the renders (viz/export.py)", 9),
-    ("--viz-live", lambda a: a.viz_live, "the live web viewer", 9),
+    ("--viz", lambda a: a.viz, "the renders (viz/export.py)", "9d"),
+    ("--viz-live", lambda a: a.viz_live, "the live web viewer", "9d"),
 )
 
 
@@ -254,6 +255,16 @@ def _run(args, device, mesh):
         slam.open_distributed_backend(mesh)
         print(f"backend sharded over {mesh.size} rank(s)")
 
+    # dense builder: the Visualization.Builder.Open key drives it inside
+    # Tracking (Tracking.cpp:234-250); --build-dense forces it on
+    builder = slam.tracker.dense_builder
+    external_builder = False
+    if args.build_dense and builder is None:
+        from object_oriented_slam_tpu_torch.system.dense_builder import \
+            DenseBuilder
+        builder = DenseBuilder(cam, device=device)
+        external_builder = True
+
     skip = 0
     if args.resume:
         from object_oriented_slam_tpu_torch.system.checkpoint import \
@@ -265,21 +276,22 @@ def _run(args, device, mesh):
               f"{len(st.objects)} instances")
 
     os.makedirs(args.out, exist_ok=True)
-    ds = TUMDataset(args.dataset)
+    ds = TUMDataset(args.dataset, with_rgb=builder is not None)
     if args.odometry:
         ds.set_odometry(args.odometry)
     try:
         if args.offline:
             _offline(args, slam, ds, cam, ext_cfg, mesh)
         else:
-            _online_loop(args, slam, ds, skip)
+            _online_loop(args, slam, ds, skip,
+                         builder if external_builder else None)
     finally:
         ds.close()
     if mesh is not None and mesh.rank != 0:
         # the same map as rank 0's, which alone writes the files
         slam.tracker.sync()
     else:
-        _save_outputs(args, slam)
+        _save_outputs(args, slam, builder)
     return slam
 
 
@@ -307,7 +319,7 @@ def _offline(args, slam, ds, cam, ext_cfg, mesh):
     return mapper
 
 
-def _online_loop(args, slam, ds, skip):
+def _online_loop(args, slam, ds, skip, external_builder=None):
     from object_oriented_slam_tpu_torch.system.metrics import timing_summary
 
     t0 = time.time()
@@ -319,6 +331,8 @@ def _online_loop(args, slam, ds, skip):
             continue
         slam.track_with_objects(ts, pose, det, depth=depth, rgb=rgb,
                                 with_association=not args.auto_assoc)
+        if external_builder is not None:
+            external_builder.process_frame(rgb, depth, pose)
         n += 1
         if n % 10 == 0:
             print(f"frame {n} ({time.time() - t0:.1f}s)", flush=True)
@@ -334,7 +348,7 @@ def _online_loop(args, slam, ds, skip):
     return n
 
 
-def _save_outputs(args, slam):
+def _save_outputs(args, slam, builder=None):
     import numpy as np
 
     slam.save_objects_to_file(os.path.join(args.out, "objects.txt"))
@@ -342,6 +356,10 @@ def _save_outputs(args, slam):
     print("Objects:")
     for inst, v in slam.map_objects.items():
         print(f"  #{inst}: {np.round(v, 4)}")
+    if builder is not None:
+        ext = "pcd" if args.map_format == "pcd" else "ply"
+        builder.save_map(os.path.join(args.out, f"map.{ext}"))
+        print(f"Saved dense map.{ext}")
     if args.checkpoint:
         # after save_objects_to_file's sync(): no frame is pending
         from object_oriented_slam_tpu_torch.system.checkpoint import \

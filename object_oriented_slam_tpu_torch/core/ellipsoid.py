@@ -59,6 +59,14 @@ def exp_update(e: torch.Tensor, u9: torch.Tensor) -> torch.Tensor:
     return make(new_pose, e[..., 7:10] + u9[..., 6:9])
 
 
+def exp_update_xyzabc(e: torch.Tensor, u6: torch.Tensor) -> torch.Tensor:
+    """6-DoF update variant: translation-only SE3 exp + additive scale
+    (VertexEllipsoidXYZABC, Ellipsoid.cpp:50-61)."""
+    u9 = torch.cat([torch.zeros_like(u6[..., :3]), u6[..., :3], u6[..., 3:6]],
+                   dim=-1)
+    return exp_update(e, u9)
+
+
 def log_error_9dof(e: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     """9-DoF log error between two ellipsoids (Ellipsoid.cpp:63-71):
     ``log(other.pose^-1 * e.pose)``, then ``e.scale - other.scale``."""
@@ -106,6 +114,31 @@ def transform_to(e: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Quadric / projection
 # ---------------------------------------------------------------------------
+
+def quadric_Qstar(e: torch.Tensor) -> torch.Tensor:
+    """Dual quadric Q* = T diag(a^2,b^2,c^2,-1) T^T [..., 4, 4]
+    (Ellipsoid.cpp:290-300)."""
+    s = scale_of(e)
+    d = torch.cat([s * s, -torch.ones_like(s[..., :1])], dim=-1)
+    T = se3.se3_to_mat(pose_of(e))
+    return (T * d[..., None, :]) @ T.transpose(-1, -2)
+
+
+def projection_matrix(pose_cw: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """P = K [I|0] Tcw, [..., 3, 4] (Ellipsoid.cpp:276-287)."""
+    return K @ se3.se3_to_mat(pose_cw)[..., :3, :]
+
+
+def _homogeneous(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def project_center(e: torch.Tensor, pose_cw: torch.Tensor,
+                   K: torch.Tensor) -> torch.Tensor:
+    """Image point [..., 2] of the ellipsoid center (Ellipsoid.cpp:195-205)."""
+    u = se3._mv(projection_matrix(pose_cw, K), _homogeneous(e[..., :3]))
+    return u[..., :2] / u[..., 2:3]
+
 
 def _conic_cstar(e: torch.Tensor, pose_cw: torch.Tensor,
                  K: torch.Tensor) -> torch.Tensor:
@@ -164,3 +197,59 @@ def project_bbox(e: torch.Tensor, pose_cw: torch.Tensor,
                  K: torch.Tensor) -> torch.Tensor:
     """Projected bounding box via the conic (Ellipsoid.cpp:303-307)."""
     return ellipse_to_bbox(project_ellipse(e, pose_cw, K))
+
+
+def project_bbox_dual(e: torch.Tensor, pose_cw: torch.Tensor,
+                      K: torch.Tensor) -> torch.Tensor:
+    """Projected bbox straight from the dual conic: the tangent vertical /
+    horizontal lines l with l^T C* l = 0 give the extrema
+    x = (C*02 +- sqrt(C*02^2 - C*00 C*22)) / C*22 (likewise y); the same
+    bbox as ``project_bbox`` for a valid ellipse, without the angle."""
+    C = _conic_cstar(e, pose_cw, K)
+    c00, c11, c22 = C[..., 0, 0], C[..., 1, 1], C[..., 2, 2]
+    c02, c12 = C[..., 0, 2], C[..., 1, 2]
+    dx = torch.sqrt(torch.clamp_min(c02 * c02 - c00 * c22, 0.0))
+    dy = torch.sqrt(torch.clamp_min(c12 * c12 - c11 * c22, 0.0))
+    xa, xb = (c02 - dx) / c22, (c02 + dx) / c22
+    ya, yb = (c12 - dy) / c22, (c12 + dy) / c22
+    return torch.stack([torch.minimum(xa, xb), torch.minimum(ya, yb),
+                        torch.maximum(xa, xb), torch.maximum(ya, yb)], dim=-1)
+
+
+# the circumscribed cube's corners in the body frame (Ellipsoid.cpp:475-477)
+_CUBE_CORNERS = ((1, 1, -1, -1, 1, 1, -1, -1),
+                 (1, -1, -1, 1, 1, -1, -1, 1),
+                 (-1, -1, -1, -1, 1, 1, 1, 1))
+
+
+def cube_corners(e: torch.Tensor) -> torch.Tensor:
+    """World coords [..., 3, 8] of the circumscribed cube's 8 corners
+    (Ellipsoid.cpp:472-480)."""
+    R = se3.quat_to_mat(e[..., 3:7])
+    corners = torch.tensor(_CUBE_CORNERS, dtype=e.dtype, device=e.device)
+    return (R * scale_of(e)[..., None, :]) @ corners + e[..., :3, None]
+
+
+def project_cube_bbox(e: torch.Tensor, pose_cw: torch.Tensor,
+                      K: torch.Tensor) -> torch.Tensor:
+    """Bbox [..., 4] = [x1,y1,x2,y2] of the projected cube corners
+    (Ellipsoid.cpp:482-497)."""
+    corners = cube_corners(e)                                   # [..., 3, 8]
+    homo = torch.cat([corners, torch.ones_like(corners[..., :1, :])], dim=-2)
+    uv = projection_matrix(pose_cw, K) @ homo
+    uv = uv[..., :2, :] / uv[..., 2:3, :]
+    return torch.cat([uv.amin(dim=-1), uv.amax(dim=-1)], dim=-1)
+
+
+def project_cube_bbox_cwh(e: torch.Tensor, pose_cw: torch.Tensor,
+                          K: torch.Tensor) -> torch.Tensor:
+    """Projected cube bbox as [center_x, center_y, width, height]
+    (projectOntoImageBbox, Ellipsoid.cpp:500-506)."""
+    r = project_cube_bbox(e, pose_cw, K)
+    return torch.cat([(r[..., 2:] + r[..., :2]) / 2.0,
+                      r[..., 2:] - r[..., :2]], dim=-1)
+
+
+def is_observable(e: torch.Tensor, pose_cw: torch.Tensor) -> torch.Tensor:
+    """Center-in-front-of-camera check (Ellipsoid.cpp:328-343)."""
+    return se3.se3_apply(pose_cw, e[..., :3])[..., 2] >= 0

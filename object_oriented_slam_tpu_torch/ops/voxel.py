@@ -134,20 +134,26 @@ def voxel_segment_mean_plain(key_s, order, pts, cmin, capacity: int,
 
 
 def voxel_attr_mean_plain(key_s, order, attrs, capacity: int):
-    """The per-segment mean [D, capacity] of a per-point attribute attrs
-    [D, G] (points in their ORIGINAL order), summed in sorted order as
+    """The per-segment mean [D, capacity, ...] of a per-point attribute
+    attrs [D, G] or [D, G, C] (points in their ORIGINAL order; C channels
+    averaged alike, the dense builder's colours), summed in sorted order as
     ``voxel_segment_mean_plain`` sums the points (JAX ``_voxel_core``'s
     attribute branch); 0 where a slot holds no segment."""
-    D = key_s.shape[0]
+    D, G = key_s.shape
+    tail = tuple(attrs.shape[2:])
     _, flat = _segment_slots(key_s, capacity)
-    a_s = torch.gather(attrs, 1, order)
-    sums = torch.zeros(D * (capacity + 1), dtype=attrs.dtype,
+    a_s = torch.gather(attrs, 1, order.reshape((D, G) + (1,) * len(tail))
+                       .expand((D, G) + tail))
+    sums = torch.zeros((D * (capacity + 1),) + tail, dtype=attrs.dtype,
                        device=attrs.device)
-    sums.index_add_(0, flat, a_s.reshape(-1))
-    cnts = torch.zeros_like(sums)
-    cnts.index_add_(0, flat, torch.ones_like(a_s.reshape(-1)))
-    sums = sums.reshape(D, capacity + 1)[:, :capacity]
-    cnts = cnts.reshape(D, capacity + 1)[:, :capacity]
+    sums.index_add_(0, flat, a_s.reshape((-1,) + tail))
+    cnts = torch.zeros(D * (capacity + 1), dtype=attrs.dtype,
+                       device=attrs.device)
+    cnts.index_add_(0, flat, torch.ones(D * G, dtype=attrs.dtype,
+                                        device=attrs.device))
+    sums = sums.reshape((D, capacity + 1) + tail)[:, :capacity]
+    cnts = cnts.reshape(D, capacity + 1)[:, :capacity].reshape(
+        (D, capacity) + (1,) * len(tail))
     return torch.where(cnts > 0, sums / cnts.clamp_min(1.0), 0.0)
 
 

@@ -66,9 +66,15 @@ launches no extraction and its host-side half reads those rows.
 a mesh's ranks (``parallel/dist_lm.py``); LM fusion is off while a mesh is
 set, as in the JAX package.
 
-What is not ported raises ``NotImplementedError``: the interactive
-plane check, the dense builder, the batch SVD initializer and the
-array-of-structs backend.
+The backend is ``lm_soa.optimize_objects_soa`` unless ``use_soa_backend``
+is False when the tracker is built (then the AoS ``lm.optimize_objects``;
+the flag is read once, in ``__init__``, as in the JAX package); the 2D
+initialization is the host's incremental SVD unless
+``use_incremental_init`` is set False (then the batch SVD initializer
+``init.init_quadric_svd`` on the device, one host fetch per attempt).
+``Visualization.Builder.Open: 1`` builds a ``DenseBuilder`` fed by every
+frame body with a depth image.  What is not ported raises
+``NotImplementedError``: the interactive plane check.
 """
 from __future__ import annotations
 
@@ -84,9 +90,10 @@ import torch
 from ..assoc import (InstanceCounter, associate_observations,
                      associate_observations_optimal)
 from ..backend import (LMConfig, ObjectObservations, observations_from_flat,
-                       optimize_objects_soa)
+                       optimize_objects, optimize_objects_soa)
 from ..core import camera as cam_mod
 from ..core import plane as plane_mod
+from ..init import init_quadric_svd
 from ..init.svd_incremental import IncrementalQuadricInit
 from ..io.config import Config
 from ..utils import calibrate_measurement_np
@@ -127,17 +134,20 @@ def _np_se3_mul(a, b):
     return np.concatenate([a[:3] + tb, q / np.linalg.norm(q)])
 
 
-def _pinned(name: str, value, what: str):
-    """A setting this slice supports at one value only: reading gives the
-    value, setting any other value raises."""
-    def get(self):
-        return value
+def _shared_opt_fn(use_soa: bool):
+    """The LM call the tracker's ``_opt_fn`` is (JAX ``_shared_opt_fn``):
+    the SoA solver, or the AoS one."""
+    return optimize_objects_soa if use_soa else optimize_objects
 
-    def set_(self, v):
-        if v != value:
-            raise NotImplementedError(
-                f"{name}={v!r}: {what} is not ported to the torch package")
-    return property(get, set_)
+
+def _shared_init_fn(rows: int, cols: int):
+    """The batch SVD initializer packed as [11] (vec10, ok), so that an
+    attempt costs one host fetch (JAX ``_shared_init_fn``)."""
+    def init_packed(p, b, m, K):
+        res = init_quadric_svd(p, b, m, K, rows, cols)
+        return torch.cat([res.ellipsoid,
+                          res.ok.to(res.ellipsoid.dtype)[None]])
+    return init_packed
 
 
 class Tracking:
@@ -163,21 +173,12 @@ class Tracking:
     MAX_OBS2D = 512
     MAX_OBS3D = 256
 
-    use_incremental_init = _pinned("use_incremental_init", True,
-                                   "the batch SVD initializer")
-    use_soa_backend = _pinned("use_soa_backend", True,
-                              "the array-of-structs LM backend")
-
     def __init__(self, config: Config, extractor=None, plane_estimator=None,
                  device=None):
         if config.get_int("Plane.MannualCheck.Open") == 1:
             raise NotImplementedError(
                 "Plane.MannualCheck.Open: the interactive ground-plane "
                 "confirmation is not ported to the torch package")
-        if config.get_int("Visualization.Builder.Open") == 1:
-            raise NotImplementedError(
-                "Visualization.Builder.Open: the dense builder is not "
-                "ported to the torch package")
         self.cfg = config
         self.device = resolve_device(device)
         self.camera = cam_mod.Camera(
@@ -221,7 +222,22 @@ class Tracking:
             "Optimizer.WriteObjectList.Open") == 1
         self.object_list_path = "./object_list.txt"
 
+        # dense visualization map driven by the config key exactly like
+        # Tracking.cpp:234-250 (absent key -> 0 -> off)
+        self.dense_builder = None
+        if config.get_int("Visualization.Builder.Open") == 1:
+            from .dense_builder import DenseBuilder
+            self.dense_builder = DenseBuilder(self.camera, device=self.device)
+
+        # the backend: read once, here, as in the JAX package (a later
+        # assignment of the flag changes nothing; ROADMAP queue 3)
+        self.use_soa_backend = True
+        self._opt_fn = _shared_opt_fn(self.use_soa_backend)
+        # host-side incremental SVD init; the batch initializer on the
+        # device behind the flag (packed [11] result, one fetch an attempt)
+        self.use_incremental_init = True
         self._inc_init = IncrementalQuadricInit(self.K, self.rows, self.cols)
+        self._init_fn = _shared_init_fn(self.rows, self.cols)
         # the pipeline (module docstring); the JAX package's defaults.
         # ``pipeline_depth`` is a property: setting it pins the depth and
         # re-bases the adaptive controller, which moves ``_pipeline_depth``
@@ -294,6 +310,12 @@ class Tracking:
             raise ValueError(f"the mesh's device {mesh.device} is not the "
                              f"tracker's {self.device}")
         self._mesh = mesh
+        from ..parallel.dist_lm import optimize_objects_sharded
+
+        def fn(obs, K, normal, gset, cfg):
+            return optimize_objects_sharded(obs, K, normal, gset, mesh, cfg)
+
+        self._opt_fn = fn
 
     # ------------------------------------------------------------------
     def grab_pose_and_objects(self, timestamp: float, pose_wc: np.ndarray,
@@ -304,7 +326,7 @@ class Tracking:
         """One frame of the pipeline (System::TrackWithObjects entry).
 
         ``depth``: [H, W] integer depth image (TUM scale) or None; ``rgb``
-        is accepted and unused (the dense builder is not ported).
+        [H, W, 3] (BGR) or None feeds the dense builder, when one is on.
         ``ext_result``: the frame's extraction rows [n, 12] on the host
         (vec10, prob, valid), precomputed by the offline batch mapper's
         batched call; the frame then launches no extraction.
@@ -330,14 +352,14 @@ class Tracking:
                 self._pending_plane = (self.plane_estimator.dispatch(depth),
                                        pose_wc)
                 self._plane_deferred.append(
-                    (frame_id, pose_wc, det_mat, depth, with_association,
-                     ext_result))
+                    (frame_id, pose_wc, det_mat, depth, rgb,
+                     with_association, ext_result))
                 return True
             plane_cam = self.plane_estimator(depth)
             if plane_cam is not None:
                 self._latch_plane(plane_cam, pose_wc)
             # else: state stays 1, retry next frame (Tracking.cpp:766-771)
-        return self._frame_body(frame_id, pose_wc, det_mat, depth,
+        return self._frame_body(frame_id, pose_wc, det_mat, depth, rgb,
                                 with_association, t0, ext_result)
 
     # ------------------------------------------------------------------
@@ -366,15 +388,16 @@ class Tracking:
             self._latch_plane(plane_cam, disp_pose)
         self.metrics["plane_wait"].append(time.perf_counter() - t0)
         deferred, self._plane_deferred = self._plane_deferred, []
-        for fid, pw, dm, dep, wa, er in deferred:
-            self._frame_body(fid, pw, dm, dep, wa, time.perf_counter(), er)
+        for fid, pw, dm, dep, rgb, wa, er in deferred:
+            self._frame_body(fid, pw, dm, dep, rgb, wa, time.perf_counter(),
+                             er)
 
     # ------------------------------------------------------------------
-    def _frame_body(self, frame_id, pose_wc, det_mat, depth,
+    def _frame_body(self, frame_id, pose_wc, det_mat, depth, rgb,
                     with_association, t0, ext_result=None):
         """Everything after ground-plane handling for one frame: the
-        extraction's launches, then the host-side half of this frame
-        (eager) or of the frames now due (deferred)."""
+        extraction's launches, the dense builder's fuse, then the host-side
+        half of this frame (eager) or of the frames now due (deferred)."""
         # ---- [1.2] single-frame ellipsoid estimation (dispatch) --------
         n_det = det_mat.shape[0]
         ext_out = None
@@ -394,6 +417,9 @@ class Tracking:
             # a frame that launches no extraction: the fused chain's due
             # frames run their phase B now (their copies landed long ago)
             self._ext_results.update(self.extractor.drain(frame_id))
+        # dense visualization map (Tracking.cpp:234-250, config-gated)
+        if self.dense_builder is not None and depth is not None:
+            self.dense_builder.process_frame(rgb, depth, pose_wc)
         self.metrics["dispatch"].append(time.perf_counter() - t0)
         item = [frame_id, pose_wc, det_mat, ext_out, run, with_association]
         if self.pipeline_depth >= 2 and self.extractor is not None:
@@ -603,7 +629,7 @@ class Tracking:
             if rec.label < 0:
                 rec.label = int(det_mat[i, 5])
             self._append_obs2d(inst, pose_cw, meas_cal, float(det_mat[i, 6]))
-            if not rec.initialized:
+            if self.use_incremental_init and not rec.initialized:
                 self._inc_init.add_observation(inst, pose_wc, meas_cal)
 
         self._t1 = time.perf_counter()
@@ -677,15 +703,36 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _judge_initialization(self):
-        # 2D SVD path with the host-side incremental initializer
+        # 2D SVD path: the host's incremental initializer, or the batch one
         for inst, rec in self.state.objects.items():
             if rec.initialized or len(rec.obs2d_bbox) < self.min_init_frames:
                 continue
-            vec10 = self._inc_init.try_init(inst)
-            if vec10 is not None:
-                rec.vec10 = vec10
+            if self.use_incremental_init:
+                vec10 = self._inc_init.try_init(inst)
+                if vec10 is not None:
+                    rec.vec10 = vec10
+                    rec.initialized = True
+                    self._inc_init.drop(inst)
+                continue
+            # padded to the next power of two from 16, as the JAX package
+            # pads for its compiled shapes
+            M = len(rec.obs2d_bbox)
+            cap = 16
+            while cap < M:
+                cap *= 2
+            poses = np.zeros((cap, 7), np.float32)
+            bboxes = np.full((cap, 4), -1.0, np.float32)
+            mask = np.zeros(cap, bool)
+            poses[:M] = np.stack(rec.obs2d_pose_wc).astype(np.float32)
+            bboxes[:M] = np.stack(rec.obs2d_bbox).astype(np.float32)
+            mask[:M] = True
+            dev = self.device
+            res = self._init_fn(to_device(poses, dev), to_device(bboxes, dev),
+                                to_device(mask, dev), self._K_dev)
+            res = res.cpu().numpy().astype(np.float64)   # the one fetch
+            if res[10] > 0.5:
+                rec.vec10 = res[:10]
                 rec.initialized = True
-                self._inc_init.drop(inst)
 
         # 3D path: seed directly from the latest local estimate
         if self.depth_ellipsoid_opened:
@@ -897,7 +944,7 @@ class Tracking:
                     rec.obs2d_pose_cw, rec.obs2d_pose_wc, rec.obs2d_bbox,
                     rec.obs2d_prob):
                 self._append_obs2d(inst, pose_cw, bbox, prob)
-                if not rec.initialized:
+                if self.use_incremental_init and not rec.initialized:
                     self._inc_init.add_observation(inst, pose_wc, bbox)
             for pose_wc, meas, prob in zip(rec.obs3d_pose_wc, rec.obs3d_meas,
                                            rec.obs3d_prob):
@@ -924,14 +971,8 @@ class Tracking:
         """The LM call of a prepared batch, launched alone."""
         obs = self._unpack(prep)
         normal = to_device(prep["normal"], self.device)
-        if self._mesh is None:
-            est, _chi2 = optimize_objects_soa(
-                obs, self._K_dev, normal, prep["gset"], self.lm_cfg)
-        else:
-            from ..parallel.dist_lm import optimize_objects_sharded
-            est, _chi2 = optimize_objects_sharded(
-                obs, self._K_dev, normal, prep["gset"], self._mesh,
-                self.lm_cfg)
+        est, _chi2 = self._opt_fn(obs, self._K_dev, normal, prep["gset"],
+                                  self.lm_cfg)
         self._finish_backend(prep, est)
 
     def _finish_backend(self, prep, est):

@@ -1,1 +1,1 @@
-from .measurement import calibrate_measurement_np  # noqa: F401
+from .measurement import calibrate_measurement, calibrate_measurement_np  # noqa: F401

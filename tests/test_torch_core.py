@@ -188,3 +188,64 @@ def test_chol_solve_small_matches_jax():
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
     ok = np.isfinite(want).all(axis=1)
     _close(got[ok], want[ok], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["exp_update_xyzabc", "quadric_Qstar",
+                                  "projection_matrix", "project_center",
+                                  "project_bbox_dual", "cube_corners",
+                                  "project_cube_bbox",
+                                  "project_cube_bbox_cwh", "is_observable"])
+def test_ellipsoid_completion_matches_jax(name):
+    """The functions of core/ellipsoid added to complete the module, on
+    test_ellipsoid.py's inputs (ellipsoids pushed in front of cameras near
+    the identity); projected pixels within 2e-3 px + rtol 1e-5."""
+    rng = _rng(7)
+    e, pose_cw = _in_front(rng)
+    Kn = np.tile(K, (N, 1, 1))
+    args = {
+        "exp_update_xyzabc": (e, (rng.normal(size=(N, 6)) * 0.2)
+                              .astype(np.float32)),
+        "quadric_Qstar": (e,),
+        "projection_matrix": (pose_cw, Kn),
+        "project_center": (e, pose_cw, Kn),
+        "project_bbox_dual": (e, pose_cw, Kn),
+        "cube_corners": (e,),
+        "project_cube_bbox": (e, pose_cw, Kn),
+        "project_cube_bbox_cwh": (e, pose_cw, Kn),
+        "is_observable": (e, pose_cw),
+    }[name]
+    got = _torch(getattr(tell, name), *args)
+    want = _jax(getattr(jell, name), *args)
+    if name == "is_observable":
+        np.testing.assert_array_equal(got, want)
+        behind = e.copy()
+        behind[:, 2] -= 12.0
+        np.testing.assert_array_equal(
+            _torch(tell.is_observable, behind, pose_cw),
+            _jax(jell.is_observable, behind, pose_cw))
+        assert got.all() and not _torch(tell.is_observable, behind,
+                                        pose_cw).any()
+        return
+    pixels = name.startswith("project")
+    _close(got, want, atol=2e-3 if pixels else ATOL)
+
+
+def test_calibrate_measurement_matches_jax():
+    """utils.measurement.calibrate_measurement (batch dims (..., 4))
+    against JAX's, and row by row against the host version."""
+    from object_oriented_slam_tpu.utils import (
+        calibrate_measurement as j_cal)
+    from object_oriented_slam_tpu_torch.utils import (
+        calibrate_measurement, calibrate_measurement_np)
+    rng = _rng(8)
+    m = rng.uniform(-5, 660, (3, 16, 4)).astype(np.float32)
+    m[..., 2:] = m[..., :2] + rng.uniform(-5, 300, (3, 16, 2))
+    cal, border = calibrate_measurement(torch.as_tensor(m), 480, 640, 10, 20)
+    jcal, jborder = j_cal(jnp.asarray(m), 480, 640, 10, 20)
+    np.testing.assert_array_equal(cal.numpy(), np.asarray(jcal))
+    np.testing.assert_array_equal(border.numpy(), np.asarray(jborder))
+    for row, c, b in zip(m.reshape(-1, 4), cal.numpy().reshape(-1, 4),
+                         border.numpy().reshape(-1)):
+        want_c, want_b = calibrate_measurement_np(row, 480, 640, 10, 20)
+        np.testing.assert_array_equal(c, want_c.astype(np.float32))
+        assert b == want_b

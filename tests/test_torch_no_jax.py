@@ -36,7 +36,10 @@ DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "backend.slam_kernels", "system.slam_mode",
                  "utils.device", "parallel", "parallel.collectives",
                  "parallel.multihost", "parallel.dist_lm",
-                 "parallel.dist_slam", "parallel.dryrun"]
+                 "parallel.dist_slam", "parallel.dryrun",
+                 "init", "init.svd_init", "backend.lm", "utils.measurement",
+                 "system.profiling", "system.dense_builder",
+                 "ops.dense_fuse"]
 
 
 def _sources():

@@ -209,30 +209,43 @@ def test_observation_tiers_are_powers_of_two():
 @pytest.mark.parametrize("what", [
     "batch_svd_init", "aos_backend", "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
-    """What is not ported raises: "ground_plane" is the plane's interactive
-    confirmation (the extractors, LM fusion, the plane estimate and its
-    latch, the deferred pipeline, the adaptive depth and the asynchronous
-    plane are ported: tests/test_torch_pipeline.py,
-    tests/test_torch_split_extractor.py, tests/test_torch_lm_fusion.py;
-    so are precomputed extraction rows, ``ext_result``:
-    tests/test_torch_offline.py, and the distributed backend:
-    tests/test_torch_dist.py)."""
+    """What is not ported raises: "ground_plane", the plane's interactive
+    confirmation.  The other three cases were unported options and are
+    ported now: the batch SVD initializer (``use_incremental_init =
+    False``), the AoS backend (``use_soa_backend``, read once when the
+    tracker is built, as in the JAX package: a later assignment changes
+    nothing) and the dense builder (``Visualization.Builder.Open``); each
+    case checks that its option is taken (the runs against JAX:
+    tests/test_torch_tracking_batch_init.py, test_torch_backend_lm.py,
+    test_torch_dense_builder.py)."""
+    from object_oriented_slam_tpu_torch.backend import (optimize_objects,
+                                                        optimize_objects_soa)
+    from object_oriented_slam_tpu_torch.system import tracking
     cfg = Config(YAML)
-    if what in ("dense_builder", "ground_plane"):
-        key = {"dense_builder": "Visualization.Builder.Open",
-               "ground_plane": "Plane.MannualCheck.Open"}[what]
+    if what == "ground_plane":
+        key = "Plane.MannualCheck.Open"
         cfg._file[key] = 1.0
         with pytest.raises(NotImplementedError, match=key):
             Tracking(cfg, device="cpu")
         return
+    if what == "dense_builder":
+        cfg._file["Visualization.Builder.Open"] = 1.0
+        tr = Tracking(cfg, device="cpu")
+        assert tr.dense_builder is not None
+        assert tr.dense_builder.device.type == "cpu"
+        assert Tracking(Config(YAML), device="cpu").dense_builder is None
+        return
     tr = Tracking(cfg, device="cpu")
-    act = {
-        "batch_svd_init": lambda: setattr(tr, "use_incremental_init", False),
-        "aos_backend": lambda: setattr(tr, "use_soa_backend", False),
-    }[what]
-    with pytest.raises(NotImplementedError):
-        act()
-    # the supported values stay settable
+    if what == "batch_svd_init":
+        assert tr.use_incremental_init
+        tr.use_incremental_init = False
+        assert not tr.use_incremental_init
+    else:
+        assert tr.use_soa_backend and tr._opt_fn is optimize_objects_soa
+        tr.use_soa_backend = False
+        assert tr._opt_fn is optimize_objects_soa
+        assert tracking._shared_opt_fn(False) is optimize_objects
+    # the other settings stay settable
     tr.pipeline_depth = 1
     tr.fuse_lm = False
     tr.async_plane = False
