@@ -181,6 +181,30 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      operations under the profiler; 4 more frames under
      system/profiling.device_trace with an annotate range, whose trace must
      name the range and both BA kernels;
+  6i. stage (d)'s options ([clustering], after [aos]): the depth path's
+     scene, orbit, lanes and tier with ExtractorConfig(grid_cluster=True)
+     (K13, cluster_grid: the grid-hash pass) and with cluster_chains=2
+     (K5's chain lane): 24 objects' median centre error <= 0.05 m, the map
+     within 1e-4 of a run with the same radius test (the grid's: the path
+     with cluster_grid_select_plain as stage (d); the chains': [depth]'s)
+     and within 1e-3 of [depth]'s K5 map (each: whether bit-equal), the
+     option's kernel launched once a frame and K5 never, every frame after
+     the plane latch under the synchronisation check, one extraction call
+     under the profiler (three launches); then K13 and K5's exact and chain lanes
+     against their plain versions on the card (labels, converged, rounds,
+     sel and ok equal, repeats bit-equal) at the path's mid-orbit frame,
+     at the full tier with a whole-image box and on dense voxel clouds
+     that fill 16384 lanes, each also under a bound of 2 rounds, with
+     device ms beside the bound and beside K5's default on the same
+     inputs; whether the path's survivors come in the grid key's order
+     (informational: K13's hash table takes any order); one [offline]
+     batch with grid_cluster (one K13 launch), each frame's rows bit for
+     bit against its own one-frame extraction with grid_cluster;
+  6j. the viewers ([viz]): [cli]'s export run by examples/torch_run_tum.py
+     --extractor mono with --viz-live 40, and with --viz where cv2 and
+     matplotlib import (which ran is printed): live.html with the map and
+     the image panels, or the 160 frame PNGs and map.png; objects.txt byte
+     for byte [cli]'s adaptive mono run's; frames/s beside it;
   8. one JSON line with a record per kernel (``launches_cli``: the
      adaptive mono CLI run's count of that kernel, ``launches_cli_split``
      / ``_fused`` / ``_auto`` the host-clustered runs',
@@ -190,7 +214,9 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      the BA records [aos]'s; K12's records with the --build-dense run's
      launches; the frame lanes' records at the offline batch's shapes, the border lane's with the
      frame lane among
-     the shapes no path reached), the card line, and the result line
+     the shapes no path reached; K13's and K5's lanes' records with the
+     option runs' launches, the exact lane's 0: no path runs it), the card
+     line, and the result line
      {"ok": true, "device": {...}} last.
 Every path prints its map's IoU against the ground truth
 (system/metrics.object_map_iou).
@@ -247,6 +273,10 @@ CALL_LAUNCHES = {"depth_cloud": 1, "cluster_components": 1,
                  "voxel_downsample": 1, "symmetry_search": 0}
 SYM_CALL_LAUNCHES = dict(CALL_LAUNCHES, symmetry_search=1)
 CALL_OPS_BEFORE = 830
+# the clustering options' kernels (K13, K5's exact and chain lanes), whose
+# counters the depth-path runs read too: 0 where no option is on
+OPTION_NAMES = ("cluster_grid", "cluster_components_exact",
+                "cluster_components_chain")
 # f32 operations of one pair test of symmetry_search, counted from
 # csrc/frontend.cu: the dot product (3 multiplies, 2 adds), the norm sum,
 # the doubling, the difference, the compare and the select of the minimum
@@ -1573,14 +1603,17 @@ def extractor_config(settings):
         "EllipsoidExtraction.Symmetry.Open") == 1)
 
 
-def drive_depth_path(dev, tmp, settings_name, scene, cfg=None):
+def drive_depth_path(dev, tmp, settings_name, scene, cfg=None,
+                     check_sync=False):
     """System with the extractor and the plane estimator (both on the card
     by default) over the N_DEPTH_FRAMES orbit of ``scene`` with rendered
-    depth, every launch counter set to 0 just before and read just after.
-    ``cfg``: the ExtractorConfig (None: the settings file's,
-    ``extractor_config``).  Returns (System, frames, e2e seconds per frame,
-    the extractor's stats per frame, the frame the plane latched on,
-    launches)."""
+    depth, every launch counter set to 0 just before and read just after
+    (the clustering options' counters among them).  ``cfg``: the
+    ExtractorConfig (None: the settings file's, ``extractor_config``).
+    ``check_sync``: every frame after the plane latch runs under PyTorch's
+    synchronisation check set to raise.  Returns (System, frames, e2e
+    seconds per frame, the extractor's stats per frame, the frame the plane
+    latched on, launches)."""
     from object_oriented_slam_tpu_torch.backend import ba_kernels
     from object_oriented_slam_tpu_torch.frontend import (
         make_extractor, make_plane_estimator)
@@ -1603,14 +1636,21 @@ def drive_depth_path(dev, tmp, settings_name, scene, cfg=None):
     slam.open_ground_plane_estimation()
     tr = slam.tracker
 
-    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS)
+    all_kernels = (*ba_kernels.KERNELS, *fk.KERNELS, *fk.OPTION_KERNELS)
     for k in all_kernels:
         k.launches = 0
     e2e, stats, latched_at = [], [], None
     for i, ts, pose, depth, rgb, det in frames:
         extractor.stats = {}
+        check = check_sync and latched_at is not None
         t0 = time.perf_counter()
-        slam.track_with_objects(ts, pose, det, depth=depth)
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            slam.track_with_objects(ts, pose, det, depth=depth)
+        finally:
+            if check:
+                torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         e2e.append(time.perf_counter() - t0)
         stats.append(dict(extractor.stats))
@@ -1693,8 +1733,12 @@ def phase_depth_path(dev, tmp):
         raise RuntimeError(f"ground plane latched at frame {latched_at}")
     if not (tilt < 2.0 and abs(plane[3]) < 0.02):
         raise RuntimeError(f"ground plane off z = 0: {plane}")
-    if min(n for k, n in launches.items() if k != "symmetry_search") <= 0:
+    if min(n for k, n in launches.items()
+           if k != "symmetry_search" and k not in OPTION_NAMES) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in OPTION_NAMES):
+        raise RuntimeError(f"the default path launched a clustering "
+                           f"option's kernel: {launches}")
     if launches["symmetry_search"]:
         raise RuntimeError(f"the path without symmetry launched "
                            f"symmetry_search: {launches}")
@@ -1724,17 +1768,21 @@ def phase_depth_path(dev, tmp):
     if not call[1] < CALL_OPS_BEFORE:
         raise RuntimeError(f"an extraction call is {call[1]} device "
                            f"operations, not fewer than {CALL_OPS_BEFORE}")
-    return launches, (frames[mid], st.ground_plane, stats[mid]), call
+    return launches, (frames[mid], st.ground_plane, stats[mid]), call, \
+        dict(objs=objs, e2e=e2e_ms, ext=ext_ms, rounds=rounds)
 
 
-def extraction_overhead(tag, extractor, frame, ground_plane, expect):
+def extraction_overhead(tag, extractor, frame, ground_plane, expect,
+                        kernels=None):
     """One extraction call (a mid-orbit frame) under the profiler: wall
     time, device busy time, device operations and how many of them are the
     frontend kernels' launches.  Raises unless the call's frontend launches
     are ``expect`` and nothing between its argument copies and its result
     copy makes the host wait for the device.  Returns (busy ms, device
-    operations)."""
+    operations).  ``kernels``: the launch counters (default the frontend
+    kernels of the default path)."""
     from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    kernels = fk.KERNELS if kernels is None else kernels
     _, _, pose, depth, _, det = frame
 
     def call():
@@ -1742,7 +1790,7 @@ def extraction_overhead(tag, extractor, frame, ground_plane, expect):
                          pose, ground_plane)
 
     wall = wall_ms(call, 5)
-    before = sum(k.launches for k in fk.KERNELS)
+    before = sum(k.launches for k in kernels)
     prof = device_busy(call)
     if prof is None:
         raise RuntimeError("the profiler shows no device time for an "
@@ -1752,7 +1800,7 @@ def extraction_overhead(tag, extractor, frame, ground_plane, expect):
     # with PyTorch's synchronisation check set to raise: an .item(), a
     # .cpu(), a copy from pageable host memory or a stream synchronisation
     # between upload and fetch is an error
-    per_call = {k.name: k.launches for k in fk.KERNELS}
+    per_call = {k.name: k.launches for k in kernels}
     up = extractor.upload(depth, det[:, 1:5].copy(), det[:, 5].astype(int),
                           pose, ground_plane)
     torch.cuda.set_sync_debug_mode("error")
@@ -1761,8 +1809,8 @@ def extraction_overhead(tag, extractor, frame, ground_plane, expect):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     host = extractor.fetch(out)
-    per_call = {k.name: k.launches - per_call[k.name] for k in fk.KERNELS}
-    if sum(k.launches for k in fk.KERNELS) == before:
+    per_call = {k.name: k.launches - per_call[k.name] for k in kernels}
+    if sum(k.launches for k in kernels) == before:
         raise RuntimeError("the extraction call launched no kernel")
     if per_call != expect:
         raise RuntimeError(f"an extraction call launched {per_call}, not "
@@ -1847,7 +1895,7 @@ def phase_symmetry_path(dev, tmp, depth_call):
             f"symmetry_search launched {launches['symmetry_search']} times "
             f"for {searched} frames with a detection of type 1 or 2 ({duals} "
             "with a dual)")
-    if min(launches.values()) <= 0:
+    if min(n for k, n in launches.items() if k not in OPTION_NAMES) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     if not (np.isfinite(probs).all() and (probs < 1).any()
             and (probs > 1e-8).all()):
@@ -1935,7 +1983,8 @@ def phase_sparse_path(dev, tmp, sym_call):
                            "over a proper border subset: every one fell "
                            "back to the dense cost")
     if launches["symmetry_search"] != int((searched > 0).sum()) or \
-            min(launches.values()) <= 0:
+            min(n for k, n in launches.items()
+                if k not in OPTION_NAMES) <= 0:
         raise RuntimeError(f"launches {launches} for "
                            f"{int((searched > 0).sum())} frames with a "
                            "detection to search")
@@ -2421,7 +2470,8 @@ def offline_batch(dev, seq, settings, ground_plane, first=76):
     """OFFLINE_BATCH consecutive mid-orbit frames of the export (from
     frame ``first``) packed as the offline mapper packs them, with the
     tracker's run gates.  Returns (FrameBatch, camera, the batch's device
-    inputs (depths, bboxes, frame index, run, types, poses, plane))."""
+    inputs (depths, bboxes, frame index, run, types, poses, plane), the
+    frames as packed: (depth, bboxes, labels, run, pose) each)."""
     from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
     from object_oriented_slam_tpu_torch.io.config import Config
     from object_oriented_slam_tpu_torch.io.tum import TUMDataset
@@ -2447,7 +2497,7 @@ def offline_batch(dev, seq, settings, ground_plane, first=76):
     bb, fi, run, st, poses, plane = bx._unpack(to_device(fb.flat, dev),
                                                fb.pad, fb.B)
     return fb, cam, (depths_d, bb.contiguous(), fi, run, st.to(torch.int32),
-                     poses.contiguous(), plane.contiguous())
+                     poses.contiguous(), plane.contiguous()), packed
 
 
 def batch_call_overhead(dev, fb, cam, online_call):
@@ -2680,10 +2730,11 @@ def phase_offline(dev, tmp, cli, sym_call):
             < launches_by_run["offline per-frame BA"]["ba_normal_eq"]):
         raise RuntimeError("one BA a batch launched no fewer BA kernels than "
                            "one a frame")
-    fb, cam, inputs = offline_batch(dev, seq, settings, ground)
+    fb, cam, inputs, packed = offline_batch(dev, seq, settings, ground)
     busy, ops, wall = batch_call_overhead(dev, fb, cam, sym_call)
     recs, border_recs = frame_lane_checks(dev, fb, cam, inputs)
     kept = {"batch": (fb, cam),
+            "grid_batch": (fb, cam, inputs, packed, ground),
             "objects": os.path.join(tmp, "offline", "objects.txt")}
     return launches_by_run, recs, border_recs, (busy, ops, wall), kept
 
@@ -3907,6 +3958,484 @@ def phase_aos(dev, tmp):
     return launches, ops
 
 
+# [clustering]: stage (d)'s options on the card.  The depth path again with
+# each option (the grid pass on K13, interleaved chain passes on K5's chain
+# lane), then K13 and K5's exact and chain lanes against their plain
+# versions at the path's, the full tier's and dense clouds' shapes
+CLUSTER_OPTIONS = (
+    ("grid", dict(grid_cluster=True), "cluster_grid"),
+    ("chains 2", dict(cluster_chains=2), "cluster_components_chain"))
+# each option's map is held to 1e-4 of a run with the same radius test on
+# the same frames: the chain passes only speed up K5's propagation to the
+# same labels, so [depth]'s K5 run; the grid pass tests the radius exactly
+# on the camera-frame points, so the depth path with the grid option whose
+# stage (d) is cluster_grid_select_plain (grid_plain_map)
+CLUSTER_MAP_TOL = 1e-4
+# the grid run against [depth]'s K5 map too: K5 tests the norm expansion on
+# centred world points (a band of ~3e-5 m about the radius), a pair in that
+# band links on one side only, a component splits or merges and the
+# frame's PCA moves (the JAX package holds the two extractions to 1e-3,
+# tests/test_cluster_grid.py test_extractor_grid_matches_dense)
+GRID_VS_K5_TOL = 1e-3
+# the JAX functions (left to XLA there) K13 and the lanes replace
+CLUSTER_REPLACES = {
+    "cluster_grid": "object_oriented_slam_tpu/ops/cluster.py:320",
+    "cluster_components_exact": "object_oriented_slam_tpu/ops/cluster.py:54",
+    "cluster_components_chain": "object_oriented_slam_tpu/ops/cluster.py:158"}
+# integer / f32 operations counted from csrc/frontend.cu.  K13's table
+# build, per stencil cell of a survivor: the target key's add, the hash
+# (a multiply, a shift), the probe's load, compare and mask; for a hit the
+# three differences, squares, two adds, the compare and the store (14 at
+# most).  A round: per listed neighbour its label's load and minimum (2),
+# per survivor the jumps' load, compare and store (3 each).  A chain pass,
+# per survivor and order: the aggregate's load, flag test and minimum, the
+# two walks' loads, minima and stores (12)
+GRID_OPS_PROBE, GRID_OPS_NEIGHBOUR, JUMP_OPS, CHAIN_OPS = 14, 2, 3, 12
+CLUSTER_TOL, CLUSTER_LEAF = 0.02, 0.01
+
+
+def same_map(objs, ref):
+    """(largest difference of the centres, sorted scales and rotation
+    matrices of two maps with the same instances, bit-equal vectors)."""
+    from object_oriented_slam_tpu_torch.core import se3
+    if sorted(objs) != sorted(ref):
+        raise RuntimeError(f"instances {sorted(objs)} against {sorted(ref)}")
+    diff = 0.0
+    for i in ref:
+        a, b = np.asarray(objs[i], np.float64), np.asarray(ref[i], np.float64)
+        Ra, Rb = (se3.quat_to_mat(torch.tensor(v[3:7])).numpy()
+                  for v in (a, b))
+        diff = max(diff, np.abs(a[:3] - b[:3]).max(),
+                   np.abs(np.sort(a[7:]) - np.sort(b[7:])).max(),
+                   np.abs(Ra - Rb).max())
+    return diff, all(np.array_equal(objs[i], ref[i]) for i in ref)
+
+
+def dense_voxel_clouds(D, N, seed):
+    """Voxel clouds (1 cm cells, camera frame) that fill N lanes: each a
+    wavy surface 1.6 m across sampled densely, its first N cells taken,
+    some lanes masked (holes), detection D - 1 empty.  Returns (points,
+    cells, mask) on the CPU."""
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    rng = np.random.default_rng(seed)
+    M = 12 * N
+    u = rng.uniform(-0.8, 0.8, (D, M, 2))
+    z = 2.0 + 0.05 * np.sin(9 * u[..., 0]) * np.cos(7 * u[..., 1])
+    raw = np.concatenate([u, z[..., None]], -1).astype(np.float32)
+    pts, cells, mask = vx.voxel_downsample_cells(
+        torch.from_numpy(raw), torch.ones((D, M), dtype=torch.bool),
+        CLUSTER_LEAF, N)
+    holes = torch.from_numpy(rng.random((D, N)) < 0.1)
+    holes[0] = False
+    mask = mask & ~holes
+    mask[D - 1] = False
+    return pts.contiguous(), cells.contiguous(), mask.contiguous()
+
+
+def survivors_in_key_order(pts_v, cells_v, m2):
+    """Whether each detection's survivors, in lane order, are in the grid
+    key's order (the order depth_cloud's sort leaves; K13 does not rely on
+    it: its hash table takes any order)."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    R, _ = cl._grid_offsets(CLUSTER_TOL, CLUSTER_LEAF)
+    out = []
+    for d in range(m2.shape[0]):
+        c = cells_v[d][m2[d]].long()
+        if len(c) < 2:
+            out.append(True)
+            continue
+        c = c - c.min(0).values + R
+        key = (c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2]
+        out.append(bool((key[1:] > key[:-1]).all()))
+    return out
+
+
+def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
+                  timed=True):
+    """K13 (the grid pass, with the selection epilogue) and K5's exact and
+    chain (cluster_chains = 2) lanes on one set of inputs against their
+    plain versions on the card: labels, converged, rounds, sel and ok
+    equal, a second launch bit-equal.  With ``timed``: each one's device
+    ms (profiler, held against CUDA events) beside its bound from these
+    inputs and beside K5's default time on the same inputs.  Returns
+    records by name."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    D, N = m2.shape
+    tol, leaf = CLUSTER_TOL, CLUSTER_LEAF
+    n_d = m2.sum(1).double()
+    eye = torch.eye(3, device=dev)
+    recs = {}
+
+    def held(name, runs, want):
+        for got in runs:
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(
+                    f"{name} ({tag}, bound {outer}) differs from its plain "
+                    f"version: labels {int((got[2] != want[2]).sum())} "
+                    f"lanes, sel {int((got[0] != want[0]).sum())}, ok "
+                    f"{got[1].tolist()} vs {want[1].tolist()}, converged "
+                    f"{got[3].tolist()} vs {want[3].tolist()}, rounds "
+                    f"{got[4].tolist()} vs {want[4].tolist()}")
+
+    # K13
+    labels0 = cl.grid_seed(pts_v, m2, tol)
+    g_args = (pts_v, cells_v, m2, labels0, pts_w, centre, tol, leaf, outer,
+              12, 100, 0.5)
+    runs = [cl.cluster_grid_select(*g_args) for _ in range(2)]
+    want = cl.cluster_grid_select_plain(*g_args)
+    torch.cuda.synchronize()
+    held("cluster_grid", runs, want)
+    grid_out = runs[0]
+    # K5's lanes
+    lanes = {}
+    for name, chains, exact in (("cluster_components_exact", -1, True),
+                                ("cluster_components_chain", 2, False)):
+        args, orders = cl.centre_and_seed(pts_w, m2, tol, chains, exact,
+                                          with_orders=True)
+        s_args = (pts_w, *args[:4], centre, args[4], outer, 12, 100, 0.5)
+        runs = [cl.cluster_select(*s_args, frame=frame, exact=exact,
+                                  orders=orders) for _ in range(2)]
+        want = cl.cluster_select_plain(*s_args, exact=exact, orders=orders)
+        torch.cuda.synchronize()
+        held(name, runs, want)
+        lanes[name] = (args, orders, s_args, runs[0])
+    conv = {"cluster_grid": grid_out[3].tolist(),
+            **{k: v[3][3].tolist() for k, v in lanes.items()}}
+    # the labels against K5's default (the norm expansion's band) and the
+    # exact lane's (the grid's test); where all converged
+    args = cl.centre_and_seed(pts_w, m2, tol, -1)
+    k5 = cl.cluster_select(pts_w, *args[:4], centre, args[4], outer, 12,
+                           100, 0.5, frame=frame)
+    both = grid_out[3] & k5[3] & lanes["cluster_components_exact"][3][3]
+    differ = {k: int(((lab != k5[2]) & both[:, None] & m2).sum())
+              for k, lab in (("cluster_grid", grid_out[2]),
+                             ("cluster_components_exact",
+                              lanes["cluster_components_exact"][3][2]),
+                             ("cluster_components_chain",
+                              lanes["cluster_components_chain"][3][2]))}
+    grid_exact = int(((grid_out[2] != lanes["cluster_components_exact"][3][2])
+                      & both[:, None] & m2).sum())
+    print(f"[clustering] {tag}: K13 and K5's exact and chain lanes at D={D}, "
+          f"N={N} ({int(n_d.max())} survivors at most), bound {outer}: "
+          f"labels, converged, rounds, sel and ok equal to their plain "
+          f"versions on the card, second launches bit-equal; rounds "
+          f"{grid_out[4].tolist()} (grid), "
+          f"{lanes['cluster_components_exact'][3][4].tolist()} (exact), "
+          f"{lanes['cluster_components_chain'][3][4].tolist()} (chains 2); "
+          f"converged {conv}; {int(grid_out[1].sum())} of {D} ok; lanes "
+          f"whose label differs from K5's default (detections all three "
+          f"converged) {differ}, the grid's from the exact lane's "
+          f"{grid_exact} (the grid tests camera-frame points, the lanes "
+          f"world points)")
+    if not timed:
+        return recs
+    # K5's default on the same inputs, the time beside
+    args = cl.centre_and_seed(pts_w, m2, tol, -1)
+    d_args = (pts_w, *args[:4], centre, args[4], outer, 12, 100, 0.5)
+    k5_ms = checked_device_ms(lambda: cl.cluster_select(*d_args, frame=frame),
+                              10, "cluster_components")[0]
+    # K13: its table build and rounds (GRID_OPS_*), inputs and outputs once
+    nbr = cl.grid_neighbours_plain(pts_v, cells_v, m2, tol, leaf)
+    own = torch.arange(N, device=dev)[None, :, None]
+    hits = ((nbr != own) & m2[..., None]).sum((1, 2)).double()
+    R, offs = cl._grid_offsets(tol, leaf)
+    r_d = grid_out[4].double()
+    ops = float((n_d * len(offs) * GRID_OPS_PROBE
+                 + r_d * (hits * GRID_OPS_NEIGHBOUR
+                          + n_d * (1 + 12 * JUMP_OPS))).sum())
+    io = bytes_bound([pts_v, cells_v, m2, labels0, pts_w, centre,
+                      *grid_out])[0]
+    b_grid = max((ops / PEAK_F32 * 1e3, "operations"), (io, "bytes"))
+    ms, ev = checked_device_ms(lambda: cl.cluster_grid_select(*g_args), 10,
+                               "cluster_components")
+    recs["cluster_grid (K13)"] = dict(
+        kernel="cluster_grid", shape=(D, N), max_abs_err=0.0, bound=b_grid,
+        ms=ms, events_ms=ev, k5_ms=k5_ms, listed_neighbours=float(hits.sum()),
+        plain_ms=cuda_ms(lambda: cl.cluster_grid_select_plain(*g_args), 1, 0))
+    # the lanes: the pair tests their skip leaves (tested_pairs, with the
+    # lane's own points and norms), chain passes per survivor and order
+    for name, (l_args, orders, s_args, out) in lanes.items():
+        pts_c, nrm, m, _, tol2 = l_args
+        r_d = out[4].double()
+        pairs = float((tested_pairs(pts_c, nrm, m, eye if frame is None
+                                    else frame, tol2, cl.LAUNCH_SHAPE[2])
+                       * r_d).sum())
+        ops = pairs * PAIR_OPS + float((r_d * n_d).sum()) * (
+            12 * JUMP_OPS + (CHAIN_OPS * orders[0].shape[1]
+                             if orders is not None else 0))
+        io = bytes_bound([*l_args[:4], pts_w, centre, *out])[0]
+        b = max((ops / PEAK_F32 * 1e3, "operations"), (io, "bytes"))
+        exact = name.endswith("exact")
+        ms, ev = checked_device_ms(lambda: cl.cluster_select(
+            *s_args, frame=frame, exact=exact, orders=orders), 10,
+            "cluster_components")
+        recs[f"{name} (K5 lane)"] = dict(
+            kernel=name, shape=(D, N), max_abs_err=0.0, bound=b, ms=ms,
+            events_ms=ev, k5_ms=k5_ms, tested_pairs=pairs,
+            plain_ms=cuda_ms(lambda: cl.cluster_select_plain(
+                *s_args, exact=exact, orders=orders), 1, 0))
+    for k, r in recs.items():
+        print(f"[clustering] {tag}: {k} {r['ms']:.4f} ms by the profiler "
+              f"({r['events_ms']:.4f} by CUDA events), "
+              f"{bound_text(r['ms'], r['bound'])}; K5's default on the same "
+              f"inputs {k5_ms:.4f} ms; plain version {r['plain_ms']:.3f} ms")
+    return recs
+
+
+def grid_plain_map(dev, tmp, scene):
+    """The grid run's reference: the depth path with grid_cluster=True
+    whose stage (d) calls cluster_grid_select_plain on the card (the same
+    exact radius test on the same camera-frame points; its round loop
+    reads the host, so no synchronisation check).  Returns the map."""
+    from object_oriented_slam_tpu_torch.frontend import ExtractorConfig
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    kernel = cl.cluster_grid_select
+    cl.cluster_grid_select = cl.cluster_grid_select_plain
+    try:
+        slam, *_, launches = drive_depth_path(
+            dev, tmp, "synthetic_depth.yaml", scene,
+            ExtractorConfig(grid_cluster=True))
+    finally:
+        cl.cluster_grid_select = kernel
+    if launches["cluster_grid"] or launches["cluster_components"]:
+        raise RuntimeError(f"the plain grid run launched {launches}")
+    return slam.map_objects
+
+
+def stage_a_on_card(dev, depth, bboxes, pose, plane, cam, cfg):
+    """Stages (a)-(c) on the card (one depth_cloud launch): (pts_v, cells_v,
+    pts_w, m2, centre estimates, the sort frame the extractor names)."""
+    from object_oriented_slam_tpu_torch.frontend import extractor as text
+    a = text._stage_a(depth, bboxes, pose, plane, cam, cfg)
+    return (a[0].contiguous(), a[2].contiguous(), a[1].contiguous(),
+            a[3].contiguous(), a[4].contiguous(),
+            a[7].transpose(-1, -2).contiguous())
+
+
+def phase_clustering(dev, tmp, path, depth_map, offline):
+    """[clustering]: the depth path (the scene, orbit, lanes and tier of
+    [depth]) with ExtractorConfig(grid_cluster=True) and with
+    cluster_chains=2, each against a run with the same radius test and
+    against [depth]'s map (``depth_map``) on the same frames, every frame
+    after the plane latch under the synchronisation check, one extraction
+    call under the profiler; then K13 and K5's lanes against their plain
+    versions at the path's mid-orbit frame, the full tier and dense
+    clouds, under a bound of 2 rounds too; then one offline batch
+    (``offline``'s, from [offline]) with grid_cluster, each frame's rows
+    against its own one-frame extraction.  Returns (launches of each run, records at
+    the path's shapes, records at the other shapes)."""
+    import dataclasses
+    from object_oriented_slam_tpu_torch.frontend import ExtractorConfig
+    from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
+    from object_oriented_slam_tpu_torch.frontend.extractor import _pack_frame
+    from object_oriented_slam_tpu_torch.io import synthetic as syn
+    from object_oriented_slam_tpu_torch.ops import frontend_kernels as fk
+    scene = scene24()
+    refs = {"grid": ("the plain grid path's", grid_plain_map(dev, tmp, scene)),
+            "chains 2": ("[depth]'s K5", depth_map["objs"])}
+    kernels = (*fk.KERNELS, *fk.OPTION_KERNELS)
+    launches_by_run = {}
+    for name, option, kernel in CLUSTER_OPTIONS:
+        slam, frames, e2e, stats, latched_at, launches = drive_depth_path(
+            dev, tmp, "synthetic_depth.yaml", scene, ExtractorConfig(**option),
+            check_sync=True)
+        tr = slam.tracker
+        objs = slam.map_objects
+        errs = np.array([np.linalg.norm(v[:3] - scene.ellipsoids[i][:3])
+                         for i, v in objs.items()])
+        e2e_ms, ext_ms, _ = path_times(tr, e2e)
+        ran = [s for s in stats if s]
+        rounds = np.array([s["cluster_rounds"] for s in ran])
+        unconverged = [i for i, s in enumerate(stats)
+                       if s and not s["cluster_converged"]]
+        if latched_at is None:
+            raise RuntimeError(f"{name}: the ground plane never latched")
+        ref_name, ref = refs[name]
+        diff, bits = same_map(objs, ref)
+        k5_diff, k5_bits = same_map(objs, depth_map["objs"])
+        want = {k.name: 0 for k in fk.OPTION_KERNELS}
+        want.update(cluster_components=0, symmetry_search=0,
+                    depth_cloud=N_DEPTH_FRAMES,
+                    voxel_downsample=N_DEPTH_FRAMES)
+        want[kernel] = N_DEPTH_FRAMES
+        print(f"[clustering] {name}: {len(objs)}/24 objects; centre error "
+              f"median {np.median(errs):.4g} m, max {errs.max():.4g} m; "
+              f"against {ref_name} map on the same frames: max |diff| "
+              f"{diff:.3g} (limit {CLUSTER_MAP_TOL:g}), bit-equal {bits}; "
+              f"against [depth]'s K5 map: max |diff| {k5_diff:.3g} "
+              f"(limit {GRID_VS_K5_TOL:g}), bit-equal {k5_bits}; "
+              f"e2e ms/frame "
+              f"p50 {np.median(e2e_ms):.3f} mean {e2e_ms.mean():.3f} "
+              f"(default path p50 {np.median(depth_map['e2e']):.3f} mean "
+              f"{depth_map['e2e'].mean():.3f}); extraction p50 "
+              f"{np.median(ext_ms):.3f} (default "
+              f"{np.median(depth_map['ext']):.3f}); clustering rounds per "
+              f"frame min {rounds.min()} median {int(np.median(rounds))} "
+              f"max {rounds.max()} (default "
+              f"{(int(depth_map['rounds'].min()), int(np.median(depth_map['rounds'])), int(depth_map['rounds'].max()))}); "
+              f"{len(frames) - latched_at - 1} frames after the plane latch "
+              f"under the synchronisation check; launches {launches}")
+        if len(objs) < 16 or not np.median(errs) <= 0.05:
+            raise RuntimeError(f"{name}: {len(objs)} objects, median centre "
+                               f"error {np.median(errs):.4g} m")
+        if not (diff <= CLUSTER_MAP_TOL and k5_diff <= GRID_VS_K5_TOL):
+            raise RuntimeError(f"{name}: the map is {diff:.3g} from "
+                               f"{ref_name}, {k5_diff:.3g} from K5's")
+        if unconverged:
+            raise RuntimeError(f"{name}: the clustering did not converge on "
+                               f"frames {unconverged}")
+        if {k: launches[k] for k in want} != want:
+            raise RuntimeError(f"{name} launched {launches}, not {want}")
+        expect = {k.name: 0 for k in kernels}
+        expect.update(depth_cloud=1, voxel_downsample=1)
+        expect[kernel] = 1
+        extraction_overhead(f"clustering {name}", tr.extractor,
+                            frames[len(frames) // 2], tr.state.ground_plane,
+                            expect, kernels)
+        launches_by_run[name] = launches
+
+    # the kernels at the path's shapes (the mid-orbit frame through the
+    # extractor's packing), the full tier, dense clouds, 2 rounds
+    cam = scene.camera
+    cfg = ExtractorConfig()
+    (_, _, pose, depth, _, det), plane, st = path
+    flat, pad, _, cfg_t, _ = _pack_frame(cam, cfg, det[:, 1:5].copy(),
+                                         det[:, 5].astype(int), pose, plane)
+    flat_d = torch.from_numpy(flat).to(dev)
+    depth_d = torch.from_numpy(np.ascontiguousarray(depth, np.int32)).to(dev)
+    pts_v, cells_v, pts_w, m2, centre, frame = stage_a_on_card(
+        dev, depth_d, flat_d[:pad * 4].reshape(pad, 4),
+        flat_d[pad * 6:pad * 6 + 7], flat_d[pad * 6 + 7:pad * 6 + 11], cam,
+        cfg_t)
+    if int(m2.sum(1).max()) != st["cluster_lanes"]:
+        raise RuntimeError(f"the kernels' inputs hold {int(m2.sum(1).max())} "
+                           f"survivors; the path ran {st}")
+    print(f"[clustering] path: the survivors of each detection in lane order "
+          f"are in the grid key's order: {survivors_in_key_order(pts_v, cells_v, m2)}")
+    recs = option_checks(dev, "path", pts_v, cells_v, pts_w, m2, centre,
+                         frame, 96)
+    option_checks(dev, "path", pts_v, cells_v, pts_w, m2, centre, frame, 2,
+                  timed=False)
+    full = {}
+    pose = syn.orbit_trajectory(N_DEPTH_FRAMES, 3.6, 1.7)[11]
+    depth_d = syn.render_depth(scene.ellipsoids, pose, cam, device=dev)
+    bbs, vis = syn.project_bboxes(scene.ellipsoids.astype(np.float32),
+                                  pose.astype(np.float32), cam)
+    area = torch.where(vis, (bbs[:, 2] - bbs[:, 0]) * (bbs[:, 3] - bbs[:, 1]),
+                       -1.0)
+    bboxes = bbs[torch.argsort(area, descending=True)[:FE_DETECTIONS]].to(dev)
+    bboxes[0] = torch.tensor([0.0, 0.0, 639.0, 479.0], device=dev)
+    inputs = stage_a_on_card(
+        dev, depth_d, bboxes, torch.as_tensor(pose, dtype=torch.float32,
+                                              device=dev),
+        torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev), cam,
+        ExtractorConfig(cloud_capacity=FE_TIER))
+    full.update({f"{k} (full)": r for k, r in option_checks(
+        dev, "full tier", *inputs, 96).items()})
+    pts, cells, mask = (t.to(dev) for t in dense_voxel_clouds(
+        FE_DETECTIONS, FE_TIER, SEED))
+    # the dense clouds in the camera frame; their world points a rigid
+    # motion away (the selection's distances), the centre a point of each
+    R = torch.tensor([[0.6, 0.8, 0.0], [-0.8, 0.6, 0.0], [0.0, 0.0, 1.0]],
+                     device=dev)
+    pts_w = (pts @ R.T + torch.tensor([0.3, -0.2, 0.1], device=dev))
+    pts_w = pts_w.contiguous()
+    centre = pts_w[:, 0].contiguous()
+    # the camera's axes in the world frame (the rows of R^T), as the
+    # extractor names its sort frame
+    frame = R.T.contiguous()
+    full.update({f"{k} (dense)": r for k, r in option_checks(
+        dev, "dense", pts, cells, pts_w, mask, centre, frame, 96).items()})
+    option_checks(dev, "dense", pts, cells, pts_w, mask, centre, frame, 2,
+                  timed=False)
+
+    # one offline batch with grid_cluster: the batched call launches K13
+    # once, and each frame's rows (the detections its run gates pass) are
+    # bit for bit those of the frame's own one-frame extraction with the
+    # option (the monolithic extractor, at the frame's own cloud tier)
+    from object_oriented_slam_tpu_torch.frontend.extractor import \
+        make_extractor
+    fb, cam_b, _, packed, ground = offline["grid_batch"]
+    cfg_g = dataclasses.replace(fb.cfg, grid_cluster=True)
+    before = {k.name: k.launches for k in kernels}
+    rows = bx.fetch_batch(bx.dispatch_batch(
+        dataclasses.replace(fb, cfg=cfg_g), cam_b, device=dev))
+    per_call = {k.name: k.launches - before[k.name] for k in kernels}
+    if per_call["cluster_grid"] != 1 or per_call["cluster_components"]:
+        raise RuntimeError(f"the grid batch launched {per_call}")
+    ex = make_extractor(cam_b, cfg_g, device=dev)
+    held_rows = 0
+    for b, (depth, bb, labels, run, pose) in enumerate(packed):
+        s, n = fb.slices[b]
+        if not n:
+            continue
+        one = ex.fetch(ex(depth, bb, labels, pose, ground))[:n]
+        r = np.asarray(run[:n], bool)
+        got, want = rows[s:s + n][r], one[r]
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            diff = np.abs(got.astype(np.float64) - want).max()
+            raise RuntimeError(f"the grid batch's rows of frame {b} differ "
+                               f"from its own extraction (max |diff| "
+                               f"{diff:.3g})")
+        held_rows += int(r.sum())
+    n = sum(n for _, n in fb.slices)
+    print(f"[clustering] offline: one batch of {fb.B} frames ({n} detections, "
+          f"{int((rows[:n, 11] > 0.5).sum())} valid, tier "
+          f"{fb.cfg.cloud_capacity}) with grid_cluster: launches {per_call}; "
+          f"the {held_rows} rows the run gates pass bit-equal to each "
+          f"frame's own one-frame extraction with grid_cluster")
+    return launches_by_run, recs, full
+
+
+def phase_viz(dev, tmp, cli):
+    """[viz]: [cli]'s export run by examples/torch_run_tum.py --extractor
+    mono with --viz-live 40, and with --viz where cv2 and matplotlib import:
+    the files written, objects.txt byte-equal to [cli]'s adaptive mono run
+    without the viewers, frames/s beside it."""
+    import importlib.util
+    import json as _json
+    import re
+    seq, settings = cli["seq"], cli["settings"]
+    ref_objs, ref_text = cli["ref"]
+    fps_ref = cli["rates"]["mono adaptive"][0]
+    have = [m for m in ("cv2", "matplotlib")
+            if importlib.util.find_spec(m) is not None]
+    runs = [("viz-live", ["--viz-live", "40"])]
+    if len(have) == 2:
+        runs.append(("viz", ["--viz"]))
+    print(f"[viz] cv2 / matplotlib importable: {have}; runs: "
+          f"{[name for name, _ in runs]}")
+    for name, extra in runs:
+        out = os.path.join(tmp, name)
+        slam, printed, e2e, checked, _, launches, _, _ = drive_cli(
+            dev, settings, seq, out, ["--extractor", "mono", *extra])
+        text = open(os.path.join(out, "objects.txt")).read()
+        files = sorted(os.listdir(out))
+        if name == "viz-live":
+            html = open(os.path.join(out, "live.html")).read()
+            data = _json.loads(re.search(r"const DATA = (\{.*?\});\n", html,
+                                         re.S).group(1))
+            written = (f"live.html ({len(html)} bytes, {len(data['objects'])} "
+                       f"objects, title {data['title']!r}, panels "
+                       f"{[p['name'] for p in data['panels']]})")
+            if len(data["objects"]) != len(ref_objs) or (
+                    N_DEPTH_FRAMES >= 40 and not data["panels"]):
+                raise RuntimeError(f"[viz] live.html: {written}")
+        else:
+            pngs = [f for f in files if f.startswith("frame_")]
+            written = f"{len(pngs)} frame PNGs and map.png"
+            if len(pngs) != N_DEPTH_FRAMES or "map.png" not in files:
+                raise RuntimeError(f"[viz] --viz wrote {files}")
+        fps = cli_fps(printed)
+        print(f"[viz] {name}: wrote {written}; objects.txt byte-equal to the "
+              f"run without the viewers: {text == ref_text}; {fps:.2f} "
+              f"frames/s against {fps_ref:.2f}; {checked} frames under the "
+              f"synchronisation check")
+        if text != ref_text:
+            raise RuntimeError(f"[viz] {name}: objects.txt differs from the "
+                               "run without the viewers")
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
@@ -3952,7 +4481,8 @@ def main(argv=None):
     for line in (ba_kernels.build_log + fk.build_log
                  + slam_kernels.build_log
                  + dense_fuse.build_log).splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "entry function '_Z25cluster_components_kernel" in line):
             print(f"[build] {line.strip()}")
 
     recs = phase_kernels(dev)
@@ -3960,7 +4490,7 @@ def main(argv=None):
     phase_whole_lm(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches_2d = phase_main_path(dev, tmp)
-        launches, path, depth_call = phase_depth_path(dev, tmp)
+        launches, path, depth_call, depth_map = phase_depth_path(dev, tmp)
         launches_sym, path_sym, sym_call = phase_symmetry_path(dev, tmp,
                                                                depth_call)
         launches_sparse, path_sparse = phase_sparse_path(dev, tmp, sym_call)
@@ -3973,6 +4503,9 @@ def main(argv=None):
                                           offline)
         launches_dense, dense_recs = phase_dense(dev, tmp, cli)
         launches_aos, aos_ops = phase_aos(dev, tmp)
+        launches_cl, cl_recs, cl_full = phase_clustering(
+            dev, tmp, path, depth_map, offline)
+        phase_viz(dev, tmp, cli)
     launches_cli = launches_by_run["mono adaptive"]
     fe_recs, fe_full = phase_frontend_kernels(dev, path)
     sym_recs, sym_full = phase_symmetry_kernel(dev, path_sym)
@@ -4064,6 +4597,23 @@ def main(argv=None):
                  **{key: r[key] for key in ("events_ms", "sort_ms",
                                              "bits_equal", "live_points")}}
                 for k, r in dense_recs.items()]
+    # [clustering]: K13 and K5's exact and chain lanes at the depth path's
+    # shapes, launches the option's depth run's (the grid run's for K13, the
+    # cluster_chains=2 run's for the chain lane; no path runs the exact
+    # lane: 0); their times at the other shapes under kernels_at_full_tier
+    def option_record(k, r, launched):
+        return {"name": k, "route": "cuda", "source": FE_SOURCE,
+                "replaces": CLUSTER_REPLACES[r["kernel"]],
+                "launches": launched, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "share_of_bound": r["bound"][0] / r["ms"],
+                "library_ms": None, "shape": list(r["shape"]),
+                "events_ms": r["events_ms"], "k5_default_ms": r["k5_ms"]}
+    run_of = {kernel: name for name, _, kernel in CLUSTER_OPTIONS}
+    kernels += [option_record(k, r, launches_cl[run_of[r["kernel"]]][
+        r["kernel"]] if r["kernel"] in run_of else 0)
+        for k, r in cl_recs.items()]
     # [aos]: the AoS LM's launches of K1-K4 on its run, beside the records
     for rec in kernels:
         if rec["name"].startswith(("ba_normal_eq", "ba_chi2")):
@@ -4074,6 +4624,7 @@ def main(argv=None):
                      for k, r in sparse_full.items()]
     at_full_tier += [record(k, r, FE_SOURCE, OFFLINE_REPLACES[r["kernel"]])
                      for k, r in offline_border.items()]
+    at_full_tier += [option_record(k, r, 0) for k, r in cl_full.items()]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "kernels_at_full_tier": at_full_tier}))

@@ -37,7 +37,11 @@ the ranks of a torchrun launch (``parallel/dist_lm.py``), and
 every frame's RGB-D image into a voxel map (``system/dense_builder.py``,
 the K12 ``dense_fuse`` kernel on the card; on when the settings open
 ``Visualization.Builder.Open`` too) and writes it as ``map.ply`` or, with
-``--map-format pcd``, ``map.pcd``:
+``--map-format pcd``, ``map.pcd``.  ``--viz`` writes ``frame_XXXX.png``
+each frame (the detections and the map's projected ellipses over the RGB
+image, ``viz/export.py``, with ``cv2``) and ``map.png`` at the end (with
+``matplotlib``); ``--viz-live N`` rewrites ``live.html`` (the standalone
+WebGL viewer, ``viz/web_viewer.py``) every N frames and once at the end:
 
     python -m torch.distributed.run --nproc_per_node 2 \
         examples/torch_run_tum.py <yaml> <dir> --distributed [--offline \
@@ -47,9 +51,7 @@ the K12 ``dense_fuse`` kernel on the card; on when the settings open
 on the CPU; gloo also lets ranks share one GPU.  Without torchrun's
 environment they run as one shard.  Every rank runs the same frames and
 holds the same map; rank 0 alone writes the output files (and runs
-``--slam-mode``).  Flags of
-``run_tum.py`` whose subsystem is not ported raise ``NotImplementedError``
-naming its item of ``ROADMAP.md``'s queue 1.
+``--slam-mode``).
 """
 import argparse
 import os
@@ -58,11 +60,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-_UNPORTED = (
-    # (flag, is it set?, what, ROADMAP.md queue 1 item)
-    ("--viz", lambda a: a.viz, "the renders (viz/export.py)", "9d"),
-    ("--viz-live", lambda a: a.viz_live, "the live web viewer", "9d"),
-)
 
 
 def parser():
@@ -159,11 +156,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.offline and args.no_depth:
         ap.error("--offline requires the depth pipeline")
-    for flag, is_set, what, item in _UNPORTED:
-        if is_set(args):
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported to the torch package "
-                f"(ROADMAP.md queue 1, item {item})")
+    if args.viz:
+        # the renders need both; fail before the run, not after it
+        import importlib.util
+        missing = [m for m in ("cv2", "matplotlib")
+                   if importlib.util.find_spec(m) is None]
+        if missing:
+            ap.error(f"--viz needs {' and '.join(missing)}, which do not "
+                     f"import here")
 
     from object_oriented_slam_tpu_torch.system.tracking import \
         resolve_device
@@ -276,14 +276,15 @@ def _run(args, device, mesh):
               f"{len(st.objects)} instances")
 
     os.makedirs(args.out, exist_ok=True)
-    ds = TUMDataset(args.dataset, with_rgb=builder is not None)
+    ds = TUMDataset(args.dataset, with_rgb=(builder is not None or args.viz
+                                            or bool(args.viz_live)))
     if args.odometry:
         ds.set_odometry(args.odometry)
     try:
         if args.offline:
             _offline(args, slam, ds, cam, ext_cfg, mesh)
         else:
-            _online_loop(args, slam, ds, skip,
+            _online_loop(args, slam, ds, skip, cam,
                          builder if external_builder else None)
     finally:
         ds.close()
@@ -319,12 +320,16 @@ def _offline(args, slam, ds, cam, ext_cfg, mesh):
     return mapper
 
 
-def _online_loop(args, slam, ds, skip, external_builder=None):
+def _online_loop(args, slam, ds, skip, cam, external_builder=None):
     from object_oriented_slam_tpu_torch.system.metrics import timing_summary
 
+    # rank 0 alone writes files (``--distributed``)
+    writes = not (args.distributed and slam.tracker._mesh is not None
+                  and slam.tracker._mesh.rank != 0)
     t0 = time.time()
     n = 0
     n_seen = 0
+    last_panels = None
     for i, ts, pose, depth, rgb, det in ds.frames():
         n_seen += 1
         if n_seen <= skip:
@@ -333,12 +338,32 @@ def _online_loop(args, slam, ds, skip, external_builder=None):
                                 with_association=not args.auto_assoc)
         if external_builder is not None:
             external_builder.process_frame(rgb, depth, pose)
+        if args.viz and rgb is not None and writes:
+            import cv2
+            from object_oriented_slam_tpu_torch.viz.export import draw_frame
+            img = draw_frame(rgb, det, slam.map_objects, pose, cam.K)
+            cv2.imwrite(os.path.join(args.out, f"frame_{i:04d}.png"), img)
         n += 1
+        if args.viz_live and n % args.viz_live == 0 and writes:
+            from object_oriented_slam_tpu_torch.viz.web_viewer import (
+                export_live_snapshot, frame_panels)
+            last_panels = frame_panels(
+                rgb=rgb, depth=depth, det_mat=det,
+                map_objects=slam.map_objects, pose_wc=pose, K=cam.K,
+                depth_scale=cam.scale)
+            export_live_snapshot(args.out, slam.tracker.state, n,
+                                 image_panels=last_panels)
         if n % 10 == 0:
             print(f"frame {n} ({time.time() - t0:.1f}s)", flush=True)
         if args.max_frames and n >= args.max_frames:
             break
     dt = time.time() - t0
+    if args.viz_live and writes:
+        from object_oriented_slam_tpu_torch.viz.web_viewer import \
+            export_live_snapshot
+        slam.tracker.sync()
+        export_live_snapshot(args.out, slam.tracker.state, n,
+                             image_panels=last_panels)
     print(f"Processed {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps)")
     print("Timing:", timing_summary(slam.tracker.metrics))
     trace = slam.tracker.depth_trace
@@ -360,6 +385,13 @@ def _save_outputs(args, slam, builder=None):
         ext = "pcd" if args.map_format == "pcd" else "ply"
         builder.save_map(os.path.join(args.out, f"map.{ext}"))
         print(f"Saved dense map.{ext}")
+    if args.viz:
+        from object_oriented_slam_tpu_torch.viz.export import render_map
+        traj = np.stack(slam.tracker.state.frames_pose_wc)[:, :3]
+        cloud = builder.get_map()[0] if builder is not None else None
+        render_map(slam.map_objects, traj, slam.tracker.state.ground_plane,
+                   cloud, os.path.join(args.out, "map.png"))
+        print("Saved map.png")
     if args.checkpoint:
         # after save_objects_to_file's sync(): no frame is pending
         from object_oriented_slam_tpu_torch.system.checkpoint import \

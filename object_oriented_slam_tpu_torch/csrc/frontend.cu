@@ -1173,6 +1173,118 @@ __device__ __forceinline__ int closer_label(
     return (d2 <= tol2 && l < best) ? l : best;
 }
 
+// The exact lane's radius test: the direct difference on the uncentred
+// points, ((dx*dx + dy*dy) + dz*dz) <= tol2, each operation rounded on its
+// own (ops/cluster.min_label_pass_exact_plain, JAX _min_label_pass).
+__device__ __forceinline__ int closer_label_exact(
+    float xi, float yi, float zi, const float4 p, int l, float tol2,
+    int best)
+{
+    const float dx = xi - p.x, dy = yi - p.y, dz = zi - p.z;
+    const float d2 = (dx * dx + dy * dy) + dz * dz;
+    return (d2 <= tol2 && l < best) ? l : best;
+}
+
+// The carry into this thread of a segmented minimum over the block's
+// threads, in thread order (kRev: from the last thread down): each thread
+// gives the pair (v, has) of its chunk, has = a segment starts inside it,
+// v = the minimum since its last start (or over the whole chunk); the pair
+// of the chunks before it, combined, is returned as its value (2^30 where
+// none).  sv / sh: 32 ints of scratch each.  All threads call it.
+template <bool kRev>
+__device__ int block_seg_carry(int v, bool has, int* sv, int* sh)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int W = blockDim.x >> 5;
+    int iv = v;
+    int ih = has ? 1 : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int ov = kRev ? __shfl_down_sync(0xffffffffu, iv, o)
+                            : __shfl_up_sync(0xffffffffu, iv, o);
+        const int oh = kRev ? __shfl_down_sync(0xffffffffu, ih, o)
+                            : __shfl_up_sync(0xffffffffu, ih, o);
+        if (kRev ? lane + o < 32 : lane >= o) {
+            if (!ih) iv = min(iv, ov);
+            ih |= oh;
+        }
+    }
+    // the lanes before this one in the warp (inclusive of the one before)
+    int ev = kRev ? __shfl_down_sync(0xffffffffu, iv, 1)
+                  : __shfl_up_sync(0xffffffffu, iv, 1);
+    int eh = kRev ? __shfl_down_sync(0xffffffffu, ih, 1)
+                  : __shfl_up_sync(0xffffffffu, ih, 1);
+    if (kRev ? lane == 31 : lane == 0) {
+        ev = OSLAM_BIG;
+        eh = 0;
+    }
+    __syncthreads();            // sv / sh may still be read
+    if (kRev ? lane == 0 : lane == 31) {
+        sv[warp] = iv;
+        sh[warp] = ih;
+    }
+    __syncthreads();
+    // the warps before this one, in scan order
+    int cv = OSLAM_BIG;
+    if (kRev) {
+        for (int w = W - 1; w > warp; --w) cv = sh[w] ? sv[w] : min(cv, sv[w]);
+    } else {
+        for (int w = 0; w < warp; ++w) cv = sh[w] ? sv[w] : min(cv, sv[w]);
+    }
+    return eh ? ev : min(cv, ev);
+}
+
+// One chain pass (JAX ops/cluster.py _chain_apply) over the n labels a
+// into b, by all threads of the block: along the order (compacted lanes,
+// a permutation of [0, n)), a forward and a backward segmented minimum of
+// the labels, a segment a run of linked points (link[k]: the point at k is
+// linked to the one before it), and b at each point the lesser of the two.
+// A thread takes a contiguous chunk of the order; the carries between
+// chunks are block scans.  Returns whether a label of this thread's
+// changed.  The caller separates passes with __syncthreads().
+__device__ bool chain_pass(const int* a, int* b, int n,
+                           const int* __restrict__ order,
+                           const uint8_t* __restrict__ link, int* sv, int* sh)
+{
+    const int T = blockDim.x;
+    const int L = (n + T - 1) / T;
+    const int lo = min(n, (int)threadIdx.x * L), hi = min(n, lo + L);
+    int fv = OSLAM_BIG, bv = OSLAM_BIG;
+    bool fh = false, bh = false;
+    for (int k = lo; k < hi; ++k) {
+        const int l = a[order[k]];
+        if (link[k] == 0) {
+            fv = l;
+            fh = true;
+        } else {
+            fv = min(fv, l);
+        }
+        if (!bh) {
+            bv = min(bv, l);
+            bh = k + 1 >= n || link[k + 1] == 0;
+        }
+    }
+    const int fc = block_seg_carry<false>(fv, fh, sv, sh);
+    const int bc = block_seg_carry<true>(bv, bh, sv, sh);
+    int v = fc;
+    for (int k = lo; k < hi; ++k) {
+        const int o = order[k];
+        const int l = a[o];
+        v = link[k] == 0 ? l : min(v, l);
+        b[o] = v;
+    }
+    bool diff = false;
+    v = bc;
+    for (int k = hi - 1; k >= lo; --k) {
+        const int o = order[k];
+        const int l = a[o];
+        v = (k + 1 >= n || link[k + 1] == 0) ? l : min(v, l);
+        const int r = min(b[o], v);
+        b[o] = r;
+        diff = diff || (r != l);
+    }
+    return diff;
+}
+
 // One synchronous jump over n labels: b_i = a_{a_i} (a label >= n, a
 // masked point's, stays), by all threads of the block; with kTrack it returns whether a
 // label of this thread's changed.  The caller separates jumps with
@@ -1245,8 +1357,27 @@ __device__ __forceinline__ bool jump_once(const int* a, int* b, int n)
 //    writing into a buffer a slow one still jumps through.
 // Precondition: labels0 of an unmasked lane is an unmasked lane of index
 // <= its own (the identity, or ops/cluster._chain_seed's output).
+//
+// Lanes (template parameters; without them the code and the bits are
+// those of the kernel before them):
+//  - kPass = OSLAM_PASS_EXACT (connected_components(exact=True), JAX
+//    _min_label_pass :54): the pair test is the direct difference on the
+//    uncentred points the caller passes, the squared norms only feeding
+//    the boxes' slack (`far_apart`, which holds for this test too).
+//  - kChain (cluster_chains > 0, JAX _chain_apply :158 in _propagate
+//    :196): after each pass and before the jumps every block runs, on its
+//    own copy of the labels, a forward and a backward segmented minimum
+//    along each of up to three spatial orders (`chain_pass`).  The orders
+//    and their link flags come from torch in compacted numbering
+//    (ops/cluster.chain_orders).  A minimum has no order: deterministic.
+//  - kPass = OSLAM_PASS_GRID: cluster_grid, K13, below.
 // ---------------------------------------------------------------------------
 #define OSLAM_CC_MAXT 512
+#define OSLAM_PASS_DENSE 0
+#define OSLAM_PASS_EXACT 1
+#define OSLAM_PASS_GRID 2
+#define OSLAM_GRID_MAX_C 124        // stencil cells of the grid lane, at most
+#define OSLAM_HASH_EMPTY 0xffffffffffffffffull
 #ifndef OSLAM_CC_P
 #define OSLAM_CC_P 2            // points a lane keeps in registers
 #endif
@@ -1271,6 +1402,13 @@ __device__ __forceinline__ void cluster_wait()
 // rounding of the rotation as well (a few ulp of a coordinate, so of the
 // same order against the gap), and 1 % on tol2 for the frame's own
 // departure from a rotation.
+// The exact lane's direct test rounds within 5 ulp-halves of d2 itself: a
+// pair passes only if its true squared distance is below tol2 (1 + 3e-7).
+// The rotation moves a rotated coordinate by under 4e-7 |p| (p uncentred
+// there, so hi.w their largest squared norm), the gap by under
+// e = 4e-7 (|p_i| + |p_j|), the squared gap by under 2 e tol + e^2 <=
+// 4e-7 (2 tol2 + w_i + w_j) + e^2 near the radius.  1.01 tol2 + 2e-6
+// (w_i + w_j) covers both: the same slack serves both tests.
 __device__ __forceinline__ bool far_apart(
     const float4 ilo, const float4 ihi, const float4 jlo, const float4 jhi,
     float tol2)
@@ -1320,15 +1458,67 @@ __device__ __forceinline__ unsigned long long block_max_key(
     return key;
 }
 
-template <int P>
+// cluster_grid (K13) and the K5 lanes' extra arguments.  Chain lane: the
+// orders [D, n_orders, N] (compacted lanes; entry k < n a permutation of
+// [0, n)) and link flags [D, n_orders, N].  Grid lane: see cluster_grid
+// below.
+struct ClusterLane {
+    const int* chain_order;
+    const uint8_t* chain_link;
+    int n_orders;
+    const int* cells;               // [D, N, 3] int32 voxel cells
+    int R;                          // stencil rings: ceil(tol / leaf)
+    int smax;                       // a stencil cell's least squared gap in
+                                    // cells, sum of max(|d| - 1, 0)^2, <= it
+    unsigned long long* hash;       // [D, hash_cap] scratch
+    int hash_cap;                   // a power of two >= 2 N
+    uint16_t* nbr;                  // [D, OSLAM_GRID_MAX_C, N] scratch
+    uint8_t* ncount;                // [D, N] scratch
+};
+
+// ---------------------------------------------------------------------------
+// cluster_grid (K13).  Replaces ops/cluster.connected_components_grid of the
+// JAX package (:320; the extractor's grid_cluster path, extractor.py:245-250,
+// left to XLA there): the same whole-frame launch as cluster_components with
+// another pass.  Each survivor's neighbours are looked up once per launch in
+// the stencil of <= 124 cells (JAX _grid_offsets) around its voxel cell:
+// every block inserts its slice of the survivors' packed cell keys (relative
+// to their least cell plus R, as JAX packs them) into an open-addressing hash
+// table in device memory, then tests each stencil cell's point with the
+// exact radius test ((dx*dx + dy*dy) + dz*dz <= tol2, as JAX) and keeps the
+// hits as 16-bit compacted ids in a neighbour table in device memory (both
+// scratch the caller allocates).  A pass is then, per point, the
+// least label of its listed neighbours: O(n C) instead of O(n^2).  The hash
+// table needs no order of the lanes (JAX sorts them and searches): a key
+// held by several points, which a voxel cloud never has, keeps the least of
+// them (atomicMin), the first that JAX's stable sort would find.  Bound by
+// bytes: the neighbour table's reads, 2 bytes a listed neighbour a round.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int grid_key(const int* cells, int o, int cx,
+                                        int cy, int cz, int R)
+{
+    const int kx = min(max(cells[3 * o] - cx + R, 0), 1023);
+    const int ky = min(max(cells[3 * o + 1] - cy + R, 0), 1023);
+    const int kz = min(max(cells[3 * o + 2] - cz + R, 0), 1023);
+    return (kx << 20) | (ky << 10) | kz;
+}
+
+__device__ __forceinline__ unsigned grid_hash(int key, int lg)
+{
+    return ((unsigned)key * 2654435769u) >> (32 - lg);
+}
+
+template <int P, int kPass, bool kChain>
 __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     const float* __restrict__ pts_c, const float* __restrict__ nrm,
     const uint8_t* __restrict__ mask, const int* __restrict__ labels0, int N,
     float tol2, int outer_iters, int jump_iters, int smem_bytes, int prune,
     const float* __restrict__ sort_frame, int frame_stride,
     int* __restrict__ out_labels, uint8_t* __restrict__ converged,
-    int* __restrict__ rounds, const Selection sel)
+    int* __restrict__ rounds, const Selection sel, const ClusterLane lane_args)
 {
+    constexpr bool kGrid = kPass == OSLAM_PASS_GRID;
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
     const int S = (int)cluster.num_blocks();
@@ -1346,6 +1536,10 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     __shared__ int warp_off[32];
     __shared__ int chunk_total;
     __shared__ float frame[9];  // rows u, v, w of the boxes' frame
+    // chain_pass's scratch (chain lane), the grid lane's stencil keys, its
+    // count and the least cell: only their lanes allocate them
+    __shared__ int scan_vh[kChain ? 64 : 1];
+    __shared__ int grid_sh[kGrid ? OSLAM_GRID_MAX_C + 4 : 1];
 
     // --- compaction: idx[c] = the c-th unmasked lane.  Masked lanes get
     // their label N here (chunk by chunk over the ranks); unmasked lanes
@@ -1420,65 +1614,117 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     __syncthreads();
     for (int c = n + tid; c < n_pad; c += T) idx[c] = idx[0];
 
-    // --- the frame the boxes are taken in.  A voxel cloud is sorted by
-    // the cells of the camera frame (x, then y, then z), so 32 consecutive
-    // points are a strip of a thin slab across the camera's x axis, which
-    // in world coordinates may point anywhere: an axis-aligned box of a
-    // slanted strip is fat.  The caller names the frame the cloud was
-    // sorted in (`sort_frame`, rows u, v, w); it is taken if it is a
-    // rotation to 1e-3, else the boxes are taken along the axes of the
-    // points' own coordinates (the identity).  Any rotation keeps
-    // distances, so the skip stays exact whatever the frame is; a cloud in
-    // no order just gets boxes that skip nothing.
-    {
-        float f[9];
-        for (int k = 0; k < 9; ++k) f[k] = sort_frame[k];
-        bool rotation = true;
-        for (int a = 0; a < 3; ++a)
-            for (int b = a; b < 3; ++b) {
-                const float dot = f[3 * a] * f[3 * b]
-                                  + f[3 * a + 1] * f[3 * b + 1]
-                                  + f[3 * a + 2] * f[3 * b + 2];
-                // written so that a NaN fails it
-                if (!(fabsf(dot - (a == b ? 1.0f : 0.0f)) <= 1e-3f))
-                    rotation = false;
-            }
-        if (tid < 9)
-            frame[tid] = rotation ? f[tid] : (tid % 4 == 0 ? 1.0f : 0.0f);
-    }
-    __syncthreads();
-    // a box per 32 points (in that frame), and the points themselves where
-    // they fit
-    for (int s = warp; s < n_sub; s += W) {
-        const int c = (s << 5) + lane;
-        const bool real = c < n;
-        float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (real) {
+    // --- grid lane: the stencil, the least cell, this block's part of the
+    // hash table cleared
+    // (grid_sh: the stencil's keys, their count, the least cell)
+    const int hlg = kGrid ? 32 - __clz(max(2 * n_pad, 64) - 1) : 0;
+    unsigned long long* htab = nullptr;
+    if constexpr (kGrid) {
+        int* dkeys = grid_sh;
+        int& n_off = grid_sh[OSLAM_GRID_MAX_C];
+        int* gmin = grid_sh + OSLAM_GRID_MAX_C + 1;
+        const int R = lane_args.R;
+        if (tid == 0) {
+            int c = 0;
+            for (int dx = -R; dx <= R; ++dx)
+                for (int dy = -R; dy <= R; ++dy)
+                    for (int dz = -R; dz <= R; ++dz) {
+                        if (dx == 0 && dy == 0 && dz == 0) continue;
+                        const int mx = max(abs(dx) - 1, 0);
+                        const int my = max(abs(dy) - 1, 0);
+                        const int mz = max(abs(dz) - 1, 0);
+                        if (mx * mx + my * my + mz * mz <= lane_args.smax &&
+                            c < OSLAM_GRID_MAX_C)
+                            dkeys[c++] = dx * (1 << 20) + dy * (1 << 10) + dz;
+                    }
+            n_off = c;
+            gmin[0] = gmin[1] = gmin[2] = 0x7fffffff;
+        }
+        __syncthreads();
+        const int* cells = lane_args.cells + (size_t)d * N * 3;
+        int mx = 0x7fffffff, my = 0x7fffffff, mz = 0x7fffffff;
+        for (int c = tid; c < n; c += T) {
             const int o = idx[c];
-            q = make_float4(pts_c[3 * o], pts_c[3 * o + 1], pts_c[3 * o + 2],
-                            nrm[o]);
+            mx = min(mx, cells[3 * o]);
+            my = min(my, cells[3 * o + 1]);
+            mz = min(mz, cells[3 * o + 2]);
         }
-        if (resident) tile[c] = q;
-        const float inf = __int_as_float(0x7f800000);
-        const float ru = q.x * frame[0] + q.y * frame[1] + q.z * frame[2];
-        const float rv = q.x * frame[3] + q.y * frame[4] + q.z * frame[5];
-        const float rw = q.x * frame[6] + q.y * frame[7] + q.z * frame[8];
-        float lx = real ? ru : inf, ly = real ? rv : inf,
-              lz = real ? rw : inf;
-        float hx = real ? ru : -inf, hy = real ? rv : -inf,
-              hz = real ? rw : -inf, hn = q.w;
-        for (int o = 16; o > 0; o >>= 1) {
-            lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
-            ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
-            lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
-            hx = fmaxf(hx, __shfl_xor_sync(0xffffffffu, hx, o));
-            hy = fmaxf(hy, __shfl_xor_sync(0xffffffffu, hy, o));
-            hz = fmaxf(hz, __shfl_xor_sync(0xffffffffu, hz, o));
-            hn = fmaxf(hn, __shfl_xor_sync(0xffffffffu, hn, o));
-        }
+        mx = warp_min(mx);
+        my = warp_min(my);
+        mz = warp_min(mz);
         if (lane == 0) {
-            box[2 * s] = make_float4(lx, ly, lz, 0.0f);
-            box[2 * s + 1] = make_float4(hx, hy, hz, hn);
+            atomicMin(&gmin[0], mx);
+            atomicMin(&gmin[1], my);
+            atomicMin(&gmin[2], mz);
+        }
+        htab = lane_args.hash + (size_t)d * lane_args.hash_cap;
+        const int hsize = 1 << hlg;
+        const int per_rank = (hsize + S - 1) / S;
+        for (int h = rank * per_rank + tid;
+             h < min(hsize, (rank + 1) * per_rank); h += T)
+            htab[h] = OSLAM_HASH_EMPTY;
+        __syncthreads();
+    } else {
+        // --- the frame the boxes are taken in.  A voxel cloud is sorted by
+        // the cells of the camera frame (x, then y, then z), so 32 consecutive
+        // points are a strip of a thin slab across the camera's x axis, which
+        // in world coordinates may point anywhere: an axis-aligned box of a
+        // slanted strip is fat.  The caller names the frame the cloud was
+        // sorted in (`sort_frame`, rows u, v, w); it is taken if it is a
+        // rotation to 1e-3, else the boxes are taken along the axes of the
+        // points' own coordinates (the identity).  Any rotation keeps
+        // distances, so the skip stays exact whatever the frame is; a cloud in
+        // no order just gets boxes that skip nothing.
+        {
+            float f[9];
+            for (int k = 0; k < 9; ++k) f[k] = sort_frame[k];
+            bool rotation = true;
+            for (int a = 0; a < 3; ++a)
+                for (int b = a; b < 3; ++b) {
+                    const float dot = f[3 * a] * f[3 * b]
+                                      + f[3 * a + 1] * f[3 * b + 1]
+                                      + f[3 * a + 2] * f[3 * b + 2];
+                    // written so that a NaN fails it
+                    if (!(fabsf(dot - (a == b ? 1.0f : 0.0f)) <= 1e-3f))
+                        rotation = false;
+                }
+            if (tid < 9)
+                frame[tid] = rotation ? f[tid] : (tid % 4 == 0 ? 1.0f : 0.0f);
+        }
+        __syncthreads();
+        // a box per 32 points (in that frame), and the points themselves where
+        // they fit
+        for (int s = warp; s < n_sub; s += W) {
+            const int c = (s << 5) + lane;
+            const bool real = c < n;
+            float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (real) {
+                const int o = idx[c];
+                q = make_float4(pts_c[3 * o], pts_c[3 * o + 1], pts_c[3 * o + 2],
+                                nrm[o]);
+            }
+            if (resident) tile[c] = q;
+            const float inf = __int_as_float(0x7f800000);
+            const float ru = q.x * frame[0] + q.y * frame[1] + q.z * frame[2];
+            const float rv = q.x * frame[3] + q.y * frame[4] + q.z * frame[5];
+            const float rw = q.x * frame[6] + q.y * frame[7] + q.z * frame[8];
+            float lx = real ? ru : inf, ly = real ? rv : inf,
+                  lz = real ? rw : inf;
+            float hx = real ? ru : -inf, hy = real ? rv : -inf,
+                  hz = real ? rw : -inf, hn = q.w;
+            for (int o = 16; o > 0; o >>= 1) {
+                lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
+                ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
+                lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
+                hx = fmaxf(hx, __shfl_xor_sync(0xffffffffu, hx, o));
+                hy = fmaxf(hy, __shfl_xor_sync(0xffffffffu, hy, o));
+                hz = fmaxf(hz, __shfl_xor_sync(0xffffffffu, hz, o));
+                hn = fmaxf(hn, __shfl_xor_sync(0xffffffffu, hn, o));
+            }
+            if (lane == 0) {
+                box[2 * s] = make_float4(lx, ly, lz, 0.0f);
+                box[2 * s + 1] = make_float4(hx, hy, hz, hn);
+            }
         }
     }
 
@@ -1493,90 +1739,174 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     if (n_ig > 0 && n_ig < W) JS = min(W / n_ig, n_sub);
     const int units = n_ig * JS;
 
-    // every block's buffers are laid out before any remote write
+    // every block's buffers are laid out before any remote write (and the
+    // grid lane's hash table is cleared)
     cluster.sync();
+
+    // --- grid lane: this slice's keys into the hash table, then, once
+    // every block's are in, this slice's neighbour lists
+    const uint16_t* nbr = nullptr;
+    const uint8_t* ncount = nullptr;
+    if constexpr (kGrid) {
+        const int* cells = lane_args.cells + (size_t)d * N * 3;
+        const int* dkeys = grid_sh;
+        const int* gmin = grid_sh + OSLAM_GRID_MAX_C + 1;
+        const int cx = gmin[0], cy = gmin[1], cz = gmin[2], R = lane_args.R;
+        const unsigned hmask = (1u << hlg) - 1u;
+        for (int c = own_lo + tid; c < own_hi; c += T) {
+            const int key = grid_key(cells, idx[c], cx, cy, cz, R);
+            const unsigned long long ent =
+                ((unsigned long long)(unsigned)key << 32) | (unsigned)c;
+            unsigned h = grid_hash(key, hlg);
+            for (;;) {
+                const unsigned long long prev =
+                    atomicCAS(&htab[h], OSLAM_HASH_EMPTY, ent);
+                if (prev == OSLAM_HASH_EMPTY) break;
+                if ((unsigned)(prev >> 32) == (unsigned)key) {
+                    atomicMin(&htab[h], ent);
+                    break;
+                }
+                h = (h + 1) & hmask;
+            }
+        }
+        cluster.sync();
+        uint16_t* nb = lane_args.nbr + (size_t)d * OSLAM_GRID_MAX_C * N;
+        uint8_t* cnt = lane_args.ncount + (size_t)d * N;
+        const int C = grid_sh[OSLAM_GRID_MAX_C];
+        for (int c = own_lo + tid; c < own_hi; c += T) {
+            const int o = idx[c];
+            const int key = grid_key(cells, o, cx, cy, cz, R);
+            const float px = pts_c[3 * o], py = pts_c[3 * o + 1],
+                        pz = pts_c[3 * o + 2];
+            int k_hit = 0;
+            for (int k = 0; k < C; ++k) {
+                const int target = key + dkeys[k];
+                unsigned h = grid_hash(target, hlg);
+                int j = -1;
+                for (;;) {
+                    const unsigned long long e = __ldcg(&htab[h]);
+                    if (e == OSLAM_HASH_EMPTY) break;
+                    if ((unsigned)(e >> 32) == (unsigned)target) {
+                        j = (int)(e & 0xffffffffu);
+                        break;
+                    }
+                    h = (h + 1) & hmask;
+                }
+                if (j < 0) continue;
+                const int oj = idx[j];
+                const float dx = px - pts_c[3 * oj];
+                const float dy = py - pts_c[3 * oj + 1];
+                const float dz = pz - pts_c[3 * oj + 2];
+                if ((dx * dx + dy * dy) + dz * dz <= tol2)
+                    nb[(size_t)(k_hit++) * N + c] = (uint16_t)j;
+            }
+            cnt[c] = (uint8_t)k_hit;
+        }
+        nbr = nb;
+        ncount = cnt;
+        __syncthreads();
+    }
 
     int r = 0;
     bool conv = false;
     for (;;) {
         ++r;
-        // --- the pass over this block's slice: nxt_i = min(cur_i, cur_j of
-        // the neighbours j)
-        for (int i = own_lo + tid; i < own_hi; i += T) nxt[i] = cur[i];
-        __syncthreads();
-        for (int u0 = 0; u0 < units; u0 += W) {
-            const int u = u0 + warp;
-            const bool active = u < units;
-            const int g = active ? g_lo + u / JS : 0;
-            const int jp = active ? u % JS : 0;
-            float x[P], y[P], z[P], w[P];
-            int best[P], li[P];
-            const float inf = __int_as_float(0x7f800000);
-            float4 ilo = make_float4(inf, inf, inf, 0.0f);
-            float4 ihi = make_float4(-inf, -inf, -inf, 0.0f);
-#pragma unroll
-            for (int m = 0; m < P; ++m) {
-                const int s = g * P + m;
-                const int i = (s << 5) + lane;
-                x[m] = y[m] = z[m] = w[m] = 0.0f;
-                li[m] = 0;
-                best[m] = OSLAM_BIG;
-                if (active && i < n) {
-                    const int o = idx[i];
-                    x[m] = pts_c[3 * o];
-                    y[m] = pts_c[3 * o + 1];
-                    z[m] = pts_c[3 * o + 2];
-                    w[m] = nrm[o];
-                    li[m] = cur[i];
-                }
-                if (active && s < n_sub) {
-                    const float4 a = box[2 * s], b = box[2 * s + 1];
-                    ilo = make_float4(fminf(ilo.x, a.x), fminf(ilo.y, a.y),
-                                      fminf(ilo.z, a.z), 0.0f);
-                    ihi = make_float4(fmaxf(ihi.x, b.x), fmaxf(ihi.y, b.y),
-                                      fmaxf(ihi.z, b.z), fmaxf(ihi.w, b.w));
-                }
+        if constexpr (kGrid) {
+            // --- the grid pass over this block's slice: nxt_i = the least
+            // label of i and its listed neighbours
+            for (int i = own_lo + tid; i < own_hi; i += T) {
+                int best = cur[i];
+                const int k_n = ncount[i];
+                for (int k = 0; k < k_n; ++k)
+                    best = min(best, cur[nbr[(size_t)k * N + i]]);
+                nxt[i] = best;
             }
-            for (int t0 = 0; t0 < n_pad; t0 += tile_cap) {
-                if (!resident) {
-                    __syncthreads();
-                    for (int c = tid; c < tile_cap && t0 + c < n_pad;
-                         c += T) {
-                        const int o = idx[t0 + c];
-                        tile[c] = make_float4(pts_c[3 * o], pts_c[3 * o + 1],
-                                              pts_c[3 * o + 2], nrm[o]);
+            __syncthreads();
+        } else {
+            // --- the pass over this block's slice: nxt_i = min(cur_i, cur_j of
+            // the neighbours j)
+            for (int i = own_lo + tid; i < own_hi; i += T) nxt[i] = cur[i];
+            __syncthreads();
+            for (int u0 = 0; u0 < units; u0 += W) {
+                const int u = u0 + warp;
+                const bool active = u < units;
+                const int g = active ? g_lo + u / JS : 0;
+                const int jp = active ? u % JS : 0;
+                float x[P], y[P], z[P], w[P];
+                int best[P], li[P];
+                const float inf = __int_as_float(0x7f800000);
+                float4 ilo = make_float4(inf, inf, inf, 0.0f);
+                float4 ihi = make_float4(-inf, -inf, -inf, 0.0f);
+#pragma unroll
+                for (int m = 0; m < P; ++m) {
+                    const int s = g * P + m;
+                    const int i = (s << 5) + lane;
+                    x[m] = y[m] = z[m] = w[m] = 0.0f;
+                    li[m] = 0;
+                    best[m] = OSLAM_BIG;
+                    if (active && i < n) {
+                        const int o = idx[i];
+                        x[m] = pts_c[3 * o];
+                        y[m] = pts_c[3 * o + 1];
+                        z[m] = pts_c[3 * o + 2];
+                        w[m] = nrm[o];
+                        li[m] = cur[i];
                     }
-                    __syncthreads();
+                    if (active && s < n_sub) {
+                        const float4 a = box[2 * s], b = box[2 * s + 1];
+                        ilo = make_float4(fminf(ilo.x, a.x), fminf(ilo.y, a.y),
+                                          fminf(ilo.z, a.z), 0.0f);
+                        ihi = make_float4(fmaxf(ihi.x, b.x), fmaxf(ihi.y, b.y),
+                                          fmaxf(ihi.z, b.z), fmaxf(ihi.w, b.w));
+                    }
                 }
-                if (!active) continue;
-                const int s_lo = t0 >> 5;
-                const int s_hi = min(n_sub, (t0 + tile_cap) >> 5);
-                int s = s_lo + (jp - s_lo % JS + JS) % JS;
-                for (; s < s_hi; s += JS) {
-                    if (prune && far_apart(ilo, ihi, box[2 * s],
-                                           box[2 * s + 1], tol2))
-                        continue;
-                    const float4* tp = tile + ((s << 5) - t0);
-                    const int* lp = cur + (s << 5);
+                for (int t0 = 0; t0 < n_pad; t0 += tile_cap) {
+                    if (!resident) {
+                        __syncthreads();
+                        for (int c = tid; c < tile_cap && t0 + c < n_pad;
+                             c += T) {
+                            const int o = idx[t0 + c];
+                            tile[c] = make_float4(pts_c[3 * o], pts_c[3 * o + 1],
+                                                  pts_c[3 * o + 2], nrm[o]);
+                        }
+                        __syncthreads();
+                    }
+                    if (!active) continue;
+                    const int s_lo = t0 >> 5;
+                    const int s_hi = min(n_sub, (t0 + tile_cap) >> 5);
+                    int s = s_lo + (jp - s_lo % JS + JS) % JS;
+                    for (; s < s_hi; s += JS) {
+                        if (prune && far_apart(ilo, ihi, box[2 * s],
+                                               box[2 * s + 1], tol2))
+                            continue;
+                        const float4* tp = tile + ((s << 5) - t0);
+                        const int* lp = cur + (s << 5);
 #pragma unroll 8
-                    for (int k = 0; k < 32; ++k) {
-                        const float4 q = tp[k];
-                        const int l = lp[k];
+                        for (int k = 0; k < 32; ++k) {
+                            const float4 q = tp[k];
+                            const int l = lp[k];
 #pragma unroll
-                        for (int m = 0; m < P; ++m)
-                            best[m] = closer_label(x[m], y[m], z[m], w[m], q,
-                                                   l, tol2, best[m]);
+                            for (int m = 0; m < P; ++m) {
+                                if constexpr (kPass == OSLAM_PASS_EXACT)
+                                    best[m] = closer_label_exact(
+                                        x[m], y[m], z[m], q, l, tol2, best[m]);
+                                else
+                                    best[m] = closer_label(x[m], y[m], z[m],
+                                                           w[m], q, l, tol2,
+                                                           best[m]);
+                            }
+                        }
                     }
                 }
-            }
-            if (active) {
+                if (active) {
 #pragma unroll
-                for (int m = 0; m < P; ++m)
-                    if (best[m] < li[m])
-                        atomicMin(&nxt[((g * P + m) << 5) + lane], best[m]);
+                    for (int m = 0; m < P; ++m)
+                        if (best[m] < li[m])
+                            atomicMin(&nxt[((g * P + m) << 5) + lane], best[m]);
+                }
             }
+            __syncthreads();
         }
-        __syncthreads();
 
         // --- this slice's new labels into every block's copy.  Not before
         // every block is through the jumps of the round before
@@ -1588,11 +1918,25 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
         }
         cluster.sync();
 
-        // --- did the pass change a label; then the jumps, on all n labels
+        // --- did the pass change a label; then the chain passes (chain
+        // lane) and the jumps, on all n labels
         bool chg = false;
         for (int i = tid; i < n; i += T) chg = chg || (nxt[i] != cur[i]);
         int* a = nxt;
         int* b = cur;
+        if constexpr (kChain) {
+            for (int o = 0; o < lane_args.n_orders; ++o) {
+                const size_t off = ((size_t)d * lane_args.n_orders + o) * N;
+                chg = chain_pass(a, b, n, lane_args.chain_order + off,
+                                 lane_args.chain_link + off, scan_vh,
+                                 scan_vh + 32)
+                      || chg;
+                __syncthreads();
+                int* t = a;
+                a = b;
+                b = t;
+            }
+        }
         for (int it = 0; it < jump_iters; ++it) {
             chg = jump_once<true>(a, b, n) || chg;
             __syncthreads();
@@ -1678,19 +2022,44 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     if (tid == 0) sel.ok[d] = (chosen_ok && conv) ? 1 : 0;
 }
 
-template <int P>
+// The dynamic shared memory a block of an instantiation may ask for is
+// raised to all the room it has once per device (cudaFuncSetAttribute
+// costs a runtime call; a graph capture wants none between launches).
+struct CcKernel {
+    int dev;                    // the device the limit was raised on, or -1
+    int room;                   // dynamic shared memory a block can have
+};
+
+template <int P, int kPass, bool kChain>
 static int launch_cluster_components(
     const float* pts_c, const float* nrm, const uint8_t* mask,
     const int* labels0, int D, int N, float tol2, int outer_iters,
     int jump_iters, int S, int T, int smem_bytes, int prune,
     const float* sort_frame, int frame_stride, int* out_labels,
     uint8_t* converged, int* rounds, const Selection& sel,
-    cudaStream_t stream)
+    const ClusterLane& lane_args, cudaStream_t stream)
 {
-    auto kernel = cluster_components_kernel<P>;
-    cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    static CcKernel state = {-1, 0};
+    auto kernel = cluster_components_kernel<P, kPass, kChain>;
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
     if (rc != cudaSuccess) return (int)rc;
+    if (state.dev != dev) {
+        cudaFuncAttributes fattr = {};
+        int optin = 0;
+        rc = cudaFuncGetAttributes(&fattr, (const void*)kernel);
+        if (rc == cudaSuccess)
+            rc = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (rc == cudaSuccess)
+            rc = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                optin - (int)fattr.sharedSizeBytes);
+        if (rc != cudaSuccess) return (int)rc;
+        state.dev = dev;
+        state.room = optin - (int)fattr.sharedSizeBytes;
+    }
+    if (smem_bytes > state.room) return (int)cudaErrorInvalidValue;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(S, D, 1);
     cfg.blockDim = dim3(T, 1, 1);
@@ -1706,7 +2075,7 @@ static int launch_cluster_components(
     rc = cudaLaunchKernelEx(&cfg, kernel, pts_c, nrm, mask, labels0, N, tol2,
                             outer_iters, jump_iters, smem_bytes, prune,
                             sort_frame, frame_stride, out_labels, converged,
-                            rounds, sel);
+                            rounds, sel, lane_args);
     if (rc == cudaSuccess) rc = cudaGetLastError();
     return (int)rc;
 }
@@ -1722,28 +2091,57 @@ static int launch_cluster_components(
 // mapper's detections come from frames of B poses); 0 takes the one
 // rotation for all.  The rotation changes no result.  Needs
 // smem_bytes >= 13 bytes a lane (rounded up to 32 lanes) plus a tile of at
-// least 256 points.
+// least 256 points, the grid lane 12 bytes a lane.  exact: the exact lane;
+// chain_order / chain_link with n_orders in [1, 3]: the chain lane (else
+// null and 0); lane_args.cells given: the grid lane (exact and the chain
+// lane off).
 static int cluster_launch(
     const void* pts_c, const void* nrm, const void* mask, const void* labels0,
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
     int frame_stride, void* out_labels, void* converged, void* rounds,
-    const Selection& sel, void* stream)
+    const Selection& sel, int exact, const ClusterLane& lane_args,
+    void* stream)
 {
     const int n_pad = (N + 31) & ~31;
+    const bool grid = lane_args.cells != nullptr;
+    const bool chain = lane_args.chain_order != nullptr;
     if (D < 1 || D > 65535 || N < 1 || S < 1 || S > 8 || T < 32 ||
         T > OSLAM_CC_MAXT || T % 32 != 0 || P != OSLAM_CC_P ||
         outer_iters < 1 || jump_iters < 0 ||
-        smem_bytes < 13 * n_pad + 16 * 256)
+        smem_bytes < (grid ? 12 * n_pad : 13 * n_pad + 16 * 256))
         return (int)cudaErrorInvalidConfiguration;
     if (sort_frame == nullptr || (frame_stride != 0 && frame_stride != 9))
         return (int)cudaErrorInvalidValue;
-    return launch_cluster_components<OSLAM_CC_P>(
-        (const float*)pts_c, (const float*)nrm, (const uint8_t*)mask,
-        (const int*)labels0, D, N, tol2, outer_iters, jump_iters, S, T,
-        smem_bytes, prune, (const float*)sort_frame, frame_stride,
-        (int*)out_labels,
-        (uint8_t*)converged, (int*)rounds, sel, (cudaStream_t)stream);
+    if (chain && (lane_args.chain_link == nullptr ||
+                  lane_args.n_orders < 1 || lane_args.n_orders > 3 || grid))
+        return (int)cudaErrorInvalidValue;
+    if (grid && (exact || lane_args.hash == nullptr ||
+                 lane_args.nbr == nullptr || lane_args.ncount == nullptr ||
+                 N > 65535 || lane_args.R < 1 || lane_args.smax < 0 ||
+                 lane_args.hash_cap < 2 * n_pad ||
+                 (lane_args.hash_cap & (lane_args.hash_cap - 1)) != 0))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const float* p = (const float*)pts_c;
+    const float* nm = (const float*)nrm;
+    const uint8_t* m = (const uint8_t*)mask;
+    const int* l0 = (const int*)labels0;
+    const float* sf = (const float*)sort_frame;
+    int* ol = (int*)out_labels;
+    uint8_t* cv = (uint8_t*)converged;
+    int* rd = (int*)rounds;
+#define OSLAM_CC_LAUNCH(PASS, CHAIN)                                        \
+    launch_cluster_components<OSLAM_CC_P, PASS, CHAIN>(                     \
+        p, nm, m, l0, D, N, tol2, outer_iters, jump_iters, S, T,            \
+        smem_bytes, prune, sf, frame_stride, ol, cv, rd, sel, lane_args, st)
+    if (grid) return OSLAM_CC_LAUNCH(OSLAM_PASS_GRID, false);
+    if (exact)
+        return chain ? OSLAM_CC_LAUNCH(OSLAM_PASS_EXACT, true)
+                     : OSLAM_CC_LAUNCH(OSLAM_PASS_EXACT, false);
+    return chain ? OSLAM_CC_LAUNCH(OSLAM_PASS_DENSE, true)
+                 : OSLAM_CC_LAUNCH(OSLAM_PASS_DENSE, false);
+#undef OSLAM_CC_LAUNCH
 }
 
 extern "C" int oslam_cluster_components(
@@ -1751,13 +2149,18 @@ extern "C" int oslam_cluster_components(
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
     int frame_stride, void* out_labels, void* converged, void* rounds,
+    int exact, const void* chain_order, const void* chain_link, int n_orders,
     void* stream)
 {
     Selection none = {};
+    ClusterLane lane_args = {};
+    lane_args.chain_order = (const int*)chain_order;
+    lane_args.chain_link = (const uint8_t*)chain_link;
+    lane_args.n_orders = n_orders;
     return cluster_launch(pts_c, nrm, mask, labels0, D, N, tol2, outer_iters,
                           jump_iters, S, T, P, smem_bytes, prune, sort_frame,
                           frame_stride, out_labels, converged, rounds, none,
-                          stream);
+                          exact, lane_args, stream);
 }
 
 // cluster_components with ops/cluster.select_cluster as its epilogue: the
@@ -1768,6 +2171,7 @@ extern "C" int oslam_cluster_select(
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
     int P, int smem_bytes, int prune, const void* sort_frame,
     int frame_stride, void* out_labels, void* converged, void* rounds,
+    int exact, const void* chain_order, const void* chain_link, int n_orders,
     const void* pts,
     const void* center, int min_size, float center_dis, void* least_d,
     void* sel_mask, void* sel_ok, void* stream)
@@ -1778,9 +2182,57 @@ extern "C" int oslam_cluster_select(
     if (sel.pts == nullptr || sel.center == nullptr ||
         sel.least_d == nullptr || sel.mask == nullptr || sel.ok == nullptr)
         return (int)cudaErrorInvalidValue;
+    ClusterLane lane_args = {};
+    lane_args.chain_order = (const int*)chain_order;
+    lane_args.chain_link = (const uint8_t*)chain_link;
+    lane_args.n_orders = n_orders;
     return cluster_launch(pts_c, nrm, mask, labels0, D, N, tol2, outer_iters,
                           jump_iters, S, T, P, smem_bytes, prune, sort_frame,
                           frame_stride, out_labels, converged, rounds, sel,
+                          exact, lane_args, stream);
+}
+
+// cluster_grid (K13): pts [D, N, 3] the points the cells were computed from
+// (camera frame on the extraction path), cells [D, N, 3] int32, mask, labels0
+// (chain-seeded on pts), R and smax the stencil (ops/cluster.grid_stencil),
+// hash [D, hash_cap] uint64, nbr [D, 124, N] uint16 and ncount [D, N] uint8
+// scratch (ops/cluster._launch_grid); with pts_w (not null) the selection
+// epilogue on those points and center [D, 3] (else center, min_size,
+// center_dis, least_d, sel_mask and sel_ok are not read).  S blocks of T
+// threads a detection, 12 bytes of dynamic shared memory a lane.
+extern "C" int oslam_cluster_grid(
+    const void* pts, const void* cells, const void* mask, const void* labels0,
+    int D, int N, float tol2, int R, int smax, int outer_iters,
+    int jump_iters, int S, int T, int P, int smem_bytes, void* hash,
+    int hash_cap, void* nbr, void* ncount, void* out_labels, void* converged,
+    void* rounds, const void* pts_w, const void* center, int min_size,
+    float center_dis, void* least_d, void* sel_mask, void* sel_ok,
+    void* stream)
+{
+    static const float identity[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
+    Selection sel = {};
+    if (pts_w != nullptr) {
+        sel = {(const float*)pts_w, (const float*)center, min_size,
+               center_dis, (int*)least_d, (uint8_t*)sel_mask,
+               (uint8_t*)sel_ok};
+        if (sel.center == nullptr || sel.least_d == nullptr ||
+            sel.mask == nullptr || sel.ok == nullptr)
+            return (int)cudaErrorInvalidValue;
+    }
+    if (cells == nullptr) return (int)cudaErrorInvalidValue;
+    ClusterLane lane_args = {};
+    lane_args.cells = (const int*)cells;
+    lane_args.R = R;
+    lane_args.smax = smax;
+    lane_args.hash = (unsigned long long*)hash;
+    lane_args.hash_cap = hash_cap;
+    lane_args.nbr = (uint16_t*)nbr;
+    lane_args.ncount = (uint8_t*)ncount;
+    // the points' squared norms and the sort frame are not read by the grid
+    // lane; the frame only has to be a valid pointer for the checks
+    return cluster_launch(pts, pts, mask, labels0, D, N, tol2, outer_iters,
+                          jump_iters, S, T, P, smem_bytes, 0, identity, 0,
+                          out_labels, converged, rounds, sel, 0, lane_args,
                           stream);
 }
 

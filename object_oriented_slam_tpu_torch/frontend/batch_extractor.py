@@ -13,7 +13,11 @@ On a CUDA device the call is the monolithic extractor's launches with the
 frame lane: ``depth_cloud`` (depth [B, H, W], poses [B, 7], a frame index
 [D]), ``cluster_select`` (its sort-frame hint one rotation a detection),
 ``voxel_downsample`` and, with symmetry, ``symmetry_search`` (depth
-[B, H, W] and the frame index): one launch of each a batch.  JAX scans its
+[B, H, W] and the frame index): one launch of each a batch.  Stage (d)'s
+options route as in the one-frame call: ``grid_cluster`` is one K13
+(``cluster_grid``) launch a batch, which needs no frame lane (each
+detection's cells are its own camera's), ``cluster_chains`` > 0 K5's chain
+lane.  JAX scans its
 clustering per frame group (``cluster_groups``, a ``lax.map``) so that a
 group pays its own rounds; the clustering kernel already stops each
 detection on its own rounds (``ops/cluster.py``), so nothing here groups.

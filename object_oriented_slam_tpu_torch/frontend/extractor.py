@@ -49,6 +49,14 @@ its detection's own frame's image and pose; ``frame=None`` is the one frame
 of an online call (depth [H, W], pose [7]), and B = 1 with every index 0
 gives that call's bits.
 
+Stage (d)'s options, as JAX routes them (``_cluster_select_batch``):
+``grid_cluster`` (where ``_grid_clustering_ok``'s gate passes) labels each
+detection on its camera-frame voxel cloud and cells with the grid pass, on
+the card K13 ``cluster_grid`` with the selection as its epilogue;
+``cluster_chains`` > 0 interleaves chain passes, on the card K5's chain
+lane.  Neither falls back to a plain version on the card, and neither reads
+anything back.
+
 The host-clustered extractors (``SplitExtractor``,
 ``FusedSplitExtractor``) run stage (d) on the host between two device
 phases: phase A is depth_cloud, its result copied home in one piece;
@@ -56,10 +64,6 @@ the host labels each detection's cloud with the grid-hash union-find of
 ``native/src/cluster.cpp`` (built at first use, ``io/native_loader``) and
 selects its cluster; phase B runs stages (e)-(h) on the device from that
 selection.  No cluster_select launch happens on those paths.
-
-Not ported (each raises ``NotImplementedError`` naming the option):
-grid-hash clustering on the device (``grid_cluster``), interleaved chain
-passes (``cluster_chains > 0``).
 """
 from __future__ import annotations
 
@@ -100,14 +104,19 @@ class ExtractorConfig:
     #                           truncated run FAILS the validity gate
     #                           (_cluster_select_batch)
     cluster_chains: int = -1  # -1 = one chain-seed order, 0 = none; K > 0
-    #                           (interleaved chain passes) is not ported
-    # the ladder of compiled compaction capacities is not ported: the
-    # clustering kernel compacts each detection to its own survivors;
-    # labels are the same at every capacity.  The two fields keep the JAX
-    # package's signature; any other value raises
+    #                           seeds K spatial orders AND interleaves a
+    #                           chain pass per order after every pass (K5's
+    #                           chain lane on the card)
+    # JAX's ladder of compiled compaction capacities: any value is taken
+    # and changes nothing.  The clustering kernel (and its plain version)
+    # compacts each detection to its own survivors inside its one launch,
+    # and labels are the same at every capacity (JAX extractor.py:84-95,
+    # ops/cluster.py:379-393)
     compact_tiers: bool = True
     compact_rungs: tuple = (4, 5, 6, 7, 8, 12)
-    grid_cluster: bool = False  # grid-hash clustering: not ported
+    grid_cluster: bool = False  # O(N*C) grid-hash clustering on the
+    #                             camera-frame voxel cells (K13 on the card)
+    #                             where _grid_clustering_ok's gate passes
     open_symmetry: bool = False
     sparse_symmetry: bool = False  # mirror only depth-border points in the
     #                                symmetry cost (Symmetry::SetBorders
@@ -115,24 +124,16 @@ class ExtractorConfig:
     sym_analytic_grad: bool = True   # False: central differences
 
 
-def _check_ported(cfg: ExtractorConfig):
-    if cfg.grid_cluster:
-        raise NotImplementedError(
-            "ExtractorConfig.grid_cluster=True: grid-hash clustering is not "
-            "ported to the torch package")
-    if cfg.cluster_chains > 0:
-        raise NotImplementedError(
-            f"ExtractorConfig.cluster_chains={cfg.cluster_chains}: "
-            "interleaved chain passes are not ported to the torch package")
-    # options that nothing in the port reads: a value other than the
-    # default would be silently ignored, so it raises
-    for f in dataclasses.fields(cfg):
-        if f.name in ("compact_tiers", "compact_rungs") \
-                and getattr(cfg, f.name) != f.default:
-            raise NotImplementedError(
-                f"ExtractorConfig.{f.name}={getattr(cfg, f.name)!r}: the "
-                "compaction ladder is not ported to the torch package (only "
-                "the default is accepted)")
+def _grid_clustering_ok(cam: Camera, cfg: ExtractorConfig) -> bool:
+    """Static gate for the O(N*C) grid-hash clustering path (JAX
+    ``_grid_clustering_ok``): the voxel cells are unique per point by
+    construction, and the largest possible camera-frame cloud span (the
+    depth_range frustum) must fit the key packing."""
+    span = max(cfg.depth_range,
+               cfg.depth_range * cam.width / cam.fx,
+               cfg.depth_range * cam.height / cam.fy)
+    return cfg.grid_cluster and cl.grid_supported(
+        cfg.cluster_tolerance, cfg.voxel_leaf, span)
 
 
 def _stage_a(depth, bboxes, pose_wc, ground_plane, cam: Camera,
@@ -208,13 +209,19 @@ def _stage_post(pts_w, sel, ground_plane, cfg: ExtractorConfig,
 
 
 def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
-                          stats=None):
+                          stats=None, grid=None):
     """Stage (d) for the whole detection batch.
 
     The survivors of the supporting-plane filter are compacted per
     detection, propagated to their fixed point and the cluster near the
     centre estimate selected, all inside one launch
-    (ops/cluster.cluster_select); nothing is read back, so ``stats``
+    (ops/cluster.cluster_select; with ``cluster_chains`` > 0 its chain
+    lane).  ``grid`` = (pts_v, cells_v, cam), the camera-frame voxel cloud
+    and its cells: with ``grid_cluster`` and ``_grid_clustering_ok``, the
+    labels come from the grid pass on them instead
+    (ops/cluster.cluster_grid_select, K13 on the card; the selection on
+    the world points as before), as JAX routes it (extractor.py:233-287).
+    Nothing is read back, so ``stats``
     receives 0-dim DEVICE tensors: the most rounds a detection ran, the
     largest survivor count (``cluster_lanes`` and ``cluster_survivors``: the
     lanes the pass works on are the survivors) and whether every detection
@@ -223,16 +230,27 @@ def _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg: ExtractorConfig,
     sorted in; it changes no result.  Reference hot loop:
     EllipsoidExtractor.cpp:646-737 (PCL KdTree clustering).
     """
-    args = cl.centre_and_seed(pts_w, m2, cfg.cluster_tolerance,
-                              cfg.cluster_chains)
     # an iteration-bound-truncated propagation yields FRAGMENT components
     # that can pass every downstream gate with a biased center/scale:
     # cluster_select surfaces it as extraction failure (ok is ANDed with
     # the convergence flag)
-    sel, ok, _, conv, rounds = cl.cluster_select(
-        pts_w.contiguous(), *args[:4], center_w.contiguous(), args[4],
-        cfg.cluster_iters, 12, cfg.cluster_min_size, cfg.cluster_center_dis,
-        frame=R_wc.transpose(-1, -2).contiguous())
+    if grid is not None and _grid_clustering_ok(grid[2], cfg):
+        pts_v, cells_v, _ = grid
+        sel, ok, _, conv, rounds = cl.cluster_grid_select(
+            pts_v.contiguous(), cells_v.contiguous(), m2.contiguous(),
+            cl.grid_seed(pts_v, m2, cfg.cluster_tolerance),
+            pts_w.contiguous(), center_w.contiguous(), cfg.cluster_tolerance,
+            cfg.voxel_leaf, cfg.cluster_iters, 12, cfg.cluster_min_size,
+            cfg.cluster_center_dis)
+    else:
+        args, orders = cl.centre_and_seed(pts_w, m2, cfg.cluster_tolerance,
+                                          cfg.cluster_chains,
+                                          with_orders=True)
+        sel, ok, _, conv, rounds = cl.cluster_select(
+            pts_w.contiguous(), *args[:4], center_w.contiguous(), args[4],
+            cfg.cluster_iters, 12, cfg.cluster_min_size,
+            cfg.cluster_center_dis,
+            frame=R_wc.transpose(-1, -2).contiguous(), orders=orders)
     if stats is not None and m2.shape[0]:
         survivors = m2.sum(1).max()
         stats.update(cluster_rounds=rounds.max(), cluster_lanes=survivors,
@@ -319,15 +337,16 @@ def extract_local_ellipsoids(depth, bboxes, run_mask, pose_wc, ground_plane,
     Returns (local vec10 [D, 10], prob [D], valid [D], debug tuple
     (pts_n, obj_m, Two); after symmetry the completed clouds [D, 4S]).
     """
-    _check_ported(cfg)
     depth = depth.to(torch.int32)
     bboxes = bboxes.to(torch.float32)
     pose_wc = pose_wc.to(torch.float32)
     ground_plane = ground_plane.to(torch.float32)
 
-    (_, pts_w, _, m2, center_w, ok_p, ok_c, R_wc, battr_v) = _stage_a(
-        depth, bboxes, pose_wc, ground_plane, cam, cfg, frame)
-    sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats)
+    (pts_v, pts_w, cells_v, m2, center_w, ok_p, ok_c, R_wc,
+     battr_v) = _stage_a(depth, bboxes, pose_wc, ground_plane, cam, cfg,
+                         frame)
+    sel, ok_cl = _cluster_select_batch(pts_w, m2, center_w, R_wc, cfg, stats,
+                                       (pts_v, cells_v, cam))
     e_local, prob, ok, debug = _stages_after_selection(
         pts_w, sel, battr_v, depth, bboxes, run_mask, pose_wc, ground_plane,
         cam, cfg, stats, sym_types, need_single, need_dual, frame)
@@ -472,7 +491,6 @@ class _Extractor:
 
     def __init__(self, cam: Camera, cfg: ExtractorConfig, device=None):
         from ..system.tracking import resolve_device
-        _check_ported(cfg)
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)

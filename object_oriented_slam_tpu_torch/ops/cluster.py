@@ -1,8 +1,8 @@
 """Euclidean clustering (connected components of the radius graph),
 batched over detections.
 
-Port of the dense path of ``object_oriented_slam_tpu/ops/cluster.py``,
-which replaces PCL ``EuclideanClusterExtraction`` + KdTree
+Port of ``object_oriented_slam_tpu/ops/cluster.py``, which replaces PCL
+``EuclideanClusterExtraction`` + KdTree
 (src/pca/EllipsoidExtractor.cpp:646-737): points closer than ``tolerance``
 are connected; connected components are clusters; clusters smaller than
 ``min_size`` are dropped; the selected cluster is the largest one whose
@@ -12,22 +12,42 @@ accepted unconditionally, EllipsoidExtractor.cpp:696-714).
 
 Algorithm: iterative minimum-label propagation over the radius graph,
 interleaved with pointer-jumping to collapse long chains in O(log N) extra
-steps.  The radius test is ``nrm_i + nrm_j - 2 (x_i . x_j) <= tol^2`` on
-points centred on the masked mean (centring bounds the f32 cancellation of
-the expansion to ~1e-8 m^2 on metre-scale clouds), the dot product written
-as ``x0*y0 + x1*y1 + x2*y2``.  A pair within that band of the radius may
-fall differently under another rounding; it changes labels only when it is
-the sole bridge between two components.
+steps.  Three passes, as in the JAX module:
+
+* the default dense pass: ``nrm_i + nrm_j - 2 (x_i . x_j) <= tol^2`` on
+  points centred on the masked mean (centring bounds the f32 cancellation
+  of the expansion to ~1e-8 m^2 on metre-scale clouds), the dot product
+  written as ``x0*y0 + x1*y1 + x2*y2``.  A pair within that band of the
+  radius may fall differently under another rounding; it changes labels
+  only when it is the sole bridge between two components;
+* ``exact=True``: the direct ``((dx*dx + dy*dy) + dz*dz) <= tol^2`` on the
+  uncentred points;
+* the grid pass (``connected_components_grid``, the extractor's
+  ``grid_cluster``): for voxel clouds, whose points each hold a cell of
+  their own, every radius neighbour lies in the <= 124 stencil cells around
+  a point's cell; the neighbour table is built once (the exact test on each
+  stencil cell's point) and a pass is a gather and a minimum over it.
+
+``chains`` seeds the labels along |chains| spatial sort orders (-1, the
+default: one) and, when positive, also runs one chain pass per order after
+every dense pass (``_chain_apply``).
 
 For tensors on a CUDA device the compaction and all rounds of a frame are
-one launch of the ``cluster_components`` kernel (csrc/frontend.cu, a thread
-block cluster per detection, nothing read back between rounds), with the
-cluster selection as its epilogue when ``cluster_select`` asks for it; on
-the CPU ``cluster_components_plain``, a loop over ``min_label_pass_plain``
-(one pass) and ``pointer_jumps_plain`` (the jumps), and
-``select_cluster``.  The JAX module's
-grid-hash path, its exact broadcast pass and its interleaved chain passes
-(``chains > 0``) are not ported and raise.
+one launch (csrc/frontend.cu, a thread block cluster per detection, nothing
+read back between rounds), with the cluster selection as its epilogue when
+asked: ``cluster_components`` (K5), its exact lane and its chain lane, and
+``cluster_grid`` (K13); on the CPU their plain versions, ``_rounds_loop``
+over one pass function (``min_label_pass_plain``,
+``min_label_pass_exact_plain`` or the grid table's minimum), the chain
+passes and ``pointer_jumps_plain``, then ``select_cluster``.  No plain
+version runs on the card: with any option on, the card runs K13 or a lane
+of K5.
+
+The JAX module's compaction ladder (``components_compacted`` at a compiled
+capacity, ``connected_components_compact``'s choice between capacities) has
+no use here: both the kernel and the plain loop compact each detection to
+its own survivors, and labels are the same at every capacity.  The two
+functions keep the JAX signatures and results.
 
 The offline batch mapper (``frontend/batch_extractor``) clusters the
 detections of B frames in the same one launch.  JAX's batch extractor
@@ -36,9 +56,12 @@ that each group pays its own rounds, not the slowest detection's of the
 batch; nothing here needs that: the kernel gives every detection its own
 rounds and stops each on its own.  Its sort-frame hint is then one
 rotation a detection (``frame`` [D, 3, 3]), since the batch's clouds are
-sorted in B cameras' frames.
+sorted in B cameras' frames.  The grid lane needs no hint: each
+detection's cells are its own camera's.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,6 +69,7 @@ from . import frontend_kernels as fk
 
 _BIG = 2 ** 30
 _PLAIN_ELEMS = 1 << 24   # most [rows, N] elements a plain pass holds at once
+_CHAIN_PERMS = ((0, 1, 2), (1, 2, 0), (2, 0, 1))
 
 
 def min_label_pass_plain(pts_c, nrm, mask, labels, tol2: float):
@@ -64,6 +88,26 @@ def min_label_pass_plain(pts_c, nrm, mask, labels, tol2: float):
         cross = (x[:, s, None] * x[:, None, :] + y[:, s, None] * y[:, None, :]
                  + z[:, s, None] * z[:, None, :])
         d2 = nrm[:, s, None] + nrm[:, None, :] - 2.0 * cross
+        out.append(torch.where(d2 <= tol2, lab_j, _BIG).amin(dim=2))
+    new = torch.cat(out, dim=1)
+    return torch.where(mask, torch.minimum(labels, new), labels)
+
+
+def min_label_pass_exact_plain(pts, mask, labels, tol2: float):
+    """One exact pass (JAX ``_min_label_pass``): ``min_label_pass_plain``
+    with the direct test ``((dx*dx + dy*dy) + dz*dz) <= tol2`` on the
+    uncentred points pts [D, N, 3]."""
+    D, N = mask.shape
+    rows = max(1, min(N, _PLAIN_ELEMS // max(D * N, 1)))
+    x, y, z = pts.unbind(-1)
+    lab_j = torch.where(mask, labels, _BIG)[:, None, :]
+    out = []
+    for b in range(0, N, rows):
+        s = slice(b, b + rows)
+        dx = x[:, s, None] - x[:, None, :]
+        dy = y[:, s, None] - y[:, None, :]
+        dz = z[:, s, None] - z[:, None, :]
+        d2 = (dx * dx + dy * dy) + dz * dz
         out.append(torch.where(d2 <= tol2, lab_j, _BIG).amin(dim=2))
     new = torch.cat(out, dim=1)
     return torch.where(mask, torch.minimum(labels, new), labels)
@@ -92,34 +136,83 @@ def _seg_min_scan(vals, start):
             ).to(vals.dtype)
 
 
-def _chain_seed(pts, mask, labels0, tol2: float):
-    """Cheap label seeding along one spatial sort order: points are sorted
-    by a voxel key of edge ``tol``; neighbours in the sort that pass the
-    exact f32 radius test are linked, and a forward and a backward
-    segmented min-scan spread the least label along each linked run.  The
-    links are a subset of the radius graph, so seeding never merges across
-    components; it only shortens the propagation.
-    """
-    D, N = mask.shape
+def _sq_dist(a, b):
+    """((dx*dx + dy*dy) + dz*dz) of a - b over the last axis, each
+    operation rounded on its own (JAX's ``jnp.sum((a - b) ** 2, -1)``)."""
+    d = a - b
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]
+
+
+def _chain_structs(pts, mask, tol2: float, n_orders: int):
+    """The ``n_orders`` spatial chain orders (JAX ``_chain_structs``), each
+    (order [D, N] int64, linked [D, N] bool): the points sorted (stably) by
+    a voxel key of edge ``tol`` with the axes permuted (``_CHAIN_PERMS``;
+    masked points last, under 2^30), and linked[k] when the point at k and
+    the one before it pass the exact f32 radius test.  The links are a
+    subset of the radius graph, so chain passes never merge across
+    components; they only shorten the propagation.  ``n_orders`` is
+    clamped to the three distinct permutations."""
     tol = torch.sqrt(torch.full((), tol2, dtype=torch.float32,
                                 device=pts.device))
     c = (torch.floor(pts / tol).to(torch.int32) + 512).clamp(0, 1023)
-    key = (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
-    key = torch.where(mask, key, _BIG)
-    order = torch.sort(key, dim=1, stable=True).indices
-    pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
-    mask_s = torch.gather(mask, 1, order)
-    d2prev = ((pts_s[:, 1:] - pts_s[:, :-1]) ** 2).sum(-1)
-    false = torch.zeros((D, 1), dtype=torch.bool, device=pts.device)
-    linked = torch.cat([false, (d2prev <= tol2) & mask_s[:, 1:]
-                        & mask_s[:, :-1]], dim=1)
-    lab_s = torch.gather(labels0, 1, order)
+    false = torch.zeros((mask.shape[0], 1), dtype=torch.bool,
+                        device=pts.device)
+    structs = []
+    for p in _CHAIN_PERMS[:min(n_orders, len(_CHAIN_PERMS))]:
+        key = (c[..., p[0]] << 20) | (c[..., p[1]] << 10) | c[..., p[2]]
+        key = torch.where(mask, key, _BIG)
+        order = torch.sort(key, dim=1, stable=True).indices
+        pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+        mask_s = torch.gather(mask, 1, order)
+        linked = torch.cat([false, (_sq_dist(pts_s[:, 1:], pts_s[:, :-1])
+                                    <= tol2) & mask_s[:, 1:]
+                            & mask_s[:, :-1]], dim=1)
+        structs.append((order, linked))
+    return structs
+
+
+def _chain_apply(labels, order, linked):
+    """One bidirectional min-label pass along a chain order (JAX
+    ``_chain_apply``): labels [D, L]; order [D, L] a permutation of the
+    lanes, linked [D, L] its links.  A forward and a backward segmented
+    minimum spread the least label along each linked run."""
+    lab_s = torch.gather(labels, 1, order)
     fwd = _seg_min_scan(lab_s, ~linked)
-    linked_next = torch.cat([linked[:, 1:], false], dim=1)
+    linked_next = torch.cat([linked[:, 1:], torch.zeros_like(linked[:, :1])],
+                            dim=1)
     bwd = _seg_min_scan(lab_s.flip(1), (~linked_next).flip(1)).flip(1)
-    seeded = torch.empty_like(labels0).scatter_(1, order,
-                                                torch.minimum(fwd, bwd))
-    return torch.where(mask, seeded, N)
+    return torch.empty_like(labels).scatter_(1, order,
+                                             torch.minimum(fwd, bwd))
+
+
+def _chain_seed(pts, mask, labels0, tol2: float, structs=None):
+    """Cheap label seeding along spatial sort orders (JAX ``_chain_seed``;
+    ``structs`` from ``_chain_structs``, None: one order): dense clouds
+    start the rounds mostly pre-merged, with no distance pass."""
+    if structs is None:
+        structs = _chain_structs(pts, mask, tol2, 1)
+    for order, linked in structs:
+        labels0 = _chain_apply(labels0, order, linked)
+    return torch.where(mask, labels0, mask.shape[1])
+
+
+def chain_orders(structs, mask):
+    """The chain lane's orders in the kernel's compacted numbering: (order
+    [D, K, N] int32, link [D, K, N] uint8) from ``_chain_structs``.  Entry k
+    < n (the detection's survivors) is the compacted index of the k-th
+    point of the order (the survivors sort first); entries from n on are k
+    itself, so every prefix of length >= n is a permutation (the plain
+    loop's compacted lanes)."""
+    N = mask.shape[1]
+    rank = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).to(torch.int32)
+    pos = torch.arange(N, dtype=torch.int32, device=mask.device)
+    live = pos[None, :] < mask.sum(1, dtype=torch.int32)[:, None]
+    orders = [torch.where(live, torch.gather(rank, 1, order), pos)
+              for order, _ in structs]
+    return (torch.stack(orders, 1).contiguous(),
+            torch.stack([linked for _, linked in structs], 1).to(
+                torch.uint8).contiguous())
 
 
 def _compact(mask, *lanes):
@@ -138,56 +231,214 @@ def _compact(mask, *lanes):
     return sub, torch.gather(mask, 1, sub).contiguous(), out
 
 
-def _rounds_loop(pts_c, nrm, mask, labels0, tol2: float, outer_iters: int,
-                 jump_iters: int):
-    """The propagation as a loop of single steps: the unmasked points are
-    compacted to the front with a stable sort, rounds of (one pass,
-    ``jump_iters`` jumps) run until no detection changes a
-    label or ``outer_iters`` rounds ran (one host read a round), and the
-    labels are mapped back to the original lanes.
+def _compact_labels(mask, labels0, *lanes):
+    """``_compact`` plus the starting labels in compacted numbering (a
+    seeded label names an original lane: its compacted index is the count
+    of unmasked lanes before it).  Returns (sub, m_c, lanes, labels)."""
+    N = mask.shape[1]
+    sub, m_c, out = _compact(mask, *lanes)
+    cap = sub.shape[1]
+    rank = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).to(torch.int32)
+    l0 = torch.gather(labels0, 1, sub)
+    lab = torch.where(m_c, torch.gather(rank, 1, l0.clamp(0, N - 1).long()),
+                      cap).to(torch.int32).contiguous()
+    return sub, m_c, out, lab
+
+
+def _uncompact(lab, sub, N: int):
+    """Compacted labels [D, cap] back in the original lanes [D, N]."""
+    cap = sub.shape[1]
+    orig = torch.where(lab < cap,
+                       torch.gather(sub.to(torch.int32), 1,
+                                    lab.clamp(0, cap - 1).long()), N)
+    labels = torch.full(sub.shape[:1] + (N,), N, dtype=torch.int32,
+                        device=sub.device)
+    return labels.scatter_(1, sub, orig)
+
+
+def _rounds_loop(lab, pass_fn, outer_iters: int, jump_iters: int,
+                 chains=()):
+    """The propagation as a loop of single steps, in compacted numbering:
+    rounds of (one pass ``pass_fn(rows, labels of those rows)``, the chain
+    passes along ``chains`` ((order, linked) [D, cap] pairs) and
+    ``jump_iters`` jumps) until no detection changes a label or
+    ``outer_iters`` rounds ran (one host read a round).
 
     Labels are a fixed point once a round changes nothing, so a detection
     that went quiet keeps its labels while the others go on (a round
     passes over the detections still changing only): labels,
     ``converged`` and ``rounds`` are those of a loop per detection.
+    Returns (labels, converged [D], rounds [D]).
     """
-    D, N = mask.shape
-    dev = mask.device
-    sub, m_c, (pts_k, nrm_k, l0) = _compact(mask, pts_c, nrm, labels0)
-    cap = sub.shape[1]
-    # a seeded label names an original lane: its compacted index is the
-    # count of unmasked lanes before it
-    rank = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).to(torch.int32)
-    lab = torch.where(m_c, torch.gather(rank, 1, l0.clamp(0, N - 1).long()),
-                      cap).to(torch.int32).contiguous()
+    D = lab.shape[0]
+    dev = lab.device
     rounds = torch.zeros(D, dtype=torch.int32, device=dev)
     still = torch.ones(D, dtype=torch.bool, device=dev)
     for r in range(1, outer_iters + 1):
         rows = still.nonzero().flatten()
-        new, changed = pointer_jumps_plain(
-            min_label_pass_plain(pts_k[rows], nrm_k[rows], m_c[rows],
-                                 lab[rows], tol2), lab[rows], jump_iters)
+        new = pass_fn(rows, lab[rows])
+        for order, linked in chains:
+            new = _chain_apply(new, order[rows], linked[rows])
+        new, changed = pointer_jumps_plain(new, lab[rows], jump_iters)
         lab = lab.index_copy(0, rows, new)
         rounds[rows] = r
         still = still.index_copy(0, rows, changed != 0)
         if not bool(still.any()):
             break
-    sub32 = sub.to(torch.int32)
-    orig = torch.where(lab < cap,
-                       torch.gather(sub32, 1, lab.clamp(0, cap - 1).long()),
-                       N)
-    labels = torch.full((D, N), N, dtype=torch.int32, device=dev)
-    labels.scatter_(1, sub, orig)
-    return labels, ~still, rounds
+    return lab, ~still, rounds
 
 
 def cluster_components_plain(pts_c, nrm, mask, labels0, tol2: float,
-                             outer_iters: int, jump_iters: int = 12):
-    """Plain PyTorch version of ``cluster_components`` (any device):
-    ``_rounds_loop`` over ``min_label_pass_plain`` and
-    ``pointer_jumps_plain``."""
-    return _rounds_loop(pts_c, nrm, mask, labels0, tol2, outer_iters,
-                        jump_iters)
+                             outer_iters: int, jump_iters: int = 12,
+                             exact: bool = False, orders=None):
+    """Plain PyTorch version of ``cluster_components`` (any device): the
+    unmasked points compacted to the front with a stable sort,
+    ``_rounds_loop`` over ``min_label_pass_plain`` (``exact``:
+    ``min_label_pass_exact_plain`` on the uncentred points ``pts_c``) with
+    the chain passes of ``orders`` (``chain_orders``; None: none), and the
+    labels mapped back to the original lanes."""
+    N = mask.shape[1]
+    sub, m_c, (pts_k, nrm_k), lab = _compact_labels(mask, labels0, pts_c,
+                                                    nrm)
+    cap = sub.shape[1]
+    if exact:
+        def pass_fn(rows, lab_r):
+            return min_label_pass_exact_plain(pts_k[rows], m_c[rows], lab_r,
+                                              tol2)
+    else:
+        def pass_fn(rows, lab_r):
+            return min_label_pass_plain(pts_k[rows], nrm_k[rows], m_c[rows],
+                                        lab_r, tol2)
+    chains = ()
+    if orders is not None:
+        order, link = orders
+        chains = [(order[:, k, :cap].long(), link[:, k, :cap].bool())
+                  for k in range(order.shape[1])]
+    lab, conv, rounds = _rounds_loop(lab, pass_fn, outer_iters, jump_iters,
+                                     chains)
+    return _uncompact(lab, sub, N), conv, rounds
+
+
+def _grid_offsets(tol: float, leaf: float):
+    """Static packed-key deltas of the cells that can hold a radius-``tol``
+    neighbor of a point in the center cell (R = ceil(tol/leaf) rings,
+    pruned by the minimum cube-to-cube distance); JAX ``_grid_offsets``."""
+    R = math.ceil(tol / leaf - 1e-9)
+    t2 = (tol / leaf) ** 2
+
+    def m(d):
+        return max(abs(d) - 1, 0)
+
+    offs = []
+    for dx in range(-R, R + 1):
+        for dy in range(-R, R + 1):
+            for dz in range(-R, R + 1):
+                if dx == dy == dz == 0:
+                    continue
+                if m(dx) ** 2 + m(dy) ** 2 + m(dz) ** 2 <= t2:
+                    offs.append((dx << 20) + (dy << 10) + dz)
+    return R, offs
+
+
+def grid_supported(tol: float, leaf: float, max_span: float) -> bool:
+    """Static gate for the grid path: the candidate-cell stencil must stay
+    small (R <= 2, i.e. <= 124 candidates) and the cloud's possible spatial
+    span must fit the 10-bit-per-axis key packing."""
+    R, offs = _grid_offsets(tol, leaf)
+    return len(offs) <= 124 and max_span / leaf + 2 * R + 2 <= 1024
+
+
+def grid_stencil(tol: float, leaf: float):
+    """The grid kernel's stencil arguments (R, smax): the rings and the
+    greatest integer sum of squared cell gaps a stencil cell may have
+    (``_grid_offsets``' test ``... <= (tol / leaf)^2`` on integers), which
+    the kernel enumerates in ``_grid_offsets``' order."""
+    R, offs = _grid_offsets(tol, leaf)
+    if len(offs) > 124:
+        raise ValueError(f"tol={tol}, leaf={leaf}: a stencil of {len(offs)} "
+                         "cells; the grid kernel takes at most 124 "
+                         "(grid_supported)")
+    return R, int(math.floor((tol / leaf) ** 2))
+
+
+def grid_neighbours_plain(pts, cells, mask, tol: float, leaf: float):
+    """The grid pass's neighbour table (JAX ``connected_components_grid``,
+    literally): nbr [D, N, C] int64, each point's stencil cell neighbours
+    that pass the exact radius test on ``pts`` as original lane ids, the
+    point itself in the other slots.  Keys are the cells less the
+    survivors' least cell plus R, 10 bits an axis; masked lanes take
+    unique sentinels; the keys are sorted (stably) and each stencil key
+    found by ``torch.searchsorted`` (side left: of equal keys the first).
+    Row blocks of [N, C], so the table's intermediates stay small."""
+    D, N = mask.shape
+    dev = pts.device
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    R, offs = _grid_offsets(tol, leaf)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    cmin = torch.where(mask[..., None], cells, _BIG).amin(1)
+    c = (cells - cmin[:, None, :] + R).clamp(0, 1023)
+    key = (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
+    key = torch.where(mask, key, _BIG + idx).to(torch.int32)
+    order = torch.sort(key, dim=1, stable=True).indices
+    key_s = torch.gather(key, 1, order).contiguous()
+    pts_s = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    mask_s = torch.gather(mask, 1, order)
+    dkeys = torch.tensor(offs, dtype=torch.int32, device=dev)
+    C = len(offs)
+    rows = max(1, min(N, _PLAIN_ELEMS // max(D * C * 3, 1)))
+    out = []
+    for b in range(0, N, rows):
+        s = slice(b, b + rows)
+        r = key_s[:, s].shape[1]
+        targets = key_s[:, s, None] + dkeys
+        pos = torch.searchsorted(key_s, targets.reshape(D, -1),
+                                 side="left").clamp(max=N - 1)
+        hit = (torch.gather(key_s, 1, pos).view(D, r, C) == targets) \
+            & mask_s[:, s, None]
+        pts_j = torch.gather(pts_s, 1, pos[..., None].expand(-1, -1, 3))
+        hit &= _sq_dist(pts_s[:, s, None, :], pts_j.view(D, r, C, 3)) <= tol2
+        out.append(torch.where(hit, torch.gather(order, 1, pos).view(D, r, C),
+                               order[:, s, None]))
+    nbr_s = torch.cat(out, dim=1)
+    return torch.empty_like(nbr_s).scatter_(
+        1, order[..., None].expand(-1, -1, C), nbr_s)
+
+
+def grid_seed(pts, mask, tol: float):
+    """The grid path's starting labels (JAX ``connected_components_grid``):
+    each point's own lane, seeded along one chain order of ``pts``."""
+    N = mask.shape[1]
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    idx = torch.arange(N, dtype=torch.int32, device=pts.device)
+    return _chain_seed(pts, mask, torch.where(mask, idx, N), tol2
+                       ).to(torch.int32).contiguous()
+
+
+def cluster_grid_plain(pts, cells, mask, labels0, tol: float, leaf: float,
+                       outer_iters: int, jump_iters: int = 12):
+    """Plain PyTorch version of ``cluster_grid`` (any device): the
+    neighbour table (``grid_neighbours_plain``) in compacted numbering (a
+    masked neighbour, which only a sentinel key can give, as the point
+    itself: its label never wins), then ``_rounds_loop`` over the table's
+    minimum."""
+    D, N = mask.shape
+    nbr = grid_neighbours_plain(pts, cells, mask, tol, leaf)
+    sub, m_c, (nbr_k,), lab = _compact_labels(mask, labels0, nbr)
+    cap = sub.shape[1]
+    rank = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).long()
+    C = nbr.shape[2]
+    flat = nbr_k.reshape(D, -1)
+    self_c = torch.arange(cap, device=pts.device)[None, :, None]
+    nbr_c = torch.where(torch.gather(mask, 1, flat).view(D, cap, C),
+                        torch.gather(rank, 1, flat).view(D, cap, C),
+                        self_c).reshape(D, -1)
+
+    def pass_fn(rows, lab_r):
+        got = torch.gather(lab_r, 1, nbr_c[rows]).view(len(rows), cap, C)
+        return torch.minimum(lab_r, got.amin(-1))
+
+    lab, conv, rounds = _rounds_loop(lab, pass_fn, outer_iters, jump_iters)
+    return _uncompact(lab, sub, N), conv, rounds
 
 
 # the clustering kernel's launch: blocks per detection (the cluster size),
@@ -217,13 +468,18 @@ def launch_smem(N: int) -> int:
 
 
 def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
-            select=None, shape=None, smem=None, prune=True):
+            select=None, shape=None, smem=None, prune=True, exact=False,
+            orders=None):
     """One launch of the clustering kernel on CUDA tensors, checked.
     ``select`` = (pts, center, min_size, center_dis) asks for the selection
-    epilogue.  For the sweep and the kernel's tests only: ``shape`` = (blocks
-    per detection, threads, points a lane) and ``smem`` override the launch,
-    ``prune=False`` tests every pair.  Returns (labels, converged, rounds,
-    sel | None, ok | None)."""
+    epilogue; ``exact`` the exact lane (pts_c the uncentred points, nrm
+    their squared norms); ``orders`` (``chain_orders``) the chain lane.  Each
+    lane counts its own launches (frontend_kernels.CLUSTER_EXACT,
+    CLUSTER_CHAIN; the chain lane's with ``exact`` too).  For the sweep and
+    the kernel's tests only: ``shape`` = (blocks per detection, threads,
+    points a lane) and ``smem`` override the launch, ``prune=False`` tests
+    every pair.  Returns (labels, converged, rounds, sel | None,
+    ok | None)."""
     D, N = mask.shape
     dev = pts_c.device
     if frame is None:
@@ -245,7 +501,19 @@ def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
             labels0.data_ptr(), D, N, tol2, outer_iters, jump_iters, S, T, P,
             smem or launch_smem(N), int(prune), frame.data_ptr(),
             9 if per_detection else 0, labels.data_ptr(),
-            conv.data_ptr(), rounds.data_ptr()]
+            conv.data_ptr(), rounds.data_ptr(), int(exact)]
+    kernel = fk.CLUSTER_EXACT if exact else fk.CLUSTER_COMPONENTS
+    if orders is not None:
+        order, link = orders
+        K = order.shape[1]
+        if not 1 <= K <= 3:
+            raise ValueError(f"{K} chain orders: the lane takes 1 to 3")
+        fk.check("chain order", order, torch.int32, (D, K, N), dev)
+        fk.check("chain link", link, torch.uint8, (D, K, N), dev)
+        args += [order.data_ptr(), link.data_ptr(), K]
+        kernel = fk.CLUSTER_CHAIN
+    else:
+        args += [None, None, 0]
     sel = ok = None
     fn = "oslam_cluster_components"
     if select is not None:
@@ -261,7 +529,7 @@ def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
                  least_d.data_ptr(), sel.data_ptr(), ok.data_ptr()]
         fn = "oslam_cluster_select"
     if D and N:
-        fk.launch(fk.CLUSTER_COMPONENTS, fn, dev, args)
+        fk.launch(kernel, fn, dev, args)
     else:
         conv.fill_(True)
         rounds.fill_(1)
@@ -271,7 +539,8 @@ def _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
 
 
 def cluster_components(pts_c, nrm, mask, labels0, tol2: float,
-                       outer_iters: int, jump_iters: int = 12, frame=None):
+                       outer_iters: int, jump_iters: int = 12, frame=None,
+                       exact: bool = False, orders=None):
     """The whole propagation of a frame: for each detection, rounds of one
     min-label pass over the radius graph and ``jump_iters`` synchronous
     pointer jumps, until a round changes no label or ``outer_iters`` ran.
@@ -293,29 +562,37 @@ def cluster_components(pts_c, nrm, mask, labels0, tol2: float,
     axes; left out, the identity (the kernel also takes the identity for a
     matrix that is no rotation).  ``frame`` [D, 3, 3] gives each detection
     its own (the offline batch mapper: the detections of a batch come from
-    frames of different poses).
+    frames of different poses).  ``exact``: the direct radius test on the
+    uncentred points (pts_c then holds them, nrm their squared norms;
+    ``centre_and_seed(exact=True)``), the kernel's exact lane; ``orders``
+    (``chain_orders``): a chain pass along each order after every pass,
+    its chain lane.
     """
     if pts_c.device.type != "cuda":
         return cluster_components_plain(pts_c, nrm, mask, labels0, tol2,
-                                        outer_iters, jump_iters)
+                                        outer_iters, jump_iters, exact,
+                                        orders)
     return _launch(pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters,
-                   frame)[:3]
+                   frame, exact=exact, orders=orders)[:3]
 
 
 def cluster_select_plain(pts, pts_c, nrm, mask, labels0, center, tol2: float,
                          outer_iters: int, jump_iters: int, min_size: int,
-                         center_dis: float):
+                         center_dis: float, exact: bool = False,
+                         orders=None):
     """Plain PyTorch version of ``cluster_select`` (any device):
     ``cluster_components_plain``, then ``select_cluster`` on its labels."""
     labels, conv, rounds = cluster_components_plain(
-        pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters)
+        pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, exact,
+        orders)
     sel, ok = select_cluster(pts, mask, labels, center, min_size, center_dis)
     return sel, ok & conv, labels, conv, rounds
 
 
 def cluster_select(pts, pts_c, nrm, mask, labels0, center, tol2: float,
                    outer_iters: int, jump_iters: int, min_size: int,
-                   center_dis: float, frame=None):
+                   center_dis: float, frame=None, exact: bool = False,
+                   orders=None):
     """``cluster_components`` followed by ``select_cluster`` on its labels.
 
     pts [D, N, 3] the points the centre distances are taken on (the
@@ -332,30 +609,42 @@ def cluster_select(pts, pts_c, nrm, mask, labels0, center, tol2: float,
     if pts_c.device.type != "cuda":
         return cluster_select_plain(pts, pts_c, nrm, mask, labels0, center,
                                     tol2, outer_iters, jump_iters, min_size,
-                                    center_dis)
+                                    center_dis, exact, orders)
     labels, conv, rounds, sel, ok = _launch(
         pts_c, nrm, mask, labels0, tol2, outer_iters, jump_iters, frame,
-        (pts, center, min_size, center_dis))
+        (pts, center, min_size, center_dis), exact=exact, orders=orders)
     return sel, ok, labels, conv, rounds
 
 
-def centre_and_seed(pts, mask, tol: float, chains: int = -1):
+def centre_and_seed(pts, mask, tol: float, chains: int = -1,
+                    exact: bool = False, with_orders: bool = False):
     """What ``cluster_components`` takes, from a frame's points: (pts_c,
     nrm, mask, labels0, tol2).  The points are centred on the masked mean
-    once (labels are translation-invariant); ``chains`` = -1 seeds the
-    labels along one spatial sort order, 0 leaves each point its own."""
+    once (labels are translation-invariant); with ``exact`` they stay
+    uncentred (the exact test's), masked ones zeroed.  ``chains``: |chains|
+    spatial orders seed the labels (-1: one, 0: each point its own);
+    ``with_orders`` also returns the chain lane's ``chain_orders`` when
+    ``chains > 0`` (else None), as ((...), orders)."""
     D, N = mask.shape
     tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
     idx = torch.arange(N, dtype=torch.int32, device=pts.device)
     labels0 = torch.where(mask, idx, N)
-    if chains:
-        labels0 = _chain_seed(pts, mask, labels0, tol2)
+    structs = _chain_structs(pts, mask, tol2, abs(chains)) if chains else []
+    if structs:
+        labels0 = _chain_seed(pts, mask, labels0, tol2, structs)
     w = mask[..., None]
-    c = torch.where(w, pts, 0.0).sum(1) / mask.sum(1).clamp_min(1).to(
-        pts.dtype)[:, None]
-    pts_c = torch.where(w, pts - c[:, None, :], 0.0).contiguous()
+    if exact:
+        pts_c = torch.where(w, pts, 0.0).contiguous()
+    else:
+        c = torch.where(w, pts, 0.0).sum(1) / mask.sum(1).clamp_min(1).to(
+            pts.dtype)[:, None]
+        pts_c = torch.where(w, pts - c[:, None, :], 0.0).contiguous()
     nrm = (pts_c * pts_c).sum(-1)
-    return pts_c, nrm, mask.contiguous(), labels0.contiguous(), tol2
+    out = (pts_c, nrm, mask.contiguous(), labels0.to(torch.int32).contiguous(),
+           tol2)
+    if not with_orders:
+        return out
+    return out, (chain_orders(structs, mask) if chains > 0 else None)
 
 
 def connected_components(pts: torch.Tensor, mask: torch.Tensor, tol: float,
@@ -369,35 +658,196 @@ def connected_components(pts: torch.Tensor, mask: torch.Tensor, tol: float,
 
     Masked-out points get label N (out of range).  Both the kernel and the
     plain loop compact the unmasked points first (stable order, so the
-    min-index labels map back exactly) to the survivors there are, so this
-    is also the JAX package's ``components_compacted``, whose static lane
-    count has no counterpart here.  With
+    min-index labels map back exactly) to the survivors there are.  With
     ``with_converged=True`` additionally returns the convergence flags [D]:
     False for a detection whose propagation the bound truncated while
     labels were still changing; callers MUST surface that (a truncated run
     silently yields fragment components).  With ``with_rounds=True`` also
     the rounds [D] each detection ran, up to and including the first one
-    that changed no label.  ``chains``: -1 seeds the labels along one
-    spatial sort order, 0 does not; interleaved chain passes
-    (``chains > 0``) and the exact broadcast pass are not ported.
+    that changed no label.  ``exact``: the direct radius test on the
+    uncentred points.  ``chains``: |chains| spatial orders seed the labels
+    (-1, the default: one; 0: none); chains > 0 also interleaves a chain
+    pass per order after every pass.
     """
-    if exact:
-        raise NotImplementedError(
-            "exact=True: the broadcast distance pass is not ported to the "
-            "torch package")
-    if chains > 0 or chains < -1:
-        raise NotImplementedError(
-            f"chains={chains}: interleaved chain passes (cluster_chains > 0) "
-            "are not ported to the torch package")
+    args, orders = centre_and_seed(pts, mask, tol, chains, exact,
+                                   with_orders=True)
     labels, conv, rounds = cluster_components(
-        *centre_and_seed(pts, mask, tol, chains), outer_iters, jump_iters,
-        frame=frame)
+        *args, outer_iters, jump_iters, frame=frame, exact=exact,
+        orders=orders)
     out = (labels,)
     if with_converged:
         out += (conv,)
     if with_rounds:
         out += (rounds,)
     return out if len(out) > 1 else labels
+
+
+def _launch_grid(pts, cells, mask, labels0, tol: float, leaf: float,
+                 outer_iters: int, jump_iters: int, select=None, shape=None):
+    """One launch of the grid kernel (K13, ``cluster_grid``) on CUDA
+    tensors, checked.  ``select`` = (pts_w, center, min_size, center_dis)
+    asks for the selection epilogue; ``shape`` = (blocks a detection,
+    threads, points a lane) overrides ``LAUNCH_SHAPE``.  Returns (labels,
+    converged, rounds, sel | None, ok | None)."""
+    D, N = mask.shape
+    dev = pts.device
+    fk.check("pts", pts, torch.float32, (D, N, 3), dev)
+    fk.check("cells", cells, torch.int32, (D, N, 3), dev)
+    fk.check("mask", mask, torch.bool, (D, N), dev)
+    fk.check("labels0", labels0, torch.int32, (D, N), dev)
+    if outer_iters < 1 or jump_iters < 0:
+        raise ValueError(f"outer_iters={outer_iters}, jump_iters={jump_iters}")
+    R, smax = grid_stencil(tol, leaf)
+    n_pad = -(-N // 32) * 32
+    smem = 12 * n_pad
+    if smem > _SMEM_MAX:
+        most = _SMEM_MAX // 12 // 32 * 32
+        raise ValueError(f"cluster_grid takes at most {most} lanes a "
+                         f"detection (got {N})")
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    labels = torch.empty_like(labels0)
+    conv = torch.empty((D,), dtype=torch.bool, device=dev)
+    rounds = torch.empty((D,), dtype=torch.int32, device=dev)
+    sel = ok = None
+    sel_args = [None, None, 0, 0.0, None, None, None]
+    if select is not None:
+        pts_w, center, min_size, center_dis = select
+        fk.check("pts_w", pts_w, torch.float32, (D, N, 3), dev)
+        fk.check("center", center, torch.float32, (D, 3), dev)
+        if min_size < 1:
+            raise ValueError(f"min_size={min_size}: a cluster has a point")
+        sel = torch.empty((D, N), dtype=torch.bool, device=dev)
+        ok = torch.empty((D,), dtype=torch.bool, device=dev)
+        least_d = torch.empty((D, N), dtype=torch.int32, device=dev)
+        sel_args = [pts_w.data_ptr(), center.data_ptr(), min_size,
+                    center_dis, least_d.data_ptr(), sel.data_ptr(),
+                    ok.data_ptr()]
+    if D and N:
+        # scratch from the caching allocator: the hash table of packed cell
+        # keys (uint64 as int64), the neighbour table (16-bit compacted ids;
+        # a lane takes at most 124 neighbours) and the neighbour counts
+        hash_cap = 1 << max(6, (2 * n_pad - 1).bit_length())
+        hash_t = torch.empty((D, hash_cap), dtype=torch.int64, device=dev)
+        nbr = torch.empty((D, 124, N), dtype=torch.int16, device=dev)
+        ncount = torch.empty((D, N), dtype=torch.uint8, device=dev)
+        S, T, P = shape or LAUNCH_SHAPE
+        fk.launch(fk.CLUSTER_GRID, "oslam_cluster_grid", dev, [
+            pts.data_ptr(), cells.data_ptr(), mask.data_ptr(),
+            labels0.data_ptr(), D, N, tol2, R, smax, outer_iters, jump_iters,
+            S, T, P, smem, hash_t.data_ptr(), hash_cap,
+            nbr.data_ptr(), ncount.data_ptr(), labels.data_ptr(),
+            conv.data_ptr(), rounds.data_ptr(), *sel_args])
+    else:
+        conv.fill_(True)
+        rounds.fill_(1)
+        if ok is not None:
+            ok.fill_(False)
+    return labels, conv, rounds, sel, ok
+
+
+def cluster_grid(pts, cells, mask, labels0, tol: float, leaf: float,
+                 outer_iters: int, jump_iters: int = 12):
+    """The grid path's whole propagation of a frame (JAX
+    ``connected_components_grid`` after its seed): pts [D, N, 3] float32,
+    cells [D, N, 3] int32 their voxel cells at ``leaf`` (one a point:
+    PRECONDITION, as in JAX), mask [D, N] bool, labels0 [D, N] int32
+    (``grid_seed``).  Returns (labels, converged, rounds) as
+    ``cluster_components``, nothing read back.  On a CUDA device one launch
+    of K13 (csrc/frontend.cu); on the CPU ``cluster_grid_plain``."""
+    if pts.device.type != "cuda":
+        return cluster_grid_plain(pts, cells, mask, labels0, tol, leaf,
+                                  outer_iters, jump_iters)
+    return _launch_grid(pts, cells, mask, labels0, tol, leaf, outer_iters,
+                        jump_iters)[:3]
+
+
+def cluster_grid_select_plain(pts, cells, mask, labels0, pts_w, center,
+                              tol: float, leaf: float, outer_iters: int,
+                              jump_iters: int, min_size: int,
+                              center_dis: float):
+    """Plain PyTorch version of ``cluster_grid_select`` (any device)."""
+    labels, conv, rounds = cluster_grid_plain(pts, cells, mask, labels0, tol,
+                                              leaf, outer_iters, jump_iters)
+    sel, ok = select_cluster(pts_w, mask, labels, center, min_size,
+                             center_dis)
+    return sel, ok & conv, labels, conv, rounds
+
+
+def cluster_grid_select(pts, cells, mask, labels0, pts_w, center, tol: float,
+                        leaf: float, outer_iters: int, jump_iters: int,
+                        min_size: int, center_dis: float):
+    """``cluster_grid`` followed by ``select_cluster`` on the points pts_w
+    [D, N, 3] (the world points; the labels come from ``pts``, the camera
+    frame's, whose cells they are) and center [D, 3].  Returns (sel, ok:
+    chosen and converged, labels, converged, rounds).  On a CUDA device the
+    selection is K13's epilogue (K5's, shared); on the CPU
+    ``cluster_grid_select_plain``."""
+    if pts.device.type != "cuda":
+        return cluster_grid_select_plain(pts, cells, mask, labels0, pts_w,
+                                         center, tol, leaf, outer_iters,
+                                         jump_iters, min_size, center_dis)
+    labels, conv, rounds, sel, ok = _launch_grid(
+        pts, cells, mask, labels0, tol, leaf, outer_iters, jump_iters,
+        (pts_w, center, min_size, center_dis))
+    return sel, ok, labels, conv, rounds
+
+
+def connected_components_grid(pts: torch.Tensor, cells: torch.Tensor,
+                              mask: torch.Tensor, tol: float, leaf: float,
+                              outer_iters: int = 8, jump_iters: int = 12,
+                              with_converged: bool = False,
+                              with_rounds: bool = False):
+    """Grid-hash connected components for voxel-downsampled clouds (JAX
+    ``connected_components_grid``): labels [D, N] as
+    ``connected_components(..., exact=True)``.  PRECONDITION: each unmasked
+    point occupies a distinct ``cells`` row, computed from the SAME
+    coordinates as ``pts`` (pairwise distances are rigid-invariant, the
+    cell bound is not).  ``with_converged`` / ``with_rounds`` as
+    ``connected_components``."""
+    labels, conv, rounds = cluster_grid(
+        pts.contiguous(), cells.to(torch.int32).contiguous(),
+        mask.contiguous(), grid_seed(pts, mask, tol), tol, leaf, outer_iters,
+        jump_iters)
+    out = (labels,)
+    if with_converged:
+        out += (conv,)
+    if with_rounds:
+        out += (rounds,)
+    return out if len(out) > 1 else labels
+
+
+def components_compacted(pts: torch.Tensor, mask: torch.Tensor, tol: float,
+                         outer_iters: int, jump_iters: int, compact_cap: int,
+                         with_converged: bool = False, chains: int = -1):
+    """JAX ``components_compacted``: the unmasked points compacted (stable
+    order) into the front ``compact_cap`` lanes, clustered there, and the
+    labels mapped back.  PRECONDITION: sum(mask) <= compact_cap per
+    detection (overflowed points would be dropped).  The labels equal
+    ``connected_components``'."""
+    N = mask.shape[1]
+    order = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
+    sub = order[:, :compact_cap]
+    lab_c, conv = connected_components(
+        torch.gather(pts, 1, sub[..., None].expand(-1, -1, 3)),
+        torch.gather(mask, 1, sub), tol, outer_iters, jump_iters,
+        with_converged=True, chains=chains)
+    cap = sub.shape[1]
+    orig = torch.where(lab_c < cap,
+                       torch.gather(sub.to(torch.int32), 1,
+                                    lab_c.clamp(0, cap - 1).long()), N)
+    labels = torch.full(mask.shape, N, dtype=torch.int32, device=mask.device)
+    labels.scatter_(1, sub, orig)
+    return (labels, conv) if with_converged else labels
+
+
+def connected_components_compact(pts: torch.Tensor, mask: torch.Tensor,
+                                 tol: float, outer_iters: int = 8,
+                                 jump_iters: int = 12,
+                                 compact_cap: int | None = None):
+    """JAX ``connected_components_compact``, whose results ALWAYS equal
+    ``connected_components``': that, since the clustering already compacts
+    each detection to its survivors; ``compact_cap`` changes nothing."""
+    return connected_components(pts, mask, tol, outer_iters, jump_iters)
 
 
 def select_cluster(pts: torch.Tensor, mask: torch.Tensor,
@@ -442,3 +892,23 @@ def select_cluster(pts: torch.Tensor, mask: torch.Tensor,
 
     sel = mask & (labels == chosen[:, None]) & ok[:, None]
     return sel, ok
+
+
+def euclidean_filter(pts: torch.Tensor, mask: torch.Tensor,
+                     center: torch.Tensor, tol: float, min_size: int,
+                     center_dis: float, outer_iters: int = 8,
+                     exact: bool = False, grid_pts=None, grid_cells=None,
+                     grid_leaf=None):
+    """Full Euclidean-filter stage (JAX ``euclidean_filter``): cluster +
+    select.  Returns (sel_mask [D, N], ok [D]).  With ``grid_pts`` /
+    ``grid_cells`` / ``grid_leaf`` (the points in the frame whose
+    voxelization produced the cells) the grid path computes the labels;
+    ``pts`` / ``center`` still give the selection distances."""
+    if grid_pts is not None:
+        labels = connected_components_grid(grid_pts, grid_cells, mask, tol,
+                                           grid_leaf,
+                                           outer_iters=outer_iters)
+    else:
+        labels = connected_components(pts, mask, tol,
+                                      outer_iters=outer_iters, exact=exact)
+    return select_cluster(pts, mask, labels, center, min_size, center_dis)

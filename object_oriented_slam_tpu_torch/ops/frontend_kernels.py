@@ -7,7 +7,10 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 (depth_cloud: stages (a)-(c) of an extraction call, the latter with each
 point's depth-border flag averaged per voxel), ``cluster.cluster_components``
 and ``cluster.cluster_select`` (the clustering: one kernel, without and with
-the selection epilogue, one launch counter), ``voxel.voxel_downsample`` and
+the selection epilogue, one launch counter; its exact and chain lanes count
+apart), ``cluster.cluster_grid`` / ``cluster.cluster_grid_select`` (K13,
+the grid pass of ``grid_cluster``: the same kernel's third pass, a counter
+of its own), ``voxel.voxel_downsample`` and
 its attribute variants (voxel_downsample: the object downsample) and
 ``frontend.symmetry.estimate_symmetry`` (symmetry_search: the
 symmetry-plane search of stage (g), over every live point or, with a source
@@ -36,6 +39,13 @@ VOXEL_DOWNSAMPLE = Kernel("voxel_downsample")
 CLUSTER_COMPONENTS = Kernel("cluster_components")
 SYMMETRY_SEARCH = Kernel("symmetry_search")
 KERNELS = (DEPTH_CLOUD, VOXEL_DOWNSAMPLE, CLUSTER_COMPONENTS, SYMMETRY_SEARCH)
+# the clustering options' kernels, each with its own count: K13 (the grid
+# pass, ``grid_cluster``) and K5's exact and chain lanes (``exact=True``,
+# ``cluster_chains > 0``); none of them runs on the default path
+CLUSTER_GRID = Kernel("cluster_grid")
+CLUSTER_EXACT = Kernel("cluster_components_exact")
+CLUSTER_CHAIN = Kernel("cluster_components_chain")
+OPTION_KERNELS = (CLUSTER_GRID, CLUSTER_EXACT, CLUSTER_CHAIN)
 # the most points of a detection's cloud symmetry_search takes (its shared
 # memory holds them as float4: OSLAM_SYM_MAX_S in csrc/frontend.cu)
 SYM_MAX_POINTS = 2048
@@ -78,9 +88,13 @@ def _bind(lib_path: str) -> ctypes.CDLL:
              [p, i, i, p, i, p, p] + [f] * 8 + [i] + [p] * 9 + [f, p]),
             ("oslam_voxel_downsample", [p, p, i, i, f, i] + [p] * 5),
             ("oslam_cluster_components",
-             [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3),
+             [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3
+             + [i, p, p, i]),
             ("oslam_cluster_select",
              [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3
+             + [i, p, p, i] + [p, p, i, f, p, p, p]),
+            ("oslam_cluster_grid",
+             [p] * 4 + [i, i, f] + [i] * 8 + [p, i] + [p] * 5
              + [p, p, i, f, p, p, p]),
             ("oslam_symmetry_search",
              [p] * 9 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):

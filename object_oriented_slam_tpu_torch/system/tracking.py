@@ -73,8 +73,9 @@ initialization is the host's incremental SVD unless
 ``use_incremental_init`` is set False (then the batch SVD initializer
 ``init.init_quadric_svd`` on the device, one host fetch per attempt).
 ``Visualization.Builder.Open: 1`` builds a ``DenseBuilder`` fed by every
-frame body with a depth image.  What is not ported raises
-``NotImplementedError``: the interactive plane check.
+frame body with a depth image.  ``Plane.MannualCheck.Open: 1`` offers
+each estimated plane to ``plane_manual_check_fn`` (a terminal Y/N on a
+tty, else accepted) before it latches.
 """
 from __future__ import annotations
 
@@ -150,6 +151,18 @@ def _shared_init_fn(rows: int, cols: int):
     return init_packed
 
 
+def _default_plane_check(plane_world) -> bool:
+    """Tracking.cpp:758-772: print the plane, ask Y/N on the terminal.
+    Non-interactive runs auto-accept (the reference would block forever
+    on getchar)."""
+    import sys
+    print(f"Estimated ground plane: {np.round(plane_world, 4)}")
+    if not sys.stdin.isatty():
+        return True
+    ans = input("Accept ground plane? [Y/n] ").strip().lower()
+    return ans in ("", "y", "yes")
+
+
 class Tracking:
     """Host orchestrator of the mapping loop on ``device`` (the CUDA device
     unless the caller passes one, e.g. ``device="cpu"``).
@@ -175,10 +188,6 @@ class Tracking:
 
     def __init__(self, config: Config, extractor=None, plane_estimator=None,
                  device=None):
-        if config.get_int("Plane.MannualCheck.Open") == 1:
-            raise NotImplementedError(
-                "Plane.MannualCheck.Open: the interactive ground-plane "
-                "confirmation is not ported to the torch package")
         self.cfg = config
         self.device = resolve_device(device)
         self.camera = cam_mod.Camera(
@@ -197,6 +206,14 @@ class Tracking:
         self.state = SlamState()
         self.extractor = extractor
         self.plane_estimator = plane_estimator
+        # interactive ground-plane confirmation (Tracking.cpp:758-772): when
+        # open, the estimated plane is offered to ``plane_manual_check_fn``
+        # (default: terminal Y/N when stdin is a tty, auto-accept
+        # otherwise); a rejection keeps the estimation state machine at 1,
+        # so the next frame retries
+        self.plane_manual_check = config.get_int(
+            "Plane.MannualCheck.Open") == 1
+        self.plane_manual_check_fn = _default_plane_check
         self.da_counter = InstanceCounter()
         self.open_optimization = True
         self.depth_ellipsoid_opened = extractor is not None
@@ -364,12 +381,17 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _latch_plane(self, plane_cam, pose_wc):
-        """World-transform + latch (Tracking.cpp:723-771), in float32 on
-        the host like the JAX package."""
+        """World-transform + manual check + latch (Tracking.cpp:723-771),
+        in float32 on the host like the JAX package.  A rejected plane
+        leaves ground_state at 1: the next frame estimates again (an
+        asynchronous estimate's deferred frames replay without a plane)."""
         pw = plane_mod.transform(
             torch.as_tensor(np.asarray(plane_cam, np.float32)),
             torch.as_tensor(pose_wc.astype(np.float32)))
-        self.state.ground_plane = pw.numpy().astype(np.float64)
+        pw = pw.numpy().astype(np.float64)
+        if self.plane_manual_check and not self.plane_manual_check_fn(pw):
+            return
+        self.state.ground_plane = pw
         self.state.ground_state = 2
 
     # ------------------------------------------------------------------

@@ -228,16 +228,42 @@ def test_symmetry_options_run(option, frame):
     dict(cluster_chains=2), dict(compact_tiers=False),
     dict(compact_rungs=(8, 16))])
 def test_unported_extractor_options_raise(option, frame):
-    name = next(iter(option))
-    cfg = text.ExtractorConfig(**option)
-    with pytest.raises(NotImplementedError, match=name):
-        text.make_extractor(frame["cam"], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        text.extract_local_ellipsoids(
-            torch.from_numpy(frame["depth"]),
-            torch.from_numpy(frame["bboxes"]),
-            torch.ones(3, dtype=torch.bool), torch.from_numpy(frame["pose"]),
-            torch.from_numpy(frame["plane"]), frame["cam"], cfg)
+    """The clustering options that raised before they were ported, now
+    held against JAX's extractor with the same option on the frame, at the
+    whole-frame tolerances of ``test_extract_local_ellipsoids_matches_jax``:
+    the grid pass (its gate passes here), interleaved chain passes, and the
+    compaction ladder's fields, which the port takes and ignores (at this
+    frame's tier 2048 JAX's ladder does not run either; at 4096, where it
+    does: tests/test_torch_cluster_options.py).  ``make_extractor`` takes
+    each option and its rows are the same call's."""
+    f = frame
+    cfg = text.ExtractorConfig(**KW, **option)
+    jcfg = jext.ExtractorConfig(**KW, **option)
+    assert text._grid_clustering_ok(f["cam"], cfg) == \
+        jext._grid_clustering_ok(f["jcam"], jcfg) == ("grid_cluster" in option)
+    (td, tb), (jd, jb) = _args(f)
+    run = np.array([True, True, True])
+    e, p, v, _ = text.extract_local_ellipsoids(
+        td, tb, torch.from_numpy(run), torch.from_numpy(f["pose"]),
+        torch.from_numpy(f["plane"]), f["cam"], cfg)
+    je, jp, jv, _ = jext.extract_local_ellipsoids(
+        jd, jb, jnp.asarray(run), jnp.asarray(f["pose"]),
+        jnp.asarray(f["plane"]), f["jcam"], jcfg)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    assert v.sum() >= 2
+    ok = v.numpy()
+    e_ok, je_ok = e.numpy()[ok], np.asarray(je)[ok]
+    np.testing.assert_allclose(e_ok[:, :3], je_ok[:, :3], atol=1e-3)
+    np.testing.assert_allclose(np.sort(e_ok[:, 7:]), np.sort(je_ok[:, 7:]),
+                               atol=2e-3)
+    z = se3.quat_to_mat(torch.from_numpy(e_ok[:, 3:7]))[:, :, 2].numpy()
+    jz = se3.quat_to_mat(torch.from_numpy(je_ok[:, 3:7]))[:, :, 2].numpy()
+    np.testing.assert_allclose(z, jz, atol=1e-3)
+    ex = text.make_extractor(f["cam"], cfg, device="cpu")
+    host = ex.fetch(ex(f["depth"], f["bboxes"], np.array([56, 57, 58]),
+                       f["pose"].astype(float), f["plane"].astype(float)))
+    assert ex.stats["cloud_tier"] == 2048 and ex.stats["cluster_converged"]
+    np.testing.assert_allclose(host[:3, :10], e.numpy(), atol=1e-6)
 
 
 def test_extractor_config_has_the_jax_fields_and_defaults():

@@ -279,6 +279,231 @@ def test_cluster_components_refuses_what_it_does_not_take(device):
                           tol2, 96, 12, 100, 0.5)
 
 
+def _grid_inputs(n_lanes=4096):
+    """The depth frame's voxel clouds in the camera frame with their cells
+    (the grid path's inputs), the world points and the survivor mask."""
+    depth, bboxes, pose, cam = _frame()
+    pts, mask = bp.bbox_point_cloud_plain(depth, bboxes, cam, 6.0)
+    world = _world_cpu(_world(pose, torch.device("cpu")))
+    key, cmin = vx.voxel_keys(pts, mask, 0.01)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    pts_v, cells_v, _, pts_w, m2 = vx.voxel_segment_mean_plain(
+        key_s, order, pts, cmin, n_lanes, world)
+    return pts_v, cells_v, pts_w, m2
+
+
+def _counts():
+    return {k.name: k.launches for k in (*fk.KERNELS, *fk.OPTION_KERNELS)}
+
+
+@pytest.mark.parametrize("lane", ["exact", "chain1", "chain2", "chain3",
+                                  "exact_chain"])
+def test_cluster_lanes_equal_plain(device, lane):
+    """K5's exact and chain lanes: labels, converged and rounds equal the
+    plain version's (the same chain orders, the same uncentred points for
+    the exact test), a second launch the same bits, every launch shape and
+    the streamed branch the same, a bound of 2 rounds too, and the
+    selection epilogue; each launch counts on its lane's counter only."""
+    pts_w, m2 = _cluster_inputs()
+    exact = lane.startswith("exact")
+    chains = int(lane[-1]) if lane[-1].isdigit() else (2 if "chain" in lane
+                                                       else -1)
+    args, orders = cl.centre_and_seed(pts_w, m2, 0.02, chains, exact,
+                                      with_orders=True)
+    assert (orders is not None) == ("chain" in lane)
+    counter = fk.CLUSTER_CHAIN if orders is not None else fk.CLUSTER_EXACT
+    args_d = _on(device, args)
+    orders_d = None if orders is None else tuple(t.to(device) for t in orders)
+    for outer in (96, 2):
+        want = cl.cluster_components_plain(*args, outer, 12, exact, orders)
+        before = _counts()
+        got = [cl.cluster_components(*args_d, outer, 12, exact=exact,
+                                     orders=orders_d) for _ in range(2)]
+        torch.cuda.synchronize()
+        after = _counts()
+        assert {k: after[k] - before[k] for k in after if after[k] !=
+                before[k]} == {counter.name: 2}
+        for g in got:
+            _assert_same(g, want)
+        if outer == 96:
+            assert bool(want[1].all()) and int(want[2].max()) > 2
+        else:
+            assert not bool(want[1].all())
+    P = cl.LAUNCH_SHAPE[2]
+    for shape in ((1, 256, P), (4, 128, P), (8, 512, P)):
+        _assert_same(cl._launch(*args_d, 96, 12, None, shape=shape,
+                                exact=exact, orders=orders_d)[:3],
+                     cl.cluster_components_plain(*args, 96, 12, exact,
+                                                 orders))
+    least = 13 * m2.shape[1] + 16 * 256
+    _assert_same(cl._launch(*args_d, 96, 12, None, smem=least, exact=exact,
+                            orders=orders_d)[:3],
+                 cl.cluster_components_plain(*args, 96, 12, exact, orders))
+    centre = pts_w[:, 0].contiguous()
+    s_args = (pts_w, *args[:4], centre, args[4], 96, 12, 100, 0.5)
+    want = cl.cluster_select_plain(*s_args, exact=exact, orders=orders)
+    got = cl.cluster_select(*_on(device, s_args), exact=exact,
+                            orders=orders_d)
+    _assert_same(got, want)
+
+
+def test_cluster_lanes_full_lanes(device):
+    """The lanes on clouds that fill 16384 lanes (streamed) with the
+    bound of 2 rounds as well: equal to the plain version on the card."""
+    rng = np.random.default_rng(5)
+    D, N = 3, 16384
+    pts = rng.uniform(0.0, 1.0, (D, N, 3)).astype(np.float32)
+    pts[..., 2] *= 0.25
+    pts[0] = pts[0][np.argsort(pts[0, :, 0], kind="stable")]
+    mask = np.ones((D, N), bool)
+    mask[1, rng.permutation(N)[:6000]] = False
+    mask[2] = False
+    pts_t, mask_t = torch.from_numpy(pts), torch.from_numpy(mask)
+    for exact, chains in ((True, -1), (False, 3)):
+        args, orders = cl.centre_and_seed(pts_t, mask_t, 0.02, chains, exact,
+                                          with_orders=True)
+        args_d = _on(device, args)
+        orders_d = None if orders is None else tuple(t.to(device)
+                                                     for t in orders)
+        for outer in (96, 2):
+            want = cl.cluster_components_plain(*args_d, outer, 12, exact,
+                                               orders_d)
+            got = cl.cluster_components(*args_d, outer, 12, exact=exact,
+                                        orders=orders_d)
+            _assert_same(got, want)
+
+
+def test_cluster_grid_equals_plain(device):
+    """K13: the grid pass's labels, converged and rounds equal its plain
+    version's on the depth frame's voxel clouds (one launch, nothing read
+    back between rounds), with the selection epilogue on the world points
+    too, a second launch the same bits, other launch shapes the same, a
+    bound of 2 rounds the same, lanes given in a shuffled order (the hash
+    table needs no order) the same labels mapped, and it counts on
+    ``CLUSTER_GRID`` alone."""
+    pts_v, cells_v, pts_w, m2 = _grid_inputs()
+    labels0 = cl.grid_seed(pts_v, m2, 0.02)
+    centre = pts_w[:, 0].contiguous()
+    d = lambda *ts: [t.to(device) for t in ts]    # noqa: E731
+    for outer in (96, 2):
+        want = cl.cluster_grid_select_plain(pts_v, cells_v, m2, labels0,
+                                            pts_w, centre, 0.02, 0.01, outer,
+                                            12, 100, 0.5)
+        before = _counts()
+        for _ in range(2):
+            got = cl.cluster_grid_select(*d(pts_v, cells_v, m2, labels0,
+                                            pts_w, centre), 0.02, 0.01,
+                                         outer, 12, 100, 0.5)
+            _assert_same(got, want)
+        torch.cuda.synchronize()
+        after = _counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"cluster_grid": 2}
+        if outer == 96:
+            settled = want
+            assert bool(want[3].all()) and int(want[4].max()) > 2
+            _assert_same(cl.cluster_grid(*d(pts_v, cells_v, m2, labels0),
+                                         0.02, 0.01, 96, 12), want[2:])
+            P = cl.LAUNCH_SHAPE[2]
+            for shape in ((1, 256, P), (3, 128, P), (8, 64, P)):
+                _assert_same(cl._launch_grid(*d(pts_v, cells_v, m2,
+                                                 labels0), 0.02, 0.01, 96, 12,
+                                              shape=shape)[:3], want[2:])
+        else:
+            assert not bool(want[3].all())
+    # the grid labels are the exact dense pass's
+    e_args = cl.centre_and_seed(pts_v, m2, 0.02, 0, exact=True)
+    exact = cl.cluster_components_plain(*e_args, 96, 12, True)
+    assert torch.equal(settled[2], exact[0])
+    # a shuffled lane order: the same components, labels the least lane
+    perm = torch.randperm(m2.shape[1], generator=torch.Generator().manual_seed(0))
+    inv = torch.argsort(perm)
+    sp, sc, sm = pts_v[:, perm], cells_v[:, perm], m2[:, perm]
+    lab = cl.cluster_grid(*d(sp.contiguous(), sc.contiguous(),
+                             sm.contiguous(), cl.grid_seed(sp, sm, 0.02)),
+                          0.02, 0.01, 96, 12)[0].cpu()
+    plain = cl.cluster_grid_plain(sp, sc, sm, cl.grid_seed(sp, sm, 0.02),
+                                  0.02, 0.01, 96, 12)[0]
+    assert torch.equal(lab, plain)
+    back = torch.where(lab < m2.shape[1],
+                       inv[lab.clamp(max=m2.shape[1] - 1).long()], lab)
+    for k in range(m2.shape[0]):
+        live = m2[k]
+        # the partition is the same: each original root maps to one label
+        pairs = set(zip(settled[2][k][live].tolist(),
+                        back[k][inv][live].tolist()))
+        assert len(pairs) == len({a for a, _ in pairs}) == len(
+            {b for _, b in pairs})
+
+
+def test_cluster_grid_full_tier_and_refusals(device):
+    """K13 at 16384 lanes a detection (a dense voxel block, every lane
+    live, in cell order and shuffled), under a bound of 2 rounds too, and
+    what it refuses."""
+    rng = np.random.default_rng(9)
+    raw = (rng.uniform(0.0, 0.3, (60000, 3)) + [0, 0, 1.5]).astype(np.float32)
+    pts, cells, mask = vx.voxel_downsample_cells(
+        torch.from_numpy(raw)[None], torch.ones(1, 60000, dtype=torch.bool),
+        0.01, 16384)
+    pts, cells, mask = (t.repeat(2, *([1] * (t.dim() - 1)))
+                        for t in (pts, cells, mask))
+    perm = torch.randperm(16384, generator=torch.Generator().manual_seed(1))
+    pts[1], cells[1], mask[1] = pts[1, perm], cells[1, perm], mask[1, perm]
+    mask[1, :3000] = False
+    labels0 = cl.grid_seed(pts, mask, 0.02)
+    d = [t.to(device) for t in (pts, cells, mask, labels0)]
+    for outer in (96, 2):
+        want = cl.cluster_grid_plain(*d, 0.02, 0.01, outer, 12)
+        _assert_same(cl.cluster_grid(*d, 0.02, 0.01, outer, 12), want)
+    with pytest.raises(ValueError, match="124"):
+        cl.cluster_grid(*d, 0.08, 0.01, 96, 12)
+    with pytest.raises(TypeError):
+        cl.cluster_grid(d[0], d[1].long(), d[2], d[3], 0.02, 0.01, 96, 12)
+    with pytest.raises(ValueError):
+        cl.cluster_grid(d[0], d[1].cpu(), d[2], d[3], 0.02, 0.01, 96, 12)
+    with pytest.raises(ValueError, match="lanes"):
+        cl._launch_grid(*(torch.zeros((1, 20000, 3), device=device),
+                          torch.zeros((1, 20000, 3), dtype=torch.int32,
+                                      device=device),
+                          torch.zeros((1, 20000), dtype=torch.bool,
+                                      device=device),
+                          torch.zeros((1, 20000), dtype=torch.int32,
+                                      device=device)), 0.02, 0.01, 96, 12)
+
+
+@pytest.mark.parametrize("option", [dict(grid_cluster=True),
+                                    dict(cluster_chains=2)])
+def test_extraction_with_cluster_options_on_card(device, option):
+    """The extraction call with ``grid_cluster`` (K13) or
+    ``cluster_chains=2`` (K5's chain lane) on the card: three launches, the
+    option's clustering kernel among them and K5 not, and the rows of the
+    CPU's plain path (valid flags equal, centre 1e-4, scale 1e-3, as
+    ``test_extraction_on_card_matches_cpu``)."""
+    depth, bboxes, pose, cam = _frame()
+    cfg = ExtractorConfig(**option)
+    run = torch.ones(len(bboxes), dtype=torch.bool)
+    plane = torch.tensor([0.0, 0.0, 1.0, 0.0])
+    pose_t = torch.as_tensor(pose, dtype=torch.float32)
+    before = _counts()
+    got = extract_local_ellipsoids(depth.to(device), bboxes.to(device),
+                                   run.to(device), pose_t.to(device),
+                                   plane.to(device), cam, cfg)
+    torch.cuda.synchronize()
+    after = _counts()
+    lane = "cluster_grid" if "grid_cluster" in option else \
+        "cluster_components_chain"
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"depth_cloud": 1, lane: 1,
+                                          "voxel_downsample": 1}
+    want = extract_local_ellipsoids(depth, bboxes, run, pose_t, plane, cam,
+                                    cfg)
+    assert torch.equal(got[2].cpu(), want[2]) and int(want[2].sum()) >= 3
+    v = want[2]
+    assert float((got[0].cpu()[v, :3] - want[0][v, :3]).abs().max()) < 1e-4
+    assert float((got[0].cpu()[v, 7:].sort(1).values
+                  - want[0][v, 7:].sort(1).values).abs().max()) < 1e-3
+
+
 def test_extraction_on_card_matches_cpu(device):
     depth, bboxes, pose, cam = _frame()
     cfg = ExtractorConfig()

@@ -39,7 +39,7 @@ DEPTH_MODULES = ["core.plane", "ops._cuda_build", "ops.frontend_kernels",
                  "parallel.dist_slam", "parallel.dryrun",
                  "init", "init.svd_init", "backend.lm", "utils.measurement",
                  "system.profiling", "system.dense_builder",
-                 "ops.dense_fuse"]
+                 "ops.dense_fuse", "viz", "viz.export", "viz.web_viewer"]
 
 
 def _sources():

@@ -221,11 +221,20 @@ def test_select_cluster_matches_jax(min_size, center_dis):
 
 
 def test_unported_cluster_options_raise():
+    """The two options that raised before they were ported, against JAX on
+    one blob cloud: interleaved chain passes (``chains=2``) and the exact
+    broadcast pass (``exact=True``); labels and converged equal (the
+    full sweep: tests/test_torch_cluster_options.py)."""
     pts, mask = _batch([0])
-    with pytest.raises(NotImplementedError, match="chains"):
-        tcl.connected_components(_t(pts), _t(mask), 0.02, chains=2)
-    with pytest.raises(NotImplementedError, match="exact"):
-        tcl.connected_components(_t(pts), _t(mask), 0.02, exact=True)
+    for kw in (dict(chains=2), dict(exact=True)):
+        lab, conv = tcl.connected_components(_t(pts), _t(mask), 0.02,
+                                             outer_iters=96,
+                                             with_converged=True, **kw)
+        jlab, jconv = jcl.connected_components(
+            jnp.asarray(pts[0]), jnp.asarray(mask[0]), 0.02, outer_iters=96,
+            with_converged=True, **kw)
+        np.testing.assert_array_equal(lab[0].numpy(), np.asarray(jlab))
+        assert bool(conv[0]) and bool(jconv)
 
 
 def _object_cloud(seed, n=600):

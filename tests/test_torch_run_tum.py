@@ -30,7 +30,9 @@ import contextlib
 import functools
 import importlib.util
 import io
+import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -107,10 +109,11 @@ def runs(tmp_path_factory):
     ckpt = str(tmp / "state.npz")
     jax_log = _jax_cli([YAML, seq, "--out", out["jax"], "--extractor",
                         "mono", "--checkpoint", str(tmp / "jax.npz"),
-                        "--build-dense"])
+                        "--build-dense", "--viz-live", "5"])
     slam, log = _port_cli([YAML, seq, "--out", out["port"], *MONO,
                            "--slam-mode", "--checkpoint",
-                           str(tmp / "full.npz"), "--build-dense"])
+                           str(tmp / "full.npz"), "--build-dense",
+                           "--viz-live", "5"])
     _port_cli([YAML, seq, "--out", out["split"], *MONO,
                "--max-frames", str(SPLIT), "--checkpoint", ckpt])
     _port_cli([YAML, seq, "--out", out["resumed"], *MONO, "--resume", ckpt])
@@ -204,15 +207,30 @@ def _same_map(mine, theirs):
             assert np.abs(x[near, 3:] - y[idx[near], 3:]).max() <= 1
 
 
+def _live_data(d):
+    """The JSON that live.html embeds."""
+    html = open(os.path.join(d, "live.html")).read()
+    assert html.count("<script>") == 1
+    m = re.search(r"const DATA = (\{.*?\});\n", html, re.S)
+    return json.loads(m.group(1))
+
+
 @pytest.mark.parametrize("flags", [
     ["--build-dense"], ["--map-format", "pcd"], ["--viz"],
     ["--viz-live", "5"]])
 def test_unported_flags_raise(flags, runs, tmp_path):
-    """``--viz`` / ``--viz-live`` still raise, naming ROADMAP queue 1 item
-    9d.  ``--build-dense`` and ``--map-format`` are ported: the whole runs
-    (``runs``) take ``--build-dense`` on both sides and write map.ply; a
-    2-frame 2D-only run of each CLI with ``--build-dense --map-format pcd``
-    writes map.pcd.  Each port map against JAX's (``_same_map``)."""
+    """The four flags were unported and are ported now.  ``--build-dense``
+    and ``--map-format``: the whole runs (``runs``) take ``--build-dense``
+    on both sides and write map.ply; a 2-frame 2D-only run of each CLI with
+    ``--build-dense --map-format pcd`` writes map.pcd.  Each port map
+    against JAX's (``_same_map``).  ``--viz-live 5``: the whole runs take
+    it on both sides; live.html's data (the map of the last frame, the
+    trajectory, the plane, the image panels) against JAX's at the run's
+    tolerance.  ``--viz``: a 3-frame run of each CLI at ``--pipeline-depth
+    1`` (the map drawn at each frame is that frame's; objects seeded from
+    3D from the first frame on): the same frame_XXXX.png files, their
+    images against JAX's (60 pixels of 921,600 differed when this was
+    written: an ellipse outline one pixel apart), and map.png."""
     seq, out, slam = runs[:3]
     if flags[0] == "--build-dense":
         builder = slam.tracker.dense_builder
@@ -230,10 +248,56 @@ def test_unported_flags_raise(flags, runs, tmp_path):
         _same_map(str(tmp_path / "p" / "map.pcd"),
                   str(tmp_path / "j" / "map.pcd"))
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 9d"):
-        _example("torch_run_tum").main(
-            [YAML, str(tmp_path), "--device", "cpu", *flags])
+    if flags[0] == "--viz-live":
+        got, want = _live_data(out["port"]), _live_data(out["jax"])
+        assert got["title"] == want["title"] == \
+            f"live map — frame {DATA_KW['n_frames']}"
+        assert got["reload_s"] == want["reload_s"] == 1.0
+        assert [o["id"] for o in got["objects"]] == \
+            [o["id"] for o in want["objects"]]
+        assert len(want["objects"]) >= 4
+        for o, w in zip(got["objects"], want["objects"]):
+            np.testing.assert_allclose(o["vec10"][:3], w["vec10"][:3],
+                                       atol=TOL)
+            np.testing.assert_allclose(np.sort(o["vec10"][7:]),
+                                       np.sort(w["vec10"][7:]), atol=TOL)
+        np.testing.assert_allclose(got["traj"], want["traj"], atol=1e-4)
+        np.testing.assert_allclose(got["plane"], want["plane"], atol=2e-3)
+        assert len(got["frusta"]) == len(want["frusta"])
+        assert sorted(got["history"]) == sorted(want["history"])
+        for k in want["history"]:
+            assert len(got["history"][k]) == len(want["history"][k])
+        # the last frame's RGB and depth panels, base64 JPEGs of the same
+        # renders: the depth panel byte for byte
+        assert [p["name"] for p in got["panels"]] == \
+            [p["name"] for p in want["panels"]] == ["frame", "depth"]
+        assert got["panels"][1]["b64"] == want["panels"][1]["b64"]
+        assert got["clouds"] == want["clouds"]
+        return
+    cv2 = pytest.importorskip("cv2")
+    argv = [YAML, seq, "--extractor", "mono", "--max-frames", "3",
+            "--pipeline-depth", "1", "--viz"]
+    _, log = _port_cli(argv[:2] + ["--out", str(tmp_path / "p"),
+                                   "--device", "cpu"] + argv[2:])
+    jlog = _jax_cli(argv[:2] + ["--out", str(tmp_path / "j")] + argv[2:])
+    assert "Saved map.png" in log and "Saved map.png" in jlog
+    names = sorted(f for f in os.listdir(tmp_path / "j")
+                   if f.startswith("frame_"))
+    assert len(names) == 3 and names == sorted(
+        f for f in os.listdir(tmp_path / "p") if f.startswith("frame_"))
+    differ = red = 0
+    for name in names:
+        a = cv2.imread(str(tmp_path / "p" / name))
+        b = cv2.imread(str(tmp_path / "j" / name))
+        assert a.shape == b.shape == (480, 640, 3)
+        differ += int((a != b).any(-1).sum())
+        red += int(((b[..., 2] == 255) & (b[..., 0] == 0)).sum())
+    assert red > 1000       # the map's ellipses are drawn (3D-seeded)
+    # the boxes are the same pixels; a projected map ellipse's centre and
+    # axes are truncated to whole pixels from the f32 LM's estimate (within
+    # TOL of JAX's), so an outline may step by one pixel
+    assert differ <= 1e-3 * len(names) * 480 * 640, differ
+    assert cv2.imread(str(tmp_path / "p" / "map.png")) is not None
 
 
 @pytest.mark.parametrize("flags", [["--no-depth"], ["--no-depth",

@@ -33,6 +33,7 @@ SCENE_KW = dict(n_objects=8, seed=7, radius_range=(1.3, 2.2),
                 scale_range=(0.2, 0.4))
 DATA_KW = dict(n_frames=30, orbit_radius=3.6, height=1.7)
 SPLIT = 26          # checkpoint after this many frames
+PLANE_FRAMES = 16   # frames of the plane-check runs
 TOL = 2e-3
 
 
@@ -209,9 +210,9 @@ def test_observation_tiers_are_powers_of_two():
 @pytest.mark.parametrize("what", [
     "batch_svd_init", "aos_backend", "ground_plane", "dense_builder"])
 def test_unported_options_raise(what):
-    """What is not ported raises: "ground_plane", the plane's interactive
-    confirmation.  The other three cases were unported options and are
-    ported now: the batch SVD initializer (``use_incremental_init =
+    """The four cases were unported options and are ported now: the
+    plane's interactive confirmation ("ground_plane"), the batch SVD
+    initializer (``use_incremental_init =
     False``), the AoS backend (``use_soa_backend``, read once when the
     tracker is built, as in the JAX package: a later assignment changes
     nothing) and the dense builder (``Visualization.Builder.Open``); each
@@ -223,10 +224,26 @@ def test_unported_options_raise(what):
     from object_oriented_slam_tpu_torch.system import tracking
     cfg = Config(YAML)
     if what == "ground_plane":
+        # the interactive plane check (against JAX's:
+        # test_plane_manual_check_matches_jax): the key opens it, the
+        # default check accepts off a terminal, a rejection leaves the
+        # state machine at 1
         key = "Plane.MannualCheck.Open"
         cfg._file[key] = 1.0
-        with pytest.raises(NotImplementedError, match=key):
-            Tracking(cfg, device="cpu")
+        tr = Tracking(cfg, device="cpu")
+        assert tr.plane_manual_check
+        assert not Tracking(Config(YAML), device="cpu").plane_manual_check
+        assert tracking._default_plane_check(np.array([0, 0, 1.0, 0]))
+        tr.open_ground_plane_estimation()
+        tr.plane_manual_check_fn = lambda pw: False
+        tr._latch_plane(np.array([0, -1.0, 0, 1.5]), np.array(
+            [0, 0, 0, 0, 0, 0, 1.0]))
+        assert tr.state.ground_state == 1 and tr.state.ground_plane is None
+        tr.plane_manual_check_fn = lambda pw: True
+        tr._latch_plane(np.array([0, -1.0, 0, 1.5]), np.array(
+            [0, 0, 0, 0, 0, 0, 1.0]))
+        assert tr.state.ground_state == 2
+        np.testing.assert_allclose(tr.state.ground_plane, [0, -1, 0, 1.5])
         return
     if what == "dense_builder":
         cfg._file["Visualization.Builder.Open"] = 1.0
@@ -251,3 +268,73 @@ def test_unported_options_raise(what):
     tr.async_plane = False
     tr.open_ground_plane_estimation()
     assert tr.state.ground_state == 1
+
+
+class _PlaneStub:
+    """A plane estimator that finds the same camera-frame plane in every
+    depth image, with the asynchronous protocol (``dispatch`` /
+    ``resolve``) as the real estimators have it."""
+
+    PLANE = np.array([0.02, -0.99, 0.05, 1.6])
+
+    def __call__(self, depth):
+        return self.PLANE.copy()
+
+    def dispatch(self, depth):
+        return self.PLANE.copy()
+
+    def resolve(self, handle):
+        return handle
+
+
+class _RejectFirst:
+    """A plane check that rejects its first ``k`` offers."""
+
+    def __init__(self, k):
+        self.k, self.offers = k, []
+
+    def __call__(self, plane_world):
+        self.offers.append(np.asarray(plane_world, np.float64).copy())
+        return len(self.offers) > self.k
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_plane_manual_check_matches_jax(jax_run, depth):
+    """``Plane.MannualCheck.Open`` against JAX's tracker: a check that
+    rejects the first 3 offers, at pipeline depth 1 (the plane estimated
+    in the frame) and 2 (the asynchronous plane, resolved at the next grab,
+    the deferred frame replayed without a plane after a rejection): the
+    same offers (planes within 1e-6), the same frame the plane latches on,
+    the same latched plane and, after PLANE_FRAMES frames, the map within
+    TOL."""
+    _, frames, _, _, _ = jax_run
+    depth_img = np.zeros((480, 640), np.uint16)
+    runs = []
+    for make in (lambda: JSystem(YAML, plane_estimator=_PlaneStub()),
+                 lambda: System(YAML, plane_estimator=_PlaneStub(),
+                                device="cpu")):
+        slam = make()
+        tr = slam.tracker
+        tr.pipeline_depth, tr.adaptive_depth = depth, False
+        tr.plane_manual_check = True
+        tr.plane_manual_check_fn = check = _RejectFirst(3)
+        slam.open_ground_plane_estimation()
+        latched = None
+        for i, ts, pose, _, rgb, det in frames[:PLANE_FRAMES]:
+            slam.track_with_objects(ts, pose, det, depth=depth_img)
+            if latched is None and tr.state.ground_state == 2:
+                latched = i
+        tr.sync()
+        runs.append((check.offers, latched, tr.state.ground_plane,
+                     slam.map_objects))
+    (joffers, jlatched, jplane, jmap), (offers, latched, plane, got) = runs
+    assert len(offers) == len(joffers) == 4
+    np.testing.assert_allclose(np.stack(offers), np.stack(joffers),
+                               atol=1e-6)
+    assert latched == jlatched == 3 + (depth >= 2)
+    np.testing.assert_allclose(plane, jplane, atol=1e-6)
+    assert sorted(got) == sorted(jmap) and len(jmap) >= 2
+    for inst in jmap:
+        np.testing.assert_allclose(got[inst][:3], jmap[inst][:3], atol=TOL)
+        np.testing.assert_allclose(np.sort(got[inst][7:]),
+                                   np.sort(jmap[inst][7:]), atol=TOL)
