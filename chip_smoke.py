@@ -183,7 +183,7 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      name the range and both BA kernels;
   6i. stage (d)'s options ([clustering], after [aos]): the depth path's
      scene, orbit, lanes and tier with ExtractorConfig(grid_cluster=True)
-     (K13, cluster_grid: the grid-hash pass) and with cluster_chains=2
+     (K13, cluster_grid: the grid pass) and with cluster_chains=2
      (K5's chain lane): 24 objects' median centre error <= 0.05 m, the map
      within 1e-4 of a run with the same radius test (the grid's: the path
      with cluster_grid_select_plain as stage (d); the chains': [depth]'s)
@@ -196,10 +196,14 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      at the full tier with a whole-image box and on dense voxel clouds
      that fill 16384 lanes, each also under a bound of 2 rounds, with
      device ms beside the bound and beside K5's default on the same
-     inputs; whether the path's survivors come in the grid key's order
-     (informational: K13's hash table takes any order); one [offline]
-     batch with grid_cluster (one K13 launch), each frame's rows bit for
-     bit against its own one-frame extraction with grid_cluster;
+     inputs; K13 again with the shared memory cut to the least it takes
+     (its neighbour lists in device memory: equal, and timed); whether the
+     path's survivors come in the grid key's order (informational: K13
+     sorts its key table where they do not); one [offline] batch with
+     grid_cluster (one K13 launch), each frame's rows bit for bit against
+     its own one-frame extraction with grid_cluster, and K13 on the
+     batch's inputs against its plain version and timed beside K5's
+     default on the same batch;
   6j. the viewers ([viz]): [cli]'s export run by examples/torch_run_tum.py
      --extractor mono with --viz-live 40, and with --viz where cv2 and
      matplotlib import (which ran is printed): live.html with the map and
@@ -360,12 +364,12 @@ def profiled(fn, reps=1, expect=None):
     phase has run), so 64 random fills go first (a kernel nothing else
     here launches), 8 more after, all left out by name.  A trace that still
     comes back empty, or with fewer than ``expect`` operations, is taken
-    again, up to three times."""
+    again, up to six times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     first = torch.empty(8, device="cuda")
     events = []
-    for _ in range(3):
+    for _ in range(6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3983,14 +3987,17 @@ CLUSTER_REPLACES = {
     "cluster_components_exact": "object_oriented_slam_tpu/ops/cluster.py:54",
     "cluster_components_chain": "object_oriented_slam_tpu/ops/cluster.py:158"}
 # integer / f32 operations counted from csrc/frontend.cu.  K13's table
-# build, per stencil cell of a survivor: the target key's add, the hash
-# (a multiply, a shift), the probe's load, compare and mask; for a hit the
-# three differences, squares, two adds, the compare and the store (14 at
-# most).  A round: per listed neighbour its label's load and minimum (2),
-# per survivor the jumps' load, compare and store (3 each).  A chain pass,
+# build (grid_work counts what these inputs need), in each of its two
+# walks: per survivor and stencil row the interval's bounds and the
+# position's advance test (GRID_OPS_ROW); per key in a row's interval its
+# load, the bound, own-key and run tests, then the radius test's three
+# differences, squares, two adds and compare (GRID_OPS_KEY).  A round: per
+# listed neighbour its label's load and minimum, per survivor the changed
+# test; per survivor a jump's load, compare and store (3).  A chain pass,
 # per survivor and order: the aggregate's load, flag test and minimum, the
 # two walks' loads, minima and stores (12)
-GRID_OPS_PROBE, GRID_OPS_NEIGHBOUR, JUMP_OPS, CHAIN_OPS = 14, 2, 3, 12
+GRID_OPS_ROW, GRID_OPS_KEY, GRID_OPS_NEIGHBOUR = 3, 13, 2
+JUMP_OPS, CHAIN_OPS = 3, 12
 CLUSTER_TOL, CLUSTER_LEAF = 0.02, 0.01
 
 
@@ -4034,8 +4041,8 @@ def dense_voxel_clouds(D, N, seed):
 
 def survivors_in_key_order(pts_v, cells_v, m2):
     """Whether each detection's survivors, in lane order, are in the grid
-    key's order (the order depth_cloud's sort leaves; K13 does not rely on
-    it: its hash table takes any order)."""
+    key's order (the order depth_cloud's sort leaves; K13 takes its key
+    table in lane order where they are, and sorts it where not)."""
     from object_oriented_slam_tpu_torch.ops import cluster as cl
     R, _ = cl._grid_offsets(CLUSTER_TOL, CLUSTER_LEAF)
     out = []
@@ -4048,6 +4055,72 @@ def survivors_in_key_order(pts_v, cells_v, m2):
         key = (c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2]
         out.append(bool((key[1:] > key[:-1]).all()))
     return out
+
+
+def grid_work(pts_v, cells_v, m2, labels0, outer, jump_iters=12):
+    """What K13's launch does on these inputs, counted with the plain
+    version's steps: (keys its table walks visit in the stencil rows'
+    intervals, a walk; listed neighbours; jumps run, each round's up to the
+    first that changes no label, as the kernel stops them) per detection,
+    as float64 [D] tensors."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    tol, leaf = CLUSTER_TOL, CLUSTER_LEAF
+    D, N = m2.shape
+    sub, m_c, lab, nbr_c = cl.grid_table_compacted(pts_v, cells_v, m2,
+                                                   labels0, tol, leaf)
+    cap = sub.shape[1]
+    C = nbr_c.shape[1] // cap
+    own = torch.arange(cap, device=m2.device)[None, :, None]
+    hits = ((nbr_c.view(D, cap, C) != own) & m_c[..., None]).sum(
+        (1, 2)).double()
+    R, _ = cl._grid_offsets(tol, leaf)
+    cmin = torch.where(m2[..., None], cells_v, 2 ** 30).amin(1)
+    c = (cells_v - cmin[:, None, :] + R).clamp(0, 1023)
+    key = ((c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]).to(torch.int64)
+    key_s = torch.sort(torch.where(m2, key, 2 ** 40), dim=1).values
+    keys = 0
+    for lo, hi in cl.grid_rows(tol, leaf):
+        keys = keys + torch.where(m2, torch.searchsorted(
+            key_s, key + hi, right=True) - torch.searchsorted(
+            key_s, key + lo), 0)
+    keys = keys.sum(1).double()
+    # the rounds of cluster_grid_plain, each round's jumps counted
+    jumps = torch.zeros(D, dtype=torch.float64, device=m2.device)
+    still = torch.ones(D, dtype=torch.bool, device=m2.device)
+    for _ in range(outer):
+        got = torch.gather(lab, 1, nbr_c).view(D, cap, C).amin(-1)
+        cur = torch.minimum(lab, got)
+        changed = (cur != lab).any(1)
+        moving = still.clone()
+        for _ in range(jump_iters):
+            nxt = torch.where(cur < cap, torch.gather(
+                cur, 1, cur.clamp(0, cap - 1).long()), cur)
+            jumps += moving.double()
+            moved = (nxt != cur).any(1) & moving
+            changed |= moved
+            cur = torch.where(moving[:, None], nxt, cur)
+            moving &= moved
+            if not bool(moving.any()):
+                break
+        lab = torch.where(still[:, None], cur, lab)
+        still &= changed
+        if not bool(still.any()):
+            break
+    return keys, hits, jumps
+
+
+def grid_ops(pts_v, cells_v, m2, labels0, rounds, outer):
+    """K13's operations on these inputs (GRID_OPS_*; rounds [D] the
+    launch's): the table build's two walks, then each round's pass, changed
+    test and the jumps it ran."""
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    keys, hits, jumps = grid_work(pts_v, cells_v, m2, labels0, outer)
+    n_d = m2.sum(1).double()
+    rows = len(cl.grid_rows(CLUSTER_TOL, CLUSTER_LEAF))
+    r_d = rounds.double()
+    return float((2 * (n_d * rows * GRID_OPS_ROW + keys * GRID_OPS_KEY)
+                  + r_d * (hits * GRID_OPS_NEIGHBOUR + n_d)
+                  + jumps * n_d * JUMP_OPS).sum()), float(hits.sum())
 
 
 def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
@@ -4077,11 +4150,21 @@ def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
                     f"{got[3].tolist()} vs {want[3].tolist()}, rounds "
                     f"{got[4].tolist()} vs {want[4].tolist()}")
 
-    # K13
+    # K13; and with the shared memory cut to the least it takes, so that
+    # its neighbour lists live in device memory
     labels0 = cl.grid_seed(pts_v, m2, tol)
     g_args = (pts_v, cells_v, m2, labels0, pts_w, centre, tol, leaf, outer,
               12, 100, 0.5)
+    small = cl.grid_smem_least(N)
+
+    def grid_in_device_memory():
+        lab, conv, rounds, sel, ok = cl._launch_grid(
+            *g_args[:4], tol, leaf, outer, 12, (pts_w, centre, 100, 0.5),
+            smem=small)
+        return sel, ok, lab, conv, rounds
+
     runs = [cl.cluster_grid_select(*g_args) for _ in range(2)]
+    runs += [grid_in_device_memory() for _ in range(2)]
     want = cl.cluster_grid_select_plain(*g_args)
     torch.cuda.synchronize()
     held("cluster_grid", runs, want)
@@ -4126,7 +4209,8 @@ def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
           f"whose label differs from K5's default (detections all three "
           f"converged) {differ}, the grid's from the exact lane's "
           f"{grid_exact} (the grid tests camera-frame points, the lanes "
-          f"world points)")
+          f"world points); K13 with its lists in device memory (shared "
+          f"memory cut to {small} bytes) equal too")
     if not timed:
         return recs
     # K5's default on the same inputs, the time beside
@@ -4134,23 +4218,20 @@ def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
     d_args = (pts_w, *args[:4], centre, args[4], outer, 12, 100, 0.5)
     k5_ms = checked_device_ms(lambda: cl.cluster_select(*d_args, frame=frame),
                               10, "cluster_components")[0]
-    # K13: its table build and rounds (GRID_OPS_*), inputs and outputs once
-    nbr = cl.grid_neighbours_plain(pts_v, cells_v, m2, tol, leaf)
-    own = torch.arange(N, device=dev)[None, :, None]
-    hits = ((nbr != own) & m2[..., None]).sum((1, 2)).double()
-    R, offs = cl._grid_offsets(tol, leaf)
-    r_d = grid_out[4].double()
-    ops = float((n_d * len(offs) * GRID_OPS_PROBE
-                 + r_d * (hits * GRID_OPS_NEIGHBOUR
-                          + n_d * (1 + 12 * JUMP_OPS))).sum())
+    # K13: its table build and rounds (GRID_OPS_*, grid_ops), inputs and
+    # outputs once
+    ops, hits = grid_ops(pts_v, cells_v, m2, labels0, grid_out[4], outer)
     io = bytes_bound([pts_v, cells_v, m2, labels0, pts_w, centre,
                       *grid_out])[0]
     b_grid = max((ops / PEAK_F32 * 1e3, "operations"), (io, "bytes"))
     ms, ev = checked_device_ms(lambda: cl.cluster_grid_select(*g_args), 10,
-                               "cluster_components")
+                               "cluster_grid_kernel")
+    dev_ms = checked_device_ms(grid_in_device_memory, 10,
+                               "cluster_grid_kernel")[0]
     recs["cluster_grid (K13)"] = dict(
         kernel="cluster_grid", shape=(D, N), max_abs_err=0.0, bound=b_grid,
-        ms=ms, events_ms=ev, k5_ms=k5_ms, listed_neighbours=float(hits.sum()),
+        ms=ms, events_ms=ev, k5_ms=k5_ms, listed_neighbours=hits,
+        device_lists_ms=dev_ms,
         plain_ms=cuda_ms(lambda: cl.cluster_grid_select_plain(*g_args), 1, 0))
     # the lanes: the pair tests their skip leaves (tested_pairs, with the
     # lane's own points and norms), chain passes per survivor and order
@@ -4178,7 +4259,9 @@ def option_checks(dev, tag, pts_v, cells_v, pts_w, m2, centre, frame, outer,
         print(f"[clustering] {tag}: {k} {r['ms']:.4f} ms by the profiler "
               f"({r['events_ms']:.4f} by CUDA events), "
               f"{bound_text(r['ms'], r['bound'])}; K5's default on the same "
-              f"inputs {k5_ms:.4f} ms; plain version {r['plain_ms']:.3f} ms")
+              f"inputs {k5_ms:.4f} ms; plain version {r['plain_ms']:.3f} ms"
+              + (f"; its lists in device memory {r['device_lists_ms']:.4f} "
+                 f"ms" if "device_lists_ms" in r else ""))
     return recs
 
 
@@ -4384,7 +4467,69 @@ def phase_clustering(dev, tmp, path, depth_map, offline):
           f"{fb.cfg.cloud_capacity}) with grid_cluster: launches {per_call}; "
           f"the {held_rows} rows the run gates pass bit-equal to each "
           f"frame's own one-frame extraction with grid_cluster")
+    full.update(offline_grid_record(dev, fb, cfg_g, cam_b))
     return launches_by_run, recs, full
+
+
+def offline_grid_record(dev, fb, cfg_g, cam_b):
+    """K13 at [offline]'s batch shapes: the batched call's own K13 and K5
+    inputs (each taken from one batched call with the option on / off),
+    K13 against its plain version there (equal, a repeat bit-equal) and
+    timed beside K5's default on the same batch.  Returns its record."""
+    import dataclasses
+    from object_oriented_slam_tpu_torch.frontend import batch_extractor as bx
+    from object_oriented_slam_tpu_torch.ops import cluster as cl
+    taken = {}
+
+    def take(name):
+        kernel = getattr(cl, name)
+
+        def grab(*a, **kw):
+            taken[name] = (a, kw)
+            return kernel(*a, **kw)
+        return kernel, grab
+
+    for name, cfg in (("cluster_grid_select", cfg_g),
+                      ("cluster_select", fb.cfg)):
+        kernel, grab = take(name)
+        setattr(cl, name, grab)
+        try:
+            bx.fetch_batch(bx.dispatch_batch(dataclasses.replace(fb, cfg=cfg),
+                                             cam_b, device=dev))
+        finally:
+            setattr(cl, name, kernel)
+    g_args, _ = taken["cluster_grid_select"]
+    k_args, k_kw = taken["cluster_select"]
+    runs = [cl.cluster_grid_select(*g_args) for _ in range(2)]
+    want = cl.cluster_grid_select_plain(*g_args)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(g, w) for g, w in zip(runs[0], want))
+            and all(same_bits(a.cpu(), b.cpu())
+                    for a, b in zip(*runs))):
+        raise RuntimeError("K13 at the offline batch's shapes differs from "
+                           "its plain version or from itself")
+    pts_v, cells_v, m2, labels0, pts_w, centre = g_args[:6]
+    D, N = m2.shape
+    outer = g_args[8]
+    ops, hits = grid_ops(pts_v, cells_v, m2, labels0, runs[0][4], outer)
+    io = bytes_bound([*g_args[:6], *runs[0]])[0]
+    bound = max((ops / PEAK_F32 * 1e3, "operations"), (io, "bytes"))
+    ms, ev = checked_device_ms(lambda: cl.cluster_grid_select(*g_args), 10,
+                               "cluster_grid_kernel")
+    k5_ms = checked_device_ms(lambda: cl.cluster_select(*k_args, **k_kw),
+                              10, "cluster_components")[0]
+    plain_ms = cuda_ms(lambda: cl.cluster_grid_select_plain(*g_args), 1, 0)
+    print(f"[clustering] offline: K13 on the batch's inputs (D={D}, N={N}, "
+          f"{int((m2.sum(1) > 0).sum())} live detections, "
+          f"{int(m2.sum(1).max())} survivors at most, rounds max "
+          f"{int(runs[0][4].max())}): equal to its plain version, a repeat "
+          f"bit-equal; {ms:.4f} ms by the profiler ({ev:.4f} by CUDA "
+          f"events), {bound_text(ms, bound)}; K5's default on the same batch "
+          f"{k5_ms:.4f} ms; plain version {plain_ms:.3f} ms")
+    return {"cluster_grid (K13) (offline batch)": dict(
+        kernel="cluster_grid", shape=(D, N), max_abs_err=0.0, bound=bound,
+        ms=ms, events_ms=ev, k5_ms=k5_ms, listed_neighbours=hits,
+        plain_ms=plain_ms)}
 
 
 def phase_viz(dev, tmp, cli):
@@ -4482,7 +4627,8 @@ def main(argv=None):
                  + slam_kernels.build_log
                  + dense_fuse.build_log).splitlines():
         if ("registers" in line or "spill" in line
-                or "entry function '_Z25cluster_components_kernel" in line):
+                or "entry function '_Z25cluster_components_kernel" in line
+                or "entry function '_Z19cluster_grid_kernel" in line):
             print(f"[build] {line.strip()}")
 
     recs = phase_kernels(dev)

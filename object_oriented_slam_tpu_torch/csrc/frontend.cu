@@ -1370,14 +1370,10 @@ __device__ __forceinline__ bool jump_once(const int* a, int* b, int n)
 //    along each of up to three spatial orders (`chain_pass`).  The orders
 //    and their link flags come from torch in compacted numbering
 //    (ops/cluster.chain_orders).  A minimum has no order: deterministic.
-//  - kPass = OSLAM_PASS_GRID: cluster_grid, K13, below.
 // ---------------------------------------------------------------------------
 #define OSLAM_CC_MAXT 512
 #define OSLAM_PASS_DENSE 0
 #define OSLAM_PASS_EXACT 1
-#define OSLAM_PASS_GRID 2
-#define OSLAM_GRID_MAX_C 124        // stencil cells of the grid lane, at most
-#define OSLAM_HASH_EMPTY 0xffffffffffffffffull
 #ifndef OSLAM_CC_P
 #define OSLAM_CC_P 2            // points a lane keeps in registers
 #endif
@@ -1458,93 +1454,20 @@ __device__ __forceinline__ unsigned long long block_max_key(
     return key;
 }
 
-// cluster_grid (K13) and the K5 lanes' extra arguments.  Chain lane: the
-// orders [D, n_orders, N] (compacted lanes; entry k < n a permutation of
-// [0, n)) and link flags [D, n_orders, N].  Grid lane: see cluster_grid
-// below.
-struct ClusterLane {
-    const int* chain_order;
-    const uint8_t* chain_link;
-    int n_orders;
-    const int* cells;               // [D, N, 3] int32 voxel cells
-    int R;                          // stencil rings: ceil(tol / leaf)
-    int smax;                       // a stencil cell's least squared gap in
-                                    // cells, sum of max(|d| - 1, 0)^2, <= it
-    unsigned long long* hash;       // [D, hash_cap] scratch
-    int hash_cap;                   // a power of two >= 2 N
-    uint16_t* nbr;                  // [D, OSLAM_GRID_MAX_C, N] scratch
-    uint8_t* ncount;                // [D, N] scratch
-};
-
-// ---------------------------------------------------------------------------
-// cluster_grid (K13).  Replaces ops/cluster.connected_components_grid of the
-// JAX package (:320; the extractor's grid_cluster path, extractor.py:245-250,
-// left to XLA there): the same whole-frame launch as cluster_components with
-// another pass.  Each survivor's neighbours are looked up once per launch in
-// the stencil of <= 124 cells (JAX _grid_offsets) around its voxel cell:
-// every block inserts its slice of the survivors' packed cell keys (relative
-// to their least cell plus R, as JAX packs them) into an open-addressing hash
-// table in device memory, then tests each stencil cell's point with the
-// exact radius test ((dx*dx + dy*dy) + dz*dz <= tol2, as JAX) and keeps the
-// hits as 16-bit compacted ids in a neighbour table in device memory (both
-// scratch the caller allocates).  A pass is then, per point, the
-// least label of its listed neighbours: O(n C) instead of O(n^2).  The hash
-// table needs no order of the lanes (JAX sorts them and searches): a key
-// held by several points, which a voxel cloud never has, keeps the least of
-// them (atomicMin), the first that JAX's stable sort would find.  Bound by
-// bytes: the neighbour table's reads, 2 bytes a listed neighbour a round.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int grid_key(const int* cells, int o, int cx,
-                                        int cy, int cz, int R)
+// The steps cluster_components (K5) and cluster_grid (K13) share.
+// The compaction of detection d: idx[c] = the c-th unmasked lane, in lane
+// order, by every block of the cluster.  Masked lanes get their label N
+// here (chunk by chunk over the ranks); unmasked lanes are written at the
+// end.  warp_off (32 ints) and chunk_total are shared scratch; mask and
+// out_labels point at the detection's lanes.  Returns n, the unmasked
+// lanes.
+__device__ __forceinline__ int compact_lanes(
+    const uint8_t* __restrict__ mask, int N, int S, int rank, int d,
+    int* idx, int* warp_off, int& chunk_total, int* __restrict__ out_labels,
+    const Selection& sel)
 {
-    const int kx = min(max(cells[3 * o] - cx + R, 0), 1023);
-    const int ky = min(max(cells[3 * o + 1] - cy + R, 0), 1023);
-    const int kz = min(max(cells[3 * o + 2] - cz + R, 0), 1023);
-    return (kx << 20) | (ky << 10) | kz;
-}
-
-__device__ __forceinline__ unsigned grid_hash(int key, int lg)
-{
-    return ((unsigned)key * 2654435769u) >> (32 - lg);
-}
-
-template <int P, int kPass, bool kChain>
-__global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
-    const float* __restrict__ pts_c, const float* __restrict__ nrm,
-    const uint8_t* __restrict__ mask, const int* __restrict__ labels0, int N,
-    float tol2, int outer_iters, int jump_iters, int smem_bytes, int prune,
-    const float* __restrict__ sort_frame, int frame_stride,
-    int* __restrict__ out_labels, uint8_t* __restrict__ converged,
-    int* __restrict__ rounds, const Selection sel, const ClusterLane lane_args)
-{
-    constexpr bool kGrid = kPass == OSLAM_PASS_GRID;
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = (int)cluster.block_rank();
-    const int S = (int)cluster.num_blocks();
-    const int d = blockIdx.y;
     const int tid = threadIdx.x, T = blockDim.x;
     const int lane = tid & 31, warp = tid >> 5, W = T >> 5;
-    sort_frame += (size_t)frame_stride * d;     // 0: one frame for all
-    pts_c += (size_t)d * N * 3;
-    nrm += (size_t)d * N;
-    mask += (size_t)d * N;
-    labels0 += (size_t)d * N;
-    out_labels += (size_t)d * N;
-
-    extern __shared__ float4 cc_smem[];
-    __shared__ int warp_off[32];
-    __shared__ int chunk_total;
-    __shared__ float frame[9];  // rows u, v, w of the boxes' frame
-    // chain_pass's scratch (chain lane), the grid lane's stencil keys, its
-    // count and the least cell: only their lanes allocate them
-    __shared__ int scan_vh[kChain ? 64 : 1];
-    __shared__ int grid_sh[kGrid ? OSLAM_GRID_MAX_C + 4 : 1];
-
-    // --- compaction: idx[c] = the c-th unmasked lane.  Masked lanes get
-    // their label N here (chunk by chunk over the ranks); unmasked lanes
-    // are written at the end
-    int* idx = reinterpret_cast<int*>(cc_smem);
     int n = 0;
     for (int start = 0; start < N; start += T) {
         const int i = start + tid;
@@ -1573,26 +1496,17 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
         n += chunk_total;
         __syncthreads();        // warp_off and chunk_total are reused
     }
-    if (n == 0) {               // every block of the cluster takes this exit
-        if (rank == 0 && tid == 0) {
-            converged[d] = 1;
-            rounds[d] = 1;      // the first round changes nothing
-            if (sel.mask != nullptr) sel.ok[d] = 0;
-        }
-        return;
-    }
+    return n;
+}
 
-    // --- the layout behind the lane list, now that n is known
-    const int n_sub = (n + 31) >> 5, n_pad = n_sub << 5;
-    int* cur = idx + n_pad;
-    int* nxt = cur + n_pad;
-    float4* box = reinterpret_cast<float4*>(nxt + n_pad);
-    float4* tile = box + 2 * n_sub;
-    const int tile_cap = ((smem_bytes - 12 * n_pad - 32 * n_sub) / 16) & ~31;
-    const bool resident = tile_cap >= n_pad;
-
-    // labels in compacted numbering (a seeded label is found in the sorted
-    // lane list); the padding up to n_pad carries 2^30, which never wins
+// The starting labels in compacted numbering (a seeded label is found in
+// the sorted lane list); the padding up to n_pad carries 2^30, which never
+// wins.  The caller synchronises after.
+__device__ __forceinline__ void seed_compacted(
+    const int* idx, const int* __restrict__ labels0, int n, int n_pad,
+    int* cur, int* nxt)
+{
+    const int tid = threadIdx.x, T = blockDim.x;
     for (int c = tid; c < n_pad; c += T) {
         int lc = OSLAM_BIG;
         if (c < n) {
@@ -1611,350 +1525,16 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
         cur[c] = lc;
         nxt[c] = lc;
     }
-    __syncthreads();
-    for (int c = n + tid; c < n_pad; c += T) idx[c] = idx[0];
+}
 
-    // --- grid lane: the stencil, the least cell, this block's part of the
-    // hash table cleared
-    // (grid_sh: the stencil's keys, their count, the least cell)
-    const int hlg = kGrid ? 32 - __clz(max(2 * n_pad, 64) - 1) : 0;
-    unsigned long long* htab = nullptr;
-    if constexpr (kGrid) {
-        int* dkeys = grid_sh;
-        int& n_off = grid_sh[OSLAM_GRID_MAX_C];
-        int* gmin = grid_sh + OSLAM_GRID_MAX_C + 1;
-        const int R = lane_args.R;
-        if (tid == 0) {
-            int c = 0;
-            for (int dx = -R; dx <= R; ++dx)
-                for (int dy = -R; dy <= R; ++dy)
-                    for (int dz = -R; dz <= R; ++dz) {
-                        if (dx == 0 && dy == 0 && dz == 0) continue;
-                        const int mx = max(abs(dx) - 1, 0);
-                        const int my = max(abs(dy) - 1, 0);
-                        const int mz = max(abs(dz) - 1, 0);
-                        if (mx * mx + my * my + mz * mz <= lane_args.smax &&
-                            c < OSLAM_GRID_MAX_C)
-                            dkeys[c++] = dx * (1 << 20) + dy * (1 << 10) + dz;
-                    }
-            n_off = c;
-            gmin[0] = gmin[1] = gmin[2] = 0x7fffffff;
-        }
-        __syncthreads();
-        const int* cells = lane_args.cells + (size_t)d * N * 3;
-        int mx = 0x7fffffff, my = 0x7fffffff, mz = 0x7fffffff;
-        for (int c = tid; c < n; c += T) {
-            const int o = idx[c];
-            mx = min(mx, cells[3 * o]);
-            my = min(my, cells[3 * o + 1]);
-            mz = min(mz, cells[3 * o + 2]);
-        }
-        mx = warp_min(mx);
-        my = warp_min(my);
-        mz = warp_min(mz);
-        if (lane == 0) {
-            atomicMin(&gmin[0], mx);
-            atomicMin(&gmin[1], my);
-            atomicMin(&gmin[2], mz);
-        }
-        htab = lane_args.hash + (size_t)d * lane_args.hash_cap;
-        const int hsize = 1 << hlg;
-        const int per_rank = (hsize + S - 1) / S;
-        for (int h = rank * per_rank + tid;
-             h < min(hsize, (rank + 1) * per_rank); h += T)
-            htab[h] = OSLAM_HASH_EMPTY;
-        __syncthreads();
-    } else {
-        // --- the frame the boxes are taken in.  A voxel cloud is sorted by
-        // the cells of the camera frame (x, then y, then z), so 32 consecutive
-        // points are a strip of a thin slab across the camera's x axis, which
-        // in world coordinates may point anywhere: an axis-aligned box of a
-        // slanted strip is fat.  The caller names the frame the cloud was
-        // sorted in (`sort_frame`, rows u, v, w); it is taken if it is a
-        // rotation to 1e-3, else the boxes are taken along the axes of the
-        // points' own coordinates (the identity).  Any rotation keeps
-        // distances, so the skip stays exact whatever the frame is; a cloud in
-        // no order just gets boxes that skip nothing.
-        {
-            float f[9];
-            for (int k = 0; k < 9; ++k) f[k] = sort_frame[k];
-            bool rotation = true;
-            for (int a = 0; a < 3; ++a)
-                for (int b = a; b < 3; ++b) {
-                    const float dot = f[3 * a] * f[3 * b]
-                                      + f[3 * a + 1] * f[3 * b + 1]
-                                      + f[3 * a + 2] * f[3 * b + 2];
-                    // written so that a NaN fails it
-                    if (!(fabsf(dot - (a == b ? 1.0f : 0.0f)) <= 1e-3f))
-                        rotation = false;
-                }
-            if (tid < 9)
-                frame[tid] = rotation ? f[tid] : (tid % 4 == 0 ? 1.0f : 0.0f);
-        }
-        __syncthreads();
-        // a box per 32 points (in that frame), and the points themselves where
-        // they fit
-        for (int s = warp; s < n_sub; s += W) {
-            const int c = (s << 5) + lane;
-            const bool real = c < n;
-            float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (real) {
-                const int o = idx[c];
-                q = make_float4(pts_c[3 * o], pts_c[3 * o + 1], pts_c[3 * o + 2],
-                                nrm[o]);
-            }
-            if (resident) tile[c] = q;
-            const float inf = __int_as_float(0x7f800000);
-            const float ru = q.x * frame[0] + q.y * frame[1] + q.z * frame[2];
-            const float rv = q.x * frame[3] + q.y * frame[4] + q.z * frame[5];
-            const float rw = q.x * frame[6] + q.y * frame[7] + q.z * frame[8];
-            float lx = real ? ru : inf, ly = real ? rv : inf,
-                  lz = real ? rw : inf;
-            float hx = real ? ru : -inf, hy = real ? rv : -inf,
-                  hz = real ? rw : -inf, hn = q.w;
-            for (int o = 16; o > 0; o >>= 1) {
-                lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
-                ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
-                lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
-                hx = fmaxf(hx, __shfl_xor_sync(0xffffffffu, hx, o));
-                hy = fmaxf(hy, __shfl_xor_sync(0xffffffffu, hy, o));
-                hz = fmaxf(hz, __shfl_xor_sync(0xffffffffu, hz, o));
-                hn = fmaxf(hn, __shfl_xor_sync(0xffffffffu, hn, o));
-            }
-            if (lane == 0) {
-                box[2 * s] = make_float4(lx, ly, lz, 0.0f);
-                box[2 * s + 1] = make_float4(hx, hy, hz, hn);
-            }
-        }
-    }
-
-    // --- this block's slice of the i: granules of 32 * P points
-    const int n_gran = (n_sub + P - 1) / P;
-    const int gpb = (n_gran + S - 1) / S;
-    const int g_lo = min(rank * gpb, n_gran);
-    const int n_ig = min(n_gran, g_lo + gpb) - g_lo;
-    const int own_lo = g_lo * 32 * P;
-    const int own_hi = min(n, (g_lo + n_ig) * 32 * P);
-    int JS = 1;                 // warps that share a granule
-    if (n_ig > 0 && n_ig < W) JS = min(W / n_ig, n_sub);
-    const int units = n_ig * JS;
-
-    // every block's buffers are laid out before any remote write (and the
-    // grid lane's hash table is cleared)
-    cluster.sync();
-
-    // --- grid lane: this slice's keys into the hash table, then, once
-    // every block's are in, this slice's neighbour lists
-    const uint16_t* nbr = nullptr;
-    const uint8_t* ncount = nullptr;
-    if constexpr (kGrid) {
-        const int* cells = lane_args.cells + (size_t)d * N * 3;
-        const int* dkeys = grid_sh;
-        const int* gmin = grid_sh + OSLAM_GRID_MAX_C + 1;
-        const int cx = gmin[0], cy = gmin[1], cz = gmin[2], R = lane_args.R;
-        const unsigned hmask = (1u << hlg) - 1u;
-        for (int c = own_lo + tid; c < own_hi; c += T) {
-            const int key = grid_key(cells, idx[c], cx, cy, cz, R);
-            const unsigned long long ent =
-                ((unsigned long long)(unsigned)key << 32) | (unsigned)c;
-            unsigned h = grid_hash(key, hlg);
-            for (;;) {
-                const unsigned long long prev =
-                    atomicCAS(&htab[h], OSLAM_HASH_EMPTY, ent);
-                if (prev == OSLAM_HASH_EMPTY) break;
-                if ((unsigned)(prev >> 32) == (unsigned)key) {
-                    atomicMin(&htab[h], ent);
-                    break;
-                }
-                h = (h + 1) & hmask;
-            }
-        }
-        cluster.sync();
-        uint16_t* nb = lane_args.nbr + (size_t)d * OSLAM_GRID_MAX_C * N;
-        uint8_t* cnt = lane_args.ncount + (size_t)d * N;
-        const int C = grid_sh[OSLAM_GRID_MAX_C];
-        for (int c = own_lo + tid; c < own_hi; c += T) {
-            const int o = idx[c];
-            const int key = grid_key(cells, o, cx, cy, cz, R);
-            const float px = pts_c[3 * o], py = pts_c[3 * o + 1],
-                        pz = pts_c[3 * o + 2];
-            int k_hit = 0;
-            for (int k = 0; k < C; ++k) {
-                const int target = key + dkeys[k];
-                unsigned h = grid_hash(target, hlg);
-                int j = -1;
-                for (;;) {
-                    const unsigned long long e = __ldcg(&htab[h]);
-                    if (e == OSLAM_HASH_EMPTY) break;
-                    if ((unsigned)(e >> 32) == (unsigned)target) {
-                        j = (int)(e & 0xffffffffu);
-                        break;
-                    }
-                    h = (h + 1) & hmask;
-                }
-                if (j < 0) continue;
-                const int oj = idx[j];
-                const float dx = px - pts_c[3 * oj];
-                const float dy = py - pts_c[3 * oj + 1];
-                const float dz = pz - pts_c[3 * oj + 2];
-                if ((dx * dx + dy * dy) + dz * dz <= tol2)
-                    nb[(size_t)(k_hit++) * N + c] = (uint16_t)j;
-            }
-            cnt[c] = (uint8_t)k_hit;
-        }
-        nbr = nb;
-        ncount = cnt;
-        __syncthreads();
-    }
-
-    int r = 0;
-    bool conv = false;
-    for (;;) {
-        ++r;
-        if constexpr (kGrid) {
-            // --- the grid pass over this block's slice: nxt_i = the least
-            // label of i and its listed neighbours
-            for (int i = own_lo + tid; i < own_hi; i += T) {
-                int best = cur[i];
-                const int k_n = ncount[i];
-                for (int k = 0; k < k_n; ++k)
-                    best = min(best, cur[nbr[(size_t)k * N + i]]);
-                nxt[i] = best;
-            }
-            __syncthreads();
-        } else {
-            // --- the pass over this block's slice: nxt_i = min(cur_i, cur_j of
-            // the neighbours j)
-            for (int i = own_lo + tid; i < own_hi; i += T) nxt[i] = cur[i];
-            __syncthreads();
-            for (int u0 = 0; u0 < units; u0 += W) {
-                const int u = u0 + warp;
-                const bool active = u < units;
-                const int g = active ? g_lo + u / JS : 0;
-                const int jp = active ? u % JS : 0;
-                float x[P], y[P], z[P], w[P];
-                int best[P], li[P];
-                const float inf = __int_as_float(0x7f800000);
-                float4 ilo = make_float4(inf, inf, inf, 0.0f);
-                float4 ihi = make_float4(-inf, -inf, -inf, 0.0f);
-#pragma unroll
-                for (int m = 0; m < P; ++m) {
-                    const int s = g * P + m;
-                    const int i = (s << 5) + lane;
-                    x[m] = y[m] = z[m] = w[m] = 0.0f;
-                    li[m] = 0;
-                    best[m] = OSLAM_BIG;
-                    if (active && i < n) {
-                        const int o = idx[i];
-                        x[m] = pts_c[3 * o];
-                        y[m] = pts_c[3 * o + 1];
-                        z[m] = pts_c[3 * o + 2];
-                        w[m] = nrm[o];
-                        li[m] = cur[i];
-                    }
-                    if (active && s < n_sub) {
-                        const float4 a = box[2 * s], b = box[2 * s + 1];
-                        ilo = make_float4(fminf(ilo.x, a.x), fminf(ilo.y, a.y),
-                                          fminf(ilo.z, a.z), 0.0f);
-                        ihi = make_float4(fmaxf(ihi.x, b.x), fmaxf(ihi.y, b.y),
-                                          fmaxf(ihi.z, b.z), fmaxf(ihi.w, b.w));
-                    }
-                }
-                for (int t0 = 0; t0 < n_pad; t0 += tile_cap) {
-                    if (!resident) {
-                        __syncthreads();
-                        for (int c = tid; c < tile_cap && t0 + c < n_pad;
-                             c += T) {
-                            const int o = idx[t0 + c];
-                            tile[c] = make_float4(pts_c[3 * o], pts_c[3 * o + 1],
-                                                  pts_c[3 * o + 2], nrm[o]);
-                        }
-                        __syncthreads();
-                    }
-                    if (!active) continue;
-                    const int s_lo = t0 >> 5;
-                    const int s_hi = min(n_sub, (t0 + tile_cap) >> 5);
-                    int s = s_lo + (jp - s_lo % JS + JS) % JS;
-                    for (; s < s_hi; s += JS) {
-                        if (prune && far_apart(ilo, ihi, box[2 * s],
-                                               box[2 * s + 1], tol2))
-                            continue;
-                        const float4* tp = tile + ((s << 5) - t0);
-                        const int* lp = cur + (s << 5);
-#pragma unroll 8
-                        for (int k = 0; k < 32; ++k) {
-                            const float4 q = tp[k];
-                            const int l = lp[k];
-#pragma unroll
-                            for (int m = 0; m < P; ++m) {
-                                if constexpr (kPass == OSLAM_PASS_EXACT)
-                                    best[m] = closer_label_exact(
-                                        x[m], y[m], z[m], q, l, tol2, best[m]);
-                                else
-                                    best[m] = closer_label(x[m], y[m], z[m],
-                                                           w[m], q, l, tol2,
-                                                           best[m]);
-                            }
-                        }
-                    }
-                }
-                if (active) {
-#pragma unroll
-                    for (int m = 0; m < P; ++m)
-                        if (best[m] < li[m])
-                            atomicMin(&nxt[((g * P + m) << 5) + lane], best[m]);
-                }
-            }
-            __syncthreads();
-        }
-
-        // --- this slice's new labels into every block's copy.  Not before
-        // every block is through the jumps of the round before
-        if (r > 1) cluster_wait();
-        for (int rr = 0; rr < S; ++rr) {
-            if (rr == rank) continue;
-            int* remote = cluster.map_shared_rank(nxt, rr);
-            for (int i = own_lo + tid; i < own_hi; i += T) remote[i] = nxt[i];
-        }
-        cluster.sync();
-
-        // --- did the pass change a label; then the chain passes (chain
-        // lane) and the jumps, on all n labels
-        bool chg = false;
-        for (int i = tid; i < n; i += T) chg = chg || (nxt[i] != cur[i]);
-        int* a = nxt;
-        int* b = cur;
-        if constexpr (kChain) {
-            for (int o = 0; o < lane_args.n_orders; ++o) {
-                const size_t off = ((size_t)d * lane_args.n_orders + o) * N;
-                chg = chain_pass(a, b, n, lane_args.chain_order + off,
-                                 lane_args.chain_link + off, scan_vh,
-                                 scan_vh + 32)
-                      || chg;
-                __syncthreads();
-                int* t = a;
-                a = b;
-                b = t;
-            }
-        }
-        for (int it = 0; it < jump_iters; ++it) {
-            chg = jump_once<true>(a, b, n) || chg;
-            __syncthreads();
-            int* t = a;
-            a = b;
-            b = t;
-        }
-        cur = a;
-        nxt = b;
-        if (!__syncthreads_or(chg)) {
-            conv = true;
-            break;
-        }
-        if (r >= outer_iters) break;
-        cluster_arrive();
-    }
-
-    // --- labels back in the original lane numbering
+// The labels back in the original lane numbering (each rank a slice), the
+// flag and the round count.
+__device__ __forceinline__ void write_labels(
+    const int* idx, const int* cur, int n, int S, int rank, int d, bool conv,
+    int r, int* __restrict__ out_labels, uint8_t* __restrict__ converged,
+    int* __restrict__ rounds)
+{
+    const int tid = threadIdx.x, T = blockDim.x;
     const int per = (n + S - 1) / S;
     const int c_hi = min(n, (rank + 1) * per);
     for (int c = rank * per + tid; c < c_hi; c += T)
@@ -1963,11 +1543,18 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
         converged[d] = conv ? 1 : 0;
         rounds[d] = r;
     }
-    if (sel.mask == nullptr || rank != 0) return;
+}
 
-    // --- the selection, by the first block alone (n atomics and three
-    // block reductions).  `nxt` is free: sizes per root; the least
-    // distances go through global scratch (this block's own writes)
+// The selection epilogue (Selection above), by one block that holds the
+// detection's n settled labels `cur` in compacted numbering.
+__device__ __forceinline__ void select_epilogue(
+    const int* idx, const int* cur, int* nxt, int n, int N, int d, bool conv,
+    const Selection& sel)
+{
+    const int tid = threadIdx.x, T = blockDim.x;
+    // n atomics and three block reductions.  `nxt` is free: sizes per
+    // root; the least distances go through global scratch (this block's
+    // own writes)
     __shared__ unsigned long long keys32[32];
     __shared__ int counts[2];
     const float* wpts = sel.pts + (size_t)d * N * 3;
@@ -2020,6 +1607,288 @@ __global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
     for (int c = tid; c < n; c += T)
         smask[idx[c]] = (chosen_ok && cur[c] == chosen) ? 1 : 0;
     if (tid == 0) sel.ok[d] = (chosen_ok && conv) ? 1 : 0;
+}
+
+// The chain lane's extra arguments: the orders [D, n_orders, N] (compacted
+// lanes; entry k < n a permutation of [0, n)) and link flags
+// [D, n_orders, N].
+struct ClusterLane {
+    const int* chain_order;
+    const uint8_t* chain_link;
+    int n_orders;
+};
+
+template <int P, int kPass, bool kChain>
+__global__ void __launch_bounds__(OSLAM_CC_MAXT, 1) cluster_components_kernel(
+    const float* __restrict__ pts_c, const float* __restrict__ nrm,
+    const uint8_t* __restrict__ mask, const int* __restrict__ labels0, int N,
+    float tol2, int outer_iters, int jump_iters, int smem_bytes, int prune,
+    const float* __restrict__ sort_frame, int frame_stride,
+    int* __restrict__ out_labels, uint8_t* __restrict__ converged,
+    int* __restrict__ rounds, const Selection sel, const ClusterLane lane_args)
+{
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int S = (int)cluster.num_blocks();
+    const int d = blockIdx.y;
+    const int tid = threadIdx.x, T = blockDim.x;
+    const int lane = tid & 31, warp = tid >> 5, W = T >> 5;
+    sort_frame += (size_t)frame_stride * d;     // 0: one frame for all
+    pts_c += (size_t)d * N * 3;
+    nrm += (size_t)d * N;
+    mask += (size_t)d * N;
+    labels0 += (size_t)d * N;
+    out_labels += (size_t)d * N;
+
+    extern __shared__ float4 cc_smem[];
+    __shared__ int warp_off[32];
+    __shared__ int chunk_total;
+    __shared__ float frame[9];  // rows u, v, w of the boxes' frame
+    // chain_pass's scratch: only the chain lane allocates it
+    __shared__ int scan_vh[kChain ? 64 : 1];
+
+    // --- compaction (compact_lanes)
+    int* idx = reinterpret_cast<int*>(cc_smem);
+    const int n = compact_lanes(mask, N, S, rank, d, idx, warp_off,
+                                chunk_total, out_labels, sel);
+    if (n == 0) {               // every block of the cluster takes this exit
+        if (rank == 0 && tid == 0) {
+            converged[d] = 1;
+            rounds[d] = 1;      // the first round changes nothing
+            if (sel.mask != nullptr) sel.ok[d] = 0;
+        }
+        return;
+    }
+
+    // --- the layout behind the lane list, now that n is known
+    const int n_sub = (n + 31) >> 5, n_pad = n_sub << 5;
+    int* cur = idx + n_pad;
+    int* nxt = cur + n_pad;
+    float4* box = reinterpret_cast<float4*>(nxt + n_pad);
+    float4* tile = box + 2 * n_sub;
+    const int tile_cap = ((smem_bytes - 12 * n_pad - 32 * n_sub) / 16) & ~31;
+    const bool resident = tile_cap >= n_pad;
+
+    seed_compacted(idx, labels0, n, n_pad, cur, nxt);
+    __syncthreads();
+    for (int c = n + tid; c < n_pad; c += T) idx[c] = idx[0];
+
+    // --- the frame the boxes are taken in.  A voxel cloud is sorted by
+    // the cells of the camera frame (x, then y, then z), so 32 consecutive
+    // points are a strip of a thin slab across the camera's x axis, which
+    // in world coordinates may point anywhere: an axis-aligned box of a
+    // slanted strip is fat.  The caller names the frame the cloud was
+    // sorted in (`sort_frame`, rows u, v, w); it is taken if it is a
+    // rotation to 1e-3, else the boxes are taken along the axes of the
+    // points' own coordinates (the identity).  Any rotation keeps
+    // distances, so the skip stays exact whatever the frame is; a cloud in
+    // no order just gets boxes that skip nothing.
+    {
+        float f[9];
+        for (int k = 0; k < 9; ++k) f[k] = sort_frame[k];
+        bool rotation = true;
+        for (int a = 0; a < 3; ++a)
+            for (int b = a; b < 3; ++b) {
+                const float dot = f[3 * a] * f[3 * b]
+                                  + f[3 * a + 1] * f[3 * b + 1]
+                                  + f[3 * a + 2] * f[3 * b + 2];
+                // written so that a NaN fails it
+                if (!(fabsf(dot - (a == b ? 1.0f : 0.0f)) <= 1e-3f))
+                    rotation = false;
+            }
+        if (tid < 9)
+            frame[tid] = rotation ? f[tid] : (tid % 4 == 0 ? 1.0f : 0.0f);
+    }
+    __syncthreads();
+    // a box per 32 points (in that frame), and the points themselves where
+    // they fit
+    for (int s = warp; s < n_sub; s += W) {
+        const int c = (s << 5) + lane;
+        const bool real = c < n;
+        float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (real) {
+            const int o = idx[c];
+            q = make_float4(pts_c[3 * o], pts_c[3 * o + 1], pts_c[3 * o + 2],
+                            nrm[o]);
+        }
+        if (resident) tile[c] = q;
+        const float inf = __int_as_float(0x7f800000);
+        const float ru = q.x * frame[0] + q.y * frame[1] + q.z * frame[2];
+        const float rv = q.x * frame[3] + q.y * frame[4] + q.z * frame[5];
+        const float rw = q.x * frame[6] + q.y * frame[7] + q.z * frame[8];
+        float lx = real ? ru : inf, ly = real ? rv : inf,
+              lz = real ? rw : inf;
+        float hx = real ? ru : -inf, hy = real ? rv : -inf,
+              hz = real ? rw : -inf, hn = q.w;
+        for (int o = 16; o > 0; o >>= 1) {
+            lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
+            ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
+            lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
+            hx = fmaxf(hx, __shfl_xor_sync(0xffffffffu, hx, o));
+            hy = fmaxf(hy, __shfl_xor_sync(0xffffffffu, hy, o));
+            hz = fmaxf(hz, __shfl_xor_sync(0xffffffffu, hz, o));
+            hn = fmaxf(hn, __shfl_xor_sync(0xffffffffu, hn, o));
+        }
+        if (lane == 0) {
+            box[2 * s] = make_float4(lx, ly, lz, 0.0f);
+            box[2 * s + 1] = make_float4(hx, hy, hz, hn);
+        }
+    }
+
+    // --- this block's slice of the i: granules of 32 * P points
+    const int n_gran = (n_sub + P - 1) / P;
+    const int gpb = (n_gran + S - 1) / S;
+    const int g_lo = min(rank * gpb, n_gran);
+    const int n_ig = min(n_gran, g_lo + gpb) - g_lo;
+    const int own_lo = g_lo * 32 * P;
+    const int own_hi = min(n, (g_lo + n_ig) * 32 * P);
+    int JS = 1;                 // warps that share a granule
+    if (n_ig > 0 && n_ig < W) JS = min(W / n_ig, n_sub);
+    const int units = n_ig * JS;
+
+    // every block's buffers are laid out before any remote write
+    cluster.sync();
+
+    int r = 0;
+    bool conv = false;
+    for (;;) {
+        ++r;
+        // --- the pass over this block's slice: nxt_i = min(cur_i, cur_j of
+        // the neighbours j)
+        for (int i = own_lo + tid; i < own_hi; i += T) nxt[i] = cur[i];
+        __syncthreads();
+        for (int u0 = 0; u0 < units; u0 += W) {
+            const int u = u0 + warp;
+            const bool active = u < units;
+            const int g = active ? g_lo + u / JS : 0;
+            const int jp = active ? u % JS : 0;
+            float x[P], y[P], z[P], w[P];
+            int best[P], li[P];
+            const float inf = __int_as_float(0x7f800000);
+            float4 ilo = make_float4(inf, inf, inf, 0.0f);
+            float4 ihi = make_float4(-inf, -inf, -inf, 0.0f);
+#pragma unroll
+            for (int m = 0; m < P; ++m) {
+                const int s = g * P + m;
+                const int i = (s << 5) + lane;
+                x[m] = y[m] = z[m] = w[m] = 0.0f;
+                li[m] = 0;
+                best[m] = OSLAM_BIG;
+                if (active && i < n) {
+                    const int o = idx[i];
+                    x[m] = pts_c[3 * o];
+                    y[m] = pts_c[3 * o + 1];
+                    z[m] = pts_c[3 * o + 2];
+                    w[m] = nrm[o];
+                    li[m] = cur[i];
+                }
+                if (active && s < n_sub) {
+                    const float4 a = box[2 * s], b = box[2 * s + 1];
+                    ilo = make_float4(fminf(ilo.x, a.x), fminf(ilo.y, a.y),
+                                      fminf(ilo.z, a.z), 0.0f);
+                    ihi = make_float4(fmaxf(ihi.x, b.x), fmaxf(ihi.y, b.y),
+                                      fmaxf(ihi.z, b.z), fmaxf(ihi.w, b.w));
+                }
+            }
+            for (int t0 = 0; t0 < n_pad; t0 += tile_cap) {
+                if (!resident) {
+                    __syncthreads();
+                    for (int c = tid; c < tile_cap && t0 + c < n_pad;
+                         c += T) {
+                        const int o = idx[t0 + c];
+                        tile[c] = make_float4(pts_c[3 * o], pts_c[3 * o + 1],
+                                              pts_c[3 * o + 2], nrm[o]);
+                    }
+                    __syncthreads();
+                }
+                if (!active) continue;
+                const int s_lo = t0 >> 5;
+                const int s_hi = min(n_sub, (t0 + tile_cap) >> 5);
+                int s = s_lo + (jp - s_lo % JS + JS) % JS;
+                for (; s < s_hi; s += JS) {
+                    if (prune && far_apart(ilo, ihi, box[2 * s],
+                                           box[2 * s + 1], tol2))
+                        continue;
+                    const float4* tp = tile + ((s << 5) - t0);
+                    const int* lp = cur + (s << 5);
+#pragma unroll 8
+                    for (int k = 0; k < 32; ++k) {
+                        const float4 q = tp[k];
+                        const int l = lp[k];
+#pragma unroll
+                        for (int m = 0; m < P; ++m) {
+                            if constexpr (kPass == OSLAM_PASS_EXACT)
+                                best[m] = closer_label_exact(
+                                    x[m], y[m], z[m], q, l, tol2, best[m]);
+                            else
+                                best[m] = closer_label(x[m], y[m], z[m],
+                                                       w[m], q, l, tol2,
+                                                       best[m]);
+                        }
+                    }
+                }
+            }
+            if (active) {
+#pragma unroll
+                for (int m = 0; m < P; ++m)
+                    if (best[m] < li[m])
+                        atomicMin(&nxt[((g * P + m) << 5) + lane], best[m]);
+            }
+        }
+        __syncthreads();
+
+        // --- this slice's new labels into every block's copy.  Not before
+        // every block is through the jumps of the round before
+        if (r > 1) cluster_wait();
+        for (int rr = 0; rr < S; ++rr) {
+            if (rr == rank) continue;
+            int* remote = cluster.map_shared_rank(nxt, rr);
+            for (int i = own_lo + tid; i < own_hi; i += T) remote[i] = nxt[i];
+        }
+        cluster.sync();
+
+        // --- did the pass change a label; then the chain passes (chain
+        // lane) and the jumps, on all n labels
+        bool chg = false;
+        for (int i = tid; i < n; i += T) chg = chg || (nxt[i] != cur[i]);
+        int* a = nxt;
+        int* b = cur;
+        if constexpr (kChain) {
+            for (int o = 0; o < lane_args.n_orders; ++o) {
+                const size_t off = ((size_t)d * lane_args.n_orders + o) * N;
+                chg = chain_pass(a, b, n, lane_args.chain_order + off,
+                                 lane_args.chain_link + off, scan_vh,
+                                 scan_vh + 32)
+                      || chg;
+                __syncthreads();
+                int* t = a;
+                a = b;
+                b = t;
+            }
+        }
+        for (int it = 0; it < jump_iters; ++it) {
+            chg = jump_once<true>(a, b, n) || chg;
+            __syncthreads();
+            int* t = a;
+            a = b;
+            b = t;
+        }
+        cur = a;
+        nxt = b;
+        if (!__syncthreads_or(chg)) {
+            conv = true;
+            break;
+        }
+        if (r >= outer_iters) break;
+        cluster_arrive();
+    }
+
+    // --- labels back in the original lane numbering
+    write_labels(idx, cur, n, S, rank, d, conv, r, out_labels, converged,
+                 rounds);
+    if (sel.mask == nullptr || rank != 0) return;
+
+    select_epilogue(idx, cur, nxt, n, N, d, conv, sel);
 }
 
 // The dynamic shared memory a block of an instantiation may ask for is
@@ -2091,10 +1960,8 @@ static int launch_cluster_components(
 // mapper's detections come from frames of B poses); 0 takes the one
 // rotation for all.  The rotation changes no result.  Needs
 // smem_bytes >= 13 bytes a lane (rounded up to 32 lanes) plus a tile of at
-// least 256 points, the grid lane 12 bytes a lane.  exact: the exact lane;
-// chain_order / chain_link with n_orders in [1, 3]: the chain lane (else
-// null and 0); lane_args.cells given: the grid lane (exact and the chain
-// lane off).
+// least 256 points.  exact: the exact lane; chain_order / chain_link with
+// n_orders in [1, 3]: the chain lane (else null and 0).
 static int cluster_launch(
     const void* pts_c, const void* nrm, const void* mask, const void* labels0,
     int D, int N, float tol2, int outer_iters, int jump_iters, int S, int T,
@@ -2104,23 +1971,16 @@ static int cluster_launch(
     void* stream)
 {
     const int n_pad = (N + 31) & ~31;
-    const bool grid = lane_args.cells != nullptr;
     const bool chain = lane_args.chain_order != nullptr;
     if (D < 1 || D > 65535 || N < 1 || S < 1 || S > 8 || T < 32 ||
         T > OSLAM_CC_MAXT || T % 32 != 0 || P != OSLAM_CC_P ||
         outer_iters < 1 || jump_iters < 0 ||
-        smem_bytes < (grid ? 12 * n_pad : 13 * n_pad + 16 * 256))
+        smem_bytes < 13 * n_pad + 16 * 256)
         return (int)cudaErrorInvalidConfiguration;
     if (sort_frame == nullptr || (frame_stride != 0 && frame_stride != 9))
         return (int)cudaErrorInvalidValue;
     if (chain && (lane_args.chain_link == nullptr ||
-                  lane_args.n_orders < 1 || lane_args.n_orders > 3 || grid))
-        return (int)cudaErrorInvalidValue;
-    if (grid && (exact || lane_args.hash == nullptr ||
-                 lane_args.nbr == nullptr || lane_args.ncount == nullptr ||
-                 N > 65535 || lane_args.R < 1 || lane_args.smax < 0 ||
-                 lane_args.hash_cap < 2 * n_pad ||
-                 (lane_args.hash_cap & (lane_args.hash_cap - 1)) != 0))
+                  lane_args.n_orders < 1 || lane_args.n_orders > 3))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const float* p = (const float*)pts_c;
@@ -2135,7 +1995,6 @@ static int cluster_launch(
     launch_cluster_components<OSLAM_CC_P, PASS, CHAIN>(                     \
         p, nm, m, l0, D, N, tol2, outer_iters, jump_iters, S, T,            \
         smem_bytes, prune, sf, frame_stride, ol, cv, rd, sel, lane_args, st)
-    if (grid) return OSLAM_CC_LAUNCH(OSLAM_PASS_GRID, false);
     if (exact)
         return chain ? OSLAM_CC_LAUNCH(OSLAM_PASS_EXACT, true)
                      : OSLAM_CC_LAUNCH(OSLAM_PASS_EXACT, false);
@@ -2192,24 +2051,645 @@ extern "C" int oslam_cluster_select(
                           exact, lane_args, stream);
 }
 
+// ---------------------------------------------------------------------------
+// cluster_grid (K13).  Replaces ops/cluster.connected_components_grid of the
+// JAX package (:320: the stencil _grid_offsets :291, the stable argsort
+// :352, searchsorted side left :359; the extractor's grid_cluster path,
+// extractor.py:245-250, left to XLA there): a frame's compaction, neighbour
+// lists, every round and the selection in ONE launch, a thread block
+// cluster of S blocks per detection (S = 1: a block).
+//
+// What bounds it is neither the bytes (inputs and outputs once, ~2 us on
+// the path frame) nor the operations but the chain of dependent steps in a
+// detection's block: the table build, then ~20 rounds of a pass, jumps and
+// barriers.  The design:
+//  - The neighbour set is JAX's: each survivor's stencil cells around its
+//    packed cell key (the cell less the survivors' least cell plus R, 10
+//    bits an axis), of each cell's key the first survivor in (key, lane)
+//    order, kept where the exact test (dx*dx + dy*dy) + dz*dz <= tol2 on
+//    the points passes.  The host passes the stencil as rows
+//    (ops/cluster.grid_rows): for one (dx, dy) the cells dz in [-h, h],
+//    whose keys are one interval of key offsets; the survivor's own key,
+//    inside the middle row's interval, is left out.
+//  - A sorted key table in shared memory, not a hash table: every block
+//    computes the survivors' keys in lane order.  Where they already
+//    ascend (a voxel cloud arrives sorted by cell: depth_cloud's sort) the
+//    table is the lane order itself; else the (key, compacted id) pairs
+//    are sorted in shared memory (a bitonic sort: on distinct pairs it
+//    gives the order of JAX's stable argsort).
+//  - Each thread takes a chunk of consecutive sorted survivors.  Their
+//    targets ascend with them, so a stencil row costs one search at the
+//    chunk's start (the rows ascend too: each row's search gallops on from
+//    the row before) and then a forward walk (the row's position in a
+//    register): at most 25 searches a chunk.  Two walks: the first counts
+//    each survivor's neighbours, a block scan places the chunks, the second
+//    writes the lists (16-bit compacted ids).  A walk is a chain of
+//    dependent loads per thread, so the points it tests (the window of
+//    sorted positions between the block's slice's first key less the
+//    stencil's reach and its last key plus it) are staged in shared memory
+//    as float4 where they fit: a test then waits on shared memory, not L2.
+//  - The lists stay in the block's shared memory beside the labels where
+//    they fit (decided on the device from their counted size), else in
+//    device memory, through the same code (generic pointers); where they
+//    fit, a round reads no L2.
+//  - A round is the pass nxt_i = min(cur_i, cur_j over i's list) over the
+//    block's slice, with S > 1 the slice and the flag "it changed a label"
+//    into every other block's copy through distributed shared memory and
+//    one cluster barrier, then up to jump_iters synchronous jumps on the
+//    block's own copy.  The jumps stop at the first that changes no label:
+//    a jump is a function of the labels, so every later one would change
+//    nothing either, and labels, converged and rounds stay those of
+//    jump_iters jumps.  The flag is taken per step (labels only decrease).
+//    Where a third label buffer fits, the rounds' new labels alternate
+//    between two of them, so a block writes into the others' copies
+//    without waiting for them to finish the round before (else a split
+//    cluster barrier keeps it from writing into a copy still being read).
+//  - The launch shape is K13's own (ops/cluster.grid_shape, from the
+//    sweep in examples/torch_cluster_sweep.py --grid): clusters of 8 blocks
+//    of 512 threads for a frame's detections, fewer blocks where there are
+//    so many detections that the clusters run in many waves.
+// Precondition: labels0 of an unmasked lane is an unmasked lane of index
+// <= its own (ops/cluster.grid_seed).  The plain version is
+// ops/cluster.cluster_grid_plain.
+// ---------------------------------------------------------------------------
+#define OSLAM_GRID_MAXT 512
+#define OSLAM_GRID_MAX_ROWS 25      // stencil rows, at most (R <= 2)
+#define OSLAM_GRID_MAX_C 124        // stencil cells, at most
+
+// the stencil's rows: row r holds the key offsets [lo[r], hi[r]], the rows
+// in ascending order
+struct GridRows {
+    int n;
+    int lo[OSLAM_GRID_MAX_ROWS];
+    int hi[OSLAM_GRID_MAX_ROWS];
+};
+
+// device memory for what a block's shared memory has no room for: the
+// sort's compacted ids (ids_stride a block) and the neighbour lists
+// (OSLAM_GRID_MAX_C * N a detection, a block's from its slice's start)
+struct GridScratch {
+    uint16_t* ids;              // [D, S, ids_stride]
+    int ids_stride;             // >= the power of two at or above N
+    uint16_t* nbr;              // [D, OSLAM_GRID_MAX_C * N]
+};
+
+#ifdef OSLAM_GRID_CLOCKS
+// clock64 as thread 0 of each block enters each phase
+// (examples/torch_cluster_sweep.py): 0 start, 1 compacted, 2 the key table
+// sorted, 3 the lists built, 4 the rounds done, 5 the end; and the cycles
+// of all rounds' passes (6), exchanges between the cluster's blocks (7)
+// and changed tests and jumps (8)
+#define OSLAM_GRID_CLOCK_D 256
+__device__ long long oslam_grid_clock[OSLAM_GRID_CLOCK_D][8][9];
+#define GRID_CLOCK(i)                                                       \
+    if (threadIdx.x == 0 && d < OSLAM_GRID_CLOCK_D)                         \
+        oslam_grid_clock[d][rank][i] = clock64()
+#define GRID_SPAN(i)                                                        \
+    if (threadIdx.x == 0 && d < OSLAM_GRID_CLOCK_D) {                       \
+        const long long now = clock64();                                    \
+        oslam_grid_clock[d][rank][i] += now - span_at;                      \
+        span_at = now;                                                      \
+    }
+extern "C" int oslam_grid_clocks(void* host)
+{
+    return (int)cudaMemcpyFromSymbol(host, oslam_grid_clock,
+                                     sizeof(oslam_grid_clock));
+}
+extern "C" int oslam_grid_clocks_clear()
+{
+    void* at = nullptr;
+    cudaError_t rc = cudaGetSymbolAddress(&at, oslam_grid_clock);
+    if (rc == cudaSuccess) rc = cudaMemset(at, 0, sizeof(oslam_grid_clock));
+    return (int)rc;
+}
+#else
+#define GRID_CLOCK(i)
+#define GRID_SPAN(i)
+#endif
+
+// a survivor's packed key: its cell less the least cell plus R, each axis
+// clamped to 10 bits (JAX's packing)
+__device__ __forceinline__ int grid_key(const int* cells, int o, int cx,
+                                        int cy, int cz, int R)
+{
+    const int kx = min(max(cells[3 * o] - cx + R, 0), 1023);
+    const int ky = min(max(cells[3 * o + 1] - cy + R, 0), 1023);
+    const int kz = min(max(cells[3 * o + 2] - cz + R, 0), 1023);
+    return (kx << 20) | (ky << 10) | kz;
+}
+
+// the first of the n ascending keys that is >= v (n if none)
+__device__ __forceinline__ int lower_bound_key(const int* keys, int n, int v)
+{
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (keys[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// the first of the n ascending keys from position `from` on that is >= v,
+// where keys[from - 1] < v: an exponential search from `from`
+__device__ __forceinline__ int gallop_key(const int* keys, int n, int from,
+                                          int v)
+{
+    int lo = from, hi = from, step = 1;
+    while (hi < n && keys[hi] < v) {
+        lo = hi + 1;
+        hi = lo + step;
+        step <<= 1;
+    }
+    hi = min(hi, n);
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (keys[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// each row's first position for a chunk whose first key is k0: the rows
+// ascend, so each row's search starts where the row before it ended
+__device__ __forceinline__ void grid_walk_start(
+    const int* keys, int n, int k0, const GridRows& rows,
+    int (&pos)[OSLAM_GRID_MAX_ROWS])
+{
+    pos[0] = lower_bound_key(keys, n, k0 + rows.lo[0]);
+#pragma unroll
+    for (int r = 1; r < OSLAM_GRID_MAX_ROWS; ++r)
+        if (r < rows.n)
+            pos[r] = gallop_key(keys, n, pos[r - 1], k0 + rows.lo[r]);
+}
+
+// The point at sorted position q: from the block's staged window of
+// sorted positions [w_lo, ...) where there is one (win not null), else
+// through the lane list from device memory.
+__device__ __forceinline__ float4 grid_point(
+    int q, const float4* win, int w_lo, const uint16_t* ids, const int* idx,
+    const float* __restrict__ pts)
+{
+    if (win != nullptr) return win[q - w_lo];
+    const int o = idx[ids != nullptr ? ids[q] : q];
+    return make_float4(pts[3 * o], pts[3 * o + 1], pts[3 * o + 2], 0.0f);
+}
+
+// The neighbours of the survivor at sorted position s (ids: sorted position
+// -> compacted id, null for the identity): per row, the keys in the row's
+// interval, of each the first position but for s's own key, kept if the
+// exact radius test on the points passes.  pos holds each row's lower bound
+// for the chunk's survivor before s (advanced here).  kFill: written to
+// out.  Returns their count.
+template <bool kFill>
+__device__ __forceinline__ int grid_walk(
+    const int* keys, const uint16_t* ids, int n, int s, const GridRows& rows,
+    int (&pos)[OSLAM_GRID_MAX_ROWS], const float4* win, int w_lo,
+    const float* __restrict__ pts, const int* idx, float tol2, uint16_t* out)
+{
+    const int ks = keys[s];
+    const float4 pi = grid_point(s, win, w_lo, ids, idx, pts);
+    int hits = 0;
+#pragma unroll
+    for (int r = 0; r < OSLAM_GRID_MAX_ROWS; ++r) {
+        if (r < rows.n) {
+            const int lo = ks + rows.lo[r], hi = ks + rows.hi[r];
+            int p = pos[r];
+            while (p < n && keys[p] < lo) ++p;
+            pos[r] = p;
+            for (int q = p; q < n; ++q) {
+                const int kq = keys[q];
+                if (kq > hi) break;
+                if (kq == ks || (q > p && keys[q - 1] == kq)) continue;
+                const float4 pj = grid_point(q, win, w_lo, ids, idx, pts);
+                const float dx = pi.x - pj.x;
+                const float dy = pi.y - pj.y;
+                const float dz = pi.z - pj.z;
+                if ((dx * dx + dy * dy) + dz * dz <= tol2) {
+                    if (kFill) out[hits] = (uint16_t)(ids != nullptr ? ids[q]
+                                                                     : q);
+                    ++hits;
+                }
+            }
+        }
+    }
+    return hits;
+}
+
+// The exclusive prefix sum of v over the block's threads in thread order;
+// *total (shared) gets the sum.  warp_tot: 32 ints of shared scratch.  All
+// threads call it.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_tot,
+                                                   int* total)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int W = blockDim.x >> 5;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+    }
+    __syncthreads();            // warp_tot may still be read
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const int mine = lane < W ? warp_tot[lane] : 0;
+        int wincl = mine;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int up = __shfl_up_sync(0xffffffffu, wincl, o);
+            if (lane >= o) wincl += up;
+        }
+        warp_tot[lane] = wincl - mine;
+        if (lane == 31) *total = wincl;
+    }
+    __syncthreads();
+    return warp_tot[warp] + incl - v;
+}
+
+// A block's scalars and scratch, at the start of its dynamic shared memory
+// (OSLAM_GRID_HEAD bytes): one per block, also where the CPU build runs a
+// cluster's blocks side by side
+struct GridHead {
+    int warp_off[32];
+    int chunk_total;
+    int gmin[3];
+    int block_hits;
+    int chg_in[2][8];   // per round parity, each block's "its pass changed
+                        // a label", written by that block (rank)
+};
+#define OSLAM_GRID_HEAD 256
+static_assert(sizeof(GridHead) <= OSLAM_GRID_HEAD, "GridHead outgrew");
+// the room a third label buffer leaves for the rest (the sort's ids, the
+// staged points and the lists) at the least
+#define OSLAM_GRID_KEEP (64 * 1024)
+
+__global__ void __launch_bounds__(OSLAM_GRID_MAXT, 1) cluster_grid_kernel(
+    const float* __restrict__ pts, const int* __restrict__ cells,
+    const uint8_t* __restrict__ mask, const int* __restrict__ labels0, int N,
+    float tol2, int R, const GridRows rows, int outer_iters, int jump_iters,
+    int smem_bytes, const GridScratch scratch, int* __restrict__ out_labels,
+    uint8_t* __restrict__ converged, int* __restrict__ rounds,
+    const Selection sel)
+{
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int S = (int)cluster.num_blocks();
+    const int d = blockIdx.y;
+    const int tid = threadIdx.x, T = blockDim.x;
+    const int lane = tid & 31;
+    GRID_CLOCK(0);
+    pts += (size_t)d * N * 3;
+    cells += (size_t)d * N * 3;
+    mask += (size_t)d * N;
+    labels0 += (size_t)d * N;
+    out_labels += (size_t)d * N;
+
+    extern __shared__ int4 grid_smem[];
+    GridHead& head = *reinterpret_cast<GridHead*>(grid_smem);
+
+    // --- compaction (compact_lanes): after the head idx, two label
+    // buffers and each sorted survivor's neighbour count, 13 bytes a lane;
+    // the rest of the room takes a third label buffer, the sort's ids, the
+    // lists and the staged points
+    int* idx = reinterpret_cast<int*>(reinterpret_cast<char*>(grid_smem)
+                                      + OSLAM_GRID_HEAD);
+    const int n = compact_lanes(mask, N, S, rank, d, idx, head.warp_off,
+                                head.chunk_total, out_labels, sel);
+    GRID_CLOCK(1);
+    if (n == 0) {               // every block of the cluster takes this exit
+        if (rank == 0 && tid == 0) {
+            converged[d] = 1;
+            rounds[d] = 1;      // the first round changes nothing
+            if (sel.mask != nullptr) sel.ok[d] = 0;
+        }
+        return;
+    }
+    const int n_pad = (n + 31) & ~31;
+    int* lab0 = idx + n_pad;
+    int* lab1 = lab0 + n_pad;
+    uint8_t* cnt = reinterpret_cast<uint8_t*>(lab1 + n_pad);
+    char* free_at = reinterpret_cast<char*>(cnt + n_pad);
+    const char* smem_end = reinterpret_cast<const char*>(grid_smem)
+                           + smem_bytes;
+    // with S > 1, a third label buffer where it leaves room: the rounds'
+    // new labels then alternate between two buffers, and no block waits
+    // for the others before writing into their copies (a choice from n
+    // alone: every block of the cluster makes it alike)
+    int* lab2 = nullptr;
+    if (S > 1 && free_at + 4 * (size_t)n_pad + OSLAM_GRID_KEEP <= smem_end) {
+        lab2 = reinterpret_cast<int*>(free_at);
+        free_at += 4 * (size_t)n_pad;
+    }
+
+    // --- the key table: the least cell, the keys in lane order (in the
+    // labels' room, 2 n_pad ints, which the rounds only need later), and
+    // whether they already ascend; else the (key, id) pairs sorted
+    if (tid < 3) head.gmin[tid] = 0x7fffffff;
+    __syncthreads();
+    {
+        int mx = 0x7fffffff, my = 0x7fffffff, mz = 0x7fffffff;
+        for (int c = tid; c < n; c += T) {
+            const int o = idx[c];
+            mx = min(mx, cells[3 * o]);
+            my = min(my, cells[3 * o + 1]);
+            mz = min(mz, cells[3 * o + 2]);
+        }
+        mx = warp_min(mx);
+        my = warp_min(my);
+        mz = warp_min(mz);
+        if (lane == 0) {
+            atomicMin(&head.gmin[0], mx);
+            atomicMin(&head.gmin[1], my);
+            atomicMin(&head.gmin[2], mz);
+        }
+    }
+    __syncthreads();
+    int* keys = lab0;
+    for (int c = tid; c < n; c += T)
+        keys[c] = grid_key(cells, idx[c], head.gmin[0], head.gmin[1],
+                           head.gmin[2], R);
+    __syncthreads();
+    bool ascend = true;
+    for (int c = tid; c + 1 < n; c += T)
+        ascend = ascend && keys[c] <= keys[c + 1];
+    uint16_t* ids = nullptr;    // sorted position -> compacted id (null:
+                                // the identity)
+    if (!__syncthreads_and(ascend)) {
+        int n2 = 1;
+        while (n2 < n) n2 <<= 1;
+        const int room = (2 * n2 + 15) & ~15;
+        if (free_at + room <= smem_end) {
+            ids = reinterpret_cast<uint16_t*>(free_at);
+            free_at += room;
+        } else {
+            ids = scratch.ids + ((size_t)d * S + rank) * scratch.ids_stride;
+        }
+        for (int c = tid; c < n2; c += T) {
+            if (c >= n) keys[c] = 0x7fffffff;
+            ids[c] = (uint16_t)(c < n ? c : 0xffff);
+        }
+        __syncthreads();
+        for (int k = 2; k <= n2; k <<= 1)
+            for (int j = k >> 1; j > 0; j >>= 1) {
+                for (int a = tid; a < n2; a += T) {
+                    const int b = a ^ j;
+                    if (b <= a) continue;
+                    const int ka = keys[a], kb = keys[b];
+                    const int ia = ids[a], ib = ids[b];
+                    const bool gt = ka > kb || (ka == kb && ia > ib);
+                    if (gt == ((a & k) == 0)) {
+                        keys[a] = kb;
+                        keys[b] = ka;
+                        ids[a] = (uint16_t)ib;
+                        ids[b] = (uint16_t)ia;
+                    }
+                }
+                __syncthreads();
+            }
+    }
+    GRID_CLOCK(2);
+
+    // --- this block's slice of the sorted survivors, this thread's chunk
+    // of it, and the chunk's neighbour lists: counted, placed, written
+    const int per = (n + S - 1) / S;
+    const int b_lo = min(n, rank * per), b_hi = min(n, b_lo + per);
+    const int L = (b_hi - b_lo + T - 1) / T;
+    const int s0 = min(b_hi, b_lo + tid * L), s1 = min(b_hi, s0 + L);
+    // the window of sorted positions the slice's walks reach (the rows
+    // come in the order of their offsets), staged at the end of the room
+    // where it fits
+    int w_lo = 0, w_hi = 0;
+    if (b_lo < b_hi) {
+        w_lo = lower_bound_key(keys, n, keys[b_lo] + rows.lo[0]);
+        w_hi = lower_bound_key(keys, n, keys[b_hi - 1] + rows.hi[rows.n - 1]
+                                        + 1);
+    }
+    const float4* win = nullptr;
+    const char* lists_end = smem_end;
+    {
+        char* at = reinterpret_cast<char*>(
+            reinterpret_cast<size_t>(smem_end - 16 * (size_t)(w_hi - w_lo))
+            & ~(size_t)15);
+        if (w_lo < w_hi && at >= free_at) {
+            float4* w = reinterpret_cast<float4*>(at);
+            for (int q = w_lo + tid; q < w_hi; q += T) {
+                const int o = idx[ids != nullptr ? ids[q] : q];
+                w[q - w_lo] = make_float4(pts[3 * o], pts[3 * o + 1],
+                                          pts[3 * o + 2], 0.0f);
+            }
+            win = w;
+            lists_end = at;
+        }
+    }
+    __syncthreads();
+    int pos[OSLAM_GRID_MAX_ROWS], pos0[OSLAM_GRID_MAX_ROWS];
+    int hits = 0;
+    if (s0 < s1) {
+        grid_walk_start(keys, n, keys[s0], rows, pos0);
+#pragma unroll
+        for (int r = 0; r < OSLAM_GRID_MAX_ROWS; ++r) pos[r] = pos0[r];
+        for (int s = s0; s < s1; ++s) {
+            const int h = grid_walk<false>(keys, ids, n, s, rows, pos, win,
+                                           w_lo, pts, idx, tol2, nullptr);
+            cnt[s] = (uint8_t)h;
+            hits += h;
+        }
+    }
+    const int off0 = block_exclusive_sum(hits, head.warp_off,
+                                         &head.block_hits);
+    // the lists where they fit beside the staged points, else in the
+    // points' room (the second walk then reads the points from device
+    // memory), else in device memory
+    uint16_t* nbr = reinterpret_cast<uint16_t*>(free_at);
+    const char* lists_at = free_at + 2 * (size_t)head.block_hits;
+    if (lists_at > smem_end)
+        nbr = scratch.nbr + ((size_t)d * N + b_lo) * OSLAM_GRID_MAX_C;
+    else if (lists_at > lists_end)
+        win = nullptr;
+    if (s0 < s1) {
+#pragma unroll
+        for (int r = 0; r < OSLAM_GRID_MAX_ROWS; ++r) pos[r] = pos0[r];
+        int o = off0;
+        for (int s = s0; s < s1; ++s)
+            o += grid_walk<true>(keys, ids, n, s, rows, pos, win, w_lo, pts,
+                                 idx, tol2, nbr + o);
+    }
+    __syncthreads();            // the keys' room becomes the labels'
+    GRID_CLOCK(3);
+    seed_compacted(idx, labels0, n, n_pad, lab0, lab1);
+    __syncthreads();
+    // every block's labels are laid out before any remote write
+    if (S > 1) cluster.sync();
+
+    // --- the rounds.  cur: a round's labels.  The pass writes the new
+    // labels of the block's slice into `in` (with S > 1 into every block's
+    // copy too), the jumps go between `in` and `out`.  Two buffers: in is
+    // the one cur is not, and out is cur; a block then waits, before it
+    // writes into the others' copies, until every block is through the
+    // jumps of the round before.  Three: in alternates between lab1 and
+    // lab2 by round, out is lab0, so the copy a round writes into is one
+    // no block reads any more
+    int* cur = lab0;
+    int r = 0;
+    bool conv = false;
+#ifdef OSLAM_GRID_CLOCKS
+    long long span_at = clock64();
+#endif
+    for (;;) {
+        ++r;
+        int* in = lab2 != nullptr ? ((r & 1) ? lab2 : lab1)
+                                  : (cur == lab0 ? lab1 : lab0);
+        int* out = lab2 != nullptr ? lab0 : cur;
+        // --- the pass over this thread's chunk
+        bool moved = false;
+        int k = off0;
+        for (int s = s0; s < s1; ++s) {
+            const int i = ids != nullptr ? ids[s] : s;
+            const int li = cur[i];
+            int best = li;
+            const int k_end = k + cnt[s];
+#pragma unroll 4
+            for (; k < k_end; ++k) best = min(best, cur[nbr[k]]);
+            in[i] = best;
+            moved = moved || best != li;
+        }
+        bool chg = __syncthreads_or(moved);
+        GRID_SPAN(6);
+        if (S > 1) {
+            // this slice's new labels and its flag into every other
+            // block's copy
+            if (lab2 == nullptr && r > 1) cluster_wait();
+            for (int rr = 0; rr < S; ++rr) {
+                if (rr == rank) continue;
+                int* remote = cluster.map_shared_rank(in, rr);
+                for (int s = b_lo + tid; s < b_hi; s += T) {
+                    const int i = ids != nullptr ? ids[s] : s;
+                    remote[i] = in[i];
+                }
+                if (tid == 0)
+                    cluster.map_shared_rank(&head, rr)->chg_in[r & 1][rank] =
+                        chg;
+            }
+            if (tid == 0) head.chg_in[r & 1][rank] = chg;
+            cluster.sync();
+            chg = false;
+            for (int rr = 0; rr < S; ++rr) chg = chg || head.chg_in[r & 1][rr];
+        }
+        GRID_SPAN(7);
+
+        // --- the jumps on all n labels, up to the first that changes none
+        int* a = in;
+        int* b = out;
+        for (int it = 0; it < jump_iters; ++it) {
+            const bool jumped = jump_once<true>(a, b, n);
+            int* t = a;
+            a = b;
+            b = t;
+            if (!__syncthreads_or(jumped)) break;
+            chg = true;
+        }
+        cur = a;
+        GRID_SPAN(8);
+        if (!chg) {
+            conv = true;
+            break;
+        }
+        if (r >= outer_iters) break;
+        if (S > 1 && lab2 == nullptr) cluster_arrive();
+    }
+    GRID_CLOCK(4);
+
+    write_labels(idx, cur, n, S, rank, d, conv, r, out_labels, converged,
+                 rounds);
+    if (sel.mask != nullptr && rank == 0)
+        select_epilogue(idx, cur, cur == lab0 ? lab1 : lab0, n, N, d, conv,
+                        sel);
+    GRID_CLOCK(5);
+}
+
+// The dynamic shared memory cluster_grid_kernel may ask for, raised to all
+// its room once per device (see CcKernel).
+static int grid_room(int* room)
+{
+    static CcKernel state = {-1, 0};
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (state.dev != dev) {
+        cudaFuncAttributes fattr = {};
+        int optin = 0;
+        rc = cudaFuncGetAttributes(&fattr, (const void*)cluster_grid_kernel);
+        if (rc == cudaSuccess)
+            rc = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (rc == cudaSuccess)
+            rc = cudaFuncSetAttribute(
+                cluster_grid_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                optin - (int)fattr.sharedSizeBytes);
+        if (rc != cudaSuccess) return (int)rc;
+        state.dev = dev;
+        state.room = optin - (int)fattr.sharedSizeBytes;
+    }
+    *room = state.room;
+    return 0;
+}
+
+static cudaLaunchConfig_t grid_config(int S, int D, int T, int smem_bytes,
+                                      cudaLaunchAttribute* attr,
+                                      cudaStream_t stream)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S, D, 1);
+    cfg.blockDim = dim3(T, 1, 1);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
 // cluster_grid (K13): pts [D, N, 3] the points the cells were computed from
 // (camera frame on the extraction path), cells [D, N, 3] int32, mask, labels0
-// (chain-seeded on pts), R and smax the stencil (ops/cluster.grid_stencil),
-// hash [D, hash_cap] uint64, nbr [D, 124, N] uint16 and ncount [D, N] uint8
-// scratch (ops/cluster._launch_grid); with pts_w (not null) the selection
-// epilogue on those points and center [D, 3] (else center, min_size,
-// center_dis, least_d, sel_mask and sel_ok are not read).  S blocks of T
-// threads a detection, 12 bytes of dynamic shared memory a lane.
+// (chain-seeded on pts), R the stencil's rings and rows its rows (host
+// ints: their count, then each row's lo and hi; ops/cluster.grid_rows);
+// ids [D, S, ids_stride] and nbr [D, 124 N] uint16 device scratch
+// (ops/cluster._launch_grid); with pts_w (not null) the selection epilogue
+// on those points and center [D, 3] (else center, min_size, center_dis,
+// least_d, sel_mask and sel_ok are not read).  S blocks of T threads a
+// detection, smem_bytes of dynamic shared memory a block (at least the
+// head and 13 bytes a lane, rounded up to 32 lanes; ops/cluster.grid_smem).
 extern "C" int oslam_cluster_grid(
     const void* pts, const void* cells, const void* mask, const void* labels0,
-    int D, int N, float tol2, int R, int smax, int outer_iters,
-    int jump_iters, int S, int T, int P, int smem_bytes, void* hash,
-    int hash_cap, void* nbr, void* ncount, void* out_labels, void* converged,
-    void* rounds, const void* pts_w, const void* center, int min_size,
-    float center_dis, void* least_d, void* sel_mask, void* sel_ok,
-    void* stream)
+    int D, int N, float tol2, int R, const int* rows, int outer_iters,
+    int jump_iters, int S, int T, int smem_bytes, void* ids, int ids_stride,
+    void* nbr, void* out_labels, void* converged, void* rounds,
+    const void* pts_w, const void* center, int min_size, float center_dis,
+    void* least_d, void* sel_mask, void* sel_ok, void* stream)
 {
-    static const float identity[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
+    const int n_pad = (N + 31) & ~31;
+    int n2 = 1;
+    while (n2 < N) n2 <<= 1;
+    if (D < 1 || D > 65535 || N < 1 || N > 65535 || S < 1 || S > 8 ||
+        T < 32 || T > OSLAM_GRID_MAXT || T % 32 != 0 || outer_iters < 1 ||
+        jump_iters < 0 || smem_bytes < OSLAM_GRID_HEAD + 13 * n_pad)
+        return (int)cudaErrorInvalidConfiguration;
+    if (pts == nullptr || cells == nullptr || rows == nullptr ||
+        ids == nullptr || nbr == nullptr || ids_stride < n2 || R < 1 ||
+        rows[0] < 1 || rows[0] > OSLAM_GRID_MAX_ROWS)
+        return (int)cudaErrorInvalidValue;
+    GridRows gr = {};
+    gr.n = rows[0];
+    for (int r = 0; r < gr.n; ++r) {
+        gr.lo[r] = rows[1 + 2 * r];
+        gr.hi[r] = rows[2 + 2 * r];
+        // each an interval, in ascending order (the window of a slice's
+        // walks runs from the first row's lo to the last row's hi)
+        if (gr.lo[r] > gr.hi[r] || (r > 0 && gr.lo[r] <= gr.hi[r - 1]))
+            return (int)cudaErrorInvalidValue;
+    }
     Selection sel = {};
     if (pts_w != nullptr) {
         sel = {(const float*)pts_w, (const float*)center, min_size,
@@ -2219,21 +2699,37 @@ extern "C" int oslam_cluster_grid(
             sel.mask == nullptr || sel.ok == nullptr)
             return (int)cudaErrorInvalidValue;
     }
-    if (cells == nullptr) return (int)cudaErrorInvalidValue;
-    ClusterLane lane_args = {};
-    lane_args.cells = (const int*)cells;
-    lane_args.R = R;
-    lane_args.smax = smax;
-    lane_args.hash = (unsigned long long*)hash;
-    lane_args.hash_cap = hash_cap;
-    lane_args.nbr = (uint16_t*)nbr;
-    lane_args.ncount = (uint8_t*)ncount;
-    // the points' squared norms and the sort frame are not read by the grid
-    // lane; the frame only has to be a valid pointer for the checks
-    return cluster_launch(pts, pts, mask, labels0, D, N, tol2, outer_iters,
-                          jump_iters, S, T, P, smem_bytes, 0, identity, 0,
-                          out_labels, converged, rounds, sel, 0, lane_args,
-                          stream);
+    int room = 0;
+    int rc = grid_room(&room);
+    if (rc != 0) return rc;
+    if (smem_bytes > room) return (int)cudaErrorInvalidValue;
+    const GridScratch scratch = {(uint16_t*)ids, ids_stride, (uint16_t*)nbr};
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = grid_config(S, D, T, smem_bytes, attr,
+                                               (cudaStream_t)stream);
+    cudaError_t err = cudaLaunchKernelEx(
+        &cfg, cluster_grid_kernel, (const float*)pts, (const int*)cells,
+        (const uint8_t*)mask, (const int*)labels0, N, tol2, R, gr,
+        outer_iters, jump_iters, smem_bytes, scratch, (int*)out_labels,
+        (uint8_t*)converged, (int*)rounds, sel);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    return (int)err;
+}
+
+// How many clusters of S blocks of T threads with smem_bytes of dynamic
+// shared memory the card holds at once (cudaOccupancyMaxActiveClusters):
+// a launch of more detections runs in waves.
+extern "C" int oslam_cluster_grid_max_clusters(int S, int T, int smem_bytes,
+                                               int* out)
+{
+    int room = 0;
+    int rc = grid_room(&room);
+    if (rc != 0) return rc;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = grid_config(S, 1, T, smem_bytes, attr,
+                                               nullptr);
+    return (int)cudaOccupancyMaxActiveClusters(out, cluster_grid_kernel,
+                                               &cfg);
 }
 
 // ---------------------------------------------------------------------------

@@ -36,7 +36,9 @@ For tensors on a CUDA device the compaction and all rounds of a frame are
 one launch (csrc/frontend.cu, a thread block cluster per detection, nothing
 read back between rounds), with the cluster selection as its epilogue when
 asked: ``cluster_components`` (K5), its exact lane and its chain lane, and
-``cluster_grid`` (K13); on the CPU their plain versions, ``_rounds_loop``
+``cluster_grid`` (K13, a kernel of its own: a sorted key table and the
+neighbour lists in shared memory, its own launch shape ``grid_shape``); on
+the CPU their plain versions, ``_rounds_loop``
 over one pass function (``min_label_pass_plain``,
 ``min_label_pass_exact_plain`` or the grid table's minimum), the chain
 passes and ``pointer_jumps_plain``, then ``select_cluster``.  No plain
@@ -56,11 +58,13 @@ that each group pays its own rounds, not the slowest detection's of the
 batch; nothing here needs that: the kernel gives every detection its own
 rounds and stops each on its own.  Its sort-frame hint is then one
 rotation a detection (``frame`` [D, 3, 3]), since the batch's clouds are
-sorted in B cameras' frames.  The grid lane needs no hint: each
-detection's cells are its own camera's.
+sorted in B cameras' frames.  K13 needs no hint: each detection's cells are
+its own camera's.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -349,16 +353,42 @@ def grid_supported(tol: float, leaf: float, max_span: float) -> bool:
 
 
 def grid_stencil(tol: float, leaf: float):
-    """The grid kernel's stencil arguments (R, smax): the rings and the
-    greatest integer sum of squared cell gaps a stencil cell may have
-    (``_grid_offsets``' test ``... <= (tol / leaf)^2`` on integers), which
-    the kernel enumerates in ``_grid_offsets``' order."""
+    """The stencil's rings and bound (R, smax): the greatest integer sum of
+    squared cell gaps a stencil cell may have (``_grid_offsets``' test
+    ``... <= (tol / leaf)^2`` on integers).  Raises where the stencil
+    outgrows K13's 124 cells."""
     R, offs = _grid_offsets(tol, leaf)
     if len(offs) > 124:
         raise ValueError(f"tol={tol}, leaf={leaf}: a stencil of {len(offs)} "
                          "cells; the grid kernel takes at most 124 "
                          "(grid_supported)")
     return R, int(math.floor((tol / leaf) ** 2))
+
+
+def grid_rows(tol: float, leaf: float):
+    """K13's stencil as rows: for each (dx, dy) of ``_grid_offsets``'
+    cells, in their order, the packed-key offsets (lo, hi) of its cells,
+    which are the dz of one interval [-h, h] (the middle row's interval
+    also holds the centre cell, whose key the kernel leaves out).  Raises
+    where the stencil outgrows the kernel (``grid_stencil``)."""
+    grid_stencil(tol, leaf)
+    R, offs = _grid_offsets(tol, leaf)
+    rows = {}
+    for o in offs:
+        dz = (o + 512) % 1024 - 512
+        dy = ((o - dz) >> 10) % 1024
+        dy = dy - 1024 if dy >= 512 else dy
+        dx = (o - dz - (dy << 10)) >> 20
+        rows.setdefault((dx, dy), []).append(dz)
+    out = []
+    for (dx, dy), dzs in rows.items():
+        if (dx, dy) == (0, 0):
+            dzs = sorted(dzs + [0])
+        if dzs != list(range(dzs[0], dzs[-1] + 1)):
+            raise ValueError(f"the stencil's row {(dx, dy)} is no interval")
+        base = (dx << 20) + (dy << 10)
+        out.append((base + dzs[0], base + dzs[-1]))
+    return out
 
 
 def grid_neighbours_plain(pts, cells, mask, tol: float, leaf: float):
@@ -414,13 +444,14 @@ def grid_seed(pts, mask, tol: float):
                        ).to(torch.int32).contiguous()
 
 
-def cluster_grid_plain(pts, cells, mask, labels0, tol: float, leaf: float,
-                       outer_iters: int, jump_iters: int = 12):
-    """Plain PyTorch version of ``cluster_grid`` (any device): the
-    neighbour table (``grid_neighbours_plain``) in compacted numbering (a
-    masked neighbour, which only a sentinel key can give, as the point
-    itself: its label never wins), then ``_rounds_loop`` over the table's
-    minimum."""
+def grid_table_compacted(pts, cells, mask, labels0, tol: float,
+                         leaf: float):
+    """The neighbour table (``grid_neighbours_plain``) in compacted
+    numbering, as ``cluster_grid_plain``'s rounds read it: (sub [D, cap] the
+    lanes taken, m_c their mask, lab the starting labels, nbr_c [D, cap * C]
+    each point's C stencil slots, the point itself where a slot holds no
+    neighbour: a masked neighbour, which only a sentinel key can give,
+    counts as the point itself, whose label never wins)."""
     D, N = mask.shape
     nbr = grid_neighbours_plain(pts, cells, mask, tol, leaf)
     sub, m_c, (nbr_k,), lab = _compact_labels(mask, labels0, nbr)
@@ -432,6 +463,19 @@ def cluster_grid_plain(pts, cells, mask, labels0, tol: float, leaf: float,
     nbr_c = torch.where(torch.gather(mask, 1, flat).view(D, cap, C),
                         torch.gather(rank, 1, flat).view(D, cap, C),
                         self_c).reshape(D, -1)
+    return sub, m_c, lab, nbr_c
+
+
+def cluster_grid_plain(pts, cells, mask, labels0, tol: float, leaf: float,
+                       outer_iters: int, jump_iters: int = 12):
+    """Plain PyTorch version of ``cluster_grid`` (any device):
+    ``_rounds_loop`` over the minimum of ``grid_table_compacted``'s
+    table."""
+    D, N = mask.shape
+    sub, m_c, lab, nbr_c = grid_table_compacted(pts, cells, mask, labels0,
+                                                tol, leaf)
+    cap = sub.shape[1]
+    C = nbr_c.shape[1] // cap
 
     def pass_fn(rows, lab_r):
         got = torch.gather(lab_r, 1, nbr_c[rows]).view(len(rows), cap, C)
@@ -451,6 +495,18 @@ _SMEM_MAX = 227 * 1024 - 1024  # dynamic shared memory a block may ask for,
 #                                less the kernel's static part
 _SMEM_FIXED, _SMEM_RESIDENT = 13, 29    # bytes a lane: lane list, two label
 #                                buffers, boxes; and with the float4 point
+# K13's launch (blocks per detection, threads per block) by the detections
+# a launch has, the fewest first: its own shape, chosen by
+# examples/torch_cluster_sweep.py --grid.  Clusters of 8 blocks of 512
+# threads are fastest for a frame's detections (a detection's chain of
+# rounds is split 8 ways); an H100 holds 15 of them at once (30, 66, 132
+# clusters of 4, 2, 1), and past about three waves of them fewer blocks a
+# detection win
+GRID_LAUNCH_SHAPES = ((0, (8, 512)), (46, (4, 512)), (91, (2, 512)),
+                      (199, (1, 512)))
+_GRID_SMEM_FIXED = 13   # bytes a lane K13 keeps in shared memory: the lane
+#                         list, two label buffers, the neighbour counts
+_GRID_SMEM_HEAD = 256   # and a block's scalars (GridHead)
 
 
 def launch_smem(N: int) -> int:
@@ -682,13 +738,60 @@ def connected_components(pts: torch.Tensor, mask: torch.Tensor, tol: float,
     return out if len(out) > 1 else labels
 
 
+def grid_shape(D: int, N: int):
+    """K13's launch shape (blocks per detection, threads) for D detections
+    of N lanes (``GRID_LAUNCH_SHAPES``, by D; a choice from the shapes
+    alone, since the survivors are on the device)."""
+    shape = GRID_LAUNCH_SHAPES[0][1]
+    for least, s in GRID_LAUNCH_SHAPES:
+        if D >= least:
+            shape = s
+    return shape
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_consts(tol: float, leaf: float):
+    """K13's launch constants for (tol, leaf), computed once (the stencil's
+    Python loops take far longer than a launch): (R, the stencil rows as
+    host ints: their count, then each row's lo and hi; tol2 in f32)."""
+    R, _ = grid_stencil(tol, leaf)
+    rows = grid_rows(tol, leaf)
+    flat = [len(rows)] + [v for row in rows for v in row]
+    return (R, (ctypes.c_int * len(flat))(*flat),
+            float(torch.tensor(tol * tol, dtype=torch.float32)))
+
+
+def grid_smem_least(N: int) -> int:
+    """The least dynamic shared memory K13 takes for ``N`` lanes: a block's
+    scalars, then the lane list, two label buffers and the neighbour
+    counts, 13 bytes a lane (rounded up to 32 lanes)."""
+    return _GRID_SMEM_HEAD + _GRID_SMEM_FIXED * (-(-N // 32) * 32)
+
+
+def grid_smem(N: int) -> int:
+    """K13's dynamic shared memory for ``N`` lanes: all a block may have
+    (``grid_smem_least``, the rest for a third label buffer, the key
+    table's ids, the neighbour lists and the points their walks test,
+    which the kernel leaves in device memory where they do not fit).
+    Raises where the least does not fit."""
+    if grid_smem_least(N) > _SMEM_MAX:
+        most = (_SMEM_MAX - _GRID_SMEM_HEAD) // _GRID_SMEM_FIXED // 32 * 32
+        raise ValueError(f"cluster_grid takes at most {most} lanes a "
+                         f"detection (got {N}): its labels stay in one "
+                         "block's shared memory")
+    return _SMEM_MAX
+
+
 def _launch_grid(pts, cells, mask, labels0, tol: float, leaf: float,
-                 outer_iters: int, jump_iters: int, select=None, shape=None):
+                 outer_iters: int, jump_iters: int, select=None, shape=None,
+                 smem=None):
     """One launch of the grid kernel (K13, ``cluster_grid``) on CUDA
     tensors, checked.  ``select`` = (pts_w, center, min_size, center_dis)
-    asks for the selection epilogue; ``shape`` = (blocks a detection,
-    threads, points a lane) overrides ``LAUNCH_SHAPE``.  Returns (labels,
-    converged, rounds, sel | None, ok | None)."""
+    asks for the selection epilogue.  For the sweep and the kernel's tests
+    only: ``shape`` = (blocks a detection, threads) overrides
+    ``grid_shape``, ``smem`` the dynamic shared memory (less room moves
+    the neighbour lists to device memory).  Returns (labels, converged,
+    rounds, sel | None, ok | None)."""
     D, N = mask.shape
     dev = pts.device
     fk.check("pts", pts, torch.float32, (D, N, 3), dev)
@@ -697,14 +800,9 @@ def _launch_grid(pts, cells, mask, labels0, tol: float, leaf: float,
     fk.check("labels0", labels0, torch.int32, (D, N), dev)
     if outer_iters < 1 or jump_iters < 0:
         raise ValueError(f"outer_iters={outer_iters}, jump_iters={jump_iters}")
-    R, smax = grid_stencil(tol, leaf)
-    n_pad = -(-N // 32) * 32
-    smem = 12 * n_pad
-    if smem > _SMEM_MAX:
-        most = _SMEM_MAX // 12 // 32 * 32
-        raise ValueError(f"cluster_grid takes at most {most} lanes a "
-                         f"detection (got {N})")
-    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+    R, host_rows, tol2 = _grid_consts(tol, leaf)
+    smem = smem or grid_smem(N)
+    S, T = shape or grid_shape(D, N)
     labels = torch.empty_like(labels0)
     conv = torch.empty((D,), dtype=torch.bool, device=dev)
     rounds = torch.empty((D,), dtype=torch.int32, device=dev)
@@ -723,20 +821,20 @@ def _launch_grid(pts, cells, mask, labels0, tol: float, leaf: float,
                     center_dis, least_d.data_ptr(), sel.data_ptr(),
                     ok.data_ptr()]
     if D and N:
-        # scratch from the caching allocator: the hash table of packed cell
-        # keys (uint64 as int64), the neighbour table (16-bit compacted ids;
-        # a lane takes at most 124 neighbours) and the neighbour counts
-        hash_cap = 1 << max(6, (2 * n_pad - 1).bit_length())
-        hash_t = torch.empty((D, hash_cap), dtype=torch.int64, device=dev)
-        nbr = torch.empty((D, 124, N), dtype=torch.int16, device=dev)
-        ncount = torch.empty((D, N), dtype=torch.uint8, device=dev)
-        S, T, P = shape or LAUNCH_SHAPE
+        # the stencil's rows go as host ints (the C side copies them into
+        # the launch's arguments); scratch from the caching allocator where
+        # shared memory has no room: the sort's 16-bit ids (a block's own,
+        # the power of two at or above N) and the neighbour lists (16-bit
+        # compacted ids, at most 124 a survivor)
+        n2 = 1 << max(0, (N - 1).bit_length())
+        ids = torch.empty((D, S, n2), dtype=torch.int16, device=dev)
+        nbr = torch.empty((D, 124 * N), dtype=torch.int16, device=dev)
         fk.launch(fk.CLUSTER_GRID, "oslam_cluster_grid", dev, [
             pts.data_ptr(), cells.data_ptr(), mask.data_ptr(),
-            labels0.data_ptr(), D, N, tol2, R, smax, outer_iters, jump_iters,
-            S, T, P, smem, hash_t.data_ptr(), hash_cap,
-            nbr.data_ptr(), ncount.data_ptr(), labels.data_ptr(),
-            conv.data_ptr(), rounds.data_ptr(), *sel_args])
+            labels0.data_ptr(), D, N, tol2, R, ctypes.addressof(host_rows),
+            outer_iters, jump_iters, S, T, smem, ids.data_ptr(), n2,
+            nbr.data_ptr(), labels.data_ptr(), conv.data_ptr(),
+            rounds.data_ptr(), *sel_args])
     else:
         conv.fill_(True)
         rounds.fill_(1)

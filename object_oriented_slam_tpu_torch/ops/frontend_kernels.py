@@ -8,9 +8,10 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use
 point's depth-border flag averaged per voxel), ``cluster.cluster_components``
 and ``cluster.cluster_select`` (the clustering: one kernel, without and with
 the selection epilogue, one launch counter; its exact and chain lanes count
-apart), ``cluster.cluster_grid`` / ``cluster.cluster_grid_select`` (K13,
-the grid pass of ``grid_cluster``: the same kernel's third pass, a counter
-of its own), ``voxel.voxel_downsample`` and
+apart), ``cluster.cluster_grid`` / ``cluster.cluster_grid_select`` (K13
+``cluster_grid``, the grid pass of ``grid_cluster``: a kernel of its own
+beside the clustering kernel, with which it shares the compaction and the
+selection epilogue; a counter of its own), ``voxel.voxel_downsample`` and
 its attribute variants (voxel_downsample: the object downsample) and
 ``frontend.symmetry.estimate_symmetry`` (symmetry_search: the
 symmetry-plane search of stage (g), over every live point or, with a source
@@ -94,13 +95,15 @@ def _bind(lib_path: str) -> ctypes.CDLL:
              [p] * 4 + [i, i, f] + [i] * 7 + [p, i] + [p] * 3
              + [i, p, p, i] + [p, p, i, f, p, p, p]),
             ("oslam_cluster_grid",
-             [p] * 4 + [i, i, f] + [i] * 8 + [p, i] + [p] * 5
+             [p] * 4 + [i, i, f, i, p] + [i] * 5 + [p, i] + [p] * 4
              + [p, p, i, f, p, p, p]),
             ("oslam_symmetry_search",
              [p] * 9 + [i] * 4 + [f] * 11 + [i, i] + [p] * 6)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [p]      # ..., then the stream
         fn.restype = i
+    lib.oslam_cluster_grid_max_clusters.argtypes = [i, i, i, p]
+    lib.oslam_cluster_grid_max_clusters.restype = i
     lib.oslam_fe_error_string.argtypes = [i]
     lib.oslam_fe_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,7 +14,14 @@ on the card by tests/test_torch_frontend_kernels.py and chip_smoke.py.
   two borderline sine chains and a bridge, a dense uniform block with
   holes, tol / leaf = 1.8) through the port's grid path, labels equal to
   JAX's grid labels and to the port's exact labels; the stencil and the
-  gate on that file's cases; the exact pass on three blob clouds against
+  gate on that file's cases, and K13's stencil rows (``grid_rows``)
+  covering exactly JAX's stencil; the grid path against JAX on lanes in
+  random order and on cells held by two points (the key table's tie
+  rule); K13's host-side choices (launch shape, shared memory, rows) and
+  what they refuse; K13's CUDA source built for the CPU with g++
+  (examples/torch_cluster_grid_on_cpu.py) against the plain version on
+  the depth frame's clouds, truncated, with its points and lists out of
+  shared memory, shuffled, tied and tiny; the exact pass on three blob clouds against
   JAX's; every ``chains`` in -3..3 on tests/test_ops.py's zigzag clouds
   (labels and converged against JAX's; at chains = 2 also truncated at 2
   rounds); ``components_compacted`` at two caps against JAX's, and
@@ -169,6 +176,142 @@ def test_grid_gate_and_stencil_match_jax(tol, leaf, span):
     else:
         with pytest.raises(ValueError, match="124"):
             tcl.grid_stencil(tol, leaf)
+
+
+@pytest.mark.parametrize("tol,leaf,span", [
+    (0.02, 0.01, 7.2), (0.08, 0.01, 7.2), (0.02, 0.01, 11.0),
+    (0.018, 0.01, 7.2), (0.03, 0.01, 5.0)])
+def test_grid_rows_cover_the_stencil(tol, leaf, span):
+    """K13's stencil rows (``grid_rows``, the key intervals the kernel
+    walks) cover exactly JAX's ``_grid_offsets`` set, each cell once, with
+    the centre cell the only extra key; a stencil over 124 cells raises."""
+    _, offs = jcl._grid_offsets(tol, leaf)
+    if len(offs) > 124:
+        with pytest.raises(ValueError, match="124"):
+            tcl.grid_rows(tol, leaf)
+        return
+    rows = tcl.grid_rows(tol, leaf)
+    keys = [k for lo, hi in rows for k in range(lo, hi + 1)]
+    assert len(rows) <= 25 and all(lo <= hi for lo, hi in rows)
+    assert len(keys) == len(set(keys)) == len(offs) + 1
+    assert set(keys) - {0} == set(offs) and 0 in keys
+
+
+def _grid_variant_clouds(grid_clouds):
+    """Three grid inputs at GRID_N lanes (the fixture's JAX call's batch,
+    so JAX compiles nothing new): the "blobs" and "uniform_dense" clouds
+    with their lanes in a seeded random order, and the "chains" cloud with
+    100 padding lanes made live as copies of live cells (a cell held by two
+    points, the copy's point 3 mm away), in lane order."""
+    b = grid_clouds["blobs"]
+    perm = np.random.default_rng(21).permutation(GRID_N)
+    shuffled = (b["pts"][perm], b["cells"][perm], b["mask"][perm])
+    c = grid_clouds["chains"]
+    pts, cells, mask = c["pts"].copy(), c["cells"].copy(), c["mask"].copy()
+    live = np.flatnonzero(mask)
+    src = np.random.default_rng(22).choice(live, 100, replace=False)
+    dst = np.flatnonzero(~mask)[:100]
+    pts[dst] = pts[src] + np.float32(0.003)
+    cells[dst] = cells[src]
+    mask[dst] = True
+    u = grid_clouds["uniform_dense"]
+    return [shuffled, (pts, cells, mask),
+            tuple(u[k][perm] for k in ("pts", "cells", "mask"))]
+
+
+def test_grid_plain_matches_jax_on_shuffled_and_repeated_cells(grid_clouds):
+    """The grid pass's plain version (``grid_neighbours_plain``'s table,
+    ``cluster_grid_plain``'s rounds) against JAX's
+    ``connected_components_grid`` where the key table's order matters: lanes
+    in random order, and a cell held by two points (the least lane takes
+    it, as JAX's stable sort gives it): labels and converged equal."""
+    clouds = _grid_variant_clouds(grid_clouds)
+    jlab, jconv = jax.vmap(lambda p, c, m: jcl.connected_components_grid(
+        p, c, m, 0.02, 0.01, outer_iters=16, with_converged=True))(
+        *(jnp.asarray(np.stack([v[k] for v in clouds])) for k in range(3)))
+    P, C, M = (_t(np.stack([v[k] for v in clouds])) for k in range(3))
+    lab, conv = tcl.connected_components_grid(P, C, M, 0.02, 0.01,
+                                              outer_iters=16,
+                                              with_converged=True)
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(jconv))
+    assert bool(conv.all())
+    # the repeated cells' copies are nobody's table entry: only the least
+    # lane of a key is found
+    nbr = tcl.grid_neighbours_plain(P[1:2], C[1:2], M[1:2], 0.02,
+                                    0.01)
+    dst = np.flatnonzero(~grid_clouds["chains"]["mask"])[:100]
+    own = torch.arange(GRID_N)[:, None]
+    found = set(nbr[0][(nbr[0] != own) & M[1][:, None]].tolist())
+    assert found and not found & set(dst.tolist())
+
+
+def test_grid_host_choices_refuse_what_does_not_fit():
+    """K13's host-side choices: the shape from D and N is one the kernel
+    takes, the shared memory holds the 13 bytes a lane up to the most lanes
+    and refuses more, the stencil rows refuse a stencil over 124 cells."""
+    for D, N in ((1, 32), (32, 4096), (8, 16384), (64, 4096), (128, 4096),
+                 (256, 4096), (65535, 32)):
+        S, T = tcl.grid_shape(D, N)
+        assert 1 <= S <= 8 and 32 <= T <= 512 and T % 32 == 0
+    # fewer blocks a detection as the detections grow
+    shapes = [tcl.grid_shape(D, 4096)[0] for D in (8, 32, 64, 128, 256)]
+    assert shapes == sorted(shapes, reverse=True) and shapes[0] == 8
+    most = (tcl._SMEM_MAX - 256) // 13 // 32 * 32
+    assert tcl.grid_smem_least(most) == 256 + 13 * most
+    assert tcl.grid_smem(most) >= tcl.grid_smem_least(most)
+    assert tcl.grid_smem(16384) >= 256 + 13 * 16384
+    with pytest.raises(ValueError, match="lanes"):
+        tcl.grid_smem(most + 1)
+    with pytest.raises(ValueError, match="124"):
+        tcl.grid_rows(0.08, 0.01)
+
+
+@pytest.fixture(scope="module")
+def k13_on_cpu(tmp_path_factory):
+    """examples/torch_cluster_grid_on_cpu.py: K13's kernel source built
+    with g++, a block a detection as std::threads."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_grid_on_cpu",
+        os.path.join(root, "examples", "torch_cluster_grid_on_cpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = mod.build(os.path.join(root, "object_oriented_slam_tpu_torch",
+                                 "csrc", "frontend.cu"),
+                    str(tmp_path_factory.mktemp("k13") / "k13.so"))
+    return mod, lib, mod.cases()
+
+
+@pytest.mark.parametrize("case,S", [
+    ("path", 1), ("path", 4), ("path-2", 4), ("path-device", 4),
+    ("path-window", 1), ("shuffled", 4), ("ties", 4), ("sizes", 1)])
+def test_k13_source_built_for_the_cpu_equals_plain(k13_on_cpu, case, S):
+    """K13's CUDA source, built for the CPU (S blocks of 64 threads a
+    detection, a cluster's distributed shared memory and barriers
+    emulated), against its plain version: labels, converged, rounds, sel
+    and ok equal, a second call bit-equal.  The key table sorted or taken
+    in lane order; the lists and points in shared or device memory; two
+    label buffers and a wait before the remote writes, or three; truncated
+    rounds, tied cells and tiny detections (the card's cases are the
+    cuda-marked tests/test_torch_frontend_kernels.py's)."""
+    mod, lib, cases = k13_on_cpu
+    pts, cells, mask, outer, smem = cases[case]
+    pts, cells, mask = (t.contiguous() for t in (pts, cells, mask))
+    labels0 = tcl.grid_seed(pts, mask, 0.02)
+    pts_w = (pts + torch.tensor([0.3, -0.2, 0.1])).contiguous()
+    centre = pts_w[:, 0].contiguous()
+    want = tcl.cluster_grid_select_plain(pts, cells, mask, labels0, pts_w,
+                                         centre, 0.02, 0.01, outer, 12, 100,
+                                         0.5)
+    got = [mod.run(lib, pts, cells, mask, labels0, pts_w, centre, 0.02,
+                   0.01, outer, 64, smem, S) for _ in range(2)]
+    for g in got:
+        for a, b in zip(g, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(want[4].max()) >= 2
 
 
 def test_exact_matches_jax():

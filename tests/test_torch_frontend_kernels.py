@@ -378,8 +378,8 @@ def test_cluster_grid_equals_plain(device):
     version's on the depth frame's voxel clouds (one launch, nothing read
     back between rounds), with the selection epilogue on the world points
     too, a second launch the same bits, other launch shapes the same, a
-    bound of 2 rounds the same, lanes given in a shuffled order (the hash
-    table needs no order) the same labels mapped, and it counts on
+    bound of 2 rounds the same, lanes given in a shuffled order (the key
+    table is then sorted) the same labels mapped, and it counts on
     ``CLUSTER_GRID`` alone."""
     pts_v, cells_v, pts_w, m2 = _grid_inputs()
     labels0 = cl.grid_seed(pts_v, m2, 0.02)
@@ -404,8 +404,7 @@ def test_cluster_grid_equals_plain(device):
             assert bool(want[3].all()) and int(want[4].max()) > 2
             _assert_same(cl.cluster_grid(*d(pts_v, cells_v, m2, labels0),
                                          0.02, 0.01, 96, 12), want[2:])
-            P = cl.LAUNCH_SHAPE[2]
-            for shape in ((1, 256, P), (3, 128, P), (8, 64, P)):
+            for shape in ((1, 256), (2, 128), (3, 128), (4, 512), (8, 64)):
                 _assert_same(cl._launch_grid(*d(pts_v, cells_v, m2,
                                                  labels0), 0.02, 0.01, 96, 12,
                                               shape=shape)[:3], want[2:])
@@ -469,6 +468,115 @@ def test_cluster_grid_full_tier_and_refusals(device):
                                       device=device),
                           torch.zeros((1, 20000), dtype=torch.int32,
                                       device=device)), 0.02, 0.01, 96, 12)
+    # a launch the card refuses raises; nothing falls back: a cluster of
+    # 16 blocks, more threads than the kernel's bound
+    for shape in ((16, 256), (1, 1024)):
+        with pytest.raises(RuntimeError, match="cluster_grid"):
+            cl._launch_grid(*d, 0.02, 0.01, 96, 12, shape=shape)
+
+
+def _grid_case(name):
+    """Inputs of K13's cases on the card: (pts, cells, mask, outer_iters,
+    smem or None).  ``shuffled``: the depth frame's voxel clouds with the
+    lanes in random order (the key table is sorted); ``ties``: clouds where
+    pairs of survivors share a cell (the least lane takes it), one of them
+    shuffled; ``sizes``: detections of 1, 31, 32 and 33 survivors on 6 x 6
+    x 2 cm slabs and an all-masked one; ``inside`` / ``past``: one
+    detection of 1024 live voxels with exactly the shared memory its lists
+    need beside the least K13 takes (the lists take the staged points'
+    room), and one byte less (the lists in device memory); ``lanes16384``: voxel surfaces that fill 16384 lanes;
+    ``truncated``: the depth frame under a bound of 3 rounds."""
+    if name in ("shuffled", "truncated"):
+        pts, cells, _, mask = _grid_inputs()
+        if name == "truncated":
+            return pts, cells, mask, 3, None
+        perm = torch.randperm(mask.shape[1],
+                              generator=torch.Generator().manual_seed(2))
+        return pts[:, perm], cells[:, perm], mask[:, perm], 96, None
+    rng = np.random.default_rng(12)
+    if name == "ties":
+        D, N = 3, 600
+        base = rng.uniform(0.0, 0.12, (D, N // 2, 3)).astype(np.float32)
+        pts = np.concatenate(
+            [base, base + rng.uniform(-0.002, 0.002, base.shape)
+             .astype(np.float32)], 1)
+        pts[2] = pts[2][rng.permutation(N)]
+        pts = torch.from_numpy(pts)
+        cells = torch.floor(pts / 0.01).to(torch.int32)
+        mask = torch.from_numpy(rng.random((D, N)) > 0.1)
+        return pts, cells, mask, 96, None
+    if name == "sizes":
+        D, N = 5, 128
+        pts = (rng.uniform(0.0, 1.0, (D, N, 3)) * [0.06, 0.06, 0.02]
+               + [0.0, 0.0, 1.0]).astype(np.float32)
+        mask = np.zeros((D, N), bool)
+        for k, n in enumerate((1, 31, 32, 33, 0)):
+            mask[k, rng.choice(N, n, replace=False)] = True
+        pts = torch.from_numpy(pts)
+        return (pts, torch.floor(pts / 0.01).to(torch.int32),
+                torch.from_numpy(mask), 96, None)
+    if name in ("inside", "past"):
+        raw = (rng.uniform(0.0, 0.2, (40000, 3)) + [0, 0, 1.5]).astype(
+            np.float32)
+        pts, cells, mask = vx.voxel_downsample_cells(
+            torch.from_numpy(raw)[None],
+            torch.ones(1, 40000, dtype=torch.bool), 0.01, 1024)
+        assert bool(mask.all())
+        nbr = cl.grid_neighbours_plain(pts, cells, mask, 0.02, 0.01)
+        hits = int((nbr != torch.arange(1024)[None, :, None]).sum())
+        smem = cl.grid_smem_least(1024) + 2 * hits - (name == "past")
+        return pts, cells, mask, 96, smem
+    assert name == "lanes16384"
+    pts, cells, mask = dense_voxel_clouds(3, 16384, 5)
+    return pts, cells, mask, 96, None
+
+
+def dense_voxel_clouds(D, N, seed):
+    """Wavy voxel surfaces 1.6 m across (1 cm cells, camera frame) that
+    fill N lanes, 10 % of the lanes masked (chip_smoke.dense_voxel_clouds'
+    recipe)."""
+    rng = np.random.default_rng(seed)
+    M = 12 * N
+    u = rng.uniform(-0.8, 0.8, (D, M, 2))
+    z = 2.0 + 0.05 * np.sin(9 * u[..., 0]) * np.cos(7 * u[..., 1])
+    raw = np.concatenate([u, z[..., None]], -1).astype(np.float32)
+    pts, cells, mask = vx.voxel_downsample_cells(
+        torch.from_numpy(raw), torch.ones((D, M), dtype=torch.bool), 0.01, N)
+    mask = mask & torch.from_numpy(rng.random((D, N)) >= 0.1)
+    return pts.contiguous(), cells.contiguous(), mask.contiguous()
+
+
+@pytest.mark.parametrize("case", ["shuffled", "ties", "sizes", "inside",
+                                  "past", "lanes16384", "truncated"])
+def test_cluster_grid_cases_equal_plain(device, case):
+    """K13 against its plain version on each case of ``_grid_case``:
+    labels, converged, rounds and the selection's sel and ok equal, a
+    second launch bit-equal, at the default launch shape and at clusters of
+    1, 2, 4 and 8 blocks."""
+    pts, cells, mask, outer, smem = _grid_case(case)
+    labels0 = cl.grid_seed(pts, mask, 0.02)
+    pts_w = (pts + torch.tensor([0.3, -0.2, 0.1])).contiguous()
+    centre = pts_w[:, 0].contiguous()
+    args = (pts.contiguous(), cells.contiguous(), mask.contiguous(), labels0,
+            pts_w, centre)
+    want = cl.cluster_grid_select_plain(*args, 0.02, 0.01, outer, 12, 100,
+                                        0.5)
+    if case == "truncated":
+        assert not bool(want[3].all())
+    elif case in ("shuffled", "ties", "sizes", "lanes16384"):
+        assert bool(want[3].all()) and int(want[4].max()) > 2
+    a = [t.to(device) for t in args]
+    runs = [cl.cluster_grid_select(*a, 0.02, 0.01, outer, 12, 100, 0.5)
+            for _ in range(2)]
+    for shape in ((1, 512), (2, 256), (4, 128), (8, 512)):
+        lab, conv, rounds, sel, ok = cl._launch_grid(
+            *a[:4], 0.02, 0.01, outer, 12, (a[4], a[5], 100, 0.5),
+            shape=shape, smem=smem)
+        runs.append((sel, ok, lab, conv, rounds))
+    torch.cuda.synchronize()
+    for got in runs:
+        _assert_same(got, want)
+    assert all(_bits_equal(x, y) for x, y in zip(runs[0], runs[1]))
 
 
 @pytest.mark.parametrize("option", [dict(grid_cluster=True),
