@@ -165,13 +165,20 @@ Phases (each raises on failure; the script exits non-zero if any fails):
      external DenseBuilder, 1 cm leaf, stride 4, 1 << 19 cells): K12
      (csrc/dense_fuse.cu) launched once a frame, map.ply's point count the
      builder's mask count, objects.txt byte for byte the adaptive mono
-     run's, frames/s beside that run's; K12 against its plain version on
-     the CPU (bit for bit, or it raises past points 1e-6 / colours 1e-4,
-     masks equal) and on the card at the export's first frame into an
-     empty map and at a mid-orbit frame into the run's filled map, repeats
-     bit-equal, device ms of a fuse beside its bound (the map's rows in and
-     out and the frame's strided pixels, each byte once), the plain
-     version's and the stable sort + gather + segment_reduce yardstick's;
+     run's, frames/s beside that run's, the run's fuses by path (the
+     device's tally: the fast merge, the general sort); K12 against its
+     plain version on the CPU (bit for bit, or it raises) and on the card
+     at the export's first frame into an empty map and at a mid-orbit
+     frame into the run's filled map (the fast path, or it raises) and
+     into the same map with its rows shuffled (the general path, or it
+     raises), repeats
+     bit-equal, one device operation a fuse (the profiler's, or it
+     raises), device ms of a fuse beside its bound (the map's rows in and
+     out and the frame's strided pixels, each byte once) and the design's
+     own bytes (printed), the plain version's and the stable sort + gather
+     + segment_reduce yardstick's; a builder's fuse of the mid-orbit frame
+     under torch.cuda.set_sync_debug_mode("error"), its two-frame map bit
+     for bit the plain version's;
   6h. the AoS backend ([aos]): a tracker with use_soa_backend=False
      (its _opt_fn picked again, the JAX package's wiring) and
      use_incremental_init=False over 48 frames of the 2D path's scene:
@@ -357,6 +364,34 @@ def cuda_ms(fn, reps, warmup=2):
     return a.elapsed_time(b) / reps
 
 
+def queued_ms(fn, reps, warmup=2):
+    """Mean time the card spends on one fn() call, CUDA events around reps
+    back-to-back calls that wait on the card behind a spin
+    (``torch.cuda._sleep``): the card starts them only once the host has
+    enqueued them all, so a host slower than the kernel adds no gaps.  The
+    spin starts at 2^23 cycles and doubles while the host had not finished
+    enqueueing when the spin ended (the start event already passed)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 23
+    for _ in range(8):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        waited = not a.query()
+        torch.cuda.synchronize()
+        if waited:
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    raise RuntimeError(f"the host took longer to enqueue {reps} calls than "
+                       f"a spin of {cycles // 2} cycles")
+
+
 def profiled(fn, reps=1, expect=None):
     """The profiler's CUDA events (kernels, copies, memsets) of reps fn()
     calls, synchronized.  In a process that has run for a while a trace
@@ -413,15 +448,16 @@ def device_ms(fn, reps, warmup=2, name=None):
 
 
 def checked_device_ms(fn, reps, name):
-    """``device_ms`` of a kernel that runs for longer than the host takes to
-    enqueue it, held against CUDA events around the same back-to-back
-    launches (which then time the card too, gaps included): a trace may
-    carry the right count of events and a wrong time.  The profiler's time
-    must lie within 0.75 to 1.05 of the events'; else both are taken again,
-    up to three times.  Returns (profiler ms, events ms)."""
+    """``device_ms`` of a kernel, held against CUDA events around the same
+    back-to-back launches enqueued behind a spin of the card (``queued_ms``:
+    the card's time, gaps between launches included, however slow the host
+    is): a trace may carry the right count of events and a wrong time.  The
+    profiler's time must lie within 0.75 to 1.05 of the events'; else both
+    are taken again, up to three times.  Returns (profiler ms, events
+    ms)."""
     for _ in range(3):
         ms = device_ms(fn, reps, name=name)
-        ev = cuda_ms(fn, reps)
+        ev = queued_ms(fn, reps)
         if 0.75 * ev <= ms <= 1.05 * ev:
             return ms, ev
     raise RuntimeError(f"{name}: the profiler reads {ms:.4f} ms a launch, "
@@ -3727,28 +3763,80 @@ def dense_yardstick(key, vals, capacity):
     return busy_ms(call), busy_ms(lambda: torch.sort(key, stable=True))
 
 
+def dense_design_bytes(cap, F, n_live, path):
+    """The bytes K12's own design moves, each pass counted (beside the
+    contract's bound, which counts each input and output once): the map's
+    rows read for their cells (13 bytes), again for their keys (13, from
+    L2) with the key written (4), the keys read by the merge's count and
+    sums (8), the rows' points and colours (24) and the output written
+    (25); a frame pixel's depth and colour (16), its row written (25) and
+    read back as the map's are (13 + 4 + 8 + 24), its sorted key and id
+    (8).  The general path adds four radix passes over the n_live live
+    keys and ids (each read twice, written once: 24 bytes a pass)."""
+    n = cap * (13 + 13 + 4 + 8 + 24 + 25) + F * (16 + 25 + 13 + 4 + 8 + 24 + 8)
+    return n + (4 * 24 * n_live if path else 0)
+
+
+def dense_largest_bucket(state, frame, cam, leaf, stride, depth_range):
+    """The most live frame pixels in one bucket of K12's frame sort, as
+    its frame_buckets and phase_keys make them (the frame's cells less
+    their least, a mixed-radix key over the frame's extent, 4,096 ranges),
+    0 where a frame cell clips: the fast path sorts buckets of up to 64
+    pixels by a warp and of up to 1,024 by the block, and a larger one
+    sends the frame's keys to the general sort."""
+    from object_oriented_slam_tpu_torch.ops import dense_fuse as df
+    from object_oriented_slam_tpu_torch.ops import voxel as vx
+    w, _, fm = df.frame_points_plain(*frame, cam, stride, depth_range)
+    cells = vx.voxel_cells(torch.cat([state[0], w]), leaf)
+    live = torch.cat([state[2], fm])
+    cmin = torch.where(live[:, None], cells, 2 ** 30).amin(0)
+    fc = cells[state[0].shape[0]:][fm]
+    if len(fc) == 0 or bool(((fc - cmin) > 1023).any()):
+        return 0
+    lo = fc.amin(0)
+    n = (fc.amax(0) - lo + 1).tolist()
+    rel = (fc - lo).long()
+    compact = (rel[:, 0] * n[1] + rel[:, 1]) * n[2] + rel[:, 2]
+    mul = (1 << 44) // (n[0] * n[1] * n[2])
+    return int(torch.bincount((compact * mul) >> 32).max())
+
+
 def dense_checks(dev, tag, state, frame, cam, b):
     """K12 at one (map, frame): against its plain version on the CPU (bit
-    for bit, or it raises past points 1e-6 / colours 1e-4 / masks equal)
-    and on the card (index_add_'s atomics: points 1e-6, colours 1e-4),
-    repeats bit-equal; device ms of one fuse (the profiler's events: the
-    two calls' kernels, the sort, the memsets) beside CUDA events, the
-    bound (map in and out, the frame's strided pixels, each byte once),
-    the plain version's ms on the card and the yardstick's.  Returns the
-    record."""
+    for bit) and on the card (index_add_'s atomics: points 1e-6, colours 1e-4),
+    repeats bit-equal; the path the fuse took (the tally: 0 the fast
+    merge, 1 the general sort) and the device operations of one fuse
+    (the profiler's); device ms of one fuse (the profiler's events) beside
+    CUDA events, each with a reload of the map before each fuse, timed
+    alone and taken off (PR 16's way), and beside them a fuse of the map
+    from the buffer it was loaded into once (``loaded_ms``), the bound (map
+    in and out, the frame's strided pixels, each byte once) and the
+    design's own bytes (dense_design_bytes, printed), the plain version's
+    ms on the card and the yardstick's.  Raises unless the fuse is bit
+    for bit the plain version's on the CPU.  Returns the record."""
     from object_oriented_slam_tpu_torch.ops import dense_fuse as df
     depth, rgb, pose = frame
     H, W = depth.shape
     cap, stride = b.capacity, b.stride
     args = (cam, b.leaf, b.depth_range)
     work = df.FuseWork(cap, H, W, stride, dev)
+    work.load(*state)
+    a = work.cur
 
     def fuse():
+        # the map stays in buffer a (a fuse reads it and writes the other
+        # buffer), so every repeat fuses the same inputs
+        work.cur = a
+        return work.fuse(depth, rgb, pose, *args)
+
+    def fuse_reload():
         work.load(*state)
         return work.fuse(depth, rgb, pose, *args)
 
     launched = df.DENSE_FUSE.launches       # comparisons are not the path's
+    tally = work.tally.clone()
     got = [t.clone() for t in fuse()]
+    path = int(torch.argmax(work.tally - tally))
     again = [t.clone() for t in fuse()]
     torch.cuda.synchronize()
     cpu = [t.cpu() for t in (*state, depth, rgb, pose)]
@@ -3764,38 +3852,59 @@ def dense_checks(dev, tag, state, frame, cam, b):
              and torch.equal(got[2], on_card[2]))
     repeat = all(same_bits(g.cpu(), a.cpu()) for g, a in zip(got, again))
     live_in, live_out = int(state[2].sum()), int(got[2].sum())
+    ops = sum(e.count for e in profiled(fuse))
+    loaded_ms = busy_ms(fuse, reps=10)
     # a fuse into the map it reloads each time, so that every repeat sees
     # the same map; the reload (a device copy) is timed alone and taken off
-    fuse_ms = busy_ms(fuse, reps=10) - busy_ms(lambda: work.load(*state),
-                                               reps=10)
-    ev_ms = cuda_ms(fuse, 10) - cuda_ms(lambda: work.load(*state), 10)
+    fuse_ms = busy_ms(fuse_reload, reps=10) - busy_ms(
+        lambda: work.load(*state), reps=10)
+    ev_ms = cuda_ms(fuse_reload, 10) - cuda_ms(lambda: work.load(*state), 10)
+    work.load(*state)
+    a = work.cur
     plain_ms = cuda_ms(lambda: df.dense_fuse_plain(
         *state, depth, rgb, pose, cam, stride, b.leaf, cap, b.depth_range), 3)
     hs, ws = df.frame_grid(H, W, stride)
     F = hs * ws
     n_bytes = cap * 25 * 2 + F * (4 + 12) + 28
     bound = (n_bytes / PEAK_BYTES * 1e3, "bytes")
-    fuse()
-    a = 1 - work.cur                # the buffer the last fuse read
+    live_keys = live_in + int(df.frame_points_plain(
+        depth, rgb, pose, cam, stride, b.depth_range)[2].sum())
+    design = dense_design_bytes(cap, F, live_keys, path)
+    bucket = dense_largest_bucket(state, frame, cam, b.leaf, stride,
+                                  b.depth_range)
+    fuse()                          # its keys and frame rows, buffer a
     lib_ms, sort_ms = dense_yardstick(
         work.keys.clone(), torch.cat([work.pts[a], work.col[a]], dim=1), cap)
     print(f"[dense] K12 {tag}: map {live_in} -> {live_out} cells of {cap}, "
-          f"{F} strided pixels; against the plain version on the CPU "
-          f"bit-equal {bits} (points {err_p:.3g}, colours {err_c:.3g}), on "
-          f"the card points {card_p:.3g} colours {card_c:.3g}; masks equal "
-          f"{masks}; repeats bit-equal {repeat}; {fuse_ms:.4f} ms a fuse "
-          f"(profiler; CUDA events {ev_ms:.4f}), bound {bound[0] * 1e3:.2f} "
-          f"us ({n_bytes} bytes), share {bound[0] / fuse_ms:.4f}; plain on "
-          f"the card {plain_ms:.3f} ms; yardstick (stable sort + gather + "
+          f"{F} strided pixels, at most {bucket} in a bucket of the frame "
+          f"sort; the {('fast', 'general')[path]} path; "
+          f"{ops} device operation(s) a fuse; against the plain version on "
+          f"the CPU bit-equal {bits} (points {err_p:.3g}, colours "
+          f"{err_c:.3g}), on the card points {card_p:.3g} colours "
+          f"{card_c:.3g}; masks equal {masks}; repeats bit-equal {repeat}; "
+          f"{fuse_ms:.4f} ms a fuse (profiler, a reload taken off; CUDA "
+          f"events {ev_ms:.4f}; of the map as loaded once "
+          f"{loaded_ms:.4f}), "
+          f"bound {bound[0] * 1e3:.2f} us ({n_bytes} bytes), share "
+          f"{bound[0] / fuse_ms:.4f}; the design's own bytes {design} "
+          f"({design / PEAK_BYTES * 1e6:.2f} us, share "
+          f"{design / PEAK_BYTES * 1e3 / fuse_ms:.4f}); plain on the card "
+          f"{plain_ms:.3f} ms; yardstick (stable sort + gather + "
           f"segment_reduce) {lib_ms:.4f} ms, its sort {sort_ms:.4f} ms")
     if not (masks and repeat and err_p <= 1e-6 and err_c <= 1e-4
             and card_p <= 1e-6 and card_c <= 1e-4):
         raise RuntimeError(f"K12 {tag} disagrees with its plain version")
+    if not bits:
+        raise RuntimeError(f"K12 {tag} is not bit for bit its plain version "
+                           "on the CPU")
+    if ops != 1:
+        raise RuntimeError(f"K12 {tag}: {ops} device operations a fuse")
     df.DENSE_FUSE.launches = launched
     return dict(kernel="dense_fuse", shape=(cap, F), max_abs_err=max(
         err_p, err_c), max_rel_err=max(err_p, err_c), ms=fuse_ms,
         events_ms=ev_ms, plain_ms=plain_ms, bound=bound, library_ms=lib_ms,
-        sort_ms=sort_ms, bits_equal=bits, live_points=live_out)
+        sort_ms=sort_ms, bits_equal=bits, live_points=live_out, path=path,
+        device_ops=ops, loaded_ms=loaded_ms)
 
 
 def phase_dense(dev, tmp, cli):
@@ -3851,6 +3960,12 @@ def phase_dense(dev, tmp, cli):
     if n_file != n_mask or n_mask <= 0:
         raise RuntimeError(f"map.ply holds {n_file} points, the builder's "
                            f"mask {n_mask}")
+    tally = b._work.tally.tolist()
+    print(f"[dense] --build-dense: K12's paths over the run's "
+          f"{N_DEPTH_FRAMES} fuses: fast {tally[0]}, general {tally[1]}")
+    if sum(tally) != N_DEPTH_FRAMES:
+        raise RuntimeError(f"K12's path tally {tally} over "
+                           f"{N_DEPTH_FRAMES} fuses")
     ds = TUMDataset(cli["seq"], with_rgb=True)
     try:
         frames = {i: (depth, rgb, pose)
@@ -3868,12 +3983,63 @@ def phase_dense(dev, tmp, cli):
     empty = (torch.zeros(cap, 3, device=dev), torch.zeros(cap, 3, device=dev),
              torch.zeros(cap, dtype=torch.bool, device=dev))
     filled = (b.pts.clone(), b.rgb.clone(), b.mask.clone())
+    perm = torch.randperm(cap, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    mid = on_card(*frames[DENSE_FRAMES[1]])
     recs = {"dense_fuse (first frame, empty map)": dense_checks(
                 dev, "first frame", empty, on_card(*frames[0]), b.cam, b),
             "dense_fuse (mid-orbit frame, filled map)": dense_checks(
-                dev, "filled map", filled,
-                on_card(*frames[DENSE_FRAMES[1]]), b.cam, b)}
+                dev, "filled map", filled, mid, b.cam, b),
+            "dense_fuse (mid-orbit frame, shuffled filled map)": dense_checks(
+                dev, "shuffled filled map", tuple(t[perm] for t in filled),
+                mid, b.cam, b)}
+    paths = [r["path"] for r in recs.values()]
+    if paths != [0, 0, 1]:
+        raise RuntimeError(f"K12 took the paths {paths} (0 fast, 1 general) "
+                           "at the first frame, the filled map and the "
+                           "shuffled map")
+    dense_sync_check(dev, b, frames)
     return launches, recs
+
+
+def dense_sync_check(dev, b, frames):
+    """A builder like the CLI's fuses the first frame, then the mid-orbit
+    one under torch.cuda.set_sync_debug_mode("error") (process_frame:
+    the frame's upload and one K12 launch); its map must equal the plain
+    version's two fuses on the CPU bit for bit."""
+    from object_oriented_slam_tpu_torch.ops import dense_fuse as df
+    from object_oriented_slam_tpu_torch.system import dense_builder as db
+    launched = df.DENSE_FUSE.launches
+    fresh = db.DenseBuilder(b.cam, b.leaf, b.stride, b.capacity,
+                            b.depth_range, device=dev)
+    state = (torch.zeros(b.capacity, 3), torch.zeros(b.capacity, 3),
+             torch.zeros(b.capacity, dtype=torch.bool))
+    for i in DENSE_FRAMES:
+        depth, rgb, pose = frames[i]
+        checked = i == DENSE_FRAMES[1]
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            fresh.process_frame(rgb, depth, pose)
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode("default")
+        state = df.dense_fuse_plain(
+            *state, torch.as_tensor(depth.astype(np.int32)),
+            torch.as_tensor(rgb).float(),
+            torch.as_tensor(pose.astype(np.float32)), b.cam, b.stride,
+            b.leaf, b.capacity, b.depth_range)
+    torch.cuda.synchronize()
+    same = all(same_bits(g.cpu(), w) for g, w in zip(
+        (fresh.pts, fresh.rgb, fresh.mask), state))
+    print(f"[dense] one fuse through DenseBuilder.process_frame under the "
+          f"synchronisation check: passed; the two-frame map bit-equal to "
+          f"the plain version's on the CPU: {same}; paths "
+          f"{fresh._work.tally.tolist()} (fast, general)")
+    if not same:
+        raise RuntimeError("the builder's two-frame map differs from the "
+                           "plain version's")
+    df.DENSE_FUSE.launches = launched
 
 
 # ---------------------------------------------------------------------------
@@ -4741,7 +4907,9 @@ def main(argv=None):
                  "share_of_bound": r["bound"][0] / r["ms"],
                  "library_ms": r["library_ms"], "shape": list(r["shape"]),
                  **{key: r[key] for key in ("events_ms", "sort_ms",
-                                             "bits_equal", "live_points")}}
+                                             "bits_equal", "live_points",
+                                             "path", "device_ops",
+                                             "loaded_ms")}}
                 for k, r in dense_recs.items()]
     # [clustering]: K13 and K5's exact and chain lanes at the depth path's
     # shapes, launches the option's depth run's (the grid run's for K13, the

@@ -11,17 +11,20 @@ keys clipped to 1024 leafs an axis from the masked minimum cell, as in
 JAX).
 
 ``dense_fuse`` on CUDA tensors runs the hand-written kernel
-(``csrc/dense_fuse.cu``, built with ``nvcc`` at first use): one call that
-back-projects into the tail of a ``[capacity + F]`` buffer after the map's
-rows (the pose's rotation computed in the kernel, as ``se3.quat_to_mat``
-computes it) and writes every key, a stable ``torch.sort`` of the keys, and one
-call that sums each segment in sorted order into the other buffer's
-capacity prefix.  ``FuseWork`` holds those buffers, allocated once (the
-builder keeps one); the map alternates between their two prefixes.
-On CPU tensors it is ``dense_fuse_plain``: ``full_point_cloud``, the world
-transform written out left to right as the kernel has it, and the segment
-sums of ``voxel_segment_mean_plain`` / ``voxel_attr_mean_plain`` on one
-stable sort, whose sequential ``index_add_`` gives the kernel's bits.
+(``csrc/dense_fuse.cu``, built with ``nvcc`` at first use), one cooperative
+launch a fuse: the frame back-projected into the tail of a
+``[capacity + F]`` buffer after the map's rows, every key, and then, where
+the map's keys ascend (the map a previous fuse wrote), the frame's keys
+sorted by hand and merged into the map's sorted prefix, else all keys
+sorted by a radix sort of the kernel's own; the segments summed in merged
+order into the other buffer's capacity prefix.  The path is chosen on the
+device (``FuseWork.tally`` counts fuses by path); nothing synchronises.
+``FuseWork`` holds the buffers, allocated once (the builder keeps one); the
+map alternates between their two prefixes.  On CPU tensors it is
+``dense_fuse_plain``: ``full_point_cloud``, the world transform written out
+left to right as the kernel has it, and the segment sums of
+``voxel_segment_mean_plain`` / ``voxel_attr_mean_plain`` on one stable
+sort, whose sequential ``index_add_`` gives the kernel's bits.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from .voxel import voxel_attr_mean_plain, voxel_keys, voxel_segment_mean_plain
 SOURCE = os.path.join(_cuda_build.CSRC_DIR, "dense_fuse.cu")
 DENSE_FUSE = Kernel("dense_fuse")     # one count a fused frame
 KERNELS = (DENSE_FUSE,)
-_TILE = 1024                          # sorted keys a block (DF_TILE)
+_GRID_MAX, _PART, _DIGITS, _PER, _BUCKETS = 512, 16, 256, 4, 4096
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -61,11 +64,9 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.oslam_dense_fuse_points.argtypes = [i] * 4 + [f] * 7 + [p] * 8 \
-            + [p]
-        lib.oslam_dense_fuse_segments.argtypes = [i, i] + [p] * 8 + [p]
-        for fn in (lib.oslam_dense_fuse_points, lib.oslam_dense_fuse_segments):
-            fn.restype = i
+        lib.oslam_dense_fuse.argtypes = ([i] * 4 + [f] * 7 + [p] * 11
+                                         + [ctypes.c_longlong, p, p])
+        lib.oslam_dense_fuse.restype = i
         lib.oslam_df_error_string.argtypes = [i]
         lib.oslam_df_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -80,6 +81,17 @@ def _call(fn_name: str, device, args):
     if rc != 0:
         raise RuntimeError(f"dense_fuse ({fn_name}) launch failed: CUDA error "
                            f"{rc} ({lib.oslam_df_error_string(rc).decode()})")
+
+
+def scratch_ints(capacity: int, frame: int) -> int:
+    """int32 words of a fuse's scratch (df_scratch_ints): the blocks'
+    partial results, the radix histograms, the merge tiles' counts and
+    splits, the radix buffers and ranks, the frame sort's bucket counts
+    and starts."""
+    n = capacity + frame
+    tiles = n // (_PER * 32) + _GRID_MAX + 2
+    return (_GRID_MAX * (_PART + _DIGITS) + 2 * tiles + 1 + 5 * n
+            + 2 * _BUCKETS + 1)
 
 
 def frame_grid(height: int, width: int, stride: int):
@@ -134,8 +146,13 @@ class FuseWork:
     """The device buffers of fuses at one capacity and frame shape,
     allocated once: two ``[capacity + F]`` point / colour / mask buffers
     (the map's rows in one's prefix, a fuse's output in the other's; they
-    alternate), the keys, the sorted keys and their permutation, the
-    minimum cell and the tiles' segment counts."""
+    alternate), the keys, the kernel's int32 scratch (the blocks' partial
+    results, the radix buffers, the merge tiles) and ``tally``, fuses by
+    path (fast, general), counted on the device.
+
+    Every map a fuse reads is zero where it is masked: the kernel writes
+    its outputs so and ``load`` makes a copied map so; a fuse then clears
+    only the rows an older map left set past the new one."""
 
     def __init__(self, capacity: int, height: int, width: int, stride: int,
                  device):
@@ -143,7 +160,8 @@ class FuseWork:
         self.stride = stride
         self.device = indexed_device(device)
         hs, ws = frame_grid(height, width, stride)
-        n = self.n = capacity + hs * ws
+        self.frame = hs * ws
+        n = self.n = capacity + self.frame
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -152,10 +170,9 @@ class FuseWork:
         self.col = [zeros(n, 3), zeros(n, 3)]
         self.mask = [zeros(n, dtype=torch.bool), zeros(n, dtype=torch.bool)]
         self.keys = zeros(n, dtype=torch.int32)
-        self.key_s = zeros(n, dtype=torch.int32)
-        self.order = zeros(n, dtype=torch.int64)
-        self.cmin = zeros(3, dtype=torch.int32)
-        self.tiles = zeros((n + _TILE - 1) // _TILE, dtype=torch.int32)
+        self.scratch = zeros(scratch_ints(capacity, self.frame),
+                             dtype=torch.int32)
+        self.tally = zeros(2, dtype=torch.int32)
         self.cur = 0
 
     def fits(self, capacity, height, width, stride, device) -> bool:
@@ -170,33 +187,37 @@ class FuseWork:
 
     def load(self, pts, rgb, mask):
         """Make (pts, rgb, mask) the current map (no copy when they are
-        already the current prefix)."""
+        already the current prefix; a copied map's masked rows are
+        zeroed)."""
         cur = self.map()
+        copied = False
         for src, dst in zip((pts, rgb, mask), cur):
             if src.data_ptr() != dst.data_ptr():
                 dst.copy_(src)
+                copied = True
+        if copied:
+            unset = ~cur[2][:, None]
+            cur[0].masked_fill_(unset, 0.0)
+            cur[1].masked_fill_(unset, 0.0)
+
+    def _launch(self, args):
+        _call("oslam_dense_fuse", self.device, args)
 
     def fuse(self, depth, rgb, pose_wc, cam: Camera, leaf: float,
              depth_range: float):
-        """One frame into the map: the two kernel calls around the sort.
-        Returns the new map (views of the other buffer's prefix, which
-        becomes the current one)."""
+        """One frame into the map: one kernel launch.  Returns the new map
+        (views of the other buffer's prefix, which becomes the current
+        one)."""
         a, b = self.cur, 1 - self.cur
-        dev = self.device
-        _call("oslam_dense_fuse_points", dev, [
+        self._launch([
             self.capacity, self.height, self.width, self.stride, cam.fx,
             cam.fy, cam.cx, cam.cy, cam.scale, depth_range, leaf,
             depth.data_ptr(), rgb.data_ptr() if rgb is not None else None,
             pose_wc.data_ptr(), self.pts[a].data_ptr(), self.col[a].data_ptr(),
-            self.mask[a].data_ptr(), self.cmin.data_ptr(),
-            self.keys.data_ptr()])
-        torch.sort(self.keys, stable=True, out=(self.key_s, self.order))
-        _call("oslam_dense_fuse_segments", dev, [
-            self.n, self.capacity, self.key_s.data_ptr(),
-            self.order.data_ptr(), self.pts[a].data_ptr(),
-            self.col[a].data_ptr(), self.tiles.data_ptr(),
-            self.pts[b].data_ptr(), self.col[b].data_ptr(),
-            self.mask[b].data_ptr()])
+            self.mask[a].data_ptr(), self.pts[b].data_ptr(),
+            self.col[b].data_ptr(), self.mask[b].data_ptr(),
+            self.keys.data_ptr(), self.scratch.data_ptr(),
+            self.scratch.numel(), self.tally.data_ptr()])
         DENSE_FUSE.launches += 1
         self.cur = b
         return self.map()

@@ -1,5 +1,6 @@
 """K12 (``dense_fuse``, csrc/dense_fuse.cu) against its plain PyTorch
-version, on an empty map and on a filled one.
+version, on an empty map and on a filled one, and on the cases of
+examples/torch_dense_fuse_on_cpu.py (both of its paths).
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; skipped elsewhere.  The machine
 with the card has no JAX, so run this file without the JAX test setup:
@@ -12,6 +13,9 @@ rounds every operation on its own); against the plain version on the card
 (whose ``index_add_`` adds with atomics in any order) masks equal, points
 within 1e-6 and colours within 1e-4.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +27,17 @@ from object_oriented_slam_tpu_torch.system.dense_builder import DenseBuilder
 torch.set_num_threads(1)    # the test workers share the CPU
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the path each fuse of a case is built to take (0 fast, 1 general)
+PATHS = {
+    "empty": [0], "filled": [0, 0, 0], "shuffled": [1, 0],
+    "shrink": [0, 0, 0], "wide-still": [0], "wide-moved": [1], "seam": [1],
+    "wide-clipped": [0],
+    "ties": [0], "refloor": [1], "overflow": [0], "overflow-general": [1],
+    "frame-limit": [0], "frame-past": [0], "bucket-large": [0],
+    "bucket-mid": [0], "bucket-limit": [0],
+}
 
 CAM = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, scale=5000.0)
 
@@ -109,3 +124,39 @@ def test_wrapper_checks_inputs(device):
         df.dense_fuse(*state, depth.float(), rgb, pose, CAM, 4, 0.01, 64, 6.0)
     with pytest.raises(ValueError):
         df.dense_fuse(*state, depth, rgb, pose, CAM, 4, 0.01, 32, 6.0)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    spec = importlib.util.spec_from_file_location(
+        "torch_dense_fuse_on_cpu",
+        os.path.join(ROOT, "examples", "torch_dense_fuse_on_cpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.cases()
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_fuse_cases_match_plain_on_both_paths(device, cases, name):
+    """The CPU build's cases on the card: every map bit-equal to the plain
+    version on the CPU, a second run bit-equal, one launch count a fuse,
+    the tally on the path the map's keys call for (the fast merge, or the
+    general radix sort: a shuffled map, a moved minimum cell over clipped
+    rows, a re-floored centroid)."""
+    mod, all_cases = cases
+    case = all_cases[name]
+    want = mod.plain_chain(case)
+    before = df.DENSE_FUSE.launches
+    got, paths = mod.run_case(
+        case, lambda cap, H, W, stride: df.FuseWork(cap, H, W, stride,
+                                                    device))
+    torch.cuda.synchronize()
+    assert df.DENSE_FUSE.launches == before + len(case[4])
+    again, _ = mod.run_case(
+        case, lambda cap, H, W, stride: df.FuseWork(cap, H, W, stride,
+                                                    device))
+    for g, a, w in zip(got, again, want):
+        for x, y, z in zip(g, a, w):
+            assert x.dtype == z.dtype and np.array_equal(x, z)
+            assert np.array_equal(x, y)
+    assert paths == mod.expected_paths(case) == PATHS[name]
