@@ -356,6 +356,56 @@ def orbit_graph(F=12, seed=0):
     measurement is turned a quarter turn of yaw with its x/y axes swapped (its error's least-norm
     candidate is a rotated one).  Returns (SlamGraph on the CPU, K,
     normal)."""
+    arrays, normal = _orbit_arrays(F, seed, turn=1)
+    return slam_ba.graph_from_numpy(arrays, device="cpu"), torch.tensor(
+        K_MAT), normal
+
+
+# the 3D measurements of yaw_graph's origin frame: an ellipsoid at the
+# origin whose x/y scales the measurement swaps, and one FAR metres along x
+FAR = 2e38
+SWAPPED = [0, 0, 0, 0, 0, 0, 1, 0.5, 3.0, 0.25]
+
+
+def yaw_graph(F=12, seed=1):
+    """The 3D edge's yaw choice in each of its branches: orbit_graph's
+    scene from ``seed`` with its turned 3D measurement half a turn of yaw
+    away (the 180 deg candidate, the last, wins by a strictly smaller
+    norm), and one more frame, at the world's origin, that measures two
+    more ellipsoids in 3D.  The first sits at the origin, unrotated, with
+    scales (3, 0.5, 0.25), and its measurement swaps the x/y scales: the
+    -90 and +90 deg candidates turn it by a quarter either way to the same
+    norm (each operation of the one is the other's with a sign flipped),
+    below the other two, and the first of them is kept.  The second sits
+    FAR metres along x, measured where it is: rotating that translation by
+    the 180 deg candidate overflows float (2 FAR), the others' do not, so
+    that candidate's norm is NaN after three finite ones and is taken (the
+    edge is then zeroed).  Returns (SlamGraph on the CPU, K, normal)."""
+    arrays, normal = _orbit_arrays(F, seed, turn=2)
+    a = arrays
+    a["poses_cw"] = np.concatenate([a["poses_cw"],
+                                    [[0, 0, 0, 0, 0, 0, 1]]]).astype(
+                                        np.float32)
+    a["frame_mask"] = np.ones(F + 1, bool)
+    near = [0, 0, 0, 0, 0, 0, 1, 3.0, 0.5, 0.25]
+    far = [FAR, 0, 0, 0, 0, 0, 1, 3.0, 0.5, 0.25]
+    a["objects"] = np.concatenate([a["objects"], [near, far]]).astype(
+        np.float32)
+    a["obj_mask"] = np.ones(4, bool)
+    a["e3_frame"] = np.concatenate([a["e3_frame"], [F, F]])
+    a["e3_obj"] = np.concatenate([a["e3_obj"], [2, 3]])
+    far_meas = [FAR] + SWAPPED[1:7] + [3.0, 0.5, 0.25]
+    a["e3_meas"] = np.concatenate([a["e3_meas"], [SWAPPED, far_meas]]).astype(
+        np.float32)
+    a["e3_w"] = np.concatenate([a["e3_w"], [3.0, 3.0]]).astype(np.float32)
+    a["grav_w"] = np.full(4, 1.0, np.float32)
+    return slam_ba.graph_from_numpy(a, device="cpu"), torch.tensor(
+        K_MAT), normal
+
+
+def _orbit_arrays(F, seed, turn):
+    """orbit_graph's numpy arrays, its 3D measurement 7 turned ``turn``
+    quarter turns of yaw, and the ground normal."""
     rng = np.random.default_rng(seed)
     gt = torch.tensor([[0.2, -0.1, 0.4, 0, 0, 0.2, 0.98, 0.5, 0.3, 0.25],
                        [-0.6, 0.5, 0.3, 0, 0, -0.3, 0.954, 0.3, 0.2, 0.35]],
@@ -377,7 +427,7 @@ def orbit_graph(F=12, seed=0):
             e3_m.append(ell.transform_to(gt[k], poses_wc[f]))
     e2_b, e3_m = torch.stack(e2_b), torch.stack(e3_m)
     e2_b[5, 2] = float("inf")
-    e3_m[7] = ell.rotate_yaw(e3_m[7], 1)
+    e3_m[7] = ell.rotate_yaw(e3_m[7], turn)
     odo = se3.se3_mul(poses_cw[1:], se3.se3_inv(poses_cw[:-1]))
     init = poses_cw.clone()
     init[1:, :3] += torch.tensor(rng.normal(0, 0.02, (F - 1, 3)),
@@ -394,8 +444,7 @@ def orbit_graph(F=12, seed=0):
         odo_w=np.full(F - 1, 2.0, np.float32),
         grav_w=np.full(2, 1.0, np.float32))
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
-    normal = torch.tensor([0.05, -0.02, 1.0])
-    return slam_ba.graph_from_numpy(arrays, device="cpu"), K, normal
+    return arrays, torch.tensor([0.05, -0.02, 1.0])
 
 
 def state_graph(path):
