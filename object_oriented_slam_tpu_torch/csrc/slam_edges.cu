@@ -292,46 +292,94 @@ __device__ void rows_2d(const Graph& g, int e, int dir0, S r[4]) {
 // the measured local ellipsoid in the world, transform_from(meas,
 // se3_inv(exp(up) pose)): the log error to each of its 4 yaw rotations
 // (-90, 0, 90, 180 deg), the one of least norm (first NaN, else first
-// minimum, like jnp.argmin of jnp.linalg.norm)
+// minimum, like jnp.argmin of jnp.linalg.norm).  The choice reads primal
+// values alone, and a Dual's primal is the float chain's bits (dual.cuh:
+// every rule computes the value by the float operation), so the four
+// candidates are scored in float (pick_yaw) and only the winner's chain
+// carries tangents.
+
+// the 3D edge's object after its update and the measurement in the world
 template <class S>
-__device__ void rows_3d(const Graph& g, int e, int dir0, S r[9]) {
+__device__ void frame_3d(const Graph& g, int e, int dir0, Est<S>& o,
+                         Pose<S>& mw) {
   S up[6], uo[9];
   seeds(up, 0, dir0);
   seeds(uo, 6, dir0);
   Pose<S> pc, pw;
   camera(g.poses + 7 * g.e3_frame[e], up, pc);
   se3_inv(pc, pw);
-  Est<S> o;
   exp_update(g.objects + 10 * g.e3_obj[e], uo, o);
   const float* m = g.e3_meas + 10 * e;
-  Pose<S> mw;
   se3_mul(pw.t, pw.q, m, m + 3, mw);
+}
+
+// the log error to the measurement turned by yaw candidate k
+template <class S>
+__device__ void yaw_error(const Est<S>& o, const Pose<S>& mw, const float* m,
+                          int k, S err[9]) {
+  const float zt[3] = {0.f, 0.f, 0.f};
+  const float rq[4] = {0.f, 0.f, kYawSin[k], kYawCos[k]};
+  Pose<S> rot, inv, diff;
+  se3_mul(mw.t, mw.q, zt, rq, rot);
+  se3_inv(rot, inv);
+  se3_mul(inv.t, inv.q, o.t, o.q, diff);
+  se3_log(diff, err);
+  const bool odd = k == 0 || k == 2;      // k = -1 or 1: x and y swap
+  err[6] = o.s[0] - m[odd ? 8 : 7];
+  err[7] = o.s[1] - m[odd ? 7 : 8];
+  err[8] = o.s[2] - m[9];
+}
+
+__device__ __forceinline__ float err_norm(const float (&err)[9]) {
+  float n = err[0] * err[0];
+#pragma unroll
+  for (int c = 1; c < 9; ++c) n = n + err[c] * err[c];
+  return sqrtf(n);
+}
+
+// whether candidate k, of norm n, replaces the best so far
+__device__ __forceinline__ bool takes(int k, float n, float best) {
+  return k == 0 || (isnan(n) && !isnan(best)) || n < best;
+}
+
+// the winning candidate of 3D edge e and its error, in float
+__device__ int pick_yaw(const Graph& g, int e, float r[9]) {
+  Est<float> o;
+  Pose<float> mw;
+  frame_3d(g, e, 0, o, mw);
+  const float* m = g.e3_meas + 10 * e;
   float best = 0.f;
+  int win = 0;
 #pragma unroll 1
   for (int k = 0; k < 4; ++k) {
-    const float zt[3] = {0.f, 0.f, 0.f};
-    const float rq[4] = {0.f, 0.f, kYawSin[k], kYawCos[k]};
-    Pose<S> rot, inv, diff;
-    se3_mul(mw.t, mw.q, zt, rq, rot);
-    se3_inv(rot, inv);
-    se3_mul(inv.t, inv.q, o.t, o.q, diff);
-    S err[9];
-    se3_log(diff, err);
-    const bool odd = k == 0 || k == 2;    // k = -1 or 1: x and y swap
-    err[6] = o.s[0] - m[odd ? 8 : 7];
-    err[7] = o.s[1] - m[odd ? 7 : 8];
-    err[8] = o.s[2] - m[9];
-    float n = val(err[0]) * val(err[0]);
-#pragma unroll
-    for (int c = 1; c < 9; ++c) n = n + val(err[c]) * val(err[c]);
-    n = sqrtf(n);
-    const bool take = k == 0 || (isnan(n) && !isnan(best)) || n < best;
-    if (take) {
+    float err[9];
+    yaw_error(o, mw, m, k, err);
+    const float n = err_norm(err);
+    if (takes(k, n, best)) {
       best = n;
+      win = k;
 #pragma unroll
       for (int c = 0; c < 9; ++c) r[c] = err[c];
     }
   }
+  return win;
+}
+
+__device__ void rows_3d(const Graph& g, int e, int, float r[9]) {
+  pick_yaw(g, e, r);
+  const float w = g.e3_w[e];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) r[c] = r[c] * w;
+}
+
+template <int N>
+__device__ void rows_3d(const Graph& g, int e, int dir0, Dual<N> r[9]) {
+  float scored[9];
+  const int k = pick_yaw(g, e, scored);
+  Est<Dual<N>> o;
+  Pose<Dual<N>> mw;
+  frame_3d(g, e, dir0, o, mw);
+  yaw_error(o, mw, g.e3_meas + 10 * e, k, r);
   const float w = g.e3_w[e];
 #pragma unroll
   for (int c = 0; c < 9; ++c) r[c] = r[c] * w;
