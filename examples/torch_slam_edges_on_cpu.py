@@ -1,32 +1,33 @@
-"""K11's chains (csrc/slam_edges.cu) built for the CPU, to hold them against
-the plain version without a card and to count their operations.
+"""K11 (csrc/slam_edges.cu) built for the CPU, to hold it against the plain
+version without a card and to count its operations.
 
     python3 examples/torch_slam_edges_on_cpu.py [--state STATE.npz] [--count]
 
-The device functions of ``slam_edges.cu`` (and ``dual.cuh``) compile with
-g++ when ``OSLAM_HOST_CHAINS`` is defined and the CUDA qualifiers are
-defined away (``-ffp-contract=off``: every multiply and add rounds on its
-own, as with nvcc's ``-fmad=false``).  A small host loop runs every
-thread's chain as the Jacobian kernel deals them (an edge's 15 tangent
-directions over 3 threads of ``Dual<5>``, 12 for an odometry edge, 9 for a
-gravity prior over 2) and writes the outputs as ``store`` does, and the
-float instantiation gives each edge's gated sum of squares.  The graph is
-the seeded orbit of ``orbit_graph`` (2 objects, 12 frames, one non-finite
-2D edge, one 3D measurement a quarter turn of yaw away), or the one
+The source compiles with g++ when ``OSLAM_HOST_CHAINS`` is defined and the
+CUDA qualifiers are defined away (``-ffp-contract=off``: every multiply
+and add rounds on its own, as with nvcc's ``-fmad=false``); with
+``OSLAM_HOST_KERNELS`` its kernels compile too, and ``build()`` runs their
+launches as the card would (``chains``): the launch's own shape and
+dealing, its blocks one after another, a block's threads as std::threads,
+a warp's shuffles between barriers of the warp.  The graph is the seeded
+orbit of ``orbit_graph`` (2 objects, 12 frames, one non-finite 2D edge,
+one 3D measurement a quarter turn of yaw away), ``yaw_graph``'s (every
+branch of the 3D edge's yaw choice) or the one
 ``system/slam_mode.build_slam_graph`` packs from a checkpoint
-(``--state``).  Prints, per output, the largest distance of the chains and
-of the plain version (``backend/slam_ba.edge_terms_plain``) from the plain
-version in float64, and exits 1 if the chains are further from it than 4
-times the plain version or 1e-4 of the output's largest entry, or if their
-non-finite entries differ.  The math library is the host's, not the
-card's, so this holds the chains' algebra, not the card's bits.
+(``--state``).  Prints, per output, the largest distance of the kernels
+and of the plain version (``backend/slam_ba.edge_terms_plain``) from the
+plain version in float64, and exits 1 if the kernels are further from it
+than 4 times the plain version or 1e-4 of the output's largest entry, or
+if their non-finite entries differ.  The math library is the host's, not
+the card's, so this holds the chains' algebra, not the card's bits.
 
 ``--count`` builds the chains again with a float type that counts its
 operations (one per + - * / negation, compare, sqrt, sin, cos, atan2,
 acos), with one and with five tangent directions a thread, and prints the
 operations the graph's live edges need (``count_ops``: an edge's primal
-chain once, its tangent work once a direction), as ``chip_smoke.py``'s
-K11 bound counts them on its graph.  Needs g++ (C++17).
+chain once, its tangent work once a direction, a 3D edge's tangents for
+its winning yaw candidate alone), as ``chip_smoke.py``'s K11 bound counts
+them on its graph.  Needs g++ (C++20).
 """
 import argparse
 import ctypes
@@ -51,19 +52,79 @@ K_MAT = np.array([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1]],
                  np.float32)
 NAMES = ("r2", "Jp2", "Jo2", "r3", "Jp3", "Jo3", "ro", "Ji", "Jj", "rg", "Jg")
 
-PRELUDE = r'''
+PRELUDE = r"""
 #include <cmath>
 #include <math.h>
 using std::isfinite;
 using std::isnan;
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__ static
-'''
+"""
+
+# the kernels' CUDA built-ins on the host: a launch runs its blocks one
+# after another and a block's threads at once, each a std::thread; a warp's
+# shuffle posts every lane's value and reads its source's between two
+# barriers of the warp (so a warp whose lanes do not all reach a shuffle
+# hangs here as it would misbehave on the card)
+EMULATION = r"""
+#include <atomic>
+#include <barrier>
+#include <thread>
+#include <vector>
+#define __global__
+#define __launch_bounds__(...)
+#define __shared__ static
+struct U3 { unsigned x, y, z; };
+thread_local U3 threadIdx, blockIdx;
+static U3 blockDim, gridDim;
+static std::barrier<>* g_block;
+static std::barrier<>* g_warp[32];
+static float g_lane[32][32];
+inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void __threadfence()
+{ std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline unsigned atomicAdd(unsigned* p, unsigned v)
+{ return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline float __shfl_sync(unsigned, float v, int src)
+{
+    const int w = threadIdx.x >> 5;
+    g_lane[w][threadIdx.x & 31] = v;
+    g_warp[w]->arrive_and_wait();
+    const float r = g_lane[w][src & 31];
+    g_warp[w]->arrive_and_wait();
+    return r;
+}
+inline float __shfl_xor_sync(unsigned m, float v, int mask)
+{ return __shfl_sync(m, v, (int)(threadIdx.x & 31) ^ mask); }
+template <class F>
+static void emu_launch(long long blocks, int threads, F body)
+{
+    blockDim = {(unsigned)threads, 1, 1};
+    gridDim = {(unsigned)blocks, 1, 1};
+    for (long long b = 0; b < blocks; ++b) {
+        std::barrier<> block(threads);
+        g_block = &block;
+        std::vector<std::barrier<>*> warps;
+        for (int w = 0; w < threads / 32; ++w)
+            warps.push_back(g_warp[w] = new std::barrier<>(32));
+        std::vector<std::thread> ts;
+        for (int i = 0; i < threads; ++i)
+            ts.emplace_back([=] {
+                threadIdx = {(unsigned)i, 0, 0};
+                blockIdx = {(unsigned)b, 0, 0};
+                body();
+            });
+        for (auto& t : ts) t.join();
+        for (auto* w : warps) delete w;
+    }
+}
+"""
 
 # a float that counts its operations; every ``float`` of the chains becomes
 # one (the literals stay float and convert)
-COUNTING = r'''
+COUNTING = r"""
 typedef float real_float;
 static long long g_ops = 0;
 struct CF {
@@ -90,9 +151,9 @@ inline CF cosf(CF a) { return op(std::cos(a.x)); }
 inline CF acosf(CF a) { return op(std::acos(a.x)); }
 inline CF atan2f(CF a, CF b) { return op(std::atan2(a.x, b.x)); }
 #define float CF
-'''
+"""
 
-HARNESS = r'''
+HARNESS = r"""
 #include "slam_edges.cu"
 
 #ifdef OSLAM_COUNT_OPS
@@ -139,73 +200,112 @@ static Graph make_graph(const in_t* poses, const in_t* objects,
              e3_frame, e3_obj, e3_meas, e3_w, odo_i, odo_j, odo_meas,      \
              odo_w, grav_w, E2, E3, Eo, Ko, F)
 
+#ifdef OSLAM_COUNT_OPS
+using DW = Dual<OSLAM_LANES>;
+
+// the 3D edge's yaw choice as one thread makes it: the object and the
+// measurement in the world once, then the four candidates in turn
+static int pick_yaw(const Graph& g, int e, float r[9]) {
+  Est<float> o;
+  Pose<float> mw;
+  frame_3d(g, e, 0, o, mw);
+  float n[4], err[4][9];
+  for (int k = 0; k < 4; ++k) {
+    yaw_error(o, mw, g.e3_meas + 10 * e, k, err[k]);
+    n[k] = err_norm(err[k]);
+  }
+  const int k = choice(n);
+  for (int c = 0; c < 9; ++c) r[c] = err[k][c];
+  return k;
+}
+
+// the 3D edge with every candidate's chain in duals, the winner kept (the
+// design that took the tangents of all four)
+template <int N>
+static void rows_3d_every(const Graph& g, int e, int dir0, Dual<N> r[9]) {
+  Est<Dual<N>> o;
+  Pose<Dual<N>> mw;
+  frame_3d(g, e, dir0, o, mw);
+  const float* m = g.e3_meas + 10 * e;
+  float best = 0.f;
+  for (int k = 0; k < 4; ++k) {
+    Dual<N> err[9];
+    yaw_error(o, mw, m, k, err);
+    float v[9];
+    for (int c = 0; c < 9; ++c) v[c] = val(err[c]);
+    const float n = err_norm(v);
+    if (takes(k, n, best)) {
+      best = n;
+      for (int c = 0; c < 9; ++c) r[c] = err[c];
+    }
+  }
+  const float w = g.e3_w[e];
+  for (int c = 0; c < 9; ++c) r[c] = r[c] * w;
+}
+#endif
+
 extern "C" {
 
 #ifndef OSLAM_COUNT_OPS
-// the Jacobian kernel's threads in order, then each edge's chi2 term
-void host_edge_terms(GRAPH_ARGS, float* r2, float* Jp2, float* Jo2,
-                     float* r3, float* Jp3, float* Jo3, float* ro, float* Ji,
-                     float* Jj, float* rg, float* Jg, float* sq) {
+int host_lanes() { return kLanes; }
+
+// the Jacobian launch at ``lanes`` and ``threads`` (0: the kernel's
+// choice) as the card runs it, its blocks emulated; 1 for a shape the
+// launch refuses
+int host_edge_terms(GRAPH_ARGS, float* r2, float* Jp2, float* Jo2,
+                    float* r3, float* Jp3, float* Jo3, float* ro, float* Ji,
+                    float* Jj, float* rg, float* Jg, int lanes, int threads) {
+  long long shape[3];
+  if (!edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, shape)) return 1;
+  if (shape[2] == 0) return 0;
   const Graph g = GRAPH;
-  for (int e = 0; e < E2; ++e)
-    for (int grp = 0; grp < kGroups2; ++grp) {
-      DW r[4];
-      rows_2d(g, e, kW * grp, r);
-      store<4, 6, 9>(r, grp, true, r2 + 4 * e, Jp2 + 24 * e, Jo2 + 36 * e);
-    }
-  for (int e = 0; e < E3; ++e)
-    for (int grp = 0; grp < kGroups3; ++grp) {
-      DW r[9];
-      rows_3d(g, e, kW * grp, r);
-      store<9, 6, 9>(r, grp, true, r3 + 9 * e, Jp3 + 54 * e, Jo3 + 81 * e);
-    }
-  for (int e = 0; e < Eo; ++e)
-    for (int grp = 0; grp < kGroupsO; ++grp) {
-      DW r[6];
-      rows_odo(g, e, kW * grp, r);
-      store<6, 6, 6>(r, grp, true, ro + 6 * e, Ji + 36 * e, Jj + 36 * e);
-    }
-  for (int k = 0; k < Ko; ++k)
-    for (int grp = 0; grp < kGroupsG; ++grp) {
-      DW r[1] = {row_grav<DW>(g, k, kW * grp)};
-      store<1, 9, 0>(r, grp, false, rg + k, Jg + 9 * k, nullptr);
-    }
-  int t = 0;
-  for (int e = 0; e < E2; ++e, ++t) {
-    float r[4];
-    rows_2d(g, e, 0, r);
-    sq[t] = gated_square_sum(r);
-  }
-  for (int e = 0; e < E3; ++e, ++t) {
-    float r[9];
-    rows_3d(g, e, 0, r);
-    sq[t] = gated_square_sum(r);
-  }
-  for (int e = 0; e < Eo; ++e, ++t) {
-    float r[6];
-    rows_odo(g, e, 0, r);
-    sq[t] = gated_square_sum(r);
-  }
-  for (int k = 0; k < Ko; ++k, ++t) {
-    const float r = row_grav<float>(g, k, 0);
-    sq[t] = r * r;
+  const Out o = {r2, Jp2, Jo2, r3, Jp3, Jo3, ro, Ji, Jj, rg, Jg};
+  with_lanes(lanes, [&](auto kernel) {
+    emu_launch(shape[1], (int)shape[0], [&] { kernel(g, o); });
+  });
+  return 0;
+}
+
+// every 3D edge's four yaw candidates' norms (norms[4 e + k]) and the one
+// the kernels take (win[e]), by the kernels' own functions
+void host_yaw_choice(GRAPH_ARGS, float* norms, int* win) {
+  const Graph g = GRAPH;
+  for (int e = 0; e < E3; ++e) {
+    float n[4], err[9];
+    for (int k = 0; k < 4; ++k) norms[4 * e + k] = n[k] = candidate(g, e, k, err);
+    win[e] = choice(n);
   }
 }
+
+// the chi2 launch, its blocks emulated: chi2 and each edge's term
+void host_chi2(GRAPH_ARGS, float* chi2, float* terms) {
+  const Graph g = GRAPH;
+  const long long blocks = chi2_blocks((long long)E2 + E3 + Eo + Ko);
+  std::vector<float> partial(blocks);
+  unsigned done = 0;
+  emu_launch(blocks, kChiThreads, [&] {
+    slam_chi2_kernel(g, partial.data(), &done, chi2, terms);
+  });
+}
 #else
-// operations of one Jacobian thread of each edge (its first kW directions)
-// and of each edge's chi2 term, edge by edge in the order E2 E3 Eo K:
-// ops[0 .. n) and ops[n .. 2n)
+// per edge, in the order E2 E3 Eo K, the operations of: [0, n) one thread
+// of its Jacobian with OSLAM_LANES directions (a 3D edge's four candidates
+// scored in turn in float, then the winner's chain); [n, 2n) its chi2
+// term; [2n, 3n) a 3D edge's winning chain in float (what the Jacobian's
+// chain recomputes of the scoring); [3n, 4n) the Jacobian with every
+// candidate's chain in duals (rows_3d_every; the others as [0, n))
 void host_count(GRAPH_ARGS, long long* ops) {
   const Graph g = GRAPH;
   const long long n = (long long)E2 + E3 + Eo + Ko;
-  long long* jac = ops;
-  long long* sq = ops + n;
+  long long *jac = ops, *sq = ops + n, *pf = ops + 2 * n,
+            *every = ops + 3 * n;
   int t = 0;
   for (int e = 0; e < E2; ++e, ++t) {
     long long b = g_ops;
     DW rd[4];
     rows_2d(g, e, 0, rd);
-    jac[t] = g_ops - b;
+    every[t] = jac[t] = g_ops - b;
+    pf[t] = 0;
     b = g_ops;
     float r[4];
     rows_2d(g, e, 0, r);
@@ -214,12 +314,23 @@ void host_count(GRAPH_ARGS, long long* ops) {
   }
   for (int e = 0; e < E3; ++e, ++t) {
     long long b = g_ops;
+    float r[9];
+    const int k = pick_yaw(g, e, r);
     DW rd[9];
-    rows_3d(g, e, 0, rd);
+    rows_3d_at(g, e, 0, k, rd);
     jac[t] = g_ops - b;
     b = g_ops;
-    float r[9];
-    rows_3d(g, e, 0, r);
+    Est<float> o;
+    Pose<float> mw;
+    frame_3d(g, e, 0, o, mw);
+    yaw_error(o, mw, g.e3_meas + 10 * e, k, r);
+    pf[t] = g_ops - b;
+    b = g_ops;
+    rows_3d_every(g, e, 0, rd);
+    every[t] = g_ops - b;
+    b = g_ops;
+    pick_yaw(g, e, r);
+    for (int c = 0; c < 9; ++c) r[c] = r[c] * g.e3_w[e];
     gated_square_sum(r);
     sq[t] = g_ops - b;
   }
@@ -227,7 +338,8 @@ void host_count(GRAPH_ARGS, long long* ops) {
     long long b = g_ops;
     DW rd[6];
     rows_odo(g, e, 0, rd);
-    jac[t] = g_ops - b;
+    every[t] = jac[t] = g_ops - b;
+    pf[t] = 0;
     b = g_ops;
     float r[6];
     rows_odo(g, e, 0, r);
@@ -237,7 +349,8 @@ void host_count(GRAPH_ARGS, long long* ops) {
   for (int k = 0; k < Ko; ++k, ++t) {
     long long b = g_ops;
     row_grav<DW>(g, k, 0);
-    jac[t] = g_ops - b;
+    every[t] = jac[t] = g_ops - b;
+    pf[t] = 0;
     b = g_ops;
     const float r = row_grav<float>(g, k, 0);
     r* r;
@@ -247,29 +360,31 @@ void host_count(GRAPH_ARGS, long long* ops) {
 #endif
 
 }  // extern "C"
-'''
+"""
 
 
 def build(count=False, workdir=None, lanes=None):
     """Compile the chains with g++ into ``workdir`` (a temporary directory
-    by default); returns the loaded library.  ``count``: the counting
-    build; ``lanes``: its tangent directions a thread (the kernel's 5 by
-    default)."""
+    by default); returns the loaded library.  By default the kernels with
+    them, their launches emulated (``host_edge_terms``, ``host_chi2``);
+    ``count``: the counting build (``host_count``), ``lanes`` its tangent
+    directions a thread (5 by default)."""
     workdir = workdir or tempfile.mkdtemp(prefix="slam_edges_cpu_")
     fake = os.path.join(workdir, "fake")
     os.makedirs(fake, exist_ok=True)
     open(os.path.join(fake, "cuda_runtime.h"), "w").close()
-    tag = f"count{lanes or ''}" if count else "chains"
+    tag = f"count{lanes or ''}" if count else "kernels"
     src = os.path.join(workdir, f"harness_{tag}.cpp")
     with open(src, "w") as f:
-        f.write(PRELUDE + (COUNTING if count else "") + HARNESS)
+        f.write(PRELUDE + (COUNTING if count else EMULATION) + HARNESS)
     lib = os.path.join(workdir, f"libslam_{tag}.so")
-    cmd = ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-           "-shared", "-w", "-DOSLAM_HOST_CHAINS", "-I", fake, "-I", CSRC]
+    cmd = ["g++", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
+           "-DOSLAM_HOST_CHAINS", "-I", fake, "-I", CSRC]
     if count:
-        cmd.append("-DOSLAM_COUNT_OPS")
-    if lanes:
-        cmd.append(f"-DOSLAM_LANES={int(lanes)}")
+        cmd += ["-std=c++17", "-DOSLAM_COUNT_OPS",
+                f"-DOSLAM_LANES={int(lanes or 5)}"]
+    else:
+        cmd += ["-std=c++20", "-pthread", "-DOSLAM_HOST_KERNELS"]
     proc = subprocess.run(cmd + ["-o", lib, src], capture_output=True,
                           text=True)
     if proc.returncode != 0:
@@ -288,16 +403,36 @@ def _graph_args(g, K, normal):
                       + [ctypes.c_int(n) for n in sizes])
 
 
-def chains(lib, g, K, normal):
-    """K11's outputs (r2 ... Jg) and each edge's chi2 term [E2+E3+Eo+K] by
-    the host build of its chains."""
+def chains(lib, g, K, normal, lanes=None, threads=0):
+    """K11's outputs (r2 ... Jg), each edge's chi2 term [E2+E3+Eo+K] and
+    the chi2 [] by the host build of its kernels (``build()``): the
+    Jacobian launch at ``lanes`` tangent directions a thread (the entry
+    point's by default) and ``threads`` a block (0: the kernel's choice),
+    then the chi2 launch."""
     keep, (E2, E3, Eo, Ko, _), args = _graph_args(g, K, normal)
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (Ko, 1),
-              (Ko, 1, 9), (E2 + E3 + Eo + Ko,))
+              (Ko, 1, 9), (E2 + E3 + Eo + Ko,), ())
     outs = [torch.full(s, float("nan")) for s in shapes]
-    lib.host_edge_terms(*args, *[ctypes.c_void_p(t.data_ptr()) for t in outs])
-    return outs[:-1], outs[-1]
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in outs]
+    lanes = lib.host_lanes() if lanes is None else lanes
+    if lib.host_edge_terms(*args, *ptrs[:11], ctypes.c_int(lanes),
+                           ctypes.c_int(threads)):
+        raise ValueError(f"the Jacobian launch takes no {lanes} lanes and "
+                         f"{threads} threads a block")
+    lib.host_chi2(*args, ptrs[12], ptrs[11])
+    return outs[:11], outs[11], outs[12]
+
+
+def yaw_choice(lib, g, K, normal):
+    """(norms [E3, 4], winner [E3]) of every 3D edge's yaw candidates by
+    the kernels' own scoring (``build()``)."""
+    keep, (E2, E3, Eo, Ko, _), args = _graph_args(g, K, normal)
+    norms = torch.empty((E3, 4))
+    win = torch.empty(E3, dtype=torch.int32)
+    lib.host_yaw_choice(*args, ctypes.c_void_p(norms.data_ptr()),
+                        ctypes.c_void_p(win.data_ptr()))
+    return norms, win
 
 
 # tangent directions of a 2D, 3D and odometry edge and a gravity prior
@@ -307,33 +442,41 @@ DIRECTIONS = dict(e2=15, e3=15, odo=12, grav=9)
 def count_ops(g, K, normal, workdir=None):
     """The f32 operations K11's two instantiations need on graph ``g``:
     {"slam_edge_terms": {e2, e3, odo, grav}, "slam_chi2": {...}, "live":
-    {...}}, totals over the live edges of each kind (non-zero weight; the
-    others' r and J are zeros) and their counts.  An edge's Jacobian
-    counts its primal chain once and its tangent work once a direction:
-    a thread of one direction (``lanes=1``) plus, for each further
-    direction, a kW-direction thread's excess over it divided by kW - 1
-    (the kernel's threads each recompute the primal chain; that is not
-    counted).  The chi2 counts one float chain and its square sum an
-    edge.  Builds the two counting libraries in ``workdir``."""
+    {...}, "every_candidate": {...}}, totals over the live edges of each
+    kind (non-zero weight; the others' r and J are zeros) and their
+    counts.  An edge's Jacobian counts its primal chain once and its
+    tangent work once a direction: a thread of one direction
+    (``lanes=1``) plus, for each further direction, a kW-direction
+    thread's excess over it divided by kW - 1 (the kernel's threads each
+    recompute the primal chain; that is not counted); a 3D edge's primal
+    is its four yaw candidates', its tangents the winner's alone (the
+    winner's float chain, which the thread's dual chain recomputes, is
+    taken off).  ``every_candidate``: the Jacobian's count with every
+    candidate's tangents (the count of a design that carries all four in
+    duals).  The chi2 counts one float chain and its square sum an edge.
+    Builds the two counting libraries in ``workdir``."""
     keep, (E2, E3, Eo, Ko, _), args = _graph_args(g, K, normal)
     n = E2 + E3 + Eo + Ko
     per = {}
     for lanes in (1, 5):
-        ops = (ctypes.c_longlong * (2 * n))()
+        ops = (ctypes.c_longlong * (4 * n))()
         build(count=True, workdir=workdir, lanes=lanes).host_count(*args,
                                                                    ops)
-        per[lanes] = np.array(ops[:], np.float64).reshape(2, n)
+        per[lanes] = np.array(ops[:], np.float64).reshape(4, n)
     kinds = ("e2", "e3", "odo", "grav")
     ends = np.cumsum([0, E2, E3, Eo, Ko])
     weights = (g.e2_w, g.e3_w, g.odo_w, g.grav_w)
-    out = {"slam_edge_terms": {}, "slam_chi2": {}, "live": {}}
+    out = {"slam_edge_terms": {}, "slam_chi2": {}, "live": {},
+           "every_candidate": {}}
     for i, k in enumerate(kinds):
         live = (weights[i] != 0).cpu().numpy()
-        x1 = per[1][0, ends[i]:ends[i + 1]][live]
-        x5 = per[5][0, ends[i]:ends[i + 1]][live]
-        jac = x1 + (DIRECTIONS[k] - 1) * (x5 - x1) / 4
+        x1, x5 = (per[L][:, ends[i]:ends[i + 1]][:, live] for L in (1, 5))
+        more = DIRECTIONS[k] - 1
+        jac = x1[0] - x1[2] + more * (x5[0] - x1[0]) / 4
+        every = x1[3] + more * (x5[3] - x1[3]) / 4
         out["slam_edge_terms"][k] = int(round(jac.sum()))
-        out["slam_chi2"][k] = int(per[5][1, ends[i]:ends[i + 1]][live].sum())
+        out["every_candidate"][k] = int(round(every.sum()))
+        out["slam_chi2"][k] = int(x5[1].sum())
         out["live"][k] = int(live.sum())
     return out
 
@@ -462,7 +605,7 @@ def state_graph(path):
 def compare(lib, g, K, normal):
     """(report lines, ok): the chains against the plain version, both
     against the plain version in float64."""
-    got, sq = chains(lib, g, K, normal)
+    got, _, chi2 = chains(lib, g, K, normal)
     want = slam_ba.edge_terms_plain(g.poses_cw, g.objects, g, K, normal)
     g64 = type(g)(*[t.double() if t.is_floating_point() else t for t in g])
     want64 = slam_ba.edge_terms_plain(g64.poses_cw, g64.objects, g64,
@@ -481,7 +624,7 @@ def compare(lib, g, K, normal):
         lines.append(f"{name:4s} {tuple(b.shape)}: chains {d_k:.3g}, plain "
                      f"{d_p:.3g} from float64 (largest entry {scale:.4g}); "
                      f"non-finite entries alike {same}")
-    c_k = float(sq.double().sum())
+    c_k = float(chi2)
     c_p = float(slam_ba._chi2_plain(g.poses_cw, g.objects, g, K, normal))
     lines.append(f"chi2: chains {c_k:.8g}, plain {c_p:.8g}")
     ok = ok and abs(c_k - c_p) <= 1e-5 * abs(c_p)

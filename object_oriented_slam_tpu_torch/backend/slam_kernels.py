@@ -8,7 +8,11 @@ object's 9-DoF tangent, what the JAX package's
 ``slam_ba.edge_terms_plain``).  ``chi2`` launches the float instantiation
 of the same chains: the chi2 of the graph at (poses, objects), summed in
 the launch (plain version: ``slam_ba._chi2_plain``).  Each entry point
-has its launch counter (``EDGE_TERMS``, ``CHI2``).  The shared library
+has its launch counter (``EDGE_TERMS``, ``CHI2``).  The source builds the
+Jacobian kernel at 1, 2, 3 and 5 tangent directions a thread;
+``edge_terms`` launches the source's choice (``lanes()``), and
+``edge_terms_at`` any of them at a given block size, to hold them against
+each other and to time them.  The shared library
 is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``object_oriented_slam_tpu_torch/build/`` (``ops/_cuda_build.py``) and
 bound with ctypes.  Each launch runs on PyTorch's current stream and does
@@ -32,7 +36,8 @@ EDGE_TERMS = Kernel("slam_edge_terms")
 CHI2 = Kernel("slam_chi2")
 KERNELS = (EDGE_TERMS, CHI2)
 
-THREADS = 128          # threads of a block (csrc/slam_edges.cu kThreads)
+CHI2_EDGES = 128       # edges of a block of the chi2 sum tree
+LANES_BUILT = (1, 2, 3, 5)
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
@@ -53,9 +58,12 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         graph = [p] * 17 + [i] * 5          # pointers, then E2 E3 Eo K F
-        lib.oslam_slam_edge_terms.argtypes = graph + [p] * 11 + [p]
+        lib.oslam_slam_edge_terms.argtypes = graph + [p] * 11 + [i, i, p]
         lib.oslam_slam_edge_terms.restype = i
-        lib.oslam_slam_chi2.argtypes = graph + [p] * 3 + [p]
+        lib.oslam_slam_edge_terms_shape.argtypes = [i] * 6 + [p]
+        lib.oslam_slam_edge_terms_shape.restype = i
+        lib.oslam_slam_lanes.restype = i
+        lib.oslam_slam_chi2.argtypes = graph + [p] * 4 + [p]
         lib.oslam_slam_chi2.restype = i
         lib.oslam_slam_error_string.argtypes = [i]
         lib.oslam_slam_error_string.restype = ctypes.c_char_p
@@ -112,34 +120,64 @@ def _launch(kernel, fn_name, device, args):
     kernel.launches += 1
 
 
+def lanes() -> int:
+    """Tangent directions a thread of the Jacobian launch that
+    ``edge_terms`` makes (the source's ``kLanes``)."""
+    return _load().oslam_slam_lanes()
+
+
+def launch_shape(E2, E3, Eo, K, lanes_=None, threads=0):
+    """(threads a block, blocks, threads dealt) of the Jacobian launch on a
+    graph of these counts at ``lanes_`` tangent directions a thread (the
+    entry point's by default) and ``threads`` a block (0: the source's
+    choice from the counts)."""
+    lib = _load()
+    out = (ctypes.c_longlong * 3)()
+    lanes_ = lib.oslam_slam_lanes() if lanes_ is None else lanes_
+    if lib.oslam_slam_edge_terms_shape(E2, E3, Eo, K, lanes_, threads, out):
+        raise ValueError(f"the SLAM edge kernel takes no launch of {lanes_} "
+                         f"lanes and {threads} threads a block")
+    return tuple(out)
+
+
 def edge_terms(poses, objects, g, K_mat, normal):
     """(r2 [E2,4], Jp2 [E2,4,6], Jo2 [E2,4,9], r3 [E3,9], Jp3 [E3,9,6],
     Jo3 [E3,9,9], ro [Eo,6], Ji [Eo,6,6], Jj [Eo,6,6], rg [K,1],
     Jg [K,1,9]) by one launch of the kernel's Jacobian instantiation."""
+    return edge_terms_at(poses, objects, g, K_mat, normal)
+
+
+def edge_terms_at(poses, objects, g, K_mat, normal, lanes_=None,
+                  threads=0):
+    """``edge_terms`` by the Jacobian kernel built at ``lanes_`` tangent
+    directions a thread (one of LANES_BUILT; the entry point's by
+    default), ``threads`` a block (0: the source's choice).  Every
+    instantiation computes the same bits."""
     tensors, (E2, E3, Eo, K, F) = _check(poses, objects, g, K_mat, normal)
     dev = poses.device
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (K, 1), (K, 1, 9))
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
     if E2 + E3 + Eo + K > 0:
+        lanes_ = lanes() if lanes_ is None else lanes_
         _launch(EDGE_TERMS, "oslam_slam_edge_terms", dev,
                 [t.data_ptr() for t in tensors] + [E2, E3, Eo, K, F]
-                + [t.data_ptr() for t in outs])
+                + [t.data_ptr() for t in outs] + [lanes_, threads])
     return tuple(outs)
 
 
 def chi2(poses, objects, g, K_mat, normal):
     """chi2 [] of the graph by one launch of the kernel's float
-    instantiation: each block sums its edges' squares in a fixed order and
-    the last block to finish adds the blocks' sums in block order."""
+    instantiation: each edge's gated sum of squares, summed in a fixed
+    tree (CHI2_EDGES edges a block of the tree, in order; the blocks'
+    sums in block order) that the last block to finish completes."""
     tensors, (E2, E3, Eo, K, F) = _check(poses, objects, g, K_mat, normal)
     dev = poses.device
-    n_blocks = max(1, -(-(E2 + E3 + Eo + K) // THREADS))
+    n_blocks = 4 * max(1, -(-(E2 + E3 + Eo + K) // CHI2_EDGES))
     partial = torch.empty(n_blocks, dtype=torch.float32, device=dev)
     done = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     _launch(CHI2, "oslam_slam_chi2", dev,
             [t.data_ptr() for t in tensors] + [E2, E3, Eo, K, F]
-            + [partial.data_ptr(), done.data_ptr(), out.data_ptr()])
+            + [partial.data_ptr(), done.data_ptr(), out.data_ptr(), None])
     return out
-

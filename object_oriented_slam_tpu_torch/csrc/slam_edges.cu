@@ -21,7 +21,7 @@
 // LM iteration of backend/slam_ba.optimize_slam is two launches.
 //
 // Forward mode, as in ba_edges.cu: the chains are written once, templated
-// on the scalar type (float or Dual<kW>, dual.cuh), every branch selects on
+// on the scalar type (float or Dual<N>, dual.cuh), every branch selects on
 // the primal value and each derivative rule copies the JAX rule it
 // replaces.  The operations follow the JAX package's SLAM functions (core/
 // se3.py, core/ellipsoid.py project_bbox, min_log_error_9dof), not the
@@ -30,30 +30,40 @@
 // picks it by the squared norm.
 //
 // Layout.  An edge has up to 15 tangent directions (6 pose + 9 object);
-// Dual<15> chains would not fit the register file, so each edge's
-// directions are dealt over threads, kW = 5 a thread: a 2D or 3D edge is 3
-// threads, an odometry edge (12 directions) 3, a gravity prior (9) 2.  The
-// tangent components of a dual operation do not mix, so every thread of an
-// edge computes the same primal bits and its own columns of J; thread 0 of
-// the edge writes r.  Every output element is written by one thread: the
-// launch repeats bit for bit.  The chi2 instantiation runs one edge a
-// thread; each block adds its threads' sums by a fixed xor-shuffle pattern
-// and its warps in order, and the last block to finish (a ticket on a
-// counter the caller zeroes) adds the blocks' sums in block order: no
-// floating-point atomics, equal inputs give equal bits.  Built without
-// --use_fast_math and with -fmad=false, as ba_edges.cu.
+// each edge's directions are dealt over consecutive threads, KW a thread
+// (the Jacobian kernel is built at KW = 1, 2, 3 and 5; kLanes is the one
+// the entry point launches), and every thread of an edge computes the same
+// primal bits and its own columns of J (the tangent components of a dual
+// operation never mix, so J's bits do not depend on KW); thread 0 of the
+// edge writes r.  A 3D edge's yaw choice reads primal values alone, and a
+// Dual's primal is computed by the float chain's own operations, so its
+// four candidates are scored in float, candidate j on thread j of the
+// edge's group (padded to a power of 2, at least 4, and the 3D edges
+// dealt in whole warps), the norms read by shuffles in candidate order,
+// and only the winner's chain runs in duals.  The block size comes from
+// the thread count (the largest of 128, 64, 32 that deals 2 blocks an SM).
+// Every output element is written by one thread: the launch repeats bit
+// for bit.  The chi2 instantiation runs 32 edges a block on four lanes
+// each: a 3D edge scores candidate j on lane j and its winner's lane forms
+// the gated sum of squares, any other edge runs its chain on lane 0; the
+// edges' sums are added in a fixed tree (128 edges in order by a fixed
+// xor-shuffle pattern over each 32 and the four 32s in order, then those
+// in order; the last block to finish, by a ticket on a counter the caller
+// zeroes, adds them): no floating-point atomics, equal inputs give equal
+// bits.  Built without --use_fast_math and with -fmad=false, as
+// ba_edges.cu.
 //
 // What bounds it: neither bytes nor operations.  At chip_smoke.py's [slam]
 // graph (1,024 2D, 512 3D and 255 odometry edges, 32 objects; 994 / 434 /
 // 159 live, 24 gravity priors) a launch moves ~1 MB, and the work it must
-// do is 39.0 M f32 operations (counted on that graph's live edges by
-// examples/torch_slam_edges_on_cpu.py's count_ops, an edge's primal chain
-// once and its tangent work once a direction), 0.58 us of the card's
-// peak; it takes ~0.040 ms: each thread runs one long dependent chain of
-// IEEE div / sqrt / atan2 (a 3D edge's four candidates, ~15,000 operations
-// in Dual<5>), and ~7,000 threads make one wave.  Latency, then; the
-// design keeps one chain a thread in registers (255, 4 bytes of spill) and
-// widens the wave by dealing an edge's directions over threads.
+// do (examples/torch_slam_edges_on_cpu.py's count_ops on the live edges:
+// an edge's primal chain once, a 3D edge's four candidates' primals, and
+// the tangent work of its winner alone) is well under a microsecond of the
+// card's peak.  Each thread runs one long dependent chain of IEEE div /
+// sqrt / atan2 / sin / cos: latency, then.  The design shortens the
+// longest chain (the 3D edge's: four candidates in float over four
+// threads, then one dual chain) and spreads the chains over more threads
+// and SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,17 +72,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;             // threads of a block
-#ifndef OSLAM_LANES
-#define OSLAM_LANES 5                     // (a host build may count others)
-#endif
-constexpr int kW = OSLAM_LANES;           // tangent directions a thread
-constexpr int kGroups2 = 3;               // threads a 2D edge: 15 directions
-constexpr int kGroups3 = 3;               // a 3D edge: 15
-constexpr int kGroupsO = 3;               // an odometry edge: 12
-constexpr int kGroupsG = 2;               // a gravity prior: 9
 constexpr unsigned kFullWarp = 0xffffffffu;
-using DW = Dual<kW>;
+// tangent directions of a 2D, 3D and odometry edge and of a gravity prior
+constexpr int kDirs2 = 15, kDirs3 = 15, kDirsO = 12, kDirsG = 9;
+constexpr int kMaxThreads = 128;          // threads of a Jacobian block, at most
+constexpr int kChiEdges = 32;             // edges of a chi2 block, 4 lanes each
+constexpr int kChiThreads = 4 * kChiEdges;
 
 // sin / cos of half of k * 90 deg of yaw, k = -1, 0, 1, 2 (ellipsoid.
 // rotate_yaw: the host's double values rounded to float)
@@ -193,7 +198,7 @@ __device__ void camera(const float* pose, const S* u, Pose<S>& o) {
 }
 
 // the 6 or 9 tangent components of an argument, seeded for the thread's
-// directions dir0 .. dir0 + kW - 1 of the edge's list (its first argument
+// directions dir0 .. dir0 + N - 1 of the edge's list (its first argument
 // takes directions 0 .. 5, its second from 6 on)
 template <class S, int N>
 __device__ __forceinline__ void seeds(S (&u)[N], int first, int dir0) {
@@ -330,7 +335,7 @@ __device__ void yaw_error(const Est<S>& o, const Pose<S>& mw, const float* m,
   err[8] = o.s[2] - m[9];
 }
 
-__device__ __forceinline__ float err_norm(const float (&err)[9]) {
+__device__ __forceinline__ float err_norm(const float* err) {
   float n = err[0] * err[0];
 #pragma unroll
   for (int c = 1; c < 9; ++c) n = n + err[c] * err[c];
@@ -342,40 +347,34 @@ __device__ __forceinline__ bool takes(int k, float n, float best) {
   return k == 0 || (isnan(n) && !isnan(best)) || n < best;
 }
 
-// the winning candidate of 3D edge e and its error, in float
-__device__ int pick_yaw(const Graph& g, int e, float r[9]) {
+// candidate k's error of 3D edge e in float (err) and its norm
+__device__ float candidate(const Graph& g, int e, int k, float err[9]) {
   Est<float> o;
   Pose<float> mw;
   frame_3d(g, e, 0, o, mw);
-  const float* m = g.e3_meas + 10 * e;
-  float best = 0.f;
+  yaw_error(o, mw, g.e3_meas + 10 * e, k, err);
+  return err_norm(err);
+}
+
+// the winner among the candidates of norms n[0 .. 3]: the first NaN, else
+// the first least
+__device__ __forceinline__ int choice(const float (&n)[4]) {
+  float best = n[0];
   int win = 0;
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    float err[9];
-    yaw_error(o, mw, m, k, err);
-    const float n = err_norm(err);
-    if (takes(k, n, best)) {
-      best = n;
-      win = k;
 #pragma unroll
-      for (int c = 0; c < 9; ++c) r[c] = err[c];
+  for (int k = 1; k < 4; ++k)
+    if (takes(k, n[k], best)) {
+      best = n[k];
+      win = k;
     }
-  }
   return win;
 }
 
-__device__ void rows_3d(const Graph& g, int e, int, float r[9]) {
-  pick_yaw(g, e, r);
-  const float w = g.e3_w[e];
-#pragma unroll
-  for (int c = 0; c < 9; ++c) r[c] = r[c] * w;
-}
-
+// a 3D edge's weighted rows by candidate k's chain, the tangents of the
+// directions dir0 .. dir0 + N - 1
 template <int N>
-__device__ void rows_3d(const Graph& g, int e, int dir0, Dual<N> r[9]) {
-  float scored[9];
-  const int k = pick_yaw(g, e, scored);
+__device__ void rows_3d_at(const Graph& g, int e, int dir0, int k,
+                           Dual<N> r[9]) {
   Est<Dual<N>> o;
   Pose<Dual<N>> mw;
   frame_3d(g, e, dir0, o, mw);
@@ -420,11 +419,11 @@ __device__ S row_grav(const Graph& g, int k, int dir0) {
 // Kernels
 // ---------------------------------------------------------------------------
 
-// an edge's NR rows r and this thread's columns of [J_a (NA) | J_b (NB)];
-// with ``gate`` a non-finite residual component zeroes the edge
-template <int NR, int NA, int NB>
-__device__ void store(const DW (&r)[NR], int grp, bool gate, float* rout,
-                      float* Ja, float* Jb) {
+// an edge's NR rows r and this thread's KW columns of [J_a (NA) | J_b
+// (NB)]; with ``gate`` a non-finite residual component zeroes the edge
+template <int NR, int NA, int NB, int KW>
+__device__ void store(const Dual<KW> (&r)[NR], int grp, bool gate,
+                      float* rout, float* Ja, float* Jb) {
   bool bad = false;
   if (gate) {
 #pragma unroll
@@ -437,8 +436,8 @@ __device__ void store(const DW (&r)[NR], int grp, bool gate, float* rout,
 #pragma unroll
   for (int c = 0; c < NR; ++c)
 #pragma unroll
-    for (int j = 0; j < kW; ++j) {
-      const int col = kW * grp + j;
+    for (int j = 0; j < KW; ++j) {
+      const int col = KW * grp + j;
       const float x = bad ? 0.f : r[c].d[j];
       if (col < NA)
         Ja[NA * c + col] = x;
@@ -459,99 +458,281 @@ __device__ __forceinline__ float gated_square_sum(const float (&r)[NR]) {
   return bad ? 0.f : s;
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobian launch's dealing
+// ---------------------------------------------------------------------------
+
+// threads of an edge of ``dirs`` tangent directions, kw a thread
+__host__ __device__ constexpr int groups(int dirs, int kw) {
+  return (dirs + kw - 1) / kw;
+}
+// threads of a 3D edge: its groups, and at least one a yaw candidate, to a
+// power of 2 (a group then never straddles a warp)
+__host__ __device__ constexpr int groups3(int kw) {
+  return groups(kDirs3, kw) <= 4 ? 4 : groups(kDirs3, kw) <= 8 ? 8 : 16;
+}
+__host__ __device__ constexpr long long warps32(long long n) {
+  return (n + 31) / 32 * 32;
+}
+
+// where each kind's threads start: the 2D edges' at 0, the 3D edges' at s3
+// (whole warps: every lane reaches the candidates' shuffles), then the
+// odometry edges', the gravity priors', and the end
+struct Deal {
+  long long s3, so, sg, end;
+};
+__host__ __device__ inline Deal deal(int E2, int E3, int Eo, int Ko,
+                                     int kw) {
+  Deal d;
+  d.s3 = warps32((long long)E2 * groups(kDirs2, kw));
+  d.so = d.s3 + warps32((long long)E3 * groups3(kw));
+  d.sg = d.so + (long long)Eo * groups(kDirsO, kw);
+  d.end = d.sg + (long long)Ko * groups(kDirsG, kw);
+  return d;
+}
+
+// threads of a Jacobian block at KW for the graph's counts, unless the
+// caller gives them: the largest of 128, 64 and 32 that still deals
+// kMinBlocks blocks, so the wave spreads over the card's SMs
+constexpr int kMinBlocks = 264;           // 2 a streaming multiprocessor
+__host__ __device__ inline int edge_terms_threads(long long items) {
+  for (int threads = kMaxThreads; threads > 32; threads /= 2)
+    if ((items + threads - 1) / threads >= kMinBlocks) return threads;
+  return 32;
+}
+
+// tangent directions a thread of the Jacobian launch (the instantiation
+// the entry point launches; 1, 2, 3 and 5 are built)
+constexpr int kLanes = 2;
+
 }  // namespace
 
 // Without a card the chains above compile alone with a host C++ compiler
 // (-DOSLAM_HOST_CHAINS and definitions of the CUDA qualifiers), which lets
-// them be held against the plain version off the card.
-#ifndef OSLAM_HOST_CHAINS
+// them be held against the plain version off the card; with
+// -DOSLAM_HOST_KERNELS too the kernels below compile as well, for a host
+// that runs their blocks' threads with the warps' shuffles emulated.
+#if !defined(OSLAM_HOST_CHAINS) || defined(OSLAM_HOST_KERNELS)
 
-// thread t: (edge, direction group) over the 2D, 3D, odometry and gravity
-// lists in turn
-static __global__ void __launch_bounds__(kThreads) slam_edge_terms_kernel(
-    const Graph g, const Out o) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n2 = (long long)g.E2 * kGroups2;
-  const long long n3 = (long long)g.E3 * kGroups3;
-  const long long no = (long long)g.Eo * kGroupsO;
-  const long long ng = (long long)g.Ko * kGroupsG;
-  if (t < n2) {
-    const int e = (int)(t / kGroups2), grp = (int)(t % kGroups2);
-    DW r[4];
-    rows_2d(g, e, kW * grp, r);
-    store<4, 6, 9>(r, grp, true, o.r2 + 4 * e, o.Jp2 + 24 * e, o.Jo2 + 36 * e);
-    return;
+namespace {
+
+// the winning yaw candidate of 3D edge e (e < 0: a lane past the last
+// edge) whose group starts at lane ``base`` of the warp: lane j < 4 of the
+// group scores candidate j in float, and every lane reads the four norms
+// in candidate order.  Every lane of the warp calls it.
+__device__ __forceinline__ int yaw_vote(const Graph& g, int e, int j,
+                                        int base, float err[9]) {
+  const float n = e >= 0 && j < 4 ? candidate(g, e, j, err) : 0.f;
+  float nk[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) nk[c] = __shfl_sync(kFullWarp, n, base + c);
+  return choice(nk);
+}
+
+#ifdef OSLAM_SLAM_CLOCKS
+// cycles of the Jacobian launch's threads by kind (2D, 3D, odometry,
+// gravity) and phase (0 the yaw scoring, 1 the chain, 2 the store): [kind]
+// [0 threads, 1 + phase: sum, 4 + phase: largest]
+__device__ unsigned long long oslam_slam_clock[4][7];
+#define SLAM_CLOCK(v) const long long v = clock64()
+__device__ __forceinline__ void slam_clocks(int kind, long long c0,
+                                            long long c1, long long c2,
+                                            long long c3) {
+  unsigned long long* a = oslam_slam_clock[kind];
+  const unsigned long long d[3] = {(unsigned long long)(c1 - c0),
+                                   (unsigned long long)(c2 - c1),
+                                   (unsigned long long)(c3 - c2)};
+  atomicAdd(a, 1ull);
+  for (int i = 0; i < 3; ++i) {
+    atomicAdd(a + 1 + i, d[i]);
+    atomicMax(a + 4 + i, d[i]);
   }
-  t -= n2;
-  if (t < n3) {
-    const int e = (int)(t / kGroups3), grp = (int)(t % kGroups3);
-    DW r[9];
-    rows_3d(g, e, kW * grp, r);
-    store<9, 6, 9>(r, grp, true, o.r3 + 9 * e, o.Jp3 + 54 * e, o.Jo3 + 81 * e);
-    return;
-  }
-  t -= n3;
-  if (t < no) {
-    const int e = (int)(t / kGroupsO), grp = (int)(t % kGroupsO);
-    DW r[6];
-    rows_odo(g, e, kW * grp, r);
-    store<6, 6, 6>(r, grp, true, o.ro + 6 * e, o.Ji + 36 * e, o.Jj + 36 * e);
-    return;
-  }
-  t -= no;
-  if (t < ng) {
-    const int k = (int)(t / kGroupsG), grp = (int)(t % kGroupsG);
-    DW r[1] = {row_grav<DW>(g, k, kW * grp)};
+}
+#define SLAM_CLOCKS(kind, c0, c1, c2, c3) slam_clocks(kind, c0, c1, c2, c3)
+#else
+#define SLAM_CLOCK(v)
+#define SLAM_CLOCKS(kind, c0, c1, c2, c3)
+#endif
+
+// thread t of the Jacobian launch at KW tangent directions a thread: an
+// edge's threads are consecutive lanes, thread grp of the edge computes
+// the primal chain and the tangents of directions KW grp .. KW grp + KW - 1
+// and writes those columns of J, thread 0 also r
+template <int KW>
+__device__ void edge_terms_thread(const Graph& g, const Out& o,
+                                  long long t) {
+  using D = Dual<KW>;
+  constexpr int G2 = groups(kDirs2, KW), G3 = groups(kDirs3, KW);
+  constexpr int P3 = groups3(KW), GO = groups(kDirsO, KW);
+  constexpr int GG = groups(kDirsG, KW);
+  const Deal d = deal(g.E2, g.E3, g.Eo, g.Ko, KW);
+  SLAM_CLOCK(c0);
+  if (t < d.s3) {
+    const int e = (int)(t / G2), grp = (int)(t % G2);
+    if (e >= g.E2) return;
+    D r[4];
+    rows_2d(g, e, KW * grp, r);
+    SLAM_CLOCK(c2);
+    store<4, 6, 9>(r, grp, true, o.r2 + 4 * e, o.Jp2 + 24 * e,
+                   o.Jo2 + 36 * e);
+    SLAM_CLOCK(c3);
+    SLAM_CLOCKS(0, c0, c0, c2, c3);
+  } else if (t < d.so) {
+    const long long u = t - d.s3;
+    const int e = (int)(u / P3), j = (int)(u % P3);
+    float err[9];
+    const int k = yaw_vote(g, e < g.E3 ? e : -1, j, (int)(u & 31) - j, err);
+    if (e >= g.E3 || j >= G3) return;
+    SLAM_CLOCK(c1);
+    D r[9];
+    rows_3d_at(g, e, KW * j, k, r);
+    SLAM_CLOCK(c2);
+    store<9, 6, 9>(r, j, true, o.r3 + 9 * e, o.Jp3 + 54 * e,
+                   o.Jo3 + 81 * e);
+    SLAM_CLOCK(c3);
+    SLAM_CLOCKS(1, c0, c1, c2, c3);
+  } else if (t < d.sg) {
+    const long long u = t - d.so;
+    const int e = (int)(u / GO), grp = (int)(u % GO);
+    D r[6];
+    rows_odo(g, e, KW * grp, r);
+    SLAM_CLOCK(c2);
+    store<6, 6, 6>(r, grp, true, o.ro + 6 * e, o.Ji + 36 * e,
+                   o.Jj + 36 * e);
+    SLAM_CLOCK(c3);
+    SLAM_CLOCKS(2, c0, c0, c2, c3);
+  } else if (t < d.end) {
+    const long long u = t - d.sg;
+    const int k = (int)(u / GG), grp = (int)(u % GG);
+    D r[1] = {row_grav<D>(g, k, KW * grp)};
+    SLAM_CLOCK(c2);
     store<1, 9, 0>(r, grp, false, o.rg + k, o.Jg + 9 * k, nullptr);
+    SLAM_CLOCK(c3);
+    SLAM_CLOCKS(3, c0, c0, c2, c3);
   }
 }
 
-// one edge a thread; the block's sum, then the last block's sum of blocks
-static __global__ void __launch_bounds__(kThreads) slam_chi2_kernel(
-    const Graph g, float* partial, unsigned int* done, float* chi2) {
-  __shared__ float sh_warp[kThreads / 32];
+template <int KW>
+static __global__ void __launch_bounds__(kMaxThreads)
+    slam_edge_terms_kernel(const Graph g, const Out o) {
+  edge_terms_thread<KW>(g, o, (long long)blockIdx.x * blockDim.x +
+                                  threadIdx.x);
+}
+
+// a block of kChiEdges consecutive edges of the list (2D, 3D, odometry,
+// gravity), four lanes an edge: a 3D edge scores its yaw candidate j on
+// lane j and its winner's lane forms the gated sum of squares, any other
+// edge runs its float chain on lane 0.  Warp 0 adds the block's kChiEdges
+// sums by a fixed xor-shuffle pattern; the last block to finish (a ticket
+// on a counter the caller zeroes) adds the blocks' sums four at a time in
+// block order, then those in order: the sum tree of 128 edges a block of
+// one lane each, its four warps in order, the blocks in order.  No
+// floating-point atomics; equal inputs give equal bits.  ``terms``: where
+// not null, each edge's sum is written there too.
+static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
+    const Graph g, float* partial, unsigned int* done, float* chi2,
+    float* terms) {
+  __shared__ float sh_sum[kChiEdges];
   __shared__ bool sh_last;
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tid = threadIdx.x, i = tid >> 2, j = tid & 3;
+  const long long n = (long long)g.E2 + g.E3 + g.Eo + g.Ko;
+  long long t = (long long)blockIdx.x * kChiEdges + i;
+  const bool is3 = t >= g.E2 && t < (long long)g.E2 + g.E3;
+  float err[9];
+  const int k = yaw_vote(g, is3 ? (int)(t - g.E2) : -1, j, (tid & 31) - j,
+                         err);
   float s = 0.f;
-  if (t < g.E2) {
-    float r[4];
-    rows_2d(g, t, 0, r);
-    s = gated_square_sum(r);
-  } else if ((t -= g.E2) < g.E3) {
-    float r[9];
-    rows_3d(g, t, 0, r);
-    s = gated_square_sum(r);
-  } else if ((t -= g.E3) < g.Eo) {
-    float r[6];
-    rows_odo(g, t, 0, r);
-    s = gated_square_sum(r);
-  } else if ((t -= g.Eo) < g.Ko) {
-    const float r = row_grav<float>(g, t, 0);
-    s = r * r;
-  }
-  // lanes by a fixed xor pattern, warps in order
+  bool mine = j == 0;                     // the lane that forms the sum
+  if (is3) {
+    mine = j == k;
+    if (mine) {
+      const float w = g.e3_w[t - g.E2];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(kFullWarp, s, off);
-  const int tid = threadIdx.x;
-  if ((tid & 31) == 0) sh_warp[tid >> 5] = s;
+      for (int c = 0; c < 9; ++c) err[c] = err[c] * w;
+      s = gated_square_sum(err);
+    }
+  } else if (mine) {
+    if (t < g.E2) {
+      float r[4];
+      rows_2d(g, (int)t, 0, r);
+      s = gated_square_sum(r);
+    } else if ((t -= (long long)g.E2 + g.E3) < g.Eo) {
+      float r[6];
+      rows_odo(g, (int)t, 0, r);
+      s = gated_square_sum(r);
+    } else if ((t -= g.Eo) < g.Ko) {
+      const float r = row_grav<float>(g, (int)t, 0);
+      s = r * r;
+    }
+  }
+  if (mine) {
+    sh_sum[i] = s;
+    const long long e = (long long)blockIdx.x * kChiEdges + i;
+    if (terms != nullptr && e < n) terms[e] = s;
+  }
   __syncthreads();
-  if (tid == 0) {
-    float b = sh_warp[0];
-    for (int w = 1; w < kThreads / 32; ++w) b += sh_warp[w];
-    partial[blockIdx.x] = b;
-    __threadfence();
-    sh_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  if (tid < 32) {
+    float v = sh_sum[tid];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFullWarp, v, off);
+    if (tid == 0) {
+      partial[blockIdx.x] = v;
+      __threadfence();
+      sh_last = atomicAdd(done, 1u) == gridDim.x - 1;
+    }
   }
   __syncthreads();
   if (sh_last && tid == 0) {
     __threadfence();
     const volatile float* vp = partial;
-    float total = vp[0];
-    for (unsigned b = 1; b < gridDim.x; ++b) total += vp[b];
+    float total = 0.f;
+    for (unsigned b = 0; b < gridDim.x; b += 4) {
+      float sum = vp[b];
+      for (unsigned w = 1; w < 4; ++w) sum += vp[b + w];
+      total = b == 0 ? sum : total + sum;
+    }
     *chi2 = total;
   }
 }
+
+// the launch shape of the Jacobian instantiation at ``lanes`` (1, 2, 3 or
+// 5) and ``threads`` a block (0: edge_terms_threads' choice): out =
+// (threads, blocks, threads dealt); false for other lanes
+inline bool edge_terms_shape(int E2, int E3, int Eo, int Ko, int lanes,
+                             int threads, long long out[3]) {
+  if (lanes != 1 && lanes != 2 && lanes != 3 && lanes != 5) return false;
+  const long long items = deal(E2, E3, Eo, Ko, lanes).end;
+  if (threads == 0) threads = edge_terms_threads(items);
+  if (threads < 32 || threads > kMaxThreads || threads % 32) return false;
+  out[0] = threads;
+  out[1] = (items + threads - 1) / threads;
+  out[2] = items;
+  return true;
+}
+
+// calls launch(kernel) with the Jacobian kernel at ``lanes``
+template <class L>
+inline void with_lanes(int lanes, L launch) {
+  switch (lanes) {
+    case 1: launch(slam_edge_terms_kernel<1>); break;
+    case 2: launch(slam_edge_terms_kernel<2>); break;
+    case 3: launch(slam_edge_terms_kernel<3>); break;
+    case 5: launch(slam_edge_terms_kernel<5>); break;
+  }
+}
+
+// blocks of a chi2 launch over n edges: four for each 128 edges, at
+// least four
+inline long long chi2_blocks(long long n) {
+  return 4 * (n > 0 ? (n + 127) / 128 : 1);
+}
+
+}  // namespace
+
+#endif  // kernels
+
+#ifndef OSLAM_HOST_CHAINS
 
 static Graph graph(const float* poses, const float* objects, const float* K,
             const float* normal, const long long* e2_frame,
@@ -585,10 +766,6 @@ static Graph graph(const float* poses, const float* objects, const float* K,
   return g;
 }
 
-static int blocks(long long items) {
-  return (int)((items + kThreads - 1) / kThreads);
-}
-
 // Every function returns the CUDA error code of its launch (0 = launched).
 // The indices are int64 and the caller guarantees them inside [0, F) and
 // [0, K) (slam_mode.build_slam_graph emits them so).
@@ -607,33 +784,62 @@ extern "C" {
         e3_frame, e3_obj, e3_meas, e3_w, odo_i, odo_j, odo_meas, odo_w,    \
         grav_w, E2, E3, Eo, Ko)
 
+// the lanes the entry point launches with
+int oslam_slam_lanes() { return kLanes; }
+
+// (threads a block, blocks, threads dealt) of a Jacobian launch at
+// ``lanes`` and ``threads`` (0: the kernel's choice); 0, or
+// cudaErrorInvalidValue for a shape it does not take
+int oslam_slam_edge_terms_shape(int E2, int E3, int Eo, int Ko, int lanes,
+                                int threads, long long* out) {
+  if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 ||
+      !edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, out))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 int oslam_slam_edge_terms(OSLAM_GRAPH_ARGS, float* r2, float* Jp2,
                           float* Jo2, float* r3, float* Jp3, float* Jo3,
                           float* ro, float* Ji, float* Jj, float* rg,
-                          float* Jg, void* stream) {
-  if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1)
+                          float* Jg, int lanes, int threads, void* stream) {
+  long long shape[3];
+  if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1 ||
+      !edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, shape))
     return (int)cudaErrorInvalidValue;
-  const long long items = (long long)E2 * kGroups2 + (long long)E3 * kGroups3 +
-                          (long long)Eo * kGroupsO + (long long)Ko * kGroupsG;
-  if (items == 0) return 0;
-  Out o = {r2, Jp2, Jo2, r3, Jp3, Jo3, ro, Ji, Jj, rg, Jg};
-  slam_edge_terms_kernel<<<blocks(items), kThreads, 0,
-                           (cudaStream_t)stream>>>(OSLAM_GRAPH, o);
+  if (shape[2] == 0) return 0;
+  const Graph g = OSLAM_GRAPH;
+  const Out o = {r2, Jp2, Jo2, r3, Jp3, Jo3, ro, Ji, Jj, rg, Jg};
+  with_lanes(lanes, [&](auto kernel) {
+    kernel<<<(unsigned)shape[1], (unsigned)shape[0], 0,
+             (cudaStream_t)stream>>>(g, o);
+  });
   return (int)cudaGetLastError();
 }
 
-// partial: one float a block (blocks of kThreads threads over E2 + E3 +
-// Eo + Ko edges, at least one); done: a zeroed counter
+// partial: chi2_blocks(E2 + E3 + Eo + Ko) floats; done: a zeroed counter;
+// terms: null, or a float an edge
 int oslam_slam_chi2(OSLAM_GRAPH_ARGS, float* partial, unsigned int* done,
-                    float* chi2, void* stream) {
+                    float* chi2, float* terms, void* stream) {
   if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1)
     return (int)cudaErrorInvalidValue;
-  const long long items = (long long)E2 + E3 + Eo + Ko;
-  const int n_blocks = items > 0 ? blocks(items) : 1;
-  slam_chi2_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      OSLAM_GRAPH, partial, done, chi2);
+  const long long n = (long long)E2 + E3 + Eo + Ko;
+  slam_chi2_kernel<<<(unsigned)chi2_blocks(n), kChiThreads, 0,
+                     (cudaStream_t)stream>>>(OSLAM_GRAPH, partial, done,
+                                             chi2, terms);
   return (int)cudaGetLastError();
 }
+
+#ifdef OSLAM_SLAM_CLOCKS
+int oslam_slam_clocks(void* host, int reset) {
+  int rc = (int)cudaMemcpyFromSymbol(host, oslam_slam_clock,
+                                     sizeof(oslam_slam_clock));
+  if (rc == 0 && reset) {
+    static const unsigned long long zero[4][7] = {};
+    rc = (int)cudaMemcpyToSymbol(oslam_slam_clock, zero, sizeof(zero));
+  }
+  return rc;
+}
+#endif
 
 const char* oslam_slam_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

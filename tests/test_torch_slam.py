@@ -651,7 +651,7 @@ def test_k11_operation_count_counts_live_edges_once(tmp_path):
     lib = ex.build(count=True, workdir=str(tmp_path), lanes=5)
     keep, (E2, E3, Eo, Ko, _), args = ex._graph_args(g, K, normal)
     n = E2 + E3 + Eo + Ko
-    ops = (ex.ctypes.c_longlong * (2 * n))()
+    ops = (ex.ctypes.c_longlong * (4 * n))()
     lib.host_count(*args, ops)
     live = (g.e2_w != 0).numpy()
     thread = np.array(ops[:E2], np.float64)[live].sum()
