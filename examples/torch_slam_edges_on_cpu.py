@@ -317,7 +317,12 @@ void host_count(GRAPH_ARGS, long long* ops) {
     float r[9];
     const int k = pick_yaw(g, e, r);
     DW rd[9];
-    rows_3d_at(g, e, 0, k, rd);
+    {
+      Est<DW> o;
+      Pose<DW> mw;
+      frame_3d(g, e, 0, o, mw);
+      rows_3d_from(g, e, o, mw, k, rd);
+    }
     jac[t] = g_ops - b;
     b = g_ops;
     Est<float> o;

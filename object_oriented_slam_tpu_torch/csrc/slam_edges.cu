@@ -370,14 +370,33 @@ __device__ __forceinline__ int choice(const float (&n)[4]) {
   return win;
 }
 
-// a 3D edge's weighted rows by candidate k's chain, the tangents of the
-// directions dir0 .. dir0 + N - 1
+// the norm of candidate k's error from the primal values of 3D edge e's
+// dual frame (frame_3d): the float chain's bits
 template <int N>
-__device__ void rows_3d_at(const Graph& g, int e, int dir0, int k,
-                           Dual<N> r[9]) {
-  Est<Dual<N>> o;
-  Pose<Dual<N>> mw;
-  frame_3d(g, e, dir0, o, mw);
+__device__ float primal_norm(const Graph& g, int e, const Est<Dual<N>>& o,
+                             const Pose<Dual<N>>& mw, int k) {
+  Est<float> of;
+  Pose<float> mf;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    of.t[i] = o.t[i].v;
+    of.s[i] = o.s[i].v;
+    mf.t[i] = mw.t[i].v;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    of.q[i] = o.q[i].v;
+    mf.q[i] = mw.q[i].v;
+  }
+  float err[9];
+  yaw_error(of, mf, g.e3_meas + 10 * e, k, err);
+  return err_norm(err);
+}
+
+// a 3D edge's weighted rows by candidate k's chain from its frame
+template <class S>
+__device__ void rows_3d_from(const Graph& g, int e, const Est<S>& o,
+                             const Pose<S>& mw, int k, S r[9]) {
   yaw_error(o, mw, g.e3_meas + 10 * e, k, r);
   const float w = g.e3_w[e];
 #pragma unroll
@@ -516,13 +535,11 @@ constexpr int kLanes = 2;
 
 namespace {
 
-// the winning yaw candidate of 3D edge e (e < 0: a lane past the last
-// edge) whose group starts at lane ``base`` of the warp: lane j < 4 of the
-// group scores candidate j in float, and every lane reads the four norms
-// in candidate order.  Every lane of the warp calls it.
-__device__ __forceinline__ int yaw_vote(const Graph& g, int e, int j,
-                                        int base, float err[9]) {
-  const float n = e >= 0 && j < 4 ? candidate(g, e, j, err) : 0.f;
+// the winning yaw candidate of a 3D edge whose group starts at lane
+// ``base`` of the warp, lane base + j holding candidate j's norm n (j <
+// 4): every lane reads the four in candidate order.  Every lane of the
+// warp calls it.
+__device__ __forceinline__ int vote(float n, int base) {
   float nk[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) nk[c] = __shfl_sync(kFullWarp, n, base + c);
@@ -531,7 +548,8 @@ __device__ __forceinline__ int yaw_vote(const Graph& g, int e, int j,
 
 #ifdef OSLAM_SLAM_CLOCKS
 // cycles of the Jacobian launch's threads by kind (2D, 3D, odometry,
-// gravity) and phase (0 the yaw scoring, 1 the chain, 2 the store): [kind]
+// gravity) and phase (0 a 3D edge's dual frame and yaw vote, 1 the chain
+// (the winner's), 2 the store): [kind]
 // [0 threads, 1 + phase: sum, 4 + phase: largest]
 __device__ unsigned long long oslam_slam_clock[4][7];
 #define SLAM_CLOCK(v) const long long v = clock64()
@@ -578,14 +596,22 @@ __device__ void edge_terms_thread(const Graph& g, const Out& o,
     SLAM_CLOCK(c3);
     SLAM_CLOCKS(0, c0, c0, c2, c3);
   } else if (t < d.so) {
+    // thread j of the edge's group: its dual frame, from whose primal
+    // values (j < 4) candidate j's norm; then the winner's chain
     const long long u = t - d.s3;
     const int e = (int)(u / P3), j = (int)(u % P3);
-    float err[9];
-    const int k = yaw_vote(g, e < g.E3 ? e : -1, j, (int)(u & 31) - j, err);
+    Est<D> ob;
+    Pose<D> mw;
+    float n = 0.f;
+    if (e < g.E3 && (j < 4 || j < G3)) {
+      frame_3d(g, e, KW * j, ob, mw);
+      if (j < 4) n = primal_norm(g, e, ob, mw, j);
+    }
+    const int k = vote(n, (int)(u & 31) - j);
     if (e >= g.E3 || j >= G3) return;
     SLAM_CLOCK(c1);
     D r[9];
-    rows_3d_at(g, e, KW * j, k, r);
+    rows_3d_from(g, e, ob, mw, k, r);
     SLAM_CLOCK(c2);
     store<9, 6, 9>(r, j, true, o.r3 + 9 * e, o.Jp3 + 54 * e,
                    o.Jo3 + 81 * e);
@@ -639,8 +665,8 @@ static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
   long long t = (long long)blockIdx.x * kChiEdges + i;
   const bool is3 = t >= g.E2 && t < (long long)g.E2 + g.E3;
   float err[9];
-  const int k = yaw_vote(g, is3 ? (int)(t - g.E2) : -1, j, (tid & 31) - j,
-                         err);
+  const int k = vote(is3 ? candidate(g, (int)(t - g.E2), j, err) : 0.f,
+                     (tid & 31) - j);
   float s = 0.f;
   bool mine = j == 0;                     // the lane that forms the sum
   if (is3) {
