@@ -72,8 +72,8 @@ def _local_includes(text: bytes, directory: str) -> bytes:
 def build(source: str, flags=NVCC_FLAGS, compiler=None):
     """Compile ``source`` with ``compiler`` (nvcc by default) if this
     source (with the headers it includes) is not built yet with these
-    flags.  Returns (path of the shared library, the compiler's output or
-    "" when nothing ran)."""
+    flags.  Returns (path of the shared library, the compiler's output:
+    this call's, or the one kept beside the library when nothing ran)."""
     with open(source, "rb") as f:
         text = f.read()
     digest = hashlib.sha1(text + _local_includes(text, os.path.dirname(source))
@@ -82,7 +82,11 @@ def build(source: str, flags=NVCC_FLAGS, compiler=None):
     lib_path = os.path.join(BUILD_DIR,
                             f"lib{stem}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib_path):
-        return lib_path, ""
+        try:
+            with open(lib_path + ".log") as f:
+                return lib_path, f.read()
+        except OSError:
+            return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -94,10 +98,14 @@ def build(source: str, flags=NVCC_FLAGS, compiler=None):
         if proc.returncode != 0:
             raise RuntimeError(f"{os.path.basename(compiler)} failed on "
                                f"{source}:\n{log}")
+        with open(tmp + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp + ".log", lib_path + ".log")
         os.replace(tmp, lib_path)   # atomic: concurrent builds agree
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in (tmp, tmp + ".log"):
+            if os.path.exists(path):
+                os.remove(path)
     return lib_path, log
 
 
