@@ -1,5 +1,5 @@
 """K11 (csrc/slam_edges.cu) on the card at a SLAM graph: every built count of
-tangent directions a thread and block size, timed; the bits held against
+tangent directions a thread, timed; the bits held against
 each other and against an older tree's source; the Jacobian launch's phase
 clocks.
 
@@ -9,9 +9,8 @@ clocks.
 ``--state``: a checkpoint whose graph to use (``chip_smoke.py --keep DIR``
 writes ``DIR/slam_state.npz``, the graph of its ``[slam]`` phase;
 ``system/slam_mode.build_slam_graph`` packs it), else the yaw graph of
-examples/torch_slam_edges_on_cpu.py.  For each lanes count (1, 2, 3, 5)
-and block size (32, 64, 128 and the source's choice): the launch shape,
-the profiler's kernel time and CUDA events around the same launches
+examples/torch_slam_edges_on_cpu.py.  For each lanes count (1, 2, 3, 5):
+the launch shape, the profiler's kernel time and CUDA events around the same launches
 enqueued behind a spin of the card (``chip_smoke.checked_device_ms``),
 and whether every output is bit-equal to the entry point's launch; the
 chi2 launch's time; ptxas's registers and spills per instantiation; the
@@ -88,7 +87,7 @@ def clocks_build():
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.oslam_slam_edge_terms.argtypes = ([p] * 17 + [i] * 5 + [p] * 11
-                                          + [i, i, p])
+                                          + [i, p])
     lib.oslam_slam_edge_terms.restype = i
     lib.oslam_slam_clocks.argtypes = [p, i]
     lib.oslam_slam_clocks.restype = i
@@ -97,22 +96,25 @@ def clocks_build():
 
 def phase_clocks(lib, poses, objects, g, K_mat, normal, lanes=None):
     """Cycles of one Jacobian launch of the clocks build ``lib`` at
-    ``lanes`` (the entry point's by default), by edge kind and phase (a
-    3D edge's dual frame and yaw vote, the chain, the store): {kind:
-    {"threads": n, phase: (mean, largest)}}."""
+    ``lanes`` (the entry point's by default), after two launches that warm
+    it up, by edge kind and phase (a 3D edge's dual frame and yaw vote,
+    the chain, the store): {kind: {"threads": n, phase: (mean,
+    largest)}}."""
     tensors, (E2, E3, Eo, K, F) = slam_kernels._check(poses, objects, g,
                                                       K_mat, normal)
-    lanes = slam_kernels.lanes() if lanes is None else lanes
+    lanes = slam_kernels.LANES if lanes is None else lanes
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (K, 1), (K, 1, 9))
     outs = [torch.empty(s, device=poses.device) for s in shapes]
     buf = np.zeros((4, 7), np.uint64)
-    torch.cuda.synchronize()
-    lib.oslam_slam_clocks(buf.ctypes.data, 1)
-    rc = lib.oslam_slam_edge_terms(
-        *[t.data_ptr() for t in tensors], E2, E3, Eo, K, F,
-        *[t.data_ptr() for t in outs], lanes, 0,
-        torch.cuda.current_stream().cuda_stream)
+    rc = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        rc = rc or lib.oslam_slam_clocks(buf.ctypes.data, 1)
+        rc = rc or lib.oslam_slam_edge_terms(
+            *[t.data_ptr() for t in tensors], E2, E3, Eo, K, F,
+            *[t.data_ptr() for t in outs], lanes,
+            torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     if rc or lib.oslam_slam_clocks(buf.ctypes.data, 0):
         raise RuntimeError("the clocks build's launch failed")
@@ -244,31 +246,29 @@ def main(argv=None):
     print(f"[graph] {'checkpoint ' + args.state if args.state else 'yaw'}: "
           f"E2 {E2} ({live[0]} live), E3 {E3} ({live[1]}), Eo {Eo} "
           f"({live[2]}), K {Ko}; the entry point's lanes "
-          f"{slam_kernels.lanes()}")
+          f"{slam_kernels.LANES}")
     a = (g.poses_cw, g.objects, g, K, n)
     want = slam_kernels.edge_terms(*a)
     rows, ok = [], True
     for lanes in slam_kernels.LANES_BUILT:
-        for threads in (0, 32, 64, 128):
-            shape = slam_kernels.launch_shape(E2, E3, Eo, Ko, lanes, threads)
-            got = slam_kernels.edge_terms_at(*a, lanes, threads)
-            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                       for x, y in zip(got, want))
-            ms, ev = sm.checked_device_ms(
-                lambda: slam_kernels.edge_terms_at(*a, lanes, threads),
-                args.reps, "slam_edge_terms_kernel")
-            ok = ok and same
-            r = regs.get(f"slam_edge_terms<{lanes}>", (None, None, None))
-            rows.append(dict(lanes=lanes, threads=threads, shape=shape,
-                             ms=ms, events_ms=ev, bits_equal=same,
-                             registers=r[0], spill=r[1:]))
-            print(f"[lanes] {lanes} a thread, {threads or 'chosen'}: "
-                  f"{shape[0]} threads x {shape[1]} blocks ({shape[2]} "
-                  f"dealt): {ms:.4f} ms (events {ev:.4f}), bit-equal to "
-                  f"the entry point's {same}; registers {r[0]}, spill "
-                  f"{r[1:]}")
+        shape = slam_kernels.launch_shape(E2, E3, Eo, Ko, lanes)
+        got = slam_kernels.edge_terms_at(*a, lanes)
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, want))
+        ms, ev = sm.checked_device_ms(
+            lambda: slam_kernels.edge_terms_at(*a, lanes), args.reps,
+            "slam_edge_terms_kernel")
+        ok = ok and same
+        r = regs.get(f"slam_edge_terms<{lanes}>", (None, None, None))
+        rows.append(dict(lanes=lanes, shape=shape, ms=ms, events_ms=ev,
+                         bits_equal=same, registers=r[0], spill=r[1:]))
+        print(f"[lanes] {lanes} a thread: {shape[0]} threads x {shape[1]} "
+              f"blocks ({shape[2]} dealt): {ms:.4f} ms (events {ev:.4f}), "
+              f"bit-equal to the entry point's {same}; registers {r[0]}, "
+              f"spill {r[1:]}")
     c_ms, c_ev = sm.checked_device_ms(lambda: slam_kernels.chi2(*a),
-                                      args.reps, "slam_chi2_kernel")
+                                      args.reps, "slam_chi2_kernel",
+                                      whole=True)
     print(f"[chi2] {c_ms:.4f} ms (events {c_ev:.4f}); registers "
           f"{regs.get('slam_chi2')}")
     clk = phase_clocks(clocks_build(), *a)
@@ -304,7 +304,7 @@ def main(argv=None):
             t = sm.checked_device_ms(lambda: k.edge_terms(*a), args.reps,
                                      "slam_edge_terms_kernel")
             tc = sm.checked_device_ms(lambda: k.chi2(*a), args.reps,
-                                      "slam_chi2_kernel")
+                                      "slam_chi2_kernel", whole=True)
             times.append((who, t, tc))
             print(f"[turns] {who}: edge terms {t[0]:.4f} ms (events "
                   f"{t[1]:.4f}), chi2 {tc[0]:.4f} ms (events {tc[1]:.4f})")

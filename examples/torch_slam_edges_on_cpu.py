@@ -43,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from object_oriented_slam_tpu_torch.backend import (  # noqa: E402
-    LMConfig, slam_ba)
+    LMConfig, slam_ba, slam_kernels)
 from object_oriented_slam_tpu_torch.core import ellipsoid as ell  # noqa: E402
 from object_oriented_slam_tpu_torch.core import se3  # noqa: E402
 
@@ -247,16 +247,13 @@ static void rows_3d_every(const Graph& g, int e, int dir0, Dual<N> r[9]) {
 extern "C" {
 
 #ifndef OSLAM_COUNT_OPS
-int host_lanes() { return kLanes; }
-
-// the Jacobian launch at ``lanes`` and ``threads`` (0: the kernel's
-// choice) as the card runs it, its blocks emulated; 1 for a shape the
-// launch refuses
+// the Jacobian launch at ``lanes`` as the card runs it, its blocks
+// emulated; 1 for lanes the launch refuses
 int host_edge_terms(GRAPH_ARGS, float* r2, float* Jp2, float* Jo2,
                     float* r3, float* Jp3, float* Jo3, float* ro, float* Ji,
-                    float* Jj, float* rg, float* Jg, int lanes, int threads) {
+                    float* Jj, float* rg, float* Jg, int lanes) {
   long long shape[3];
-  if (!edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, shape)) return 1;
+  if (!edge_terms_shape(E2, E3, Eo, Ko, lanes, shape)) return 1;
   if (shape[2] == 0) return 0;
   const Graph g = GRAPH;
   const Out o = {r2, Jp2, Jo2, r3, Jp3, Jo3, ro, Ji, Jj, rg, Jg};
@@ -283,9 +280,11 @@ void host_chi2(GRAPH_ARGS, float* chi2, float* terms) {
   const long long blocks = chi2_blocks((long long)E2 + E3 + Eo + Ko);
   std::vector<float> partial(blocks);
   unsigned done = 0;
+  host_terms = terms;
   emu_launch(blocks, kChiThreads, [&] {
-    slam_chi2_kernel(g, partial.data(), &done, chi2, terms);
+    slam_chi2_kernel(g, partial.data(), &done, chi2);
   });
+  host_terms = nullptr;
 }
 #else
 // per edge, in the order E2 E3 Eo K, the operations of: [0, n) one thread
@@ -408,23 +407,19 @@ def _graph_args(g, K, normal):
                       + [ctypes.c_int(n) for n in sizes])
 
 
-def chains(lib, g, K, normal, lanes=None, threads=0):
+def chains(lib, g, K, normal, lanes=slam_kernels.LANES):
     """K11's outputs (r2 ... Jg), each edge's chi2 term [E2+E3+Eo+K] and
     the chi2 [] by the host build of its kernels (``build()``): the
     Jacobian launch at ``lanes`` tangent directions a thread (the entry
-    point's by default) and ``threads`` a block (0: the kernel's choice),
-    then the chi2 launch."""
+    point's by default), then the chi2 launch."""
     keep, (E2, E3, Eo, Ko, _), args = _graph_args(g, K, normal)
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (Ko, 1),
               (Ko, 1, 9), (E2 + E3 + Eo + Ko,), ())
     outs = [torch.full(s, float("nan")) for s in shapes]
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in outs]
-    lanes = lib.host_lanes() if lanes is None else lanes
-    if lib.host_edge_terms(*args, *ptrs[:11], ctypes.c_int(lanes),
-                           ctypes.c_int(threads)):
-        raise ValueError(f"the Jacobian launch takes no {lanes} lanes and "
-                         f"{threads} threads a block")
+    if lib.host_edge_terms(*args, *ptrs[:11], ctypes.c_int(lanes)):
+        raise ValueError(f"the Jacobian launch takes no {lanes} lanes")
     lib.host_chi2(*args, ptrs[12], ptrs[11])
     return outs[:11], outs[11], outs[12]
 

@@ -10,9 +10,9 @@ of the same chains: the chi2 of the graph at (poses, objects), summed in
 the launch (plain version: ``slam_ba._chi2_plain``).  Each entry point
 has its launch counter (``EDGE_TERMS``, ``CHI2``).  The source builds the
 Jacobian kernel at 1, 2, 3 and 5 tangent directions a thread;
-``edge_terms`` launches the source's choice (``lanes()``), and
-``edge_terms_at`` any of them at a given block size, to hold them against
-each other and to time them.  The shared library
+``edge_terms`` launches it at ``LANES``, and ``edge_terms_at`` at any of
+them, to hold them against each other and to time them.  The shared
+library
 is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``object_oriented_slam_tpu_torch/build/`` (``ops/_cuda_build.py``) and
 bound with ctypes.  Each launch runs on PyTorch's current stream and does
@@ -38,6 +38,7 @@ KERNELS = (EDGE_TERMS, CHI2)
 
 CHI2_EDGES = 128       # edges of a block of the chi2 sum tree
 LANES_BUILT = (1, 2, 3, 5)
+LANES = 1              # tangent directions a thread of edge_terms' launch
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
@@ -58,12 +59,11 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         graph = [p] * 17 + [i] * 5          # pointers, then E2 E3 Eo K F
-        lib.oslam_slam_edge_terms.argtypes = graph + [p] * 11 + [i, i, p]
+        lib.oslam_slam_edge_terms.argtypes = graph + [p] * 11 + [i, p]
         lib.oslam_slam_edge_terms.restype = i
-        lib.oslam_slam_edge_terms_shape.argtypes = [i] * 6 + [p]
+        lib.oslam_slam_edge_terms_shape.argtypes = [i] * 5 + [p]
         lib.oslam_slam_edge_terms_shape.restype = i
-        lib.oslam_slam_lanes.restype = i
-        lib.oslam_slam_chi2.argtypes = graph + [p] * 4 + [p]
+        lib.oslam_slam_chi2.argtypes = graph + [p] * 3 + [p]
         lib.oslam_slam_chi2.restype = i
         lib.oslam_slam_error_string.argtypes = [i]
         lib.oslam_slam_error_string.restype = ctypes.c_char_p
@@ -120,23 +120,13 @@ def _launch(kernel, fn_name, device, args):
     kernel.launches += 1
 
 
-def lanes() -> int:
-    """Tangent directions a thread of the Jacobian launch that
-    ``edge_terms`` makes (the source's ``kLanes``)."""
-    return _load().oslam_slam_lanes()
-
-
-def launch_shape(E2, E3, Eo, K, lanes_=None, threads=0):
+def launch_shape(E2, E3, Eo, K, lanes=LANES):
     """(threads a block, blocks, threads dealt) of the Jacobian launch on a
-    graph of these counts at ``lanes_`` tangent directions a thread (the
-    entry point's by default) and ``threads`` a block (0: the source's
-    choice from the counts)."""
-    lib = _load()
+    graph of these counts at ``lanes`` tangent directions a thread."""
     out = (ctypes.c_longlong * 3)()
-    lanes_ = lib.oslam_slam_lanes() if lanes_ is None else lanes_
-    if lib.oslam_slam_edge_terms_shape(E2, E3, Eo, K, lanes_, threads, out):
-        raise ValueError(f"the SLAM edge kernel takes no launch of {lanes_} "
-                         f"lanes and {threads} threads a block")
+    if _load().oslam_slam_edge_terms_shape(E2, E3, Eo, K, lanes, out):
+        raise ValueError(f"the SLAM edge kernel takes no launch of {lanes} "
+                         f"lanes")
     return tuple(out)
 
 
@@ -147,22 +137,19 @@ def edge_terms(poses, objects, g, K_mat, normal):
     return edge_terms_at(poses, objects, g, K_mat, normal)
 
 
-def edge_terms_at(poses, objects, g, K_mat, normal, lanes_=None,
-                  threads=0):
-    """``edge_terms`` by the Jacobian kernel built at ``lanes_`` tangent
-    directions a thread (one of LANES_BUILT; the entry point's by
-    default), ``threads`` a block (0: the source's choice).  Every
-    instantiation computes the same bits."""
+def edge_terms_at(poses, objects, g, K_mat, normal, lanes=LANES):
+    """``edge_terms`` by the Jacobian kernel built at ``lanes`` tangent
+    directions a thread (one of LANES_BUILT).  Every instantiation
+    computes the same bits."""
     tensors, (E2, E3, Eo, K, F) = _check(poses, objects, g, K_mat, normal)
     dev = poses.device
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (K, 1), (K, 1, 9))
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
     if E2 + E3 + Eo + K > 0:
-        lanes_ = lanes() if lanes_ is None else lanes_
         _launch(EDGE_TERMS, "oslam_slam_edge_terms", dev,
                 [t.data_ptr() for t in tensors] + [E2, E3, Eo, K, F]
-                + [t.data_ptr() for t in outs] + [lanes_, threads])
+                + [t.data_ptr() for t in outs] + [lanes])
     return tuple(outs)
 
 
@@ -179,5 +166,5 @@ def chi2(poses, objects, g, K_mat, normal):
     out = torch.empty((), dtype=torch.float32, device=dev)
     _launch(CHI2, "oslam_slam_chi2", dev,
             [t.data_ptr() for t in tensors] + [E2, E3, Eo, K, F]
-            + [partial.data_ptr(), done.data_ptr(), out.data_ptr(), None])
+            + [partial.data_ptr(), done.data_ptr(), out.data_ptr()])
     return out

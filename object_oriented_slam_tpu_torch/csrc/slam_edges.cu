@@ -29,28 +29,34 @@
 // picked by the norm (jnp.linalg.norm), where ba_edges.cu's residual_3d
 // picks it by the squared norm.
 //
-// Layout.  An edge has up to 15 tangent directions (6 pose + 9 object);
-// each edge's directions are dealt over consecutive threads, KW a thread
-// (the Jacobian kernel is built at KW = 1, 2, 3 and 5; kLanes is the one
-// the entry point launches), and every thread of an edge computes the same
-// primal bits and its own columns of J (the tangent components of a dual
-// operation never mix, so J's bits do not depend on KW); thread 0 of the
-// edge writes r.  A 3D edge's yaw choice reads primal values alone, and a
-// Dual's primal is computed by the float chain's own operations, so its
-// four candidates are scored in float, candidate j on thread j of the
-// edge's group (padded to a power of 2, at least 4, and the 3D edges
-// dealt in whole warps), the norms read by shuffles in candidate order,
-// and only the winner's chain runs in duals.  The block size comes from
-// the thread count (the largest of 128, 64, 32 that deals 2 blocks an SM).
-// Every output element is written by one thread: the launch repeats bit
-// for bit.  The chi2 instantiation runs 32 edges a block on four lanes
-// each: a 3D edge scores candidate j on lane j and its winner's lane forms
-// the gated sum of squares, any other edge runs its chain on lane 0; the
-// edges' sums are added in a fixed tree (128 edges in order by a fixed
+// Layout.  An edge has up to 15 tangent directions (6 pose + 9 object),
+// dealt over consecutive threads, KW a thread: the Jacobian kernel is a
+// template on KW, built at 1, 2, 3 and 5, and the entry point launches
+// KW = 1 (backend/slam_kernels.LANES) at 128 threads a block, as many
+// blocks as the graph's counts deal (211 at chip_smoke.py's [slam] graph,
+// over the card's 132 SMs).  On an H100 at that graph KW = 1 beat 2, 3
+// and 5, and 128 threads a block beat 32 and 64 at KW = 1, 2 and 3
+// (examples/torch_slam_edges_bench.py).  Every thread of an edge computes
+// the same primal bits and its own columns of J (the tangent components
+// of a dual operation never mix, so J's bits do not depend on KW); thread
+// 0 of the edge writes r.  A 3D edge's group (padded to a power of 2, at
+// least 4; the 3D edges dealt in whole warps) computes the object and the
+// measurement in the world in duals; thread j < 4 scores yaw candidate j
+// in float from their primal values (a Dual computes its primal by the
+// float chain's own operations, so these are the float chain's bits);
+// every thread reads the four norms by shuffles in candidate order and
+// takes the winner (the first NaN, else the first least), and only the
+// winner's chain runs in duals.  Every output element is written by one
+// thread: the launch repeats bit for bit.
+//
+// The chi2 instantiation runs 32 edges a block on four lanes each: a 3D
+// edge scores candidate j on lane j and its winner's lane forms the gated
+// sum of squares, any other edge runs its chain on lane 0.  The edges'
+// sums are added in a fixed tree: 128 edges in order by a fixed
 // xor-shuffle pattern over each 32 and the four 32s in order, then those
 // in order; the last block to finish, by a ticket on a counter the caller
-// zeroes, adds them): no floating-point atomics, equal inputs give equal
-// bits.  Built without --use_fast_math and with -fmad=false, as
+// zeroes, adds the blocks' sums.  No floating-point atomics: equal inputs
+// give equal bits.  Built without --use_fast_math and with -fmad=false, as
 // ba_edges.cu.
 //
 // What bounds it: neither bytes nor operations.  At chip_smoke.py's [slam]
@@ -62,8 +68,8 @@
 // card's peak.  Each thread runs one long dependent chain of IEEE div /
 // sqrt / atan2 / sin / cos: latency, then.  The design shortens the
 // longest chain (the 3D edge's: four candidates in float over four
-// threads, then one dual chain) and spreads the chains over more threads
-// and SMs.
+// threads, then one dual chain in place of four) and spreads the chains
+// over more threads and SMs (79 registers a thread at KW = 1, no spill).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +81,7 @@ namespace {
 constexpr unsigned kFullWarp = 0xffffffffu;
 // tangent directions of a 2D, 3D and odometry edge and of a gravity prior
 constexpr int kDirs2 = 15, kDirs3 = 15, kDirsO = 12, kDirsG = 9;
-constexpr int kMaxThreads = 128;          // threads of a Jacobian block, at most
+constexpr int kThreads = 128;             // threads of a Jacobian block
 constexpr int kChiEdges = 32;             // edges of a chi2 block, 4 lanes each
 constexpr int kChiThreads = 4 * kChiEdges;
 
@@ -510,20 +516,6 @@ __host__ __device__ inline Deal deal(int E2, int E3, int Eo, int Ko,
   return d;
 }
 
-// threads of a Jacobian block at KW for the graph's counts, unless the
-// caller gives them: the largest of 128, 64 and 32 that still deals
-// kMinBlocks blocks, so the wave spreads over the card's SMs
-constexpr int kMinBlocks = 264;           // 2 a streaming multiprocessor
-__host__ __device__ inline int edge_terms_threads(long long items) {
-  for (int threads = kMaxThreads; threads > 32; threads /= 2)
-    if ((items + threads - 1) / threads >= kMinBlocks) return threads;
-  return 32;
-}
-
-// tangent directions a thread of the Jacobian launch (the instantiation
-// the entry point launches; 1, 2, 3 and 5 are built)
-constexpr int kLanes = 2;
-
 }  // namespace
 
 // Without a card the chains above compile alone with a host C++ compiler
@@ -570,6 +562,18 @@ __device__ __forceinline__ void slam_clocks(int kind, long long c0,
 #else
 #define SLAM_CLOCK(v)
 #define SLAM_CLOCKS(kind, c0, c1, c2, c3)
+#endif
+
+#ifdef OSLAM_HOST_KERNELS
+// the host build's chi2 launch also writes each edge's gated sum of
+// squares here where it is set (its tests hold the sums bit for bit)
+static float* host_terms = nullptr;
+#define SLAM_TERM(g, e, s)                                           \
+  if (host_terms != nullptr && (e) < (long long)(g).E2 + (g).E3 +    \
+                                         (g).Eo + (g).Ko)            \
+  host_terms[e] = (s)
+#else
+#define SLAM_TERM(g, e, s)
 #endif
 
 // thread t of the Jacobian launch at KW tangent directions a thread: an
@@ -639,7 +643,7 @@ __device__ void edge_terms_thread(const Graph& g, const Out& o,
 }
 
 template <int KW>
-static __global__ void __launch_bounds__(kMaxThreads)
+static __global__ void __launch_bounds__(kThreads)
     slam_edge_terms_kernel(const Graph g, const Out o) {
   edge_terms_thread<KW>(g, o, (long long)blockIdx.x * blockDim.x +
                                   threadIdx.x);
@@ -653,15 +657,12 @@ static __global__ void __launch_bounds__(kMaxThreads)
 // on a counter the caller zeroes) adds the blocks' sums four at a time in
 // block order, then those in order: the sum tree of 128 edges a block of
 // one lane each, its four warps in order, the blocks in order.  No
-// floating-point atomics; equal inputs give equal bits.  ``terms``: where
-// not null, each edge's sum is written there too.
+// floating-point atomics; equal inputs give equal bits.
 static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
-    const Graph g, float* partial, unsigned int* done, float* chi2,
-    float* terms) {
+    const Graph g, float* partial, unsigned int* done, float* chi2) {
   __shared__ float sh_sum[kChiEdges];
   __shared__ bool sh_last;
   const int tid = threadIdx.x, i = tid >> 2, j = tid & 3;
-  const long long n = (long long)g.E2 + g.E3 + g.Eo + g.Ko;
   long long t = (long long)blockIdx.x * kChiEdges + i;
   const bool is3 = t >= g.E2 && t < (long long)g.E2 + g.E3;
   float err[9];
@@ -693,8 +694,7 @@ static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
   }
   if (mine) {
     sh_sum[i] = s;
-    const long long e = (long long)blockIdx.x * kChiEdges + i;
-    if (terms != nullptr && e < n) terms[e] = s;
+    SLAM_TERM(g, (long long)blockIdx.x * kChiEdges + i, s);
   }
   __syncthreads();
   if (tid < 32) {
@@ -723,16 +723,14 @@ static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
 }
 
 // the launch shape of the Jacobian instantiation at ``lanes`` (1, 2, 3 or
-// 5) and ``threads`` a block (0: edge_terms_threads' choice): out =
-// (threads, blocks, threads dealt); false for other lanes
+// 5): out = (threads a block, blocks, threads dealt); false for other
+// lanes
 inline bool edge_terms_shape(int E2, int E3, int Eo, int Ko, int lanes,
-                             int threads, long long out[3]) {
+                             long long out[3]) {
   if (lanes != 1 && lanes != 2 && lanes != 3 && lanes != 5) return false;
   const long long items = deal(E2, E3, Eo, Ko, lanes).end;
-  if (threads == 0) threads = edge_terms_threads(items);
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return false;
-  out[0] = threads;
-  out[1] = (items + threads - 1) / threads;
+  out[0] = kThreads;
+  out[1] = (items + kThreads - 1) / kThreads;
   out[2] = items;
   return true;
 }
@@ -810,16 +808,12 @@ extern "C" {
         e3_frame, e3_obj, e3_meas, e3_w, odo_i, odo_j, odo_meas, odo_w,    \
         grav_w, E2, E3, Eo, Ko)
 
-// the lanes the entry point launches with
-int oslam_slam_lanes() { return kLanes; }
-
 // (threads a block, blocks, threads dealt) of a Jacobian launch at
-// ``lanes`` and ``threads`` (0: the kernel's choice); 0, or
-// cudaErrorInvalidValue for a shape it does not take
+// ``lanes``; 0, or cudaErrorInvalidValue for lanes it does not take
 int oslam_slam_edge_terms_shape(int E2, int E3, int Eo, int Ko, int lanes,
-                                int threads, long long* out) {
+                                long long* out) {
   if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 ||
-      !edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, out))
+      !edge_terms_shape(E2, E3, Eo, Ko, lanes, out))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -827,10 +821,10 @@ int oslam_slam_edge_terms_shape(int E2, int E3, int Eo, int Ko, int lanes,
 int oslam_slam_edge_terms(OSLAM_GRAPH_ARGS, float* r2, float* Jp2,
                           float* Jo2, float* r3, float* Jp3, float* Jo3,
                           float* ro, float* Ji, float* Jj, float* rg,
-                          float* Jg, int lanes, int threads, void* stream) {
+                          float* Jg, int lanes, void* stream) {
   long long shape[3];
   if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1 ||
-      !edge_terms_shape(E2, E3, Eo, Ko, lanes, threads, shape))
+      !edge_terms_shape(E2, E3, Eo, Ko, lanes, shape))
     return (int)cudaErrorInvalidValue;
   if (shape[2] == 0) return 0;
   const Graph g = OSLAM_GRAPH;
@@ -842,16 +836,15 @@ int oslam_slam_edge_terms(OSLAM_GRAPH_ARGS, float* r2, float* Jp2,
   return (int)cudaGetLastError();
 }
 
-// partial: chi2_blocks(E2 + E3 + Eo + Ko) floats; done: a zeroed counter;
-// terms: null, or a float an edge
+// partial: chi2_blocks(E2 + E3 + Eo + Ko) floats; done: a zeroed counter
 int oslam_slam_chi2(OSLAM_GRAPH_ARGS, float* partial, unsigned int* done,
-                    float* chi2, float* terms, void* stream) {
+                    float* chi2, void* stream) {
   if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)E2 + E3 + Eo + Ko;
   slam_chi2_kernel<<<(unsigned)chi2_blocks(n), kChiThreads, 0,
                      (cudaStream_t)stream>>>(OSLAM_GRAPH, partial, done,
-                                             chi2, terms);
+                                             chi2);
   return (int)cudaGetLastError();
 }
 

@@ -64,13 +64,12 @@ def _live(g):
 @pytest.mark.parametrize("graph", parent.GRAPHS)
 def test_k11_on_the_cpu_equals_the_stored_outputs(k11, graph, lanes):
     """Every output of the Jacobian launch at ``lanes`` on the graph's live
-    edges, chi2 and each edge's chi2 term bit-equal to the stored ones; the
-    same at 32 and 128 threads a block; a launch repeats bit for bit."""
+    edges, chi2 and each edge's chi2 term bit-equal to the stored ones; a
+    launch repeats bit for bit."""
     ex, lib, store, graphs, _ = k11
     g, K, normal = graphs[graph]
     want = store[graph]
-    runs = [ex.chains(lib, g, K, normal, lanes=lanes, threads=t)
-            for t in (0, 0, 32, 128)]
+    runs = [ex.chains(lib, g, K, normal, lanes=lanes) for _ in range(2)]
     for got, terms, chi2 in runs:
         for name, t, live in zip(parent.NAMES, got, _live(g)):
             assert np.array_equal(_bits(t)[live], _bits(want[name])[live]), \
