@@ -3150,9 +3150,8 @@ def phase_slam(dev, tmp, cli, keep=None):
     bench = example("torch_slam_edges_bench")
     ms, ev = checked_device_ms(lambda: slam_kernels.edge_terms(*args), 20,
                                "slam_edge_terms_kernel")
-    # the chi2 call also zeroes the launch's ticket counter
     ms_c, ev_c = checked_device_ms(lambda: slam_kernels.chi2(*args), 20,
-                                   "slam_chi2_kernel", whole=True)
+                                   "slam_chi2_kernel")
     plain_ms = cuda_ms(lambda: slam_ba.edge_terms_plain(*args), 3, 1)
     plain_c = cuda_ms(lambda: slam_ba._chi2_plain(*args), 5, 1)
     ops = slam_ops(g, K_mat, normal, tmp)

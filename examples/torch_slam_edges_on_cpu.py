@@ -274,15 +274,15 @@ void host_yaw_choice(GRAPH_ARGS, float* norms, int* win) {
   }
 }
 
-// the chi2 launch, its blocks emulated: chi2 and each edge's term
-void host_chi2(GRAPH_ARGS, float* chi2, float* terms) {
+// the chi2 launch on the ticket counter done, its blocks emulated: chi2
+// and each edge's term
+void host_chi2(GRAPH_ARGS, float* chi2, float* terms, unsigned* done) {
   const Graph g = GRAPH;
   const long long blocks = chi2_blocks((long long)E2 + E3 + Eo + Ko);
   std::vector<float> partial(blocks);
-  unsigned done = 0;
   host_terms = terms;
   emu_launch(blocks, kChiThreads, [&] {
-    slam_chi2_kernel(g, partial.data(), &done, chi2);
+    slam_chi2_kernel(g, partial.data(), done, chi2);
   });
   host_terms = nullptr;
 }
@@ -407,11 +407,12 @@ def _graph_args(g, K, normal):
                       + [ctypes.c_int(n) for n in sizes])
 
 
-def chains(lib, g, K, normal, lanes=slam_kernels.LANES):
+def chains(lib, g, K, normal, lanes=slam_kernels.LANES, ticket=None):
     """K11's outputs (r2 ... Jg), each edge's chi2 term [E2+E3+Eo+K] and
     the chi2 [] by the host build of its kernels (``build()``): the
     Jacobian launch at ``lanes`` tangent directions a thread (the entry
-    point's by default), then the chi2 launch."""
+    point's by default), then the chi2 launch on ``ticket``, an int32
+    tensor [1] at zero (a new one by default) that it leaves at zero."""
     keep, (E2, E3, Eo, Ko, _), args = _graph_args(g, K, normal)
     shapes = ((E2, 4), (E2, 4, 6), (E2, 4, 9), (E3, 9), (E3, 9, 6),
               (E3, 9, 9), (Eo, 6), (Eo, 6, 6), (Eo, 6, 6), (Ko, 1),
@@ -420,7 +421,10 @@ def chains(lib, g, K, normal, lanes=slam_kernels.LANES):
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in outs]
     if lib.host_edge_terms(*args, *ptrs[:11], ctypes.c_int(lanes)):
         raise ValueError(f"the Jacobian launch takes no {lanes} lanes")
-    lib.host_chi2(*args, ptrs[12], ptrs[11])
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32)
+    lib.host_chi2(*args, ptrs[12], ptrs[11],
+                  ctypes.c_void_p(ticket.data_ptr()))
     return outs[:11], outs[11], outs[12]
 
 

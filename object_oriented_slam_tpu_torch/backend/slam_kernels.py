@@ -41,6 +41,7 @@ LANES_BUILT = (1, 2, 3, 5)
 LANES = 1              # tangent directions a thread of edge_terms' launch
 
 _lib: Optional[ctypes.CDLL] = None
+_tickets = {}    # (device index, stream) -> chi2's ticket counter
 build_log = ""   # nvcc's output (ptxas register / spill report) of the build
 
 
@@ -153,16 +154,29 @@ def edge_terms_at(poses, objects, g, K_mat, normal, lanes=LANES):
     return tuple(outs)
 
 
+def _ticket(device):
+    """The chi2 launches' ticket counter on the current stream of
+    ``device``: zeroed when first asked for; every launch leaves it at
+    zero, and launches on one stream run in turn."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    done = _tickets.get(key)
+    if done is None:
+        done = _tickets[key] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return done
+
+
 def chi2(poses, objects, g, K_mat, normal):
     """chi2 [] of the graph by one launch of the kernel's float
     instantiation: each edge's gated sum of squares, summed in a fixed
     tree (CHI2_EDGES edges a block of the tree, in order; the blocks'
-    sums in block order) that the last block to finish completes."""
+    sums in block order) that the last block to finish completes.  The
+    call is that one device operation."""
     tensors, (E2, E3, Eo, K, F) = _check(poses, objects, g, K_mat, normal)
     dev = poses.device
     n_blocks = 4 * max(1, -(-(E2 + E3 + Eo + K) // CHI2_EDGES))
     partial = torch.empty(n_blocks, dtype=torch.float32, device=dev)
-    done = torch.zeros(1, dtype=torch.int32, device=dev)
+    done = _ticket(dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     _launch(CHI2, "oslam_slam_chi2", dev,
             [t.data_ptr() for t in tensors] + [E2, E3, Eo, K, F]

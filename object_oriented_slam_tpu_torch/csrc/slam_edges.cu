@@ -54,9 +54,10 @@
 // sum of squares, any other edge runs its chain on lane 0.  The edges'
 // sums are added in a fixed tree: 128 edges in order by a fixed
 // xor-shuffle pattern over each 32 and the four 32s in order, then those
-// in order; the last block to finish, by a ticket on a counter the caller
-// zeroes, adds the blocks' sums.  No floating-point atomics: equal inputs
-// give equal bits.  Built without --use_fast_math and with -fmad=false, as
+// in order; the last block to finish, by a ticket on a counter, adds the
+// blocks' sums and sets the counter back to zero, so the caller zeroes it
+// once and a launch is one device operation.  No floating-point atomics:
+// equal inputs give equal bits.  Built without --use_fast_math and with -fmad=false, as
 // ba_edges.cu.
 //
 // What bounds it: neither bytes nor operations.  At chip_smoke.py's [slam]
@@ -654,10 +655,10 @@ static __global__ void __launch_bounds__(kThreads)
 // lane j and its winner's lane forms the gated sum of squares, any other
 // edge runs its float chain on lane 0.  Warp 0 adds the block's kChiEdges
 // sums by a fixed xor-shuffle pattern; the last block to finish (a ticket
-// on a counter the caller zeroes) adds the blocks' sums four at a time in
-// block order, then those in order: the sum tree of 128 edges a block of
-// one lane each, its four warps in order, the blocks in order.  No
-// floating-point atomics; equal inputs give equal bits.
+// on a counter at zero, which it sets back to zero) adds the blocks' sums
+// four at a time in block order, then those in order: the sum tree of 128
+// edges a block of one lane each, its four warps in order, the blocks in
+// order.  No floating-point atomics; equal inputs give equal bits.
 static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
     const Graph g, float* partial, unsigned int* done, float* chi2) {
   __shared__ float sh_sum[kChiEdges];
@@ -719,6 +720,7 @@ static __global__ void __launch_bounds__(kChiThreads) slam_chi2_kernel(
       total = b == 0 ? sum : total + sum;
     }
     *chi2 = total;
+    *done = 0u;           // every other block has taken its ticket
   }
 }
 
@@ -836,7 +838,8 @@ int oslam_slam_edge_terms(OSLAM_GRAPH_ARGS, float* r2, float* Jp2,
   return (int)cudaGetLastError();
 }
 
-// partial: chi2_blocks(E2 + E3 + Eo + Ko) floats; done: a zeroed counter
+// partial: chi2_blocks(E2 + E3 + Eo + Ko) floats; done: a counter at zero,
+// which the launch leaves at zero (launches that share it run in turn)
 int oslam_slam_chi2(OSLAM_GRAPH_ARGS, float* partial, unsigned int* done,
                     float* chi2, void* stream) {
   if (E2 < 0 || E3 < 0 || Eo < 0 || Ko < 0 || F < 1)

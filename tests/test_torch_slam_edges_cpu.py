@@ -81,6 +81,20 @@ def test_k11_on_the_cpu_equals_the_stored_outputs(k11, graph, lanes):
 
 
 @pytest.mark.parametrize("graph", parent.GRAPHS)
+def test_k11_chi2_launches_share_one_ticket_counter(k11, graph):
+    """Three chi2 launches on one ticket counter, as the entry point's on
+    one stream: each leaves the counter at zero and gives the stored
+    chi2's bits."""
+    ex, lib, store, graphs, _ = k11
+    g, K, normal = graphs[graph]
+    ticket = torch.zeros(1, dtype=torch.int32)
+    for _ in range(3):
+        _, _, chi2 = ex.chains(lib, g, K, normal, ticket=ticket)
+        assert int(ticket) == 0
+        assert _bits(chi2) == _bits(store[graph]["chi2"])
+
+
+@pytest.mark.parametrize("graph", parent.GRAPHS)
 def test_k11_jacobians_identical_across_lanes(k11, graph):
     """r and J bit-identical, every entry, at 1, 2, 3 and 5 tangent
     directions a thread."""
